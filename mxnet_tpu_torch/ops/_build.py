@@ -1,0 +1,100 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``ops/csrc/`` has a plain C interface and is compiled
+by ``nvcc`` into its own shared library, loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds.  Libraries go to
+``build/torch_kernels/`` beside the package (a directory ``.gitignore``
+lists), named by the hash of their source and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  Nothing is
+built at import: the first launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from ..base import MXNetError
+
+__all__ = ["NVCC_FLAGS", "source_path", "nvcc_path", "nvcc_command",
+           "load"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                         "torch_kernels")
+
+# sm_90a (not sm_90): the target that admits Hopper's wgmma/setmaxnreg;
+# -Xptxas -v puts each kernel's registers and spills into build_logs
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs = {}
+# compiler output (the -Xptxas -v reports) of the builds this process ran
+build_logs = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, name + ".cu")
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then
+    the toolkit PyTorch found; raises :class:`MXNetError` without one."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils import cpp_extension
+
+    root = cpp_extension.CUDA_HOME
+    if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+        return os.path.join(root, "bin", "nvcc")
+    raise MXNetError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from source at first use")
+
+
+def nvcc_command(src: str, out: str) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, src]
+
+
+def _lib_path(name: str, src: str) -> str:
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, compiled first if no
+    build of this exact source exists.  Thread-safe; one build per
+    process at most, and concurrent processes race benignly (each writes
+    a private file and renames it into place)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = source_path(name)
+        path = _lib_path(name, src)
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run(nvcc_command(src, tmp),
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise MXNetError(
+                    f"nvcc failed to build {src} (exit {proc.returncode}):"
+                    f"\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+            build_logs[name] = proc.stdout + proc.stderr
+        lib = ctypes.CDLL(path)
+        _libs[name] = lib
+        return lib

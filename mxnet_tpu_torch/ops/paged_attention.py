@@ -1,0 +1,207 @@
+"""Paged decode attention: walk the block table over the page pool.
+
+The port of ``mxnet_tpu/ops/paged_attention.py``.  One entry point,
+:func:`paged_attention`, with two lowerings picked by where the tensors
+live:
+
+- **the CUDA kernel** (``csrc/paged_attention.cu``) for tensors on the
+  card — one thread block per (slot, head) that reads only the pages the
+  slot's cursor has reached.  It replaces the Pallas TPU kernel
+  ``_pallas_attention``.  A shape :func:`supports` rejects raises; there
+  is no fallback.
+- **the plain version** (:func:`_gather_attention`) for tensors on the
+  CPU: materialise the slot's table with :func:`gather_tables`, then
+  einsum / masked softmax / einsum — the JAX package's gather math.  The
+  serving step also calls it on the card when ``MXTPU_PAGED_KERNEL``
+  pins the gather path.
+
+The JAX package's ``pagewalk`` lowering and its autotuner schedules are
+not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["supports", "require", "gather_tables", "paged_attention",
+           "launch_count", "reset_launch_count", "MAX_DH", "MAX_CONTEXT"]
+
+# the masking constant of the decode stack (== models.decode.NEG_INF;
+# kept literal so this op module never imports the models package)
+NEG_INF = -1e30
+
+# the CUDA kernel's own limits: a lane holds dh/32 <= 8 values of q and of
+# the output, and the scores and live page ids of one (slot, head) sit in
+# shared memory (49152 fp32 scores + 6144 page ids = 216 KB of the 227 KB)
+MAX_DH = 256
+MAX_CONTEXT = 49152                  # M * block positions
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel in this process: a plain integer, bumped
+# where the kernel is launched and nowhere else
+_launches = 0
+
+
+def launch_count() -> int:
+    return _launches
+
+
+def reset_launch_count():
+    global _launches
+    _launches = 0
+
+
+def supports(block: int, dh: int, dtype) -> bool:
+    """Can the CUDA kernel run ``(block, dh)`` KV pages of ``dtype``?
+
+    The JAX package's gate — f32 or bf16, ``block % 8 == 0``,
+    ``dh % 8 == 0`` — plus the kernel's own limit ``dh <= MAX_DH`` (256).
+    The context ``M * block`` must also stay within ``MAX_CONTEXT``
+    (49152 positions, whose scores sit in shared memory); :func:`require`
+    checks that one too, since the gate does not see ``M``."""
+    if dtype not in _DTYPE_CODE:
+        return False
+    return (block > 0 and dh > 0 and block % 8 == 0 and dh % 8 == 0
+            and dh <= MAX_DH)
+
+
+def require(block: int, dh: int, dtype, context: int):
+    """Raise :class:`MXNetError` naming the limit unless the CUDA kernel
+    can take ``(block, dh)`` pages of ``dtype`` over ``context``
+    positions (``M * block``)."""
+    if not supports(block, dh, dtype):
+        raise MXNetError(
+            f"paged_attention CUDA kernel does not support block={block}, "
+            f"dh={dh}, dtype={dtype}: it needs float32 or bfloat16, block "
+            f"% 8 == 0, dh % 8 == 0 and dh <= {MAX_DH}")
+    if context > MAX_CONTEXT:
+        raise MXNetError(
+            f"paged_attention CUDA kernel: context {context} exceeds "
+            f"MAX_CONTEXT {MAX_CONTEXT}")
+
+
+# ---------------------------------------------------------------- gather
+def gather_tables(pool, bt, block: int, layer=None):
+    """``(P, L, H, blk, dh)[bt (B, M)] -> (L, B, H, M*blk, dh)``, or
+    ``(B, H, M*blk, dh)`` for one ``layer`` (which gathers that layer's
+    pages only)."""
+    B, M = bt.shape
+    _P, L, H, blk, dh = pool.shape
+    idx = bt.long()
+    if layer is not None:
+        t = pool[:, layer][idx]                  # (B, M, H, blk, dh)
+        return t.permute(0, 2, 1, 3, 4).reshape(B, H, M * block, dh)
+    t = pool[idx]                                # (B, M, L, H, blk, dh)
+    t = t.permute(2, 0, 3, 1, 4, 5)              # (L, B, H, M, blk, dh)
+    return t.reshape(L, B, H, M * block, dh)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(dh: int, dtype) -> float:
+    """``sqrt(dh)`` rounded to ``dtype``, as the JAX math computes it
+    (``jnp.sqrt(jnp.asarray(dh, q.dtype))``): 11.3125 for dh=128 in
+    bf16, not 11.3137."""
+    return float(torch.tensor(float(dh), dtype=dtype).sqrt())
+
+
+def _attend(q, kc, vc, valid):
+    """The port's one plain attention: ``q (B, H, n, dh)`` over
+    ``kc``/``vc`` ``(B, H, S, dh)`` where ``valid`` (broadcastable to
+    ``(B, H, n, S)``) is True; returns ``(B, H, n, dh)`` in q's dtype.
+
+    Masked scores are NEG_INF (-1e30), not -inf, and the scale is
+    ``sqrt(dh)`` rounded to q's dtype, like the JAX math.  Scores,
+    softmax and the weighted sum run in fp32 and the result is rounded
+    once to q's dtype — what the CUDA kernel computes.  In fp32 this is
+    the JAX math exactly; in bf16 it leaves out the JAX math's roundings
+    of scores and weights to bf16, which at full width move the logits
+    by several bf16 ulps and would hide a kernel error of that size.
+    The decoder's contiguous path, the paged prefill and the plain
+    version of the kernel all attend through this function."""
+    scores = torch.einsum("bhnd,bhsd->bhns", q.float(), kc.float()) \
+        / _scale(q.shape[-1], q.dtype)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    att = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhns,bhsd->bhnd", att, vc.float()).to(q.dtype)
+
+
+def _gather_attention(q, pool_k, pool_v, bt, cursor, layer, block):
+    """The plain version of the kernel: gather the slot's table, then
+    :func:`_attend` over ``[0, cursor[b]]``."""
+    kc = gather_tables(pool_k, bt, block, layer)
+    vc = gather_tables(pool_v, bt, block, layer)
+    S = kc.shape[2]
+    valid = torch.arange(S, device=q.device)[None, :] <= cursor[:, None]
+    return _attend(q, kc, vc, valid[:, None, None, :])
+
+
+# ------------------------------------------------------------------ CUDA
+def _lib():
+    from . import _build
+
+    lib = _build.load("paged_attention")
+    fn = lib.mxtt_paged_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block):
+    global _launches
+    B, H, n, dh = q.shape
+    P, L, Hp, blk, dhp = pool_k.shape
+    M = bt.shape[1]
+    require(block, dh, q.dtype, M * block)
+    if (n != 1 or (Hp, blk, dhp) != (H, block, dh)
+            or pool_v.shape != pool_k.shape or bt.shape[0] != B
+            or cursor.shape != (B,) or not 0 <= layer < L):
+        raise MXNetError(
+            f"paged_attention: inconsistent shapes q={tuple(q.shape)} "
+            f"pool={tuple(pool_k.shape)} bt={tuple(bt.shape)} "
+            f"cursor={tuple(cursor.shape)} layer={layer} block={block}")
+    for name, t, dt in (("q", q, q.dtype), ("pool_k", pool_k, q.dtype),
+                        ("pool_v", pool_v, q.dtype), ("bt", bt, torch.int32),
+                        ("cursor", cursor, torch.int32)):
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise MXNetError(
+                f"paged_attention: {name} must be a contiguous {dt} tensor "
+                f"on {q.device}, got {t.dtype} on {t.device}")
+    out = torch.empty_like(q)
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), pool_k.data_ptr(),
+                 pool_v.data_ptr(), bt.data_ptr(), cursor.data_ptr(),
+                 out.data_ptr(), B, H, M, block, dh, L, int(layer),
+                 _scale(dh, q.dtype), stream)
+    if err != 0:
+        raise MXNetError(f"paged_attention CUDA launch failed: cuda error "
+                         f"{err}")
+    _launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ entry
+def paged_attention(q, pool_k, pool_v, bt, cursor, layer, *, block):
+    """Decode attention for one layer straight off the page pool.
+
+    ``q``: ``(B, H, 1, dh)``; ``pool_k``/``pool_v``: ``(P, L, H, block,
+    dh)``; ``bt``: ``(B, M)`` int32 page ids; ``cursor``: ``(B,)`` int32
+    absolute positions (attend over ``[0, cursor[b]]``).  Returns ``(B,
+    H, 1, dh)`` in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, or raise when it cannot take the shape."""
+    if q.device.type == "cpu":
+        return _gather_attention(q, pool_k, pool_v, bt, cursor, layer,
+                                 block)
+    if q.device.type != "cuda":
+        raise MXNetError(f"paged_attention: no lowering for device "
+                         f"{q.device}")
+    return _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block)

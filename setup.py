@@ -70,8 +70,12 @@ setup(
                 "v0.9 API surface (JAX/XLA/Pallas compute, C++ runtime)",
     long_description=_readme(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["lib/*.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    # the PyTorch port's CUDA kernels ship as sources: nvcc builds them on
+    # the machine with the card at first use (mxnet_tpu_torch/ops/_build.py)
+    package_data={"mxnet_tpu": ["lib/*.so"],
+                  "mxnet_tpu_torch": ["ops/csrc/*.cu"]},
     include_package_data=True,
     distclass=_BinaryDistribution,
     python_requires=">=3.10",
