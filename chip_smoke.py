@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-Drives the port's main path — the paged decode server — and holds its
-hand-written CUDA kernel against the kernel's plain PyTorch version:
+Drives the port's two main paths — the paged decode server and the
+transformer-LM training step — and holds each hand-written CUDA kernel
+against its plain PyTorch version:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
-   the build of every kernel from the sources in this checkout (nvcc);
-2. kernel checks: ``ops/paged_attention.py``'s CUDA kernel against its
-   plain version at the serving shapes, fp32 and bf16, with times of
-   the kernel, the plain version, one PyTorch library call on the
-   gathered table (``scaled_dot_product_attention``, a yardstick the
-   port never calls) and the memory bound;
+   the build of every kernel from the sources in this checkout (one
+   nvcc per source, all started together);
+2. kernel checks, each with times of the kernel, its plain version, one
+   PyTorch library call as a yardstick the port never calls
+   (``scaled_dot_product_attention``) and the least time the card could
+   take (bound):
+   - ``ops/paged_attention.py`` at the serving shapes, fp32 and bf16;
+   - ``ops/flash_attention.py``'s forward, dQ and dK/dV kernels at the
+     training shape (B 8, H 16, T 1024, D 128), fp32 and bf16, causal
+     and not;
 3. full-width serving over HTTP: the repo's largest LM config
    (``MFU_HEADLINE_CONFIG``: 8 layers, d_model 2048, vocab 32768) with
    seeded random bf16 weights, ``serve_decoder(num_slots=8, paged=True,
    kv_block=16)``, 16 concurrent greedy ``POST /generate`` requests;
-4. teacher-forced parity: the paged backend with the kernel against the
-   same backend pinned to the plain gather path, logits at every
-   emission, fp32 and bf16.
+4. teacher-forced serving parity: the paged backend with the kernel
+   against the same backend pinned to the plain gather path, logits at
+   every emission, fp32 and bf16;
+5. full-width training: ``FusedTrainer`` over ``transformer_lm(
+   **MFU_HEADLINE_CONFIG)`` with Adam (lr 1e-4) in bf16 with fp32
+   masters, batch 8 x 1024 tokens: one step against the same step with
+   the attention pinned to the dense path (``impl="lax"``) from the same
+   weights, then timed steps on one repeated batch (tokens/s, step ms,
+   MFU, falling cross-entropy, 8 launches of each flash kernel per
+   step), peak memory and a device-time profile.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -49,6 +61,17 @@ SLOTS, HEADS, DH, BLOCK, LAYERS, MAX_LEN = 8, 16, 128, 16, 8, 1024
 PAGED_SRC = "mxnet_tpu_torch/ops/csrc/paged_attention.cu"
 PAGED_REPLACES = "mxnet_tpu/ops/paged_attention.py:170"  # _pallas_attention
 
+# the training slice: MFU_HEADLINE_CONFIG at batch 8; attention shape
+# (B, H, T, D) = (8, 16, 1024, 128)
+TRAIN_BATCH, TRAIN_STEPS = 8, 6
+FLASH_SRC = "mxnet_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {  # the Pallas kernels in mxnet_tpu/ops/flash_attention.py
+    "flash_fwd": "mxnet_tpu/ops/flash_attention.py:41",       # _fwd_kernel
+    "flash_bwd_dq": "mxnet_tpu/ops/flash_attention.py:86",    # _bwd_dq_kernel
+    "flash_bwd_dkv": "mxnet_tpu/ops/flash_attention.py:118",  # _bwd_dkv_kernel
+}
+KERNEL_SOURCES = ("paged_attention", "flash_attention")
+
 
 def log(msg):
     print(msg, flush=True)
@@ -71,13 +94,14 @@ def phase_device():
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.load("paged_attention")
-    log(f"[device] built paged_attention in {time.perf_counter() - t0:.2f} s"
-        + ("" if "paged_attention" in _build.build_logs
-           else " (an earlier build of this source was loaded)"))
-    for line in _build.build_logs.get("paged_attention", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[ptxas] {line.strip()}")
+    _build.build(KERNEL_SOURCES)
+    log(f"[device] built {', '.join(KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+        f"parallel; {len(_build.build_logs)} compiled here)")
+    for name in KERNEL_SOURCES:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
     return smi
 
 
@@ -193,6 +217,123 @@ def phase_kernels():
                          ("bf16", torch.bfloat16, 4e-3)):
         kernel_check(f"{tag} B8 H16 dh64 block8 M128", dt, tol, SLOTS,
                      HEADS, MAX_LEN // 8, 8, 64, LAYERS, ragged8, 3)
+    return out
+
+
+def _flash_bound_ms(kind, B, H, T, D, dtype, causal):
+    """The least time for one call: each input read once and each output
+    written once over the memory rate, or the products' flops over the
+    peak for the input type, whichever is larger.  Causal attention
+    needs the T(T+1)/2 (query, key) pairs on or below the diagonal;
+    every pair costs 2*D flops in each product: 2 products in the
+    forward (QK^T, PV), 3 in dQ (QK^T, dO V^T, dS K), 4 in dK/dV (QK^T,
+    dO V^T, P^T dO, dS^T Q)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    pairs = T * (T + 1) // 2 if causal else T * T
+    n, rows = B * H * T * D, B * H * T
+    products, nbytes = {
+        "fwd": (2, 4 * n * item + rows * 4),              # q k v -> o, lse
+        "dq": (3, 5 * n * item + 2 * rows * 4),           # q k v do lse d -> dq
+        "dkv": (4, 6 * n * item + 2 * rows * 4),          # ... -> dk dv
+    }[kind]
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 2 * products * B * H * pairs * D / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
+                D=DH):
+    """Forward, dQ and dK/dV kernels against their plain versions on the
+    same inputs, with kernel / plain / library times and bounds.
+    Tolerances: fp32 — the kernels sum in another order than the plain
+    version's cuBLAS products (TF32 off): 1e-5 on the forward (weighted
+    means of unit-normal rows, order 1) and 1e-4 on the backward (sums
+    of up to T products that may cancel).  bf16 — both sides widen the
+    same bf16 inputs, work in fp32 and round once, so they part by one
+    bf16 ulp next to a rounding boundary: 1e-2 absolute and relative,
+    about 2.5 ulps at magnitude 1."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    fwd_tol, bwd_tol = ((1e-5, 1e-4) if dtype == torch.float32
+                        else (1e-2, 1e-2))
+    tag = (f"{str(dtype).replace('torch.', '')} "
+           f"{'causal' if causal else 'full'} B{B} H{H} T{T} D{D}")
+
+    def check(name, got, ref, tol):
+        diff = (got.float() - ref.float()).abs()
+        bad = diff > tol + tol * ref.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(
+                f"flash kernel check {name} {tag}: {int(bad.sum())} values "
+                f"outside atol=rtol={tol}; max abs err {float(diff.max())}")
+        return float(diff.max())
+
+    o, lse = fa._cuda_fwd(q, k, v, scale, causal)
+    po, plse = fa.fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": max(check("fwd O", o, po, fwd_tol),
+                             check("fwd LSE", lse, plse, 1e-5))}
+    delta = (po.float() * do.float()).sum(-1)
+    args = (q, k, v, do, plse, delta, scale, causal)
+    errs["flash_bwd_dq"] = check("dQ", fa._cuda_dq(*args),
+                                 fa.dq_plain(*args), bwd_tol)
+    dk, dv = fa._cuda_dkv(*args)
+    pdk, pdv = fa.dkv_plain(*args)
+    errs["flash_bwd_dkv"] = max(check("dK", dk, pdk, bwd_tol),
+                                check("dV", dv, pdv, bwd_tol))
+    del o, lse, dk, dv, pdk, pdv
+
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    lib_err = float((lib_out.detach().float() - po.float()).abs().max())
+    n, n_plain = 10, 3
+    t_lib_fwd = _time_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), n, 2)
+    t_lib_bwd = _time_ms(lambda i: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do, retain_graph=True), n, 2)
+    timed = {
+        "flash_fwd": ("fwd", lambda i: fa._cuda_fwd(q, k, v, scale, causal),
+                      lambda i: fa.fwd_plain(q, k, v, scale, causal),
+                      t_lib_fwd),
+        "flash_bwd_dq": ("dq", lambda i: fa._cuda_dq(*args),
+                         lambda i: fa.dq_plain(*args), t_lib_bwd),
+        "flash_bwd_dkv": ("dkv", lambda i: fa._cuda_dkv(*args),
+                          lambda i: fa.dkv_plain(*args), t_lib_bwd),
+    }
+    out = {}
+    for name, (kind, kern, plain, t_lib) in timed.items():
+        t_k = _time_ms(kern, n, 2)
+        t_p = _time_ms(plain, n_plain, 1)
+        bound, bound_by = _flash_bound_ms(kind, B, H, T, D, dtype, causal)
+        out[name] = {"max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_lib, "bound_ms": bound,
+                     "bound_by": bound_by}
+        log(f"[kernel] {name} {tag}: max_abs_err={errs[name]:.3g} "
+            f"kernel_us={t_k * 1e3:.2f} plain_us={t_p * 1e3:.2f} "
+            f"library_us={t_lib * 1e3:.2f} bound_us={bound * 1e3:.2f} "
+            f"({bound_by}); roofline share {bound / t_k:.4f}")
+    log(f"[kernel] library = scaled_dot_product_attention {tag}: forward "
+        f"(flash_fwd) and its whole backward through autograd, dQ dK dV "
+        f"in one call (flash_bwd_dq, flash_bwd_dkv); its forward differs "
+        f"from the plain version by {lib_err:.3g}")
+    del qg, kg, vg, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_kernels():
+    out = {}
+    for i, (dtype, causal) in enumerate(
+            ((torch.bfloat16, True), (torch.float32, True),
+             (torch.bfloat16, False), (torch.float32, False))):
+        out[(dtype, causal)] = flash_check(dtype, causal, 10 + i)
     return out
 
 
@@ -313,6 +454,19 @@ def phase_serve(cfg, params):
         sched.close()
 
 
+def _device_ms(prof, steps):
+    """``[(device ms per step, kernel name)]`` from a torch.profiler run
+    over ``steps`` steps, largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t:
+            rows.append((t / steps / 1e3, ev.key))
+    return sorted(rows, reverse=True)
+
+
 def tick_profile(dec, steps=10):
     """Where a decode tick's time goes: 8 slots at ~500 cached tokens
     step the paged backend directly (the scheduler's tick minus its
@@ -345,14 +499,7 @@ def tick_profile(dec, steps=10):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             tick()
-    rows = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0)
-        if t:
-            rows.append((t / steps / 1e3, ev.key))
-    rows.sort(reverse=True)
+    rows = _device_ms(prof, steps)
     busy = sum(t for t, _ in rows)
     log(f"[tick] 8 slots at ~500 tokens: {wall_ms:.3f} ms/tick wall, "
         f"device busy {busy:.3f} ms, idle share "
@@ -453,29 +600,203 @@ def phase_parity(cfg, params):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 5
+def _pin_lax(symbol):
+    """The graph with every FlashAttention node pinned to the dense path
+    (``impl="lax"``: ``full_attention``, no kernel)."""
+    for node in symbol.nodes:
+        if node.op == "FlashAttention":
+            node.attrs["impl"] = "lax"
+    return symbol
+
+
+def _rel_err(a, b):
+    """||a - b|| / ||b|| in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_train():
+    """The training slice at full width: parity step, timed steps,
+    profile.  Returns the flash kernels' launches in the timed run."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.convert import load_trainer_params
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = tr.MFU_HEADLINE_CONFIG
+    B, T, V, L = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"], \
+        cfg["num_layers"]
+
+    def trainer(symbol):
+        return FusedTrainer(symbol, optimizer="adam",
+                            optimizer_params={"lr": 1e-4},
+                            dtype="bfloat16").init(data=(B, T),
+                                                   softmax_label=(B, T))
+
+    mxrandom.seed(0)
+    t0 = time.perf_counter()
+    tk = trainer(tr.transformer_lm(**cfg))
+    n_par = sum(p.numel() for p in tk.params.values())
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, V, (B, T)).astype(np.float32)
+    label = rng.integers(0, V, (B, T)).astype(np.float32)
+    lab = torch.from_numpy(label).reshape(-1).long().to(tk.device)
+    log(f"[train] {n_par / 1e9:.3f} B params, bf16 compute / fp32 masters, "
+        f"Adam lr 1e-4, batch {B} x {T}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # parity: one step with the dense attention from the same weights,
+    # then the kernel trainer's first step (which also warms it up)
+    tl = trainer(_pin_lax(tr.transformer_lm(**cfg)))
+    load_trainer_params(tl, tk.params)
+    fa.reset_launch_counts()
+    out_l = tl.step(data=data, softmax_label=label)[0]
+    if any(fa.launch_counts().values()):
+        raise AssertionError(f"the lax step launched flash kernels: "
+                             f"{fa.launch_counts()}")
+    m_l = {k: st[0] for k, st in tl.opt_state.items()}
+    del tl
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out_k = tk.step(data=data, softmax_label=label)[0]
+    torch.cuda.synchronize()
+    log(f"[train] first kernel step (build + warm-up) "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches "
+        f"{fa.launch_counts()}")
+    # tolerances (bf16): the kernel path keeps bf16 activations all the
+    # way; the dense path's attention returns fp32 (the JAX package's
+    # promotion), so every later layer of that step runs in fp32.  The
+    # two differ by bf16 roundings of activations, a few 2^-9 relative
+    # per op through 8 layers: outputs (probabilities near 1/32768) to
+    # 1e-2 relative norm, each parameter's first moment (0.1 * the
+    # gradient) to 5e-2; a wrong mask or a dropped tile moves them by
+    # tens of percent.  The key biases are left out: their gradient is 0
+    # in exact arithmetic (softmax ignores a shift common to a row), so
+    # both sides hold rounding noise only.
+    out_err = _rel_err(out_k, out_l)
+    m_errs = sorted(((_rel_err(tk.opt_state[k][0], m_l[k]), k)
+                     for k in m_l if not k.endswith("_k_bias")),
+                    reverse=True)
+    log(f"[train] parity kernel step vs lax step, same weights: softmax "
+        f"output rel err {out_err:.3g} (tol 1e-2), max |diff| "
+        f"{float((out_k.float() - out_l.float()).abs().max()):.3g}; Adam "
+        f"first moment rel err max {m_errs[0][0]:.3g} ({m_errs[0][1]}; tol "
+        f"5e-2), median {m_errs[len(m_errs) // 2][0]:.3g}")
+    if not out_err <= 1e-2:
+        raise AssertionError(f"kernel vs lax softmax output rel err "
+                             f"{out_err}")
+    if not m_errs[0][0] <= 5e-2:
+        raise AssertionError(f"kernel vs lax Adam first moment rel err "
+                             f"{m_errs[0]}")
+    del out_l, m_l, out_k
+    torch.cuda.empty_cache()
+
+    # the main path's run: every kernel count starts at 0 here
+    torch.cuda.reset_peak_memory_stats()
+    ces = []
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        p = tk.step(data=data, softmax_label=label)[0]
+        ces.append(-torch.log(p[torch.arange(B * T, device=p.device), lab]
+                              .float().clamp_min(1e-30)).mean())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    finite = bool(torch.isfinite(p).all())
+    ces = torch.stack(ces).cpu().tolist()
+    peak = torch.cuda.max_memory_allocated()
+    want = L * TRAIN_STEPS
+    if launches != {k: want for k in launches}:
+        raise AssertionError(f"flash launches {launches} in {TRAIN_STEPS} "
+                             f"steps; want {L} per step each")
+    if not finite or not all(math.isfinite(c) for c in ces):
+        raise AssertionError(f"non-finite outputs or loss: {ces}")
+    if not ces[-1] < ces[0]:
+        raise AssertionError(f"cross-entropy did not fall: {ces}")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    fpt = tr.lm_train_flops_per_token(L, cfg["d_model"], cfg["d_ff"], T, V)
+    log(f"[train] {TRAIN_STEPS} steps: {tok_s:.1f} tokens/s, step "
+        f"{step_ms:.2f} ms, MFU {tok_s * fpt / PEAK_FLOPS[torch.bfloat16]:.4f}"
+        f" ({fpt / 1e9:.3f} GFLOP/token over 989 TFLOP/s bf16); "
+        f"cross-entropy {' '.join(f'{c:.4f}' for c in ces)}; launches "
+        f"{launches} (= {L} per step each); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    train_profile(tk, data, label, step_ms)
+    del tk
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_profile(tk, data, label, step_ms, steps=2):
+    """Device time per kernel name over ``steps`` training steps
+    (torch.profiler, CUDA activity); idle share = 1 - device busy / the
+    timed steps' wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tk.step(data=data, softmax_label=label)
+        torch.cuda.synchronize()
+    rows = _device_ms(prof, steps)
+    busy = sum(t for t, _ in rows)
+    # device time by kind of kernel, first matching pattern wins
+    kinds = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "xmma",
+                                             "cutlass"),
+             "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for t, name in rows:
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in name for p in pats)), "other")
+        by_kind[kind] += t
+    log(f"[train-profile] per step: {step_ms:.2f} ms wall, device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / step_ms:.4f}; by kind: "
+        + ", ".join(f"{k} {t:.2f} ms ({t / max(busy, 1e-9):.3f})"
+                    for k, t in by_kind.items())
+        + "; top: " + "; ".join(f"{name[:60]} {t:.2f} ms"
+                                for t, name in rows[:10]))
+
+
 # -------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # fp32 products in full fp32 (the parity references assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     kern = phase_kernels()
+    flash = phase_flash_kernels()
     cfg, params = _params(seed=0)
     launches = phase_serve(cfg, params)
     phase_parity(cfg, params)
+    del params
+    flash_launches = phase_train()
     k = kern["bf16"]       # the serving path runs the kernel in bf16
-    record = {
+    records = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_REPLACES, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        "us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
-        "library_us": k["library_ms"] * 1e3,
-        "bound_us": k["bound_ms"] * 1e3,
         "fp32": kern["fp32"],
-    }
-    print(json.dumps({"kernels": [record]}), flush=True)
+    }]
+    # the training path runs the flash kernels in bf16, causal
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        rec = {"name": name, "route": "cuda", "source": FLASH_SRC,
+               "replaces": FLASH_REPLACES[name],
+               "launches": flash_launches[name]}
+        rec.update(flash[(torch.bfloat16, True)][name])
+        rec["fp32"] = flash[(torch.float32, True)][name]
+        rec["non_causal"] = {"bf16": flash[(torch.bfloat16, False)][name],
+                             "fp32": flash[(torch.float32, False)][name]}
+        records.append(rec)
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ with a plain PyTorch version beside it for CPU tensors.
 
 Ported so far: the paged decode-serving path — ``models.decode.
 KVDecoder``, ``serving.PagedSlots``/``SlotScheduler``/``serve_decoder``
-and the paged decode-attention kernel ``ops.paged_attention``.
+and the paged decode-attention kernel ``ops.paged_attention`` — and the
+transformer-LM training step — ``models.transformer.transformer_lm``
+over ``symbol``/``executor``/``ops``, ``trainer.FusedTrainer`` and the
+flash-attention forward, dQ and dK/dV kernels ``ops.flash_attention``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit device they raise :class:`MXNetError`.

@@ -5,6 +5,7 @@ The port keeps its own copies of what it needs: importing anything from
 """
 from __future__ import annotations
 
+import ast
 import os
 
 import numpy as np
@@ -42,3 +43,57 @@ def torch_dtype(dtype) -> torch.dtype:
     except KeyError:
         raise MXNetError(f"unsupported dtype {dtype!r} (want one of "
                          f"{sorted(_DTYPES)})") from None
+
+
+def parse_attr(value):
+    """An op attribute that may arrive as a string, as Python data.
+
+    Symbol attrs come through as strings (``"(0, 2, 1, 3)"``, ``"True"``,
+    ``"1e-5"``); native values pass through unchanged and a string that
+    is no Python literal is returned as it is."""
+    if not isinstance(value, str):
+        return value
+    s = value.strip()
+    low = s.lower()
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    if low in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return value
+
+
+_BOOL_STRS = {"true": True, "false": False, "1": True, "0": False}
+
+
+def parse_bool(value) -> bool:
+    if isinstance(value, str):
+        return _BOOL_STRS.get(value.lower(), bool(value))
+    return bool(value)
+
+
+class NameManager:
+    """Auto-namer for symbols: an unnamed op gets ``<op>N`` with a
+    per-hint counter (mirrors ``mxnet_tpu.base.NameManager``)."""
+
+    def __init__(self):
+        self._counter = {}
+
+    def get(self, name, hint):
+        if name:
+            return name
+        hint = hint.lower()
+        idx = self._counter.get(hint, 0)
+        self._counter[hint] = idx + 1
+        return f"{hint}{idx}"
+
+
+_NAME_MANAGER = NameManager()
+
+
+def current_name_manager() -> NameManager:
+    return _NAME_MANAGER

@@ -1,4 +1,6 @@
-"""The weight carry: the JAX package's ``arg_params`` -> the port's tensors.
+"""The weight carry: the JAX package's ``arg_params`` -> the port's tensors
+(:func:`from_jax_params`), and into a port ``FusedTrainer``
+(:func:`load_trainer_params`).
 
 Duck-typed on purpose, so the port never imports ``mxnet_tpu``: a value
 may be anything with ``.asnumpy()`` (an ``mxnet_tpu`` NDArray), anything
@@ -10,10 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import torch_dtype
+from .base import MXNetError, torch_dtype
 from .context import resolve_device
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "load_trainer_params"]
 
 
 def _to_tensor(value, dtype, device) -> torch.Tensor:
@@ -39,3 +41,26 @@ def from_jax_params(arg_params, dtype=torch.float32, device=None):
     dtype = torch_dtype(dtype)
     device = resolve_device(device)
     return {k: _to_tensor(v, dtype, device) for k, v in arg_params.items()}
+
+
+def load_trainer_params(trainer, arg_params, aux_params=None):
+    """Load ``{name: value}`` (the JAX trainer's ``params``, numpy arrays,
+    NDArrays, tensors) into an initialised port ``FusedTrainer`` as its
+    fp32 masters, in place, and rebuild its compute-dtype copy.  Every
+    parameter of the trainer must be given, with its shape; the
+    optimizer state is left as it is."""
+    for kind, have, given in (("param", trainer.params, arg_params),
+                              ("aux state", trainer.aux, aux_params or {})):
+        missing = sorted(set(have) - set(given))
+        if missing:
+            raise MXNetError(f"load_trainer_params: no value for {kind}s "
+                             f"{missing[:5]}")
+        for name, dst in have.items():
+            src = _to_tensor(given[name], torch.float32, dst.device)
+            if src.shape != dst.shape:
+                raise MXNetError(f"load_trainer_params: {name} has shape "
+                                 f"{tuple(src.shape)}, the trainer "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+    trainer._refresh_compute_cache()
+    return trainer

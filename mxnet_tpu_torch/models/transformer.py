@@ -1,10 +1,12 @@
-"""The transformer LM's parameter layout (mirrors
-``mxnet_tpu/models/transformer.py``).
+"""Decoder-only transformer LM (mirrors ``mxnet_tpu/models/transformer.py``).
 
-The port has no Symbol graph yet, so instead of ``transformer_lm`` this
-module states the names and shapes that ``transformer_lm(...)``'s
-``simple_bind`` creates — the checkpoint layout the decoder reads — and
-a numpy helper that fills them from a seed.
+:func:`transformer_lm` builds the training Symbol (causal
+``FlashAttention`` inside each block, LayerNorm, gelu FFN,
+``SoftmaxOutput`` head) for :class:`mxnet_tpu_torch.trainer.FusedTrainer`;
+:func:`lm_param_shapes` states the names and shapes it binds (the
+checkpoint layout the decoder reads) and :func:`lm_random_params` fills
+them from a seed; :func:`lm_train_flops_per_token` is the FLOP count MFU
+is computed from.
 """
 from __future__ import annotations
 
@@ -12,12 +14,96 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["MFU_HEADLINE_CONFIG", "lm_param_shapes", "lm_random_params"]
+from .. import symbol as sym
+from ..base import MXNetError
+
+__all__ = ["MFU_HEADLINE_CONFIG", "transformer_lm",
+           "lm_train_flops_per_token", "lm_param_shapes", "lm_random_params"]
 
 # the repo's largest LM configuration: 8 layers, d_model 2048, d_ff 8192,
 # vocab 32768, seq_len 1024 — about 0.54 B parameters
 MFU_HEADLINE_CONFIG = dict(num_layers=8, num_heads=16, d_model=2048,
                            d_ff=8192, seq_len=1024, vocab_size=32768)
+
+
+def _attention_block(h, seq_len, d_model, num_heads, name):
+    dh = d_model // num_heads
+    ln = sym.LayerNorm(h, name=f"{name}_ln1")
+    x2 = sym.Reshape(ln, shape=(-1, d_model))
+
+    # separate q/k/v projections, as in the JAX package
+    def heads(proj_name):
+        p = sym.FullyConnected(x2, num_hidden=d_model, name=proj_name)
+        p = sym.Reshape(p, shape=(-1, seq_len, num_heads, dh))
+        return sym.transpose(p, axes=(0, 2, 1, 3))  # (N, H, T, Dh)
+
+    att = sym.FlashAttention(heads(f"{name}_q"), heads(f"{name}_k"),
+                             heads(f"{name}_v"),
+                             causal=True, name=f"{name}_attn")
+    att = sym.transpose(att, axes=(0, 2, 1, 3))
+    att = sym.Reshape(att, shape=(-1, d_model))
+    proj = sym.FullyConnected(att, num_hidden=d_model, name=f"{name}_proj")
+    proj = sym.Reshape(proj, shape=(-1, seq_len, d_model))
+    return h + proj
+
+
+def _ffn_block(h, seq_len, d_model, d_ff, name, dropout):
+    if dropout > 0:
+        raise MXNetError("transformer_lm(dropout>0): Dropout is not "
+                         "ported yet (ROADMAP Queue 1 item 2)")
+    ln = sym.LayerNorm(h, name=f"{name}_ln2")
+    x2 = sym.Reshape(ln, shape=(-1, d_model))
+    f = sym.FullyConnected(x2, num_hidden=d_ff, name=f"{name}_ffn_in")
+    f = sym.Activation(f, act_type="gelu")
+    f = sym.FullyConnected(f, num_hidden=d_model, name=f"{name}_ffn_out")
+    f = sym.Reshape(f, shape=(-1, seq_len, d_model))
+    return h + f
+
+
+def transformer_lm(num_layers=4, num_heads=4, d_model=128, d_ff=None,
+                   seq_len=128, vocab_size=1000, dropout=0.0,
+                   ignore_label=None, max_len=None):
+    """Next-token LM: ``data`` (N, T) token ids, ``softmax_label`` (N, T).
+
+    ``ignore_label`` masks padding out of the loss and gradient
+    (normalization "valid"); ``max_len`` sizes the positional table
+    apart from this ``seq_len``.  ``pos_embed`` has no suffix the
+    initializer knows, so it starts at zeros."""
+    if d_model % num_heads:
+        raise ValueError("d_model must divide by num_heads")
+    d_ff = d_ff or 4 * d_model
+    max_len = max_len or seq_len
+    if max_len < seq_len:
+        raise ValueError("max_len must be >= seq_len")
+    data = sym.Variable("data")
+    tok = sym.Embedding(data, input_dim=vocab_size, output_dim=d_model,
+                        name="tok_embed")
+    pos = sym.Variable("pos_embed", shape=(1, max_len, d_model))
+    if max_len != seq_len:
+        pos = sym.slice_axis(pos, axis=1, begin=0, end=seq_len)
+    h = sym.broadcast_add(tok, pos)
+    for i in range(num_layers):
+        h = _attention_block(h, seq_len, d_model, num_heads, f"layer{i}")
+        h = _ffn_block(h, seq_len, d_model, d_ff, f"layer{i}", dropout)
+    h = sym.LayerNorm(h, name="final_ln")
+    h = sym.Reshape(h, shape=(-1, d_model))
+    logits = sym.FullyConnected(h, num_hidden=vocab_size, name="lm_head")
+    label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+    loss_kw = {}
+    if ignore_label is not None:
+        loss_kw = {"use_ignore": True, "ignore_label": ignore_label,
+                   "normalization": "valid"}
+    return sym.SoftmaxOutput(logits, label, name="softmax", **loss_kw)
+
+
+def lm_train_flops_per_token(num_layers, d_model, d_ff, seq_len,
+                             vocab_size):
+    """Model FLOPs of one training token (the JAX package's accounting):
+    6 x the matmul parameters (q/k/v/proj, FFN, head; embedding gathers
+    are free) plus causal-halved attention, 6*L*T*D."""
+    n_mat = (num_layers * (4 * d_model * d_model + 2 * d_model * d_ff)
+             + d_model * vocab_size)
+    return 6 * n_mat + 6 * num_layers * seq_len * d_model
 
 
 def lm_param_shapes(num_layers, num_heads, d_model, d_ff, vocab_size,

@@ -1,2 +1,6 @@
-"""Operators of the port that carry a hand-written CUDA kernel."""
-from . import paged_attention  # noqa: F401
+"""Operators of the port.  Importing the package registers every ported
+op; ``paged_attention`` has a CUDA kernel but no op (the decoder calls
+it directly)."""
+from . import (elemwise, flash_attention, indexing, loss, matrix,  # noqa: F401
+               nn, optimizer_ops, paged_attention)
+from .registry import OpCtx, get, list_ops, register  # noqa: F401

@@ -20,7 +20,7 @@ import threading
 from ..base import MXNetError
 
 __all__ = ["NVCC_FLAGS", "source_path", "nvcc_path", "nvcc_command",
-           "load"]
+           "build", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -73,6 +73,42 @@ def _lib_path(name: str, src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
+def _compile(names) -> None:
+    """Build every source of ``names`` that has no library yet: one nvcc
+    per source, all started together, then wait for all.  Called with
+    ``_lock`` held."""
+    procs = []
+    for name in names:
+        src = source_path(name)
+        path = _lib_path(name, src)
+        if os.path.exists(path):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs.append((name, src, path, tmp, subprocess.Popen(
+            nvcc_command(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, src, path, tmp, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src} (exit "
+                          f"{proc.returncode}):\n{out}{err}")
+            continue
+        os.replace(tmp, path)
+        build_logs[name] = out + err
+    if failed:
+        raise MXNetError("\n".join(failed))
+
+
+def build(names) -> None:
+    """Compile (in parallel) and load the libraries of ``names``."""
+    with _lock:
+        _compile([n for n in names if n not in _libs])
+    for name in names:
+        load(name)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, compiled first if no
     build of this exact source exists.  Thread-safe; one build per
@@ -82,19 +118,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = source_path(name)
-        path = _lib_path(name, src)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(nvcc_command(src, tmp),
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise MXNetError(
-                    f"nvcc failed to build {src} (exit {proc.returncode}):"
-                    f"\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-            build_logs[name] = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(path)
+        _compile([name])
+        lib = ctypes.CDLL(_lib_path(name, source_path(name)))
         _libs[name] = lib
         return lib

@@ -1,0 +1,47 @@
+"""Shape ops of the port (a subset of ``mxnet_tpu/ops/matrix.py``):
+``transpose``, ``Reshape`` and ``slice_axis``."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..base import parse_attr
+from .registry import register
+
+
+@register("transpose")
+def _transpose(ctx, data, **attrs):
+    axes = parse_attr(attrs.get("axes", None))
+    if axes is None or axes == ():
+        return data.permute(*reversed(range(data.ndim)))
+    return data.permute(*axes)
+
+
+def _infer_reshape(shape, target):
+    """MXNet's reshape codes: 0 copies the input dim, -1 infers."""
+    target = list(target)
+    for i, t in enumerate(target):
+        if t == 0:
+            target[i] = shape[i]
+    if -1 in target:
+        known = int(np.prod([t for t in target if t != -1]))
+        total = int(np.prod(shape))
+        target[target.index(-1)] = total // max(known, 1)
+    return tuple(int(t) for t in target)
+
+
+@register("Reshape")
+def _reshape(ctx, data, **attrs):
+    """0 / -1 shape codes; a view where torch can make one."""
+    shape = parse_attr(attrs["shape"])
+    return data.reshape(_infer_reshape(tuple(data.shape), tuple(shape)))
+
+
+@register("slice_axis")
+def _slice_axis(ctx, data, **attrs):
+    """``end`` may be None for "to the end"."""
+    axis = int(parse_attr(attrs["axis"]))
+    begin = int(parse_attr(attrs["begin"]))
+    end = parse_attr(attrs.get("end", None))
+    idx = [slice(None)] * data.ndim
+    idx[axis] = slice(begin, None if end in (None, "None") else int(end))
+    return data[tuple(idx)]

@@ -1,0 +1,300 @@
+"""Symbolic graph layer of the port (mirrors ``mxnet_tpu/symbol.py``).
+
+A Symbol is a list of output entries of a small DAG whose nodes name ops
+of :mod:`mxnet_tpu_torch.ops.registry`.  ``sym.<Op>`` constructors are
+generated from the registry; an op's missing learned inputs become
+variables named ``<node>_<arg>`` (``layer0_q_weight``), as in the JAX
+package, and ``list_arguments`` walks the graph in the same stable DFS
+order, so both packages bind the same names in the same order.
+
+Shape inference walks the graph on meta tensors (the JAX package uses
+``jax.eval_shape``).  JSON save/load, ``bind``/``simple_bind`` and the
+arithmetic operators other than ``+`` are not ported yet (ROADMAP
+Queue 1 item 3).
+"""
+from __future__ import annotations
+
+import json
+import sys
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import ops
+from .base import MXNetError, current_name_manager
+
+__all__ = ["Symbol", "Variable", "Group"]
+
+
+class _Node:
+    __slots__ = ("op", "name", "attrs", "inputs", "extra_attrs", "is_aux")
+
+    def __init__(self, op, name, attrs=None, inputs=None, extra_attrs=None,
+                 is_aux=False):
+        self.op = op  # None for variables
+        self.name = name
+        self.attrs = dict(attrs or {})
+        self.inputs: List[Tuple[_Node, int]] = list(inputs or [])
+        self.extra_attrs = dict(extra_attrs or {})
+        self.is_aux = is_aux
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+    def num_outputs(self):
+        return 1 if self.op is None else ops.get(self.op).num_outputs
+
+
+def _topo_order(out_nodes: Sequence[_Node]) -> List[_Node]:
+    """Stable DFS topological order (the JAX package's, so
+    ``list_arguments`` agrees with it)."""
+    seen = set()
+    order: List[_Node] = []
+
+    def visit(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for inp, _ in node.inputs:
+            visit(inp)
+        order.append(node)
+
+    for n in out_nodes:
+        visit(n)
+    return order
+
+
+class Symbol:
+    """A list of output entries of a graph node."""
+
+    __slots__ = ("_outputs",)
+
+    def __init__(self, outputs: Sequence[Tuple[_Node, int]]):
+        self._outputs = list(outputs)
+
+    @property
+    def nodes(self) -> List[_Node]:
+        return _topo_order([n for n, _ in self._outputs])
+
+    def list_arguments(self) -> List[str]:
+        return [n.name for n in self.nodes if n.is_variable and not n.is_aux]
+
+    def list_auxiliary_states(self) -> List[str]:
+        return [n.name for n in self.nodes if n.is_variable and n.is_aux]
+
+    def list_outputs(self) -> List[str]:
+        names = []
+        for node, idx in self._outputs:
+            if node.is_variable:
+                names.append(node.name)
+                continue
+            od = ops.get(node.op)
+            if od.num_outputs == 1:
+                names.append(f"{node.name}_output")
+            else:
+                names.append(f"{node.name}_{od.output_names[idx]}")
+        return names
+
+    @property
+    def name(self):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].name
+        return None
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __repr__(self):
+        return f"<Symbol {self.name or 'grouped'}>"
+
+    def attr_dict(self):
+        return {node.name: dict(node.extra_attrs) for node in self.nodes
+                if node.extra_attrs}
+
+    # -------------------------------------------------------- operators
+    def __add__(self, other):
+        if isinstance(other, Symbol):
+            return _create("elemwise_add", [self, other], {})
+        if np.isscalar(other):
+            return _create("_plus_scalar", [self], {"scalar": float(other)})
+        raise TypeError(type(other))
+
+    # -------------------------------------------------- shape inference
+    def infer_shape(self, *args, **kwargs):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from the shapes of some
+        arguments, or ``(None, None, None)`` when the graph cannot be
+        completed from them."""
+        known = dict(kwargs)
+        for name, shape in zip(self.list_arguments(), args):
+            if shape is not None:
+                known[name] = shape
+        try:
+            shapes = self._infer(known)
+        except _InferIncomplete:
+            return None, None, None
+
+        def out_shape(node, idx):
+            if node.is_variable:
+                return shapes.get((node.name, "var"))
+            return shapes.get((id(node), idx))
+
+        arg_shapes = [shapes.get((a, "var")) for a in self.list_arguments()]
+        aux_shapes = [shapes.get((a, "var"))
+                      for a in self.list_auxiliary_states()]
+        out_shapes = [out_shape(n, i) for n, i in self._outputs]
+        return arg_shapes, out_shapes, aux_shapes
+
+    def _infer(self, known_shapes: Dict[str, tuple]):
+        """Walk the graph on meta tensors; ``{key: shape}`` with keys
+        ``(arg_name, "var")`` for variables and ``(id(node), out_idx)``."""
+        shapes: Dict = {}
+        vals: Dict = {}  # id(node) -> tuple of meta tensors
+
+        def meta(shape):
+            return torch.empty(tuple(shape), dtype=torch.float32,
+                               device="meta")
+
+        for node in self.nodes:
+            if node.is_variable:
+                if node.name in known_shapes:
+                    shape = tuple(known_shapes[node.name])
+                elif "__shape__" in node.extra_attrs:
+                    shape = tuple(json.loads(node.extra_attrs["__shape__"]))
+                else:
+                    continue
+                vals[id(node)] = (meta(shape),)
+                shapes[(node.name, "var")] = shape
+                continue
+            od = ops.get(node.op)
+            ins = []
+            for inp, oidx in node.inputs:
+                got = vals.get(id(inp))
+                if got is None and not inp.is_variable:
+                    raise _InferIncomplete(node.name)
+                ins.append(None if got is None else got[oidx])
+            if any(x is None for x in ins):
+                if od.infer_params is None:
+                    raise _InferIncomplete(node.name)
+                try:
+                    param_shapes = od.infer_params(
+                        node.attrs,
+                        *[None if x is None else tuple(x.shape)
+                          for x in ins])
+                except (TypeError, IndexError, KeyError):
+                    raise _InferIncomplete(node.name) from None
+                names = od.resolve_arg_names(node.attrs) + list(od.aux_names)
+                for j, (inp, _) in enumerate(node.inputs):
+                    if ins[j] is None:
+                        pname = names[j] if j < len(names) else None
+                        if pname not in param_shapes:
+                            raise _InferIncomplete(f"{node.name}:{pname}")
+                        shape = tuple(param_shapes[pname])
+                        ins[j] = meta(shape)
+                        vals[id(inp)] = (ins[j],)
+                        shapes[(inp.name, "var")] = shape
+            ctx = ops.OpCtx(is_train=True, device=torch.device("meta"))
+            with torch.no_grad():
+                res = od.fn(ctx, *ins, **node.attrs)
+            if od.aux_names:
+                res = res[0]
+            res = res if isinstance(res, tuple) else (res,)
+            vals[id(node)] = res
+            for i, r in enumerate(res):
+                shapes[(id(node), i)] = tuple(r.shape)
+        return shapes
+
+
+class _InferIncomplete(Exception):
+    pass
+
+
+# ---------------------------------------------------------- composition
+def Variable(name, attr=None, shape=None, lr_mult=None,
+             wd_mult=None) -> Symbol:
+    """A named input or parameter.  ``shape`` is stored as the
+    ``__shape__`` attr, the multipliers as ``__lr_mult__`` /
+    ``__wd_mult__`` (read by the trainer)."""
+    extra = dict(attr or {})
+    if shape is not None:
+        extra["__shape__"] = json.dumps(list(shape))
+    if lr_mult is not None:
+        extra["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        extra["__wd_mult__"] = str(wd_mult)
+    return Symbol([(_Node(None, name, extra_attrs=extra), 0)])
+
+
+def Group(symbols) -> Symbol:
+    outs = []
+    for s in symbols:
+        outs.extend(s._outputs)
+    return Symbol(outs)
+
+
+def _create_named(od, sym_inputs, attrs, name, extra_attr=None) -> Symbol:
+    inputs = []
+    for s in sym_inputs:
+        if not isinstance(s, Symbol):
+            raise TypeError(f"{od.name}: expected Symbol input, got "
+                            f"{type(s)}")
+        if len(s._outputs) != 1:
+            raise MXNetError(f"{od.name}: cannot use a grouped symbol as "
+                             "input")
+        inputs.append(s._outputs[0])
+    node = _Node(od.name, name, attrs=attrs, inputs=inputs,
+                 extra_attrs=dict(extra_attr or {}))
+    return Symbol([(node, i) for i in range(node.num_outputs())])
+
+
+def _create(opname, sym_inputs, attrs, name=None) -> Symbol:
+    od = ops.get(opname)
+    return _create_named(od, sym_inputs, attrs,
+                         current_name_manager().get(name, od.name))
+
+
+def _make_symbol_fn(opname: str):
+    od = ops.get(opname)
+
+    def creator(*args, **kwargs):
+        name = kwargs.pop("name", None)
+        attr = kwargs.pop("attr", None)
+        sym_kwargs = {k: v for k, v in kwargs.items()
+                      if isinstance(v, Symbol)}
+        attrs = {k: v for k, v in kwargs.items()
+                 if not isinstance(v, Symbol)}
+        name = current_name_manager().get(name, od.name)
+        inputs = []
+        pos = list(args)
+        for an in od.resolve_arg_names(attrs):
+            if an in sym_kwargs:
+                inputs.append(sym_kwargs.pop(an))
+            elif pos:
+                inputs.append(pos.pop(0))
+            else:
+                # a missing input becomes a variable: parameters
+                # (layer0_q_weight) and data/label inputs alike
+                inputs.append(Variable(f"{name}_{an}"))
+        if sym_kwargs:
+            raise MXNetError(f"{opname}: unexpected symbol kwargs "
+                             f"{list(sym_kwargs)}")
+        for aux in od.aux_names:
+            v = Variable(f"{name}_{aux}")
+            v._outputs[0][0].is_aux = True
+            inputs.append(v)
+        return _create_named(od, inputs, attrs, name, attr)
+
+    creator.__name__ = opname
+    creator.__doc__ = od.doc
+    return creator
+
+
+def _init_symbol_functions():
+    mod = sys.modules[__name__]
+    for opname in ops.list_ops():
+        if not hasattr(mod, opname):
+            setattr(mod, opname, _make_symbol_fn(opname))
+
+
+_init_symbol_functions()

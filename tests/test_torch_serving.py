@@ -250,7 +250,9 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
 def test_import_pulls_in_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops, "
-            "mxnet_tpu_torch.convert\n"
+            "mxnet_tpu_torch.convert, mxnet_tpu_torch.trainer, "
+            "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.parallel.ring_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
