@@ -76,6 +76,32 @@ def parse_bool(value) -> bool:
     return bool(value)
 
 
+def normalize_tuple(value, ndim: int, name: str = "value"):
+    """Broadcast an int (or 1-tuple) to an ndim-tuple (kernel/stride/pad)."""
+    value = parse_attr(value)
+    if isinstance(value, int):
+        return (value,) * ndim
+    value = tuple(value)
+    if len(value) == 1:
+        return value * ndim
+    if len(value) != ndim:
+        raise ValueError(f"{name} must have {ndim} elements, got {value}")
+    return value
+
+
+def frozen_attrs(attrs: dict) -> tuple:
+    """Hashable view of an attr dict (the CSE pass's node key)."""
+
+    def freeze(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(freeze(x) for x in v)
+        if isinstance(v, dict):
+            return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+        return v
+
+    return tuple(sorted((k, freeze(v)) for k, v in attrs.items()))
+
+
 class NameManager:
     """Auto-namer for symbols: an unnamed op gets ``<op>N`` with a
     per-hint counter (mirrors ``mxnet_tpu.base.NameManager``)."""

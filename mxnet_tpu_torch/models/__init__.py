@@ -1,2 +1,3 @@
-"""Models of the port: the transformer LM's layout and its KV decoder."""
-from . import decode, transformer  # noqa: F401
+"""Models of the port: the transformer LM's layout and its KV decoder,
+and ResNet."""
+from . import decode, resnet, transformer  # noqa: F401

@@ -1,5 +1,6 @@
 """Shape ops of the port (a subset of ``mxnet_tpu/ops/matrix.py``):
-``transpose``, ``Reshape`` and ``slice_axis``."""
+``transpose``, ``Reshape``, ``Flatten``, ``crop``/``slice`` and
+``slice_axis``."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,6 +35,21 @@ def _reshape(ctx, data, **attrs):
     """0 / -1 shape codes; a view where torch can make one."""
     shape = parse_attr(attrs["shape"])
     return data.reshape(_infer_reshape(tuple(data.shape), tuple(shape)))
+
+
+@register("Flatten", aliases=("flatten",))
+def _flatten(ctx, data, **attrs):
+    """Collapse all but axis 0 (of the logical layout: a channels-last
+    tensor flattens in NCHW order, copying where it must)."""
+    return data.reshape(data.shape[0], -1)
+
+
+@register("crop", aliases=("slice",))
+def _slice(ctx, data, **attrs):
+    """Per-axis ``begin``/``end`` (None: from the start / to the end)."""
+    begin = tuple(parse_attr(attrs["begin"]))
+    end = tuple(parse_attr(attrs["end"]))
+    return data[tuple(slice(b, e) for b, e in zip(begin, end))]
 
 
 @register("slice_axis")

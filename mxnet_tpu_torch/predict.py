@@ -1,0 +1,242 @@
+"""Predict-only inference API (the port of ``mxnet_tpu/predict.py``).
+
+The ``MXPredCreate`` / ``SetInput`` / ``Forward`` / ``GetOutput``
+lifecycle of the reference's C predict ABI in one object, over the
+port's Symbol, graph passes and Executor.  The JAX Predictor is one
+jitted program per forward; here the forward is the graph interpreter
+running eagerly on the card, the weights already in the compute dtype
+and, under the default layout, channels-last.
+
+Not ported yet, each raising "not ported yet": ``param_bytes`` and
+:func:`create` (they need ``nd.load``, ROADMAP Queue 1 item 1),
+``output_index`` (``get_internals``), ``quantize="int8"``,
+``forward_async``/``get_async`` and ``partial_forward``.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from . import symbol as sym_mod
+from .base import MXNetError, torch_dtype
+from .context import gpu, resolve_device
+
+__all__ = ["Predictor", "create"]
+
+
+def _not_ported(what, item="11"):
+    return MXNetError(f"Predictor {what} is not ported yet (ROADMAP Queue 1 "
+                      f"item {item})")
+
+
+def _device(dev_type, dev_id):
+    """``None`` -> the card; ``"cpu"``; ``"gpu"``/``"cuda"`` -> card
+    ``dev_id``; a ``torch.device`` passes through."""
+    if isinstance(dev_type, str) and dev_type.lower() in ("gpu", "cuda"):
+        return resolve_device(gpu(dev_id))
+    return resolve_device(dev_type)
+
+
+class Predictor:
+    """A bound inference graph: construct, ``forward(data=...)``,
+    ``get_output(0)``.
+
+    ``arg_params``/``aux_params`` may hold numpy arrays, torch tensors,
+    or the JAX package's NDArrays and arrays.  Before the bind the
+    Conv+BN fold (``passes.apply_convbn_fold``) folds every frozen
+    BatchNorm behind a conv into the conv's weight and a new
+    ``<conv>_bias``; the bind then runs the graph passes
+    (``MXTPU_GRAPH_PASSES=0`` turns both off).  Label arguments
+    (``softmax_label``, any ``*_label``) left out of ``input_shapes`` get
+    inferred shapes and are bound to zeros; any other argument that is
+    neither a param nor an input raises.
+
+    ``dtype``: ``None`` (the checkpoint's precision, fp32) or
+    ``"bfloat16"`` (``MXTPU_PREDICT_DTYPE`` sets it when the argument is
+    not given): fp32 params, aux states and inputs are cast to bf16 —
+    the weights once here, the inputs on the device after upload — and
+    the outputs are cast back to fp32.  ``dev_type`` defaults to the card (the JAX
+    Predictor defaults to the CPU); ``"cpu"`` runs on the host."""
+
+    def __init__(self, symbol_json_str=None, param_bytes=None,
+                 input_shapes=None, dev_type=None, dev_id=0, symbol=None,
+                 arg_params=None, aux_params=None, output_index=None,
+                 dtype=None, quantize=None):
+        from .executor import simple_bind
+        from .passes import apply_convbn_fold
+
+        if param_bytes is not None:
+            raise _not_ported("param_bytes (it needs nd.load)", "1")
+        if output_index is not None:
+            raise _not_ported("output_index (it needs get_internals)", "3")
+        if quantize is None and os.environ.get(
+                "MXTPU_PREDICT_INT8", "0").lower() not in ("", "0", "false"):
+            quantize = "int8"
+        if quantize is not None:
+            raise _not_ported(f"quantize={quantize!r}")
+        if symbol is None:
+            if symbol_json_str is None:
+                raise MXNetError("need symbol or symbol_json_str")
+            symbol = sym_mod.load_json(symbol_json_str)
+        arg_params = dict(arg_params or {})
+        aux_params = dict(aux_params or {})
+        device = _device(dev_type, dev_id)
+
+        # inference-mode Conv+BN folding before the bind (passes/convbn.py)
+        symbol, arg_params, aux_params, self._n_bn_folded = \
+            apply_convbn_fold(symbol, arg_params, aux_params)
+        self.symbol = symbol
+        self._input_names = [n for n in symbol.list_arguments()
+                             if n not in arg_params]
+        input_shapes = {k: tuple(v) for k, v in (input_shapes or {}).items()}
+        missing = [n for n in self._input_names if n not in input_shapes]
+        # label-style args (softmax_label) are not fed at inference: bind
+        # zeros of their inferred shapes.  Any other argument the params
+        # and input_shapes leave out is a weight the checkpoint lacks.
+        # (The JAX Predictor binds zeros to every such argument, so a
+        # missing weight there computes silently; the port refuses it.)
+        label_args = {n for n in missing
+                      if n == "label" or n.endswith("_label")}
+        uncovered = [n for n in missing if n not in label_args]
+        if uncovered:
+            raise MXNetError(
+                f"params cover no value for {uncovered[:5]} (corrupt or "
+                "truncated checkpoint, name mismatch, or an input missing "
+                "from input_shapes)")
+        if label_args:
+            arg_shapes, _, _ = symbol.infer_shape(**input_shapes)
+            if arg_shapes is None:
+                raise MXNetError(f"cannot infer the shapes of "
+                                 f"{sorted(label_args)} from {input_shapes}")
+            inferred = dict(zip(symbol.list_arguments(), arg_shapes))
+            for n in label_args:
+                input_shapes[n] = inferred[n]
+            self._input_names = [n for n in self._input_names
+                                 if n not in label_args]
+        self._label_args = label_args
+        self._exec = simple_bind(symbol, device, grad_req="null",
+                                 **input_shapes)
+        self._exec.copy_params_from(arg_params, aux_params,
+                                    allow_extra_params=True)
+
+        if dtype is None:
+            dtype = os.environ.get("MXTPU_PREDICT_DTYPE") or None
+        self._dtype = dtype
+        cast = None if dtype is None else torch_dtype(dtype)
+        self._cast = None if cast in (None, torch.float32) else cast
+
+        def compute(t):
+            return t.to(self._cast) if (self._cast is not None
+                                        and t.dtype == torch.float32) else t
+
+        # the weights never change after construction (reshape builds a
+        # new Predictor): cast them once; the inputs are the only
+        # tensors a forward writes
+        self._params = {k: compute(v) for k, v in self._exec.arg_dict.items()}
+        self._aux = {k: compute(v) for k, v in self._exec.aux_dict.items()}
+        self._staged = {}   # input name -> (pinned buffer, upload event)
+        self._outs = None
+        self._dirty = True
+
+    # ------------------------------------------------------------------ API
+    @property
+    def device(self) -> torch.device:
+        return self._exec.device
+
+    def set_input(self, name, value):
+        """Copy ``value`` (numpy array or tensor) into the bound input
+        ``name``.  A host array crosses to the card as it is (fp32, in its
+        own layout) through a pinned staging buffer, without waiting for
+        the card, and is cast and laid out channels-last there: asked to
+        do both at once, ``copy_`` would convert on the host first."""
+        if name not in self._input_names:
+            raise MXNetError(f"unknown input {name}; inputs: "
+                             f"{self._input_names}")
+        dst = self._params[name]
+        src = value if isinstance(value, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise MXNetError(f"shape mismatch for {name}: got "
+                             f"{tuple(src.shape)}, bound {tuple(dst.shape)}")
+        if dst.is_cuda and not src.is_cuda:
+            src = self._stage(name, src).to(dst.device, non_blocking=True)
+            # the staging buffer may be refilled once this copy is done
+            self._staged[name][1].record()
+        dst.copy_(src)
+        self._dirty = True
+
+    def _stage(self, name, src):
+        """``src`` in the pinned host buffer of input ``name``, after the
+        previous upload out of that buffer has finished."""
+        buf, done = self._staged.get(name, (None, None))
+        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            done = torch.cuda.Event()
+            self._staged[name] = (buf, done)
+        else:
+            done.synchronize()
+        buf.copy_(src)
+        return buf
+
+    def forward(self, **inputs):
+        """Set ``inputs`` and run the graph.  The outputs stay on the
+        device: nothing here waits for the card; :meth:`get_output`
+        copies out."""
+        for name, value in inputs.items():
+            self.set_input(name, value)
+        with torch.no_grad():
+            outs, _ = self._exec._graph_fn(self._params, self._aux, None,
+                                           False)
+        if self._cast is not None:
+            outs = [o.float() if o.dtype == self._cast else o for o in outs]
+        self._outs = outs
+        self._dirty = False
+
+    def get_output(self, index=0) -> np.ndarray:
+        """Output ``index`` as a host array (a blocking copy-out)."""
+        if self._dirty:
+            self.forward()
+        return self._outs[index].detach().cpu().numpy()
+
+    def get_output_shape(self, index=0):
+        """Output ``index``'s shape, before the first forward too (C
+        clients size their buffers with it)."""
+        if self._outs is not None:
+            return tuple(self._outs[index].shape)
+        shapes = {n: tuple(self._params[n].shape) for n in self._input_names}
+        _, out_shapes, _ = self.symbol.infer_shape(**shapes)
+        return tuple(out_shapes[index])
+
+    @property
+    def num_outputs(self):
+        return len(self.symbol.list_outputs())
+
+    def reshape(self, input_shapes):
+        """Rebind with new input shapes on the same device and dtype (the
+        folded params carry over)."""
+        arg_params = {k: v for k, v in self._exec.arg_dict.items()
+                      if k not in self._input_names
+                      and k not in self._label_args}
+        new = Predictor(symbol=self.symbol, arg_params=arg_params,
+                        aux_params=dict(self._exec.aux_dict),
+                        input_shapes=input_shapes, dev_type=self.device,
+                        dtype=self._dtype)
+        self.__dict__.update(new.__dict__)
+
+    def forward_async(self, **inputs):
+        raise _not_ported("forward_async")
+
+    def get_async(self, ticket, index=0):
+        raise _not_ported("get_async")
+
+    def partial_forward(self, step):
+        raise _not_ported("partial_forward (it needs get_internals)", "3")
+
+
+def create(prefix, epoch, input_shapes, dev_type=None, dev_id=0, dtype=None,
+           quantize=None):
+    """Load a checkpoint into a Predictor: not ported yet (it needs
+    ``nd.load`` and ``load_checkpoint``, ROADMAP Queue 1 items 1 and 7)."""
+    raise _not_ported("create (it needs nd.load and load_checkpoint)", "1")

@@ -8,9 +8,13 @@ package, and ``list_arguments`` walks the graph in the same stable DFS
 order, so both packages bind the same names in the same order.
 
 Shape inference walks the graph on meta tensors (the JAX package uses
-``jax.eval_shape``).  JSON save/load, ``bind``/``simple_bind`` and the
-arithmetic operators other than ``+`` are not ported yet (ROADMAP
-Queue 1 item 3).
+``jax.eval_shape``).  ``tojson``/``load_json`` write and read the JAX
+package's own JSON, so a symbol built there reaches the port as
+``load_json(jax_symbol.tojson())`` (attrs then arrive as strings or
+JSON values, which the ops read with ``parse_attr``).  ``simple_bind``
+binds an inference :class:`~.executor.Executor`.  ``get_internals``,
+``structural_signature``, ``bind``, nnvm-format JSON and the arithmetic
+operators other than ``+`` are not ported yet (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from . import ops
 from .base import MXNetError, current_name_manager
 
-__all__ = ["Symbol", "Variable", "Group"]
+__all__ = ["Symbol", "Variable", "Group", "load_json"]
 
 
 class _Node:
@@ -103,8 +107,22 @@ class Symbol:
             return self._outputs[0][0].name
         return None
 
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError(f"no output named {index}; outputs: {names}")
+            index = names.index(index)
+        if isinstance(index, int):
+            return Symbol([self._outputs[index]])
+        raise TypeError(index)
+
     def __len__(self):
         return len(self._outputs)
+
+    def __iter__(self):
+        for i in range(len(self._outputs)):
+            yield self[i]
 
     def __repr__(self):
         return f"<Symbol {self.name or 'grouped'}>"
@@ -206,8 +224,71 @@ class Symbol:
         return shapes
 
 
+    # -------------------------------------------------------- save/load
+    def tojson(self) -> str:
+        """The JAX package's JSON (``Symbol.tojson`` there): nodes in
+        topological order, non-string attrs JSON-encoded."""
+        nodes = self.nodes
+        index = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jnodes.append({
+                "op": n.op or "null",
+                "name": n.name,
+                "attrs": {k: json.dumps(v) if not isinstance(v, str) else v
+                          for k, v in n.attrs.items()},
+                "extra_attrs": n.extra_attrs,
+                "is_aux": n.is_aux,
+                "inputs": [[index[id(src)], oidx, 0]
+                           for src, oidx in n.inputs],
+            })
+        heads = [[index[id(n)], i, 0] for n, i in self._outputs]
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        return json.dumps(
+            {"nodes": jnodes, "arg_nodes": arg_nodes, "heads": heads,
+             "attrs": {"mxnet_tpu_version": 1}}, indent=2)
+
+    def simple_bind(self, ctx=None, grad_req="null", **kwargs):
+        """Infer shapes from ``kwargs``, allocate and bind an
+        :class:`~.executor.Executor` on ``ctx`` (default: the card)."""
+        from .executor import simple_bind as _simple_bind
+
+        return _simple_bind(self, ctx, grad_req=grad_req, **kwargs)
+
+
 class _InferIncomplete(Exception):
     pass
+
+
+def load_json(json_str: str) -> Symbol:
+    """A Symbol from the JSON that :meth:`Symbol.tojson` (of either
+    package) writes.  The reference's nnvm format (node ``param`` dicts,
+    ``node_row_ptr``) is not ported yet (ROADMAP Queue 1 item 3)."""
+    data = json.loads(json_str)
+    if "node_row_ptr" in data or any(
+            "param" in n or "backward_source_id" in n
+            for n in data.get("nodes", ())):
+        raise MXNetError("load_json: nnvm-format symbol JSON is not ported "
+                         "yet (ROADMAP Queue 1 item 3)")
+    nodes: List[_Node] = []
+    for jn in data["nodes"]:
+        if jn["op"] == "null":
+            node = _Node(None, jn["name"],
+                         extra_attrs=jn.get("extra_attrs", {}),
+                         is_aux=jn.get("is_aux", False))
+        else:
+            ops.get(jn["op"])  # an op the port lacks fails here, by name
+            attrs = {}
+            for k, v in jn.get("attrs", {}).items():
+                try:
+                    attrs[k] = json.loads(v)
+                except (json.JSONDecodeError, TypeError):
+                    attrs[k] = v
+            node = _Node(jn["op"], jn["name"], attrs=attrs,
+                         extra_attrs=jn.get("extra_attrs", {}))
+            node.inputs = [(nodes[i], oidx) for i, oidx, _ in jn["inputs"]]
+        nodes.append(node)
+    return Symbol([(nodes[i], oidx) for i, oidx, _ in data["heads"]])
 
 
 # ---------------------------------------------------------- composition

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain versions, on
-the card: paged decode attention, and the flash-attention forward, dQ and
-dK/dV kernels.
+the card: paged decode attention, the flash-attention forward, dQ and
+dK/dV kernels, and the residual epilogue (with its 4 launches per
+ResNet-50 forward through the Predictor).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -12,8 +13,10 @@ without the JAX stack (skip the repo's JAX conftest):
 import pytest
 import torch
 
+from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tfa
 from mxnet_tpu_torch.ops import paged_attention as tpa
+from mxnet_tpu_torch.ops import residual_epilogue as tre
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +130,153 @@ def test_flash_kernels_reject_unsupported(card):
     q, k, v, _ = _flash_case(card, torch.float32, T=64, D=256)
     with pytest.raises(Exception, match="do not support"):
         tfa._cuda_fwd(q, k, v, 0.0625, True)
+
+
+# ------------------------------------------------------ residual epilogue
+# the four tails of ResNet-50 at batch 32, 224x224, as NCHW shapes
+EPILOGUE_SHAPES = [(32, 256, 56, 56), (32, 512, 28, 28), (32, 1024, 14, 14),
+                   (32, 2048, 7, 7)]
+
+
+def _epi_case(card, dtype, shape, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn(shape, generator=g).to(card, dtype).contiguous(
+        memory_format=cl)
+    s = torch.randn(shape, generator=g).to(card, dtype).contiguous(
+        memory_format=cl)
+    c = shape[1]
+    scale = (torch.rand((c,), generator=g) + 0.5).to(card)
+    bias = (torch.rand((c,), generator=g) - 0.5).to(card)
+    return x, s, scale, bias
+
+
+def _epi_tolerance(x, s, scale, ref):
+    """Per-element bound on |kernel - plain|.  fp32: the same operations
+    in the same order (bit-identical; one ulp allowed).  bf16: the plain
+    version rounds x + s to bf16 before the affine (2^-8 relative, times
+    the scale) and each side rounds its output once (2^-8 relative
+    each, 2^-7 together)."""
+    sc = scale.reshape(1, -1, 1, 1)
+    if x.dtype == torch.float32:
+        return 2.0 ** -23 * ref.abs()
+    t = x.float() + s.float()
+    return 2.0 ** -8 * (t * sc).abs() + 2.0 ** -7 * ref.float().abs()
+
+
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_kernel_matches_plain(card, dtype, shape):
+    x, s, scale, bias = _epi_case(card, dtype, shape)
+    n0 = tre.launch_count()
+    got = tre.residual_epilogue(x, s, scale, bias, channel_axis=1)
+    torch.cuda.synchronize()
+    assert tre.launch_count() == n0 + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = tre._plain_fwd(x, s, scale, bias, 1)
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= _epi_tolerance(x, s, scale, ref)).all()), \
+        float(diff.max())
+
+
+def test_epilogue_kernel_refusals(card):
+    x, s, scale, bias = _epi_case(card, torch.float32, (2, 256, 4, 4))
+    with pytest.raises(MXNetError, match="not on a CUDA device"):
+        tre.residual_epilogue(x.cpu(), s.cpu(), scale.cpu(), bias.cpu(),
+                              channel_axis=1, impl="cuda")
+    with pytest.raises(MXNetError, match=r"dense \(rows, C\) view"):
+        tre.residual_epilogue(x.contiguous(), s.contiguous(), scale, bias,
+                              channel_axis=1, impl="cuda")
+    with pytest.raises(MXNetError, match="must match"):
+        tre.residual_epilogue(x, s.to(torch.bfloat16), scale, bias,
+                              channel_axis=1, impl="cuda")
+    h, hs, _, _ = _epi_case(card, torch.float16, (2, 256, 4, 4))
+    with pytest.raises(MXNetError, match="dtype"):
+        tre.residual_epilogue(h, hs, scale, bias, channel_axis=1,
+                              impl="cuda")
+    r, rs, rsc, rb = _epi_case(card, torch.float32, (2, 100, 4, 4))
+    with pytest.raises(MXNetError, match="does not support"):
+        tre.residual_epilogue(r, rs, rsc, rb, channel_axis=1, impl="cuda")
+    # the reference's gate: no channels-last view takes the plain version
+    n0 = tre.launch_count()
+    out = tre.residual_epilogue(x.contiguous(), s.contiguous(), scale, bias,
+                                channel_axis=1)
+    assert tre.launch_count() == n0
+    torch.testing.assert_close(out, tre._plain_fwd(x, s, scale, bias, 1))
+
+
+def test_epilogue_autograd_on_card_matches_plain(card):
+    x, s, scale, bias = _epi_case(card, torch.float32, (2, 256, 4, 4), 3)
+    cot = torch.randn(x.shape, device=card)
+    grads = []
+    for impl in ("cuda", "lax"):
+        ins = [t.clone().requires_grad_(True) for t in (x, s, scale, bias)]
+        out = tre.residual_epilogue(*ins, channel_axis=1, impl=impl)
+        out.backward(cot)
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_predictor_launches_the_epilogue_four_times(card, monkeypatch):
+    import numpy as np
+
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.predict import Predictor
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shape = (2, 3, 64, 64)
+    net = resnet.get_symbol(10, 50, shape[1:])
+    arg, aux = resnet.random_params(net, seed=0, data=shape)
+    x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
+
+    def run(env):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        p = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                      input_shapes={"data": shape})
+        n0 = tre.launch_count()
+        p.forward(data=x)
+        out = p.get_output(0)
+        for k in env:
+            monkeypatch.delenv(k)
+        return out, tre.launch_count() - n0
+
+    got, n = run({})
+    assert n == 4
+    ref, n_off = run({"MXTPU_GRAPH_PASSES": "0"})
+    assert n_off == 0
+    nchw, n_nchw = run({"MXTPU_CONV_LAYOUT": "NCHW"})
+    assert n_nchw == 0
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got, nchw, rtol=1e-4, atol=1e-6)
+
+
+def test_predictor_uploads_each_batch_through_the_staging_buffer(card):
+    """Back-to-back forwards of different host batches, no copy-out in
+    between: each must see its own batch, not a later one written into
+    the pinned staging buffer while an upload was still reading it."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.predict import Predictor
+
+    shape = (2, 3, 32, 32)
+    net = resnet.get_symbol(10, 18, shape[1:])
+    arg, aux = resnet.random_params(net, seed=1, data=shape)
+    rng = np.random.default_rng(4)
+    xs = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    p = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                  input_shapes={"data": shape})
+    want = []
+    for x in xs:
+        p.forward(data=x)
+        want.append(p.get_output(0))
+    outs = []
+    for x in xs:
+        p.forward(data=x)
+        outs.append(p._outs[0].clone())
+    for got, w in zip(outs, want):
+        np.testing.assert_array_equal(got.cpu().numpy(), w)

@@ -252,7 +252,9 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops, "
             "mxnet_tpu_torch.convert, mxnet_tpu_torch.trainer, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
-            "mxnet_tpu_torch.parallel.ring_attention\n"
+            "mxnet_tpu_torch.parallel.ring_attention, "
+            "mxnet_tpu_torch.passes, mxnet_tpu_torch.predict, "
+            "mxnet_tpu_torch.models.resnet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
