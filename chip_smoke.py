@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-Drives the port's three main paths — the paged decode server, the
-transformer-LM training step and ResNet-50 inference through the
-Predictor — and holds each hand-written CUDA kernel against its plain
-PyTorch version:
+Drives the port's main paths — the paged decode server, the
+transformer-LM training step, ResNet-50 inference through the Predictor,
+the same deployment loaded from a checkpoint, and user CUDA C compiled
+at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
+(and each user kernel pushed) against its plain PyTorch version:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from the sources in this checkout (one
@@ -39,7 +40,20 @@ PyTorch version:
    Predictor against the same graph with the four epilogues pinned to
    ``impl="lax"`` and against the passes turned off, images/s over 20
    calls of ``forward`` + ``get_output`` with 4 kernel launches per
-   forward, and a device-time profile with peak memory.
+   forward, and a device-time profile with peak memory;
+7. checkpoints (``phase_checkpoint``): the same ResNet-50 (with a second
+   head on the logits) written by ``model.save_checkpoint`` (about 102
+   MB of fp32) and loaded back by ``predict.create`` and by
+   ``Predictor(param_bytes=...)``, fp32 and bf16: logits identical to
+   the Predictor built from the in-memory params, 4 epilogue launches
+   per forward, save and load seconds;
+8. runtime-compiled user CUDA C (``phase_rtc``): three kernels built by
+   ``rtc.Rtc`` through NVRTC and pushed with their grid and block —
+   MXNet's own docstring example (``expf`` over 10 values staged in
+   shared memory), a grid-stride ``2x + y`` over a vector of the
+   ResNet-50 parameter count, and a row softmax over the (32, 1000)
+   logits of phase 7 — each against its plain PyTorch twin, with compile
+   ms, the compile cache, NVRTC's log on bad source, and µs per push.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -51,8 +65,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -90,6 +107,9 @@ EPI_TAILS = (("stage2_unit1_relu1", 56 * 56, 256),
              ("stage4_unit1_relu1", 14 * 14, 1024),
              ("relu1", 7 * 7, 2048))
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "residual_epilogue")
+# the runtime-compiled kernels: rtc.Rtc replaces the JAX Rtc._compiled
+RTC_SRC = "mxnet_tpu_torch/rtc.py"
+RTC_REPLACES = "mxnet_tpu/rtc.py:62"                     # Rtc._compiled
 
 
 def log(msg):
@@ -1102,6 +1122,305 @@ def phase_predict():
     return kern, launches
 
 
+# ----------------------------------------------------------------- phase 7
+def phase_checkpoint():
+    """ResNet-50 at full width through a checkpoint: ``save_checkpoint``,
+    then ``predict.create`` and ``Predictor(param_bytes=)`` on the card,
+    fp32 and bf16, each forward held to the Predictor built from the same
+    in-memory params — identical (max abs 0): same weights, same graph.
+    The net carries a second head on ``fc1`` (the logits).  Returns the
+    fp32 logits, the epilogue launches of the checkpoint Predictors'
+    forwards and the numbers printed."""
+    from mxnet_tpu_torch import model, predict
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+    from mxnet_tpu_torch.symbol import Group, Symbol
+
+    net, arg, aux = _resnet50()
+    fc1 = next(n for n in net.nodes if n.name == "fc1")
+    both = Group([net, Symbol([(fc1, 0)])])
+    n_params = sum(v.size for v in arg.values())
+    x = np.random.default_rng(3).normal(
+        size=(PREDICT_BATCH, 3, 224, 224)).astype(np.float32)
+    shapes = {"data": (PREDICT_BATCH, 3, 224, 224)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        prefix = os.path.join(tmp, "resnet50")
+        t0 = time.perf_counter()
+        model.save_checkpoint(prefix, 0, both, arg, aux)
+        save_s = time.perf_counter() - t0
+        pfile = f"{prefix}-0000.params"
+        size = os.path.getsize(pfile)
+        t0 = time.perf_counter()
+        _, larg, laux = model.load_checkpoint(prefix, 0, ctx="cpu")
+        read_s = time.perf_counter() - t0
+        if sorted(larg) != sorted(arg) or sorted(laux) != sorted(aux):
+            raise AssertionError("load_checkpoint lost or renamed params")
+        del larg, laux
+        with open(pfile, "rb") as f:
+            blob = f.read()
+        with open(f"{prefix}-symbol.json") as f:
+            js = f.read()
+        log(f"[checkpoint] ResNet-50 {n_params} params ({n_params / 1e6:.3f}"
+            f" M): save_checkpoint {save_s:.3f} s, {size} bytes "
+            f"({size / 1e6:.2f} MB); load_checkpoint to the host "
+            f"{read_s:.3f} s")
+        res = {"n_params": n_params, "save_s": save_s, "bytes": size,
+               "read_s": read_s, "launches": 0}
+        for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            by_file = predict.create(prefix, 0, shapes, dtype=dtype)
+            torch.cuda.synchronize()
+            create_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            by_bytes = predict.Predictor(symbol_json_str=js, param_bytes=blob,
+                                         input_shapes=shapes, dtype=dtype)
+            torch.cuda.synchronize()
+            bytes_s = time.perf_counter() - t0
+            # the main path's run (the two checkpoint Predictors): every
+            # kernel count starts at 0 here
+            tre.reset_launch_count()
+            outs = {}
+            for kind, p in (("file", by_file), ("bytes", by_bytes)):
+                p.forward(data=x)
+                outs[kind] = [p.get_output(i) for i in (0, 1)]
+            launched = tre.launch_count()
+            if launched != 8:
+                raise AssertionError(f"checkpoint {tag}: {launched} epilogue "
+                                     "launches in two forwards; want 4 each")
+            res["launches"] += launched
+            ref = _predictor(both, arg, aux, dtype)
+            ref.forward(data=x)
+            outs["memory"] = [ref.get_output(i) for i in (0, 1)]
+            del by_file, by_bytes, ref
+            torch.cuda.empty_cache()
+            for kind in ("file", "bytes"):
+                for i, name in ((0, "probabilities"), (1, "logits")):
+                    got, want = outs[kind][i], outs["memory"][i]
+                    if got.shape != want.shape or not np.isfinite(got).all():
+                        raise AssertionError(f"checkpoint {tag} {kind} "
+                                             f"{name}: {got.shape} or not "
+                                             "finite")
+                    err = float(np.abs(got - want).max())
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"checkpoint {tag} {kind}: {name} differ from "
+                            f"the in-memory Predictor's by {err}")
+            res[tag] = {"create_s": create_s, "param_bytes_s": bytes_s}
+            log(f"[checkpoint] {tag}: predict.create {create_s:.3f} s, "
+                f"Predictor(param_bytes=) {bytes_s:.3f} s; logits and "
+                f"probabilities of both identical to the in-memory "
+                f"Predictor's (max abs 0), 4 epilogue launches per forward; "
+                f"logit std {float(outs['file'][1].std()):.1f}")
+            if tag == "fp32":
+                res["logits"] = outs["file"][1]
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------- phase 8
+# user kernels for rtc.Rtc (CUDA C bodies), each beside its plain twin
+RTC_EXP = """
+    __shared__ float s_rec[10];
+    s_rec[threadIdx.x] = x[threadIdx.x];
+    y[threadIdx.x] = expf(s_rec[threadIdx.x]*5.0);"""
+RTC_AXPY = """
+    const int n = x_dims[0];
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += blockDim.x * gridDim.x)
+        out[i] = 2.0f * x[i] + y[i];"""
+RTC_SOFTMAX = """
+    __shared__ float red[256];
+    const int cols = x_dims[1];
+    const float* xr = x + (size_t)blockIdx.x * cols;
+    float* yr = y + (size_t)blockIdx.x * cols;
+    float m = __int_as_float(0xff800000);
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) m = fmaxf(m, xr[c]);
+    red[threadIdx.x] = m;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s)
+            red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+        __syncthreads();
+    }
+    m = red[0];
+    __syncthreads();
+    float sum = 0.0f;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        sum += expf(xr[c] - m);
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+        __syncthreads();
+    }
+    sum = red[0];
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        yr[c] = expf(xr[c] - m) / sum;"""
+
+
+def _rtc_exp_plain(x):
+    return torch.exp(x * 5.0)
+
+
+def _rtc_axpy_plain(x, y):
+    return 2 * x + y
+
+
+def _rtc_softmax_plain(x):
+    e = torch.exp(x - x.max(1, keepdim=True).values)
+    return e / e.sum(1, keepdim=True)
+
+
+def _rtc_bound_ms(nbytes, nops):
+    """Each input read once and each output written once over the memory
+    rate, or the fp32 operations over the fp32 peak, the larger."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = nops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_rtc(logits, n):
+    """Three user kernels compiled by NVRTC through ``rtc.Rtc`` and
+    pushed with their grid and block, each against its plain twin:
+    (a) MXNet's docstring example on (10,), (b) ``2x + y`` over ``n``
+    floats (the ResNet-50 parameter count), (c) a row softmax over the
+    (32, 1000) logits of phase 7.  Tolerances: (a) 1e-6 relative — the
+    kernel's ``expf`` and torch's ``exp`` are each within 2 ulps (2.4e-7
+    relative); (b) exact — ``2x`` is exact and each side rounds one add
+    (an FMA of ``2x + y`` rounds once too); (c) 1e-6 absolute + 1e-6
+    relative on probabilities <= 1 — the sums run in another order
+    (a few ulps of 1).  Returns the kernel record's fields."""
+    import torch.nn.functional as F
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import _nvrtc
+
+    nd = mx.nd
+    xa = nd.zeros((10,), ctx=mx.gpu(0))
+    xa[:] = 1
+    ya = nd.zeros((10,), ctx=mx.gpu(0))
+    ya[:] = 2
+    dev = xa.context
+    g = torch.Generator(device=dev).manual_seed(30)
+    xb = nd.NDArray(torch.randn(n, generator=g, device=dev))
+    yb = nd.NDArray(torch.randn(n, generator=g, device=dev))
+    ob = nd.empty((n,), ctx=mx.gpu(0))
+    xc = nd.array(logits, ctx=mx.gpu(0))
+    yc = nd.zeros(xc.shape, ctx=mx.gpu(0))
+    rows = xc.shape[0]
+    specs = {
+        "a_docstring_exp": ("abc", [("x", xa)], [("y", ya)], RTC_EXP,
+                            (1, 1, 1), (10, 1, 1)),
+        "b_axpy": ("axpy", [("x", xb), ("y", yb)], [("out", ob)], RTC_AXPY,
+                   (math.ceil(n / 256), 1, 1), (256, 1, 1)),
+        "c_row_softmax": ("row_softmax", [("x", xc)], [("y", yc)],
+                          RTC_SOFTMAX, (rows, 1, 1), (256, 1, 1)),
+    }
+    kernels, compile_ms = {}, {}
+    for key, (name, ins, outs, body, _, _) in specs.items():
+        c0 = _nvrtc.compile_count()
+        t0 = time.perf_counter()
+        kernels[key] = rtc.Rtc(name, ins, outs, body)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        if _nvrtc.compile_count() != c0 + 1:
+            raise AssertionError(f"rtc {key}: not one NVRTC compile")
+        compile_ms[key] = kernels[key].compile_ms
+        log(f"[rtc] {key}: NVRTC compile {compile_ms[key]:.2f} ms for "
+            f"{kernels[key].arch}, construction {build_ms:.2f} ms")
+    c0 = _nvrtc.compile_count()
+    again = rtc.Rtc(*specs["b_axpy"][:4])
+    if _nvrtc.compile_count() != c0 or again.compile_ms is not None:
+        raise AssertionError("a second Rtc of the same source recompiled")
+    try:
+        rtc.Rtc("bad", [("x", xa)], [("y", ya)],
+                "y[0] = undefined_thing(x[0]);")
+    except mx.MXNetError as exc:
+        if "NVRTC failed" not in str(exc) or "undefined_thing" not in str(exc):
+            raise
+        nvrtc_log = str(exc).splitlines()[1:3]
+    else:
+        raise AssertionError("bad Rtc source compiled")
+    log(f"[rtc] second construction of b_axpy: 0 NVRTC calls; bad source "
+        f"raised MXNetError with NVRTC's log: {nvrtc_log}")
+
+    # the main path's run: every kernel count starts at 0 here
+    rtc.reset_launch_count()
+    for key, (_, ins, outs, _, grid, block) in specs.items():
+        kernels[key].push([a for _, a in ins], [a for _, a in outs], grid,
+                          block)
+    launches = rtc.launch_count()
+    if launches != len(specs):
+        raise AssertionError(f"rtc: {launches} launches for {len(specs)} "
+                             "pushes")
+    torch.cuda.synchronize()
+    plains = {
+        "a_docstring_exp": lambda: _rtc_exp_plain(xa.tensor),
+        "b_axpy": lambda: _rtc_axpy_plain(xb.tensor, yb.tensor),
+        "c_row_softmax": lambda: _rtc_softmax_plain(xc.tensor),
+    }
+    tols = {"a_docstring_exp": (0.0, 1e-6), "b_axpy": (0.0, 0.0),
+            "c_row_softmax": (1e-6, 1e-6)}
+    outputs = {"a_docstring_exp": ya, "b_axpy": ob, "c_row_softmax": yc}
+    errs = {}
+    for key, plain in plains.items():
+        got, ref = outputs[key].tensor, plain()
+        diff = (got - ref).abs()
+        atol, rtol = tols[key]
+        bad = diff > atol + rtol * ref.abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rtc {key}: {int(bad.sum())} values outside "
+                                 f"atol {atol} rtol {rtol}; max abs err "
+                                 f"{float(diff.max())}")
+        errs[key] = float(diff.max())
+    if not np.allclose(yc.asnumpy().sum(1), 1.0, atol=1e-5):
+        raise AssertionError("rtc softmax rows do not sum to 1")
+    # (a) once more on data that is not all ones, outside the count
+    xa[:] = np.linspace(-1, 1, 10, dtype=np.float32)
+    kernels["a_docstring_exp"].push([xa], [ya], (1, 1, 1), (10, 1, 1))
+    torch.cuda.synchronize()
+    ra = _rtc_exp_plain(xa.tensor)
+    if not bool(((ya.tensor - ra).abs() <= 1e-6 * ra.abs()).all()):
+        raise AssertionError("rtc a_docstring_exp on linspace data")
+
+    library = {"a_docstring_exp": None,
+               "b_axpy": lambda i: torch.add(yb.tensor, xb.tensor, alpha=2.0,
+                                             out=ob.tensor),
+               "c_row_softmax": lambda i: torch.softmax(xc.tensor, 1)}
+    lib_err = float((torch.softmax(xc.tensor, 1)
+                     - _rtc_softmax_plain(xc.tensor)).abs().max())
+    nb = {"a_docstring_exp": (2 * 10 * 4, 2 * 10),
+          "b_axpy": (3 * 4 * n, 2 * n),
+          "c_row_softmax": (2 * 4 * xc.size, 7 * xc.size)}
+    records = {}
+    for key, (_, ins, outs, _, grid, block) in specs.items():
+        k, args_in, args_out = kernels[key], [a for _, a in ins], \
+            [a for _, a in outs]
+        t_k = _time_ms(lambda i: k.push(args_in, args_out, grid, block),
+                       200, 10)
+        t_p = _time_ms(lambda i: plains[key](), 100, 5)
+        t_l = None if library[key] is None else _time_ms(library[key],
+                                                         200, 10)
+        bound, bound_by = _rtc_bound_ms(*nb[key])
+        records[key] = {"max_abs_err": errs[key], "ms": t_k, "plain_ms": t_p,
+                        "library_ms": t_l, "bound_ms": bound,
+                        "bound_by": bound_by, "compile_ms": compile_ms[key],
+                        "grid": list(grid), "block": list(block)}
+        log(f"[kernel] rtc {key} grid {grid} block {block}: max_abs_err="
+            f"{errs[key]:.3g} push_us={t_k * 1e3:.2f} plain_us="
+            f"{t_p * 1e3:.2f} library_us="
+            f"{'none' if t_l is None else f'{t_l * 1e3:.2f}'} bound_us="
+            f"{bound * 1e3:.4f} ({bound_by}); roofline share "
+            f"{bound / t_k:.4f}")
+    log(f"[rtc] b_axpy over n = {n} floats (the ResNet-50 parameter "
+        f"count), {3 * 4 * n / 1e6:.1f} MB moved; library = torch.add("
+        f"alpha=2) and torch.softmax (differs from the plain softmax by "
+        f"{lib_err:.3g}); {launches} launches on the phase's run")
+    return records, launches
+
+
 # -------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -1119,6 +1438,8 @@ def main():
     del params
     flash_launches = phase_train()
     epi, epi_launches = phase_predict()
+    ckpt = phase_checkpoint()
+    rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     records = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
@@ -1144,6 +1465,15 @@ def main():
            "replaces": EPI_REPLACES, "launches": epi_launches}
     rec.update(epi["bf16"])
     rec["fp32"] = epi["fp32"]
+    rec["launches_checkpoint"] = ckpt["launches"]
+    records.append(rec)
+    # Rtc compiles what the user writes: the record's times are those of
+    # b_axpy (the full-width kernel), each user kernel's in "user_kernels"
+    rec = {"name": "rtc", "route": "cuda", "source": RTC_SRC,
+           "replaces": RTC_REPLACES, "launches": rtc_launches}
+    rec.update({k: v for k, v in rtc_kernels["b_axpy"].items()
+                if k not in ("grid", "block", "compile_ms")})
+    rec["user_kernels"] = rtc_kernels
     records.append(rec)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -7,14 +7,26 @@ with a plain PyTorch version beside it for CPU tensors.
 
 Ported so far: the paged decode-serving path — ``models.decode.
 KVDecoder``, ``serving.PagedSlots``/``SlotScheduler``/``serve_decoder``
-and the paged decode-attention kernel ``ops.paged_attention`` — and the
+and the paged decode-attention kernel ``ops.paged_attention``; the
 transformer-LM training step — ``models.transformer.transformer_lm``
 over ``symbol``/``executor``/``ops``, ``trainer.FusedTrainer`` and the
-flash-attention forward, dQ and dK/dV kernels ``ops.flash_attention``.
+flash-attention forward, dQ and dK/dV kernels ``ops.flash_attention``;
+ResNet inference through ``predict.Predictor`` after the graph passes,
+with the residual-epilogue kernel ``ops.residual_epilogue``; and the
+imperative half — ``nd`` (``NDArray`` over the op registry, the
+generated ``nd.<op>`` functions, ``save``/``load``), checkpoints
+(``model.save_checkpoint``/``load_checkpoint``, ``predict.create``) and
+``rtc.Rtc``, user CUDA C compiled by NVRTC.
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-with no card and no explicit device they raise :class:`MXNetError`.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``ctx="cpu"`` for ``nd``); with no card and no explicit device they
+raise :class:`MXNetError`.
+
+    import mxnet_tpu_torch as mx
+    x = mx.nd.zeros((2, 3))          # on the card
 """
 from . import context, telemetry  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import model, predict, rtc  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
-from .context import cpu, gpu, resolve_device  # noqa: F401
+from .context import cpu, current_context, gpu, resolve_device  # noqa: F401

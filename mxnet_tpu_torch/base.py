@@ -24,25 +24,40 @@ def _env_int(name, default):
     return default if not v else int(v)
 
 
+# every dtype an NDArray may hold, by numpy name; the compute dtypes of
+# ``torch_dtype`` are a subset
 _DTYPES = {
     "float32": torch.float32, "float": torch.float32,
-    "bfloat16": torch.bfloat16,
+    "bfloat16": torch.bfloat16, "float64": torch.float64,
+    "float16": torch.float16, "int64": torch.int64, "int32": torch.int32,
+    "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
 }
+_COMPUTE = ("float32", "float", "bfloat16")
 
 
-def torch_dtype(dtype) -> torch.dtype:
-    """``torch.float32``, ``"bfloat16"``, ``np.float32`` or a JAX-style
-    dtype object (anything with a ``name``) -> the ``torch.dtype``."""
+def _lookup(dtype, names) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     name = dtype if isinstance(dtype, str) else getattr(dtype, "name", None)
     if name is None:
         name = np.dtype(dtype).name
-    try:
-        return _DTYPES[str(name)]
-    except KeyError:
+    if str(name) not in names:
         raise MXNetError(f"unsupported dtype {dtype!r} (want one of "
-                         f"{sorted(_DTYPES)})") from None
+                         f"{sorted(names)})")
+    return _DTYPES[str(name)]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A compute dtype — ``torch.float32``, ``"bfloat16"``, ``np.float32``
+    or a JAX-style dtype object (anything with a ``name``) -> the
+    ``torch.dtype``."""
+    return _lookup(dtype, _COMPUTE)
+
+
+def numeric_dtype(dtype) -> torch.dtype:
+    """Any dtype an NDArray may hold (``np.int32``, ``"float16"``,
+    ``torch.uint8``, a JAX dtype) -> the ``torch.dtype``."""
+    return _lookup(dtype, _DTYPES)
 
 
 def parse_attr(value):

@@ -3,7 +3,9 @@
 ``gpu(i)`` is ``torch.device("cuda", i)``.  Every entry point of the
 port resolves its ``device`` argument through :func:`resolve_device`:
 the default is the card, and without one it raises instead of quietly
-running on the CPU.  Tests pass ``device="cpu"``.
+running on the CPU.  Tests pass ``device="cpu"``.  The JAX package's
+``Context`` objects become ``torch.device``s here; :func:`current_context`
+is the card the imperative ``nd.*`` creators use when given no ``ctx``.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "resolve_device"]
+__all__ = ["cpu", "gpu", "current_context", "resolve_device"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -38,3 +40,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "host explicitly")
     return device
+
+
+def current_context() -> torch.device:
+    """The card the imperative creators default to, with its index
+    (``cuda:<current device>``); raises :class:`MXNetError` without one."""
+    resolve_device(None)
+    return gpu(torch.cuda.current_device())

@@ -1,6 +1,8 @@
 """Operators of the port.  Importing the package registers every ported
 op; ``paged_attention`` has a CUDA kernel but no op (the decoder calls
 it directly)."""
-from . import (elemwise, flash_attention, indexing, loss, matrix,  # noqa: F401
-               nn, optimizer_ops, paged_attention, residual_epilogue)
-from .registry import OpCtx, get, list_ops, register  # noqa: F401
+from . import (elemwise, flash_attention, indexing,  # noqa: F401
+               init_sample, loss, matrix, nn, optimizer_ops,
+               paged_attention, residual_epilogue)
+from .registry import (OpCtx, decode_attr, get, invoke,  # noqa: F401
+                       list_ops, register)

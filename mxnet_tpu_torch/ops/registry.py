@@ -1,18 +1,19 @@
 """Operator registry of the port (mirrors ``mxnet_tpu/ops/registry.py``).
 
-One registry serves the symbolic path: :mod:`mxnet_tpu_torch.symbol`
+One registry serves both execution styles: :mod:`mxnet_tpu_torch.symbol`
 generates ``sym.<Op>`` constructors from it and the graph interpreter
 (:func:`mxnet_tpu_torch.executor._build_graph_fn`) calls each op's
-``fn(ctx, *inputs, **attrs)`` on tensors.  Gradients come from
-``torch.autograd``; ops with MXNet's own backward semantics (loss
-outputs that ignore the head gradient) and ops backed by a hand-written
-kernel wrap themselves in a ``torch.autograd.Function``.
-
-The imperative ``nd.<op>`` dispatch of the JAX package is not ported
-yet (ROADMAP Queue 1 item 1).
+``fn(ctx, *inputs, **attrs)`` on tensors; :mod:`mxnet_tpu_torch.ndarray`
+generates ``nd.<op>`` functions that dispatch through :func:`invoke`,
+eagerly (the JAX package's jit cache has no counterpart: PyTorch runs
+each op as it is called).  Gradients come from ``torch.autograd``; ops
+with MXNet's own backward semantics (loss outputs that ignore the head
+gradient) and ops backed by a hand-written kernel wrap themselves in a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -20,7 +21,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["OpCtx", "OpDef", "register", "get", "list_ops"]
+__all__ = ["OpCtx", "OpDef", "register", "get", "list_ops", "invoke",
+           "decode_attr"]
 
 _OPS: dict = {}
 
@@ -91,3 +93,39 @@ def get(name: str) -> OpDef:
 
 def list_ops() -> list:
     return sorted(_OPS)
+
+
+def decode_attr(value):
+    """An attr as symbol JSON carries it, decoded the way
+    :func:`mxnet_tpu_torch.symbol.load_json` decodes it: a string that
+    is JSON (``"true"``, ``"0.5"``, ``"[3, 3]"``) becomes its value, any
+    other value stays as it is (the ops read the rest with
+    ``parse_attr``)."""
+    if not isinstance(value, str):
+        return value
+    try:
+        return json.loads(value)
+    except json.JSONDecodeError:
+        return value
+
+
+def invoke(name: str, inputs, attrs=None, is_train: bool = True,
+           device=None):
+    """Run op ``name`` once, eagerly, on tensors (the imperative path;
+    mirrors ``mxnet_tpu/ops/registry.py:invoke``).
+
+    ``device`` is where an op without inputs (``_arange``) creates its
+    output; it defaults to the first input's.  Returns the op's output
+    or tuple of outputs; ops with aux states drop the aux updates, as
+    the JAX package's imperative calls do.  Runs under ``no_grad``: the
+    imperative NDArray records no autograd graph."""
+    op = get(name)
+    attrs = {k: decode_attr(v) for k, v in (attrs or {}).items()}
+    if device is None and inputs:
+        device = inputs[0].device
+    ctx = OpCtx(is_train=is_train, device=device)
+    with torch.no_grad():
+        out = op.fn(ctx, *inputs, **attrs)
+    if op.aux_names:
+        out = out[0]
+    return out

@@ -7,10 +7,15 @@ jitted program per forward; here the forward is the graph interpreter
 running eagerly on the card, the weights already in the compute dtype
 and, under the default layout, channels-last.
 
-Not ported yet, each raising "not ported yet": ``param_bytes`` and
-:func:`create` (they need ``nd.load``, ROADMAP Queue 1 item 1),
-``output_index`` (``get_internals``), ``quantize="int8"``,
-``forward_async``/``get_async`` and ``partial_forward``.
+A deployment loads a checkpoint: :func:`create` reads the
+``prefix-symbol.json`` / ``prefix-%04d.params`` pair that
+``model.save_checkpoint`` (of either package) writes, and
+``param_bytes=`` takes the bytes of such a ``.params`` file (npz, or the
+reference's ``0x112`` binary), as the C ABI's ``MXPredCreate`` does.
+
+Not ported yet, each raising "not ported yet": ``output_index``
+(``get_internals``), ``quantize="int8"``, ``forward_async``/
+``get_async`` and ``partial_forward``.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ class Predictor:
     ``get_output(0)``.
 
     ``arg_params``/``aux_params`` may hold numpy arrays, torch tensors,
-    or the JAX package's NDArrays and arrays.  Before the bind the
+    the port's NDArrays, or the JAX package's NDArrays and arrays;
+    ``param_bytes`` (used when ``arg_params`` is not given) is the
+    content of a ``.params`` file, split into both by its ``arg:``/
+    ``aux:`` prefixes.  Before the bind the
     Conv+BN fold (``passes.apply_convbn_fold``) folds every frozen
     BatchNorm behind a conv into the conv's weight and a new
     ``<conv>_bias``; the bind then runs the graph passes
@@ -67,8 +75,6 @@ class Predictor:
         from .executor import simple_bind
         from .passes import apply_convbn_fold
 
-        if param_bytes is not None:
-            raise _not_ported("param_bytes (it needs nd.load)", "1")
         if output_index is not None:
             raise _not_ported("output_index (it needs get_internals)", "3")
         if quantize is None and os.environ.get(
@@ -80,9 +86,17 @@ class Predictor:
             if symbol_json_str is None:
                 raise MXNetError("need symbol or symbol_json_str")
             symbol = sym_mod.load_json(symbol_json_str)
+        device = _device(dev_type, dev_id)
+        if arg_params is None and param_bytes is not None:
+            from .model import split_params
+            from .ndarray import load_frombuffer
+
+            # host NDArrays: the fold reads them there, and the bind
+            # copies each once to the device
+            arg_params, aux_params = split_params(
+                load_frombuffer(param_bytes, "cpu"))
         arg_params = dict(arg_params or {})
         aux_params = dict(aux_params or {})
-        device = _device(dev_type, dev_id)
 
         # inference-mode Conv+BN folding before the bind (passes/convbn.py)
         symbol, arg_params, aux_params, self._n_bn_folded = \
@@ -237,6 +251,14 @@ class Predictor:
 
 def create(prefix, epoch, input_shapes, dev_type=None, dev_id=0, dtype=None,
            quantize=None):
-    """Load a checkpoint into a Predictor: not ported yet (it needs
-    ``nd.load`` and ``load_checkpoint``, ROADMAP Queue 1 items 1 and 7)."""
-    raise _not_ported("create (it needs nd.load and load_checkpoint)", "1")
+    """A Predictor over the checkpoint ``prefix``/``epoch`` that
+    ``model.save_checkpoint`` wrote (the common ``MXPredCreate`` use).
+    The params are read to the host and copied once to the device."""
+    from .model import load_checkpoint
+
+    symbol, arg_params, aux_params = load_checkpoint(prefix, epoch,
+                                                     ctx="cpu")
+    return Predictor(symbol=symbol, arg_params=arg_params,
+                     aux_params=aux_params, input_shapes=input_shapes,
+                     dev_type=dev_type, dev_id=dev_id, dtype=dtype,
+                     quantize=quantize)

@@ -8,11 +8,12 @@ package, and ``list_arguments`` walks the graph in the same stable DFS
 order, so both packages bind the same names in the same order.
 
 Shape inference walks the graph on meta tensors (the JAX package uses
-``jax.eval_shape``).  ``tojson``/``load_json`` write and read the JAX
-package's own JSON, so a symbol built there reaches the port as
-``load_json(jax_symbol.tojson())`` (attrs then arrive as strings or
-JSON values, which the ops read with ``parse_attr``).  ``simple_bind``
-binds an inference :class:`~.executor.Executor`.  ``get_internals``,
+``jax.eval_shape``).  ``tojson``/``load_json`` (and their file forms
+``save``/``load``) write and read the JAX package's own JSON, so a
+symbol built there reaches the port as ``load_json(jax_symbol.tojson())``
+(attrs then arrive as strings or JSON values, which the ops read with
+``parse_attr``).  ``simple_bind`` binds an inference
+:class:`~.executor.Executor`.  ``get_internals``,
 ``structural_signature``, ``bind``, nnvm-format JSON and the arithmetic
 operators other than ``+`` are not ported yet (ROADMAP Queue 1 item 3).
 """
@@ -28,7 +29,7 @@ import torch
 from . import ops
 from .base import MXNetError, current_name_manager
 
-__all__ = ["Symbol", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -248,6 +249,11 @@ class Symbol:
             {"nodes": jnodes, "arg_nodes": arg_nodes, "heads": heads,
              "attrs": {"mxnet_tpu_version": 1}}, indent=2)
 
+    def save(self, fname: str):
+        """Write :meth:`tojson` to the local file ``fname``."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     def simple_bind(self, ctx=None, grad_req="null", **kwargs):
         """Infer shapes from ``kwargs``, allocate and bind an
         :class:`~.executor.Executor` on ``ctx`` (default: the card)."""
@@ -258,6 +264,16 @@ class Symbol:
 
 class _InferIncomplete(Exception):
     pass
+
+
+def load(fname: str) -> Symbol:
+    """The Symbol in the JSON file ``fname`` (the file form of
+    :func:`load_json`; remote URIs are not ported yet)."""
+    if "://" in str(fname):
+        raise MXNetError("symbol.load of a URI is not ported yet "
+                         "(filesystem.py, ROADMAP Queue 1 item 11)")
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str: str) -> Symbol:
@@ -278,12 +294,8 @@ def load_json(json_str: str) -> Symbol:
                          is_aux=jn.get("is_aux", False))
         else:
             ops.get(jn["op"])  # an op the port lacks fails here, by name
-            attrs = {}
-            for k, v in jn.get("attrs", {}).items():
-                try:
-                    attrs[k] = json.loads(v)
-                except (json.JSONDecodeError, TypeError):
-                    attrs[k] = v
+            attrs = {k: ops.decode_attr(v)
+                     for k, v in jn.get("attrs", {}).items()}
             node = _Node(jn["op"], jn["name"], attrs=attrs,
                          extra_attrs=jn.get("extra_attrs", {}))
             node.inputs = [(nodes[i], oidx) for i, oidx, _ in jn["inputs"]]

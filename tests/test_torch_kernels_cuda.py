@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain versions, on
 the card: paged decode attention, the flash-attention forward, dQ and
-dK/dV kernels, and the residual epilogue (with its 4 launches per
-ResNet-50 forward through the Predictor).
+dK/dV kernels, the residual epilogue (with its 4 launches per
+ResNet-50 forward through the Predictor), and user CUDA C through
+``rtc.Rtc`` (NVRTC) against the plain twins of the kernels pushed.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -10,10 +11,13 @@ without the JAX stack (skip the repo's JAX conftest):
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import ndarray as tnd
+from mxnet_tpu_torch import rtc
 from mxnet_tpu_torch.ops import flash_attention as tfa
 from mxnet_tpu_torch.ops import paged_attention as tpa
 from mxnet_tpu_torch.ops import residual_epilogue as tre
@@ -280,3 +284,248 @@ def test_predictor_uploads_each_batch_through_the_staging_buffer(card):
         outs.append(p._outs[0].clone())
     for got, w in zip(outs, want):
         np.testing.assert_array_equal(got.cpu().numpy(), w)
+
+
+# ------------------------------------------------------------------ rtc
+# user kernels for rtc.Rtc (CUDA C bodies), each beside its plain twin
+RTC_EXP = """
+    __shared__ float s_rec[10];
+    s_rec[threadIdx.x] = x[threadIdx.x];
+    y[threadIdx.x] = expf(s_rec[threadIdx.x]*5.0);"""
+RTC_AXPY = """
+    const int n = x_dims[0];
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += blockDim.x * gridDim.x)
+        out[i] = 2.0f * x[i] + y[i];"""
+RTC_SOFTMAX = """
+    __shared__ float red[256];
+    const int cols = x_dims[1];
+    const float* xr = x + (size_t)blockIdx.x * cols;
+    float* yr = y + (size_t)blockIdx.x * cols;
+    float m = __int_as_float(0xff800000);
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) m = fmaxf(m, xr[c]);
+    red[threadIdx.x] = m;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s)
+            red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+        __syncthreads();
+    }
+    m = red[0];
+    __syncthreads();
+    float sum = 0.0f;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        sum += expf(xr[c] - m);
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+        __syncthreads();
+    }
+    sum = red[0];
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        yr[c] = expf(xr[c] - m) / sum;"""
+RTC_AXPY_BF16 = """
+    const int n = x_dims[0];
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += blockDim.x * gridDim.x)
+        out[i] = __float2bfloat16(2.0f * __bfloat162float(x[i])
+                                  + __bfloat162float(y[i]));"""
+RTC_INDEX = """
+    const int b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+                  + blockIdx.x;
+    const int t = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x
+                  + threadIdx.x;
+    int* o = out + (b * blockDim.x * blockDim.y * blockDim.z + t) * 6;
+    o[0] = blockIdx.x; o[1] = blockIdx.y; o[2] = blockIdx.z;
+    o[3] = threadIdx.x; o[4] = threadIdx.y; o[5] = threadIdx.z;"""
+
+
+def _rtc_exp_plain(x):
+    return torch.exp(x * 5.0)
+
+
+def _rtc_axpy_plain(x, y):
+    return 2 * x + y
+
+
+def _rtc_softmax_plain(x):
+    e = torch.exp(x - x.max(1, keepdim=True).values)
+    return e / e.sum(1, keepdim=True)
+
+
+def _rtc_index_plain(grid, block):
+    gx, gy, gz = grid
+    bx, by, bz = block
+    z, y, x, tz, ty, tx = torch.meshgrid(
+        *[torch.arange(n, dtype=torch.int32) for n in (gz, gy, gx, bz, by,
+                                                       bx)], indexing="ij")
+    return torch.stack([x, y, z, tx, ty, tz], -1).reshape(-1, 6)
+
+
+def _nd(t):
+    return tnd.NDArray(t)
+
+
+def test_rtc_mxnet_docstring_example(card):
+    x = tnd.zeros((10,), ctx=card)
+    x[:] = 1
+    y = tnd.zeros((10,), ctx=card)
+    y[:] = 2
+    k = rtc.Rtc("abc", [("x", x)], [("y", y)], RTC_EXP)
+    n0 = rtc.launch_count()
+    k.push([x], [y], (1, 1, 1), (10, 1, 1))
+    assert rtc.launch_count() == n0 + 1
+    np.testing.assert_allclose(y.asnumpy(), np.exp(x.asnumpy() * 5.0),
+                               rtol=1e-6)
+    xs = torch.empty(10, device=card).uniform_(-1, 1)
+    k.push([xs.cpu().numpy()], [y], (1, 1, 1), (10, 1, 1))   # host input
+    torch.testing.assert_close(y.tensor, _rtc_exp_plain(xs), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 3])
+def test_rtc_axpy_matches_plain_exactly(card, n):
+    g = torch.Generator(device=card).manual_seed(n)
+    x, y = (torch.randn(n, generator=g, device=card) for _ in range(2))
+    out = torch.empty_like(x)
+    k = rtc.Rtc("axpy", [("x", _nd(x)), ("y", _nd(y))], [("out", _nd(out))],
+                RTC_AXPY)
+    # fewer blocks than elements: the grid-stride loop covers the rest
+    k.push([_nd(x), _nd(y)], [_nd(out)], (max(1, n // 1024), 1, 1),
+           (256, 1, 1))
+    torch.testing.assert_close(out, _rtc_axpy_plain(x, y), rtol=0, atol=0)
+
+
+def test_rtc_row_softmax_matches_plain(card):
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((32, 1000), generator=g, device=card) * 4
+    y = torch.empty_like(x)
+    k = rtc.Rtc("row_softmax", [("x", _nd(x))], [("y", _nd(y))],
+                RTC_SOFTMAX)
+    k.push([_nd(x)], [_nd(y)], (32, 1, 1), (256, 1, 1))
+    torch.testing.assert_close(y, _rtc_softmax_plain(x), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_rtc_bf16_kernel_matches_plain(card):
+    g = torch.Generator(device=card).manual_seed(8)
+    x, y = (torch.randn(4099, generator=g, device=card).bfloat16()
+            for _ in range(2))
+    out = torch.empty_like(x)
+    k = rtc.Rtc("axpy_bf16", [("x", _nd(x)), ("y", _nd(y))],
+                [("out", _nd(out))], RTC_AXPY_BF16)
+    assert k.source.startswith("#include <cuda_bf16.h>")
+    k.push([_nd(x), _nd(y)], [_nd(out)], (17, 1, 1), (256, 1, 1))
+    want = (2 * x.float() + y.float()).bfloat16()
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("grid,block", [((2, 3, 2), (4, 2, 3)),
+                                        ((5, 1, 1), (32, 4, 1)),
+                                        ((1, 2, 3), (1, 1, 64))])
+def test_rtc_honours_grid_and_block_dims(card, grid, block):
+    n = int(np.prod(grid)) * int(np.prod(block))
+    out = torch.full((n, 6), -1, dtype=torch.int32, device=card)
+    k = rtc.Rtc("where", [], [("out", _nd(out))], RTC_INDEX)
+    k.push([], [_nd(out)], grid, block)
+    torch.testing.assert_close(out.cpu(), _rtc_index_plain(grid, block),
+                               rtol=0, atol=0)
+
+
+def test_rtc_second_construction_makes_no_nvrtc_call(card):
+    from mxnet_tpu_torch.ops import _nvrtc
+
+    x = torch.zeros(321, device=card)
+    args = ([("x", _nd(x)), ("y", _nd(x))], [("out", _nd(torch.empty_like(
+        x)))], RTC_AXPY)
+    first = rtc.Rtc("axpy_cached", *args)
+    n0 = _nvrtc.compile_count()
+    again = rtc.Rtc("axpy_cached", *args)
+    assert _nvrtc.compile_count() == n0 and again.compile_ms is None
+    assert again._fn.value == first._fn.value
+    rtc.Rtc("axpy_cached", [("x", _nd(torch.zeros(322, device=card))),
+                            ("y", _nd(x))], *args[1:])
+    assert _nvrtc.compile_count() == n0 + 1       # other dims: new source
+
+
+def test_rtc_bad_source_raises_with_the_nvrtc_log(card):
+    x = torch.zeros(4, device=card)
+    with pytest.raises(MXNetError, match="(?s)NVRTC failed.*undefined_thing"):
+        rtc.Rtc("bad", [("x", _nd(x))], [("y", _nd(x.clone()))],
+                "y[0] = undefined_thing(x[0]);")
+
+
+def test_rtc_push_refusals(card):
+    x = torch.zeros((4, 8), device=card)
+    k = rtc.Rtc("copy2d", [("x", _nd(x))], [("y", _nd(torch.empty_like(x)))],
+                "y[threadIdx.x] = x[threadIdx.x];")
+    with pytest.raises(MXNetError, match=r"is \(8, 4\)"):
+        k.push([_nd(torch.zeros((8, 4), device=card))], [_nd(x)], (1, 1, 1),
+               (32, 1, 1))
+    with pytest.raises(MXNetError, match="not contiguous"):
+        k.push([_nd(x)], [_nd(torch.zeros((8, 4), device=card).t())],
+               (1, 1, 1), (32, 1, 1))
+    with pytest.raises(MXNetError, match="runs on a CUDA device"):
+        k.push([tnd.zeros((4, 8), ctx="cpu")], [_nd(x)], (1, 1, 1),
+               (32, 1, 1))
+    with pytest.raises(MXNetError, match="no default"):
+        k.push([_nd(x)], [_nd(x.clone())])
+    with pytest.raises(MXNetError, match="exceed 1024"):
+        k.push([_nd(x)], [_nd(x.clone())], (1, 1, 1), (64, 32, 1))
+    n0 = rtc.launch_count()
+    with pytest.raises(MXNetError, match="cuLaunchKernel failed"):
+        k.push([_nd(x)], [_nd(x.clone())], (1, 70000, 1), (32, 1, 1))
+    assert rtc.launch_count() == n0
+
+
+def test_rtc_push_from_a_fresh_thread(card):
+    """The driver needs a current context on the calling thread; a thread
+    that never touched CUDA through torch has none until push sets it."""
+    import threading
+
+    g = torch.Generator(device=card).manual_seed(9)
+    x, y = (torch.randn(5000, generator=g, device=card) for _ in range(2))
+    out = torch.zeros_like(x)
+    k = rtc.Rtc("axpy_thread", [("x", _nd(x)), ("y", _nd(y))],
+                [("out", _nd(out))], RTC_AXPY)
+    torch.cuda.synchronize()
+    errors = []
+
+    def run():
+        try:
+            k.push([_nd(x), _nd(y)], [_nd(out)], (20, 1, 1), (256, 1, 1))
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive() and errors == []
+    torch.testing.assert_close(out, _rtc_axpy_plain(x, y), rtol=0, atol=0)
+
+
+def test_rtc_push_makes_no_host_sync(card, monkeypatch):
+    x = torch.ones(1024, device=card)
+    out = torch.empty_like(x)
+    k = rtc.Rtc("axpy_nosync", [("x", _nd(x)), ("y", _nd(x))],
+                [("out", _nd(out))], RTC_AXPY)
+    calls = []
+
+    def count(name):
+        def f(*a, **kw):
+            calls.append(name)
+            raise AssertionError(f"host sync through {name}")
+        return f
+
+    for name in ("item", "cpu", "tolist", "numpy", "__bool__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, count(name))
+    monkeypatch.setattr(torch.cuda, "synchronize", count("synchronize"))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        count("Stream.synchronize"))
+    for _ in range(3):
+        k.push([_nd(x), _nd(x)], [_nd(out)], (4, 1, 1), (256, 1, 1))
+    monkeypatch.undo()
+    assert calls == []
+    torch.testing.assert_close(out, torch.full_like(x, 3.0))

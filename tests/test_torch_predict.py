@@ -27,7 +27,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch.models import resnet as tresnet
 from mxnet_tpu_torch.ops import residual_epilogue as tre
-from mxnet_tpu_torch.predict import Predictor, create
+from mxnet_tpu_torch.predict import Predictor
 
 SHAPE = (2, 3, 64, 64)
 
@@ -214,8 +214,7 @@ def test_predict_dtype_env(net_and_params, monkeypatch):
 
 def test_left_out_arguments_raise(net_and_params, monkeypatch):
     jnet, arg, aux, _ = net_and_params
-    for kw in ({"param_bytes": b"x"}, {"output_index": 0},
-               {"quantize": "int8"}):
+    for kw in ({"output_index": 0}, {"quantize": "int8"}):
         with pytest.raises(MXNetError, match="not ported yet"):
             _port(jnet, arg, aux, **kw)
     monkeypatch.setenv("MXTPU_PREDICT_INT8", "1")
@@ -224,8 +223,7 @@ def test_left_out_arguments_raise(net_and_params, monkeypatch):
     monkeypatch.delenv("MXTPU_PREDICT_INT8")
     p = _port(jnet, arg, aux)
     for call in (p.forward_async, lambda: p.get_async(1),
-                 lambda: p.partial_forward(3),
-                 lambda: create("prefix", 0, {"data": SHAPE})):
+                 lambda: p.partial_forward(3)):
         with pytest.raises(MXNetError, match="not ported yet"):
             call()
     with pytest.raises(MXNetError, match="need symbol"):

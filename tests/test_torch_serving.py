@@ -241,6 +241,10 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("ndarray.py", "model.py", "interop.py", "rtc.py",
+                os.path.join("ops", "_nvrtc.py"),
+                os.path.join("ops", "init_sample.py")):
+        assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -254,7 +258,9 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
             "mxnet_tpu_torch.parallel.ring_attention, "
             "mxnet_tpu_torch.passes, mxnet_tpu_torch.predict, "
-            "mxnet_tpu_torch.models.resnet\n"
+            "mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.ndarray, "
+            "mxnet_tpu_torch.model, mxnet_tpu_torch.interop, "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops._nvrtc\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
