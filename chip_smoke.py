@@ -63,9 +63,11 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -96,6 +98,20 @@ FLASH_REPLACES = {  # the Pallas kernels in mxnet_tpu/ops/flash_attention.py
     "flash_fwd": "mxnet_tpu/ops/flash_attention.py:41",       # _fwd_kernel
     "flash_bwd_dq": "mxnet_tpu/ops/flash_attention.py:86",    # _bwd_dq_kernel
     "flash_bwd_dkv": "mxnet_tpu/ops/flash_attention.py:118",  # _bwd_dkv_kernel
+}
+# each flash kernel's build facts: its kernel argument of
+# mxtt_flash_smem_bytes, how it runs, and its entry functions in the
+# build log (bf16 route, fp32 route).  The forward and dK/dV take the
+# tensor-core kernels in bf16 and the CUDA-core kernels in fp32; dQ
+# takes the CUDA cores in both
+FLASH_BUILD = {
+    "flash_fwd": (0, "wgmma+tma (bf16); CUDA cores (fp32)",
+                  "flash_fwd_bf16_sm90ILi128E", "flash_fwd_kernelIfE"),
+    "flash_bwd_dq": (1, "CUDA cores (bf16 and fp32)",
+                     "flash_bwd_dq_kernelI13__nv_bfloat16E",
+                     "flash_bwd_dq_kernelIfE"),
+    "flash_bwd_dkv": (2, "wgmma+tma (bf16); CUDA cores (fp32)",
+                      "flash_dkv_bf16_sm90ILi128E", "flash_bwd_dkv_kernelIfE"),
 }
 # the inference slice: ResNet-50, 1000 classes, batch 32 x 3 x 224 x 224;
 # the four residual tails the passes fuse, as (node, H*W, C)
@@ -134,14 +150,61 @@ def phase_device():
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build(KERNEL_SOURCES)
-    log(f"[device] built {', '.join(KERNEL_SOURCES)} in "
+    log(f"[device] built or loaded {', '.join(KERNEL_SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
-        f"parallel; {len(_build.build_logs)} compiled here)")
-    for name in KERNEL_SOURCES:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
-    return smi
+        f"parallel)")
+    ptxas = {name: ptxas_report(_build.build_logs.get(name, ""))
+             for name in KERNEL_SOURCES}
+    for name, entries in ptxas.items():
+        for entry, r in entries.items():
+            log(f"[ptxas] {name}: {entry}: {r.get('registers')} registers, "
+                f"{r.get('spills')} bytes spilled")
+    return smi, ptxas
+
+
+def ptxas_report(log):
+    """``{entry function: {"registers": r, "spills": bytes}}`` from the
+    ``-Xptxas -v`` lines of an nvcc log (spills = spill stores + loads)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spills"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def flash_build_record(report, name):
+    """Registers and spills of a flash kernel's bf16 and fp32 entry
+    functions, from ``report`` (``ptxas_report`` of the library's build),
+    and the dynamic shared memory its launches ask for at D 128, as the
+    library reports it."""
+    from mxnet_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention").mxtt_flash_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+
+    def entry(fragment):
+        return next((v for k, v in report.items() if fragment in k), {})
+
+    index, design, bf16_entry, fp32_entry = FLASH_BUILD[name]
+    bf16, fp32 = entry(bf16_entry), entry(fp32_entry)
+    return {"design": design,
+            "registers": bf16.get("registers"), "spills": bf16.get("spills"),
+            "smem_bytes": fn(index, 1, DH),
+            "fp32_registers": fp32.get("registers"),
+            "fp32_spills": fp32.get("spills"),
+            "fp32_smem_bytes": fn(index, 0, DH)}
 
 
 # ----------------------------------------------------------------- phase 2
@@ -280,6 +343,30 @@ def _flash_bound_ms(kind, B, H, T, D, dtype, causal):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the per-tile check of the flash outputs: the checks' labels by kernel,
+# and its limit by dtype (see flash_check)
+TILES_OF = {"flash_fwd": ("fwd O",), "flash_bwd_dq": ("dQ",),
+            "flash_bwd_dkv": ("dK", "dV")}
+FLASH_TILE_TOL = {torch.bfloat16: 1e-2}
+
+
+def tile_rel_err(got, ref, rows=64):
+    """The largest ``||got - ref|| / ||ref||`` over the tiles of ``rows``
+    consecutive rows (all D columns; the last tile may be short) of two
+    ``(..., T, D)`` tensors."""
+    import torch.nn.functional as F
+
+    ref = ref.float()
+    pad = -ref.shape[-2] % rows
+
+    def norms(x):
+        x = F.pad(x, (0, 0, 0, pad))
+        return x.reshape(*x.shape[:-2], -1, rows * x.shape[-1]).norm(dim=-1)
+
+    return float((norms(got.float() - ref)
+                  / norms(ref).clamp_min(1e-30)).max())
+
+
 def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
                 D=DH):
     """Forward, dQ and dK/dV kernels against their plain versions on the
@@ -288,9 +375,16 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
     version's cuBLAS products (TF32 off): 1e-5 on the forward (weighted
     means of unit-normal rows, order 1) and 1e-4 on the backward (sums
     of up to T products that may cancel).  bf16 — both sides widen the
-    same bf16 inputs, work in fp32 and round once, so they part by one
-    bf16 ulp next to a rounding boundary: 1e-2 absolute and relative,
-    about 2.5 ulps at magnitude 1."""
+    same bf16 inputs and accumulate in fp32; the tensor-core forward and
+    dK/dV also round P (and dS) to bf16 as the A operand of their
+    products, 2^-9 relative per term.  Each element within 1e-2
+    absolute and relative (one output ulp is 2^-8 to 2^-7 of the value)
+    is loose where O, dK and dV are ~0.02-0.05, so each tile of 64 rows
+    (64 queries' O, 64 keys' dK or dV) is also held to
+    ``FLASH_TILE_TOL`` of its norm (``tile_rel_err``; a single row of D
+    8 is too few values for a norm to average the roundings); a dK/dV
+    that leaves out one query tile must fail that check, and is tried
+    on every bf16 call."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -305,20 +399,30 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
     tag = (f"{str(dtype).replace('torch.', '')} "
            f"{'causal' if causal else 'full'} B{B} H{H} T{T} D{D}")
 
-    def check(name, got, ref, tol):
+    tile_tol = FLASH_TILE_TOL.get(dtype)
+    tiles = {}
+
+    def check(name, got, ref, tol, by_tile=True):
         diff = (got.float() - ref.float()).abs()
         bad = diff > tol + tol * ref.float().abs()
         if bool(bad.any()):
             raise AssertionError(
                 f"flash kernel check {name} {tag}: {int(bad.sum())} values "
                 f"outside atol=rtol={tol}; max abs err {float(diff.max())}")
+        if by_tile:
+            tiles[name] = tile_rel_err(got, ref)
+            if tile_tol is not None and tiles[name] > tile_tol:
+                raise AssertionError(
+                    f"flash kernel check {name} {tag}: a 64-row tile is "
+                    f"{tiles[name]:.3g} of its norm off (limit {tile_tol})")
         return float(diff.max())
 
     o, lse = fa._cuda_fwd(q, k, v, scale, causal)
     po, plse = fa.fwd_plain(q, k, v, scale, causal)
     torch.cuda.synchronize()
     errs = {"flash_fwd": max(check("fwd O", o, po, fwd_tol),
-                             check("fwd LSE", lse, plse, 1e-5))}
+                             check("fwd LSE", lse, plse, 1e-5,
+                                   by_tile=False))}
     delta = (po.float() * do.float()).sum(-1)
     args = (q, k, v, do, plse, delta, scale, causal)
     errs["flash_bwd_dq"] = check("dQ", fa._cuda_dq(*args),
@@ -327,6 +431,31 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
     pdk, pdv = fa.dkv_plain(*args)
     errs["flash_bwd_dkv"] = max(check("dK", dk, pdk, bwd_tol),
                                 check("dV", dv, pdv, bwd_tol))
+    log(f"[kernel] flash tiles {tag}: largest |got - plain| / |plain| of "
+        f"a 64-row tile: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in tiles.items())
+        + (f" (limit {tile_tol})" if tile_tol else ""))
+    if tile_tol is not None:
+        # a wrong kernel: dK/dV with the query tile [T/2, T/2 + 64) left
+        # out of every sum (its dO rows, and so its dS rows, set to 0)
+        cut = do.clone()
+        cut[:, :, T // 2:T // 2 + 64] = 0
+        wdk, wdv = fa.dkv_plain(q, k, v, cut, plse,
+                                (po.float() * cut.float()).sum(-1), scale,
+                                causal)
+        wrong = {"dK": tile_rel_err(wdk, pdk), "dV": tile_rel_err(wdv, pdv)}
+        outside = sum(int(((w.float() - r.float()).abs() > bwd_tol + bwd_tol
+                           * r.float().abs()).sum())
+                      for w, r in ((wdk, pdk), (wdv, pdv)))
+        log(f"[kernel] flash tiles {tag}: dK/dV without one query tile "
+            f"reads dK {wrong['dK']:.3g}, dV {wrong['dV']:.3g} (limit "
+            f"{tile_tol}); {outside} values outside the elementwise "
+            f"atol=rtol={bwd_tol}")
+        if min(wrong.values()) <= tile_tol:
+            raise AssertionError(
+                f"flash kernel check {tag}: the tile check passes a dK/dV "
+                f"that leaves out a query tile: {wrong}")
+        del cut, wdk, wdv
     del o, lse, dk, dv, pdk, pdv
 
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -351,7 +480,10 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
         t_k = _time_ms(kern, n, 2)
         t_p = _time_ms(plain, n_plain, 1)
         bound, bound_by = _flash_bound_ms(kind, B, H, T, D, dtype, causal)
-        out[name] = {"max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p,
+        out[name] = {"max_abs_err": errs[name],
+                     "max_tile_rel_err": max(tiles[c]
+                                             for c in TILES_OF[name]),
+                     "ms": t_k, "plain_ms": t_p,
                      "library_ms": t_lib, "bound_ms": bound,
                      "bound_by": bound_by}
         log(f"[kernel] {name} {tag}: max_abs_err={errs[name]:.3g} "
@@ -367,13 +499,19 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
     return out
 
 
-def phase_flash_kernels():
+def phase_flash_kernels(ptxas):
+    """The flash kernels' checks in bf16 and fp32, causal and full, and
+    their build records."""
+    builds = {}
+    for name in FLASH_BUILD:
+        builds[name] = flash_build_record(ptxas["flash_attention"], name)
+        log(f"[build] {name}: {json.dumps(builds[name])}")
     out = {}
     for i, (dtype, causal) in enumerate(
             ((torch.bfloat16, True), (torch.float32, True),
              (torch.bfloat16, False), (torch.float32, False))):
         out[(dtype, causal)] = flash_check(dtype, causal, 10 + i)
-    return out
+    return out, builds
 
 
 # ----------------------------------------------------------------- phase 3
@@ -657,7 +795,8 @@ def _rel_err(a, b):
 
 def phase_train():
     """The training slice at full width: parity step, timed steps,
-    profile.  Returns the flash kernels' launches in the timed run."""
+    profile.  Returns the flash kernels' launches in the timed run and
+    the step's numbers (tokens/s, MFU, device ms by flash kernel)."""
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.convert import load_trainer_params
     from mxnet_tpu_torch.models import transformer as tr
@@ -765,10 +904,12 @@ def phase_train():
         f"cross-entropy {' '.join(f'{c:.4f}' for c in ces)}; launches "
         f"{launches} (= {L} per step each); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    train_profile(tk, data, label, step_ms)
+    prof = train_profile(tk, data, label, step_ms)
+    prof.update(tokens_per_s=tok_s,
+                mfu=tok_s * fpt / PEAK_FLOPS[torch.bfloat16])
     del tk
     torch.cuda.empty_cache()
-    return launches
+    return launches, prof
 
 
 def train_profile(tk, data, label, step_ms, steps=2):
@@ -792,12 +933,27 @@ def train_profile(tk, data, label, step_ms, steps=2):
         kind = next((k for k, pats in kinds.items()
                      if any(p in name for p in pats)), "other")
         by_kind[kind] += t
+    # the flash kernels one by one (the bf16 forward and dK/dV kernels'
+    # names are flash_fwd_bf16_sm90 and flash_dkv_bf16_sm90)
+    flash = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for t, name in rows:
+        for key, pat in (("flash_fwd", "flash_fwd"),
+                         ("flash_bwd_dq", "flash_bwd_dq"),
+                         ("flash_bwd_dkv", "flash_dkv"),
+                         ("flash_bwd_dkv", "flash_bwd_dkv")):
+            if pat in name:
+                flash[key] += t
+                break
     log(f"[train-profile] per step: {step_ms:.2f} ms wall, device busy "
         f"{busy:.2f} ms, idle share {1 - busy / step_ms:.4f}; by kind: "
         + ", ".join(f"{k} {t:.2f} ms ({t / max(busy, 1e-9):.3f})"
                     for k, t in by_kind.items())
         + "; top: " + "; ".join(f"{name[:60]} {t:.2f} ms"
                                 for t, name in rows[:10]))
+    log("[train-profile] flash kernels per step (8 launches each): "
+        + ", ".join(f"{k} {t:.3f} ms" for k, t in flash.items())
+        + f"; together {sum(flash.values()):.3f} ms of {busy:.2f} ms busy")
+    return {"step_ms": step_ms, "busy_ms": busy, "flash_ms": flash}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1429,14 +1585,14 @@ def main():
     # fp32 products in full fp32 (the parity references assume it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
+    smi, ptxas = phase_device()
     kern = phase_kernels()
-    flash = phase_flash_kernels()
+    flash, flash_builds = phase_flash_kernels(ptxas)
     cfg, params = _params(seed=0)
     launches = phase_serve(cfg, params)
     phase_parity(cfg, params)
     del params
-    flash_launches = phase_train()
+    flash_launches, train = phase_train()
     epi, epi_launches = phase_predict()
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
@@ -1455,6 +1611,9 @@ def main():
                "replaces": FLASH_REPLACES[name],
                "launches": flash_launches[name]}
         rec.update(flash[(torch.bfloat16, True)][name])
+        rec.update(flash_builds[name])
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        rec["train_step_device_ms"] = train["flash_ms"][name]
         rec["fp32"] = flash[(torch.float32, True)][name]
         rec["non_causal"] = {"bf16": flash[(torch.bfloat16, False)][name],
                              "fp32": flash[(torch.float32, False)][name]}

@@ -5,8 +5,11 @@ by ``nvcc`` into its own shared library, loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds.  Libraries go to
 ``build/torch_kernels/`` beside the package (a directory ``.gitignore``
 lists), named by the hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-built at import: the first launch builds.
+source is rebuilt and an unchanged one is loaded as it is.  The
+compiler's report (``-Xptxas -v``) is kept beside each library as
+``.log`` and read back with it, so ``build_logs`` holds it whether this
+process compiled the library or found it built.  Nothing is built at
+import: the first launch builds.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs = {}
-# compiler output (the -Xptxas -v reports) of the builds this process ran
+# compiler output (the -Xptxas -v reports) of every library loaded or
+# built by this process, by source name
 build_logs = {}
 
 
@@ -73,6 +77,10 @@ def _lib_path(name: str, src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".log"
+
+
 def _compile(names) -> None:
     """Build every source of ``names`` that has no library yet: one nvcc
     per source, all started together, then wait for all.  Called with
@@ -82,6 +90,9 @@ def _compile(names) -> None:
         src = source_path(name)
         path = _lib_path(name, src)
         if os.path.exists(path):
+            if name not in build_logs and os.path.exists(_log_path(path)):
+                with open(_log_path(path)) as f:
+                    build_logs[name] = f.read()
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -95,6 +106,9 @@ def _compile(names) -> None:
             failed.append(f"nvcc failed to build {src} (exit "
                           f"{proc.returncode}):\n{out}{err}")
             continue
+        with open(tmp + ".log", "w") as f:
+            f.write(out + err)
+        os.replace(tmp + ".log", _log_path(path))
         os.replace(tmp, path)
         build_logs[name] = out + err
     if failed:

@@ -9,8 +9,10 @@ with two lowerings picked by where the tensors live:
 
 CUDA tensors launch the hand-written kernels of ``csrc/flash_attention.cu``
 (they replace the Pallas TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``); a shape or dtype the kernels cannot take
-raises, there is no fallback.  CPU tensors take the plain versions
+and ``_bwd_dkv_kernel``): in bf16 the forward and dK/dV run on the
+tensor cores (``wgmma`` fed by TMA copies), fp32 and dQ on the CUDA
+cores; a shape or dtype the kernels cannot take raises, there is no
+fallback.  CPU tensors take the plain versions
 (:func:`fwd_plain`, :func:`dq_plain`, :func:`dkv_plain`), which compute
 the same functions over the whole ``(T, T)`` score matrix in fp32.
 
@@ -177,6 +179,9 @@ def _launch(name, q, args):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(name)(*args, stream)
+    if err < 0:  # the driver refused a TMA map (the bf16 sm90 kernels)
+        raise MXNetError(f"{name} CUDA launch failed: cuTensorMapEncodeTiled "
+                         f"returned CUresult {-err}")
     if err != 0:
         raise MXNetError(f"{name} CUDA launch failed: cuda error {err}")
     _launches[name[len("mxtt_"):]] += 1

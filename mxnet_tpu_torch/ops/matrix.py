@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..base import parse_attr
+from ..base import MXNetError, parse_attr
 from .registry import register
 
 
@@ -18,8 +18,14 @@ def _transpose(ctx, data, **attrs):
 
 
 def _infer_reshape(shape, target):
-    """MXNet's reshape codes: 0 copies the input dim, -1 infers."""
+    """MXNet's reshape codes: 0 copies the input dim, -1 infers.  The
+    later codes -2/-3/-4 are refused, as the reference knows only 0 and
+    -1 too."""
     target = list(target)
+    for code in (-2, -3, -4):
+        if code in target:
+            raise MXNetError(f"Reshape: shape code {code} is not supported "
+                             f"(only 0 and -1); got shape {tuple(target)}")
     for i, t in enumerate(target):
         if t == 0:
             target[i] = shape[i]
@@ -32,8 +38,9 @@ def _infer_reshape(shape, target):
 
 @register("Reshape")
 def _reshape(ctx, data, **attrs):
-    """0 / -1 shape codes; a view where torch can make one."""
-    shape = parse_attr(attrs["shape"])
+    """0 / -1 shape codes; a view where torch can make one.  ``shape``,
+    or ``target_shape`` (the v0.9.4 spelling older symbol JSON carries)."""
+    shape = parse_attr(attrs.get("shape", attrs.get("target_shape")))
     return data.reshape(_infer_reshape(tuple(data.shape), tuple(shape)))
 
 

@@ -491,3 +491,55 @@ def test_mx_namespace():
     assert x.context == tmx.cpu()
     assert tmx.rtc.Rtc and tmx.model.save_checkpoint and tmx.predict.create
     assert mx.nd.NDArray is not tnd.NDArray
+
+
+# --------------------------------------------------- Reshape's attrs
+@pytest.mark.parametrize("key,shape", [("target_shape", (6, 4)),
+                                       ("target_shape", (0, -1)),
+                                       ("shape", (4, 0, 2))])
+def test_reshape_reads_target_shape_like_jax(key, shape):
+    """``target_shape`` is the v0.9.4 spelling of ``shape``; both packages
+    read either (0 copies the input dim, -1 infers)."""
+    a = _data(7, 2, 3, 4)
+    jx, tx = _both(a)
+    _same(tnd.Reshape(tx, **{key: shape}), jnd.Reshape(jx, **{key: shape}))
+
+
+def test_reshape_target_shape_through_load_json():
+    """A graph written with ``target_shape`` (as v0.9.4 JSON carries it,
+    a tuple string) loads and runs in the port as the JAX package runs
+    its own JSON."""
+    import json
+
+    from mxnet_tpu import symbol as jsym
+    from mxnet_tpu_torch import symbol as tsym
+
+    a = _data(8, 2, 3, 4)
+    jnet = jsym.Reshape(jsym.Variable("data"), target_shape=(6, 4),
+                        name="r")
+    graph = json.loads(jnet.tojson())
+    graph["nodes"][1]["attrs"]["target_shape"] = "(6,4)"
+    tnet = tsym.load_json(json.dumps(graph))
+    assert tnet.infer_shape(data=(2, 3, 4))[1] == [(6, 4)]
+    exe = tnet.simple_bind(ctx=tmx.cpu(), data=(2, 3, 4))
+    exe.forward(data=tnd.array(a, ctx=CPU))
+    jexe = jnet.simple_bind(ctx=mx.context.cpu(), data=(2, 3, 4))
+    jexe.forward(data=jnd.array(a))
+    got = exe.outputs[0].numpy()
+    want = np.asarray(jexe.outputs[0].asnumpy())
+    assert got.dtype == want.dtype and got.shape == want.shape == (6, 4)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("code", [-2, -3, -4])
+def test_reshape_refuses_later_shape_codes(code):
+    """-2/-3/-4 (MXNet's later codes) fail in the reference too (jnp
+    raises TypeError); the port raises MXNetError naming the code."""
+    a = _data(9, 2, 3, 4)
+    jx, tx = _both(a)
+    with pytest.raises(TypeError):
+        jnd.Reshape(jx, shape=(code, 4))
+    with pytest.raises(MXNetError, match=f"shape code {code}"):
+        tnd.Reshape(tx, shape=(code, 4))
+    with pytest.raises(MXNetError, match=f"shape code {code}"):
+        tnd.Reshape(tx, target_shape=(2, code))

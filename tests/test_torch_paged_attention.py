@@ -8,6 +8,7 @@ CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
 import os
+import sys
 
 import jax
 import numpy as np
@@ -172,3 +173,22 @@ def test_nvcc_command_targets_sm90a(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3"} <= set(cmd)
     assert os.path.isfile(cmd[-1])
+
+
+def test_build_report_is_kept_beside_the_library(monkeypatch, tmp_path):
+    """The compiler's report is written beside the library and read back
+    when a later process finds the library built."""
+    script = ("import sys; open(sys.argv[1], 'w').write('lib'); "
+              "print('ptxas info    : Used 7 registers')")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc_command",
+                        lambda src, out: [sys.executable, "-c", script, out])
+    monkeypatch.setattr(_build, "build_logs", {})
+    _build._compile(["paged_attention"])
+    report = _build.build_logs["paged_attention"]
+    assert "Used 7 registers" in report
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".log", ".so"]
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "nvcc_command", None)   # nothing to build
+    _build._compile(["paged_attention"])
+    assert _build.build_logs["paged_attention"] == report
