@@ -14,10 +14,13 @@ at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
    PyTorch library call as a yardstick the port never calls
    (``scaled_dot_product_attention``) and the least time the card could
    take (bound):
-   - ``ops/paged_attention.py`` at the serving shapes, fp32 and bf16;
+   - ``ops/paged_attention.py`` at the serving shapes, fp32 and bf16
+     (two calls bit-identical; its split and combine kernels' device
+     time from torch.profiler beside the events time);
    - ``ops/flash_attention.py``'s forward, dQ and dK/dV kernels at the
      training shape (B 8, H 16, T 1024, D 128), fp32 and bf16, causal
-     and not;
+     and not (in bf16, a dK/dV without one query tile and a dQ without
+     one key tile must fail the per-tile check);
 3. full-width serving over HTTP: the repo's largest LM config
    (``MFU_HEADLINE_CONFIG``: 8 layers, d_model 2048, vocab 32768) with
    seeded random bf16 weights, ``serve_decoder(num_slots=8, paged=True,
@@ -89,6 +92,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SLOTS, HEADS, DH, BLOCK, LAYERS, MAX_LEN = 8, 16, 128, 16, 8, 1024
 PAGED_SRC = "mxnet_tpu_torch/ops/csrc/paged_attention.cu"
 PAGED_REPLACES = "mxnet_tpu/ops/paged_attention.py:170"  # _pallas_attention
+# the paged kernel's design and its entry functions in the build log
+# (split, combine) by route
+PAGED_DESIGN = ("split across the sequence: one CTA per (slot, head, "
+                "chunk of whole pages), 16-byte loads, online softmax; "
+                "then a combine kernel per (slot, head) in chunk order")
+PAGED_ENTRIES = {
+    "bf16": ("paged_split_kernelI13__nv_bfloat16Li1E",
+             "paged_combine_kernelI13__nv_bfloat16E"),
+    "fp32": ("paged_split_kernelIfLi1E", "paged_combine_kernelIfE"),
+}
 
 # the training slice: MFU_HEADLINE_CONFIG at batch 8; attention shape
 # (B, H, T, D) = (8, 16, 1024, 128)
@@ -101,15 +114,13 @@ FLASH_REPLACES = {  # the Pallas kernels in mxnet_tpu/ops/flash_attention.py
 }
 # each flash kernel's build facts: its kernel argument of
 # mxtt_flash_smem_bytes, how it runs, and its entry functions in the
-# build log (bf16 route, fp32 route).  The forward and dK/dV take the
-# tensor-core kernels in bf16 and the CUDA-core kernels in fp32; dQ
-# takes the CUDA cores in both
+# build log (bf16 route, fp32 route).  All three take the tensor-core
+# kernels in bf16 and the CUDA-core kernels in fp32
 FLASH_BUILD = {
     "flash_fwd": (0, "wgmma+tma (bf16); CUDA cores (fp32)",
                   "flash_fwd_bf16_sm90ILi128E", "flash_fwd_kernelIfE"),
-    "flash_bwd_dq": (1, "CUDA cores (bf16 and fp32)",
-                     "flash_bwd_dq_kernelI13__nv_bfloat16E",
-                     "flash_bwd_dq_kernelIfE"),
+    "flash_bwd_dq": (1, "wgmma+tma (bf16); CUDA cores (fp32)",
+                     "flash_dq_bf16_sm90ILi128E", "flash_bwd_dq_kernelIfE"),
     "flash_bwd_dkv": (2, "wgmma+tma (bf16); CUDA cores (fp32)",
                       "flash_dkv_bf16_sm90ILi128E", "flash_bwd_dkv_kernelIfE"),
 }
@@ -183,6 +194,21 @@ def ptxas_report(log):
     return out
 
 
+def paged_build_record(report):
+    """Registers and spills of the paged kernel's split and combine entry
+    functions (bf16 at dh 128, and the fp32 twins), from ``report``."""
+    def entry(fragment):
+        return next((v for k, v in report.items() if fragment in k), {})
+
+    rec = {"design": PAGED_DESIGN}
+    for route, prefix in (("bf16", ""), ("fp32", "fp32_")):
+        split, combine = (entry(f) for f in PAGED_ENTRIES[route])
+        rec[prefix + "registers"] = [split.get("registers"),
+                                     combine.get("registers")]
+        rec[prefix + "spills"] = [split.get("spills"), combine.get("spills")]
+    return rec
+
+
 def flash_build_record(report, name):
     """Registers and spills of a flash kernel's bf16 and fp32 entry
     functions, from ``report`` (``ptxas_report`` of the library's build),
@@ -240,10 +266,30 @@ def _bound_ms(cursor, B, H, M, block, dh, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _device_call_ms(fn, n, pattern=""):
+    """Device ms per call of ``fn(i)`` over ``n`` calls: the kernels whose
+    names contain ``pattern`` (every kernel for ""), summed, from
+    torch.profiler.  Unlike ``_time_ms`` it does not count the host's
+    time per call where that is longer than the kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(t for t, name in _device_ms(prof, n) if pattern in name)
+
+
 def kernel_check(name, dtype, tol, B, H, M, block, dh, L, cursor, seed):
-    """Kernel vs plain on every layer; times of kernel / plain / SDPA
-    rotate over the layers so each call finds its pages cold in L2, as a
-    decode tick does (all L layers of live pages exceed the 50 MB L2)."""
+    """Kernel vs plain on every layer, twice (the same bits both times);
+    times of kernel / plain / SDPA rotate over the layers so each call
+    finds its pages cold in L2, as a decode tick does (all L layers of
+    live pages exceed the 50 MB L2).  CUDA events time the calls back to
+    back, which counts the wrapper's host time once the kernels are
+    shorter; torch.profiler gives the kernels' device time per call (the
+    split and the combine kernel), which the roofline share uses."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import paged_attention as pa
@@ -260,8 +306,12 @@ def kernel_check(name, dtype, tol, B, H, M, block, dh, L, cursor, seed):
     err = 0.0
     for layer in range(L):
         got = pa.paged_attention(q, pk, pv, bt, cur, layer, block=block)
+        again = pa.paged_attention(q, pk, pv, bt, cur, layer, block=block)
         ref = pa._gather_attention(q, pk, pv, bt, cur, layer, block)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"kernel check {name} layer {layer}: two "
+                                 "calls on the same inputs differ")
         diff = (got.float() - ref.float()).abs()
         err = max(err, float(diff.max()))
         bad = diff > tol + tol * ref.float().abs()
@@ -286,13 +336,24 @@ def kernel_check(name, dtype, tol, B, H, M, block, dh, L, cursor, seed):
         q, pk, pv, bt, cur, i % L, block), n // 4)
     t_l = _time_ms(lambda i: F.scaled_dot_product_attention(
         q, kc[i % L], vc[i % L], attn_mask=mask, scale=scale), n)
+    d_k = _device_call_ms(lambda i: pa.paged_attention(
+        q, pk, pv, bt, cur, i % L, block=block), n, "paged_")
+    d_l = _device_call_ms(lambda i: F.scaled_dot_product_attention(
+        q, kc[i % L], vc[i % L], attn_mask=mask, scale=scale), n)
     bound, bound_by = _bound_ms(cursor, B, H, M, block, dh, dtype)
-    log(f"[kernel] {name}: max_abs_err={err:.3g} (atol=rtol={tol}) "
-        f"kernel_us={t_k * 1e3:.2f} plain_us={t_p * 1e3:.2f} "
-        f"library_us={t_l * 1e3:.2f} (sdpa err {lib_err:.3g}) "
-        f"bound_us={bound * 1e3:.2f} ({bound_by})")
-    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "library_ms": t_l, "bound_ms": bound, "bound_by": bound_by}
+    chunk_pages, n_split = pa.split_of(M, block)
+    log(f"[kernel] {name}: max_abs_err={err:.3g} (atol=rtol={tol}), same "
+        f"bits twice; device_us={d_k * 1e3:.2f} (split + combine, "
+        f"profiler) events_us={t_k * 1e3:.2f} plain_us={t_p * 1e3:.2f} "
+        f"library_us={t_l * 1e3:.2f} library_device_us={d_l * 1e3:.2f} "
+        f"(sdpa err {lib_err:.3g}) bound_us={bound * 1e3:.2f} ({bound_by}); "
+        f"roofline share {bound / d_k:.4f}; n_split {n_split} of "
+        f"{chunk_pages} pages")
+    return {"max_abs_err": err, "ms": t_k, "device_ms": d_k,
+            "plain_ms": t_p, "library_ms": t_l, "library_device_ms": d_l,
+            "bound_ms": bound, "bound_by": bound_by,
+            "roofline_share": bound / d_k, "n_split": n_split,
+            "chunk_pages": chunk_pages}
 
 
 def phase_kernels():
@@ -380,11 +441,12 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
     products, 2^-9 relative per term.  Each element within 1e-2
     absolute and relative (one output ulp is 2^-8 to 2^-7 of the value)
     is loose where O, dK and dV are ~0.02-0.05, so each tile of 64 rows
-    (64 queries' O, 64 keys' dK or dV) is also held to
+    (64 queries' O or dQ, 64 keys' dK or dV) is also held to
     ``FLASH_TILE_TOL`` of its norm (``tile_rel_err``; a single row of D
     8 is too few values for a norm to average the roundings); a dK/dV
-    that leaves out one query tile must fail that check, and is tried
-    on every bf16 call."""
+    that leaves out one query tile, and a dQ that leaves out one key
+    tile, must fail that check, and both are tried on every bf16
+    call."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -425,8 +487,8 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
                                    by_tile=False))}
     delta = (po.float() * do.float()).sum(-1)
     args = (q, k, v, do, plse, delta, scale, causal)
-    errs["flash_bwd_dq"] = check("dQ", fa._cuda_dq(*args),
-                                 fa.dq_plain(*args), bwd_tol)
+    pdq = fa.dq_plain(*args)
+    errs["flash_bwd_dq"] = check("dQ", fa._cuda_dq(*args), pdq, bwd_tol)
     dk, dv = fa._cuda_dkv(*args)
     pdk, pdv = fa.dkv_plain(*args)
     errs["flash_bwd_dkv"] = max(check("dK", dk, pdk, bwd_tol),
@@ -455,8 +517,21 @@ def flash_check(dtype, causal, seed, B=TRAIN_BATCH, H=HEADS, T=MAX_LEN,
             raise AssertionError(
                 f"flash kernel check {tag}: the tile check passes a dK/dV "
                 f"that leaves out a query tile: {wrong}")
-        del cut, wdk, wdv
-    del o, lse, dk, dv, pdk, pdv
+        # a wrong dQ: the key tile [T/2, T/2 + 64) left out of every sum
+        # (its K rows set to 0: dS.K loses exactly those terms, and no
+        # other term changes)
+        cut_k = k.clone()
+        cut_k[:, :, T // 2:T // 2 + 64] = 0
+        wdq = fa.dq_plain(q, cut_k, v, do, plse, delta, scale, causal)
+        wrong_dq = tile_rel_err(wdq, pdq)
+        log(f"[kernel] flash tiles {tag}: dQ without one key tile reads "
+            f"{wrong_dq:.3g} (limit {tile_tol})")
+        if wrong_dq <= tile_tol:
+            raise AssertionError(
+                f"flash kernel check {tag}: the tile check passes a dQ "
+                f"that leaves out a key tile: {wrong_dq}")
+        del cut, wdk, wdv, cut_k, wdq
+    del o, lse, dk, dv, pdk, pdv, pdq
 
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
@@ -623,8 +698,8 @@ def phase_serve(cfg, params):
             f"tick {tick_ms:.2f} ms; kernel launches {launches} "
             f"(= {launches / max(ticks, 1):.1f}/tick); prefix hits "
             f"{int(hits)} blocks; pages {health['paged']}")
-        tick_profile(dec)
-        return launches
+        tick = tick_profile(dec)
+        return launches, tick
     finally:
         server.shutdown()
         server.server_close()
@@ -678,10 +753,19 @@ def tick_profile(dec, steps=10):
             tick()
     rows = _device_ms(prof, steps)
     busy = sum(t for t, _ in rows)
+    # the paged-attention kernels (paged_split_kernel and
+    # paged_combine_kernel, one launch of each per layer; "paged_" also
+    # matches the earlier one-kernel design, for tools/torch_ab.py)
+    paged = {k: sum(t for t, name in rows if k in name)
+             for k in ("paged_", "paged_split", "paged_combine")}
     log(f"[tick] 8 slots at ~500 tokens: {wall_ms:.3f} ms/tick wall, "
         f"device busy {busy:.3f} ms, idle share "
-        f"{1 - busy / wall_ms:.3f}; top device time per tick: "
+        f"{1 - busy / wall_ms:.3f}; paged attention {paged['paged_']:.3f} "
+        f"ms (split {paged['paged_split']:.3f}, combine "
+        f"{paged['paged_combine']:.3f}); top device time per tick: "
         + "; ".join(f"{name[:48]} {t:.3f} ms" for t, name in rows[:6]))
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "paged_ms": paged["paged_"]}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -933,11 +1017,12 @@ def train_profile(tk, data, label, step_ms, steps=2):
         kind = next((k for k, pats in kinds.items()
                      if any(p in name for p in pats)), "other")
         by_kind[kind] += t
-    # the flash kernels one by one (the bf16 forward and dK/dV kernels'
-    # names are flash_fwd_bf16_sm90 and flash_dkv_bf16_sm90)
+    # the flash kernels one by one (the bf16 kernels' names are
+    # flash_fwd_bf16_sm90, flash_dq_bf16_sm90 and flash_dkv_bf16_sm90)
     flash = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for t, name in rows:
         for key, pat in (("flash_fwd", "flash_fwd"),
+                         ("flash_bwd_dq", "flash_dq"),
                          ("flash_bwd_dq", "flash_bwd_dq"),
                          ("flash_bwd_dkv", "flash_dkv"),
                          ("flash_bwd_dkv", "flash_bwd_dkv")):
@@ -1588,8 +1673,11 @@ def main():
     smi, ptxas = phase_device()
     kern = phase_kernels()
     flash, flash_builds = phase_flash_kernels(ptxas)
+    paged_build = paged_build_record(ptxas["paged_attention"])
+    log(f"[build] paged_attention (registers and spills: split, combine): "
+        f"{json.dumps(paged_build)}")
     cfg, params = _params(seed=0)
-    launches = phase_serve(cfg, params)
+    launches, tick = phase_serve(cfg, params)
     phase_parity(cfg, params)
     del params
     flash_launches, train = phase_train()
@@ -1597,14 +1685,13 @@ def main():
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
     k = kern["bf16"]       # the serving path runs the kernel in bf16
-    records = [{
-        "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
-        "replaces": PAGED_REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        "fp32": kern["fp32"],
-    }]
+    rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+           "replaces": PAGED_REPLACES, "launches": launches}
+    rec.update(k)
+    rec.update(paged_build)
+    rec["tick_device_ms"] = tick["paged_ms"]
+    rec["fp32"] = kern["fp32"]
+    records = [rec]
     # the training path runs the flash kernels in bf16, causal
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         rec = {"name": name, "route": "cuda", "source": FLASH_SRC,

@@ -22,11 +22,11 @@
 // Two designs live here.
 //
 // 1. The CUDA-core kernels (flash_fwd_kernel, flash_bwd_dq_kernel,
-//    flash_bwd_dkv_kernel): every fp32 call, and dQ in bf16 too.  All
-//    arithmetic is fp32 (bf16 inputs are widened on load) on the CUDA cores
-//    (67 TFLOP/s peak): each thread computes a 4x4 block of the 64x64 score
-//    tile (16 FMAs for every 8 shared-memory reads) and a 4x8 block of the
-//    output tile; tiles sit in shared memory with an odd row stride (D+1).
+//    flash_bwd_dkv_kernel): every fp32 call.  All arithmetic is fp32 on
+//    the CUDA cores (67 TFLOP/s peak): each thread computes a 4x4 block of
+//    the 64x64 score tile (16 FMAs for every 8 shared-memory reads) and a
+//    4x8 block of the output tile; tiles sit in shared memory with an odd
+//    row stride (D+1).
 //    256 threads per block; thread t owns tile rows 4*(t/16)..+3, score
 //    columns t%16 + 16*j (j < 4) and output columns t%16 + 16*j (j < 8, so
 //    D <= 128); the 16 threads of a row group reduce with shuffles.
@@ -38,8 +38,9 @@
 //    fp32 stays here: the tensor cores would take fp32 as TF32 (about three
 //    decimal digits), which the fp32 parity of 1e-5 / 1e-4 does not allow.
 //
-// 2. The tensor-core kernels for bf16 (namespace sm90 below:
-//    flash_fwd_bf16_sm90 and flash_dkv_bf16_sm90), described there.
+// 2. The tensor-core kernels for every bf16 call (namespace sm90 below:
+//    flash_fwd_bf16_sm90, flash_dq_bf16_sm90 and flash_dkv_bf16_sm90),
+//    described there.
 //
 // Keeping dQ and dK/dV in two kernels, as the TPU does, needs no atomics
 // and sums in a fixed order, so every kernel here is deterministic: the
@@ -63,18 +64,12 @@ constexpr int kMaxD = 128;
 constexpr int kCols = kMaxD / 16;    // output columns per thread
 constexpr float kNegInf = -1e30f;
 
+// the CUDA-core kernels run fp32 only (bf16 takes the sm90 kernels)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like torch's .to()
 }
 
 // max / sum over the 16 lanes of a half-warp (xor offsets below 16 stay
@@ -540,16 +535,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 
 // ===================================================================== sm90
-// The bf16 forward and dK/dV on Hopper's tensor cores.
+// The bf16 forward, dQ and dK/dV on Hopper's tensor cores.
 //
 // flash_fwd_bf16_sm90 replaces the bf16 route of the forward (the TPU's
-// _fwd_kernel, mxnet_tpu/ops/flash_attention.py:41); flash_dkv_bf16_sm90
-// the bf16 route of dK/dV (_bwd_dkv_kernel, :118).  At the training shape
-// (B 8, H 16, T 1024, D 128, causal) the forward is bound by its bytes
-// (q, k, v in, o and lse out: 40.22 us at 3.35 TB/s, against 34.8 us for
-// its 2 products at 989 TFLOP/s) and dK/dV by its operations (4 products
-// over the 525k live (query, key) pairs: 69.55 us).  Both designs keep
-// the products on the tensor cores and the tiles' bytes off the threads:
+// _fwd_kernel, mxnet_tpu/ops/flash_attention.py:41); flash_dq_bf16_sm90
+// that of dQ (_bwd_dq_kernel, :86); flash_dkv_bf16_sm90 that of dK/dV
+// (_bwd_dkv_kernel, :118).  At the training shape (B 8, H 16, T 1024,
+// D 128, causal) the forward is bound by its bytes (q, k, v in, o and lse
+// out: 40.22 us at 3.35 TB/s, against 34.8 us for its 2 products at 989
+// TFLOP/s), dQ by its operations (3 products over the 525k live (query,
+// key) pairs: 52.16 us, against 50.4 us for its bytes) and dK/dV by its
+// operations (4 products: 69.55 us).  All three keep the products on the
+// tensor cores and the tiles' bytes off the threads:
 //
 // - Warp specialisation, 384 threads: warpgroup 0 is the producer (one
 //   thread issues TMA copies; it gives up registers with setmaxnreg),
@@ -574,14 +571,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 //   in the register-A layout of P^T and dS^T, so dV += P^T.dO and
 //   dK += dS^T.Q read dO and Q MN-major from the same stage, with no
 //   transposed copy.  The query tiles are summed in a fixed order.
+// - dQ: one CTA per (bh, 128-query tile), Q and dO resident (one TMA
+//   load), each consumer's 64 rows of LSE and delta read once into
+//   registers; 64-key stages of K and V stream up to the diagonal.  Per
+//   stage S = Q.K^T and dP = dO.V^T are issued together (all operands
+//   K-major) and waited for once; P = ex2(S.scale.log2e - LSE.log2e) and
+//   dS = P (dP - delta) scale are packed into bf16 A fragments (masked on
+//   the diagonal and ragged tiles only), and dQ += dS.K reads the same K
+//   stage MN-major, as the forward reads V; the stage is released after
+//   that product.  A consumer holds dQ (D/2 fp32), S and dP (32 each) and
+//   dS (16): 64-key stages keep that well inside its 232 registers.  A
+//   consumer whose rows all precede a causal tile (or lie past T) skips
+//   it.  The key tiles are summed in a fixed order: no atomics.
 // - Grids are head-major: the CTAs in flight share their heads' K and V
 //   (or Q and dO) in L2 instead of each fetching another head's from HBM;
 //   within a head the longest causal tiles run first.
 //
 // Numerics: the same fp32 S, max, sum and accumulators as the CUDA-core
 // kernels, plus two bf16 roundings every tensor-core flash kernel has: P
-// (forward and dK/dV) and dS (dK/dV) are rounded to bf16 as the A operand
-// of their products.  LSE, m and l stay fp32.
+// (forward and dK/dV) and dS (dQ and dK/dV) are rounded to bf16 as the A
+// operand of their products.  LSE, m and l stay fp32.
 namespace sm90 {
 
 constexpr int kWarpgroup = 128;
@@ -1238,6 +1247,175 @@ flash_dkv_bf16_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// --------------------------------------------------------------------- dQ
+template <int kD>
+struct Dq {
+  static constexpr int kM = 128;       // query rows per CTA, 64 a consumer
+  static constexpr int kN = 64;        // key rows per stage
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kQBytes = kM * kD * 2;   // Q or dO, resident
+  static constexpr uint32_t kKVBytes = kN * kD * 2;  // one K or V stage
+  // Q | dO | K[stages] | V[stages] | barriers: Q/dO, full[stages],
+  // empty[stages]
+  static constexpr uint32_t kBarOffset = 2 * kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_bf16_sm90(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int n, int D, float scale,
+                   int causal) {
+  using C = Dq<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sdO = sQ + C::kQBytes;
+  const uint32_t sK = sdO + C::kQBytes;
+  const uint32_t sV = sK + C::kStages * C::kKVBytes;
+  const uint32_t bar_q = sQ + C::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * C::kStages;
+
+  const int bh = blockIdx.y;   // head-major, as the forward
+  // the longest causal rows first: the last query tiles have the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kM;
+  int n_k = (n + C::kN - 1) / C::kN;
+  if (causal) n_k = min(n_k, (min(q0 + C::kM, n) - 1) / C::kN + 1);
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * kWarpgroup);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------ producer: TMA only
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(bar_q, 2 * C::kQBytes);
+      for (int c = 0; c < kD / kChunk; ++c) {
+        tma_load(sQ + c * C::kM * kChunkRowBytes, &tm_q, c * kChunk, q0, bh,
+                 bar_q);
+        tma_load(sdO + c * C::kM * kChunkRowBytes, &tm_do, c * kChunk, q0,
+                 bh, bar_q);
+      }
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % C::kStages;
+        mbar_wait(bar_empty + 8 * s, ((i / C::kStages) & 1) ^ 1);
+        mbar_arrive_tx(bar_full + 8 * s, 2 * C::kKVBytes);
+        const uint32_t k_s = sK + s * C::kKVBytes;
+        const uint32_t v_s = sV + s * C::kKVBytes;
+        for (int c = 0; c < kD / kChunk; ++c) {
+          tma_load(k_s + c * C::kN * kChunkRowBytes, &tm_k, c * kChunk,
+                   i * C::kN, bh, bar_full + 8 * s);
+          tma_load(v_s + c * C::kN * kChunkRowBytes, &tm_v, c * kChunk,
+                   i * C::kN, bh, bar_full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // ------------------------------- consumers: 64 query rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int lane = t % 32;
+    const int row0 = q0 + 64 * w + 16 * (t / 32) + lane / 4;
+    const int row1 = row0 + 8;
+    const int cq = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+    // this consumer's key tiles: none when all its rows are past T, up to
+    // its own diagonal when causal
+    int my_k = q0 + 64 * w >= n ? 0 : n_k;
+    if (causal) my_k = min(my_k, (min(q0 + 64 * w + 64, n) - 1) / C::kN + 1);
+
+    // LSE (in log2 units) and delta of the thread's two rows, read once;
+    // clamped past T, where Q and dO read as zeros and nothing is stored
+    const long long base = (long long)bh * n;
+    const float lse0 = lse[base + min(row0, n - 1)] * kLog2e;
+    const float lse1 = lse[base + min(row1, n - 1)] * kLog2e;
+    const float dl0 = delta[base + min(row0, n - 1)];
+    const float dl1 = delta[base + min(row1, n - 1)];
+
+    float acc[kD / 2];
+    zero(acc);
+    mbar_wait(bar_q, 0);
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % C::kStages;
+      mbar_wait(bar_full + 8 * s, (i / C::kStages) & 1);
+      if (i >= my_k) {  // every key of the tile is past this consumer's rows
+        mbar_arrive(bar_empty + 8 * s);
+        continue;
+      }
+      const uint32_t k_s = sK + s * C::kKVBytes;
+      const uint32_t v_s = sV + s * C::kKVBytes;
+
+      // S = Q.K^T and dP = dO.V^T, all four operands K-major; one wait
+      float sc[C::kN / 2], dp[C::kN / 2];
+      wgmma_fence();
+      gemm_abt<kD, C::kN>(sc, sQ, C::kM, 64 * w, k_s, C::kN);
+      gemm_abt<kD, C::kN>(dp, sdO, C::kM, 64 * w, v_s, C::kN);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp(s - lse), dS = P (dP - delta) scale as bf16 A fragments;
+      // masked (0) on the diagonal tile and past T only
+      const int k0 = i * C::kN;
+      const bool mask = k0 + C::kN > n ||
+                        (causal && k0 + C::kN - 1 > q0 + 64 * w);
+      uint32_t dsa[C::kN / 16][4];
+#pragma unroll
+      for (int j = 0; j < C::kN / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          float p = ex2(sc[4 * j + e] * scale_log2 - (hi ? lse1 : lse0));
+          if (mask) {
+            const int col = k0 + 8 * j + cq + (e & 1);
+            if (col >= n || (causal && col > (hi ? row1 : row0))) p = 0.f;
+          }
+          ds[e] = p * (dp[4 * j + e] - (hi ? dl1 : dl0)) * scale;
+        }
+        dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS.K: dS from registers, the same K stage read MN-major
+      wgmma_fence();
+      gemm_ab<kD, C::kN>(acc, dsa, k_s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= D) continue;
+      if (row0 < n)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (base + row0) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (row1 < n)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (base + row1) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -1326,12 +1504,33 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int kD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int BH, int n,
+              int D, float scale, int causal, cudaStream_t stream) {
+  using C = Dq<kD>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = make_map(&mq, q, BH, n, D, C::kM)) ||
+      (err = make_map(&mk, k, BH, n, D, C::kN)) ||
+      (err = make_map(&mv, v, BH, n, D, C::kN)) ||
+      (err = make_map(&mdo, dout, BH, n, D, C::kM)) ||
+      (err = prepare_sm90(flash_dq_bf16_sm90<kD>, C::kSmem)))
+    return err;
+  const dim3 grid((n + C::kM - 1) / C::kM, BH);
+  flash_dq_bf16_sm90<kD><<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), n,
+      D, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the forward and dK/dV take the sm90
-// tensor-core kernels in bf16).  Each returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16 (all three take the sm90 tensor-core
+// kernels in bf16).  Each returns cudaGetLastError() after the
 // launch (0 on success), or minus a CUresult where the driver refused a
 // TMA map; the Python wrapper raises on anything but 0.
 extern "C" int mxtt_flash_fwd(int dtype, const void* q, const void* k,
@@ -1362,8 +1561,10 @@ extern "C" int mxtt_flash_bwd_dq(int dtype, const void* q, const void* k,
     return (int)launch_dq<float>(q, k, v, dout, lse, delta, dq, BH, n, D,
                                  scale, causal, s);
   if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, BH,
-                                         n, D, scale, causal, s);
+    return D <= 64 ? sm90::launch_dq<64>(q, k, v, dout, lse, delta, dq, BH,
+                                         n, D, scale, causal, s)
+                   : sm90::launch_dq<128>(q, k, v, dout, lse, delta, dq, BH,
+                                          n, D, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1391,6 +1592,8 @@ extern "C" int mxtt_flash_bwd_dkv(int dtype, const void* q, const void* k,
 extern "C" int mxtt_flash_smem_bytes(int kernel, int dtype, int D) {
   if (dtype == 1 && kernel == 0)
     return (int)(D <= 64 ? sm90::Fwd<64>::kSmem : sm90::Fwd<128>::kSmem);
+  if (dtype == 1 && kernel == 1)
+    return (int)(D <= 64 ? sm90::Dq<64>::kSmem : sm90::Dq<128>::kSmem);
   if (dtype == 1 && kernel == 2)
     return (int)(D <= 64 ? sm90::Dkv<64>::kSmem : sm90::Dkv<128>::kSmem);
   if (dtype != 0 && dtype != 1) return -1;

@@ -9,10 +9,13 @@ with two lowerings picked by where the tensors live:
 
 CUDA tensors launch the hand-written kernels of ``csrc/flash_attention.cu``
 (they replace the Pallas TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``): in bf16 the forward and dK/dV run on the
-tensor cores (``wgmma`` fed by TMA copies), fp32 and dQ on the CUDA
-cores; a shape or dtype the kernels cannot take raises, there is no
-fallback.  CPU tensors take the plain versions
+and ``_bwd_dkv_kernel``).  In bf16 the backward is bound by its
+products and the forward by its bytes, so all three run on the tensor
+cores (``wgmma`` fed by TMA copies, a producer warpgroup and two
+consumers; the tiles' bytes never pass through the threads); fp32 runs
+on the CUDA cores, since the tensor cores would round it to TF32.  A
+shape or dtype the kernels cannot take raises, there is no fallback.
+CPU tensors take the plain versions
 (:func:`fwd_plain`, :func:`dq_plain`, :func:`dkv_plain`), which compute
 the same functions over the whole ``(T, T)`` score matrix in fp32.
 

@@ -5,10 +5,14 @@ The port of ``mxnet_tpu/ops/paged_attention.py``.  One entry point,
 live:
 
 - **the CUDA kernel** (``csrc/paged_attention.cu``) for tensors on the
-  card — one thread block per (slot, head) that reads only the pages the
-  slot's cursor has reached.  It replaces the Pallas TPU kernel
-  ``_pallas_attention``.  A shape :func:`supports` rejects raises; there
-  is no fallback.
+  card.  It replaces the Pallas TPU kernel ``_pallas_attention``.  The
+  function is bound by the bytes of the live K/V rows, so the kernel
+  splits each (slot, head) across the sequence: one thread block per
+  chunk of whole pages (:func:`split_of`) reads only the pages the
+  slot's cursor has reached, with 16-byte loads and an online softmax,
+  and writes a partial to an fp32 workspace; a second kernel merges the
+  chunks in a fixed order.  A shape :func:`supports` rejects raises;
+  there is no fallback.
 - **the plain version** (:func:`_gather_attention`) for tensors on the
   CPU: materialise the slot's table with :func:`gather_tables`, then
   einsum / masked softmax / einsum — the JAX package's gather math.  The
@@ -28,17 +32,28 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["supports", "require", "gather_tables", "paged_attention",
-           "launch_count", "reset_launch_count", "MAX_DH", "MAX_CONTEXT"]
+           "split_of", "launch_count", "reset_launch_count", "MAX_DH",
+           "MAX_CONTEXT"]
 
 # the masking constant of the decode stack (== models.decode.NEG_INF;
 # kept literal so this op module never imports the models package)
 NEG_INF = -1e30
 
-# the CUDA kernel's own limits: a lane holds dh/32 <= 8 values of q and of
-# the output, and the scores and live page ids of one (slot, head) sit in
-# shared memory (49152 fp32 scores + 6144 page ids = 216 KB of the 227 KB)
+# the CUDA kernel's own limits.  MAX_DH: a warp merges its rows in
+# shared memory sized for dh <= 256.  MAX_CONTEXT: the split kernel
+# keeps no scores in shared memory, so nothing on the card bounds the
+# context any more; the limit stays because it is what the kernel is
+# tested to (tests/test_torch_kernels_cuda.py runs a slot at it) and
+# because the combine kernel walks a (slot, head)'s chunks one after
+# another (384 of them here).  Lifting it is a ROADMAP item.
 MAX_DH = 256
 MAX_CONTEXT = 49152                  # M * block positions
+
+# the split: each thread block takes a chunk of whole pages covering about
+# SPLIT_POSITIONS positions (at most MAX_CHUNK_PAGES pages, the kernel's
+# shared-memory table of page ids)
+SPLIT_POSITIONS = 128
+MAX_CHUNK_PAGES = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,14 +71,24 @@ def reset_launch_count():
     _launches = 0
 
 
+def split_of(M: int, block: int):
+    """``(pages per chunk, chunks)`` of the CUDA kernel's split of a
+    ``(B, M)`` table of ``block``-position pages: chunks of whole pages,
+    about ``SPLIT_POSITIONS`` positions each, from the shapes alone (no
+    device value is read)."""
+    pages = max(1, min(MAX_CHUNK_PAGES, SPLIT_POSITIONS // block))
+    return pages, -(-M // pages)
+
+
 def supports(block: int, dh: int, dtype) -> bool:
     """Can the CUDA kernel run ``(block, dh)`` KV pages of ``dtype``?
 
     The JAX package's gate — f32 or bf16, ``block % 8 == 0``,
     ``dh % 8 == 0`` — plus the kernel's own limit ``dh <= MAX_DH`` (256).
     The context ``M * block`` must also stay within ``MAX_CONTEXT``
-    (49152 positions, whose scores sit in shared memory); :func:`require`
-    checks that one too, since the gate does not see ``M``."""
+    (49152 positions, the context the kernel is tested to);
+    :func:`require` checks that one too, since the gate does not see
+    ``M``."""
     if dtype not in _DTYPE_CODE:
         return False
     return (block > 0 and dh > 0 and block % 8 == 0 and dh % 8 == 0
@@ -148,7 +173,7 @@ def _lib():
     fn = lib.mxtt_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
@@ -174,14 +199,22 @@ def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block):
             raise MXNetError(
                 f"paged_attention: {name} must be a contiguous {dt} tensor "
                 f"on {q.device}, got {t.dtype} on {t.device}")
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
+        if t.data_ptr() % 16:
+            raise MXNetError(f"paged_attention: {name} must start on a "
+                             f"16-byte boundary (the kernel's loads)")
     out = torch.empty_like(q)
+    chunk_pages, n_split = split_of(M, block)
+    # the chunks' partials (acc[dh], m, l), from the caching allocator
+    part = torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), pool_k.data_ptr(),
                  pool_v.data_ptr(), bt.data_ptr(), cursor.data_ptr(),
-                 out.data_ptr(), B, H, M, block, dh, L, int(layer),
-                 _scale(dh, q.dtype), stream)
+                 part.data_ptr(), out.data_ptr(), B, H, M, block, dh, L,
+                 int(layer), chunk_pages, _scale(dh, q.dtype), stream)
     if err != 0:
         raise MXNetError(f"paged_attention CUDA launch failed: cuda error "
                          f"{err}")

@@ -63,6 +63,81 @@ def test_kernel_matches_plain(card, dtype, tol):
                                    rtol=tol)
 
 
+def _split_case(card, dtype, cursors, M, block, dh, H=2, L=2, seed=0):
+    """A pool, table and query for ``cursors`` (one slot each) over a
+    table of ``M`` pages of ``block`` positions."""
+    B = len(cursors)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    P = B * M + 1
+    pk = torch.randn((P, L, H, block, dh), generator=g).to(card, dtype)
+    pv = torch.randn((P, L, H, block, dh), generator=g).to(card, dtype)
+    q = torch.randn((B, H, 1, dh), generator=g).to(card, dtype)
+    bt = (torch.randperm(P - 1, generator=g)[:B * M] + 1).reshape(B, M)
+    return (q, pk, pv, bt.to(card, torch.int32),
+            torch.tensor(cursors).to(card, torch.int32))
+
+
+# the split across the sequence: cursors on and beside the chunk
+# boundaries (the first chunk exactly full, one position into the
+# second, ...), the last position of the table and a cursor past it
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-3)])
+def test_kernel_split_boundaries_match_plain(card, dtype, tol, dh, block):
+    M = 512 // block
+    chunk_pages, n_split = tpa.split_of(M, block)
+    chunk = chunk_pages * block
+    assert n_split > 2
+    cursors = [0, chunk - 2, chunk - 1, chunk, 2 * chunk - 1, 2 * chunk + 1,
+               M * block - 1, M * block + 5]
+    args = _split_case(card, dtype, cursors, M, block, dh)
+    for layer in range(2):
+        got = tpa.paged_attention(*args, layer, block=block)
+        ref = tpa._gather_attention(*args, layer, block)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-3)])
+def test_kernel_at_max_context_matches_plain(card, dtype, tol):
+    """One slot at the full MAX_CONTEXT (384 chunks of 128 positions) and
+    one short slot in the same table."""
+    block = 16
+    M = tpa.MAX_CONTEXT // block
+    args = _split_case(card, dtype, [tpa.MAX_CONTEXT - 1, 100], M, block,
+                       128, H=2, L=1)
+    got = tpa.paged_attention(*args, 0, block=block)
+    ref = tpa._gather_attention(*args, 0, block)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(card, dtype):
+    """The chunks are merged in a fixed order with no atomics: two calls
+    on the same inputs give the same bits."""
+    args = _split_case(card, dtype, [0, 15, 16, 17, 255, 511, 700, 1023],
+                       64, 16, 128, H=16)
+    first = tpa.paged_attention(*args, 1, block=16)
+    second = tpa.paged_attention(*args, 1, block=16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_kernel_rejects_a_pool_off_a_16_byte_boundary(card):
+    """The kernel reads rows with 16-byte loads: a contiguous pool that
+    starts 2 bytes into its storage is refused by name."""
+    q, pk, pv, bt, cursor = _case(card, torch.bfloat16)
+    shifted = torch.empty(pk.numel() + 1, dtype=pk.dtype, device=card)
+    shifted = shifted[1:].view(pk.shape)
+    shifted.copy_(pk)
+    with pytest.raises(MXNetError, match="16-byte boundary"):
+        tpa.paged_attention(q, shifted, pv, bt, cursor, 0, block=16)
+
+
 def test_kernel_rejects_unsupported_shapes(card):
     q, pk, pv, bt, cursor = _case(card, torch.float16, dh=64)
     with pytest.raises(Exception, match="does not support"):
@@ -148,16 +223,20 @@ def test_flash_kernels_match_plain(card, dtype, causal, B, H, T, D):
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_dkv_is_deterministic(card, dtype):
-    """No atomics: each key tile sums its query tiles in a fixed order, so
-    two launches on the same inputs give the same bits."""
+def test_flash_dkv_is_deterministic(card, dtype, kernel):
+    """No atomics: each key tile sums its query tiles (and each query tile
+    its key tiles, for dQ) in a fixed order, so two launches on the same
+    inputs give the same bits."""
     q, k, v, do = _flash_case(card, dtype, B=4, H=40, T=1000, D=72, seed=3)
     o, lse = tfa._cuda_fwd(q, k, v, 72 ** -0.5, True)
     delta = (o.float() * do.float()).sum(-1)
     args = (q, k, v, do, lse, delta, 72 ** -0.5, True)
-    first = tfa._cuda_dkv(*args)
-    second = tfa._cuda_dkv(*args)
+    launch = {"dkv": tfa._cuda_dkv,
+              "dq": lambda *a: (tfa._cuda_dq(*a),)}[kernel]
+    first = launch(*args)
+    second = launch(*args)
     o2, lse2 = tfa._cuda_fwd(q, k, v, 72 ** -0.5, True)
     torch.cuda.synchronize()
     for a, b in zip(first + (o,), second + (o2,)):

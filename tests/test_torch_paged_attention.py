@@ -152,6 +152,62 @@ def test_bf16_plain_uses_bf16_scale():
     assert tpa._scale(128, torch.float32) == pytest.approx(11.3137085)
 
 
+@pytest.mark.parametrize("M,block", [(64, 16), (128, 8), (16, 32),
+                                     (3072, 16), (1, 8), (7, 24), (4, 256)])
+def test_split_takes_whole_pages_covering_the_table(M, block):
+    pages, n_split = tpa.split_of(M, block)
+    assert 1 <= pages <= tpa.MAX_CHUNK_PAGES
+    assert (n_split - 1) * pages < M <= n_split * pages
+    assert pages == 1 or (pages * block <= tpa.SPLIT_POSITIONS
+                          < (pages + 1) * block)
+
+
+def _split_merge(args, layer, block):
+    """The CUDA kernel's split, in numpy fp32: each chunk of
+    ``split_of``'s whole pages gives (acc, m, l) over its live positions,
+    and the chunks merge in chunk order, as the combine kernel does."""
+    q, pk, pv, bt, cursor = args
+    B, H, _, dh = q.shape
+    M = bt.shape[1]
+    pages, n_split = tpa.split_of(M, block)
+    chunk = pages * block
+    scale = np.sqrt(np.float32(dh))
+    out = np.empty_like(q)
+    for b in range(B):
+        n_pos = min(max(int(cursor[b]) + 1, 1), M * block)
+        kc, vc = (t[bt[b], layer].transpose(1, 0, 2, 3)
+                  .reshape(H, M * block, dh) for t in (pk, pv))
+        parts = []
+        for c in range(n_split):
+            lo, hi = c * chunk, min((c + 1) * chunk, n_pos)
+            if lo >= n_pos:
+                break
+            s = np.einsum("hd,hsd->hs", q[b, :, 0], kc[:, lo:hi]) / scale
+            m = s.max(-1)
+            p = np.exp(s - m[:, None])
+            parts.append((np.einsum("hs,hsd->hd", p, vc[:, lo:hi]), m,
+                          p.sum(-1)))
+        mx = np.max([m for _, m, _ in parts], axis=0)
+        acc = sum(a * np.exp(m - mx)[:, None] for a, m, _ in parts)
+        tot = sum(l * np.exp(m - mx) for _, m, l in parts)
+        out[b, :, 0] = acc / tot[:, None]
+    return out
+
+
+# tables of 3 chunks; cursors on and beside the chunk boundaries, the
+# last position and one past the table
+@pytest.mark.parametrize("block,M,cursors", [
+    (8, 48, [0, 126, 127, 128, 255, 383, 500]),
+    (32, 10, [127, 128, 200, 319]),
+])
+def test_split_merge_matches_jax_gather(block, M, cursors):
+    args = _case(len(cursors), 2, M, block, 32, 2, cursors, seed=5)
+    for layer in range(2):
+        np.testing.assert_allclose(_split_merge(args, layer, block),
+                                   _jax(None, args, layer, block),
+                                   atol=ATOL, rtol=0)
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
