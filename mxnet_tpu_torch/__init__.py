@@ -16,7 +16,11 @@ with the residual-epilogue kernel ``ops.residual_epilogue``; and the
 imperative half — ``nd`` (``NDArray`` over the op registry, the
 generated ``nd.<op>`` functions, ``save``/``load``), checkpoints
 (``model.save_checkpoint``/``load_checkpoint``, ``predict.create``) and
-``rtc.Rtc``, user CUDA C compiled by NVRTC.
+``rtc.Rtc``, user CUDA C compiled by NVRTC; and ResNet-50 training —
+``models.get_symbol``, ``trainer.FusedTrainer`` with channels-last conv
+weights, ``step_multi`` as one captured CUDA graph per step, and ``fit``
+over ``io.NDArrayIter`` with ``metric``, ``callback``, ``lr_scheduler``,
+``initializer`` and the ``engine.AsyncWindow``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -28,5 +32,8 @@ raise :class:`MXNetError`.
 from . import context, telemetry  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import model, predict, rtc  # noqa: F401
+from . import callback, engine, io, lr_scheduler, metric, models  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
 from .context import cpu, current_context, gpu, resolve_device  # noqa: F401

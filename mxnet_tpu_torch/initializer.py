@@ -1,5 +1,7 @@
 """Weight initializers of the port (mirrors ``mxnet_tpu/initializer.py``:
-the name-based dispatch and ``Uniform``, the trainer's default).
+the name-based dispatch, ``Uniform`` (the trainer's default),
+``Normal``, ``Constant``, ``One``, ``Zero``, ``Xavier`` and
+``MSRAPrelu``).
 
 ``_weight`` names go to the initializer's own rule; ``_gamma`` and
 ``_moving_var`` fill with ones; ``_beta``, ``_bias``, ``_moving_mean``
@@ -12,12 +14,14 @@ parity tests carry weights across with :mod:`mxnet_tpu_torch.convert`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import random as _random
 from .base import MXNetError
 
-__all__ = ["Initializer", "Uniform"]
+__all__ = ["Initializer", "Uniform", "Normal", "Constant", "One", "Zero",
+           "Xavier", "MSRAPrelu"]
 
 
 class Initializer:
@@ -74,3 +78,80 @@ class Uniform(Initializer):
 
     def _init_weight(self, name, arr):
         arr.uniform_(-self.scale, self.scale, generator=self._gen(arr))
+
+
+class Normal(Initializer):
+    """Weights normal with mean 0 and standard deviation ``sigma``."""
+
+    def __init__(self, sigma=0.01, generator=None):
+        super().__init__(generator)
+        self.sigma = sigma
+
+    def _init_weight(self, name, arr):
+        arr.normal_(0.0, self.sigma, generator=self._gen(arr))
+
+
+class Constant(Initializer):
+    """Every tensor filled with ``value``, whatever its name."""
+
+    def __init__(self, value=0.0):
+        super().__init__()
+        self.value = value
+
+    def __call__(self, name, arr):
+        arr.fill_(self.value)
+
+
+class One(Initializer):
+    def _init_weight(self, name, arr):
+        arr.fill_(1.0)
+
+
+class Zero(Initializer):
+    def _init_weight(self, name, arr):
+        arr.zero_()
+
+
+class Xavier(Initializer):
+    """Glorot: uniform in ``[-s, s)`` (``rnd_type="uniform"``) or normal
+    with deviation ``s`` (``"gaussian"``), ``s = sqrt(magnitude /
+    factor)`` where the factor is the fan-in, the fan-out or their mean
+    (``factor_type`` ``"in"``, ``"out"``, ``"avg"``); the fans count the
+    kernel's spatial size."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3,
+                 generator=None):
+        super().__init__(generator)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        hw_scale = float(np.prod(shape[2:])) if len(shape) > 2 else 1.0
+        fan_in = shape[1] * hw_scale if len(shape) > 1 else shape[0]
+        fan_out = shape[0] * hw_scale
+        if self.factor_type == "avg":
+            factor = (fan_in + fan_out) / 2.0
+        elif self.factor_type == "in":
+            factor = fan_in
+        elif self.factor_type == "out":
+            factor = fan_out
+        else:
+            raise MXNetError(f"invalid factor_type {self.factor_type}")
+        scale = float(np.sqrt(self.magnitude / factor))
+        if self.rnd_type == "uniform":
+            arr.uniform_(-scale, scale, generator=self._gen(arr))
+        elif self.rnd_type == "gaussian":
+            arr.normal_(0.0, scale, generator=self._gen(arr))
+        else:
+            raise MXNetError(f"invalid rnd_type {self.rnd_type}")
+
+
+class MSRAPrelu(Xavier):
+    """He initialisation for PReLU nets: gaussian Xavier with magnitude
+    ``2 / (1 + slope**2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25, generator=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         generator)

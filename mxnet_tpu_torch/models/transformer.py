@@ -17,7 +17,7 @@ import numpy as np
 from .. import symbol as sym
 from ..base import MXNetError
 
-__all__ = ["MFU_HEADLINE_CONFIG", "transformer_lm",
+__all__ = ["MFU_HEADLINE_CONFIG", "transformer_lm", "get_symbol",
            "lm_train_flops_per_token", "lm_param_shapes", "lm_random_params"]
 
 # the repo's largest LM configuration: 8 layers, d_model 2048, d_ff 8192,
@@ -94,6 +94,13 @@ def transformer_lm(num_layers=4, num_heads=4, d_model=128, d_ff=None,
         loss_kw = {"use_ignore": True, "ignore_label": ignore_label,
                    "normalization": "valid"}
     return sym.SoftmaxOutput(logits, label, name="softmax", **loss_kw)
+
+
+def get_symbol(num_classes=1000, **kwargs):
+    """``models.get_symbol("transformer-lm", ...)``: the vocabulary is
+    ``num_classes`` unless ``vocab_size`` is given."""
+    kwargs.setdefault("vocab_size", num_classes)
+    return transformer_lm(**kwargs)
 
 
 def lm_train_flops_per_token(num_layers, d_model, d_ff, seq_len,

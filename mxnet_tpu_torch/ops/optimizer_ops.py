@@ -7,8 +7,15 @@ so a step holds no second copy of the fp32 masters or of Adam's
 moments.  The arithmetic is the JAX package's, operation for operation
 (``rescale_grad``, ``clip_gradient``, then ``wd * weight`` added to the
 gradient); Adam has no bias correction.
+
+The learning rate may be a number or an fp32 0-d tensor on the
+weight's device: ``FusedTrainer`` passes the tensor it refills before
+each step, so a captured step reads the rate of its replay and the
+update makes no host sync.
 """
 from __future__ import annotations
+
+import torch
 
 from ..base import parse_attr
 from .registry import register
@@ -25,6 +32,12 @@ def _scalar(attrs, name, default=_REQUIRED):
     return float(parse_attr(val))
 
 
+def _lr(attrs):
+    """The ``lr`` attr: a tensor as it is, anything else as a float."""
+    lr = attrs.get("lr", _REQUIRED)
+    return lr if isinstance(lr, torch.Tensor) else _scalar(attrs, "lr")
+
+
 def _prep_grad(grad, weight, attrs):
     """``clip(grad * rescale) + wd * weight`` as a new tensor; a factor
     of 1 and a wd of 0 are left out (they change no value)."""
@@ -39,7 +52,7 @@ def _prep_grad(grad, weight, attrs):
 
 @register("sgd_update", arg_names=("weight", "grad"))
 def _sgd_update(ctx, weight, grad, **attrs):
-    lr = _scalar(attrs, "lr")
+    lr = _lr(attrs)
     return weight.sub_(lr * _prep_grad(grad, weight, attrs))
 
 
@@ -47,7 +60,7 @@ def _sgd_update(ctx, weight, grad, **attrs):
           num_outputs=2, output_names=("weight", "mom"))
 def _sgd_mom_update(ctx, weight, grad, mom, **attrs):
     """mom = momentum*mom - lr*grad';  weight += mom."""
-    lr = _scalar(attrs, "lr")
+    lr = _lr(attrs)
     momentum = float(parse_attr(attrs.get("momentum", 0.0)))
     g = _prep_grad(grad, weight, attrs)
     mom.mul_(momentum).sub_(lr * g)
@@ -58,7 +71,7 @@ def _sgd_mom_update(ctx, weight, grad, mom, **attrs):
           num_outputs=3, output_names=("weight", "mean", "var"))
 def _adam_update(ctx, weight, grad, mean, var, **attrs):
     """``w -= lr * m / (sqrt(v) + eps)`` after the moment updates."""
-    lr = _scalar(attrs, "lr")
+    lr = _lr(attrs)
     beta1 = float(parse_attr(attrs.get("beta1", 0.9)))
     beta2 = float(parse_attr(attrs.get("beta2", 0.999)))
     eps = float(parse_attr(attrs.get("epsilon", 1e-8)))
@@ -73,7 +86,7 @@ def _adam_update(ctx, weight, grad, mean, var, **attrs):
           num_outputs=2, output_names=("weight", "n"))
 def _rmsprop_update(ctx, weight, grad, n, **attrs):
     """Plain (Tieleman-Hinton) RMSProp with optional weight clipping."""
-    lr = _scalar(attrs, "lr")
+    lr = _lr(attrs)
     gamma1 = float(parse_attr(attrs.get("gamma1", 0.95)))
     eps = float(parse_attr(attrs.get("epsilon", 1e-8)))
     clip_weights = parse_attr(attrs.get("clip_weights", None))

@@ -3,29 +3,52 @@
 One training step over a Symbol: forward through the graph interpreter,
 ``torch.autograd`` backward with the head gradient ignored by the loss
 ops, then the optimizer update.  The JAX package compiles all of it into
-one XLA program with donated buffers; the port runs it eagerly and gets
-the same memory behaviour by updating in place: the fp32 master
-weights, the optimizer state and the carried compute-dtype copy are
-overwritten, never duplicated.
+one XLA program with donated buffers; the port runs it eagerly
+(:meth:`FusedTrainer.step`) or replays it as one captured CUDA graph
+(:meth:`FusedTrainer.step_multi`), and gets the donation's memory
+behaviour by updating in place.
+
+Every tensor a step reads or writes keeps its storage from step to
+step: the fp32 masters, the optimizer state, the carried compute-dtype
+copy, the aux states (written back in place), the learning rate (an
+fp32 0-d tensor on the device, refilled before each step) and the batch
+buffers (one per input name, shape and dtype, which each step's batch
+is copied into).  That is what lets a captured graph of the step
+replay against the live state.
 
 Mixed precision (``dtype="bfloat16"``, or ``MXTPU_AMP=bf16`` with
 ``dtype=None``): fp32 masters, a bf16 copy that the forward reads and
 the update rewrites from the new masters, gradients cast to fp32 before
-the update.  Data inputs are cast to the compute dtype, as in the JAX
-package (in bf16 that rounds token ids above 256 before ``Embedding``;
-the port keeps that on purpose so the two agree); labels are not.
+the update; the aux states enter the forward rounded to bf16 and their
+updates are stored in fp32, as the JAX step rounds them.  Data inputs
+are cast to the compute dtype, as in the JAX package (in bf16 that
+rounds token ids above 256 before ``Embedding``; the port keeps that on
+purpose so the two agree); labels are not.
 
-The step has no host sync (no ``.item()`` / ``.cpu()``); the caller
+Channels-last weights (the JAX trainer's HWIO storage,
+``_discover_hwio_params``): under ``MXTPU_CONV_LAYOUT`` NHWC (the
+default) the conv weights that only 2-D convolutions consume are kept
+in ``torch.channels_last`` memory (master, optimizer state and bf16
+copy), so cuDNN reads them with no relayout, and batches of 4-D data
+are copied into channels-last buffers, as the Predictor binds them.
+``MXTPU_HWIO_STORAGE=0`` keeps the weights contiguous; a weight with
+any other consumer stays contiguous.  Shapes stay logical OIHW, and
+:meth:`FusedTrainer.get_params` returns contiguous copies.
+
+The steps make no host sync (no ``.item()`` / ``.cpu()``); the caller
 reads the returned outputs when it needs them.  Not ported yet, and
 raising when asked for: ``mesh`` / ``sharding_rules`` (ROADMAP Queue 1
-item 10), ``remat=True`` and ``step_multi`` (item 4), checkpoints
-(item 7), ``fit`` (item 6) and the numerics sentinel ``MXTPU_SENTINEL``
-(item 11).
+item 10), ``remat=True`` (item 4), the graph passes inside the trainer
+(item 1), checkpoints and ``fit(checkpoint=, resume=)`` (item 7), the
+elastic coordinator (item 10), the numerics sentinel ``MXTPU_SENTINEL``
+and the flight and perf recorders (item 11).
 """
 from __future__ import annotations
 
+import logging
 import os
-from typing import Dict
+import time
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -33,16 +56,45 @@ import torch
 from . import random as _random
 from .base import MXNetError, torch_dtype
 from .context import resolve_device
-from .executor import _build_graph_fn
+from .executor import _build_graph_fn, channels_last_default
 from .initializer import Uniform
+from .ndarray import NDArray
 from .optim_rules import _RULES
 
 __all__ = ["FusedTrainer"]
+
+# the reference's ops that draw random numbers (``needs_rng``): a
+# captured step would replay one draw, so step_multi refuses them
+_RANDOM_OPS = frozenset({"Dropout", "LeakyReLU", "RNN", "uniform",
+                         "_sample_uniform", "random_uniform", "normal",
+                         "_sample_normal", "random_normal"})
+# eager steps run on the capture stream before a capture, so cuDNN's
+# plans, cuBLAS's workspaces and the allocator's blocks are settled
+_WARMUP_STEPS = 2
+_OFF = ("", "0", "off", "false", "no")
 
 
 def _not_ported(what, item):
     return MXNetError(f"FusedTrainer: {what} is not ported yet (ROADMAP "
                       f"Queue 1 item {item})")
+
+
+def _as_tensor(value) -> torch.Tensor:
+    """A batch input (NDArray, tensor, numpy array or list) as a tensor,
+    where it lies."""
+    if isinstance(value, NDArray):
+        return value.tensor
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    return torch.from_numpy(np.ascontiguousarray(value))
+
+
+class _Captured(NamedTuple):
+    """One captured training step: replaying ``graph`` runs the step on
+    the batch in ``inputs`` and leaves its outputs in ``outputs``."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]
+    outputs: list
 
 
 class FusedTrainer:
@@ -63,8 +115,7 @@ class FusedTrainer:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
         if remat:
             raise _not_ported("remat=True (MXNET_BACKWARD_DO_MIRROR)", 4)
-        if os.environ.get("MXTPU_SENTINEL", "0").strip().lower() not in (
-                "", "0", "off", "false", "no"):
+        if os.environ.get("MXTPU_SENTINEL", "0").strip().lower() not in _OFF:
             raise _not_ported("the numerics sentinel (MXTPU_SENTINEL)", 11)
         self.symbol = symbol
         self.data_names = list(data_names)
@@ -113,6 +164,13 @@ class FusedTrainer:
         self._use_ccache = self.dtype != torch.float32
         self._cparams: Dict[str, torch.Tensor] = {}
         self._step = 0
+        # filled by init(): the layout decision, the device lr, the
+        # batch buffers and the captured steps
+        self._channels_last = False
+        self._cl_params: frozenset = frozenset()
+        self._lr = None
+        self._bufs: Dict[tuple, torch.Tensor] = {}
+        self._graphs: Dict[tuple, _Captured] = {}
 
     # ------------------------------------------------------------ setup
     def init(self, **input_shapes):
@@ -123,12 +181,21 @@ class FusedTrainer:
         if arg_shapes is None:
             raise MXNetError(f"FusedTrainer.init: cannot infer the "
                              f"parameter shapes from {input_shapes}")
+        arg_names = self.symbol.list_arguments()
+        self._channels_last = channels_last_default()
+        self._cl_params = self._discover_channels_last(
+            dict(zip(arg_names, arg_shapes)))
         inputs = set(self.data_names + self.label_names)
-        for name, shape in zip(self.symbol.list_arguments(), arg_shapes):
+        self.params, self.aux, self.opt_state = {}, {}, {}
+        for name, shape in zip(arg_names, arg_shapes):
             if name in inputs:
                 continue
+            # filled in logical OIHW order, then stored channels-last, so
+            # the draws do not depend on the layout
             arr = torch.zeros(shape, dtype=torch.float32, device=self.device)
             self._initializer(name, arr)
+            if name in self._cl_params:
+                arr = arr.contiguous(memory_format=torch.channels_last)
             self.params[name] = arr
         unknown = self._fixed - set(self.params)
         if unknown:
@@ -143,25 +210,96 @@ class FusedTrainer:
             arr = torch.zeros(shape, dtype=torch.float32, device=self.device)
             self._initializer(name, arr)
             self.aux[name] = arr
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._cparams = {}
+        self._bufs = {}
+        self._graphs = {}
         self._refresh_compute_cache()
         return self
 
+    def _discover_channels_last(self, shapes):
+        """The conv weights that only 2-D convolutions consume (as their
+        weight input), which get channels-last storage; none when
+        ``MXTPU_CONV_LAYOUT=NCHW`` or ``MXTPU_HWIO_STORAGE=0``."""
+        if (os.environ.get("MXTPU_HWIO_STORAGE", "1") == "0"
+                or not self._channels_last):
+            return frozenset()
+        conv_w, other = set(), set()
+        for node in self.symbol.nodes:
+            if node.is_variable:
+                continue
+            for idx, (src, _) in enumerate(node.inputs):
+                if not src.is_variable:
+                    continue
+                if (node.op == "Convolution" and idx == 1
+                        and len(shapes.get(src.name) or ()) == 4):
+                    conv_w.add(src.name)
+                else:
+                    other.add(src.name)
+        # a weight that is itself an output is read in its logical layout
+        other.update(n.name for n, _ in self.symbol._outputs
+                     if n.is_variable)
+        return frozenset(conv_w - other)
+
     def _refresh_compute_cache(self):
-        """(Re)build the carried compute-dtype copy from the fp32 masters.
-        Call after any direct overwrite of ``self.params`` outside
-        :meth:`step` (``init`` and ``convert.load_trainer_params`` do)."""
-        if self._use_ccache:
-            self._cparams = {k: v.to(self.dtype)
-                             for k, v in self.params.items()}
+        """(Re)fill the carried compute-dtype copy from the fp32 masters,
+        in place once it exists.  Call after any direct overwrite of
+        ``self.params`` outside :meth:`step` (``init`` and
+        ``convert.load_trainer_params`` do)."""
+        if not self._use_ccache:
+            return
+        for k, v in self.params.items():
+            c = self._cparams.get(k)
+            if c is None:
+                self._cparams[k] = v.to(self.dtype)
+            else:
+                c.copy_(v)
+
+    def _state(self):
+        """Every tensor a step overwrites, in a fixed order."""
+        yield from self.params.values()
+        yield from self._cparams.values()
+        for st in self.opt_state.values():
+            yield from st
+        yield from self.aux.values()
 
     # ---------------------------------------------------------- running
-    def _to_device(self, batch):
-        out = {}
-        for k, v in batch.items():
-            if not isinstance(v, torch.Tensor):
-                v = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = v.to(self.device, non_blocking=True)
-        return out
+    def _require_init(self, what):
+        if self._lr is None:
+            raise MXNetError(f"FusedTrainer.{what}: call init() first")
+
+    def _buffer(self, name, src):
+        """The persistent device buffer of input ``name`` at ``src``'s
+        shape and dtype (channels-last for 4-D data under NHWC)."""
+        key = (name, tuple(src.shape), src.dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            fmt = (torch.channels_last
+                   if self._channels_last and src.dim() == 4
+                   else torch.contiguous_format)
+            buf = torch.empty(src.shape, dtype=src.dtype, device=self.device,
+                              memory_format=fmt)
+            self._bufs[key] = buf
+        return buf
+
+    def _pinned(self, t):
+        """``t`` in pinned host memory when it is bound for the card from
+        the host, so its upload is queued without waiting."""
+        if (self.device.type == "cuda" and t.device.type == "cpu"
+                and not t.is_pinned()):
+            return t.pin_memory()
+        return t
+
+    def _stage(self, batch):
+        """Copy each input into its buffer (no host sync); returns
+        ``{name: buffer}``."""
+        staged = {}
+        for name, value in batch.items():
+            src = self._pinned(_as_tensor(value))
+            buf = self._buffer(name, src)
+            buf.copy_(src, non_blocking=True)
+            staged[name] = buf
+        return staged
 
     def _args(self, batch, compute_params):
         args = dict(compute_params)
@@ -173,19 +311,19 @@ class FusedTrainer:
         # in fp32 the masters are what the forward reads
         return self._cparams if self._use_ccache else self.params
 
-    def current_lr(self):
-        """The learning rate the next step will apply."""
+    def _lr_at(self, num_update):
         if self._lr_scheduler is not None:
-            return float(self._lr_scheduler(self._step + 1))
+            return float(self._lr_scheduler(num_update))
         return self._base_lr
 
-    def step(self, **batch):
-        """One training step; returns the graph's outputs (tensors on the
-        trainer's device, not synchronised)."""
-        # the JAX step receives lr as an fp32 scalar
-        lr = float(np.float32(self.current_lr()))
-        self._step += 1
-        sb = self._to_device(batch)
+    def current_lr(self):
+        """The learning rate the next step will apply."""
+        return self._lr_at(self._step + 1)
+
+    def _train_step(self, sb):
+        """Forward, backward and update on the staged batch ``sb`` at the
+        rate in ``self._lr``; the state is updated in place.  The body
+        of both :meth:`step` and the captured graph."""
         compute = self._compute_params()
         trainable = {k: v.detach().requires_grad_(True)
                      for k, v in compute.items() if k not in self._fixed}
@@ -201,7 +339,9 @@ class FusedTrainer:
             outs, list(trainable.values()),
             grad_outputs=[torch.ones_like(o) for o in outs],
             allow_unused=True)
-        with torch.no_grad():
+        # the range names the update's kernels in a profile of eager steps
+        with torch.no_grad(), torch.profiler.record_function(
+                "FusedTrainer.update"):
             f32 = {k: (torch.zeros_like(self.params[k]) if g is None
                        else g.float())
                    for k, g in zip(trainable, grads)}
@@ -214,17 +354,138 @@ class FusedTrainer:
             for k, w in self.params.items():
                 if k in self._fixed:
                     continue
+                mult = self._lr_mult.get(k, 1.0)
                 self._update(w, f32[k], self.opt_state[k],
-                             lr * self._lr_mult.get(k, 1.0),
+                             self._lr if mult == 1.0 else self._lr * mult,
                              self._wd_mult.get(k, 1.0))
                 if self._use_ccache:
                     self._cparams[k].copy_(w)
-            self.aux = {k: v.detach().float() for k, v in new_aux.items()}
+            for k, v in new_aux.items():
+                self.aux[k].copy_(v)
         return [o.detach() for o in outs]
+
+    def step(self, **batch):
+        """One training step, eagerly; returns the graph's outputs
+        (tensors on the trainer's device, not synchronised)."""
+        self._require_init("step")
+        # the JAX step receives lr as an fp32 scalar
+        lr = float(np.float32(self.current_lr()))
+        self._step += 1
+        sb = self._stage(batch)
+        self._lr.fill_(lr)
+        return self._train_step(sb)
+
+    def _steps_of(self, value):
+        """One ``step_multi`` input -> its k per-step tensors: the rows
+        of a stacked ``(k, B, ...)`` value, or the elements of a k-list;
+        host tensors bound for the card are pinned."""
+        if isinstance(value, (list, tuple)):
+            rows = [_as_tensor(v) for v in value]
+        else:
+            rows = list(_as_tensor(value).unbind(0))
+        return [self._pinned(r) for r in rows]
+
+    def step_multi(self, **stacked):
+        """k training steps; every input carries a leading steps axis,
+        stacked ``(k, B, ...)`` or a k-list/tuple of per-step ``(B, ...)``
+        batches (``io.step_multi_feeds`` makes those).
+
+        Interchangeable with k calls of :meth:`step` at any point of a
+        run: the same lr schedule, the same updates.  On the card the
+        whole step (forward, backward, update, bf16 copy refresh, aux
+        write-back) is one CUDA graph, captured on the first call for
+        these per-step shapes and dtypes and cached, then replayed once
+        per step after the step's batch and lr are copied into its
+        buffers.  A step that cannot be captured raises; it never falls
+        back to eager steps.  On the CPU the k steps run through
+        :meth:`step`.
+
+        Returns the per-step outputs stacked on axis 0, not
+        synchronised."""
+        self._require_init("step_multi")
+        if not stacked:
+            raise MXNetError("FusedTrainer.step_multi: no inputs given")
+        rows = {name: self._steps_of(v) for name, v in stacked.items()}
+        counts = {name: len(r) for name, r in rows.items()}
+        if len(set(counts.values())) != 1 or 0 in counts.values():
+            raise MXNetError(f"FusedTrainer.step_multi: every input needs "
+                             f"the same number of steps (>= 1), got "
+                             f"{counts}")
+        k = next(iter(counts.values()))
+        for name, r in rows.items():
+            if any(x.shape != r[0].shape or x.dtype != r[0].dtype
+                   for x in r):
+                raise MXNetError(f"FusedTrainer.step_multi: the steps of "
+                                 f"{name!r} differ in shape or dtype")
+        if self.device.type != "cuda":
+            outs = [self.step(**{n: r[i] for n, r in rows.items()})
+                    for i in range(k)]
+            return [torch.stack(o) for o in zip(*outs)]
+        cap = self._captured({n: r[0] for n, r in rows.items()})
+        lrs = [float(np.float32(self._lr_at(self._step + 1 + i)))
+               for i in range(k)]
+        self._step += k
+        stacked_outs = [torch.empty((k,) + tuple(o.shape), dtype=o.dtype,
+                                    device=o.device) for o in cap.outputs]
+        for i in range(k):
+            for name, r in rows.items():
+                cap.inputs[name].copy_(r[i], non_blocking=True)
+            self._lr.fill_(lrs[i])
+            cap.graph.replay()
+            # the next replay overwrites the graph's outputs
+            for dst, out in zip(stacked_outs, cap.outputs):
+                dst[i].copy_(out)
+        return stacked_outs
+
+    def _captured(self, example):
+        """The captured step for the per-step batch shapes and dtypes of
+        ``example`` (captured now if there is none)."""
+        key = tuple(sorted((n, tuple(t.shape), t.dtype)
+                           for n, t in example.items()))
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._capture(example)
+            self._graphs[key] = cap
+        return cap
+
+    def _capture(self, example):
+        random_ops = sorted({n.op for n in self.symbol.nodes
+                             if not n.is_variable and n.op in _RANDOM_OPS})
+        if random_ops:
+            raise MXNetError(
+                f"FusedTrainer.step_multi: the graph draws random numbers "
+                f"({', '.join(random_ops)}); a captured step would replay "
+                f"one draw, so it is not captured (use step())")
+        inputs = self._stage(example)
+        dev = self.device
+        # warm up on the capture stream, then put the state back: the
+        # warm-up steps are not part of the run
+        saved = [t.clone() for t in self._state()]
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(_WARMUP_STEPS):
+                self._train_step(inputs)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        for t, s in zip(self._state(), saved):
+            t.copy_(s)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                outputs = self._train_step(inputs)
+        except RuntimeError as exc:
+            first = exc.__context__ or exc
+            raise MXNetError(
+                f"FusedTrainer.step_multi: the training step could not be "
+                f"captured as a CUDA graph ({first}); an op on its path "
+                f"synchronises with the host or is not capturable") from exc
+        return _Captured(graph, inputs, outputs)
 
     def eval(self, **batch):
         """Forward in inference mode; a missing label is zeros."""
-        sb = self._to_device(batch)
+        self._require_init("eval")
+        sb = self._stage(batch)
         with torch.no_grad():
             args = self._args(sb, self._compute_params())
             n = sb[self.data_names[0]].shape[0]
@@ -237,18 +498,106 @@ class FusedTrainer:
         return outs
 
     def get_params(self):
-        """``(arg_params, aux_params)``: copies of the fp32 masters and aux
-        states, as tensors on the trainer's device."""
-        return ({k: v.clone() for k, v in self.params.items()},
-                {k: v.clone() for k, v in self.aux.items()})
+        """``(arg_params, aux_params)``: contiguous copies of the fp32
+        masters (logical OIHW whatever their storage) and aux states, as
+        tensors on the trainer's device."""
+        def copy(v):
+            return v.clone(memory_format=torch.contiguous_format)
+
+        return ({k: copy(v) for k, v in self.params.items()},
+                {k: copy(v) for k, v in self.aux.items()})
+
+    # -------------------------------------------------------------- fit
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            validation_metric=None, num_epoch=1, batch_end_callback=None,
+            epoch_end_callback=None, logger=None, checkpoint=None,
+            resume=None):
+        """The Module.fit-shaped loop on :meth:`step`: init from the first
+        batch's shapes when needed, a metric update per batch (fused: no
+        host sync), batch-end callbacks with a ``BatchEndParam``,
+        epoch-end callbacks with ``(epoch, symbol, arg, aux)`` from
+        :meth:`get_params`, and an eval pass per epoch.  The loop waits
+        only in the async window (``MXTPU_ASYNC_DEPTH`` steps in flight)
+        and at the epoch boundary.  Returns self."""
+        if (checkpoint or resume not in (None, False)
+                or os.environ.get("MXTPU_CKPT_DIR", "").strip()):
+            raise _not_ported("checkpoints in fit (checkpoint=, resume=, "
+                              "MXTPU_CKPT_DIR)", 7)
+        if os.environ.get("MXTPU_COORD_ADDR", "").strip():
+            raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)",
+                              10)
+        for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
+            if os.environ.get(knob, "").strip().lower() not in _OFF:
+                raise _not_ported(f"the flight and perf recorders ({knob})",
+                                  11)
+        from . import engine, metric as metric_mod
+        from .module.base_module import BatchEndParam, _as_list
+
+        log = logger or logging.getLogger()
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            if validation_metric is None and eval_data is not None:
+                validation_metric = metric_mod.create(eval_metric)
+            eval_metric = metric_mod.create(eval_metric)
+        if validation_metric is not None and not isinstance(
+                validation_metric, metric_mod.EvalMetric):
+            validation_metric = metric_mod.create(validation_metric)
+        if eval_data is not None and validation_metric is None:
+            raise ValueError(
+                "pass validation_metric when eval_metric is a metric "
+                "instance (instances hold state; eval needs its own)")
+        train_names = ([d[0] for d in train_data.provide_data]
+                       + [d[0] for d in train_data.provide_label])
+        eval_label_names = ([d[0] for d in getattr(eval_data, "provide_label",
+                                                   None) or []]
+                            if eval_data is not None else [])
+        eval_names = ([d[0] for d in eval_data.provide_data]
+                      + eval_label_names if eval_data is not None else None)
+        for epoch in range(num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            train_data.reset()
+            window = engine.AsyncWindow()
+            for nbatch, batch in enumerate(train_data):
+                feed = dict(zip(train_names,
+                                list(batch.data) + list(batch.label)))
+                if self._lr is None:
+                    self.init(**{k: tuple(v.shape) for k, v in feed.items()})
+                outs = self.step(**feed)
+                eval_metric.update(batch.label, [NDArray(o) for o in outs])
+                window.push(outs)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=None)
+                    for cb in _as_list(batch_end_callback):
+                        cb(params)
+            window.drain()
+            for name, val in eval_metric.get_global_name_value():
+                log.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            log.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+            if epoch_end_callback is not None:
+                arg, aux = self.get_params()
+                for cb in _as_list(epoch_end_callback):
+                    cb(epoch, self.symbol, arg, aux)
+            if eval_data is not None:
+                vm = validation_metric
+                vm.reset()
+                eval_data.reset()
+                window = engine.AsyncWindow()
+                for batch in eval_data:
+                    feed = dict(zip(eval_names,
+                                    list(batch.data)
+                                    + (list(batch.label)
+                                       if eval_label_names else [])))
+                    outs = self.eval(**feed)
+                    vm.update(batch.label, [NDArray(o) for o in outs])
+                    window.push(outs)
+                window.drain()
+                for name, val in vm.get_global_name_value():
+                    log.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
+        return self
 
     # ------------------------------------------------------- not ported
-    def step_multi(self, *args, **kwargs):
-        raise _not_ported("step_multi", 4)
-
-    def fit(self, *args, **kwargs):
-        raise _not_ported("fit", 6)
-
     def save_checkpoint(self, *args, **kwargs):
         raise _not_ported("save_checkpoint", 7)
 

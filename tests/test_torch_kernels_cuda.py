@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels against their plain versions, on
 the card: paged decode attention, the flash-attention forward, dQ and
 dK/dV kernels, the residual epilogue (with its 4 launches per
-ResNet-50 forward through the Predictor), and user CUDA C through
-``rtc.Rtc`` (NVRTC) against the plain twins of the kernels pushed.
+ResNet-50 forward through the Predictor), user CUDA C through
+``rtc.Rtc`` (NVRTC) against the plain twins of the kernels pushed, and
+``FusedTrainer.step_multi``'s captured CUDA graph of the training step
+against eager steps.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -663,3 +665,140 @@ def test_rtc_push_makes_no_host_sync(card, monkeypatch):
     monkeypatch.undo()
     assert calls == []
     torch.testing.assert_close(out, torch.full_like(x, 3.0))
+
+
+# ------------------------------------------------ captured training step
+def _conv_trainer(card, dtype, b=8, seed=0):
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    data = tsym.Variable("data")
+    net = tsym.Convolution(data, name="conv1", kernel=(3, 3), num_filter=16,
+                           pad=(1, 1))
+    net = tsym.BatchNorm(net, name="bn1", fix_gamma=False)
+    net = tsym.Activation(net, act_type="relu")
+    net = tsym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = tsym.Convolution(net, name="conv2", kernel=(3, 3), num_filter=32,
+                           pad=(1, 1))
+    net = tsym.BatchNorm(net, name="bn2", fix_gamma=False)
+    net = tsym.Activation(net, act_type="relu")
+    net = tsym.Pooling(net, global_pool=True, kernel=(1, 1), pool_type="avg")
+    net = tsym.FullyConnected(tsym.Flatten(net), name="fc", num_hidden=10)
+    net = tsym.SoftmaxOutput(net, name="softmax")
+    trandom.seed(seed)
+    return FusedTrainer(net, optimizer="sgd",
+                        optimizer_params={"lr": 0.1, "momentum": 0.9,
+                                          "rescale_grad": 1.0 / b},
+                        dtype=dtype, device=card).init(data=(b, 3, 16, 16))
+
+
+def _train_batches(k, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.rand((b, 3, 16, 16), generator=g),
+             torch.randint(0, 10, (b,), generator=g).float())
+            for _ in range(k)]
+
+
+@pytest.fixture()
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _max_param_err(a, b):
+    return max(float((a.params[k] - b.params[k]).norm()
+                     / b.params[k].norm().clamp_min(1e-30))
+               for k in a.params)
+
+
+# the graph replays the kernels the eager step launches, on the same
+# inputs; they part only where a kernel's summation order is not fixed
+# (atomics in cuDNN's weight gradients): fp32 to 1e-5 of each
+# parameter's norm after 4 steps, bf16 (whose activations then round
+# apart) to 1e-2
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-5), ("bfloat16", 1e-2)])
+def test_step_multi_graph_matches_eager_steps(card, no_tf32, dtype, tol):
+    from mxnet_tpu_torch import convert
+
+    eager, graph = _conv_trainer(card, dtype), _conv_trainer(card, dtype)
+    convert.load_trainer_params(graph, eager.params, eager.aux)
+    batches = _train_batches(4, 8)
+    want = [eager.step(data=x, softmax_label=y)[0] for x, y in batches]
+    outs = graph.step_multi(data=torch.stack([x for x, _ in batches]),
+                            softmax_label=torch.stack([y for _, y in batches]))
+    assert len(graph._graphs) == 1 and graph._step == eager._step == 4
+    assert outs[0].shape == (4, 8, 10)
+    torch.testing.assert_close(outs[0].float(), torch.stack(want).float(),
+                               rtol=tol, atol=tol)
+    assert _max_param_err(graph, eager) <= tol
+    for k in eager.aux:
+        torch.testing.assert_close(graph.aux[k], eager.aux[k], rtol=tol,
+                                   atol=tol)
+    # a later eager step continues from the graph's state
+    x, y = batches[0]
+    eager.step(data=x, softmax_label=y)
+    graph.step(data=x, softmax_label=y)
+    assert _max_param_err(graph, eager) <= tol
+
+
+def test_step_multi_recaptures_on_a_new_batch_shape(card):
+    t = _conv_trainer(card, "bfloat16")
+    for b in (8, 4, 8):
+        xs = _train_batches(3, b, seed=b)
+        outs = t.step_multi(data=tuple(x for x, _ in xs),
+                            softmax_label=tuple(y for _, y in xs))
+        assert outs[0].shape == (3, b, 10)
+        assert bool(torch.isfinite(outs[0]).all())
+    assert len(t._graphs) == 2 and t._step == 9
+
+
+def test_step_multi_is_one_graph_launch_per_step(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    t = _conv_trainer(card, "bfloat16")
+    xs = _train_batches(4, 8)
+    feed = {"data": torch.stack([x for x, _ in xs]).to(card),
+            "softmax_label": torch.stack([y for _, y in xs]).to(card)}
+    t.step_multi(**feed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t.step_multi(**feed)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaGraphLaunch") == 4
+    launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                   for n in names)
+    # per step: the lr fill, the batch copies and the output copy only
+    assert launches <= 4 * 6, launches
+
+
+def test_step_multi_capture_failure_raises(card, monkeypatch):
+    from mxnet_tpu_torch.ops import registry
+
+    t = _conv_trainer(card, None)
+    before = {k: v.clone() for k, v in t.params.items()}
+    flatten = registry.get("Flatten")
+    plain = flatten.fn
+
+    def syncing(ctx, x, **attrs):
+        float(x.sum())  # a host sync: not capturable
+        return plain(ctx, x, **attrs)
+
+    monkeypatch.setattr(flatten, "fn", syncing)
+    xs = _train_batches(2, 8)
+    with pytest.raises(MXNetError, match="could not be captured"):
+        t.step_multi(data=torch.stack([x for x, _ in xs]),
+                     softmax_label=torch.stack([y for _, y in xs]))
+    # nothing ran in its place: no step, no graph, the state as it was
+    assert t._step == 0 and not t._graphs
+    for k, v in t.params.items():
+        assert torch.equal(v, before[k]), k
+    monkeypatch.undo()
+    out = t.step(data=xs[0][0], softmax_label=xs[0][1])[0]
+    assert bool(torch.isfinite(out).all()) and t._step == 1

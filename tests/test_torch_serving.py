@@ -243,7 +243,9 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
     assert len(files) > 15
     for new in ("ndarray.py", "model.py", "interop.py", "rtc.py",
                 os.path.join("ops", "_nvrtc.py"),
-                os.path.join("ops", "init_sample.py")):
+                os.path.join("ops", "init_sample.py"), "io.py",
+                "metric.py", "engine.py", "callback.py", "lr_scheduler.py",
+                os.path.join("module", "base_module.py")):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -260,7 +262,10 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.passes, mxnet_tpu_torch.predict, "
             "mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.model, mxnet_tpu_torch.interop, "
-            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops._nvrtc\n"
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops._nvrtc, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.metric, "
+            "mxnet_tpu_torch.engine, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.module\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")

@@ -403,8 +403,9 @@ def test_trainer_refuses_what_is_not_ported(kw, match):
 
 
 @pytest.mark.parametrize("method,match", [
-    ("step_multi", "item 4"), ("fit", "item 6"),
-    ("save_checkpoint", "item 7"), ("restore_state", "item 7")])
+    ("save_state", "item 7"), ("load_checkpoint", "item 7"),
+    ("save_checkpoint", "item 7"), ("restore_state", "item 7"),
+    ("rebind_mesh", "item 10")])
 def test_trainer_methods_not_ported(method, match):
     tt = TTrainer(ttrm.transformer_lm(**SMALL), device="cpu")
     with pytest.raises(MXNetError, match=match):
