@@ -49,6 +49,18 @@ at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
    ``fit`` over an ``NDArrayIter`` of 8 host batches with ``Accuracy``
    and a ``Speedometer``, whose host syncs per batch must be 0; the
    ``[train_resnet]`` line carries bench.py's keys;
+5c. the Module path at full width (``phase_module_resnet``, the fp32
+   half of bench.py:1692-1776): ``Module`` over ResNet-50 with Xavier
+   weights and SGD (lr 0.05, momentum 0.9): at batch 32 one Module step
+   against ``FusedTrainer.step`` and the bucketed kvstore update
+   (``kvstore=mx.kv.create("local")``) against the eager ``Updater``;
+   at batch 256 (TF32 off) 12 timed steps of each route (images/s, step
+   ms, peak memory, a profile with the update's own launch calls); one
+   epoch of ``Module.fit`` over 8 host batches with ``do_checkpoint``
+   (0 host syncs per batch); ``Module.score`` with 4 epilogue launches a
+   forward and ``Module.predict`` equal to the Predictor's; and
+   ``Module.load(..., load_optimizer_states=True)`` taking the same next
+   step as the module that wrote the checkpoint;
 6. ResNet-50 inference (``phase_predict``): ``models.resnet.get_symbol(
    1000, 50, (3, 224, 224))`` with seeded random weights through
    ``predict.Predictor`` at batch 32 (the Conv+BN fold and the graph
@@ -169,6 +181,24 @@ RESNET_KINDS = (
     ("copies and casts", ("copy", "Memcpy", "Memset", "memcpy", "memset")),
     ("elementwise (BN, ReLU, adds, update)", ("elementwise",)),
 )
+# the Module path of bench.py:1692-1776 (_amp_micro's fp32 half):
+# ResNet-50 at batch 256 fp32 (TF32 off), Xavier, SGD lr 0.05 momentum
+# 0.9, kvstore "local"; 2 warm-up and 12 timed steps through the eager
+# Updater and through the bucketed update; parity at batch 32
+MODULE_BATCH, MODULE_WARMUP, MODULE_STEPS = 256, 2, 12
+MODULE_PARITY_BATCH = RESNET_BATCH
+MODULE_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+MODULE_SCORE_BATCHES = 2
+# (max, median) relative error over the parameters, and the max over the
+# softmax, momentum and moving stats.  The Module against FusedTrainer:
+# the same arithmetic on the same kernels (cuDNN deterministic) but for
+# the order of independent launches, held as the captured-vs-eager step
+# of phase 5b is.  Bucketed against eager: the same elementwise
+# arithmetic, op for op, through foreach kernels: 1e-6
+MODULE_TOL = {"vs_trainer": (1e-3, 1e-5), "bucket_vs_eager": (1e-6, 1e-6)}
+# Module.predict against a Predictor running the same graph and kernels;
+# a reloaded checkpoint's step against the writer's (the same state)
+MODULE_PREDICT_TOL, MODULE_RELOAD_TOL = 1e-6, 1e-6
 # channels-last vs NCHW, fp32, one step (see _resnet_parity_runs):
 # (softmax and BN moving variances, parameters' median, their max)
 NCHW_TOL = (1e-5, 1e-2, 1e-1)
@@ -1197,13 +1227,15 @@ def _resnet_parity(staged, tag, dtype, tol, nchw=False):
     return out
 
 
-def _train_profile(run, steps, step_ms, tag):
+def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
+                   prefix="train_resnet"):
     """Device ms per step by kind of kernel, busy ms, idle share (1 -
     busy / the timed steps' wall), host launch calls per step and graph
     launches, over ``run()`` (``steps`` steps), from torch.profiler.  The
-    update's device time comes from the ``FusedTrainer.update`` range
-    (eager steps only: a graph's kernels have no range): the kernels
-    that start inside the range's span on the device."""
+    update's device time comes from the ``update`` range (eager steps
+    only: a graph's kernels have no range): the kernels that start
+    inside the range's span on the device; its host launch calls are
+    those made inside the range on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1213,17 +1245,21 @@ def _train_profile(run, steps, step_ms, tag):
         torch.cuda.synchronize()
     by_kind = dict.fromkeys([k for k, _ in RESNET_KINDS] + ["other"], 0.0)
     top, other, calls, graphs = {}, {}, 0, 0
-    device, spans = [], []
+    device, spans, host_spans, launches = [], [], [], []
     for ev in prof.events():
+        r = (ev.time_range.start, ev.time_range.end)
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            r = (ev.time_range.start, ev.time_range.end)
             # the update range's span on the device, not a kernel
-            (spans if ev.name == "FusedTrainer.update" else device).append(
-                (r, ev.name))
+            (spans if ev.name == update else device).append((r, ev.name))
+        elif ev.name == update:
+            host_spans.append(r)
         elif ev.name in LAUNCH_CALLS:
             calls += 1
             graphs += ev.name == "cudaGraphLaunch"
-    update = 0.0
+            launches.append(r[0])
+    update_calls = sum(any(a <= t < b for a, b in host_spans)
+                       for t in launches)
+    update_ms = 0.0
     for (t0, t1), name in device:
         ms = (t1 - t0) / 1e3 / steps
         kind = next((k for k, pats in RESNET_KINDS
@@ -1233,29 +1269,32 @@ def _train_profile(run, steps, step_ms, tag):
         if kind == "other":
             other[name] = other.get(name, 0.0) + ms
         if any(a <= t0 < b for a, b in (sp for sp, _ in spans)):
-            update += ms
+            update_ms += ms
     kernels = len(device)
     busy = sum(by_kind.values())
     rows = sorted(((t, n) for n, t in top.items()), reverse=True)
     others = sorted(((t, n) for n, t in other.items()), reverse=True)
-    log(f"[train_resnet-profile] {tag} per step: {step_ms:.3f} ms wall, "
+    log(f"[{prefix}-profile] {tag} per step: {step_ms:.3f} ms wall, "
         f"device busy {busy:.3f} ms, idle share {1 - busy / step_ms:.4f}; "
         f"host launch calls {calls / steps:.1f} ({graphs} graph launches "
         f"in {steps} steps), {kernels / steps:.1f} kernels; optimizer "
-        f"update {update:.3f} ms; by kind: "
+        f"update {update_ms:.3f} ms, {update_calls / steps:.1f} host "
+        f"launch calls; by kind: "
         + ", ".join(f"{k} {t:.3f}" for k, t in by_kind.items())
         + "; top: " + "; ".join(f"{n[:80]} {t:.3f}" for t, n in rows[:8])
         + "; other: " + "; ".join(f"{n[:80]} {t:.3f}" for t, n in others[:4]))
     return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
             "launch_calls_per_step": calls / steps, "graph_launches": graphs,
-            "kernels_per_step": kernels / steps, "update_ms": update,
+            "kernels_per_step": kernels / steps, "update_ms": update_ms,
+            "update_launch_calls_per_step": update_calls / steps,
             "by_kind_ms": by_kind}
 
 
-def _resnet_fit(tr, smi):
-    """One epoch of ``fit`` over an NDArrayIter of 8 host batches with
-    Accuracy and a Speedometer; counts the host syncs (Tensor reads to
-    the host, and every synchronising CUDA call under
+def _resnet_fit(tr, smi, tag="train_resnet", **fit_kwargs):
+    """One epoch of ``fit`` (of a FusedTrainer or a Module; ``fit_kwargs``
+    go to it) over an NDArrayIter of 8 host batches with Accuracy and a
+    Speedometer; counts the host syncs (Tensor reads to the host, and
+    every synchronising CUDA call under
     ``torch.cuda.set_sync_debug_mode("warn")``) batch by batch.  The
     async window's waits on its events are counted apart."""
     import warnings
@@ -1302,7 +1341,7 @@ def _resnet_fit(tr, smi):
         try:
             tr.fit(it, eval_metric=acc, num_epoch=1,
                    batch_end_callback=[callback.Speedometer(RESNET_BATCH),
-                                       mark])
+                                       mark], **fit_kwargs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
             engine.AsyncWindow._wait_one = wait_one
@@ -1316,9 +1355,9 @@ def _resnet_fit(tr, smi):
     batch_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
     warned = sorted({str(w.message).splitlines()[0][:120] for w in caught})
     value = acc.get_global()[1]
-    log(f"[train_resnet-fit] one epoch of {RESNET_FIT_BATCHES} batches of "
+    log(f"[{tag}-fit] one epoch of {RESNET_FIT_BATCHES} batches of "
         f"{RESNET_BATCH} x 3 x 224 x 224 in {wall:.3f} s "
-        f"({n / wall:.1f} img/s, host data uploaded by the trainer); "
+        f"({n / wall:.1f} img/s, host data uploaded by the step); "
         f"host syncs between batches {per_batch}, before the first batch's "
         f"end {marks[0]}, at the epoch boundary {total - marks[-1]} "
         f"({', '.join(sorted(set(syncs)))}; sync-debug warnings "
@@ -1467,6 +1506,305 @@ def phase_train_resnet(smi):
     log("[train_resnet] " + json.dumps(line))
     return line
 
+
+# --------------------------------------------------------------- phase 5c
+def _module(net, batch, kvstore="local", arg=None, aux=None):
+    """A Module of ``net`` on the card, bound for training at ``batch`` x
+    3 x 224 x 224, initialised with Xavier (or from ``arg``/``aux``), with
+    the SGD of bench.py's _amp_micro through ``kvstore``."""
+    import mxnet_tpu_torch as mx
+
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (batch, 3, 224, 224))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(initializer=mx.init.Xavier(), arg_params=arg,
+                    aux_params=aux)
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=MODULE_OPT)
+    return mod
+
+
+def _batch(x, y):
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    return io.DataBatch(data=[NDArray(x)], label=[NDArray(y)])
+
+
+def _module_step(mod, b):
+    mod.forward(b, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def _module_state(mod):
+    """``(params, momentum, aux)`` of a Module: its bound tensors and its
+    updater's (or its store's updater's) momentum, by parameter name."""
+    ex = mod._exec_group.execs[0]
+    upd = mod._updater or mod._kvstore._updater
+    mom = {name: upd.states[i].tensor
+           for i, name in enumerate(mod._param_names) if i in upd.states}
+    return ({k: ex.arg_dict[k] for k in mod._param_names}, mom,
+            dict(ex.aux_dict))
+
+
+def _rel_errs(a, b):
+    """``(max, its name, median)`` of ``||a - b|| / ||b||`` over the
+    names of ``b``."""
+    errs = sorted((_rel_err(a[k], b[k]), k) for k in b)
+    return errs[-1][0], errs[-1][1], errs[len(errs) // 2][0]
+
+
+def _module_parity(net, staged):
+    """At batch 32, fp32, from the same seeded weights: one Module step
+    through its own updater against one ``FusedTrainer.step`` with the
+    same SGD, and one Module step through ``mx.kv.create("local")`` (the
+    bucketed update) against the updater's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    x0 = staged[0]
+    b = _batch(x0["data"], x0["softmax_label"])
+    mxrandom.seed(0)
+    tr = FusedTrainer(net, optimizer="sgd", optimizer_params={
+        "lr": MODULE_OPT["learning_rate"],
+        "momentum": MODULE_OPT["momentum"],
+        "rescale_grad": 1.0 / MODULE_PARITY_BATCH}).init(
+            data=(MODULE_PARITY_BATCH, 3, 224, 224))
+    arg, aux = tr.get_params()
+    eager = _module(net, MODULE_PARITY_BATCH, arg=arg, aux=aux)
+    out_t = tr.step(**x0)[0]
+    _module_step(eager, b)
+    out_m = eager.get_outputs()[0].tensor
+    p, mom, maux = _module_state(eager)
+    tmom = {k: st[0] for k, st in tr.opt_state.items()}
+    res = {"vs_trainer": {
+        "softmax": _rel_err(out_m, out_t), "params": _rel_errs(p, tr.params),
+        "momentum": _rel_errs(mom, tmom), "aux": _rel_errs(maux, tr.aux)}}
+    del tr, out_t
+    torch.cuda.empty_cache()
+    bucket = _module(net, MODULE_PARITY_BATCH, kvstore=mx.kv.create("local"),
+                     arg=arg, aux=aux)
+    _module_step(bucket, b)
+    bp, bmom, baux = _module_state(bucket)
+    res["bucket_vs_eager"] = {
+        "softmax": _rel_err(bucket.get_outputs()[0].tensor, out_m),
+        "params": _rel_errs(bp, p), "momentum": _rel_errs(bmom, mom),
+        "aux": _rel_errs(baux, maux),
+        "buckets": bucket._kvstore._fused.num_buckets}
+    for what, r in res.items():
+        tol = MODULE_TOL[what]
+        log(f"[module-parity] fp32 batch {MODULE_PARITY_BATCH}, one step, "
+            f"{what}: softmax rel err {r['softmax']:.3g}; parameters max "
+            f"{r['params'][0]:.3g} ({r['params'][1]}) median "
+            f"{r['params'][2]:.3g}; momentum max {r['momentum'][0]:.3g} "
+            f"({r['momentum'][1]}); BN moving stats max {r['aux'][0]:.3g} "
+            f"({r['aux'][1]}); tol max {tol[0]}, median {tol[1]}"
+            + (f"; {r['buckets']} buckets" if "buckets" in r else ""))
+        worst = max(r["softmax"], r["params"][0], r["momentum"][0],
+                    r["aux"][0])
+        if not (worst <= tol[0] and r["params"][2] <= tol[1]):
+            raise AssertionError(f"module parity {what}: {r}")
+    del eager, bucket
+    torch.cuda.empty_cache()
+    return res
+
+
+def _module_route(net, batches, kvstore, tag, smi):
+    """The timed route at batch 256: warm-up, 12 timed steps (host wall
+    ending in a sync), peak memory, a profile of 2 more steps."""
+    mod = _module(net, MODULE_BATCH, kvstore=kvstore)
+    for i in range(MODULE_WARMUP):
+        _module_step(mod, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(MODULE_STEPS):
+        _module_step(mod, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = mod.get_outputs()[0].tensor
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"module {tag}: non-finite outputs")
+    r = {"steps": MODULE_STEPS, "wall_s": wall,
+         "step_ms": wall / MODULE_STEPS * 1e3,
+         "img_s": MODULE_BATCH * MODULE_STEPS / wall,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "reserved_bytes": torch.cuda.max_memory_reserved()}
+    r["mfu_fp32"] = r["img_s"] * RESNET_FLOPS_PER_IMG / PEAK_FLOPS[
+        torch.float32]
+    fused = getattr(mod._kvstore, "_fused", None)
+    r["buckets"] = fused.num_buckets if fused is not None else None
+    r["keys"] = len(mod._param_names)
+    log(f"[module] {tag}: {r['img_s']:.2f} img/s, step {r['step_ms']:.3f} "
+        f"ms over {MODULE_STEPS} steps (batch {MODULE_BATCH}, fp32, TF32 "
+        f"off), {r['mfu_fp32']:.4f} of 67 TFLOP/s fp32; peak memory "
+        f"allocated {r['peak_bytes'] / 2**30:.2f} GiB, reserved "
+        f"{r['reserved_bytes'] / 2**30:.2f} GiB; {r['keys']} keys"
+        + (f" in {r['buckets']} buckets" if r["buckets"] else
+           " through the eager Updater") + f"; {smi}")
+    r["profile"] = _train_profile(
+        lambda: [_module_step(mod, batches[i % len(batches)])
+                 for i in range(2)], 2, r["step_ms"], tag,
+        update="Module.update", prefix="module")
+    del mod, out
+    torch.cuda.empty_cache()
+    return r
+
+
+def _module_score(mod, smi):
+    """``Module.score`` over 2 eval batches (4 epilogue launches a
+    forward), then ``Module.predict`` against the Predictor on the same
+    parameters with the same graph passes (the Conv+BN fold off, as the
+    Module's executor does not fold): equal probabilities."""
+    from mxnet_tpu_torch import io, metric
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    rs = np.random.RandomState(7)
+    n = RESNET_BATCH * MODULE_SCORE_BATCHES
+    xe = rs.uniform(0, 1, (n, 3, 224, 224)).astype(np.float32)
+    ye = rs.randint(0, 1000, n).astype(np.float32)
+    it = io.NDArrayIter(xe, ye, batch_size=RESNET_BATCH)
+    n0 = tre.launch_count()
+    res = mod.score(it, metric.Accuracy())
+    launched = tre.launch_count() - n0
+    if launched != 4 * MODULE_SCORE_BATCHES:
+        raise AssertionError(f"Module.score: {launched} epilogue launches in "
+                             f"{MODULE_SCORE_BATCHES} forwards; want 4 each")
+    probs = mod.predict(it).asnumpy()
+    # the Module's own launches: the Predictor below is the comparison
+    main = tre.launch_count() - n0
+    arg, aux = mod.get_params()
+    p = _predictor(mod.symbol, {k: v.tensor for k, v in arg.items()},
+                   {k: v.tensor for k, v in aux.items()},
+                   env={"MXTPU_GRAPH_PASSES": "cse,dce,residual_epilogue"})
+    want = []
+    for i in range(MODULE_SCORE_BATCHES):
+        p.forward(data=xe[i * RESNET_BATCH:(i + 1) * RESNET_BATCH])
+        want.append(p.get_output(0))
+    want = np.concatenate(want)
+    err = float(np.abs(probs - want).max())
+    log(f"[module-score] Module.score over {MODULE_SCORE_BATCHES} batches of "
+        f"{RESNET_BATCH}: {res}, {launched} epilogue launches; "
+        f"Module.predict vs the Predictor (same parameters, passes "
+        f"cse,dce,residual_epilogue, no Conv+BN fold): max |prob diff| "
+        f"{err:.3g} (tol {MODULE_PREDICT_TOL}); {smi}")
+    if probs.shape != (n, 1000) or not err <= MODULE_PREDICT_TOL:
+        raise AssertionError(f"Module.predict vs Predictor: {probs.shape}, "
+                             f"{err}")
+    del p
+    return {"score": res, "launches": launched, "vs_predictor": err,
+            "main_launches": main}
+
+
+def _module_reload(mod, prefix, staged):
+    """``Module.load(prefix, 1, load_optimizer_states=True)`` of what
+    ``mod`` wrote takes one step; ``mod`` takes the same step."""
+    import mxnet_tpu_torch as mx
+
+    mod.save_optimizer_states(f"{prefix}-0001.states")
+    loaded = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                context=mx.gpu(0))
+    loaded.bind(data_shapes=[("data", (RESNET_BATCH, 3, 224, 224))],
+                label_shapes=[("softmax_label", (RESNET_BATCH,))])
+    loaded.init_optimizer(kvstore="local", optimizer="sgd",
+                          optimizer_params=MODULE_OPT)
+    b = _batch(staged[1]["data"], staged[1]["softmax_label"])
+    for m in (mod, loaded):
+        _module_step(m, b)
+    a, ma, xa = _module_state(mod)
+    c, mc, xc = _module_state(loaded)
+    errs = {"params": _rel_errs(c, a), "momentum": _rel_errs(mc, ma),
+            "aux": _rel_errs(xc, xa)}
+    worst = max(e[0] for e in errs.values())
+    log(f"[module-reload] Module.load({os.path.basename(prefix)!r}, 1, "
+        f"load_optimizer_states=True), then one step each: parameters max "
+        f"rel err {errs['params'][0]:.3g} ({errs['params'][1]}), momentum "
+        f"{errs['momentum'][0]:.3g}, BN moving stats {errs['aux'][0]:.3g} "
+        f"(tol {MODULE_RELOAD_TOL})")
+    if not worst <= MODULE_RELOAD_TOL:
+        raise AssertionError(f"reloaded module's step differs: {errs}")
+    del loaded
+    return {k: v[0] for k, v in errs.items()}
+
+
+def phase_module_resnet(smi):
+    """The Module path (``_amp_micro``'s fp32 half, bench.py:1692-1776):
+    parity on the card, ResNet-50 at batch 256 through the eager Updater
+    and through the bucketed kvstore update, ``fit`` with its host syncs
+    counted, ``score`` with the epilogue kernel against the Predictor,
+    and a checkpoint reload.  Returns the numbers of the [module] line,
+    with the epilogue launches of the phase's main path."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import callback, models
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    net = models.get_symbol("resnet-50", num_classes=1000,
+                            image_shape=(3, 224, 224))
+    rs = np.random.RandomState(0)
+    staged = [{"data": torch.from_numpy(rs.uniform(
+        0, 1, (RESNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda(),
+        "softmax_label": torch.from_numpy(rs.randint(
+            0, 1000, RESNET_BATCH).astype(np.float32)).cuda()}
+        for _ in range(2)]
+    # cuDNN's deterministic algorithms for the comparisons: the two
+    # sides then run the same kernels in the same summation order
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = _module_parity(net, staged)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    big = [_batch(torch.from_numpy(rs.uniform(
+        0, 1, (MODULE_BATCH, 3, 224, 224)).astype(np.float32)).cuda(),
+        torch.from_numpy(rs.randint(0, 1000, MODULE_BATCH).astype(
+            np.float32)).cuda()) for _ in range(2)]
+    # the main path's run: every kernel count starts at 0 here
+    tre.reset_launch_count()
+    routes = {"eager": _module_route(net, big, "local", "eager Updater",
+                                     smi),
+              "bucketed": _module_route(net, big, mx.kv.create("local"),
+                                        "bucketed kvstore", smi)}
+    del big
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    try:
+        prefix = os.path.join(tmp, "resnet50")
+        fmod = mx.mod.Module(net, context=mx.gpu(0))
+        fit = _resnet_fit(fmod, smi, tag="module", kvstore="local",
+                          optimizer="sgd", optimizer_params=MODULE_OPT,
+                          initializer=mx.init.Xavier(),
+                          epoch_end_callback=callback.do_checkpoint(prefix))
+        n0 = tre.launch_count()
+        score = _module_score(fmod, smi)
+        launches = n0 + score["main_launches"]
+        torch.backends.cudnn.deterministic = True
+        try:
+            reload = _module_reload(fmod, prefix, staged)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del fmod
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if launches < 4 * MODULE_SCORE_BATCHES:
+        raise AssertionError(f"the Module path launched the epilogue kernel "
+                             f"{launches} times")
+    eag, buc = routes["eager"], routes["bucketed"]
+    log(f"[module] update launch calls per step: eager Updater "
+        f"{eag['profile']['update_launch_calls_per_step']:.1f} for "
+        f"{eag['keys']} keys, bucketed "
+        f"{buc['profile']['update_launch_calls_per_step']:.1f} for "
+        f"{buc['buckets']} buckets; epilogue launches on the phase's main "
+        f"path {launches}")
+    line = {"metric": "resnet50_module_train_imgs_per_sec",
+            "value": eag["img_s"], "unit": "img/s",
+            "device_kind": torch.cuda.get_device_name(0),
+            "batch": MODULE_BATCH, "dtype": "float32", "tf32": False,
+            "routes": routes, "parity": parity, "fit": fit, "score": score,
+            "reload": reload, "epilogue_launches": launches, "card": smi}
+    log("[module] " + json.dumps(line))
+    return line
 
 # ----------------------------------------------------------------- phase 6
 def _epi_bound_ms(rows, c, dtype):
@@ -2109,6 +2447,7 @@ def main():
     del params
     flash_launches, train = phase_train()
     phase_train_resnet(smi)
+    module = phase_module_resnet(smi)
     epi, epi_launches = phase_predict()
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
@@ -2140,6 +2479,7 @@ def main():
     rec.update(epi["bf16"])
     rec["fp32"] = epi["fp32"]
     rec["launches_checkpoint"] = ckpt["launches"]
+    rec["launches_module"] = module["epilogue_launches"]
     records.append(rec)
     # Rtc compiles what the user writes: the record's times are those of
     # b_axpy (the full-width kernel), each user kernel's in "user_kernels"

@@ -20,7 +20,11 @@ generated ``nd.<op>`` functions, ``save``/``load``), checkpoints
 ``models.get_symbol``, ``trainer.FusedTrainer`` with channels-last conv
 weights, ``step_multi`` as one captured CUDA graph per step, and ``fit``
 over ``io.NDArrayIter`` with ``metric``, ``callback``, ``lr_scheduler``,
-``initializer`` and the ``engine.AsyncWindow``.
+``initializer`` and the ``engine.AsyncWindow``; and MXNet's training
+API — the ``Executor`` forward and backward, ``optimizer`` with its
+``Updater``, the local ``kvstore`` with the bucketed update of
+``kvstore_fused``, and ``module.Module`` (bind, fit, score, predict,
+checkpoints).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -37,3 +41,16 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
 from .context import cpu, current_context, gpu, resolve_device  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from .symbol import Group, Symbol, Variable  # noqa: F401
+from . import executor  # noqa: F401
+from .executor import Executor  # noqa: F401
+from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from .module import Module  # noqa: F401

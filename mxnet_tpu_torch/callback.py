@@ -8,17 +8,30 @@ symbol, arg_params, aux_params)``.  ``Speedometer(auto_reset=True)``
 reports per-interval metric values; with ``auto_reset=False`` it reads
 the metric (the fused path's host sync) only when the metric's
 ``update_stamp`` says it received updates since the last report.
-``module_checkpoint`` waits for ``Module`` (ROADMAP Queue 1 item 6), and
-the Speedometer's telemetry gauges and multi-host log prefix for items
-10 and 11.
+``module_checkpoint`` saves through a ``Module`` (with its optimizer
+states when asked).  The Speedometer's telemetry gauges and multi-host
+log prefix wait for ROADMAP Queue 1 items 10 and 11.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["do_checkpoint", "log_train_metric", "Speedometer",
-           "ProgressBar"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback calling ``mod.save_checkpoint(prefix, epoch,
+    save_optimizer_states)`` every ``period`` epochs."""
+    every = max(1, int(period))
+
+    def _save(epoch, sym=None, arg=None, aux=None):
+        done = epoch + 1
+        if done % every == 0:
+            mod.save_checkpoint(prefix, done, save_optimizer_states)
+
+    return _save
 
 
 def do_checkpoint(prefix, period=1):

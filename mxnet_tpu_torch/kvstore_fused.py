@@ -1,0 +1,251 @@
+"""Bucketed KVStore update engine of the port (mirrors
+``mxnet_tpu/kvstore_fused.py``: ``FusedUpdateEngine``, dense and not
+sharded).
+
+The eager path pays one updater call, and about seven kernel launches,
+per parameter per step.  This engine groups the registered keys into
+size-capped buckets (``MXTPU_KV_BUCKET_MB``, default 4 MB; stable key
+order; one gradient dtype per bucket; a parameter larger than the cap
+gets its own bucket) and steps each bucket as one torch function, the
+JAX package's jitted bucket program:
+
+- the bucket's gradients are concatenated once into a flat buffer (the
+  per-device copies of a key are summed there), which is the step's
+  scratch, so the caller's gradients are never written;
+- the optimizer rule runs over every key of the bucket through
+  ``torch._foreach_*`` (``optim_rules.multi_rule``), so the launches per
+  bucket do not grow with its key count;
+- pulls copy the stored values out through ``torch._foreach_copy_``
+  (one call per device and dtype pair).
+
+The optimizer state lives in the ``Updater``'s store (``ensure_state``),
+so eager and bucketed steps interleave on one state.  Per-key lr
+(Adam's bias correction included) and wd are host floats read each
+step, as in the eager update.  An fp32 master weight (the last state
+slot) takes the update, and the weight is its cast.
+
+The sharded bucket program (ROADMAP Queue 1 item 10; it needs several
+cards, which the Module refuses), row-sparse buckets (item 7), AMP loss
+scaling (``MXTPU_LOSS_SCALE``, the LossScaler of item 7) and the
+numerics sentinel (``MXTPU_SENTINEL``, item 11) are not ported; the
+last two raise when set.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .base import MXNetError, parse_bool
+from .ndarray import NDArray
+from .optim_rules import multi_rule
+
+__all__ = ["fused_update_enabled", "bucket_cap_bytes", "FusedUpdateEngine"]
+
+_DEFAULT_BUCKET_MB = 4.0
+_OFF = ("", "0", "off", "false", "no")
+
+
+def fused_update_enabled() -> bool:
+    """``MXTPU_FUSED_UPDATE`` (default on)."""
+    return parse_bool(os.environ.get("MXTPU_FUSED_UPDATE", "1"))
+
+
+def bucket_cap_bytes() -> int:
+    """``MXTPU_KV_BUCKET_MB`` in bytes (fractions allowed)."""
+    raw = os.environ.get("MXTPU_KV_BUCKET_MB", "").strip()
+    try:
+        mb = float(raw) if raw else _DEFAULT_BUCKET_MB
+    except ValueError:
+        mb = _DEFAULT_BUCKET_MB
+    return max(int(mb * (1 << 20)), 1)
+
+
+def _state_slots(state) -> Tuple:
+    """An Updater state as the rule's slot tuple."""
+    if state is None:
+        return ()
+    if isinstance(state, (tuple, list)):
+        return tuple(state)
+    return (state,)
+
+
+def _t(x) -> torch.Tensor:
+    return x.tensor if isinstance(x, NDArray) else x
+
+
+def _dense(t: torch.Tensor) -> bool:
+    return t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements in memory order, as a 1-D view when ``t`` is
+    dense (contiguous or channels-last), else as a contiguous copy."""
+    if not _dense(t):
+        t = t.contiguous()
+    return t.as_strided((t.numel(),), (1,))
+
+
+class _Bucket:
+    __slots__ = ("dtype", "keys", "shapes", "sizes", "nbytes")
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self.keys: List = []
+        self.shapes: List[tuple] = []
+        self.sizes: List[int] = []
+        self.nbytes = 0
+
+
+class FusedUpdateEngine:
+    """The bucketed update of one KVStore.  ``handle_push`` and
+    ``handle_pull`` return False for a call they cannot bucket, and the
+    store then runs its eager loops."""
+
+    def __init__(self, kvstore, optimizer, updater):
+        for knob, what, item in (
+                ("MXTPU_SENTINEL", "the numerics sentinel", 11),
+                ("MXTPU_LOSS_SCALE", "AMP loss scaling (the LossScaler)",
+                 7)):
+            if os.environ.get(knob, "").strip().lower() not in _OFF:
+                raise MXNetError(f"{what} ({knob}) of the bucketed update "
+                                 f"is not ported yet (ROADMAP Queue 1 item "
+                                 f"{item})")
+        self._kv = kvstore
+        self._opt = optimizer
+        self._updater = updater
+        self._buckets: Optional[List[_Bucket]] = None
+        self._plan_keys: Optional[tuple] = None
+        self._key_index: Dict = {}
+        self._ndev = 0
+        self._rule = None
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self._buckets or ())
+
+    # ------------------------------------------------------------- plan
+    def _build_plan(self, keys, vlists, ndev):
+        cap = bucket_cap_bytes()
+        buckets: List[_Bucket] = []
+        cur = None
+        for k, vl in zip(keys, vlists):
+            g0 = _t(vl[0])
+            nbytes = g0.numel() * g0.element_size()
+            if (cur is None or cur.dtype != g0.dtype
+                    or (cur.nbytes and cur.nbytes + nbytes > cap)):
+                cur = _Bucket(g0.dtype)
+                buckets.append(cur)
+            cur.keys.append(k)
+            cur.shapes.append(tuple(g0.shape))
+            cur.sizes.append(g0.numel())
+            cur.nbytes += nbytes
+        self._buckets = buckets
+        self._plan_keys = tuple(keys)
+        self._key_index = {k: i for i, k in enumerate(keys)}
+        self._ndev = ndev
+
+    # ------------------------------------------------------------- push
+    def handle_push(self, keys, values) -> bool:
+        """The bucketed update for one batched push; False when the call
+        cannot be bucketed (an unregistered key, copy lists of unequal
+        length, a row-sparse value)."""
+        kv = self._kv
+        vlists = [list(v) if isinstance(v, (list, tuple)) else [v]
+                  for v in values]
+        if not vlists or not vlists[0]:
+            return False
+        ndev = len(vlists[0])
+        for k, vl in zip(keys, vlists):
+            if k not in kv._store or len(vl) != ndev:
+                return False
+            if any(getattr(v, "stype", "default") != "default" for v in vl):
+                return False
+        if self._plan_keys != tuple(keys) or self._ndev != ndev:
+            self._build_plan(keys, vlists, ndev)
+        opt = self._opt
+        rule_name, opt_params = opt.fused_rule()
+        if self._rule is None or self._rule[0] != (rule_name, opt_params):
+            self._rule = ((rule_name, opt_params),
+                          multi_rule(rule_name, opt_params))
+        nslots, update = self._rule[1]
+        # host bookkeeping first, as the eager order gives every key of
+        # the step the same num_update
+        for k in keys:
+            opt._update_count(k)
+        lrs = {k: float(opt.fused_lr(k)) for k in keys}
+        wds = {k: float(opt._get_wd(k)) for k in keys}
+        for b in self._buckets:
+            self._step_bucket(b, vlists, nslots, update, lrs, wds)
+        return True
+
+    def _merged(self, b, vlists, device) -> torch.Tensor:
+        """The bucket's gradients, concatenated once per device copy and
+        summed: a new flat buffer on ``device``."""
+        idx = self._key_index
+        flat = None
+        for d in range(self._ndev):
+            segs = [_flat(_t(vlists[idx[k]][d])) for k in b.keys]
+            part = torch.cat(segs) if len(segs) > 1 else segs[0].clone()
+            part = part.to(device)
+            flat = part if flat is None else flat.add_(part)
+        return flat
+
+    def _step_bucket(self, b, vlists, nslots, update, lrs, wds):
+        kv, upd = self._kv, self._updater
+        weights = [kv._store[k] for k in b.keys]
+        slots = [_state_slots(upd.ensure_state(k, w))
+                 for k, w in zip(b.keys, weights)]
+        for k, s in zip(b.keys, slots):
+            if len(s) not in (nslots, nslots + 1):
+                raise MXNetError(f"kvstore_fused: key {k!r} holds "
+                                 f"{len(s)} state slots, the rule "
+                                 f"{nslots}")
+        # an fp32 master as the last slot takes the update
+        masters = [len(s) == nslots + 1 for s in slots]
+        if any(masters) and not all(masters):
+            raise MXNetError("kvstore_fused: a bucket mixes keys with and "
+                             "without fp32 master weights")
+        mp = all(masters)
+        ws = [_t(s[-1]) if mp else _t(w) for s, w in zip(slots, weights)]
+        states = [tuple(_t(x) for x in s[:nslots]) for s in slots]
+        flat = self._merged(b, vlists, ws[0].device)
+        if mp:
+            flat = flat.float()
+        gs, off = [], 0
+        idx = self._key_index
+        for k, w, n in zip(b.keys, ws, b.sizes):
+            g = _t(vlists[idx[k]][0])
+            seg = flat[off:off + n]
+            off += n
+            # the key's slice, in its gradient's layout
+            gs.append(seg.as_strided(g.shape, g.stride()) if _dense(g)
+                      else seg.view(g.shape))
+        update(flat, ws, gs, states, [lrs[k] for k in b.keys],
+               [wds[k] for k in b.keys])
+        if mp:
+            torch._foreach_copy_([_t(w) for w in weights], ws)
+
+    # ------------------------------------------------------------- pull
+    def handle_pull(self, keys, outs) -> bool:
+        """Copy the stored values out, one ``_foreach_copy_`` per device
+        and dtype pair; False for keys the store does not hold."""
+        kv = self._kv
+        if any(k not in kv._store for k in keys):
+            return False
+        dst, src = [], []
+        for k, o in zip(keys, outs):
+            for oo in (o if isinstance(o, (list, tuple)) else [o]):
+                dst.append(_t(oo))
+                src.append(kv._store[k].tensor)
+        groups: Dict = {}
+        for d, s in zip(dst, src):
+            pair = groups.setdefault((d.device, d.dtype, s.device, s.dtype),
+                                     ([], []))
+            pair[0].append(d)
+            pair[1].append(s)
+        for d, s in groups.values():
+            torch._foreach_copy_(d, s)
+        return True

@@ -4,18 +4,53 @@
 A checkpoint is ``prefix-symbol.json`` (the graph's JSON) and
 ``prefix-%04d.params`` (``nd.save`` of a dict whose keys carry ``arg:``
 and ``aux:`` prefixes), so one written by either package — or the
-reference's binary ``.params`` — loads in the other.  ``FeedForward``
-waits for ``Module`` (ROADMAP Queue 1 item 6).
+reference's binary ``.params`` — loads in the other.
+
+:func:`_create_kvstore` is the reference's decision (``model.py:20-45``)
+of the store a Module trains through.  ``FeedForward`` waits for ROADMAP
+Queue 1 item 6.
 """
 from __future__ import annotations
 
 import logging
+
+import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym_mod
 from .base import MXNetError
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(store or None, update_on_kvstore)`` as the reference decides:
+    None or a string on one device (not ``dist``) gives no store and the
+    Module's own updater; a ``KVStore`` instance is used as given; a
+    string on several devices creates one, and ``local`` aggregates only
+    when a parameter has over 16 M elements."""
+    from . import kvstore as kvs
+
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+        update_on_kvstore = False
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+            update_on_kvstore = False
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max((int(np.prod(p.shape))
+                                for p in arg_params.values()), default=0)
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    return kv, (update_on_kvstore if kv else False)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

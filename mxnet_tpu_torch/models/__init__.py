@@ -1,18 +1,18 @@
 """Models of the port: the transformer LM's layout and its KV decoder,
-ResNet, and :func:`get_symbol`, the dispatcher of
+ResNet, the MLP and LeNet, and :func:`get_symbol`, the dispatcher of
 ``mxnet_tpu/models/__init__.py`` (parity:
 example/image-classification/train_model.py).
 
-The reference's zoo names every builder below; the port has ResNet and
-the transformer LM so far.  The rest raise "not ported yet" (ROADMAP
+The reference's zoo names every builder below; the port has ResNet,
+the transformer LM, the MLP and LeNet so far.  The rest raise "not ported yet" (ROADMAP
 Queue 1 item 6), and a name neither package knows raises the
 reference's ``ValueError``."""
 from ..base import MXNetError
-from . import decode, resnet, transformer  # noqa: F401
+from . import decode, lenet, mlp, resnet, transformer  # noqa: F401
 
 # the reference's builder names; None marks a builder not ported yet
 _BUILDERS = {
-    "mlp": None, "lenet": None, "alexnet": None, "vgg": None,
+    "mlp": mlp.get_symbol, "lenet": lenet.get_symbol, "alexnet": None, "vgg": None,
     "googlenet": None, "inception-bn": None, "inception-v3": None,
     "inception-resnet-v2": None, "resnet": resnet.get_symbol,
     "resnext": None, "ssd-vgg16": None,

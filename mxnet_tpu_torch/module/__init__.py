@@ -1,5 +1,8 @@
-"""The Module API of the port (``mxnet_tpu/module/``).  Only what the
-fused trainer's ``fit`` and the callbacks share is here so far:
-``BatchEndParam`` and ``_as_list``.  ``Module``, ``BaseModule.fit`` and
-the executor group are ROADMAP Queue 1 item 6."""
-from .base_module import BatchEndParam, _as_list  # noqa: F401
+"""The Module API of the port (``mxnet_tpu/module/``): ``Module`` over
+one device, ``BaseModule`` (``fit``, ``score``, ``predict``), the
+executor group, and ``BatchEndParam``/``_as_list``, which the callbacks
+share.  ``BucketingModule``, ``SequentialModule`` and ``PythonModule``
+wait for ROADMAP Queue 1 item 6."""
+from .base_module import BaseModule, BatchEndParam, _as_list  # noqa: F401
+from .executor_group import DataParallelExecutorGroup  # noqa: F401
+from .module import Module  # noqa: F401

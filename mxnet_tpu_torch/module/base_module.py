@@ -1,16 +1,262 @@
-"""What the port has of ``mxnet_tpu/module/base_module.py``:
-``BatchEndParam``, the argument of batch-end callbacks, and
-``_as_list``.  ``BaseModule`` and ``Module`` themselves are ROADMAP
-Queue 1 item 6."""
+"""``BaseModule`` of the port (mirrors
+``mxnet_tpu/module/base_module.py``; parity:
+python/mxnet/module/base_module.py): ``forward_backward``, ``score``,
+``iter_predict``, ``predict`` and ``fit``, with ``BatchEndParam`` and
+``_as_list``, which the fused trainer's ``fit`` and the callbacks share.
+
+``fit`` is the reference's loop — ``forward_backward``, ``update``,
+``update_metric`` per batch — with fused metrics and the
+:class:`~mxnet_tpu_torch.engine.AsyncWindow`: the loop makes no host
+sync per batch and waits only when the window is full and at the epoch
+boundary.  Not ported yet, and raising when asked for: the checkpoint
+manager (``checkpoint=``, ``resume=``, ``MXTPU_CKPT_DIR``; ROADMAP
+Queue 1 item 7), the elastic coordinator (``MXTPU_COORD_ADDR``, item
+10), the flight and perf recorders (item 11) and ``monitor=`` (item
+11).
+"""
 from __future__ import annotations
 
+import logging
+import os
+import time
 from collections import namedtuple
+
+import torch
+
+from ..base import MXNetError
+from ..ndarray import NDArray
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
+
+_OFF = ("", "0", "off", "false", "no")
 
 
 def _as_list(obj):
     if obj is None:
         return []
     return obj if isinstance(obj, list) else [obj]
+
+
+def _not_ported(what, item):
+    return MXNetError(f"Module.fit: {what} is not ported yet (ROADMAP Queue "
+                      f"1 item {item})")
+
+
+def _refuse_fit_options(checkpoint, resume, monitor):
+    if (checkpoint or resume not in (None, False)
+            or os.environ.get("MXTPU_CKPT_DIR", "").strip()):
+        raise _not_ported("the checkpoint manager (checkpoint=, resume=, "
+                          "MXTPU_CKPT_DIR)", 7)
+    if os.environ.get("MXTPU_COORD_ADDR", "").strip():
+        raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)", 10)
+    for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
+        if os.environ.get(knob, "").strip().lower() not in _OFF:
+            raise _not_ported(f"the flight and perf recorders ({knob})", 11)
+    if monitor is not None:
+        raise _not_ported("monitor= (monitor.py)", 11)
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # ------------------------------------------------------ high level
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _output_handles(self):
+        """The last step's output tensors (what the async window records
+        its event behind)."""
+        return [o.tensor if isinstance(o, NDArray) else o
+                for o in self.get_outputs()]
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Run ``eval_data`` through the net (inference forward) into
+        ``eval_metric``; returns its global ``(name, value)`` pairs."""
+        from .. import engine, metric as metric_mod
+
+        assert self.binded and self.params_initialized
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        if reset:
+            eval_data.reset()
+        eval_metric.reset()
+        nbatch = 0
+        window = engine.AsyncWindow()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            window.push(self._output_handles())
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(params)
+        window.drain()
+        if score_end_callback is not None:
+            params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                   eval_metric=eval_metric, locals=locals())
+            for cb in _as_list(score_end_callback):
+                cb(params)
+        return eval_metric.get_global_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [NDArray(out.tensor[:out.shape[0] - pad].clone())
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data`` (padding dropped), on the
+        module's device, merged across batches unless asked not to."""
+        output_list = [outs for outs, _, _ in self.iter_predict(
+            eval_data, num_batch=num_batch, reset=reset)]
+        if not output_list:
+            return output_list
+        if merge_batches:
+            merged = [NDArray(torch.cat([o[i].tensor for o in output_list]))
+                      for i in range(len(output_list[0]))]
+            if len(merged) == 1 and not always_output_list:
+                return merged[0]
+            return merged
+        return output_list
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint=None, resume=None):
+        """Bind, initialise and train for ``num_epoch`` epochs."""
+        from .. import metric as metric_mod
+        from ..initializer import Uniform
+
+        assert num_epoch is not None, "please specify number of epochs"
+        _refuse_fit_options(checkpoint, resume, monitor)
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer or Uniform(0.01),
+                         arg_params=arg_params, aux_params=aux_params,
+                         allow_missing=allow_missing, force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        self._fit_epochs(train_data, eval_data, eval_metric,
+                         validation_metric, begin_epoch, num_epoch,
+                         epoch_end_callback, batch_end_callback,
+                         eval_end_callback, eval_batch_end_callback)
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, begin_epoch, num_epoch,
+                    epoch_end_callback, batch_end_callback,
+                    eval_end_callback, eval_batch_end_callback):
+        from .. import engine
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            window = engine.AsyncWindow()
+            for nbatch, data_batch in enumerate(train_data):
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                window.push(self._output_handles())
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for cb in _as_list(batch_end_callback):
+                        cb(params)
+            # the epoch boundary: callbacks and the log need the card
+            window.drain()
+            for name, val in eval_metric.get_global_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            if epoch_end_callback is not None:
+                for cb in _as_list(epoch_end_callback):
+                    cb(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data is not None:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    # ------------------------------------------------- to be overridden
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def get_params(self):
+        raise NotImplementedError
+
+    def init_params(self, initializer=None, arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False):
+        raise NotImplementedError
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError
+
+    def update(self):
+        raise NotImplementedError
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError
+
+    def install_monitor(self, mon):
+        raise NotImplementedError

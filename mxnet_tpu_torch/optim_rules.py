@@ -6,9 +6,15 @@ Each rule factory takes the optimizer's hyperparameters and returns
 ``update(w, g, state, lr, wd_mult)`` runs the op of
 :mod:`mxnet_tpu_torch.ops.optimizer_ops` on them, **in place** (the
 master ``w`` and its state are overwritten; they are also returned, as
-the JAX rules return their new values).  The flat and sparse rule
-variants of the kvstore paths are not ported yet (ROADMAP Queue 1
-item 6).
+the JAX rules return their new values).
+
+:func:`multi_rule` is the multi-tensor form the bucketed kvstore update
+(:mod:`mxnet_tpu_torch.kvstore_fused`) runs over every key of a bucket:
+the same arithmetic as the per-tensor rule, operation for operation,
+through ``torch._foreach_*`` ops, so a bucket costs a fixed number of
+launches whatever its key count (the JAX engine tree-maps the per-tensor
+rule inside one jitted program instead).  The flat (sharded) and sparse
+variants wait for ROADMAP Queue 1 items 10 and 7.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 from . import ops
 from .base import parse_bool
 
-__all__ = ["_RULES"]
+__all__ = ["_RULES", "multi_rule"]
 
 
 def _sgd_rule(opt_params):
@@ -84,3 +90,113 @@ def _rmsprop_rule(opt_params):
 
 
 _RULES = {"sgd": _sgd_rule, "adam": _adam_rule, "rmsprop": _rmsprop_rule}
+
+
+# ---------------------------------------------------- multi-tensor rules
+def _prep_flat(flat, opt_params):
+    """``clip(flat * rescale)`` in place on the bucket's merged gradient
+    (``_prep_grad`` of the ops, less the weight decay, which is per
+    key)."""
+    rescale = float(opt_params.get("rescale_grad", 1.0))
+    clip = float(opt_params.get("clip_gradient", 0.0) or 0.0)
+    if rescale != 1.0:
+        flat.mul_(rescale)
+    if clip > 0:
+        flat.clamp_(-clip, clip)
+
+
+def _add_wd(ws, gs, wds):
+    """``g += wd * w`` for the keys whose wd is not 0 (the ops leave a
+    wd of 0 out)."""
+    sel = [i for i, wd in enumerate(wds) if wd != 0.0]
+    if sel:
+        torch._foreach_add_([gs[i] for i in sel], torch._foreach_mul(
+            [ws[i] for i in sel], [wds[i] for i in sel]))
+
+
+def _multi_sgd(opt_params):
+    momentum = float(opt_params.get("momentum", 0.0))
+
+    def update(ws, gs, states, lrs):
+        # lr * g, in the scratch gradient (it is not read again)
+        torch._foreach_mul_(gs, lrs)
+        if momentum:
+            moms = [s[0] for s in states]
+            torch._foreach_mul_(moms, momentum)
+            torch._foreach_sub_(moms, gs)
+            torch._foreach_add_(ws, moms)
+        else:
+            torch._foreach_sub_(ws, gs)
+
+    return (1 if momentum else 0), update
+
+
+def _multi_adam(opt_params):
+    beta1 = float(opt_params.get("beta1", 0.9))
+    beta2 = float(opt_params.get("beta2", 0.999))
+    eps = float(opt_params.get("epsilon", 1e-8))
+
+    def update(ws, gs, states, lrs):
+        means = [s[0] for s in states]
+        var = [s[1] for s in states]
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(means, beta1)
+        torch._foreach_mul_(gs, 1 - beta1)
+        torch._foreach_add_(means, gs)
+        torch._foreach_mul_(var, beta2)
+        torch._foreach_mul_(sq, 1 - beta2)
+        torch._foreach_add_(var, sq)
+        den = torch._foreach_sqrt(var)
+        torch._foreach_add_(den, eps)
+        num = torch._foreach_mul(means, lrs)
+        torch._foreach_div_(num, den)
+        torch._foreach_sub_(ws, num)
+
+    return 2, update
+
+
+def _multi_rmsprop(opt_params):
+    if parse_bool(opt_params.get("centered", False)):
+        raise ValueError("the multi-tensor rmsprop rule is the plain "
+                         "(Tieleman-Hinton) variant")
+    gamma1 = float(opt_params.get("gamma1", 0.95))
+    eps = float(opt_params.get("epsilon", 1e-8))
+    cw = float(opt_params.get("clip_weights", 0.0) or 0.0)
+
+    def update(ws, gs, states, lrs):
+        n = [s[0] for s in states]
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1 - gamma1)
+        torch._foreach_mul_(n, gamma1)
+        torch._foreach_add_(n, sq)
+        den = torch._foreach_add(n, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_mul_(gs, lrs)
+        torch._foreach_div_(gs, den)
+        torch._foreach_sub_(ws, gs)
+        if cw > 0:
+            torch._foreach_clamp_min_(ws, -cw)
+            torch._foreach_clamp_max_(ws, cw)
+
+    return 1, update
+
+
+_MULTI_RULES = {"sgd": _multi_sgd, "adam": _multi_adam,
+                "rmsprop": _multi_rmsprop}
+
+
+def multi_rule(rule_name, opt_params):
+    """``(state slots, update)`` of rule ``rule_name`` over a list of
+    tensors.  ``update(flat, ws, gs, states, lrs, wds)`` takes the
+    bucket's merged gradient ``flat``, the per-key weights ``ws``, their
+    gradients ``gs`` (views of ``flat``, used as scratch), the state
+    tuples and the per-key lr and effective wd, and updates ``ws`` and
+    the states in place."""
+    nslots, step = _MULTI_RULES[rule_name](opt_params)
+
+    def update(flat, ws, gs, states, lrs, wds):
+        _prep_flat(flat, opt_params)
+        _add_wd(ws, gs, wds)
+        step(ws, gs, states, lrs)
+
+    return nslots, update

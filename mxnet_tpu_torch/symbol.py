@@ -12,10 +12,11 @@ Shape inference walks the graph on meta tensors (the JAX package uses
 ``save``/``load``) write and read the JAX package's own JSON, so a
 symbol built there reaches the port as ``load_json(jax_symbol.tojson())``
 (attrs then arrive as strings or JSON values, which the ops read with
-``parse_attr``).  ``simple_bind`` binds an inference
-:class:`~.executor.Executor`.  ``get_internals``,
-``structural_signature``, ``bind``, nnvm-format JSON and the arithmetic
-operators other than ``+`` are not ported yet (ROADMAP Queue 1 item 3).
+``parse_attr``).  ``simple_bind`` and ``bind`` bind an
+:class:`~.executor.Executor` (forward and backward).  ``get_internals``,
+``infer_type``, nnvm-format JSON and the arithmetic operators other than
+``+`` are not ported yet (ROADMAP Queue 1 item 3), nor is
+``structural_signature`` (item 4).
 """
 from __future__ import annotations
 
@@ -254,12 +255,29 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
-    def simple_bind(self, ctx=None, grad_req="null", **kwargs):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
         """Infer shapes from ``kwargs``, allocate and bind an
         :class:`~.executor.Executor` on ``ctx`` (default: the card)."""
         from .executor import simple_bind as _simple_bind
 
-        return _simple_bind(self, ctx, grad_req=grad_req, **kwargs)
+        return _simple_bind(self, ctx, grad_req=grad_req,
+                            type_dict=type_dict, group2ctx=group2ctx,
+                            shared_exec=shared_exec, **kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind to given arrays (:func:`~.executor.bind`)."""
+        from .executor import bind as _bind
+
+        return _bind(self, ctx, args, args_grad=args_grad, grad_req=grad_req,
+                     aux_states=aux_states, group2ctx=group2ctx,
+                     shared_exec=shared_exec)
+
+    def structural_signature(self):
+        raise MXNetError("Symbol.structural_signature (the executor's "
+                         "program cache) is not ported yet (ROADMAP Queue 1 "
+                         "item 4)")
 
 
 class _InferIncomplete(Exception):

@@ -4,7 +4,9 @@ dK/dV kernels, the residual epilogue (with its 4 launches per
 ResNet-50 forward through the Predictor), user CUDA C through
 ``rtc.Rtc`` (NVRTC) against the plain twins of the kernels pushed, and
 ``FusedTrainer.step_multi``'s captured CUDA graph of the training step
-against eager steps.
+against eager steps, and the Module path (a Module step against
+``FusedTrainer.step``, the bucketed kvstore update's launches,
+``Module.score`` through the epilogue kernel).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -802,3 +804,144 @@ def test_step_multi_capture_failure_raises(card, monkeypatch):
     monkeypatch.undo()
     out = t.step(data=xs[0][0], softmax_label=xs[0][1])[0]
     assert bool(torch.isfinite(out).all()) and t._step == 1
+
+
+# ------------------------------------------------------- the Module path
+def _launches(run):
+    """Kernel launch calls the host makes in ``run()`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+               for e in prof.events())
+
+
+def test_module_step_matches_fused_trainer_step(card, no_tf32,
+                                                monkeypatch):
+    """One Module step (its own eager updater) and one FusedTrainer.step
+    with the same SGD from the same weights: the same arithmetic on the
+    same kernels (cuDNN deterministic), so equal to 1e-6 of each tensor's
+    norm (measured 0 at ResNet-50 width by chip_smoke.py)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    b = 8
+    tr = _conv_trainer(card, None, b=b)
+    arg, aux = tr.get_params()
+    mod = mx.mod.Module(tr.symbol, context=card)
+    mod.bind(data_shapes=[("data", (b, 3, 16, 16))],
+             label_shapes=[("softmax_label", (b,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    assert mod._kvstore is None  # one card, "local": the eager Updater
+    x, y = _train_batches(1, b)[0]
+    want = tr.step(data=x, softmax_label=y)[0]
+    mod.forward_backward(io.DataBatch([tnd.NDArray(x.to(card))],
+                                      [tnd.NDArray(y.to(card))]))
+    mod.update()
+    got = mod.get_outputs()[0].tensor
+    ex = mod._exec_group.execs[0]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    assert rel(got, want) <= 1e-6
+    for i, k in enumerate(mod._param_names):
+        assert rel(ex.arg_dict[k], tr.params[k]) <= 1e-6, k
+        assert rel(mod._updater.states[i].tensor,
+                   tr.opt_state[k][0]) <= 1e-6, k
+    for k, v in tr.aux.items():
+        assert rel(ex.aux_dict[k], v) <= 1e-6, k
+
+
+def test_bucketed_update_launches_do_not_grow_with_keys(card, monkeypatch):
+    """A batched push and pull through the bucketed update on the card:
+    the same kernel launches for 8 and for 16 keys in one bucket, and
+    fewer than the eager per-key update's; the two agree exactly."""
+    import mxnet_tpu_torch as mx
+
+    def store(nkeys, fused):
+        monkeypatch.setenv("MXTPU_FUSED_UPDATE", "1" if fused else "0")
+        kv = mx.kv.create("local")
+        kv.set_optimizer(mx.optimizer.create(
+            "sgd", learning_rate=0.1, momentum=0.9, wd=1e-3,
+            rescale_grad=0.5, param_idx2name={i: f"w{i}_weight"
+                                              for i in range(nkeys)}))
+        keys = list(range(nkeys))
+        g = torch.Generator(device="cpu").manual_seed(nkeys)
+        kv.init(keys, [tnd.NDArray(torch.randn(16, 32, generator=g).to(card))
+                       for _ in keys])
+        grads = [[tnd.NDArray(torch.randn(16, 32, generator=g).to(card))]
+                 for _ in keys]
+        outs = [tnd.NDArray(torch.zeros(16, 32, device=card))
+                for _ in keys]
+
+        def step():
+            kv.push(keys, grads)
+            kv.pull(keys, outs)
+        step()  # the states are made on the first push
+        return kv, step, outs
+
+    counts = {}
+    for n in (8, 16):
+        kv, step, outs = store(n, True)
+        assert kv._fused.num_buckets == 1
+        counts[n] = _launches(step)
+        _, estep, eouts = store(n, False)
+        counts[("eager", n)] = _launches(estep)
+        for a, b in zip(outs, eouts):
+            assert torch.equal(a.tensor, b.tensor)
+    assert counts[8] == counts[16], counts
+    assert counts[("eager", 16)] > 2 * counts[16], counts
+
+
+def test_module_score_launches_the_epilogue_four_times(card, no_tf32):
+    """``Module.score`` over a bound ResNet-50 runs the graph passes'
+    fused tails through the kernel, 4 launches a forward, and
+    ``Module.predict`` equals the Predictor on the same parameters with
+    the same passes (the Conv+BN fold off: the Module does not fold)."""
+    import os
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, metric
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.predict import Predictor
+
+    shape = (2, 3, 64, 64)
+    net = resnet.get_symbol(10, 50, shape[1:])
+    arg, aux = resnet.random_params(net, seed=0, data=shape)
+    mod = mx.mod.Module(net, context=card)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (2,))], for_training=False)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    rs = np.random.RandomState(2)
+    x = rs.normal(size=(4,) + shape[1:]).astype(np.float32)
+    y = rs.randint(0, 10, 4).astype(np.float32)
+    it = io.NDArrayIter(x, y, batch_size=2)
+    n0 = tre.launch_count()
+    mod.score(it, metric.Accuracy())
+    assert tre.launch_count() - n0 == 8
+    probs = mod.predict(it).asnumpy()
+    old = os.environ.get("MXTPU_GRAPH_PASSES")
+    os.environ["MXTPU_GRAPH_PASSES"] = "cse,dce,residual_epilogue"
+    try:
+        p = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                      input_shapes={"data": shape})
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_GRAPH_PASSES")
+        else:
+            os.environ["MXTPU_GRAPH_PASSES"] = old
+    want = []
+    for i in range(2):
+        p.forward(data=x[2 * i:2 * i + 2])
+        want.append(p.get_output(0))
+    # the same graph and kernels on the same inputs: equal
+    np.testing.assert_array_equal(probs, np.concatenate(want))

@@ -256,8 +256,9 @@ def test_cpu_forward_launches_no_kernel(net_and_params):
 def test_executor_forward_matches_the_predictor(net_and_params,
                                                 monkeypatch):
     """The Executor the Predictor sits on, driven directly: the graph
-    passes run at bind, forward keeps the outputs on the device, and
-    what it does not port yet raises."""
+    passes run at bind, forward keeps the outputs on the device, a
+    backward needs a training forward, and what it does not port yet
+    raises."""
     from mxnet_tpu_torch.executor import simple_bind
 
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "0")
@@ -279,12 +280,9 @@ def test_executor_forward_matches_the_predictor(net_and_params,
         ex.copy_params_from({"fc1_bias": np.zeros(3, np.float32)})
     with pytest.raises(MXNetError, match="unknown input"):
         ex.forward(nope=x)
-    for call in (lambda: ex.forward(is_train=True), ex.backward,
-                 lambda: simple_bind(tnet, "cpu", grad_req="write",
-                                     data=SHAPE),
-                 lambda: simple_bind(tnet, "cpu", group2ctx={"a": "cpu"},
-                                     data=SHAPE)):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            call()
+    with pytest.raises(MXNetError, match="requires forward"):
+        ex.backward()
+    with pytest.raises(MXNetError, match="not ported yet"):
+        simple_bind(tnet, "cpu", group2ctx={"a": "cpu"}, data=SHAPE)
     with pytest.raises(MXNetError, match="cannot infer"):
         simple_bind(tnet, "cpu")

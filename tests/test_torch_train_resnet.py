@@ -49,6 +49,8 @@ SGD = {"lr": 0.1, "momentum": 0.9}
                 "image_shape": (3, 16, 16)}),
     ("transformer-lm", {"num_classes": 97, "num_layers": 1, "num_heads": 2,
                         "d_model": 16, "seq_len": 8}),
+    ("mlp", {"num_classes": 10}),
+    ("lenet", {"num_classes": 10}),
 ])
 def test_get_symbol_matches_jax(monkeypatch, name, kw):
     # fresh auto-namers on both sides: the residual adds are named by a
@@ -62,7 +64,7 @@ def test_get_symbol_matches_jax(monkeypatch, name, kw):
     assert tmodels.get_symbol(name, **kw).tojson() == want
 
 
-@pytest.mark.parametrize("name", ["mlp", "lenet", "alexnet", "vgg",
+@pytest.mark.parametrize("name", ["alexnet", "vgg",
                                   "googlenet", "inception-bn",
                                   "inception-v3", "inception-resnet-v2",
                                   "resnext", "resnext-50", "ssd-vgg16"])
