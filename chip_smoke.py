@@ -3,7 +3,8 @@
 
 Drives the port's main paths — the paged decode server, the
 transformer-LM training step, ResNet-50 training (eager steps, the
-captured step and ``fit``), ResNet-50 inference through the Predictor,
+captured step and ``fit``), the Module path in fp32 and under AMP,
+ResNet-50 inference through the Predictor,
 the same deployment loaded from a checkpoint, and user CUDA C compiled
 at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
@@ -61,6 +62,18 @@ at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
    forward and ``Module.predict`` equal to the Predictor's; and
    ``Module.load(..., load_optimizer_states=True)`` taking the same next
    step as the module that wrote the checkpoint;
+5d. the AMP half of ``_amp_micro`` (``phase_module_amp``): the same
+   Module cell under ``MXTPU_AMP=bf16`` and ``MXTPU_LOSS_SCALE=dynamic``
+   (the ``amp_cast`` graph, 106 Cast nodes, the loss scale at the
+   backward): at batch 32 the bucketed update against the eager
+   ``Updater`` identical to the bit, then an ``inf`` in one gradient
+   that its bucket's weights and momenta survive to the bit, with the
+   scale halved and one overflow and one skip reported; at batch 256 12
+   timed steps of each route under ``set_sync_debug_mode("error")`` with
+   no read of the scaler (images/s, MFU against the bf16 peak, a
+   profile beside the fp32 phase's); ``Module.score`` with 4 epilogue
+   launches a forward on bf16 inputs, each held against the plain
+   version;
 6. ResNet-50 inference (``phase_predict``): ``models.resnet.get_symbol(
    1000, 50, (3, 224, 224))`` with seeded random weights through
    ``predict.Predictor`` at batch 32 (the Conv+BN fold and the graph
@@ -196,6 +209,9 @@ MODULE_SCORE_BATCHES = 2
 # of phase 5b is.  Bucketed against eager: the same elementwise
 # arithmetic, op for op, through foreach kernels: 1e-6
 MODULE_TOL = {"vs_trainer": (1e-3, 1e-5), "bucket_vs_eager": (1e-6, 1e-6)}
+# the AMP half of _amp_micro: the same Module cell under these knobs; MFU
+# against the bf16 tensor-core peak, as bench.py states it
+MODULE_AMP_ENV = {"MXTPU_AMP": "bf16", "MXTPU_LOSS_SCALE": "dynamic"}
 # Module.predict against a Predictor running the same graph and kernels;
 # a reloaded checkpoint's step against the writer's (the same state)
 MODULE_PREDICT_TOL, MODULE_RELOAD_TOL = 1e-6, 1e-6
@@ -1611,17 +1627,41 @@ def _module_parity(net, staged):
     return res
 
 
-def _module_route(net, batches, kvstore, tag, smi):
+def _allocator_counts():
+    """The caching allocator's cudaMalloc retries (each frees the cached
+    blocks after a synchronisation) and its cudaMalloc/cudaFree calls."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ("num_alloc_retries",
+                                         "num_device_alloc",
+                                         "num_device_free")}
+
+
+def _module_route(net, batches, kvstore, tag, smi, amp=False):
     """The timed route at batch 256: warm-up, 12 timed steps (host wall
-    ending in a sync), peak memory, a profile of 2 more steps."""
+    ending in a sync), peak memory, a profile of 2 more steps.  With
+    ``amp`` (the caller set ``MODULE_AMP_ENV``) the timed steps run
+    under ``torch.cuda.set_sync_debug_mode("error")`` and must leave the
+    loss scaler's ``_sync_count`` as it was; the record adds the Cast
+    nodes of the bound graph and the scaler's report."""
+    from mxnet_tpu_torch import amp as tamp
+
+    if amp:
+        tamp.reset_scaler()
     mod = _module(net, MODULE_BATCH, kvstore=kvstore)
     for i in range(MODULE_WARMUP):
         _module_step(mod, batches[i % len(batches)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    syncs = tamp.global_scaler()._sync_count
+    alloc0 = _allocator_counts()
     t0 = time.perf_counter()
-    for i in range(MODULE_STEPS):
-        _module_step(mod, batches[i % len(batches)])
+    if amp:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(MODULE_STEPS):
+            _module_step(mod, batches[i % len(batches)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = mod.get_outputs()[0].tensor
@@ -1631,23 +1671,40 @@ def _module_route(net, batches, kvstore, tag, smi):
          "step_ms": wall / MODULE_STEPS * 1e3,
          "img_s": MODULE_BATCH * MODULE_STEPS / wall,
          "peak_bytes": torch.cuda.max_memory_allocated(),
-         "reserved_bytes": torch.cuda.max_memory_reserved()}
-    r["mfu_fp32"] = r["img_s"] * RESNET_FLOPS_PER_IMG / PEAK_FLOPS[
-        torch.float32]
+         "reserved_bytes": torch.cuda.max_memory_reserved(),
+         "allocator": {k: v - alloc0[k]
+                       for k, v in _allocator_counts().items()}}
+    peak = torch.bfloat16 if amp else torch.float32
+    r["mfu"] = r["img_s"] * RESNET_FLOPS_PER_IMG / PEAK_FLOPS[peak]
     fused = getattr(mod._kvstore, "_fused", None)
     r["buckets"] = fused.num_buckets if fused is not None else None
     r["keys"] = len(mod._param_names)
+    what = "fp32, TF32 off"
+    if amp:
+        scaler = tamp.global_scaler()
+        r["loop_scaler_syncs"] = scaler._sync_count - syncs
+        r["scaler"] = scaler.report()
+        r["cast_nodes"] = sum(n.op == "Cast" for n in
+                              mod._exec_group.execs[0]._exec_symbol.nodes)
+        what = (f"MXTPU_AMP=bf16, MXTPU_LOSS_SCALE=dynamic, "
+                f"{r['cast_nodes']} Cast nodes, the timed steps under "
+                f"set_sync_debug_mode('error') with "
+                f"{r['loop_scaler_syncs']} scaler reads; scaler "
+                f"{json.dumps(r['scaler'])}")
+        if r["loop_scaler_syncs"] or r["scaler"]["overflow_total"]:
+            raise AssertionError(f"module {tag}: {r}")
     log(f"[module] {tag}: {r['img_s']:.2f} img/s, step {r['step_ms']:.3f} "
-        f"ms over {MODULE_STEPS} steps (batch {MODULE_BATCH}, fp32, TF32 "
-        f"off), {r['mfu_fp32']:.4f} of 67 TFLOP/s fp32; peak memory "
-        f"allocated {r['peak_bytes'] / 2**30:.2f} GiB, reserved "
-        f"{r['reserved_bytes'] / 2**30:.2f} GiB; {r['keys']} keys"
+        f"ms over {MODULE_STEPS} steps (batch {MODULE_BATCH}, {what}), "
+        f"MFU {r['mfu']:.4f} of {PEAK_FLOPS[peak] / 1e12:g} TFLOP/s; peak "
+        f"memory allocated {r['peak_bytes'] / 2**30:.2f} GiB, reserved "
+        f"{r['reserved_bytes'] / 2**30:.2f} GiB; caching allocator in the "
+        f"timed steps {r['allocator']}; {r['keys']} keys"
         + (f" in {r['buckets']} buckets" if r["buckets"] else
            " through the eager Updater") + f"; {smi}")
     r["profile"] = _train_profile(
         lambda: [_module_step(mod, batches[i % len(batches)])
                  for i in range(2)], 2, r["step_ms"], tag,
-        update="Module.update", prefix="module")
+        update="Module.update", prefix="module_amp" if amp else "module")
     del mod, out
     torch.cuda.empty_cache()
     return r
@@ -1804,6 +1861,229 @@ def phase_module_resnet(smi):
             "routes": routes, "parity": parity, "fit": fit, "score": score,
             "reload": reload, "epilogue_launches": launches, "card": smi}
     log("[module] " + json.dumps(line))
+    return line
+
+# --------------------------------------------------------------- phase 5d
+def _module_tensors(mod):
+    """Copies of a Module's weights, momenta and moving stats by name."""
+    p, mom, aux = _module_state(mod)
+    return {k: {n: t.clone() for n, t in d.items()}
+            for k, d in (("params", p), ("momentum", mom), ("aux", aux))}
+
+
+def _module_amp_parity(net, staged):
+    """Under AMP with loss scaling, batch 32, cuDNN deterministic, from
+    the same Xavier weights: one step through the eager Updater (unscale
+    only) and one through the bucketed update (unscale, finite flag,
+    skip-step select) must be identical to the bit, softmax included.
+    Then an ``inf`` in one gradient before a bucketed update: every key
+    of that bucket keeps its weight and momentum to the bit (the Module's
+    weights are fp32: no masters), the other buckets move, and the
+    scaler reports the scale halved, one overflow and one skip."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp as tamp
+
+    tamp.reset_scaler()
+    x0 = staged[0]
+    b = _batch(x0["data"], x0["softmax_label"])
+    probe = _module(net, MODULE_PARITY_BATCH)
+    arg, aux = probe.get_params()
+    del probe
+    eager = _module(net, MODULE_PARITY_BATCH, arg=arg, aux=aux)
+    _module_step(eager, b)
+    want = _module_tensors(eager)
+    out_e = eager.get_outputs()[0].tensor.clone()
+    del eager
+    bucket = _module(net, MODULE_PARITY_BATCH, kvstore=mx.kv.create("local"),
+                     arg=arg, aux=aux)
+    _module_step(bucket, b)
+    got = _module_tensors(bucket)
+    got["softmax"] = {"out": bucket.get_outputs()[0].tensor}
+    want["softmax"] = {"out": out_e}
+    # relative error of every tensor that is not identical to the bit
+    diffs = {f"{kind}:{n}": _rel_err(got[kind][n], t)
+             for kind in want for n, t in want[kind].items()
+             if not torch.equal(got[kind][n], t)}
+    clean = tamp.global_scaler().report()
+    fused = bucket._kvstore._fused
+    log(f"[module_amp-parity] AMP batch {MODULE_PARITY_BATCH}, one step, "
+        f"bucketed ({fused.num_buckets} buckets) vs eager Updater: "
+        f"{len(want['params'])} weights, {len(want['momentum'])} momenta, "
+        f"{len(want['aux'])} moving stats and the softmax; {len(diffs)} "
+        f"not identical to the bit {dict(list(diffs.items())[:6])}; "
+        f"scaler {json.dumps(clean)}")
+    if diffs or clean["overflow_total"]:
+        raise AssertionError(f"AMP bucketed vs eager: {diffs}, {clean}")
+    # the overflow: inf in one gradient of the bucket with the most keys,
+    # then one bucketed update
+    hit = max(fused._buckets, key=lambda bk: len(bk.keys))
+    names = [bucket._param_names[k] for k in hit.keys]
+    bucket.forward(_batch(staged[1]["data"], staged[1]["softmax_label"]),
+                   is_train=True)
+    bucket.backward()
+    bucket._exec_group.execs[0].grad_dict[names[0]].fill_(float("inf"))
+    before = _module_tensors(bucket)
+    bucket.update()
+    after = _module_tensors(bucket)
+    rep = tamp.global_scaler().report()
+    held = all(torch.equal(before[k][n], after[k][n])
+               for k in ("params", "momentum") for n in names)
+    moved = sum(not torch.equal(before["params"][n], after["params"][n])
+                for n in before["params"] if n not in names)
+    log(f"[module_amp-overflow] inf in {names[0]}'s gradient: "
+        f"its bucket's {len(names)} keys ({', '.join(names[:4])}"
+        f"{', ...' if len(names) > 4 else ''}) held their weights and "
+        f"momenta to the bit: {held}; {moved} weights of the other "
+        f"buckets moved; scaler {json.dumps(rep)}")
+    if not (held and moved and rep["scale"] == clean["scale"] / 2
+            and rep["overflow_total"] == 1
+            and rep["skipped_steps_total"] == 1):
+        raise AssertionError(f"AMP overflow: held {held}, moved {moved}, "
+                             f"{rep}")
+    arg, aux = bucket.get_params()
+    del bucket
+    torch.cuda.empty_cache()
+    return {"bucket_vs_eager_differing": len(diffs),
+            "buckets": fused.num_buckets, "clean": clean,
+            "overflow": {"param": names[0], "bucket_keys": names,
+                         "held": held, "moved": moved, "scaler": rep}}, \
+        (arg, aux)
+
+
+def _module_amp_score(net, arg, aux, smi):
+    """``Module.score`` under AMP at batch 32 over 2 batches: 4 epilogue
+    launches a forward, each launch's output held against the plain
+    version on the same inputs (``_epi_tolerance``), in the dtype the
+    kernel runs at there."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, metric
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (RESNET_BATCH, 3, 224, 224))],
+             label_shapes=[("softmax_label", (RESNET_BATCH,))],
+             for_training=False)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    rs = np.random.RandomState(7)
+    n = RESNET_BATCH * MODULE_SCORE_BATCHES
+    it = io.NDArrayIter(rs.uniform(0, 1, (n, 3, 224, 224)).astype(np.float32),
+                        rs.randint(0, 1000, n).astype(np.float32),
+                        batch_size=RESNET_BATCH)
+    calls = []
+    kernel = tre._cuda_fwd
+
+    def recording(x, s, scale, bias, channel_axis):
+        out = kernel(x, s, scale, bias, channel_axis)
+        calls.append((x, s, scale, bias, channel_axis, out))
+        return out
+
+    n0 = tre.launch_count()
+    tre._cuda_fwd = recording
+    try:
+        res = mod.score(it, metric.Accuracy())
+    finally:
+        tre._cuda_fwd = kernel
+    launched = tre.launch_count() - n0
+    worst, dtypes, shapes = 0.0, set(), []
+    for x, s, scale, bias, ax, out in calls:
+        ref = tre._plain_fwd(x, s, scale, bias, ax)
+        diff = (out.float() - ref.float()).abs()
+        tol = _epi_tolerance(x, s, scale, ref)
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"AMP epilogue {tuple(x.shape)} {x.dtype}: "
+                                 f"{float(diff.max())} over its bound")
+        worst = max(worst, float(diff.max()))
+        dtypes.add(str(x.dtype).replace("torch.", ""))
+        shapes.append(tuple(x.shape))
+    log(f"[module_amp-score] Module.score under AMP over "
+        f"{MODULE_SCORE_BATCHES} batches of {RESNET_BATCH}: {res}; "
+        f"{launched} epilogue launches, inputs {sorted(dtypes)} at "
+        f"{shapes[:4]}; each against the plain version: max |diff| "
+        f"{worst:.3g} (within the per-element bound of _epi_tolerance); "
+        f"{smi}")
+    if launched != 4 * MODULE_SCORE_BATCHES or len(calls) != launched:
+        raise AssertionError(f"Module.score under AMP: {launched} epilogue "
+                             f"launches in {MODULE_SCORE_BATCHES} forwards")
+    del mod
+    return {"score": res, "launches": launched, "dtypes": sorted(dtypes),
+            "max_abs_err": worst}
+
+
+def phase_module_amp(smi, fp32):
+    """The AMP half of ``_amp_micro`` (bench.py:1692-1776): the Module
+    cell of ``phase_module_resnet`` under ``MXTPU_AMP=bf16`` and
+    ``MXTPU_LOSS_SCALE=dynamic`` — parity of the two update routes and
+    the skip-step at batch 32, both routes timed and profiled at batch
+    256 with no host sync, and ``score`` through the epilogue kernel in
+    the AMP graph.  ``fp32`` is ``phase_module_resnet``'s line, printed
+    beside this one.  Returns the numbers of the [module_amp] line."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    net = models.get_symbol("resnet-50", num_classes=1000,
+                            image_shape=(3, 224, 224))
+    rs = np.random.RandomState(1)
+    staged = [{"data": torch.from_numpy(rs.uniform(
+        0, 1, (MODULE_PARITY_BATCH, 3, 224, 224)).astype(
+            np.float32)).cuda(),
+        "softmax_label": torch.from_numpy(rs.randint(
+            0, 1000, MODULE_PARITY_BATCH).astype(np.float32)).cuda()}
+        for _ in range(2)]
+
+    def run():
+        torch.backends.cudnn.deterministic = True
+        try:
+            parity, (arg, aux) = _module_amp_parity(net, staged)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        big = [_batch(torch.from_numpy(rs.uniform(
+            0, 1, (MODULE_BATCH, 3, 224, 224)).astype(np.float32)).cuda(),
+            torch.from_numpy(rs.randint(0, 1000, MODULE_BATCH).astype(
+                np.float32)).cuda()) for _ in range(2)]
+        # the main path's run: every kernel count starts at 0 here
+        tre.reset_launch_count()
+        routes = {"eager": _module_route(net, big, "local",
+                                         "AMP eager Updater", smi, amp=True),
+                  "bucketed": _module_route(net, big, mx.kv.create("local"),
+                                            "AMP bucketed kvstore", smi,
+                                            amp=True)}
+        del big
+        torch.cuda.empty_cache()
+        score = _module_amp_score(net, arg, aux, smi)
+        return parity, routes, score, tre.launch_count()
+
+    parity, routes, score, launches = _with_env(MODULE_AMP_ENV, run)
+    torch.cuda.empty_cache()
+    for route, r in routes.items():
+        f, p, fp = fp32["routes"][route], r["profile"], \
+            fp32["routes"][route]["profile"]
+        log(f"[module_amp-vs-fp32] {route}: AMP {r['img_s']:.2f} img/s "
+            f"({r['step_ms']:.3f} ms, MFU {r['mfu']:.4f} of bf16 peak), fp32 "
+            f"{f['img_s']:.2f} img/s ({f['step_ms']:.3f} ms); busy "
+            f"{p['busy_ms']:.3f} vs {fp['busy_ms']:.3f} ms, idle "
+            f"{p['idle_share']:.4f} vs {fp['idle_share']:.4f}; launch calls "
+            f"{p['launch_calls_per_step']:.1f} vs "
+            f"{fp['launch_calls_per_step']:.1f} (update "
+            f"{p['update_launch_calls_per_step']:.1f} vs "
+            f"{fp['update_launch_calls_per_step']:.1f}); peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} vs {f['peak_bytes'] / 2**30:.2f} "
+            f"GiB; by kind AMP/fp32 ms: "
+            + ", ".join(f"{k} {p['by_kind_ms'][k]:.3f}/"
+                        f"{fp['by_kind_ms'][k]:.3f}" for k in p["by_kind_ms"])
+            + f"; {smi}")
+    if launches < 4 * MODULE_SCORE_BATCHES:
+        raise AssertionError(f"the AMP Module path launched the epilogue "
+                             f"kernel {launches} times")
+    line = {"metric": "resnet50_module_amp_train_imgs_per_sec",
+            "value": routes["eager"]["img_s"], "unit": "img/s",
+            "device_kind": torch.cuda.get_device_name(0),
+            "batch": MODULE_BATCH, "amp": MODULE_AMP_ENV, "tf32": False,
+            "routes": routes, "parity": parity, "score": score,
+            "epilogue_launches": launches,
+            "fp32_img_s": {k: v["img_s"] for k, v in fp32["routes"].items()},
+            "card": smi}
+    log("[module_amp] " + json.dumps(line))
     return line
 
 # ----------------------------------------------------------------- phase 6
@@ -2448,6 +2728,7 @@ def main():
     flash_launches, train = phase_train()
     phase_train_resnet(smi)
     module = phase_module_resnet(smi)
+    module_amp = phase_module_amp(smi, module)
     epi, epi_launches = phase_predict()
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
@@ -2480,6 +2761,8 @@ def main():
     rec["fp32"] = epi["fp32"]
     rec["launches_checkpoint"] = ckpt["launches"]
     rec["launches_module"] = module["epilogue_launches"]
+    rec["launches_module_amp"] = module_amp["epilogue_launches"]
+    rec["module_amp_dtypes"] = module_amp["score"]["dtypes"]
     records.append(rec)
     # Rtc compiles what the user writes: the record's times are those of
     # b_axpy (the full-width kernel), each user kernel's in "user_kernels"

@@ -24,7 +24,10 @@ over ``io.NDArrayIter`` with ``metric``, ``callback``, ``lr_scheduler``,
 API — the ``Executor`` forward and backward, ``optimizer`` with its
 ``Updater``, the local ``kvstore`` with the bucketed update of
 ``kvstore_fused``, and ``module.Module`` (bind, fit, score, predict,
-checkpoints).
+checkpoints); and mixed precision — ``amp`` (the ``MXTPU_AMP`` policy,
+fp32 masters and the device-resident ``LossScaler``) with the whole
+graph-pass pipeline of ``passes`` (``constant_fold``, ``cse``, ``dce``,
+``residual_epilogue``, ``amp_cast``, ``prefuse``, ``convbn_fold``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -33,7 +36,7 @@ raise :class:`MXNetError`.
     import mxnet_tpu_torch as mx
     x = mx.nd.zeros((2, 3))          # on the card
 """
-from . import context, telemetry  # noqa: F401
+from . import amp, context, passes, telemetry  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import model, predict, rtc  # noqa: F401
 from . import callback, engine, io, lr_scheduler, metric, models  # noqa: F401

@@ -24,8 +24,11 @@ aux states back and keeps the outputs readable; ``backward(out_grads)``
 differentiates that graph once — the head gradient is ones when none is
 given (the loss ops ignore it), a caller's head takes the output's dtype
 — and writes each gradient into its bound buffer (``write``) or adds it
-there (``add``).  The graph is freed by the backward, so a second
-``backward`` needs a new ``forward``.
+there (``add``).  Under AMP loss scaling (``MXTPU_LOSS_SCALE`` with
+``MXTPU_AMP``, decided at bind) each gradient is multiplied by the
+scaler's device scale first, in the gradient's dtype.  The graph is
+freed by the backward, so a second ``backward`` needs a new
+``forward``.
 
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
@@ -42,6 +45,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import amp as _amp
 from . import ops
 from . import random as _random
 from .base import MXNetError, numeric_dtype
@@ -176,6 +180,11 @@ class Executor:
         # a variable, so the argument names stay as bound
         self._exec_symbol = apply_graph_passes(symbol)
         self._graph_fn = _build_graph_fn(self._exec_symbol, device)
+        # AMP loss scaling is decided at bind; the scaler's state moves
+        # to this bind's device once, here
+        self._amp_scale = _amp.scaling_active()
+        if self._amp_scale:
+            _amp.global_scaler().place(device)
         self._outputs = None
         self._pending = None  # (outputs with their graph, grad leaves)
 
@@ -290,6 +299,12 @@ class Executor:
             grads = torch.autograd.grad(
                 [o for o, _ in pairs], [leaves[k] for k in names],
                 grad_outputs=[h for _, h in pairs], allow_unused=True)
+        if self._amp_scale:
+            # the loss scale multiplies each gradient here, not the head:
+            # the loss ops discard the head gradient
+            scale = _amp.global_scaler().scale_raw()
+            grads = [None if g is None else g * scale.to(g.dtype)
+                     for g in grads]
         with torch.no_grad():
             for k, g in zip(names, grads):
                 buf = self.grad_dict[k]

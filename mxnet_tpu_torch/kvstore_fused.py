@@ -24,11 +24,21 @@ so eager and bucketed steps interleave on one state.  Per-key lr
 step, as in the eager update.  An fp32 master weight (the last state
 slot) takes the update, and the weight is its cast.
 
+Under AMP loss scaling (``MXTPU_LOSS_SCALE`` with ``MXTPU_AMP``) each
+bucket takes the scale as a device scalar: ``fin = isfinite(merged).all()``
+on the merged gradient, then ``merged *= (1 / scale)`` in the gradient's
+dtype, then the rule.  The rule updates in place, so the bucket's
+weights, states and masters are first copied into one flat snapshot per
+slot (``torch.cat``), and after the rule each slot is put back as
+``torch.where(fin, new, old)`` (a select: NaN times 0 would be NaN) —
+the skip-step.  The step's flags go to one
+``amp.global_scaler().end_step``.  Nothing on this path reads a device
+value on the host.
+
 The sharded bucket program (ROADMAP Queue 1 item 10; it needs several
-cards, which the Module refuses), row-sparse buckets (item 7), AMP loss
-scaling (``MXTPU_LOSS_SCALE``, the LossScaler of item 7) and the
-numerics sentinel (``MXTPU_SENTINEL``, item 11) are not ported; the
-last two raise when set.
+cards, which the Module refuses), row-sparse buckets (item 7) and the
+numerics sentinel (``MXTPU_SENTINEL``, item 11, which raises when set)
+are not ported.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from . import amp as _amp
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
 from .optim_rules import multi_rule
@@ -88,6 +99,19 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.as_strided((t.numel(),), (1,))
 
 
+def _views(flat: torch.Tensor, like) -> List[torch.Tensor]:
+    """``flat`` cut into one view per tensor of ``like``, in order, each
+    in that tensor's layout (the inverse of concatenating their
+    ``_flat`` forms)."""
+    out, off = [], 0
+    for t in like:
+        seg = flat[off:off + t.numel()]
+        off += t.numel()
+        out.append(seg.as_strided(t.shape, t.stride()) if _dense(t)
+                   else seg.view(t.shape))
+    return out
+
+
 class _Bucket:
     __slots__ = ("dtype", "keys", "shapes", "sizes", "nbytes")
 
@@ -105,14 +129,10 @@ class FusedUpdateEngine:
     store then runs its eager loops."""
 
     def __init__(self, kvstore, optimizer, updater):
-        for knob, what, item in (
-                ("MXTPU_SENTINEL", "the numerics sentinel", 11),
-                ("MXTPU_LOSS_SCALE", "AMP loss scaling (the LossScaler)",
-                 7)):
-            if os.environ.get(knob, "").strip().lower() not in _OFF:
-                raise MXNetError(f"{what} ({knob}) of the bucketed update "
-                                 f"is not ported yet (ROADMAP Queue 1 item "
-                                 f"{item})")
+        if os.environ.get("MXTPU_SENTINEL", "").strip().lower() not in _OFF:
+            raise MXNetError("the numerics sentinel (MXTPU_SENTINEL) of the "
+                             "bucketed update is not ported yet (ROADMAP "
+                             "Queue 1 item 11)")
         self._kv = kvstore
         self._opt = optimizer
         self._updater = updater
@@ -177,8 +197,18 @@ class FusedUpdateEngine:
             opt._update_count(k)
         lrs = {k: float(opt.fused_lr(k)) for k in keys}
         wds = {k: float(opt._get_wd(k)) for k in keys}
-        for b in self._buckets:
-            self._step_bucket(b, vlists, nslots, update, lrs, wds)
+        # AMP loss scaling: one fp32 1/scale for the step, a finite flag
+        # per bucket, one lattice step for all of them
+        inv = None
+        if _amp.scaling_active():
+            scaler = _amp.global_scaler()
+            # the scale lives where the weights do (a no-op after a bind)
+            scaler.place(kv._store[keys[0]].tensor.device)
+            inv = scaler.inv_scale_raw()
+        flags = [self._step_bucket(b, vlists, nslots, update, lrs, wds, inv)
+                 for b in self._buckets]
+        if inv is not None:
+            scaler.end_step(flags)
         return True
 
     def _merged(self, b, vlists, device) -> torch.Tensor:
@@ -193,7 +223,9 @@ class FusedUpdateEngine:
             flat = part if flat is None else flat.add_(part)
         return flat
 
-    def _step_bucket(self, b, vlists, nslots, update, lrs, wds):
+    def _step_bucket(self, b, vlists, nslots, update, lrs, wds, inv=None):
+        """One bucket's update; with ``inv`` (the fp32 ``1 / scale``),
+        the skip-step, returning the bucket's finite flag."""
         kv, upd = self._kv, self._updater
         weights = [kv._store[k] for k in b.keys]
         slots = [_state_slots(upd.ensure_state(k, w))
@@ -212,21 +244,31 @@ class FusedUpdateEngine:
         ws = [_t(s[-1]) if mp else _t(w) for s, w in zip(slots, weights)]
         states = [tuple(_t(x) for x in s[:nslots]) for s in slots]
         flat = self._merged(b, vlists, ws[0].device)
+        fin = None
+        if inv is not None:
+            fin = torch.isfinite(flat).all()
+            flat.mul_(inv.to(flat.dtype))
+            # the slots the rule overwrites, and the weights a master
+            # writes, as one flat snapshot each
+            held = [ws] + [[st[j] for st in states] for j in range(nslots)]
+            if mp:
+                held.append([_t(w) for w in weights])
+            old = [torch.cat([_flat(t) for t in ts]) for ts in held]
         if mp:
             flat = flat.float()
-        gs, off = [], 0
+        # each key's slice, in its gradient's layout
         idx = self._key_index
-        for k, w, n in zip(b.keys, ws, b.sizes):
-            g = _t(vlists[idx[k]][0])
-            seg = flat[off:off + n]
-            off += n
-            # the key's slice, in its gradient's layout
-            gs.append(seg.as_strided(g.shape, g.stride()) if _dense(g)
-                      else seg.view(g.shape))
+        gs = _views(flat, [_t(vlists[idx[k]][0]) for k in b.keys])
         update(flat, ws, gs, states, [lrs[k] for k in b.keys],
                [wds[k] for k in b.keys])
         if mp:
             torch._foreach_copy_([_t(w) for w in weights], ws)
+        if fin is not None:
+            for ts, o in zip(held, old):
+                new = torch.cat([_flat(t) for t in ts])
+                torch.where(fin, new, o, out=new)
+                torch._foreach_copy_(ts, _views(new, ts))
+        return fin
 
     # ------------------------------------------------------------- pull
     def handle_pull(self, keys, outs) -> bool:

@@ -1,12 +1,49 @@
-"""Creation ops of the port (``_arange`` from
-``mxnet_tpu/ops/init_sample.py``; the sampling ops wait for ROADMAP
-Queue 1 item 1's random ``nd`` ops)."""
+"""Creation ops of the port (``_zeros``, ``_ones``, ``_full``,
+``_arange`` and ``_set_value`` of ``mxnet_tpu/ops/init_sample.py``; the
+sampling ops ``uniform``/``normal`` wait for ROADMAP Queue 1 item 2's
+random ops).  Each makes its output on ``ctx.device``, in ``dtype``
+(float32 by default)."""
 from __future__ import annotations
 
 import torch
 
 from ..base import numeric_dtype, parse_attr
 from .registry import register
+
+
+def _dtype_of(attrs):
+    dt = attrs.get("dtype")
+    return numeric_dtype("float32" if dt is None else dt)
+
+
+def _shape(attrs, key="shape"):
+    return tuple(parse_attr(attrs[key]))
+
+
+@register("_zeros", arg_names=())
+def _zeros(ctx, **attrs):
+    return torch.zeros(_shape(attrs), dtype=_dtype_of(attrs),
+                       device=ctx.device)
+
+
+@register("_ones", arg_names=())
+def _ones(ctx, **attrs):
+    return torch.ones(_shape(attrs), dtype=_dtype_of(attrs),
+                      device=ctx.device)
+
+
+@register("_full", arg_names=())
+def _full(ctx, **attrs):
+    return torch.full(_shape(attrs), parse_attr(attrs["value"]),
+                      dtype=_dtype_of(attrs), device=ctx.device)
+
+
+@register("_set_value", arg_names=())
+def _set_value(ctx, **attrs):
+    """The NDArray function ``_set_value``: ``shape`` filled with
+    ``src``."""
+    return torch.full(_shape(attrs), parse_attr(attrs["src"]),
+                      dtype=_dtype_of(attrs), device=ctx.device)
 
 
 @register("_arange", arg_names=())
@@ -20,8 +57,7 @@ def _arange(ctx, **attrs):
     repeat = int(parse_attr(attrs.get("repeat", 1)))
     if stop in (None, "None"):
         start, stop = 0, start
-    out = torch.arange(start, stop, step,
-                       dtype=numeric_dtype(attrs.get("dtype", "float32")),
+    out = torch.arange(start, stop, step, dtype=_dtype_of(attrs),
                        device=ctx.device)
     if repeat > 1:
         out = out.repeat_interleave(repeat)

@@ -54,6 +54,10 @@ class OpDef:
     infer_params: Optional[Callable] = None
     # optional_args(attrs) -> names dropped (e.g. bias under no_bias)
     optional_args: Optional[Callable] = None
+    # variadic inputs (ElementWiseSum): fn(ctx, *inputs, **attrs)
+    varargs: bool = False
+    # draws random numbers (constant_fold never folds such an op)
+    needs_rng: bool = False
     doc: str = ""
 
     def resolve_arg_names(self, attrs) -> list:
@@ -66,7 +70,7 @@ class OpDef:
 
 def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
              output_names=("output",), infer_params=None, optional_args=None,
-             aliases=()):
+             varargs=False, needs_rng=False, aliases=()):
     """Decorator registering an op implementation under ``name`` (and
     each of ``aliases``)."""
 
@@ -75,6 +79,7 @@ def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
                    aux_names=tuple(aux_names), num_outputs=num_outputs,
                    output_names=tuple(output_names),
                    infer_params=infer_params, optional_args=optional_args,
+                   varargs=varargs, needs_rng=needs_rng,
                    doc=fn.__doc__ or "")
         _OPS[name] = op
         for alias in aliases:

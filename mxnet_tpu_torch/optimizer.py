@@ -20,9 +20,10 @@ channels-last conv weight gets channels-last momentum.
 ``Updater.get_states`` pickles ``{key: numpy state}`` as the reference
 does, so a state file written by either package loads in the other;
 states loaded by ``set_states`` take their device and layout from the
-weight at the key's next update.  The AMP loss scaler's unscaling
-(``amp.maybe_unscale_grad``) and row-sparse gradients wait for ROADMAP
-Queue 1 item 7.
+weight at the key's next update.  Under AMP loss scaling the
+``Updater`` divides each gradient by the live scale first
+(``amp.maybe_unscale_grad``; no skip-step on this eager path, as in the
+reference).  Row-sparse gradients wait for ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import amp as _amp
 from . import ops
 from . import random as _random
 from .base import MXNetError
@@ -44,7 +46,6 @@ __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "CcSGD", "Adam", "AdaGrad",
            "register", "get_updater"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
-_LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def register(klass):
@@ -161,14 +162,17 @@ class Optimizer:
     def _use_master(self, weight) -> bool:
         """An fp32 master for a bf16/fp16 weight, as the last state slot,
         when ``multi_precision`` (or ``MXTPU_AMP``) asks for one."""
-        from . import amp as _amp
-
-        return (self.master_supported
-                and _t(weight).dtype in _LOW_PRECISION
-                and (self.multi_precision or _amp.amp_dtype() is not None))
+        return self.master_supported and _amp.master_weights_wanted(
+            self, _t(weight).dtype)
 
     def _master_state(self, weight) -> NDArray:
         return NDArray(_t(weight).float())
+
+    def _warn_low_precision(self, index, weight):
+        """Warn once per key for a low-precision weight that updates
+        without an fp32 master."""
+        if _amp.is_low_precision(_t(weight).dtype):
+            _amp.warn_no_master(self.idx2name.get(index, index))
 
     # ------------------------------------------------- fused kvstore path
     def fused_rule(self):
@@ -204,6 +208,7 @@ class SGD(Optimizer):
             mom = () if self.momentum == 0.0 else (
                 _zeros_like(weight, torch.float32),)
             return mom + (self._master_state(weight),)
+        self._warn_low_precision(index, weight)
         if self.momentum == 0.0:
             return None
         return _zeros_like(weight)
@@ -295,6 +300,7 @@ class Adam(Optimizer):
         slots = (_zeros_like(weight, dt), _zeros_like(weight, dt))
         if self._use_master(weight):
             return slots + (self._master_state(weight),)
+        self._warn_low_precision(index, weight)
         return slots
 
     def _lr_t(self, index):
@@ -373,6 +379,7 @@ class RMSProp(Optimizer):
         if self._use_master(weight):
             return (_zeros_like(weight, torch.float32),
                     self._master_state(weight))
+        self._warn_low_precision(index, weight)
         return _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
@@ -503,6 +510,9 @@ class Updater:
         return st
 
     def __call__(self, index, grad, weight):
+        # under AMP loss scaling: the gradient divided by the live scale
+        # (a new array); the bucketed update unscales in its own step
+        grad = _amp.maybe_unscale_grad(grad)
         self.optimizer.update(index, weight, grad,
                               self.ensure_state(index, weight))
 

@@ -4,23 +4,17 @@ port of ``mxnet_tpu/passes``).
 Semantics-preserving rewrites applied at bind time, before the graph
 interpreter runs the graph.  Pipeline (registration order = run order):
 
+- ``constant_fold``  evaluate constant subgraphs once, bake literals
 - ``cse``            merge structurally identical nodes
 - ``dce``            drop identity/no-op nodes, prune dead ones
 - ``residual_epilogue`` fuse relu(add)/relu(BN(add)) residual tails
                      into the fused epilogue ops (the CUDA kernel of
                      ``ops/residual_epilogue.py`` at inference)
+- ``amp_cast``       the ``MXTPU_AMP=bf16`` precision policy as Cast
+                     insertion (the same symbol object when AMP is off)
+- ``prefuse``        collapse elementwise chains into one fused node
 - ``convbn_fold``    inference-only Conv+BN weight folding (needs the
                      parameter values; the Predictor's path only)
-
-The JAX package's ``constant_fold`` (it needs the ``_literal`` and
-creation ops), ``amp_cast`` (``Cast`` and the AMP policy) and
-``prefuse`` (``_fused_elemwise``) are not ported yet (ROADMAP Queue 1
-item 5), and the port's default pipeline leaves them out.  On the
-graphs the port runs so far they change nothing (none has a constant
-subgraph, ``MXTPU_AMP`` is off, and ``prefuse`` fuses only elementwise
-chains).  Naming one of them in ``MXTPU_GRAPH_PASSES``, or setting
-``MXTPU_AMP`` under the default pipeline, raises "not ported yet"
-rather than run a different graph.
 
 Selection: ``MXTPU_GRAPH_PASSES`` — default/empty/``on`` runs the whole
 pipeline, ``0``/``off`` disables everything, a comma list (``cse,dce``)
@@ -36,7 +30,6 @@ from dataclasses import dataclass
 from typing import Callable
 
 from .. import telemetry as _tm
-from ..amp import amp_dtype
 from ..base import MXNetError
 
 # --- telemetry families (the JAX package's "Graph passes" families) -------
@@ -51,9 +44,6 @@ _TM_PASS_REMOVED = _tm.counter(
 _TM_CONVBN = _tm.counter(
     "graph_pass_convbn_folded_total",
     "Conv+BatchNorm pairs folded into conv weights on inference binds")
-
-# passes of the JAX pipeline the port does not have yet
-NOT_PORTED = ("constant_fold", "amp_cast", "prefuse")
 
 
 @dataclass
@@ -85,30 +75,19 @@ def register_pass(name, *, training_safe, needs_params=False):
     return deco
 
 
-def _not_ported(names):
-    return MXNetError(
-        f"graph passes {sorted(names)} are not ported yet (ROADMAP Queue 1 "
-        f"item 5); the port has {list(PASSES)}")
-
-
 def enabled_passes():
     """Pass names selected by MXTPU_GRAPH_PASSES, in pipeline order."""
     raw = os.environ.get("MXTPU_GRAPH_PASSES", "").strip().lower()
     if raw in ("0", "off", "false", "no", "none", "disable", "disabled"):
         return []
     if raw in ("", "1", "on", "true", "yes", "default", "all"):
-        if amp_dtype() is not None:
-            # the JAX default pipeline would insert the AMP casts here
-            raise _not_ported(["amp_cast"])
         return list(PASSES)
     names = {p.strip() for p in raw.split(",") if p.strip()}
-    unknown = sorted(names - set(PASSES) - set(NOT_PORTED))
+    unknown = sorted(names - set(PASSES))
     if unknown:
         raise MXNetError(
             f"MXTPU_GRAPH_PASSES names unknown passes {unknown}; "
             f"registered: {list(PASSES)}")
-    if names & set(NOT_PORTED):
-        raise _not_ported(names & set(NOT_PORTED))
     return [n for n in PASSES if n in names]
 
 
@@ -170,11 +149,16 @@ def pipeline_report(symbol):
 
 
 # pass modules register themselves in PIPELINE ORDER
+from . import constant_fold  # noqa: E402,F401
 from . import cse  # noqa: E402,F401
 from . import dce  # noqa: E402,F401
 # residual_epilogue after dce (identity nodes between add/BN/relu are
-# gone by then)
+# gone by then); amp_cast after it (the fused epilogue ops are
+# pass-through for the precision policy) and before prefuse (inserted
+# Casts join elementwise chains)
 from . import residual_epilogue  # noqa: E402,F401
+from . import amp_cast  # noqa: E402,F401
+from . import prefuse  # noqa: E402,F401
 from . import convbn  # noqa: E402,F401
 from .common import op_node_count  # noqa: E402
 from .convbn import fold_conv_bn  # noqa: E402

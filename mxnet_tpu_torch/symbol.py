@@ -376,6 +376,10 @@ def _make_symbol_fn(opname: str):
         attrs = {k: v for k, v in kwargs.items()
                  if not isinstance(v, Symbol)}
         name = current_name_manager().get(name, od.name)
+        if od.varargs:
+            inputs = [a for a in args if isinstance(a, Symbol)]
+            attrs.setdefault("num_args", len(inputs))
+            return _create_named(od, inputs, attrs, name, attr)
         inputs = []
         pos = list(args)
         for an in od.resolve_arg_names(attrs):

@@ -35,13 +35,18 @@ are copied into channels-last buffers, as the Predictor binds them.
 any other consumer stays contiguous.  Shapes stay logical OIHW, and
 :meth:`FusedTrainer.get_params` returns contiguous copies.
 
+The trainer runs the graph the pass pipeline rewrote
+(``passes.apply_graph_passes``, as the JAX trainer does), so
+``MXTPU_AMP=bf16`` gives it the ``amp_cast`` graph; ``self.symbol``
+stays the user's symbol, whose names the passes never change.
+
 The steps make no host sync (no ``.item()`` / ``.cpu()``); the caller
 reads the returned outputs when it needs them.  Not ported yet, and
 raising when asked for: ``mesh`` / ``sharding_rules`` (ROADMAP Queue 1
-item 10), ``remat=True`` (item 4), the graph passes inside the trainer
-(item 1), checkpoints and ``fit(checkpoint=, resume=)`` (item 7), the
-elastic coordinator (item 10), the numerics sentinel ``MXTPU_SENTINEL``
-and the flight and perf recorders (item 11).
+item 10), ``remat=True`` (item 4), checkpoints and ``fit(checkpoint=,
+resume=)`` (item 7), the elastic coordinator (item 10), the numerics
+sentinel ``MXTPU_SENTINEL`` and the flight and perf recorders (item
+11).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from .executor import _build_graph_fn, channels_last_default
 from .initializer import Uniform
 from .ndarray import NDArray
 from .optim_rules import _RULES
+from .passes import apply_graph_passes
 
 __all__ = ["FusedTrainer"]
 
@@ -157,7 +163,11 @@ class FusedTrainer:
                 self._lr_mult[name] = float(attr["__lr_mult__"])
             if "__wd_mult__" in attr:
                 self._wd_mult[name] = float(attr["__wd_mult__"])
-        self._graph_fn = _build_graph_fn(symbol, device=self.device)
+        # the executed graph is the rewritten one; self.symbol stays the
+        # user-facing interface (the passes never rename variables)
+        self._exec_symbol = apply_graph_passes(symbol)
+        self._graph_fn = _build_graph_fn(self._exec_symbol,
+                                         device=self.device)
         self.params: Dict[str, torch.Tensor] = {}
         self.aux: Dict[str, torch.Tensor] = {}
         self.opt_state: Dict[str, tuple] = {}

@@ -4,9 +4,12 @@ dK/dV kernels, the residual epilogue (with its 4 launches per
 ResNet-50 forward through the Predictor), user CUDA C through
 ``rtc.Rtc`` (NVRTC) against the plain twins of the kernels pushed, and
 ``FusedTrainer.step_multi``'s captured CUDA graph of the training step
-against eager steps, and the Module path (a Module step against
+against eager steps, the Module path (a Module step against
 ``FusedTrainer.step``, the bucketed kvstore update's launches,
-``Module.score`` through the epilogue kernel).
+``Module.score`` through the epilogue kernel), and mixed precision (the
+bucketed update's skip-step under AMP loss scaling with no host sync,
+``Cast`` of channels-last weights, the epilogue kernel in the AMP
+graph).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -945,3 +948,112 @@ def test_module_score_launches_the_epilogue_four_times(card, no_tf32):
         want.append(p.get_output(0))
     # the same graph and kernels on the same inputs: equal
     np.testing.assert_array_equal(probs, np.concatenate(want))
+
+
+# ------------------------------------------------------ mixed precision
+@pytest.fixture()
+def amp_env(monkeypatch):
+    from mxnet_tpu_torch import amp
+
+    monkeypatch.setenv("MXTPU_AMP", "bf16")
+    amp.reset_scaler()
+    yield monkeypatch
+    amp.reset_scaler()
+
+
+def test_bucketed_amp_step_skips_an_overflow_without_host_sync(card,
+                                                               amp_env):
+    """The bucketed update under AMP loss scaling on the card, under
+    ``set_sync_debug_mode("error")``: a clean push, then a push with an
+    ``inf`` in one bucket.  That bucket's weights, momenta and fp32
+    masters are held to the bit, the other bucket moves, and the report
+    shows the scale halved with one overflow and one skip."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+
+    amp_env.setenv("MXTPU_LOSS_SCALE", "1024")
+    amp_env.setenv("MXTPU_KV_BUCKET_MB", "0.001")   # one key a bucket
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                         momentum=0.9))
+    keys = [0, 1, 2]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    kv.init(keys, [tnd.NDArray(torch.randn(16, 32, generator=g).to(
+        card, torch.bfloat16)) for _ in keys])
+    grads = [tnd.NDArray(torch.randn(16, 32, generator=g).to(card))
+             for _ in keys]
+    bad = [tnd.NDArray(grads[0].tensor.clone().fill_(float("inf")))] + \
+        grads[1:]
+
+    def held(k):
+        st = kv._updater.states[k]
+        return [kv._store[k].tensor.clone()] + [t.tensor.clone()
+                                                for t in st]
+
+    kv.push(keys, [[v] for v in grads])     # makes the states
+    torch.cuda.synchronize()
+    before = [held(k) for k in keys]
+    assert len(before[0]) == 3             # weight, momentum, master
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv.push(keys, [[v] for v in bad])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kv._fused.num_buckets == 3
+    for a, b in zip(before[0], held(0)):
+        assert torch.equal(a, b)
+    assert not torch.equal(before[1][0], held(1)[0])
+    rep = amp.global_scaler().report()
+    assert rep["scale"] == 512.0
+    assert rep["overflow_total"] == 1 and rep["skipped_steps_total"] == 1
+
+
+def test_cast_keeps_channels_last_weights_on_card(card):
+    from mxnet_tpu_torch.ops import registry
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    w = torch.randn(64, 32, 3, 3, generator=g).to(card).contiguous(
+        memory_format=torch.channels_last)
+    out = registry.get("Cast").fn(registry.OpCtx(), w, dtype="bfloat16")
+    assert out.dtype == torch.bfloat16 and out.device == w.device
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out.float(), w.to(torch.bfloat16).float())
+
+
+def test_epilogue_in_the_amp_graph_matches_plain(card, amp_env, no_tf32):
+    """``Module.score`` on a ResNet-50 bound under ``MXTPU_AMP=bf16``: 4
+    epilogue launches a forward, each in the dtype its inputs arrive in
+    (bf16: the sums of bf16 convolutions), and each launch's output
+    within ``_epi_tolerance`` of the plain version on the same inputs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, metric
+    from mxnet_tpu_torch.models import resnet
+
+    shape = (2, 3, 64, 64)
+    net = resnet.get_symbol(10, 50, shape[1:])
+    arg, aux = resnet.random_params(net, seed=0, data=shape)
+    mod = mx.mod.Module(net, context=card)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (2,))], for_training=False)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    calls = []
+    kernel = tre._cuda_fwd
+
+    def recording(x, s, scale, bias, channel_axis):
+        out = kernel(x, s, scale, bias, channel_axis)
+        calls.append((x, s, scale, bias, channel_axis, out))
+        return out
+
+    amp_env.setattr(tre, "_cuda_fwd", recording)
+    rs = np.random.RandomState(3)
+    it = io.NDArrayIter(rs.normal(size=(4,) + shape[1:]).astype(np.float32),
+                        rs.randint(0, 10, 4).astype(np.float32),
+                        batch_size=2)
+    mod.score(it, metric.Accuracy())
+    assert len(calls) == 8
+    for x, s, scale, bias, ax, out in calls:
+        assert x.dtype == s.dtype == out.dtype == torch.bfloat16
+        ref = tre._plain_fwd(x, s, scale, bias, ax)
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= _epi_tolerance(x, s, scale, ref)).all()), \
+            float(diff.max())

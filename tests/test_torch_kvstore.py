@@ -345,9 +345,9 @@ def test_knobs(monkeypatch):
     assert tkvf.bucket_cap_bytes() == 4 << 20
     monkeypatch.setenv("MXTPU_FUSED_UPDATE", "0")
     assert not tkvf.fused_update_enabled()
+    # AMP loss scaling is ported: the engine takes the knob
     monkeypatch.setenv("MXTPU_LOSS_SCALE", "dynamic")
-    with pytest.raises(MXNetError, match="item 7"):
-        tkvf.FusedUpdateEngine(None, None, None)
+    assert tkvf.FusedUpdateEngine(None, None, None).num_buckets == 0
     monkeypatch.delenv("MXTPU_LOSS_SCALE")
     monkeypatch.setenv("MXTPU_SENTINEL", "1")
     with pytest.raises(MXNetError, match="item 11"):

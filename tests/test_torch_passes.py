@@ -6,9 +6,8 @@ from the same nodes, names and input order.  Each ported pass then runs
 in both packages and the results are compared through ``tojson()``:
 ops, names, attrs and input order.  ``fold_conv_bn``'s values are held
 to the JAX fold's at 1e-6 (both fold in float64 and cast to float32).
-Also: ``MXTPU_GRAPH_PASSES`` parsing, the "not ported yet" refusals for
-``constant_fold`` / ``amp_cast`` / ``prefuse``, the telemetry counters,
-and the Symbol JSON carry itself.
+Also: ``MXTPU_GRAPH_PASSES`` parsing (every name of the JAX pipeline
+runs), the telemetry counters, and the Symbol JSON carry itself.
 """
 import json
 
@@ -137,29 +136,32 @@ def test_passes_off_returns_the_symbol(monkeypatch):
 
 
 def test_env_selection_unknown_and_unported_names(monkeypatch):
+    """Every pass of the JAX pipeline is ported: each name runs, in
+    pipeline order, and MXTPU_AMP=bf16 under the default pipeline runs
+    amp_cast; an unknown name still raises."""
     monkeypatch.delenv("MXTPU_AMP", raising=False)
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "dce,cse")
     assert tpasses.enabled_passes() == ["cse", "dce"]
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "off")
     assert tpasses.enabled_passes() == []
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "on")
-    assert tpasses.enabled_passes() == ["cse", "dce", "residual_epilogue",
-                                        "convbn_fold"]
+    assert tpasses.enabled_passes() == jpasses.enabled_passes() == [
+        "constant_fold", "cse", "dce", "residual_epilogue", "amp_cast",
+        "prefuse", "convbn_fold"]
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "nope,cse")
     with pytest.raises(MXNetError, match="unknown passes"):
         tpasses.enabled_passes()
     for name in ("constant_fold", "amp_cast", "prefuse", "cse,prefuse"):
         monkeypatch.setenv("MXTPU_GRAPH_PASSES", name)
-        with pytest.raises(MXNetError, match="not ported yet"):
-            tpasses.enabled_passes()
-        # the JAX package knows every one of them
-        jpasses.enabled_passes()
+        assert tpasses.enabled_passes() == jpasses.enabled_passes()
+        tpasses.apply_graph_passes(_carry(_epilogue_net()))
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "")
     monkeypatch.setenv("MXTPU_AMP", "bf16")
-    with pytest.raises(MXNetError, match="not ported yet"):
-        tpasses.apply_graph_passes(_carry(_epilogue_net()))
+    got = tpasses.apply_graph_passes(_carry(_epilogue_net()))
+    assert any(n.op == "Cast" for n in got.nodes)
     monkeypatch.setenv("MXTPU_GRAPH_PASSES", "cse,dce")
-    tpasses.apply_graph_passes(_carry(_epilogue_net()))  # AMP not selected
+    got = tpasses.apply_graph_passes(_carry(_epilogue_net()))
+    assert not any(n.op == "Cast" for n in got.nodes)  # not selected
 
 
 def _params(jnet, seed, data_shape):
@@ -267,3 +269,144 @@ def test_load_json_refuses_what_it_cannot_read():
     bad["nodes"][-1]["op"] = "NoSuchOp"
     with pytest.raises(MXNetError, match="not registered"):
         tsym.load_json(json.dumps(bad))
+
+
+# ------------------------------------- constant_fold, amp_cast, prefuse
+def _const_chain_net(s):
+    """A constant subgraph (``_ones + 1`` times ``_full``) added to the
+    data, then an elementwise chain (abs, *0.5, exp, sqrt, clip) into a
+    FullyConnected and the loss."""
+    d = s.Variable("data")
+    c = s._plus_scalar(s._ones(shape=(2, 3), name="k_ones"), scalar=1.0,
+                       name="k_plus")
+    c = s.broadcast_mul(c, s._full(shape=(1, 3), value=0.5, name="k_full"),
+                        name="k_mul")
+    x = s.elemwise_add(d, c, name="k_add")
+    x = s.exp(s._mul_scalar(s.abs(x, name="k_abs"), scalar=0.5,
+                            name="k_half"), name="k_exp")
+    x = s.clip(s.sqrt(x, name="k_sqrt"), a_min=0.1, a_max=3.0, name="k_clip")
+    fc = s.FullyConnected(x, num_hidden=4, name="k_fc")
+    return s.SoftmaxOutput(fc, label=s.Variable("softmax_label"),
+                           name="softmax")
+
+
+def _lm():
+    from mxnet_tpu.models import transformer as jtransformer
+
+    return jtransformer.transformer_lm(num_layers=2, num_heads=2,
+                                       d_model=16, seq_len=8, vocab_size=40)
+
+
+NEW_NETS = {"resnet50": _resnet50, "transformer_lm": _lm,
+            "const_chain": lambda: _const_chain_net(jsym)}
+
+
+def _nodes(net):
+    """``net``'s nodes as ``tojson`` writes them, with a ``_literal``'s
+    bytes as hex (JSON has no bytes)."""
+    def enc(v):
+        if isinstance(v, bytes):
+            return v.hex()
+        return v if isinstance(v, str) else json.dumps(v)
+
+    index = {id(n): i for i, n in enumerate(net.nodes)}
+    return [{"op": n.op, "name": n.name,
+             "attrs": {k: enc(v) for k, v in n.attrs.items()},
+             "inputs": [[index[id(s)], i] for s, i in n.inputs]}
+            for n in net.nodes] + [[index[id(n)], i] for n, i in net._outputs]
+
+
+@pytest.mark.parametrize("amp", ["off", "bf16"])
+@pytest.mark.parametrize("selection", ["constant_fold", "amp_cast", "prefuse",
+                                       "default"])
+@pytest.mark.parametrize("net", sorted(NEW_NETS))
+def test_new_pass_matches_jax(net, selection, amp, monkeypatch):
+    """constant_fold, amp_cast, prefuse and the default pipeline give the
+    JAX package's graph (ops, names, attrs, edges), AMP off and bf16."""
+    if amp == "off":
+        monkeypatch.delenv("MXTPU_AMP", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_AMP", amp)
+    monkeypatch.setenv("MXTPU_GRAPH_PASSES",
+                       "" if selection == "default" else selection)
+    jnet = NEW_NETS[net]()
+    tnet = _carry(jnet)
+    want = jpasses.apply_graph_passes(jnet)
+    got = tpasses.apply_graph_passes(tnet)
+    assert _nodes(got) == _nodes(want)
+    ops = [n.op for n in got.nodes]
+    if amp == "off" and selection == "amp_cast":
+        assert got is tnet
+    if net == "const_chain" and selection in ("constant_fold", "default"):
+        assert ops.count("_literal") == 1 and "_ones" not in ops
+    if net == "const_chain" and selection in ("prefuse", "default"):
+        assert "_fused_elemwise" in ops
+
+
+@pytest.mark.parametrize("amp", ["off", "bf16"])
+@pytest.mark.parametrize("net", sorted(NEW_NETS))
+def test_pipeline_report_matches_jax(net, amp, monkeypatch):
+    monkeypatch.delenv("MXTPU_GRAPH_PASSES", raising=False)
+    if amp == "off":
+        monkeypatch.delenv("MXTPU_AMP", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_AMP", amp)
+    jnet = NEW_NETS[net]()
+    assert tpasses.pipeline_report(_carry(jnet)) == \
+        jpasses.pipeline_report(jnet)
+
+
+@pytest.mark.parametrize("amp", ["off", "bf16"])
+def test_folded_and_fused_graph_computes_as_jax(amp, monkeypatch):
+    """The hand graph after the default pipeline (a ``_literal`` and a
+    ``_fused_elemwise``) runs forward and backward in both packages from
+    the same weights: probabilities and weight gradients within 1e-5 in
+    fp32, 2e-2 under AMP (bf16 rounding)."""
+    if amp == "off":
+        monkeypatch.delenv("MXTPU_AMP", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_AMP", amp)
+    monkeypatch.delenv("MXTPU_GRAPH_PASSES", raising=False)
+    monkeypatch.setenv("MXTPU_CONV_PRECISION", "float32")
+    tol = 1e-5 if amp == "off" else 2e-2
+    jnet = _const_chain_net(jsym)
+    rng = np.random.RandomState(5)
+    vals = {"data": rng.uniform(-2, 2, (2, 3)).astype(np.float32),
+            "k_fc_weight": rng.uniform(-1, 1, (4, 3)).astype(np.float32),
+            "k_fc_bias": rng.uniform(-1, 1, (4,)).astype(np.float32),
+            "softmax_label": np.array([1, 3], np.float32)}
+    shapes = {"data": (2, 3), "softmax_label": (2,)}
+    jex = jnet.simple_bind(mx.cpu(), grad_req="write", **shapes)
+    tex = _carry(jnet).simple_bind("cpu", grad_req="write", **shapes)
+    assert "_literal" in [n.op for n in tex._exec_symbol.nodes]
+    for k, v in vals.items():
+        jex.arg_dict[k][:] = v
+        tex.arg_dict[k].copy_(torch.from_numpy(v))
+    jout = jex.forward(is_train=True)[0].asnumpy()
+    jex.backward()
+    tout = tex.forward(is_train=True)[0].numpy()
+    tex.backward()
+    np.testing.assert_allclose(tout, jout, rtol=tol, atol=tol)
+    for k in ("k_fc_weight", "k_fc_bias", "data"):
+        np.testing.assert_allclose(tex.grad_dict[k].numpy(),
+                                   jex.grad_dict[k].asnumpy(), rtol=tol,
+                                   atol=tol, err_msg=k)
+
+
+def test_constant_fold_limits_and_literal_dtypes(monkeypatch):
+    """A constant above FOLD_MAX_BYTES stays unfolded; a folded bf16
+    constant keeps its dtype and value; a re-run folds nothing more."""
+    from mxnet_tpu_torch.passes import constant_fold as tcf
+
+    big = tsym._plus_scalar(tsym._ones(shape=(1 << 15,)), scalar=1.0)
+    assert tcf.constant_fold(big).tojson() == big.tojson()
+    small = tsym._mul_scalar(tsym._full(shape=(3,), value=1.5,
+                                        dtype="bfloat16"), scalar=3.0)
+    out = tcf.constant_fold(small)
+    (lit,) = [n for n in out.nodes]
+    assert lit.op == "_literal" and lit.attrs["dtype"] == "bfloat16"
+    assert _nodes(tcf.constant_fold(out)) == _nodes(out)
+    ex = out.simple_bind("cpu", grad_req="null")
+    got = ex.forward()[0]
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.full((3,), 4.5, dtype=torch.bfloat16))
