@@ -5,8 +5,10 @@ Drives the port's main paths — the paged decode server, the
 transformer-LM training step, ResNet-50 training (eager steps, the
 captured step and ``fit``), the Module path in fp32 and under AMP,
 ResNet-50 inference through the Predictor,
-the same deployment loaded from a checkpoint, and user CUDA C compiled
-at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
+the same deployment loaded from a checkpoint, user CUDA C compiled
+at run time by ``rtc.Rtc``, and the image-classification zoo (Inception-v3
+training, AlexNet through ``Module``, a nine-model inference sweep) — and
+holds each hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
@@ -95,7 +97,27 @@ at run time by ``rtc.Rtc`` — and holds each hand-written CUDA kernel
    shared memory), a grid-stride ``2x + y`` over a vector of the
    ResNet-50 parameter count, and a row softmax over the (32, 1000)
    logits of phase 7 — each against its plain PyTorch twin, with compile
-   ms, the compile cache, NVRTC's log on bad source, and µs per push.
+   ms, the compile cache, NVRTC's log on bad source, and µs per push;
+9. Inception-v3 training at full width (``phase_train_inception``,
+   tools/bench_models.py:46-67): ``models.get_symbol("inception-v3")``
+   through ``FusedTrainer`` (SGD lr 0.1, momentum 0.9, bf16 with fp32
+   masters) at batch 32 x 3 x 299 x 299: ``step_multi(8)`` against 8
+   ``step()`` calls in fp32 and bf16, 24 timed steps through each route
+   (images/s, MFU from the graph's conv and FC shapes, a profile with
+   device ms by kind, ``cat`` copies and layout converters among them),
+   a falling cross-entropy over one repeated batch;
+10. AlexNet through ``Module`` (``phase_module_alexnet``,
+   BASELINE.md:44-55): batch 256, Xavier, SGD lr 0.01 momentum 0.9,
+   fp32, LRN and Dropout on the card in training through the eager
+   ``Updater`` and the bucketed update (images/s, a profile, a falling
+   loss); ``nd.Dropout`` at (256, 4096) by statistics and by seed; a
+   draw on the card after a deliberately failed capture;
+11. the inference sweep of tools/benchmark_score.py (``phase_zoo_score``):
+   nine models through the ``Predictor`` at batch 32, fp32 and bf16,
+   images/s over 20 calls with busy time and idle share, batch-2 fp32
+   logits against the port on the CPU, and every epilogue launch of the
+   timed calls (resnet-50, resnet-152, resnext-50: 4 a forward) held
+   against its plain version.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -188,6 +210,7 @@ RESNET_KINDS = (
                     "cudnn")),
     ("layout converters", ("nchwToNhwc", "nhwcToNchw", "transpose",
                            "permute")),
+    ("cat copies (Concat)", ("CatArray", "cat_")),
     ("reductions (BN moments and their gradients)", ("reduce_kernel",)),
     ("pooling", ("pool",)),
     ("gemm (FC)", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -225,6 +248,26 @@ SYNC_METHODS = ("item", "cpu", "tolist", "numpy", "__bool__", "__float__",
                 "__int__")
 # what torch.cuda.set_sync_debug_mode("warn") says at each sync
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# the zoo slice.  Inception-v3 training as tools/bench_models.py:46-67
+# runs it: batch 32 x 3 x 299 x 299, SGD lr 0.1 momentum 0.9, bf16;
+# step_multi at k 8 against 8 step() calls, 24 timed steps a route
+INCEPTION_BATCH, INCEPTION_K, INCEPTION_WARMUP = 32, 8, 3
+INCEPTION_STEPS = 24
+# AlexNet through Module (BASELINE.md:44-55): batch 256, fp32, 10 timed
+# steps a route over one repeated batch
+ALEXNET_BATCH, ALEXNET_WARMUP, ALEXNET_STEPS = 256, 2, 10
+# the inference sweep of tools/benchmark_score.py:23-56, models at
+# :62-63 (native image side each), batch 32, 20 timed calls
+ZOO_MODELS = (("alexnet", 224), ("vgg", 224), ("googlenet", 224),
+              ("inception-bn", 224), ("inception-v3", 299),
+              ("inception-resnet-v2", 299), ("resnext-50", 224),
+              ("resnet-50", 224), ("resnet-152", 224))
+ZOO_BATCH, ZOO_CALLS = 32, 20
+# card fp32 (TF32 off) logits against torch's CPU kernels, batch 2: the
+# same fp32 arithmetic in other algorithms (cuDNN's implicit GEMMs and
+# FFTs against the CPU's), a few fp32 ulps a layer over up to ~250
+# layers (measured 3.4e-7 to 3.5e-6 relative on an H100)
+ZOO_TOL = 1e-4
 # the runtime-compiled kernels: rtc.Rtc replaces the JAX Rtc._compiled
 RTC_SRC = "mxnet_tpu_torch/rtc.py"
 RTC_REPLACES = "mxnet_tpu/rtc.py:62"                     # Rtc._compiled
@@ -2707,6 +2750,524 @@ def phase_rtc(logits, n):
     return records, launches
 
 
+# ---------------------------------------------------------------- phase 9
+def _graph_flops(net, data_shape):
+    """Forward FLOPs per image of ``net`` at ``data_shape`` (N, C, H, W),
+    counted from its convolution and FullyConnected shapes as 2 per
+    multiply-add (the other ops are not counted)."""
+    shapes = net._infer({"data": data_shape})
+    flops = 0
+    for node in net.nodes:
+        if node.op == "Convolution":
+            w = shapes[(node.inputs[1][0].name, "var")]
+            out = shapes[(id(node), 0)]
+            flops += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+        elif node.op == "FullyConnected":
+            w = shapes[(node.inputs[1][0].name, "var")]
+            flops += 2 * data_shape[0] * int(np.prod(w))
+    return flops / data_shape[0]
+
+
+def _inception_trainer(dtype):
+    """``models.get_symbol("inception-v3", num_classes=1000)`` through
+    FusedTrainer with bench_models.py:46-67's SGD (lr 0.1, momentum 0.9,
+    rescale_grad 1/32), initialised from the port's seed 0."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    mxrandom.seed(0)
+    net = models.get_symbol("inception-v3", num_classes=1000)
+    return FusedTrainer(net, optimizer="sgd", optimizer_params={
+        "lr": 0.1, "momentum": 0.9, "rescale_grad": 1.0 / INCEPTION_BATCH},
+        dtype=dtype).init(data=(INCEPTION_BATCH, 3, 299, 299))
+
+
+def _inception_parity(staged, tag, dtype, tol):
+    """``step_multi(k)`` over the staged batches against k calls of
+    ``step()`` from the same state, then one ``step()`` each; ``tol`` is
+    ``(max, median)`` over the parameters' errors relative to their
+    norms (as ``_resnet_parity`` holds ResNet-50)."""
+    from mxnet_tpu_torch.convert import load_trainer_params
+
+    eager = _inception_trainer(dtype)
+    graph = _inception_trainer(dtype)
+    load_trainer_params(graph, *eager.get_params())
+    want = [eager.step(**b)[0] for b in staged]
+    outs = graph.step_multi(**{k: torch.stack([b[k] for b in staged])
+                               for k in staged[0]})
+    err = _rel_err(outs[0], torch.stack(want))
+    perr = _param_errs(graph, eager)
+    aerr = max(_rel_err(graph.aux[k], eager.aux[k]) for k in eager.aux)
+    eager.step(**staged[0])
+    graph.step(**staged[0])
+    cont = _param_errs(graph, eager)
+    log(f"[train_inception-parity] {tag}: step_multi({len(staged)}) vs "
+        f"{len(staged)} x step(): softmax rel err {err:.3g}, parameter rel "
+        f"err max {perr[0]:.3g} ({perr[1]}) median {perr[2]:.3g}, aux "
+        f"{aerr:.3g}; then one step() each: max {cont[0]:.3g} ({cont[1]}) "
+        f"median {cont[2]:.3g}; tol max {tol[0]}, median {tol[1]}")
+    if not (max(err, perr[0], aerr, cont[0]) <= tol[0]
+            and max(perr[2], cont[2]) <= tol[1]):
+        raise AssertionError(f"inception {tag} step_multi vs step: {err}, "
+                             f"{perr}, {aerr}, {cont}")
+    del eager, graph, outs, want
+    torch.cuda.empty_cache()
+    return {"softmax": err, "params_max": perr[0], "params_median": perr[2],
+            "aux": aerr, "continued_max": cont[0],
+            "continued_median": cont[2]}
+
+
+def phase_train_inception(smi):
+    """Inception-v3 training at full width (tools/bench_models.py:46-67):
+    batch 32 x 3 x 299 x 299 through FusedTrainer in bf16 with fp32
+    masters; step_multi(8) against 8 step() calls in fp32 and bf16; timed
+    steps through step() and step_multi(8) with a profile of each; a
+    falling cross-entropy over one repeated batch."""
+    from mxnet_tpu_torch import models
+
+    rs = np.random.RandomState(11)
+    shape = (INCEPTION_BATCH, 3, 299, 299)
+    staged = [{"data": torch.from_numpy(rs.uniform(0, 1, shape).astype(
+        np.float32)).cuda(), "softmax_label": torch.from_numpy(rs.randint(
+            0, 1000, INCEPTION_BATCH).astype(np.float32)).cuda()}
+        for _ in range(INCEPTION_K)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = {"fp32": _inception_parity(staged, "fp32", None,
+                                            (1e-3, 1e-5)),
+                  "bf16": _inception_parity(staged, "bf16", "bfloat16",
+                                            (1e-2, 1e-3))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    flops = 3 * _graph_flops(models.get_symbol("inception-v3"), shape)
+    t0 = time.perf_counter()
+    tr = _inception_trainer("bfloat16")
+    log(f"[train_inception] Inception-v3 FusedTrainer (bf16, fp32 masters, "
+        f"SGD lr 0.1 momentum 0.9 rescale_grad 1/{INCEPTION_BATCH}) built in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in tr.params.values()) / 1e6:.3f} M params; "
+        f"{flops / 1e9:.3f} GFLOP an image a training step (3 x the "
+        f"forward's conv and FC multiply-adds x 2)")
+    for i in range(INCEPTION_WARMUP):
+        tr.step(**staged[i % INCEPTION_K])
+    stacked = {k: torch.stack([b[k] for b in staged]) for k in staged[0]}
+    t0 = time.perf_counter()
+    tr.step_multi(**stacked)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    routes = {}
+    for tag, run, steps in (
+            ("eager", lambda: [tr.step(**staged[i % INCEPTION_K])
+                               for i in range(INCEPTION_STEPS)],
+             INCEPTION_STEPS),
+            ("captured", lambda: [tr.step_multi(**stacked) for _ in range(
+                INCEPTION_STEPS // INCEPTION_K)], INCEPTION_STEPS)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {"steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
+             "img_s": INCEPTION_BATCH * steps / wall,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "reserved_bytes": torch.cuda.max_memory_reserved()}
+        r["mfu"] = r["img_s"] * flops / PEAK_FLOPS[torch.bfloat16]
+        log(f"[train_inception] {tag}: {r['img_s']:.2f} img/s, step "
+            f"{r['step_ms']:.3f} ms over {steps} steps, MFU {r['mfu']:.4f} "
+            f"(of 989 TFLOP/s bf16), peak memory allocated "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, reserved "
+            f"{r['reserved_bytes'] / 2**30:.2f} GiB"
+            + (f", capture {capture_s:.2f} s" if tag == "captured" else "")
+            + f"; {smi}")
+        routes[tag] = r
+    routes["eager"]["profile"] = _train_profile(
+        lambda: [tr.step(**staged[i]) for i in range(2)], 2,
+        routes["eager"]["step_ms"], "eager", prefix="train_inception")
+    prof = _train_profile(lambda: tr.step_multi(**stacked), INCEPTION_K,
+                          routes["captured"]["step_ms"], "captured",
+                          prefix="train_inception")
+    routes["captured"]["profile"] = prof
+    if prof["graph_launches"] != INCEPTION_K:
+        raise AssertionError(f"{prof['graph_launches']} graph launches in "
+                             f"one step_multi of {INCEPTION_K} steps")
+    del tr
+    torch.cuda.empty_cache()
+    fresh = _inception_trainer("bfloat16")
+    p = fresh.step_multi(**{k: v.expand((INCEPTION_K,) + v.shape)
+                            for k, v in staged[0].items()})[0]
+    lab = staged[0]["softmax_label"].long()
+    ces = (-torch.log(p.float().gather(
+        2, lab.expand(INCEPTION_K, -1)[..., None]).clamp_min(1e-30))
+        .mean((1, 2))).cpu().tolist()
+    log(f"[train_inception] cross-entropy over one repeated batch, "
+        f"{INCEPTION_K} captured steps: {' '.join(f'{c:.4f}' for c in ces)}")
+    if not (all(math.isfinite(c) for c in ces) and ces[-1] < ces[0]):
+        raise AssertionError(f"cross-entropy did not fall: {ces}")
+    del fresh, p
+    torch.cuda.empty_cache()
+    line = {"metric": "inception_v3_train_imgs_per_sec",
+            "value": routes["captured"]["img_s"], "unit": "img/s",
+            "device_kind": torch.cuda.get_device_name(0),
+            "batch": INCEPTION_BATCH, "image": 299,
+            "gflop_per_img": flops / 1e9, "routes": routes,
+            "parity": parity, "cross_entropy": ces, "card": smi}
+    log("[train_inception] " + json.dumps(line))
+    return line
+
+
+# --------------------------------------------------------------- phase 10
+def _dropout_check():
+    """``nd.Dropout`` at AlexNet's (256, 4096) on the card: the kept share
+    within 4 sigma of 0.5, every kept value exactly x / 0.5, the same
+    process seed the same mask and another seed another; through an
+    executor the backward's mask is the forward's; eval is the
+    identity."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import random as mxrandom
+
+    shape = (ALEXNET_BATCH, 4096)
+    x = nd.array(np.random.RandomState(12).uniform(
+        0.5, 1.5, shape).astype(np.float32), ctx=mx.gpu(0))
+    mxrandom.seed(1)
+    a = nd.Dropout(x, p=0.5).tensor
+    b = nd.Dropout(x, p=0.5).tensor
+    mxrandom.seed(1)
+    c = nd.Dropout(x, p=0.5).tensor
+    mxrandom.seed(2)
+    d = nd.Dropout(x, p=0.5).tensor
+    kept = a != 0
+    share = float(kept.double().mean())
+    sigma = math.sqrt(0.25 / kept.numel())
+    exact = bool(torch.equal(a[kept], x.tensor[kept] / 0.5))
+    net = mx.sym.Dropout(mx.sym.Variable("data"), p=0.5)
+    exe = net.simple_bind(mx.gpu(0), data=shape)
+    (out,) = exe.forward(is_train=True, data=x.tensor)
+    exe.backward(torch.ones(shape, device="cuda"))
+    g = exe.grad_dict["data"]
+    same_mask = bool(torch.equal(g == 0, out == 0))
+    (ev,) = exe.forward(is_train=False, data=x.tensor)
+    rec = {"kept_share": share, "sigma": sigma, "kept_exact": exact,
+           "same_seed_same_mask": bool(torch.equal(a, c)),
+           "next_draw_differs": not torch.equal(a, b),
+           "other_seed_differs": not torch.equal(a, d),
+           "backward_mask_is_forward": same_mask,
+           "eval_identity": bool(torch.equal(ev, x.tensor))}
+    log(f"[module_alexnet-dropout] nd.Dropout on {shape}: {json.dumps(rec)}")
+    if not (abs(share - 0.5) <= 4 * sigma and all(
+            v for k, v in rec.items() if k not in ("kept_share", "sigma"))):
+        raise AssertionError(f"Dropout on the card: {rec}")
+    return rec
+
+
+def _capture_fault_check():
+    """A deliberately failed ``step_multi`` capture, then draws on the
+    card (before the repair they raised "Offset increment outside graph
+    capture encountered unexpectedly")."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    net = mx.sym.Convolution(mx.sym.Variable("data"), kernel=(3, 3),
+                             num_filter=8, name="c")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Flatten(net), num_hidden=10, name="fc"), name="softmax")
+    tr = FusedTrainer(net, optimizer="sgd",
+                      optimizer_params={"lr": 0.1}).init(data=(4, 3, 8, 8))
+    flatten = registry.get("Flatten")
+    plain = flatten.fn
+
+    def syncing(ctx, x, **attrs):
+        float(x.sum())  # a host sync: not capturable
+        return plain(ctx, x, **attrs)
+
+    flatten.fn = syncing
+    try:
+        tr.step_multi(data=torch.rand(2, 4, 3, 8, 8, device="cuda"),
+                      softmax_label=torch.zeros(2, 4, device="cuda"))
+    except MXNetError as exc:
+        failed = "could not be captured" in str(exc)
+    else:
+        failed = False
+    finally:
+        flatten.fn = plain
+    z = torch.randn(4096, device="cuda")
+    ok = failed and bool(torch.isfinite(z).all()) and float(z.std()) > 0.5
+    log(f"[module_alexnet-capture] a failed step_multi capture raised "
+        f"MXNetError: {failed}; torch.randn on the card after it: std "
+        f"{float(z.std()):.4f}")
+    if not ok:
+        raise AssertionError("the card's generator after a failed capture")
+    return {"capture_failed": failed, "draw_std": float(z.std())}
+
+
+def _alexnet_route(net, batch, kvstore, tag, smi):
+    """A Module of AlexNet at ``batch`` (Xavier, SGD lr 0.01 momentum
+    0.9) through ``kvstore``: warm-up, timed steps over one repeated
+    batch with the cross-entropy of each, peak memory, a profile."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mxrandom
+
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (ALEXNET_BATCH, 3, 224, 224))],
+             label_shapes=[("softmax_label", (ALEXNET_BATCH,))])
+    mxrandom.seed(0)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01,
+                                         "momentum": 0.9})
+    lab = batch.label[0].tensor.long()
+    probs = []
+    for _ in range(ALEXNET_WARMUP):
+        _module_step(mod, batch)
+        probs.append(mod.get_outputs()[0].tensor.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(ALEXNET_STEPS):
+        _module_step(mod, batch)
+        probs.append(mod.get_outputs()[0].tensor.clone())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ces = [float(-torch.log(p.gather(1, lab[:, None]).clamp_min(1e-30))
+                 .mean()) for p in probs]
+    r = {"steps": ALEXNET_STEPS, "wall_s": wall,
+         "step_ms": wall / ALEXNET_STEPS * 1e3,
+         "img_s": ALEXNET_BATCH * ALEXNET_STEPS / wall,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "cross_entropy": ces}
+    log(f"[module_alexnet] {tag}: {r['img_s']:.2f} img/s, step "
+        f"{r['step_ms']:.3f} ms over {ALEXNET_STEPS} steps (batch "
+        f"{ALEXNET_BATCH}, fp32, TF32 off), peak memory allocated "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB; cross-entropy over the "
+        f"repeated batch {' '.join(f'{c:.4f}' for c in ces)}; {smi}")
+    # Dropout makes each step's loss noisy: the last three steps' mean
+    # must lie below the first three's
+    if not (all(math.isfinite(c) for c in ces)
+            and sum(ces[-3:]) < sum(ces[:3])):
+        raise AssertionError(f"AlexNet {tag}: cross-entropy did not fall: "
+                             f"{ces}")
+    r["profile"] = _train_profile(
+        lambda: [_module_step(mod, batch) for _ in range(2)], 2,
+        r["step_ms"], tag, update="Module.update", prefix="module_alexnet")
+    del mod
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_module_alexnet(smi):
+    """AlexNet training through ``mx.mod.Module`` (BASELINE.md:44-55):
+    batch 256 x 3 x 224 x 224, Xavier, SGD lr 0.01 momentum 0.9, fp32
+    (TF32 off), LRN and Dropout on the card in training, through the
+    eager Updater and the bucketed kvstore update; Dropout's statistics
+    on the card; the generator after a failed capture."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import models
+
+    dropout = _dropout_check()
+    capture = _capture_fault_check()
+    net = models.get_symbol("alexnet", num_classes=1000)
+    rs = np.random.RandomState(13)
+    batch = _batch(torch.from_numpy(rs.uniform(0, 1, (
+        ALEXNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda(),
+        torch.from_numpy(rs.randint(0, 1000, ALEXNET_BATCH).astype(
+            np.float32)).cuda())
+    routes = {"eager": _alexnet_route(net, batch, "local", "eager Updater",
+                                      smi),
+              "bucketed": _alexnet_route(net, batch, mx.kv.create("local"),
+                                         "bucketed kvstore", smi)}
+    line = {"metric": "alexnet_module_train_imgs_per_sec",
+            "value": routes["eager"]["img_s"], "unit": "img/s",
+            "device_kind": torch.cuda.get_device_name(0),
+            "batch": ALEXNET_BATCH, "dtype": "float32", "tf32": False,
+            "routes": routes, "dropout": dropout, "capture_fault": capture,
+            "card": smi}
+    log("[module_alexnet] " + json.dumps(line))
+    return line
+
+
+# --------------------------------------------------------------- phase 11
+def _logits_net(net):
+    """``net`` grouped with the input of its SoftmaxOutput (the logits)."""
+    from mxnet_tpu_torch.symbol import Group, Symbol
+
+    soft = net._outputs[0][0]
+    return Group([net, Symbol([soft.inputs[0]])])
+
+
+class _EpilogueRecorder:
+    """Within ``with``, every launch of the epilogue kernel is recorded
+    with its inputs and output; :meth:`check` holds each recorded launch
+    against the plain version on the same inputs, then forgets them."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+        self.tre, self.kernel, self.calls = tre, tre._cuda_fwd, []
+
+    def _record(self, a, s, scale, bias, channel_axis):
+        out = self.kernel(a, s, scale, bias, channel_axis)
+        self.calls.append((a, s, scale, bias, channel_axis, out))
+        return out
+
+    def __enter__(self):
+        self.tre._cuda_fwd = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.tre._cuda_fwd = self.kernel
+        return False
+
+    def check(self, what):
+        """The number of launches checked."""
+        n, calls, self.calls = len(self.calls), self.calls, []
+        for a, s, scale, bias, ax, out in calls:
+            ref = self.tre._plain_fwd(a, s, scale, bias, ax)
+            diff = (out.float() - ref.float()).abs()
+            if not bool((diff <= _epi_tolerance(a, s, scale, ref)).all()):
+                raise AssertionError(f"{what}: epilogue launch at "
+                                     f"{tuple(a.shape)} {a.dtype}: max err "
+                                     f"{float(diff.max())}")
+        return n
+
+
+def _kernel_busy(prof, steps):
+    """``(kernel ms, busy ms)`` per step from a torch.profiler run: the
+    sum of the kernels' durations, and the time at least one kernel ran
+    (their union: cuDNN may run kernels of one call side by side)."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(b - a for a, b in spans)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return total / 1e3 / steps, union / 1e3 / steps
+
+
+def phase_zoo_score(smi):
+    """The inference sweep of tools/benchmark_score.py:23-56 (models at
+    :62-63): each model through ``predict.Predictor`` with the passes on
+    at batch 32, fp32 (TF32 off) and bf16, 20 timed forward + get_output
+    calls, busy ms and idle share; fp32 logits at batch 2 against the
+    port on the CPU from the same weights; every epilogue launch of the
+    timed calls held against its plain version.  The epilogue launches of
+    the timed calls are counted with the count reset just before them."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+    from mxnet_tpu_torch.predict import Predictor
+
+    rows, launches = {}, {}
+    for name, side in ZOO_MODELS:
+        t0 = time.perf_counter()
+        net = _logits_net(models.get_symbol(name, num_classes=1000))
+        shape = (ZOO_BATCH, 3, side, side)
+        arg, aux = resnet.random_params(net, seed=0, data=shape)
+        x = np.random.RandomState(14).uniform(-1, 1, shape).astype(
+            np.float32)
+        small = {"data": (2, 3, side, side)}
+        cpu = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                        input_shapes=small, dev_type="cpu")
+        card = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                         input_shapes=small)
+        cpu.forward(data=x[:2])
+        card.forward(data=x[:2])
+        want, got = cpu.get_output(1), card.get_output(1)
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        del cpu, card
+        if not (np.isfinite(got).all() and err <= ZOO_TOL):
+            raise AssertionError(f"{name}: card logits vs CPU rel err {err}")
+        row = {"side": side, "vs_cpu": err,
+               "params_m": sum(v.size for v in arg.values()) / 1e6,
+               "build_s": time.perf_counter() - t0}
+        for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+            p = Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                          input_shapes={"data": shape}, dtype=dtype)
+            for _ in range(3):
+                p.forward(data=x)
+                p.get_output(0)
+            fused = sum(n.op == "_residual_epilogue_bn"
+                        for n in p._exec._exec_symbol.nodes)
+            # the timed calls: each ends in get_output's copy to the host,
+            # and each call's epilogue launches are held against the
+            # plain version after its time is taken
+            wall, checked = 0.0, []
+            torch.cuda.synchronize()
+            tre.reset_launch_count()
+            with _EpilogueRecorder() as rec:
+                for _ in range(ZOO_CALLS):
+                    t0 = time.perf_counter()
+                    p.forward(data=x)
+                    out = p.get_output(0)
+                    wall += time.perf_counter() - t0
+                    checked.append(rec.check(f"{name} {tag}"))
+            n = tre.launch_count()
+            fwd_ms = wall / ZOO_CALLS * 1e3
+            if out.shape != (ZOO_BATCH, 1000) or not np.isfinite(out).all():
+                raise AssertionError(f"{name} {tag}: output {out.shape}")
+            if n != sum(checked) or len(set(checked)) != 1:
+                raise AssertionError(f"{name} {tag}: {n} epilogue launches "
+                                     f"in {ZOO_CALLS} forwards, checked "
+                                     f"{checked}")
+            checked = checked[0]
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    p.forward(data=x)
+                    p.get_output(0)
+                torch.cuda.synchronize()
+            kernel_ms, busy = _kernel_busy(prof, 3)
+            row[tag] = {"img_s": ZOO_BATCH * ZOO_CALLS / wall,
+                        "fwd_ms": fwd_ms, "busy_ms": busy,
+                        "kernel_ms": kernel_ms,
+                        "idle_share": 1 - busy / fwd_ms,
+                        "epilogue_per_forward": checked,
+                        "fused_tails": fused, "epilogue_launches": n}
+            launches[f"{name} {tag}"] = n
+            del p
+            torch.cuda.empty_cache()
+        rows[name] = row
+        gate = ""
+        if name == "inception-resnet-v2":
+            # its residual sums feed a ReLU with no BatchNorm between, so
+            # the pass's relu(BN(add)) pattern never matches; their 320,
+            # 1088 and 2080 channels would fail the C % 128 gate as well
+            gate = (f" ({row['fp32']['fused_tails']} fused tails: no "
+                    f"relu(BN(add)) in the net; its sums' 320, 1088 and "
+                    f"2080 channels fail the C % 128 gate too)")
+            if row["fp32"]["epilogue_per_forward"] or \
+                    row["bf16"]["epilogue_per_forward"]:
+                raise AssertionError(f"{name}: epilogue launches {row}")
+        log(f"[zoo_score] {name} at batch {ZOO_BATCH} x 3 x {side}^2 "
+            f"({row['params_m']:.2f} M params): "
+            + "; ".join(
+                f"{t} {row[t]['img_s']:.2f} img/s ({row[t]['fwd_ms']:.3f} ms "
+                f"a forward, device busy {row[t]['busy_ms']:.3f}, kernel "
+                f"time {row[t]['kernel_ms']:.3f}, idle "
+                f"{row[t]['idle_share']:.4f})" for t in ("fp32", "bf16"))
+            + f"; batch-2 fp32 logits vs the CPU rel err {err:.3g} (tol {ZOO_TOL}); epilogue launches a "
+            f"forward {row['fp32']['epilogue_per_forward']} (fp32) "
+            f"{row['bf16']['epilogue_per_forward']} (bf16){gate}; {smi}")
+    for name in ("resnet-50", "resnet-152", "resnext-50"):
+        if rows[name]["fp32"]["epilogue_per_forward"] != 4 or \
+                rows[name]["bf16"]["epilogue_per_forward"] != 4:
+            raise AssertionError(f"{name}: epilogue launches a forward "
+                                 f"{rows[name]}")
+    line = {"metric": "zoo_score_imgs_per_sec", "batch": ZOO_BATCH,
+            "device_kind": torch.cuda.get_device_name(0), "models": rows,
+            "epilogue_launches": launches, "card": smi}
+    log("[zoo_score] " + json.dumps(line))
+    return line
+
+
 # -------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -2732,6 +3293,9 @@ def main():
     epi, epi_launches = phase_predict()
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
+    phase_train_inception(smi)
+    phase_module_alexnet(smi)
+    zoo = phase_zoo_score(smi)
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -2763,6 +3327,8 @@ def main():
     rec["launches_module"] = module["epilogue_launches"]
     rec["launches_module_amp"] = module_amp["epilogue_launches"]
     rec["module_amp_dtypes"] = module_amp["score"]["dtypes"]
+    rec["launches_zoo"] = sum(zoo["epilogue_launches"].values())
+    rec["launches_zoo_by_model"] = zoo["epilogue_launches"]
     records.append(rec)
     # Rtc compiles what the user writes: the record's times are those of
     # b_axpy (the full-width kernel), each user kernel's in "user_kernels"

@@ -15,7 +15,6 @@ from collections import OrderedDict
 import numpy as np
 
 from .. import symbol as sym
-from ..base import MXNetError
 
 __all__ = ["MFU_HEADLINE_CONFIG", "transformer_lm", "get_symbol",
            "lm_train_flops_per_token", "lm_param_shapes", "lm_random_params"]
@@ -48,13 +47,12 @@ def _attention_block(h, seq_len, d_model, num_heads, name):
 
 
 def _ffn_block(h, seq_len, d_model, d_ff, name, dropout):
-    if dropout > 0:
-        raise MXNetError("transformer_lm(dropout>0): Dropout is not "
-                         "ported yet (ROADMAP Queue 1 item 2)")
     ln = sym.LayerNorm(h, name=f"{name}_ln2")
     x2 = sym.Reshape(ln, shape=(-1, d_model))
     f = sym.FullyConnected(x2, num_hidden=d_ff, name=f"{name}_ffn_in")
     f = sym.Activation(f, act_type="gelu")
+    if dropout > 0:
+        f = sym.Dropout(f, p=dropout)
     f = sym.FullyConnected(f, num_hidden=d_model, name=f"{name}_ffn_out")
     f = sym.Reshape(f, shape=(-1, seq_len, d_model))
     return h + f

@@ -1,6 +1,6 @@
 """Creation ops of the port (``_zeros``, ``_ones``, ``_full``,
 ``_arange`` and ``_set_value`` of ``mxnet_tpu/ops/init_sample.py``; the
-sampling ops ``uniform``/``normal`` wait for ROADMAP Queue 1 item 2's
+sampling ops ``uniform``/``normal`` wait for ROADMAP Queue 1 item 3's
 random ops).  Each makes its output on ``ctx.device``, in ``dtype``
 (float32 by default)."""
 from __future__ import annotations

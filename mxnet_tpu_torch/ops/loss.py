@@ -65,15 +65,15 @@ def _softmax_output(ctx, data, label, **attrs):
     ``(p - onehot(label)) * grad_scale`` with null / batch / valid
     normalization and use_ignore masking; the head gradient is ignored.
     ``multi_output``, ``preserve_shape`` and data of more than 2 dims are
-    not ported yet (ROADMAP Queue 1 item 2; the JAX package's backward
+    not ported yet (ROADMAP Queue 1 item 3; the JAX package's backward
     fails on the last)."""
     for unported in ("multi_output", "preserve_shape"):
         if parse_bool(attrs.get(unported, False)):
             raise MXNetError(f"SoftmaxOutput({unported}=True) is not ported "
-                             "yet (ROADMAP Queue 1 item 2)")
+                             "yet (ROADMAP Queue 1 item 3)")
     if data.ndim > 2:
         raise MXNetError(f"SoftmaxOutput on {data.ndim}-D data is not ported "
-                         "yet (ROADMAP Queue 1 item 2)")
+                         "yet (ROADMAP Queue 1 item 3)")
     cfg = (float(parse_attr(attrs.get("grad_scale", 1.0))),
            float(parse_attr(attrs.get("ignore_label", -1.0))),
            parse_bool(attrs.get("use_ignore", False)),

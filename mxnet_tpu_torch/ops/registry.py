@@ -14,7 +14,7 @@ gradient) and ops backed by a hand-written kernel wrap themselves in a
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -58,19 +58,37 @@ class OpDef:
     varargs: bool = False
     # draws random numbers (constant_fold never folds such an op)
     needs_rng: bool = False
+    # attr-dependent output count (``num_outputs=-1`` reads the
+    # ``num_outputs`` attr, as SliceChannel does)
+    num_outputs_fn: Optional[Callable] = None
+    # defaults of attrs that decide the inputs (Deconvolution's no_bias)
+    attr_defaults: dict = field(default_factory=dict)
     doc: str = ""
+
+    def with_defaults(self, attrs) -> dict:
+        """``attrs`` over :attr:`attr_defaults`."""
+        return {**self.attr_defaults, **attrs} if self.attr_defaults \
+            else attrs
 
     def resolve_arg_names(self, attrs) -> list:
         names = list(self.arg_names)
         if self.optional_args is not None:
-            dropped = self.optional_args(attrs)
+            dropped = self.optional_args(self.with_defaults(attrs))
             names = [n for n in names if n not in dropped]
         return names
+
+    def count_outputs(self, attrs) -> int:
+        if self.num_outputs_fn is not None:
+            return int(self.num_outputs_fn(attrs))
+        if self.num_outputs == -1:
+            return int(decode_attr(attrs.get("num_outputs", 1)))
+        return self.num_outputs
 
 
 def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
              output_names=("output",), infer_params=None, optional_args=None,
-             varargs=False, needs_rng=False, aliases=()):
+             varargs=False, needs_rng=False, num_outputs_fn=None,
+             attr_defaults=None, aliases=()):
     """Decorator registering an op implementation under ``name`` (and
     each of ``aliases``)."""
 
@@ -80,6 +98,8 @@ def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
                    output_names=tuple(output_names),
                    infer_params=infer_params, optional_args=optional_args,
                    varargs=varargs, needs_rng=needs_rng,
+                   num_outputs_fn=num_outputs_fn,
+                   attr_defaults=dict(attr_defaults or {}),
                    doc=fn.__doc__ or "")
         _OPS[name] = op
         for alias in aliases:
@@ -122,13 +142,20 @@ def invoke(name: str, inputs, attrs=None, is_train: bool = True,
     ``device`` is where an op without inputs (``_arange``) creates its
     output; it defaults to the first input's.  Returns the op's output
     or tuple of outputs; ops with aux states drop the aux updates, as
-    the JAX package's imperative calls do.  Runs under ``no_grad``: the
-    imperative NDArray records no autograd graph."""
+    the JAX package's imperative calls do.  A random op draws from the
+    process generator of its device (:func:`mxnet_tpu_torch.random.generator`,
+    as the JAX package draws ``random.next_key()``).  Runs under
+    ``no_grad``: the imperative NDArray records no autograd graph."""
     op = get(name)
     attrs = {k: decode_attr(v) for k, v in (attrs or {}).items()}
     if device is None and inputs:
         device = inputs[0].device
-    ctx = OpCtx(is_train=is_train, device=device)
+    gen = None
+    if op.needs_rng and device is not None:
+        from .. import random as _random
+
+        gen = _random.generator(device)
+    ctx = OpCtx(is_train=is_train, device=device, generator=gen)
     with torch.no_grad():
         out = op.fn(ctx, *inputs, **attrs)
     if op.aux_names:

@@ -13,10 +13,11 @@ Shape inference walks the graph on meta tensors (the JAX package uses
 symbol built there reaches the port as ``load_json(jax_symbol.tojson())``
 (attrs then arrive as strings or JSON values, which the ops read with
 ``parse_attr``).  ``simple_bind`` and ``bind`` bind an
-:class:`~.executor.Executor` (forward and backward).  ``get_internals``,
-``infer_type``, nnvm-format JSON and the arithmetic operators other than
-``+`` are not ported yet (ROADMAP Queue 1 item 3), nor is
-``structural_signature`` (item 4).
+:class:`~.executor.Executor` (forward and backward).  The arithmetic
+operators (``+ - * / **``, unary ``-`` and the reflected forms) make the
+reference's nodes.  ``get_internals``, ``infer_type``, nnvm-format JSON
+and ``structural_signature`` are not ported yet (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ class _Node:
         return self.op is None
 
     def num_outputs(self):
-        return 1 if self.op is None else ops.get(self.op).num_outputs
+        return 1 if self.op is None else \
+            ops.get(self.op).count_outputs(self.attrs)
 
 
 def _topo_order(out_nodes: Sequence[_Node]) -> List[_Node]:
@@ -97,7 +99,13 @@ class Symbol:
                 names.append(node.name)
                 continue
             od = ops.get(node.op)
-            if od.num_outputs == 1:
+            if od.num_outputs_fn is not None:
+                names.append(f"{node.name}_{od.output_names[idx]}"
+                             if idx < len(od.output_names)
+                             else f"{node.name}_output{idx}")
+            elif od.num_outputs == -1:  # attr-dependent (SliceChannel)
+                names.append(f"{node.name}_output{idx}")
+            elif od.num_outputs == 1:
                 names.append(f"{node.name}_output")
             else:
                 names.append(f"{node.name}_{od.output_names[idx]}")
@@ -134,12 +142,41 @@ class Symbol:
                 if node.extra_attrs}
 
     # -------------------------------------------------------- operators
-    def __add__(self, other):
+    def _binop(self, other, op, scalar_op, reverse=False):
         if isinstance(other, Symbol):
-            return _create("elemwise_add", [self, other], {})
+            a, b = (other, self) if reverse else (self, other)
+            return _create(op, [a, b], {})
         if np.isscalar(other):
-            return _create("_plus_scalar", [self], {"scalar": float(other)})
+            return _create(scalar_op, [self], {"scalar": float(other)})
         raise TypeError(type(other))
+
+    def __add__(self, o):
+        return self._binop(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binop(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binop(o, "elemwise_sub", "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binop(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binop(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binop(o, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binop(o, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create("negative", [self], {})
 
     # -------------------------------------------------- shape inference
     def infer_shape(self, *args, **kwargs):
@@ -197,14 +234,20 @@ class Symbol:
             if any(x is None for x in ins):
                 if od.infer_params is None:
                     raise _InferIncomplete(node.name)
+                attrs = od.with_defaults(node.attrs)
+                names = od.resolve_arg_names(attrs) + list(od.aux_names)
+                if len(names) < len(node.inputs):
+                    # the JSON gives an input that the defaults drop (the
+                    # JAX package's Deconvolution makes a bias): read the
+                    # attrs as given
+                    attrs = node.attrs
+                    names = list(od.arg_names) + list(od.aux_names)
                 try:
                     param_shapes = od.infer_params(
-                        node.attrs,
-                        *[None if x is None else tuple(x.shape)
-                          for x in ins])
+                        attrs, *[None if x is None else tuple(x.shape)
+                                 for x in ins])
                 except (TypeError, IndexError, KeyError):
                     raise _InferIncomplete(node.name) from None
-                names = od.resolve_arg_names(node.attrs) + list(od.aux_names)
                 for j, (inp, _) in enumerate(node.inputs):
                     if ins[j] is None:
                         pname = names[j] if j < len(names) else None

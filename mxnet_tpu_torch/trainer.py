@@ -481,10 +481,20 @@ class FusedTrainer:
             t.copy_(s)
         del saved
         graph = torch.cuda.CUDAGraph()
+        # a capture registers the card's default generator; one that
+        # fails leaves it in capture mode (every later draw on the card
+        # raises) and the capture stream current, so both are put back
+        default_gen = torch.cuda.default_generators[
+            dev.index if dev.index is not None
+            else torch.cuda.current_device()]
+        gen_state = default_gen.clone_state()
+        prev_stream = torch.cuda.current_stream(dev)
         try:
             with torch.cuda.graph(graph, stream=stream):
                 outputs = self._train_step(inputs)
         except RuntimeError as exc:
+            default_gen.graphsafe_set_state(gen_state)
+            torch.cuda.set_stream(prev_stream)
             first = exc.__context__ or exc
             raise MXNetError(
                 f"FusedTrainer.step_multi: the training step could not be "

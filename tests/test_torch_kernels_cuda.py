@@ -9,7 +9,9 @@ against eager steps, the Module path (a Module step against
 ``Module.score`` through the epilogue kernel), and mixed precision (the
 bucketed update's skip-step under AMP loss scaling with no host sync,
 ``Cast`` of channels-last weights, the epilogue kernel in the AMP
-graph).
+graph), and the ops of ``ops/nn.py`` (each new op on the card against
+the port on the CPU, the Dropout mask drawn from an explicit card
+generator, and a draw on the card after a failed capture).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1057,3 +1059,144 @@ def test_epilogue_in_the_amp_graph_matches_plain(card, amp_env, no_tf32):
         diff = (out.float() - ref.float()).abs()
         assert bool((diff <= _epi_tolerance(x, s, scale, ref)).all()), \
             float(diff.max())
+
+
+# ------------------------------------------- the generator after a capture
+def test_card_generator_draws_after_a_failed_capture(card, monkeypatch):
+    """A failed ``step_multi`` capture puts the card's default generator
+    and the current stream back: a draw on the card works after it (it
+    raised "Offset increment outside graph capture" before)."""
+    from mxnet_tpu_torch.ops import registry
+
+    t = _conv_trainer(card, None)
+    flatten = registry.get("Flatten")
+    plain = flatten.fn
+
+    def syncing(ctx, x, **attrs):
+        float(x.sum())  # a host sync: not capturable
+        return plain(ctx, x, **attrs)
+
+    monkeypatch.setattr(flatten, "fn", syncing)
+    xs = _train_batches(2, 8)
+    stream = torch.cuda.current_stream(card)
+    with pytest.raises(MXNetError, match="could not be captured"):
+        t.step_multi(data=torch.stack([x for x, _ in xs]),
+                     softmax_label=torch.stack([y for _, y in xs]))
+    assert torch.cuda.current_stream(card) == stream
+    z = torch.randn(1024, device=card)
+    assert bool(torch.isfinite(z).all()) and float(z.std()) > 0.5
+    torch.cuda.manual_seed(3)
+    a = torch.rand(16, device=card)
+    torch.cuda.manual_seed(3)
+    assert torch.equal(a, torch.rand(16, device=card))
+
+
+# ------------------------------------------------------ the ops of nn.py
+def test_dropout_mask_comes_from_the_card_generator(card):
+    from mxnet_tpu_torch.ops import registry
+
+    op = registry.get("Dropout")
+    x = torch.ones(256, 4096, device=card)
+
+    def draw(seed):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        return op.fn(registry.OpCtx(is_train=True, device=card,
+                                    generator=gen), x, p=0.5)
+
+    a, b, c = draw(1), draw(1), draw(2)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # the global generator does not decide it
+    torch.cuda.manual_seed(99)
+    assert torch.equal(draw(1), a)
+    kept = float((a != 0).double().mean())
+    assert abs(kept - 0.5) <= 4 * np.sqrt(0.25 / x.numel())
+    assert set(torch.unique(a).tolist()) == {0.0, 2.0}
+
+
+def _nn_cases():
+    r = np.random.RandomState(0)
+
+    def n(*shape, scale=1.0):
+        return (r.normal(size=shape) * scale).astype(np.float32)
+
+    return {
+        "concat": ("Concat", [n(2, 3, 5, 4), n(2, 5, 5, 4)], {"dim": 1}),
+        "slice": ("SliceChannel", [n(2, 6, 3, 4)], {"num_outputs": 3}),
+        "lrn": ("LRN", [n(4, 96, 13, 13, scale=3.0)],
+                {"alpha": 1e-4, "beta": 0.75, "knorm": 1, "nsize": 5}),
+        "leaky": ("LeakyReLU", [n(2, 3, 4, 4)], {"slope": 0.1}),
+        "elu": ("LeakyReLU", [n(2, 3, 4, 4)], {"act_type": "elu"}),
+        "prelu": ("LeakyReLU", [n(2, 3, 4, 4), n(3)],
+                  {"act_type": "prelu"}),
+        "deconv": ("Deconvolution", [n(2, 4, 5, 5), n(4, 3, 4, 4) * 0.3,
+                                     n(3)],
+                   {"kernel": (4, 4), "num_filter": 3, "stride": (2, 2),
+                    "pad": (1, 1), "adj": (1, 1), "no_bias": False}),
+        "deconv_group": ("Deconvolution", [n(2, 4, 5, 5),
+                                           n(4, 3, 3, 3) * 0.3],
+                         {"kernel": (3, 3), "num_filter": 6,
+                          "num_group": 2, "dilate": (2, 2)}),
+        "conv1d": ("Convolution", [n(2, 3, 12), n(4, 3, 3) * 0.3],
+                   {"kernel": (3,), "num_filter": 4, "no_bias": True}),
+        "conv3d": ("Convolution", [n(1, 2, 5, 6, 5), n(4, 2, 3, 3, 3)],
+                   {"kernel": (3, 3, 3), "num_filter": 4, "no_bias": True}),
+        "instance_norm": ("InstanceNorm", [n(2, 3, 5, 4) + 0.5, n(3), n(3)],
+                          {}),
+        "l2norm": ("L2Normalization", [n(2, 3, 4, 4)], {"mode": "channel"}),
+        "pad_reflect": ("Pad", [n(2, 3, 4, 5)],
+                        {"pad_width": (0, 0, 1, 1, 3, 2, 4, 4),
+                         "mode": "reflect"}),
+        "pad_constant": ("Pad", [n(2, 3, 4, 5)],
+                         {"pad_width": (0, 0, 0, 0, 1, 2, 3, 1),
+                          "constant_value": 1.5}),
+        "upsample_nearest": ("UpSampling", [n(2, 3, 4, 5)], {"scale": 2}),
+        "upsample_bilinear": ("UpSampling", [n(2, 3, 5, 5),
+                                             np.abs(n(3, 1, 4, 4))],
+                              {"scale": 2, "sample_type": "bilinear",
+                               "num_filter": 3}),
+        "crop": ("Crop", [n(2, 3, 7, 8)], {"h_w": (4, 5),
+                                           "center_crop": True}),
+        "pool1d": ("Pooling", [n(2, 3, 11)],
+                   {"kernel": (3,), "stride": (2,), "pool_type": "avg"}),
+        "pool3d": ("Pooling", [n(1, 2, 5, 6, 7)],
+                   {"kernel": (2, 3, 3), "stride": (2, 2, 2),
+                    "pad": (0, 1, 1), "pool_type": "max"}),
+        "pool3d_avg": ("Pooling", [n(1, 2, 5, 6, 7)],
+                       {"kernel": (3, 3, 3), "stride": (2, 2, 2),
+                        "pool_type": "avg", "pooling_convention": "full"}),
+        "dropout_eval": ("Dropout", [n(2, 3, 4, 4)], {"p": 0.5}),
+    }
+
+
+_NN_CASES = sorted(_nn_cases())
+
+
+# the card's kernels against torch's CPU ones on the same inputs: fp32
+# (TF32 off) to 1e-5, the convolutions' gradients 1e-4 (longer sums in
+# another order); bf16 to 2e-2 (a couple of bf16 steps)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _NN_CASES)
+def test_nn_op_on_the_card_matches_the_cpu(card, no_tf32, case, dtype):
+    from mxnet_tpu_torch.ops import registry
+
+    name, ins, attrs = _nn_cases()[case]
+    tdt = getattr(torch, dtype)
+
+    def run(dev):
+        ts = [torch.from_numpy(a).to(dev, tdt).requires_grad_(True)
+              for a in ins]
+        out = registry.get(name).fn(registry.OpCtx(device=dev), *ts,
+                                    **attrs)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        g = torch.Generator().manual_seed(1)
+        cts = [torch.randn(o.shape, generator=g).to(dev, o.dtype)
+               for o in outs]
+        grads = torch.autograd.grad(outs, ts, cts, allow_unused=True)
+        return [o.detach().float().cpu() for o in outs] + [
+            torch.zeros(t.shape) if gr is None else gr.float().cpu()
+            for t, gr in zip(ts, grads)]
+
+    conv = name in ("Convolution", "Deconvolution", "UpSampling")
+    tol = 2e-2 if dtype == "bfloat16" else (1e-4 if conv else 1e-5)
+    for got, want in zip(run(card), run(torch.device("cpu"))):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)

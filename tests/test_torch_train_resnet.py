@@ -49,8 +49,18 @@ SGD = {"lr": 0.1, "momentum": 0.9}
                 "image_shape": (3, 16, 16)}),
     ("transformer-lm", {"num_classes": 97, "num_layers": 1, "num_heads": 2,
                         "d_model": 16, "seq_len": 8}),
+    ("transformer-lm", {"num_classes": 97, "num_layers": 2, "num_heads": 2,
+                        "d_model": 16, "seq_len": 8, "dropout": 0.1}),
     ("mlp", {"num_classes": 10}),
     ("lenet", {"num_classes": 10}),
+    ("alexnet", {}),
+    ("vgg", {}),
+    ("googlenet", {}),
+    ("inception-bn", {}),
+    ("inception-v3", {}),
+    ("inception-resnet-v2", {}),
+    ("resnext", {}),
+    ("resnext-50", {"num_classes": 10}),
 ])
 def test_get_symbol_matches_jax(monkeypatch, name, kw):
     # fresh auto-namers on both sides: the residual adds are named by a
@@ -64,10 +74,7 @@ def test_get_symbol_matches_jax(monkeypatch, name, kw):
     assert tmodels.get_symbol(name, **kw).tojson() == want
 
 
-@pytest.mark.parametrize("name", ["alexnet", "vgg",
-                                  "googlenet", "inception-bn",
-                                  "inception-v3", "inception-resnet-v2",
-                                  "resnext", "resnext-50", "ssd-vgg16"])
+@pytest.mark.parametrize("name", ["ssd-vgg16"])
 def test_get_symbol_refuses_builders_not_ported(name):
     with pytest.raises(MXNetError, match="Queue 1 item 6"):
         tmodels.get_symbol(name)
@@ -277,12 +284,21 @@ def test_step_multi_refuses_inputs_of_other_step_counts():
 
 def test_step_multi_refuses_to_capture_random_ops():
     # a captured step would replay one draw: refused by name before any
-    # work on the card (no random op is ported yet, so one is named)
-    t = _port_trainer()
-    node = next(n for n in t.symbol.nodes if n.op == "Activation")
-    node.op = "Dropout"
+    # work on the card, here for a net with a real Dropout
+    data = tsym.Variable("data")
+    net = tsym.FullyConnected(tsym.Flatten(data), num_hidden=16, name="fc1")
+    net = tsym.Dropout(tsym.Activation(net, act_type="relu"), p=0.5)
+    net = tsym.SoftmaxOutput(tsym.FullyConnected(net, num_hidden=10,
+                                                 name="fc2"), name="softmax")
+    t = TTrainer(net, optimizer="sgd", optimizer_params=dict(SGD),
+                 device="cpu").init(data=(8, 1, 12, 12))
     with pytest.raises(MXNetError, match="random numbers.*Dropout"):
         t._capture({})
+    # step() runs it, drawing from the trainer's generator
+    x, y = _batches(1, 8)[0]
+    a = t.step(data=x, softmax_label=y)[0]
+    b = t.step(data=x, softmax_label=y)[0]
+    assert bool(torch.isfinite(a).all()) and not torch.equal(a, b)
 
 
 def test_step_state_keeps_its_storage():

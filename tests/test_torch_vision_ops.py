@@ -1,8 +1,9 @@
 """The port's vision ops against the JAX package's, on the CPU:
 ``Convolution`` (stride / pad / dilate / group / bias), ``BatchNorm``
 (eval, train with the aux update, ``fix_gamma``, ``use_global_stats``),
-``Pooling`` (max / avg / sum, global, valid / full, padded avg) and
-``Flatten``.
+``Pooling`` (max / avg / sum, global, valid / full, padded avg, and
+1-D and 3-D), ``Flatten``, and BatchNorm's
+``MXTPU_BN_STATS_DTYPE=compute`` moments.
 
 Each case runs in two layouts: NCHW on both sides, and the JAX op under
 its layout pass's attr ``__layout__="NHWC"`` on NHWC data against the
@@ -20,7 +21,6 @@ import torch
 import mxnet_tpu  # noqa: F401  (registers the JAX ops)
 from mxnet_tpu import ops as jops
 
-from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import registry as treg
 
 TOL = 1e-5
@@ -172,11 +172,46 @@ def test_batch_norm_bf16_eval_matches_jax():
                                atol=2 ** -6)
 
 
-def test_batch_norm_refuses_the_compute_stats_knob(monkeypatch):
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("attrs", BN_ATTRS[:3])
+def test_batch_norm_compute_stats_knob_matches_jax(monkeypatch, attrs,
+                                                  layout):
+    """``MXTPU_BN_STATS_DTYPE=compute``: the moments shifted by the
+    moving mean, fp32 sums; the same output and aux update as JAX."""
     monkeypatch.setenv("MXTPU_BN_STATS_DTYPE", "compute")
-    ts = [torch.from_numpy(a) for a in _bn_inputs(4, 1)]
-    with pytest.raises(MXNetError, match="not ported yet"):
-        treg.get("BatchNorm").fn(treg.OpCtx(is_train=True), *ts)
+    out, aux = _run("BatchNorm", _bn_inputs(6, 4), attrs, layout, True)
+    _check(out, aux)
+
+
+def test_batch_norm_compute_stats_knob_bf16_matches_jax(monkeypatch):
+    """bf16 data under the knob with fp32 moving stats (the AMP case):
+    the shift is the moving mean rounded to bf16, and that rounded value
+    is what both packages add back, so the updated stats agree to fp32
+    summation order (1e-5); the bf16 output to 2e-2 (a few bf16
+    roundings)."""
+    import ml_dtypes
+
+    monkeypatch.setenv("MXTPU_BN_STATS_DTYPE", "compute")
+    bf = ml_dtypes.bfloat16
+    ins = _bn_inputs(8, 6)
+    ins[0] = ins[0] + np.float32(3.0)  # |mean| well above the std
+    ins[3] = ins[3] + np.float32(3.1)
+    attrs = {"fix_gamma": False, "eps": 2e-5}
+    jins = [jnp.asarray(a.astype(bf)) if i < 3 else jnp.asarray(a)
+            for i, a in enumerate(ins)]
+    jo, ja = jops.get("BatchNorm").fn(jops.OpCtx(is_train=True), *jins,
+                                      **attrs)
+    ts = [torch.from_numpy(a.astype(bf).astype(np.float32)).bfloat16()
+          if i < 3 else torch.from_numpy(a) for i, a in enumerate(ins)]
+    to, ta = treg.get("BatchNorm").fn(treg.OpCtx(is_train=True), *ts,
+                                      **attrs)
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo).astype(np.float32),
+                               rtol=2e-2, atol=2e-2)
+    for a, b in zip(ja, ta):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-5)
 
 
 POOL_CASES = [
@@ -202,10 +237,21 @@ def test_pooling_matches_jax(case, layout):
     _check(*_run("Pooling", [_n(7, 2, 3, 10, 9)], POOL_CASES[case], layout))
 
 
-def test_pooling_refuses_other_ranks():
-    with pytest.raises(MXNetError, match="not ported yet"):
-        treg.get("Pooling").fn(treg.OpCtx(), torch.zeros(2, 3, 8),
-                               kernel=(2,))
+OTHER_RANK_POOLS = [
+    ((2, 3, 11), {"kernel": (3,), "stride": (2,), "pool_type": "max"}),
+    ((2, 3, 10), {"kernel": (4,), "stride": (3,), "pad": (1,),
+                  "pool_type": "avg", "pooling_convention": "full"}),
+    ((1, 2, 5, 6, 7), {"kernel": (3, 3, 3), "stride": (2, 2, 2),
+                       "pad": (1, 1, 1), "pool_type": "max"}),
+    ((1, 2, 4, 6, 5), {"kernel": (1, 1, 1), "global_pool": True,
+                       "pool_type": "sum"}),
+]
+
+
+@pytest.mark.parametrize("case", range(len(OTHER_RANK_POOLS)))
+def test_pooling_other_ranks_match_jax(case):
+    shape, attrs = OTHER_RANK_POOLS[case]
+    _check(*_run("Pooling", [_n(7, *shape)], attrs, "NCHW"))
 
 
 @pytest.mark.parametrize("layout", ["NCHW", "channels_last"])
