@@ -6,8 +6,9 @@ transformer-LM training step, ResNet-50 training (eager steps, the
 captured step and ``fit``), the Module path in fp32 and under AMP,
 ResNet-50 inference through the Predictor,
 the same deployment loaded from a checkpoint, user CUDA C compiled
-at run time by ``rtc.Rtc``, and the image-classification zoo (Inception-v3
-training, AlexNet through ``Module``, a nine-model inference sweep) — and
+at run time by ``rtc.Rtc``, the image-classification zoo (Inception-v3
+training, AlexNet through ``Module``, a nine-model inference sweep) and
+the LSTM language model (``FusedTrainer`` and ``BucketingModule``) — and
 holds each hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
@@ -117,7 +118,25 @@ holds each hand-written CUDA kernel
    images/s over 20 calls with busy time and idle share, batch-2 fp32
    logits against the port on the CPU, and every epilogue launch of the
    timed calls (resnet-50, resnet-152, resnext-50: 4 a forward) held
-   against its plain version.
+   against its plain version;
+12. the LSTM language model through ``FusedTrainer``
+   (``phase_train_lstm``, tools/bench_models.py:70-102):
+   ``models.lstm.get_symbol`` (2 x 200, vocab 10000, dropout 0.2) at
+   batch 32 x 35 in bf16 with fp32 masters, SGD lr 1.0: ``step_multi(8)``
+   against 8 ``step()`` calls from one generator state on the dropout=0
+   graph (fp32, bf16) and the dropout graph, the dropout graph captured
+   with its masks fresh a replay and a keep rate within 4 sigma of 0.8,
+   24 timed steps through each route with a profile (tokens/s, launch
+   calls, device ms by kind, idle share), a falling cross-entropy, and a
+   ``FusedRNNCell`` 2 x 200 against the unrolled ``LSTMCell`` stack it
+   unpacks into;
+13. ``examples/rnn/lstm_bucketing.py``'s loop (``phase_bucketing_lstm``):
+   ``BucketingModule.fit`` over ``BucketSentenceIter`` on the example's
+   Zipf corpus at vocab 10000, buckets 8/16/24/32, batch 32, 2 x 200,
+   dropout 0.2, fp32, with ``compile_buckets`` on and off: two epochs
+   each, real tokens/s, executors bound, 0 host syncs per batch, a
+   falling perplexity, a profile.  Neither phase launches a hand-written
+   kernel (their counts are read around them and stay 0).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -129,6 +148,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import logging
 import math
 import os
 import re
@@ -268,6 +288,54 @@ ZOO_BATCH, ZOO_CALLS = 32, 20
 # FFTs against the CPU's), a few fp32 ulps a layer over up to ~250
 # layers (measured 3.4e-7 to 3.5e-6 relative on an H100)
 ZOO_TOL = 1e-4
+# the LSTM language model.  (a) lstm.get_symbol through FusedTrainer as
+# tools/bench_models.py:70-102 runs it: batch 32 x 35 tokens, 2 x 200,
+# vocab 10000, dropout 0.2, SGD lr 1.0 rescale_grad 1/32, bf16 with fp32
+# masters, the l{i}_init_{c,h} states fed as zeros; step_multi at k 8
+LSTM_BATCH, LSTM_SEQ, LSTM_HIDDEN, LSTM_LAYERS = 32, 35, 200, 2
+LSTM_VOCAB, LSTM_DROPOUT, LSTM_K = 10000, 0.2, 8
+LSTM_WARMUP, LSTM_STEPS = 3, 24
+# FLOPs a step: 3 x (the 2 layers' i2h and h2h products, 2 x 4H x (E+H)
+# a token each, and the 4.0 M multiply-adds of the logits) x 2 a token
+LSTM_FLOPS_PER_TOKEN = 3 * 2 * (LSTM_LAYERS * 4 * LSTM_HIDDEN
+                                * (2 * LSTM_HIDDEN) + LSTM_HIDDEN
+                                * LSTM_VOCAB)
+# step_multi(8) against 8 step() calls from the same state and generator
+# state: (max, median) of the parameters' errors relative to their
+# norms, and the max over the softmax.  The graph replays the eager
+# step's kernels, and the card's Embedding backward sorts the ids and
+# sums each id's rows in a fixed order (no atomics), so the two came out
+# bit-equal on an H100 (the record says whether they were); the bounds
+# hold what a kernel with an unfixed order would leave: fp32 (TF32 off)
+# 1e-4 / 1e-6, bf16 1e-2 / 1e-3
+LSTM_TOL = {"fp32": (1e-4, 1e-6), "bf16": (1e-2, 1e-3)}
+# the dropout graph's keep rate over 8 captured steps: within 4 sigma of
+# 0.8 (sigma = sqrt(0.16 / elements))
+LSTM_KEEP_SIGMAS = 4.0
+# device time by kind of kernel for the LSTM steps, the first match
+# winning (the embedding's backward sorts the ids and reduces segments)
+LSTM_KINDS = (
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "sm90_")),
+    ("embedding", ("indexSelect", "index_select", "embedding",
+                   "indexing_backward", "RadixSort", "radix", "segment",
+                   "compute_grad_weight", "krn_partial", "sum_and_scatter",
+                   "index_put", "indexFunc")),
+    ("softmax / logits", ("softmax", "SoftMax")),
+    ("cat copies (Concat)", ("CatArray", "cat_")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "Memcpy", "Memset", "memcpy", "memset")),
+    ("elementwise (cells, dropout, update)", ("elementwise",)),
+)
+# FusedRNNCell (the RNN op) against the unrolled LSTMCell stack it
+# unpacks into, 2 x 200 at T 35 and batch 32, fp32 (TF32 off): the same
+# products in another grouping
+LSTM_CELL_TOL = 1e-5
+# (b) examples/rnn/lstm_bucketing.py through BucketingModule.fit: the
+# example's Zipf corpus (synthetic_corpus, seed 3) at vocab 10000,
+# buckets 8/16/24/32, batch 32, 2 x 200, dropout 0.2, ignore_label 0,
+# SGD lr 0.1 momentum 0.9 wd 1e-5, Xavier(in, 2.34), fp32 (TF32 off)
+BUCKET_SENTENCES, BUCKETS = 2000, (8, 16, 24, 32)
+BUCKET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-5}
 # the runtime-compiled kernels: rtc.Rtc replaces the JAX Rtc._compiled
 RTC_SRC = "mxnet_tpu_torch/rtc.py"
 RTC_REPLACES = "mxnet_tpu/rtc.py:62"                     # Rtc._compiled
@@ -1287,7 +1355,7 @@ def _resnet_parity(staged, tag, dtype, tol, nchw=False):
 
 
 def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
-                   prefix="train_resnet"):
+                   prefix="train_resnet", kinds=RESNET_KINDS):
     """Device ms per step by kind of kernel, busy ms, idle share (1 -
     busy / the timed steps' wall), host launch calls per step and graph
     launches, over ``run()`` (``steps`` steps), from torch.profiler.  The
@@ -1302,7 +1370,7 @@ def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    by_kind = dict.fromkeys([k for k, _ in RESNET_KINDS] + ["other"], 0.0)
+    by_kind = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
     top, other, calls, graphs = {}, {}, 0, 0
     device, spans, host_spans, launches = [], [], [], []
     for ev in prof.events():
@@ -1321,7 +1389,7 @@ def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
     update_ms = 0.0
     for (t0, t1), name in device:
         ms = (t1 - t0) / 1e3 / steps
-        kind = next((k for k, pats in RESNET_KINDS
+        kind = next((k for k, pats in kinds
                      if any(p in name for p in pats)), "other")
         by_kind[kind] += ms
         top[name] = top.get(name, 0.0) + ms
@@ -1349,69 +1417,91 @@ def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
             "by_kind_ms": by_kind}
 
 
+class _SyncCounter:
+    """Within ``with``: every Tensor read to the host and every
+    synchronising CUDA call (``torch.cuda.set_sync_debug_mode("warn")``)
+    is counted; the async window's waits on its events are counted apart
+    (``waits``).  ``mark`` (a batch-end callback) stamps the count."""
+
+    def __init__(self):
+        self.syncs, self.marks, self.stamps, self.waits = [], [], [], []
+
+    def _counted(self, name):
+        def f(*a, **kw):
+            self.syncs.append(name)
+            return self.originals[name](*a, **kw)
+        return f
+
+    def _window_wait(self, window):
+        self.waits.append(1)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            self.wait_one(window)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def warned(self):
+        return [w for w in self.caught if SYNC_WARNING in str(w.message)]
+
+    def total(self):
+        return len(self.syncs) + len(self.warned())
+
+    def mark(self, param):
+        self.marks.append(self.total())
+        self.stamps.append(time.perf_counter())
+
+    def __enter__(self):
+        import warnings
+
+        from mxnet_tpu_torch import engine
+
+        self._warn = warnings.catch_warnings(record=True)
+        self.caught = self._warn.__enter__()
+        warnings.simplefilter("always")
+        self.originals = {m: getattr(torch.Tensor, m) for m in SYNC_METHODS}
+        for m in SYNC_METHODS:
+            setattr(torch.Tensor, m, self._counted(m))
+        self.wait_one = engine.AsyncWindow._wait_one
+        engine.AsyncWindow._wait_one = \
+            lambda window: self._window_wait(window)
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch import engine
+
+        torch.cuda.set_sync_debug_mode(0)
+        engine.AsyncWindow._wait_one = self.wait_one
+        for m, f in self.originals.items():
+            setattr(torch.Tensor, m, f)
+        self._warn.__exit__(*exc)
+        return False
+
+
 def _resnet_fit(tr, smi, tag="train_resnet", **fit_kwargs):
     """One epoch of ``fit`` (of a FusedTrainer or a Module; ``fit_kwargs``
     go to it) over an NDArrayIter of 8 host batches with Accuracy and a
-    Speedometer; counts the host syncs (Tensor reads to the host, and
-    every synchronising CUDA call under
-    ``torch.cuda.set_sync_debug_mode("warn")``) batch by batch.  The
-    async window's waits on its events are counted apart."""
-    import warnings
-
-    from mxnet_tpu_torch import callback, engine, io, metric
+    Speedometer; counts the host syncs batch by batch (``_SyncCounter``)."""
+    from mxnet_tpu_torch import callback, io, metric
 
     rs = np.random.RandomState(5)
     n = RESNET_BATCH * RESNET_FIT_BATCHES
     x = rs.uniform(0, 1, (n, 3, 224, 224)).astype(np.float32)
     y = rs.randint(0, 1000, n).astype(np.float32)
     it = io.NDArrayIter(x, y, batch_size=RESNET_BATCH)
-    syncs, marks, waits, stamps = [], [], [], []
-    originals = {m: getattr(torch.Tensor, m) for m in SYNC_METHODS}
-    wait_one = engine.AsyncWindow._wait_one
-
-    def counted(name):
-        def f(*a, **kw):
-            syncs.append(name)
-            return originals[name](*a, **kw)
-        return f
-
-    def window_wait(self):
-        waits.append(1)
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            wait_one(self)
-        finally:
-            torch.cuda.set_sync_debug_mode("warn")
-
-    def mark(param):
-        marks.append(len(syncs) + sum(SYNC_WARNING in str(w.message)
-                                      for w in caught))
-        stamps.append(time.perf_counter())
-
     acc = metric.Accuracy()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        for m in SYNC_METHODS:
-            setattr(torch.Tensor, m, counted(m))
-        engine.AsyncWindow._wait_one = window_wait
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            tr.fit(it, eval_metric=acc, num_epoch=1,
-                   batch_end_callback=[callback.Speedometer(RESNET_BATCH),
-                                       mark], **fit_kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            engine.AsyncWindow._wait_one = wait_one
-            for m, f in originals.items():
-                setattr(torch.Tensor, m, f)
+    with _SyncCounter() as sync:
+        tr.fit(it, eval_metric=acc, num_epoch=1,
+               batch_end_callback=[callback.Speedometer(RESNET_BATCH),
+                                   sync.mark], **fit_kwargs)
     wall = time.perf_counter() - t0
-    # setting the mode warns once that it is a prototype: not a sync
-    caught = [w for w in caught if SYNC_WARNING in str(w.message)]
-    total = len(syncs) + len(caught)
+    marks, caught = sync.marks, sync.warned()
+    total = sync.total()
     per_batch = [b - a for a, b in zip(marks, marks[1:])]
-    batch_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    batch_ms = [(b - a) * 1e3 for a, b in zip([t0] + sync.stamps,
+                                              sync.stamps)]
     warned = sorted({str(w.message).splitlines()[0][:120] for w in caught})
     value = acc.get_global()[1]
     log(f"[{tag}-fit] one epoch of {RESNET_FIT_BATCHES} batches of "
@@ -1419,8 +1509,8 @@ def _resnet_fit(tr, smi, tag="train_resnet", **fit_kwargs):
         f"({n / wall:.1f} img/s, host data uploaded by the step); "
         f"host syncs between batches {per_batch}, before the first batch's "
         f"end {marks[0]}, at the epoch boundary {total - marks[-1]} "
-        f"({', '.join(sorted(set(syncs)))}; sync-debug warnings "
-        f"{len(caught)}: {warned}); async-window waits {len(waits)}; "
+        f"({', '.join(sorted(set(sync.syncs)))}; sync-debug warnings "
+        f"{len(caught)}: {warned}); async-window waits {len(sync.waits)}; "
         f"host ms per batch {' '.join(f'{t:.1f}' for t in batch_ms)}; "
         f"train accuracy {value:.4f}; {smi}")
     if len(marks) != RESNET_FIT_BATCHES or any(per_batch) or marks[0]:
@@ -1429,7 +1519,8 @@ def _resnet_fit(tr, smi, tag="train_resnet", **fit_kwargs):
         raise AssertionError(f"fit accuracy {value}")
     return {"img_s": n / wall, "batch_ms": batch_ms,
             "syncs_per_batch": per_batch,
-            "boundary_syncs": total - marks[-1], "window_waits": len(waits)}
+            "boundary_syncs": total - marks[-1],
+            "window_waits": len(sync.waits)}
 
 
 def phase_train_resnet(smi):
@@ -3268,6 +3359,464 @@ def phase_zoo_score(smi):
     return line
 
 
+# --------------------------------------------------------------- phase 12
+def _lstm_states():
+    return [f"l{i}_init_{s}" for i in range(LSTM_LAYERS) for s in "ch"]
+
+
+def _lstm_trainer(dtype, dropout=LSTM_DROPOUT, seed=0):
+    """``lstm.get_symbol`` through FusedTrainer as
+    tools/bench_models.py:70-102 runs it (the initial states are data),
+    initialised from the port's seed ``seed``."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import lstm
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    states = _lstm_states()
+    mxrandom.seed(seed)
+    net = lstm.get_symbol(num_classes=LSTM_VOCAB, seq_len=LSTM_SEQ,
+                          num_hidden=LSTM_HIDDEN, num_embed=LSTM_HIDDEN,
+                          num_lstm_layer=LSTM_LAYERS, dropout=dropout)
+    return FusedTrainer(net, data_names=("data", *states), optimizer="sgd",
+                        optimizer_params={"lr": 1.0,
+                                          "rescale_grad": 1.0 / LSTM_BATCH},
+                        dtype=dtype).init(
+        data=(LSTM_BATCH, LSTM_SEQ), softmax_label=(LSTM_BATCH, LSTM_SEQ),
+        **{s: (LSTM_BATCH, LSTM_HIDDEN) for s in states})
+
+
+def _lstm_batches(k, seed):
+    """``k`` feeds of random ids (as bench_models.py draws them) with the
+    states as zeros, on the card."""
+    rs = np.random.RandomState(seed)
+    zeros = torch.zeros(LSTM_BATCH, LSTM_HIDDEN, device="cuda")
+    shape = (LSTM_BATCH, LSTM_SEQ)
+    return [{"data": torch.from_numpy(rs.randint(0, LSTM_VOCAB, shape)
+                                      .astype(np.float32)).cuda(),
+             "softmax_label": torch.from_numpy(rs.randint(
+                 0, LSTM_VOCAB, shape).astype(np.float32)).cuda(),
+             **{s: zeros for s in _lstm_states()}} for _ in range(k)]
+
+
+def _lstm_parity(staged, tag, dtype, dropout):
+    """``step_multi(k)`` against k ``step()`` calls from the same weights
+    and the same generator state (the captured steps draw what the eager
+    steps draw), then one ``step()`` each."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.convert import load_trainer_params
+
+    tol = LSTM_TOL[tag.split()[0]]
+    eager = _lstm_trainer(dtype, dropout)
+    graph = _lstm_trainer(dtype, dropout)
+    load_trainer_params(graph, *eager.get_params())
+    mxrandom.seed(5)
+    want = [eager.step(**b)[0] for b in staged]
+    mxrandom.seed(5)
+    outs = graph.step_multi(**{k: torch.stack([b[k] for b in staged])
+                               for k in staged[0]})
+    err = _rel_err(outs[0], torch.stack(want))
+    bitwise = bool(torch.equal(outs[0], torch.stack(want)))
+    perr = _param_errs(graph, eager)
+    for t in (eager, graph):
+        mxrandom.seed(6)
+        t.step(**staged[0])
+    cont = _param_errs(graph, eager)
+    log(f"[train_lstm-parity] {tag}: step_multi({len(staged)}) vs "
+        f"{len(staged)} x step() from one generator state: softmax rel err "
+        f"{err:.3g} (bit-equal {bitwise}), parameter rel err max "
+        f"{perr[0]:.3g} ({perr[1]}) median {perr[2]:.3g}; then one step() "
+        f"each: max {cont[0]:.3g} median {cont[2]:.3g}; tol max {tol[0]}, "
+        f"median {tol[1]}")
+    if not (max(err, perr[0], cont[0]) <= tol[0]
+            and max(perr[2], cont[2]) <= tol[1]):
+        raise AssertionError(f"lstm {tag} step_multi vs step: {err}, "
+                             f"{perr}, {cont}")
+    del eager, graph, outs, want
+    torch.cuda.empty_cache()
+    return {"softmax": err, "bit_equal": bitwise, "params_max": perr[0],
+            "params_median": perr[2], "continued_max": cont[0]}
+
+
+def _lstm_dropout_check(staged):
+    """The dropout graph through ``step_multi``: a probe around every
+    Dropout node of the captured step tallies the kept elements and keeps
+    the last node's mask in device buffers (the replays update them, no
+    host sync); two replays must draw different masks, and the keep rate
+    over 8 steps lie within 4 sigma of 0.8."""
+    from mxnet_tpu_torch.ops import registry
+
+    drop = registry.get("Dropout")
+    plain = drop.fn
+    kept = torch.zeros((), dtype=torch.float64, device="cuda")
+    seen = torch.zeros((), dtype=torch.float64, device="cuda")
+    last = torch.zeros(LSTM_BATCH, LSTM_HIDDEN, dtype=torch.bool,
+                       device="cuda")
+
+    def probe(ctx, data, **attrs):
+        out = plain(ctx, data, **attrs)
+        if ctx.is_train and not out.is_meta:    # not shape inference
+            with torch.no_grad():
+                mask = out != 0
+                kept.add_(mask.sum())
+                seen.add_(mask.numel())
+                last.copy_(mask)
+        return out
+
+    drop.fn = probe
+    try:
+        tr = _lstm_trainer("bfloat16")
+        one = {k: v[None] for k, v in staged[0].items()}
+        tr.step_multi(**one)                   # capture (warm-ups count)
+        masks = []
+        for _ in range(2):
+            tr.step_multi(**one)
+            masks.append(last.clone())
+        kept.zero_()
+        seen.zero_()
+        tr.step_multi(**{k: torch.stack([b[k] for b in staged])
+                         for k in staged[0]})
+        rate, n = float(kept / seen), float(seen)
+    finally:
+        drop.fn = plain
+    differ = not torch.equal(masks[0], masks[1])
+    sigma = math.sqrt(0.16 / n)
+    nodes = sum(1 for nd in tr.symbol.nodes if nd.op == "Dropout")
+    log(f"[train_lstm-dropout] step_multi captured the dropout={LSTM_DROPOUT}"
+        f" graph ({nodes} Dropout nodes a step, the trainer's generator "
+        f"registered with the graph): two replays drew different masks: "
+        f"{differ}; keep rate over {len(staged)} replays {rate:.6f} of "
+        f"{n:.0f} elements (0.8 +- {LSTM_KEEP_SIGMAS} sigma = "
+        f"{LSTM_KEEP_SIGMAS * sigma:.2e})")
+    if not differ or abs(rate - 0.8) > LSTM_KEEP_SIGMAS * sigma:
+        raise AssertionError(f"dropout in the captured step: differ "
+                             f"{differ}, keep rate {rate}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"captured": True, "masks_differ": differ, "keep_rate": rate,
+            "elements": n, "sigma": sigma, "dropout_nodes": nodes}
+
+
+def _lstm_cells_check(smi):
+    """A FusedRNNCell 2 x 200 LSTM (the ``RNN`` op) against the unrolled
+    LSTMCell stack it unpacks into, at T 35 and batch 32, fp32: outputs
+    and input gradients, and the ms of a training forward + backward of
+    each."""
+    import mxnet_tpu_torch as mx
+
+    T, N, H = LSTM_SEQ, LSTM_BATCH, LSTM_HIDDEN
+    fused = mx.rnn.FusedRNNCell(H, num_layers=LSTM_LAYERS, prefix="lstm_")
+    fnet, _ = fused.unroll(T, inputs=mx.sym.Variable("data"), layout="NTC")
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(LSTM_LAYERS):
+        stack.add(mx.rnn.LSTMCell(H, prefix=f"lstm_l{i}_"))
+    outs, _ = stack.unroll(T, inputs=mx.sym.Variable("data"), layout="NTC",
+                           merge_outputs=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    states = {f"lstm_begin_state_{i}": (LSTM_LAYERS, N, H) for i in range(2)}
+    fexe = fnet.simple_bind(mx.gpu(0), data=(N, T, H), **states)
+    packed = fexe.arg_dict["lstm_parameters"]
+    mx.init.Uniform(generator=g)("lstm_parameters", packed)
+    args = fused.unpack_weights({"lstm_parameters": packed})
+    uexe = outs.simple_bind(mx.gpu(0), data=(N, T, H), **{
+        k: (N, H) for k in outs.list_arguments() if "begin_state" in k})
+    x = torch.randn(N, T, H, generator=g, device="cuda")
+    head = torch.randn(N, T, H, generator=g, device="cuda")
+    times, res = {}, {}
+    for tag, exe, kw in (("fused", fexe, {}), ("unrolled", uexe, args)):
+        def run():
+            (o,) = exe.forward(is_train=True, data=x, **kw)
+            exe.backward(head)
+            return o
+        res[tag] = (run(), exe.grad_dict["data"].clone())
+        times[tag] = _time_ms(lambda i: run(), 10, warmup=2)
+    out_err = float((res["fused"][0] - res["unrolled"][0]).abs().max())
+    grad_err = float((res["fused"][1] - res["unrolled"][1]).abs().max())
+    log(f"[train_lstm-cells] FusedRNNCell {LSTM_LAYERS} x {H} LSTM (the RNN "
+        f"op) vs the unrolled LSTMCell stack from unpack_weights, T {T} "
+        f"batch {N} fp32: max |diff| output {out_err:.3g}, input gradient "
+        f"{grad_err:.3g} (tol {LSTM_CELL_TOL}); training forward + "
+        f"backward {times['fused']:.3f} ms fused, {times['unrolled']:.3f} "
+        f"ms unrolled; {smi}")
+    if max(out_err, grad_err) > LSTM_CELL_TOL:
+        raise AssertionError(f"FusedRNNCell vs unrolled: {out_err}, "
+                             f"{grad_err}")
+    return {"max_abs_diff_output": out_err, "max_abs_diff_grad": grad_err,
+            "fused_ms": times["fused"], "unrolled_ms": times["unrolled"]}
+
+
+def phase_train_lstm(smi):
+    """Path (a): the LSTM LM through FusedTrainer at full width (batch 32 x
+    35, 2 x 200, vocab 10000, dropout 0.2, bf16 with fp32 masters, SGD lr
+    1.0): step_multi(8) against 8 step() calls on the dropout=0 graph
+    (fp32 and bf16) and on the dropout graph; the dropout graph captured,
+    its masks fresh a replay; timed steps through step() and
+    step_multi(8) with a profile each; a falling cross-entropy; the
+    FusedRNNCell against the unrolled cells."""
+    torch.backends.cudnn.deterministic = True
+    staged = _lstm_batches(LSTM_K, 21)
+    parity = {"fp32 dropout=0": _lstm_parity(staged, "fp32 dropout=0",
+                                             None, 0.0),
+              "bf16 dropout=0": _lstm_parity(staged, "bf16 dropout=0",
+                                             "bfloat16", 0.0),
+              "bf16 dropout=0.2": _lstm_parity(staged, "bf16 dropout=0.2",
+                                               "bfloat16", LSTM_DROPOUT)}
+    dropout = _lstm_dropout_check(staged)
+    t0 = time.perf_counter()
+    tr = _lstm_trainer("bfloat16")
+    tokens = LSTM_BATCH * LSTM_SEQ
+    log(f"[train_lstm] lstm.get_symbol FusedTrainer (bf16, fp32 masters, "
+        f"SGD lr 1.0 rescale_grad 1/{LSTM_BATCH}, dropout {LSTM_DROPOUT}) "
+        f"built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in tr.params.values()) / 1e6:.3f} M params; "
+        f"{LSTM_FLOPS_PER_TOKEN * tokens / 1e9:.2f} GFLOP a step")
+    for i in range(LSTM_WARMUP):
+        tr.step(**staged[i % LSTM_K])
+    stacked = {k: torch.stack([b[k] for b in staged]) for k in staged[0]}
+    t0 = time.perf_counter()
+    tr.step_multi(**stacked)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    routes = {}
+    for tag, run in (
+            ("eager", lambda: [tr.step(**staged[i % LSTM_K])
+                               for i in range(LSTM_STEPS)]),
+            ("captured", lambda: [tr.step_multi(**stacked) for _ in range(
+                LSTM_STEPS // LSTM_K)])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {"steps": LSTM_STEPS, "wall_s": wall,
+             "step_ms": wall / LSTM_STEPS * 1e3,
+             "tokens_s": tokens * LSTM_STEPS / wall,
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+        r["mfu"] = r["tokens_s"] * LSTM_FLOPS_PER_TOKEN \
+            / PEAK_FLOPS[torch.bfloat16]
+        log(f"[train_lstm] {tag}: {r['tokens_s']:.1f} tokens/s, step "
+            f"{r['step_ms']:.3f} ms over {LSTM_STEPS} steps, MFU "
+            f"{r['mfu']:.5f}, peak memory allocated "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB"
+            + (f", capture {capture_s:.2f} s" if tag == "captured" else "")
+            + f"; {smi}")
+        routes[tag] = r
+    routes["eager"]["profile"] = _train_profile(
+        lambda: [tr.step(**staged[i]) for i in range(2)], 2,
+        routes["eager"]["step_ms"], "eager", prefix="train_lstm",
+        kinds=LSTM_KINDS)
+    prof = _train_profile(lambda: tr.step_multi(**stacked), LSTM_K,
+                          routes["captured"]["step_ms"], "captured",
+                          prefix="train_lstm", kinds=LSTM_KINDS)
+    routes["captured"]["profile"] = prof
+    if prof["graph_launches"] != LSTM_K:
+        raise AssertionError(f"{prof['graph_launches']} graph launches in "
+                             f"one step_multi of {LSTM_K} steps")
+    del tr
+    torch.cuda.empty_cache()
+    # the loss over one repeated batch (the rows of lstm_unroll's output
+    # are time-major: row t * N + n is label[n, t])
+    fresh = _lstm_trainer("bfloat16")
+    p = fresh.step_multi(**{k: v.expand((LSTM_K,) + v.shape)
+                            for k, v in staged[0].items()})[0]
+    lab = staged[0]["softmax_label"].t().reshape(-1).long()
+    ces = (-torch.log(p.float().gather(
+        2, lab.expand(LSTM_K, -1)[..., None]).clamp_min(1e-30))
+        .mean((1, 2))).cpu().tolist()
+    log(f"[train_lstm] cross-entropy over one repeated batch, {LSTM_K} "
+        f"captured steps: {' '.join(f'{c:.4f}' for c in ces)}")
+    if not (all(math.isfinite(c) for c in ces) and ces[-1] < ces[0]):
+        raise AssertionError(f"cross-entropy did not fall: {ces}")
+    del fresh, p
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    cells = _lstm_cells_check(smi)
+    line = {"metric": "lstm_ptb_train_tokens_per_sec",
+            "value": routes["captured"]["tokens_s"], "unit": "tokens/s",
+            "device_kind": torch.cuda.get_device_name(0),
+            "batch": LSTM_BATCH, "seq_len": LSTM_SEQ,
+            "gflop_per_step": LSTM_FLOPS_PER_TOKEN * tokens / 1e9,
+            "routes": routes, "parity": parity, "dropout": dropout,
+            "cross_entropy": ces, "cells": cells, "card": smi}
+    log("[train_lstm] " + json.dumps(line))
+    return line
+
+
+# --------------------------------------------------------------- phase 13
+def _synthetic_corpus(num_sentences, vocab_size, seed=3):
+    """examples/rnn/lstm_bucketing.py:45-57 ``synthetic_corpus`` (a copy:
+    the example imports the JAX package): Zipf ids offset by one (0 is
+    the padding and ignore label), lengths 5-32."""
+    rs = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    probs = (1.0 / ranks) / (1.0 / ranks).sum()
+    sentences = []
+    for _ in range(num_sentences):
+        length = int(rs.randint(5, 33))
+        ids = rs.choice(vocab_size, size=length, p=probs) + 1
+        sentences.append(ids.tolist())
+    return sentences
+
+
+def _time_major_perplexity():
+    """``metric.Perplexity(ignore_label=0)`` with each ``(N, T)`` label
+    transposed on the card to the time-major order of lstm_unroll's
+    output rows (the reference's example pairs the batch-major labels
+    with them as they come)."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    class TimeMajor(metric.Perplexity):
+        def update(self, labels, preds):
+            super().update([NDArray(x.tensor.t().contiguous())
+                            for x in labels], preds)
+
+    return TimeMajor(ignore_label=0)
+
+
+def _bucketing_route(sentences, compile_buckets, smi):
+    """Two epochs of ``BucketingModule.fit`` over ``BucketSentenceIter``
+    (the lstm_bucketing example's loop), the first counted for host syncs
+    batch by batch; then a profile of 4 batches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models.lstm import lstm_unroll
+
+    B, H, V = LSTM_BATCH, LSTM_HIDDEN, LSTM_VOCAB
+    init_states = [(f"l{i}_init_{s}", (B, H)) for i in range(LSTM_LAYERS)
+                   for s in "ch"]
+    it = mx.rnn.BucketSentenceIter(sentences, B, buckets=list(BUCKETS),
+                                   invalid_label=0, init_states=init_states,
+                                   rng=np.random.RandomState(0))
+    real = sum(int((it.data[i][j:j + B] != 0).sum()) for i, j in it.idx)
+    padded = sum(B * it.buckets[i] for i, _ in it.idx)
+
+    def sym_gen(seq_len):
+        net = lstm_unroll(LSTM_LAYERS, seq_len, V, H, H, V,
+                          dropout=LSTM_DROPOUT, ignore_label=0)
+        return net, ("data",) + tuple(n for n, _ in init_states), \
+            ("softmax_label",)
+
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0),
+                                 compile_buckets=compile_buckets)
+    mxrandom.seed(0)
+    ppl, ref_ppl, walls, sync = [], [], [], None
+    logger = logging.getLogger("chip_smoke.bucketing")
+    logger.setLevel(logging.ERROR)
+    mod.logger = logger
+    for epoch in range(2):
+        metric = _time_major_perplexity()
+        ref = mx.metric.Perplexity(ignore_label=0)
+        comp = mx.metric.CompositeEvalMetric()
+        comp.add(metric)
+        comp.add(ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _SyncCounter() as counter:
+            mod.fit(it, eval_metric=comp, optimizer="sgd",
+                    optimizer_params=dict(BUCKET_OPT),
+                    initializer=mx.init.Xavier(factor_type="in",
+                                               magnitude=2.34),
+                    num_epoch=1, batch_end_callback=[
+                        mx.callback.Speedometer(B, 1000), counter.mark])
+        walls.append(time.perf_counter() - t0)
+        if epoch == 0:
+            sync = counter
+        ppl.append(metric.get()[1])
+        ref_ppl.append(ref.get()[1])
+    per_batch = [b - a for a, b in zip(sync.marks, sync.marks[1:])]
+    n = len(it.idx)
+    r = {"compile_buckets": bool(compile_buckets), "batches": n,
+         "real_tokens": real, "padded_tokens": padded,
+         "epoch_s": walls, "real_tokens_s": [real / w for w in walls],
+         "executors_bound": len(mod._buckets),
+         "syncs_per_batch": per_batch, "syncs_first_batch": sync.marks[0],
+         "perplexity": ppl, "perplexity_reference_pairing": ref_ppl}
+    log(f"[bucketing_lstm] compile_buckets={compile_buckets}: {n} batches "
+        f"an epoch ({real} real tokens of {padded} in the buckets), epochs "
+        f"{' '.join(f'{w:.3f}' for w in walls)} s = "
+        f"{' '.join(f'{t:.1f}' for t in r['real_tokens_s'])} real tokens/s; "
+        f"executors bound {r['executors_bound']}; host syncs between "
+        f"batches {sorted(set(per_batch))} (first batch {sync.marks[0]}); "
+        f"perplexity (labels time-major) {' '.join(f'{v:.2f}' for v in ppl)}"
+        f", as the example pairs them {' '.join(f'{v:.2f}' for v in ref_ppl)}"
+        f"; {smi}")
+    if len(sync.marks) != n or any(per_batch) or sync.marks[0]:
+        raise AssertionError(f"BucketingModule.fit made host syncs per "
+                             f"batch: {sync.marks}")
+    if not (all(math.isfinite(v) for v in ppl) and ppl[1] < ppl[0]):
+        raise AssertionError(f"perplexity did not fall: {ppl}")
+    want = 1 if compile_buckets else len(BUCKETS)
+    if len(mod._buckets) != want:
+        raise AssertionError(f"{len(mod._buckets)} executors bound, want "
+                             f"{want}")
+    # a profile of 4 batches of the next epoch
+    it.reset()
+    batches = [next(it) for _ in range(4)]
+    metric = mx.metric.Perplexity(ignore_label=0)
+
+    def run():
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+            mod.update_metric(metric, b.label)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) / 4 * 1e3
+    r["profile"] = _train_profile(run, 4, batch_ms,
+                                  f"compile_buckets={compile_buckets}",
+                                  update="Module.update",
+                                  prefix="bucketing_lstm", kinds=LSTM_KINDS)
+    r["profile"]["buckets"] = [b.bucket_key for b in batches]
+    del mod
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_bucketing_lstm(smi):
+    """Path (b): examples/rnn/lstm_bucketing.py's loop through
+    ``BucketingModule.fit`` over ``BucketSentenceIter`` on the example's
+    Zipf corpus (vocab 10000), buckets 8/16/24/32, batch 32, 2 x 200,
+    dropout 0.2, fp32 (TF32 off), with ``compile_buckets`` on and off:
+    real tokens/s, executors bound, host syncs per batch (0), a falling
+    perplexity, a profile."""
+    sentences = _synthetic_corpus(BUCKET_SENTENCES, LSTM_VOCAB - 2)
+    routes = {"compile_buckets": _bucketing_route(sentences, True, smi),
+              "per_bucket": _bucketing_route(sentences, None, smi)}
+    line = {"metric": "lstm_bucketing_real_tokens_per_sec",
+            "value": routes["compile_buckets"]["real_tokens_s"][1],
+            "unit": "tokens/s", "device_kind": torch.cuda.get_device_name(0),
+            "batch": LSTM_BATCH, "buckets": list(BUCKETS),
+            "routes": routes, "card": smi}
+    log("[bucketing_lstm] " + json.dumps(line))
+    return line
+
+
+def _kernel_launches(reset=False):
+    """Each hand-written kernel's launch count (zeroed first when
+    ``reset``), by its record's name."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as tpa
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    if reset:
+        fa.reset_launch_counts()
+        for mod in (tpa, tre, rtc):
+            mod.reset_launch_count()
+    counts = {"paged_attention": tpa.launch_count(),
+              "residual_epilogue": tre.launch_count(),
+              "rtc": rtc.launch_count()}
+    counts.update(fa.launch_counts())
+    return counts
+
+
 # -------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -3296,6 +3845,13 @@ def main():
     phase_train_inception(smi)
     phase_module_alexnet(smi)
     zoo = phase_zoo_score(smi)
+    # the LSTM LM's path runs no hand-written kernel: the counts stay 0
+    lstm_launches = _kernel_launches(reset=True)
+    phase_train_lstm(smi)
+    phase_bucketing_lstm(smi)
+    lstm_launches = _kernel_launches()
+    log(f"[lstm] hand-written kernel launches in phases 12-13: "
+        f"{json.dumps(lstm_launches)}")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -3338,6 +3894,8 @@ def main():
                 if k not in ("grid", "block", "compile_ms")})
     rec["user_kernels"] = rtc_kernels
     records.append(rec)
+    for rec in records:
+        rec["launches_lstm"] = lstm_launches[rec["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

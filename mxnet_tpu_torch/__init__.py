@@ -27,7 +27,10 @@ API — the ``Executor`` forward and backward, ``optimizer`` with its
 checkpoints); and mixed precision — ``amp`` (the ``MXTPU_AMP`` policy,
 fp32 masters and the device-resident ``LossScaler``) with the whole
 graph-pass pipeline of ``passes`` (``constant_fold``, ``cse``, ``dce``,
-``residual_epilogue``, ``amp_cast``, ``prefuse``, ``convbn_fold``).
+``residual_epilogue``, ``amp_cast``, ``prefuse``, ``convbn_fold``); and
+the image-classification zoo; and the LSTM language model —
+``models.lstm``, ``rnn`` (the cells, ``FusedRNNCell`` over the ``RNN``
+op, ``BucketSentenceIter``) and ``mod.BucketingModule``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -57,3 +60,4 @@ from . import kvstore as kv  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from .module import Module  # noqa: F401
+from . import rnn  # noqa: F401

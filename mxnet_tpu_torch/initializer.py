@@ -4,8 +4,11 @@ the name-based dispatch, ``Uniform`` (the trainer's default),
 ``MSRAPrelu``).
 
 ``_weight`` names go to the initializer's own rule; ``_gamma`` and
-``_moving_var`` fill with ones; ``_beta``, ``_bias``, ``_moving_mean``
-and every unknown suffix (``pos_embed``) with zeros.  Tensors are filled
+``_moving_var`` fill with ones; ``_parameters`` (the fused ``RNN`` op's
+packed vector, whose per-matrix fan-in the 1-D shape cannot tell) draws
+``U(-0.07, 0.07)``, as the JAX package does; ``_beta``, ``_bias``,
+``_moving_mean`` and every unknown suffix (``pos_embed``) fill with
+zeros.  Tensors are filled
 in place from a ``torch.Generator``: the one given to the initializer,
 else the process generator of the tensor's device
 (:func:`mxnet_tpu_torch.random.generator`).  The JAX package draws from
@@ -34,11 +37,9 @@ class Initializer:
     def __call__(self, name, arr: torch.Tensor):
         if not isinstance(name, str):
             raise TypeError("name must be str")
-        if (name.startswith("upsampling")
-                or name.endswith(("_bilinear", "_parameters"))):
-            raise MXNetError(f"initializer for {name!r} (bilinear / fused "
-                             "RNN parameters) is not ported yet (ROADMAP "
-                             "Queue 1 item 6)")
+        if name.startswith("upsampling") or name.endswith("_bilinear"):
+            raise MXNetError(f"initializer for {name!r} (bilinear) is not "
+                             "ported yet (ROADMAP Queue 1 item 6)")
         if name.endswith("_gamma"):
             self._init_gamma(name, arr)
         elif name.endswith("_beta"):
@@ -51,6 +52,8 @@ class Initializer:
             self._init_zero(name, arr)
         elif name.endswith("_moving_var"):
             self._init_one(name, arr)
+        elif name.endswith("_parameters"):
+            self._init_rnn_fused(name, arr)
         else:
             self._init_default(name, arr)
 
@@ -64,6 +67,9 @@ class Initializer:
     _init_beta = _init_zero
     _init_bias = _init_zero
     _init_default = _init_zero
+
+    def _init_rnn_fused(self, name, arr):
+        arr.uniform_(-0.07, 0.07, generator=self._gen(arr))
 
     def _init_weight(self, name, arr):
         raise NotImplementedError

@@ -1,5 +1,7 @@
 """Models of the port: the transformer LM's layout and its KV decoder,
-the image-classification zoo, and :func:`get_symbol`, the dispatcher of
+the image-classification zoo, the unrolled LSTM language model
+(``models.lstm``, which the dispatcher's table leaves out, as the
+reference's does), and :func:`get_symbol`, the dispatcher of
 ``mxnet_tpu/models/__init__.py`` (parity:
 example/image-classification/train_model.py).
 
@@ -9,8 +11,8 @@ item 11); a name neither package knows raises the reference's
 ``ValueError``."""
 from ..base import MXNetError
 from . import (alexnet, decode, googlenet, inception_bn,  # noqa: F401
-               inception_resnet, inception_v3, lenet, mlp, resnet, resnext,
-               transformer, vgg)
+               inception_resnet, inception_v3, lenet, lstm, mlp, resnet,
+               resnext, transformer, vgg)
 
 # the reference's builder names; None marks a builder not ported yet
 _BUILDERS = {

@@ -63,15 +63,22 @@ class DataParallelExecutorGroup:
         input_shapes = dict([(n, s) for n, s in data_shapes]
                             + [(n, s) for n, s in (label_shapes or [])])
         ex = simple_bind(symbol, devices[0], grad_req=req, **input_shapes)
+        # whether every parameter and aux state is the donor's own tensor
+        # (then a bucketing module need not copy parameters in)
+        self.shares_param_storage = False
         if shared_group is not None:
             # the donor's parameter storage, shared live (bucketing)
             donor = shared_group.execs[0]
+            shared = set()
             for store, theirs in ((ex.arg_dict, donor.arg_dict),
                                   (ex.aux_dict, donor.aux_dict)):
                 for name, t in theirs.items():
                     if (name in store and name in param_names + self.aux_names
                             and store[name].shape == t.shape):
                         store[name] = t
+                        shared.add(name)
+            mine = {n for n in param_names if n in ex.arg_dict}
+            self.shares_param_storage = (mine | set(ex.aux_dict)) <= shared
         self.execs = [ex]
         self.device = devices[0]
         self._arg_nd = {k: NDArray(v) for k, v in ex.arg_dict.items()}
@@ -84,8 +91,12 @@ class DataParallelExecutorGroup:
                              (ex.aux_dict, aux_params or {})):
             for name, v in given.items():
                 dst = store.get(name)
-                if dst is not None:
-                    dst.copy_(_to_tensor(v, dst.dtype, dst.device))
+                if dst is None:
+                    continue
+                if isinstance(v, NDArray):
+                    # device to device, no host round trip
+                    v = v.tensor
+                dst.copy_(_to_tensor(v, dst.dtype, dst.device))
 
     def get_params(self, arg_params, aux_params):
         """Copies of the bound parameters and aux states, as NDArrays in

@@ -16,8 +16,9 @@ its bucketed engine.  The module's parameter copies (``get_params``)
 live on its device in the bound memory format.
 
 Not ported yet: ``install_monitor`` (``monitor.py``, ROADMAP Queue 1
-item 11), ``BucketingModule``, ``SequentialModule`` and
-``PythonModule`` (item 6), and several contexts (item 10).
+item 11), ``SequentialModule`` and ``PythonModule`` (item 6), and
+several contexts (item 10).  ``BucketingModule`` is in
+``module/bucketing_module.py``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,13 @@
-"""Indexing ops of the port (``Embedding`` and ``one_hot`` from
-``mxnet_tpu/ops/indexing.py``)."""
+"""Indexing ops of the port (``mxnet_tpu/ops/indexing.py``, every name it
+registers): ``Embedding``, ``take``, ``batch_take``, ``one_hot``,
+``choose_element_0index`` and ``fill_element_0index``.
+
+Ids arrive as floats and are truncated to integers.  Where the JAX op
+indexes with them unclipped, an id outside the axis behaves as a JAX
+gather or scatter does: a negative id counts from the end, a gather
+clamps to the axis (and passes no gradient back for that id, as JAX's
+transpose drops it: :func:`jax_gather`) and a scatter drops the update.
+No op reads an id on the host."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +48,57 @@ def _one_hot(ctx, data, **attrs):
     on, off = (torch.full((), v, dtype=dtype, device=data.device)
                for v in (on, off))
     return torch.where(hot, on, off)
+
+
+def _normalize(idx, n):
+    """Integer ids as JAX indexing reads them: negatives count from the
+    end."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def jax_gather(values, valid):
+    """Gathered ``values`` whose gradient reaches the source only where
+    ``valid`` (broadcast over ``values``): a JAX gather clamps an
+    out-of-range id in the forward but its transpose drops that id."""
+    while valid.ndim < values.ndim:
+        valid = valid.unsqueeze(-1)
+    return torch.where(valid, values, values.detach())
+
+
+@register("take", arg_names=("a", "indices"))
+def _take(ctx, a, indices, **attrs):
+    """Rows of ``a`` (axis 0) at ``indices``, clipped to the axis."""
+    idx = indices.long().clamp(0, a.shape[0] - 1)
+    return a[idx]
+
+
+def _pick(lhs, rhs):
+    """``lhs[i, rhs[i]]`` per row, the column clamped as a JAX gather
+    clamps it."""
+    n = lhs.shape[1]
+    idx = _normalize(rhs.long().reshape(-1), n)
+    out = lhs.gather(1, idx.clamp(0, n - 1)[:, None])[:, 0]
+    return jax_gather(out, (idx >= 0) & (idx < n))
+
+
+@register("batch_take", arg_names=("a", "indices"))
+def _batch_take(ctx, a, indices, **attrs):
+    """``a[i, indices[i]]`` per row."""
+    return _pick(a, indices)
+
+
+@register("choose_element_0index", arg_names=("lhs", "rhs"))
+def _choose_element_0index(ctx, lhs, rhs, **attrs):
+    """The NDArray function: ``lhs[i, rhs[i]]`` per row."""
+    return _pick(lhs, rhs)
+
+
+@register("fill_element_0index", arg_names=("lhs", "mhs", "rhs"))
+def _fill_element_0index(ctx, lhs, mhs, rhs, **attrs):
+    """The NDArray function: a copy of ``lhs`` with ``lhs[i, rhs[i]] =
+    mhs[i]``; a row whose column lies outside the axis is left as it
+    is."""
+    n = lhs.shape[1]
+    idx = _normalize(rhs.long().reshape(-1), n)
+    hit = idx[:, None] == torch.arange(n, device=lhs.device)
+    return torch.where(hit, mhs.reshape(-1, 1).to(lhs.dtype), lhs)

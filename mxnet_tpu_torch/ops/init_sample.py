@@ -1,8 +1,9 @@
-"""Creation ops of the port (``_zeros``, ``_ones``, ``_full``,
-``_arange`` and ``_set_value`` of ``mxnet_tpu/ops/init_sample.py``; the
-sampling ops ``uniform``/``normal`` wait for ROADMAP Queue 1 item 3's
-random ops).  Each makes its output on ``ctx.device``, in ``dtype``
-(float32 by default)."""
+"""Creation and sampling ops of the port (``mxnet_tpu/ops/init_sample.py``,
+every name it registers): ``_zeros``, ``_ones``, ``_full``, ``_arange``,
+``_set_value``, and ``uniform``/``normal`` with their aliases.  Each
+makes its output on ``ctx.device``, in ``dtype`` (float32 by default);
+the samplers draw from ``ctx.generator`` (the JAX ops draw from a PRNG
+key: the two packages' draws agree in distribution, not in value)."""
 from __future__ import annotations
 
 import torch
@@ -62,3 +63,25 @@ def _arange(ctx, **attrs):
     if repeat > 1:
         out = out.repeat_interleave(repeat)
     return out
+
+
+@register("uniform", arg_names=(), needs_rng=True,
+          aliases=("_sample_uniform", "random_uniform"))
+def _uniform(ctx, **attrs):
+    """``U[low, high)`` of ``shape``."""
+    low = float(parse_attr(attrs.get("low", 0.0)))
+    high = float(parse_attr(attrs.get("high", 1.0)))
+    out = torch.empty(_shape(attrs), dtype=_dtype_of(attrs),
+                      device=ctx.device)
+    return out.uniform_(low, high, generator=ctx.generator)
+
+
+@register("normal", arg_names=(), needs_rng=True,
+          aliases=("_sample_normal", "random_normal"))
+def _normal(ctx, **attrs):
+    """``loc + scale * N(0, 1)`` of ``shape``."""
+    loc = float(parse_attr(attrs.get("loc", 0.0)))
+    scale = float(parse_attr(attrs.get("scale", 1.0)))
+    out = torch.empty(_shape(attrs), dtype=_dtype_of(attrs),
+                      device=ctx.device)
+    return loc + scale * out.normal_(generator=ctx.generator)

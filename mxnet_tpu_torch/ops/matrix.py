@@ -1,12 +1,62 @@
-"""Shape ops of the port (a subset of ``mxnet_tpu/ops/matrix.py``):
-``transpose``, ``Reshape``, ``Flatten``, ``crop``/``slice`` and
-``slice_axis``."""
+"""Matrix and shape ops of the port (``mxnet_tpu/ops/matrix.py``, every
+name it registers): ``dot``, ``batch_dot``, ``transpose``,
+``SwapAxis``, ``Reshape``, ``Flatten``, ``expand_dims``, ``crop``,
+``slice_axis``, ``flip``, ``repeat``, ``tile``, the ordering ops
+``sort``/``argsort``/``topk`` and the assignment helpers
+``_crop_assign``/``_crop_assign_scalar``/``_identity_with_attr_like_rhs``.
+
+Products of mixed dtypes promote as the JAX ops do (torch's matmul
+refuses mixed operands).  The ordering ops sort stably, as
+``jnp.argsort`` and ``lax.top_k`` do, and return indices in the data's
+dtype (in bf16 an index above 256 rounds, as in the JAX package).
+"""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..base import MXNetError, parse_attr
+from ..base import MXNetError, parse_attr, parse_bool
 from .registry import register
+
+
+def _promoted(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _reverse_axes(t):
+    """``t.T`` of numpy: every axis reversed."""
+    return t.permute(*reversed(range(t.ndim)))
+
+
+@register("dot", arg_names=("lhs", "rhs"))
+def _dot(ctx, lhs, rhs, **attrs):
+    """``jnp.dot``: the last axis of ``lhs`` against the second-to-last
+    of ``rhs`` (its only axis when 1-D); 1-D x 1-D gives shape ``(1,)``.
+    ``transpose_a``/``transpose_b`` reverse every axis of that operand
+    first (numpy's ``.T``)."""
+    a, b = _promoted(lhs, rhs)
+    if a.ndim == 1 and b.ndim == 1:
+        return torch.dot(a, b).reshape((1,))
+    if parse_bool(attrs.get("transpose_a", False)):
+        a = _reverse_axes(a)
+    if parse_bool(attrs.get("transpose_b", False)):
+        b = _reverse_axes(b)
+    if a.ndim <= 2 and b.ndim <= 2:
+        return a @ b
+    return torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
+
+
+@register("batch_dot", arg_names=("lhs", "rhs"))
+def _batch_dot(ctx, lhs, rhs, **attrs):
+    """``(B, M, K) x (B, K, N)``, the last two axes of either operand
+    swapped first under ``transpose_a``/``transpose_b``."""
+    a, b = _promoted(lhs, rhs)
+    if parse_bool(attrs.get("transpose_a", False)):
+        a = a.transpose(-1, -2)
+    if parse_bool(attrs.get("transpose_b", False)):
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
 
 
 @register("transpose")
@@ -36,7 +86,13 @@ def _infer_reshape(shape, target):
     return tuple(int(t) for t in target)
 
 
-@register("Reshape")
+@register("SwapAxis", aliases=("swapaxes",))
+def _swapaxis(ctx, data, **attrs):
+    return data.transpose(int(parse_attr(attrs.get("dim1", 0))),
+                          int(parse_attr(attrs.get("dim2", 0))))
+
+
+@register("Reshape", aliases=("reshape",))
 def _reshape(ctx, data, **attrs):
     """0 / -1 shape codes; a view where torch can make one.  ``shape``,
     or ``target_shape`` (the v0.9.4 spelling older symbol JSON carries)."""
@@ -49,6 +105,11 @@ def _flatten(ctx, data, **attrs):
     """Collapse all but axis 0 (of the logical layout: a channels-last
     tensor flattens in NCHW order, copying where it must)."""
     return data.reshape(data.shape[0], -1)
+
+
+@register("expand_dims")
+def _expand_dims(ctx, data, **attrs):
+    return data.unsqueeze(int(parse_attr(attrs["axis"])))
 
 
 @register("crop", aliases=("slice",))
@@ -68,3 +129,109 @@ def _slice_axis(ctx, data, **attrs):
     idx = [slice(None)] * data.ndim
     idx[axis] = slice(begin, None if end in (None, "None") else int(end))
     return data[tuple(idx)]
+
+
+@register("flip")
+def _flip(ctx, data, **attrs):
+    axis = parse_attr(attrs["axis"])
+    return torch.flip(data, (axis,) if isinstance(axis, int) else
+                      tuple(axis))
+
+
+@register("repeat")
+def _repeat(ctx, data, **attrs):
+    """Each element ``repeats`` times along ``axis`` (the flattened
+    array when there is none)."""
+    axis = parse_attr(attrs.get("axis", None))
+    return torch.repeat_interleave(
+        data, int(parse_attr(attrs["repeats"])),
+        dim=None if axis in (None, "None") else int(axis))
+
+
+@register("tile")
+def _tile(ctx, data, **attrs):
+    return torch.tile(data, tuple(parse_attr(attrs["reps"])))
+
+
+# --- ordering ---------------------------------------------------------
+def _sort_axis(data, attrs):
+    """``(data, axis)``: ``axis=None`` sorts the flattened array."""
+    axis = parse_attr(attrs.get("axis", -1))
+    if axis in (None, "None"):
+        return data.reshape(-1), 0
+    return data, int(axis)
+
+
+@register("sort")
+def _sort(ctx, data, **attrs):
+    data, axis = _sort_axis(data, attrs)
+    out = torch.sort(data, dim=axis, stable=True).values
+    if parse_bool(attrs.get("is_ascend", True)):
+        return out
+    return torch.flip(out, (axis,))
+
+
+@register("argsort")
+def _argsort(ctx, data, **attrs):
+    """The stable ascending order, flipped for ``is_ascend=False``: equal
+    values then come out in reverse index order, as in the JAX op (a
+    stable descending sort would keep them in index order)."""
+    data, axis = _sort_axis(data, attrs)
+    idx = torch.argsort(data, dim=axis, stable=True)
+    if not parse_bool(attrs.get("is_ascend", True)):
+        idx = torch.flip(idx, (axis,))
+    return idx.to(data.dtype)
+
+
+@register("topk", num_outputs=2, output_names=("output", "indices"))
+def _topk(ctx, data, **attrs):
+    """The ``k`` largest (``is_ascend``: smallest) along ``axis``, ties in
+    index order as ``lax.top_k`` gives them.  ``ret_typ`` selects what
+    comes out: ``indices`` (default, in the data's dtype), ``value``,
+    ``both`` (values, indices) or ``mask`` (1 where an element was
+    chosen)."""
+    axis = parse_attr(attrs.get("axis", -1))
+    k = int(parse_attr(attrs.get("k", 1)))
+    ret_typ = attrs.get("ret_typ", "indices")
+    ascend = parse_bool(attrs.get("is_ascend", False))
+    axis = data.ndim - 1 if axis in (None, "None") \
+        else int(axis) % data.ndim
+    order = torch.sort(data, dim=axis, descending=not ascend, stable=True)
+    vals = order.values.narrow(axis, 0, k)
+    idx = order.indices.narrow(axis, 0, k)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return (vals, idx.to(data.dtype))
+    if ret_typ == "mask":
+        return torch.zeros_like(data).scatter(
+            axis, idx, torch.ones_like(vals))
+    return idx.to(data.dtype)
+
+
+# --- assignment -------------------------------------------------------
+@register("_identity_with_attr_like_rhs", arg_names=("lhs", "rhs"))
+def _identity_like_rhs(ctx, lhs, rhs, **attrs):
+    return lhs + torch.zeros_like(rhs)
+
+
+def _crop_index(attrs):
+    begin = tuple(parse_attr(attrs["begin"]))
+    end = tuple(parse_attr(attrs["end"]))
+    return tuple(slice(b, e) for b, e in zip(begin, end))
+
+
+@register("_crop_assign", arg_names=("lhs", "rhs"))
+def _crop_assign(ctx, lhs, rhs, **attrs):
+    """A copy of ``lhs`` with the ``begin``/``end`` box set to ``rhs``
+    (cast to ``lhs``'s dtype)."""
+    out = lhs.clone()
+    out[_crop_index(attrs)] = rhs.to(out.dtype)
+    return out
+
+
+@register("_crop_assign_scalar")
+def _crop_assign_scalar(ctx, data, **attrs):
+    out = data.clone()
+    out[_crop_index(attrs)] = parse_attr(attrs.get("scalar", 0.0))
+    return out

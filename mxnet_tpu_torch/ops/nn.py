@@ -101,12 +101,24 @@ def _activation(ctx, data, **attrs):
     raise MXNetError(f"Activation: unknown act_type {act}")
 
 
+_NUMPY_FLOAT = {torch.float16: np.float16, torch.float32: np.float32,
+                torch.float64: np.float64}
+
+
 def _weak(value, like):
     """The Python scalar ``value`` rounded to ``like``'s dtype: a JAX op
     converts a Python scalar to its array's dtype before the arithmetic
-    (a weak type), where torch computes with it in fp32."""
-    return torch.tensor(value, dtype=like.dtype).item() \
-        if like.dtype.is_floating_point else value
+    (a weak type), where torch computes with it in fp32.  Rounded on the
+    host with numpy (bf16: round to nearest even on the fp32 bits), so a
+    graph's ops make no tensor of it."""
+    if not like.dtype.is_floating_point:
+        return value
+    if like.dtype == torch.bfloat16:
+        bits = np.array(value, np.float32).view(np.uint32)
+        bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
+            & np.uint32(0xFFFF0000)
+        return float(bits.view(np.float32))
+    return float(_NUMPY_FLOAT[like.dtype](value))
 
 
 def _prelu_params(attrs, data_shape, *rest):

@@ -19,10 +19,12 @@ _state = {"seed": 0, "gens": {}}
 
 def seed(seed_state: int):
     """Reseed the process: every device's generator restarts from
-    ``seed_state`` on its next use."""
+    ``seed_state``.  Generators are reseeded in place, so a captured
+    training step that registered one keeps drawing from it."""
     with _lock:
         _state["seed"] = int(seed_state)
-        _state["gens"] = {}
+        for gen in _state["gens"].values():
+            gen.manual_seed(_state["seed"])
 
 
 def generator(device="cpu") -> torch.Generator:

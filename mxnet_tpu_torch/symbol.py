@@ -340,13 +340,13 @@ def load(fname: str) -> Symbol:
 def load_json(json_str: str) -> Symbol:
     """A Symbol from the JSON that :meth:`Symbol.tojson` (of either
     package) writes.  The reference's nnvm format (node ``param`` dicts,
-    ``node_row_ptr``) is not ported yet (ROADMAP Queue 1 item 3)."""
+    ``node_row_ptr``) is not ported yet (ROADMAP Queue 1 item 4)."""
     data = json.loads(json_str)
     if "node_row_ptr" in data or any(
             "param" in n or "backward_source_id" in n
             for n in data.get("nodes", ())):
         raise MXNetError("load_json: nnvm-format symbol JSON is not ported "
-                         "yet (ROADMAP Queue 1 item 3)")
+                         "yet (ROADMAP Queue 1 item 4)")
     nodes: List[_Node] = []
     for jn in data["nodes"]:
         if jn["op"] == "null":

@@ -70,7 +70,8 @@ from .passes import apply_graph_passes
 __all__ = ["FusedTrainer"]
 
 # the reference's ops that draw random numbers (``needs_rng``): a
-# captured step would replay one draw, so step_multi refuses them
+# captured step registers the trainer's generator with its graph, so
+# each replay draws afresh; a torch without that API refuses them
 _RANDOM_OPS = frozenset({"Dropout", "LeakyReLU", "RNN", "uniform",
                          "_sample_uniform", "random_uniform", "normal",
                          "_sample_normal", "random_normal"})
@@ -406,9 +407,12 @@ class FusedTrainer:
         write-back) is one CUDA graph, captured on the first call for
         these per-step shapes and dtypes and cached, then replayed once
         per step after the step's batch and lr are copied into its
-        buffers.  A step that cannot be captured raises; it never falls
-        back to eager steps.  On the CPU the k steps run through
-        :meth:`step`.
+        buffers.  A graph with random ops (Dropout, ``RNN(p>0)``) is
+        captured with the trainer's generator registered as its state:
+        each replay advances the generator as an eager step would, so
+        every step draws a fresh mask and the draws follow the seed.  A
+        step that cannot be captured raises; it never falls back to
+        eager steps.  On the CPU the k steps run through :meth:`step`.
 
         Returns the per-step outputs stacked on axis 0, not
         synchronised."""
@@ -461,16 +465,20 @@ class FusedTrainer:
     def _capture(self, example):
         random_ops = sorted({n.op for n in self.symbol.nodes
                              if not n.is_variable and n.op in _RANDOM_OPS})
-        if random_ops:
+        if random_ops and not hasattr(torch.cuda.CUDAGraph,
+                                      "register_generator_state"):
             raise MXNetError(
                 f"FusedTrainer.step_multi: the graph draws random numbers "
                 f"({', '.join(random_ops)}); a captured step would replay "
-                f"one draw, so it is not captured (use step())")
+                f"one draw, so it is not captured (use step()): this torch "
+                f"has no CUDAGraph.register_generator_state")
         inputs = self._stage(example)
         dev = self.device
+        gen = _random.generator(dev)
         # warm up on the capture stream, then put the state back: the
-        # warm-up steps are not part of the run
+        # warm-up steps are not part of the run, nor are their draws
         saved = [t.clone() for t in self._state()]
+        gen_offset = gen.get_state()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -480,20 +488,25 @@ class FusedTrainer:
         for t, s in zip(self._state(), saved):
             t.copy_(s)
         del saved
+        gen.set_state(gen_offset)
         graph = torch.cuda.CUDAGraph()
-        # a capture registers the card's default generator; one that
-        # fails leaves it in capture mode (every later draw on the card
-        # raises) and the capture stream current, so both are put back
+        if random_ops:
+            graph.register_generator_state(gen)
+        # a capture registers the card's default generator (and the
+        # trainer's); one that fails leaves them in capture mode (every
+        # later draw raises) and the capture stream current, so all are
+        # put back
         default_gen = torch.cuda.default_generators[
             dev.index if dev.index is not None
             else torch.cuda.current_device()]
-        gen_state = default_gen.clone_state()
+        gen_states = [(g, g.clone_state()) for g in (default_gen, gen)]
         prev_stream = torch.cuda.current_stream(dev)
         try:
             with torch.cuda.graph(graph, stream=stream):
                 outputs = self._train_step(inputs)
         except RuntimeError as exc:
-            default_gen.graphsafe_set_state(gen_state)
+            for g, state in gen_states:
+                g.graphsafe_set_state(state)
             torch.cuda.set_stream(prev_stream)
             first = exc.__context__ or exc
             raise MXNetError(

@@ -11,7 +11,10 @@ bucketed update's skip-step under AMP loss scaling with no host sync,
 ``Cast`` of channels-last weights, the epilogue kernel in the AMP
 graph), and the ops of ``ops/nn.py`` (each new op on the card against
 the port on the CPU, the Dropout mask drawn from an explicit card
-generator, and a draw on the card after a failed capture).
+generator, and a draw on the card after a failed capture), and the LSTM
+language model's path (``step_multi`` over a graph with Dropout, a
+fresh mask per replay and the same sequence from the same seed; the
+``RNN`` op on the card against the CPU).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1200,3 +1203,107 @@ def test_nn_op_on_the_card_matches_the_cpu(card, no_tf32, case, dtype):
     tol = 2e-2 if dtype == "bfloat16" else (1e-4 if conv else 1e-5)
     for got, want in zip(run(card), run(torch.device("cpu"))):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------ the LSTM LM's path
+def _dropout_trainer(card, seed, p=0.5, lr=0.0):
+    """A FusedTrainer over fc -> Dropout -> fc -> SoftmaxOutput, its
+    weights drawn after ``random.seed(seed)``."""
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    net = tsym.FullyConnected(tsym.Variable("data"), num_hidden=512,
+                              name="fc1")
+    net = tsym.Dropout(net, p=p, name="drop")
+    net = tsym.SoftmaxOutput(tsym.FullyConnected(net, num_hidden=10,
+                                                 name="fc2"), name="softmax")
+    trandom.seed(seed)
+    return FusedTrainer(net, optimizer="sgd", optimizer_params={"lr": lr},
+                        device=card).init(data=(64, 32))
+
+
+def _captured_outputs(t, k):
+    """The outputs of ``k`` captured steps over one repeated batch; at lr
+    0 the weights stay, so only the Dropout masks tell them apart."""
+    return t.step_multi(data=torch.ones(k, 64, 32),
+                        softmax_label=torch.zeros(k, 64))[0]
+
+
+def test_step_multi_draws_a_fresh_dropout_mask_per_replay(card):
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        with pytest.raises(MXNetError, match="random numbers"):
+            _captured_outputs(_dropout_trainer(card, 0), 2)
+        return
+    a = _captured_outputs(_dropout_trainer(card, 0), 4)
+    for i in range(3):
+        assert not torch.equal(a[i], a[i + 1]), i
+    # the same seed, the same sequence (a new trainer, a new capture)
+    assert torch.equal(a, _captured_outputs(_dropout_trainer(card, 0), 4))
+    assert not torch.equal(a, _captured_outputs(_dropout_trainer(card, 1),
+                                                4))
+
+
+def test_step_multi_with_dropout_equals_eager_steps(card, no_tf32):
+    """The captured steps draw what eager steps draw from the same
+    generator state, so k replays equal k ``step()`` calls."""
+    from mxnet_tpu_torch import random as trandom
+
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        pytest.skip("this torch has no CUDAGraph.register_generator_state")
+    eager = _dropout_trainer(card, 3, 0.3, lr=0.1)
+    graph = _dropout_trainer(card, 3, 0.3, lr=0.1)
+    g = torch.Generator().manual_seed(0)
+    xs = torch.rand(3, 64, 32, generator=g)
+    ys = torch.randint(0, 10, (3, 64), generator=g).float()
+    trandom.seed(7)
+    want = [eager.step(data=x, softmax_label=y)[0] for x, y in zip(xs, ys)]
+    trandom.seed(7)
+    outs = graph.step_multi(data=xs, softmax_label=ys)[0]
+    torch.testing.assert_close(outs, torch.stack(want), rtol=1e-5,
+                               atol=1e-6)
+    assert _max_param_err(graph, eager) <= 1e-5
+
+
+# fp32 (TF32 off): the same arithmetic in other kernels, elementwise to
+# 1e-5.  bf16: every product and cell rounds to bf16 on both sides and
+# the two libraries' bf16 GEMMs round at other points, so the values
+# part by bf16 steps that compound through 35 recurrent steps and 2
+# layers; each output and gradient is held to 2e-2 of its norm
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_rnn_op_on_the_card_matches_the_cpu(card, no_tf32, mode, dtype,
+                                            tol):
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+
+    T, N, C, H = 35, 8, 16, 32
+    r = np.random.RandomState(0)
+    ins = [r.normal(size=(T, N, C)), r.normal(
+        size=rnn_param_size(2, C, H, True, mode)) * 0.2,
+        r.normal(size=(4, N, H)) * 0.5]
+    if mode == "lstm":
+        ins.append(r.normal(size=(4, N, H)) * 0.5)
+    attrs = {"mode": mode, "state_size": H, "num_layers": 2,
+             "bidirectional": True, "state_outputs": True}
+    tdt = getattr(torch, dtype)
+
+    def run(dev):
+        ts = [torch.from_numpy(a.astype(np.float32)).to(dev, tdt)
+              .requires_grad_(True) for a in ins]
+        outs = registry.get("RNN").fn(registry.OpCtx(device=dev), *ts,
+                                      **attrs)
+        g = torch.Generator().manual_seed(1)
+        cts = [torch.randn(o.shape, generator=g).to(dev, o.dtype)
+               for o in outs]
+        grads = torch.autograd.grad(outs, ts, cts)
+        return [o.detach().float().cpu() for o in outs] + [
+            gr.float().cpu() for gr in grads]
+
+    for got, want in zip(run(card), run(torch.device("cpu"))):
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        else:
+            err = float((got - want).norm() / want.norm())
+            assert err <= tol, err
