@@ -136,7 +136,36 @@ holds each hand-written CUDA kernel
    dropout 0.2, fp32, with ``compile_buckets`` on and off: two epochs
    each, real tokens/s, executors bound, 0 host syncs per batch, a
    falling perplexity, a profile.  Neither phase launches a hand-written
-   kernel (their counts are read around them and stay 0).
+   kernel (their counts are read around them and stay 0);
+14. RecordIO (``phase_records``): the host's cores, Pillow and libjpeg,
+   then 2,560 training and 640 val records (256 x 341 JPEG q90, label
+   ``i % 1000``, a pattern a class plus noise) through
+   ``recordio.MXIndexedRecordIO`` and ``pack_img``;
+15. the iterators alone (``phase_record_iter``): ``ImageRecordIter`` at
+   1, 4 and all cores' threads and ``MultiProcessImageRecordIter`` with
+   4 workers, at batch 32 x 3 x 224 x 224 with ``rand_crop`` and
+   ``rand_mirror``, bare and as ``-> PrefetchingIter ->
+   DevicePrefetchIter``, images/s with a sum on the card as the
+   consumer; every 5th staged batch's fp64 sum on the card equal to its
+   host buffer's to the bit; one thread's time a batch by stage;
+16. ``train_imagenet.py --fused 1`` (``phase_train_records``): ResNet-50
+   bf16 through ``FusedTrainer`` fed from the records, by ``fit`` (2
+   epochs) and by ``step_multi(8)`` over ``io.step_multi_feeds`` (1
+   epoch; then 1 more fed by 4 ``mp_io`` workers), beside the captured
+   step on device-resident data: images/s,
+   step ms, idle share, ms a batch waiting on the iterator, host syncs
+   a batch (0), a falling cross-entropy;
+17. ``train_imagenet.py --fused 0`` and ``score.py``
+   (``phase_module_records``): ``Module.fit`` fp32 with
+   ``kvstore="device"`` over the records, a second fit with
+   ``Monitor(20, ".*weight")`` (rows and host reads on its windows
+   only), and score.py's forward-only sweep over the val records with
+   4 epilogue launches a forward, each held against the plain version;
+18. ``examples/module/sequential_module.py``'s chain through
+   ``SequentialModule.fit`` and ``train_mnist.py``'s MLP through
+   ``Module.fit`` over ``MNISTIter`` on seeded idx files of MNIST's
+   shape (``phase_sequential``).  Phases 14-18 launch the epilogue
+   kernel in the score sweeps only (their counts are read around them).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -156,6 +185,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -3798,6 +3828,795 @@ def phase_bucketing_lstm(smi):
     return line
 
 
+# ------------------------------------------------------------ phases 14-18
+# ImageNet-style training from RecordIO (train_imagenet.py, score.py) and
+# the Module path's rest (sequential_module.py, train_mnist.py)
+REC_TRAIN, REC_VAL = 2560, 640
+REC_SIDE = (256, 341)            # shorter side 256, 4:3
+REC_QUALITY = 90
+REC_BATCH = RESNET_BATCH
+REC_SHAPE = (3, 224, 224)
+REC_WARMUP, REC_TIMED = 2, 30    # batches of each iterator route
+REC_CHECK_EVERY = 5              # the staging check's sampling
+REC_MP_WORKERS = 4
+REC_FIT_EPOCHS = 2
+REC_K = 8                        # step_multi's steps a call
+REC_RESIDENT_BATCHES = 24
+REC_MODULE_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+REC_MONITOR_BATCHES, REC_MONITOR_EVERY = 41, 20
+REC_STAGE_BATCHES = 4            # batches of the by-stage breakdown
+SEQ_BATCH, SEQ_SAMPLES, SEQ_EPOCHS = 50, 2000, 2
+MNIST_TRAIN, MNIST_TEST, MNIST_BATCH = 60000, 10000, 64
+CARD = "cuda"                    # where phases 14-18 expect their batches
+
+
+def _record_image(i, seed):
+    """Record ``i``'s 256 x 341 RGB image: a low-frequency pattern (a few
+    sinusoids a channel, drawn from its label ``i % 1000``, so a class
+    has a look of its own) plus noise (drawn from ``seed`` and ``i``)."""
+    pattern = np.random.RandomState(i % 1000)
+    noise = np.random.RandomState(seed * 100003 + i)
+    h, w = REC_SIDE
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        fx, fy = pattern.uniform(0.5, 4.0, 2)
+        px, py = pattern.uniform(0, 2 * np.pi, 2)
+        img[..., c] = (128 + 60 * np.sin(2 * np.pi * fx * xx + px)
+                       + 50 * np.cos(2 * np.pi * fy * yy + py))
+    img += noise.normal(0, 16, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _write_records(path, n, seed):
+    """``n`` seeded images through ``recordio.MXIndexedRecordIO`` and
+    ``pack_img`` (JPEG q90, label ``i % 1000``), encoded on a thread
+    pool; returns (mean bytes a record, seconds)."""
+    from mxnet_tpu_torch import recordio
+
+    t0 = time.perf_counter()
+
+    def encode(i):
+        header = recordio.IRHeader(0, float(i % 1000), i, 0)
+        return recordio.pack_img(header, _record_image(i, seed),
+                                 quality=REC_QUALITY, img_fmt=".jpg")
+
+    w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    total = 0
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        for i, rec in enumerate(pool.map(encode, range(n))):
+            w.write_idx(i, rec)
+            total += len(rec)
+    w.close()
+    return total / n, time.perf_counter() - t0
+
+
+def phase_records(smi, workdir):
+    """The host's facts, then the training and val ``.rec`` files."""
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.ops import _build
+
+    try:
+        import PIL
+        pil = f"yes ({PIL.__version__})"
+    except ImportError:
+        pil = "no"
+    host = {"cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)), "pillow": pil,
+            "libjpeg_links": _build.links("jpeg"), "codecs": image.codecs()}
+    log(f"[records-host] {json.dumps(host)}; {smi}")
+    recs = {"train": os.path.join(workdir, "train.rec"),
+            "val": os.path.join(workdir, "val.rec")}
+    for name, n, seed in (("train", REC_TRAIN, 0), ("val", REC_VAL, 1)):
+        mean, secs = _write_records(recs[name], n, seed)
+        recs[name + "_bytes"] = mean
+        log(f"[records] {name}: {n} records of {REC_SIDE[0]}x{REC_SIDE[1]}"
+            f" RGB, JPEG q{REC_QUALITY} through {host['codecs']['encode']},"
+            f" mean {mean:.1f} bytes a record, written in {secs:.3f} s; "
+            f"{smi}")
+    recs["host"] = host
+    return recs
+
+
+class _StagingCheck:
+    """Within ``with``: every ``REC_CHECK_EVERY``-th data batch staged by
+    ``storage.stage_to_device`` keeps the fp64 sum of its host buffer,
+    taken before staging, beside the staged tensor; :meth:`check` holds
+    the fp64 sum on the card to it, bit for bit (the pixels are whole
+    numbers, so both sums are exact whatever their order).  A pinned
+    buffer handed out again before its copy completed breaks it."""
+
+    def __init__(self):
+        from mxnet_tpu_torch import storage
+
+        self.storage, self.real = storage, storage.stage_to_device
+        self.n, self.samples = 0, []
+        self.lock = threading.Lock()
+
+    def _stage(self, buf, device=None, stream=None):
+        host = None
+        if buf.dim() == 4:
+            with self.lock:
+                self.n += 1
+                due = self.n % REC_CHECK_EVERY == 0
+            if due:
+                host = float(np.sum(self.storage.host_array(buf),
+                                    dtype=np.float64))
+        out = self.real(buf, device, stream)
+        if host is not None:
+            with self.lock:
+                self.samples.append((host, out))
+        return out
+
+    def __enter__(self):
+        self.storage.stage_to_device = self._stage
+        return self
+
+    def __exit__(self, *exc):
+        self.storage.stage_to_device = self.real
+        return False
+
+    def check(self, what):
+        with self.lock:
+            samples, self.samples = self.samples, []
+        for host, out in samples:
+            got = out.double().sum().item()
+            if got != host:
+                raise AssertionError(f"{what}: a staged batch sums to {got} "
+                                     f"on the card, {host} on the host")
+        return len(samples)
+
+
+def _record_iter(rec, threads, **kw):
+    from mxnet_tpu_torch import image
+
+    return image.ImageRecordIter(rec, REC_SHAPE, REC_BATCH, shuffle=True,
+                                 rand_crop=True, rand_mirror=True,
+                                 preprocess_threads=threads, **kw)
+
+
+def _stacked(base):
+    from mxnet_tpu_torch import io
+
+    return io.DevicePrefetchIter(io.PrefetchingIter(base))
+
+
+def _iter_rate(it, what):
+    """Images/s of ``it`` over ``REC_TIMED`` batches after ``REC_WARMUP``,
+    each consumed by a sum on the card."""
+    acc = torch.zeros((), device=CARD, dtype=torch.float64)
+    t0, n = None, 0
+    for batch in it:
+        x = batch.data[0].tensor
+        if (x.device.type != CARD
+                or tuple(x.shape) != (REC_BATCH,) + REC_SHAPE):
+            raise AssertionError(f"{what}: batch {tuple(x.shape)} on "
+                                 f"{x.device}")
+        acc += x.sum(dtype=torch.float64)
+        n += 1
+        if n == REC_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if n == REC_WARMUP + REC_TIMED:
+            break
+    torch.cuda.synchronize()
+    if n != REC_WARMUP + REC_TIMED or not math.isfinite(acc.item()):
+        raise AssertionError(f"{what}: {n} batches")
+    return REC_TIMED * REC_BATCH / (time.perf_counter() - t0)
+
+
+def _stage_breakdown(rec):
+    """One thread's time a batch by stage: read (``unpack``), decode,
+    augment (crop, flip), float conversion and transpose into the pooled
+    buffer, and staging (the call, and the copy until it completes)."""
+    from mxnet_tpu_torch import image, recordio, storage
+
+    it = _record_iter(rec, 1)
+    t = dict.fromkeys(("read", "decode", "augment", "convert",
+                       "stage_call", "stage_copy"), 0.0)
+    k = 0
+    for _ in range(REC_STAGE_BATCHES):
+        buf = storage.staging_empty((REC_BATCH,) + REC_SHAPE, np.float32,
+                                    pin=CARD == "cuda")
+        view = storage.host_array(buf)
+        for slot in range(REC_BATCH):
+            t0 = time.perf_counter()
+            _, payload = recordio.unpack(it.records[it.order[k]])
+            t1 = time.perf_counter()
+            img = image.imdecode_np(payload)
+            t2 = time.perf_counter()
+            for aug in it.aug:
+                img = aug(img)
+            t3 = time.perf_counter()
+            view[slot] = img.astype(np.float32).transpose(2, 0, 1)
+            t4 = time.perf_counter()
+            t["read"] += t1 - t0
+            t["decode"] += t2 - t1
+            t["augment"] += t3 - t2
+            t["convert"] += t4 - t3
+            k += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        storage.stage_to_device(buf)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t["stage_call"] += t1 - t0
+        t["stage_copy"] += time.perf_counter() - t1
+    return {s: v / REC_STAGE_BATCHES * 1e3 for s, v in t.items()}
+
+
+def phase_record_iter(smi, recs):
+    """The iterators alone at batch 32 x 3 x 224 x 224 with rand_crop and
+    rand_mirror: ImageRecordIter at 1, 4 and all cores' threads, 4 mp_io
+    workers, each bare and stacked as -> PrefetchingIter ->
+    DevicePrefetchIter, images/s with a sum on the card as the consumer;
+    every 5th staged batch held to its host buffer; one thread's time by
+    stage."""
+    from mxnet_tpu_torch import image
+
+    rec, cores = recs["train"], os.cpu_count() or 1
+    routes = [(f"ImageRecordIter threads={n}",
+               lambda n=n: _record_iter(rec, n)) for n in (1, 4, cores)]
+    routes.append((f"MultiProcessImageRecordIter workers={REC_MP_WORKERS}",
+                   lambda: image.MultiProcessImageRecordIter(
+                       rec, REC_SHAPE, REC_BATCH, num_workers=REC_MP_WORKERS,
+                       preprocess_threads=1, shuffle=True, rand_crop=True,
+                       rand_mirror=True, stall_timeout=300)))
+    rates, checked = {}, 0
+    with _StagingCheck() as staging:
+        for name, make in routes:
+            for stacked in (False, True):
+                base = make()
+                it = _stacked(base) if stacked else base
+                tag = name + (" -> PrefetchingIter -> DevicePrefetchIter"
+                              if stacked else "")
+                try:
+                    rates[tag] = _iter_rate(it, tag)
+                finally:
+                    if hasattr(base, "close"):
+                        base.close()
+                checked += staging.check(tag)
+                log(f"[record_iter] {tag}: {rates[tag]:.1f} img/s "
+                    f"({REC_TIMED} batches of {REC_BATCH} x 3 x 224 x 224 "
+                    f"after {REC_WARMUP}); {smi}")
+    if checked < len(rates):
+        raise AssertionError(f"staging check sampled {checked} batches")
+    stages = _stage_breakdown(rec)
+    total = sum(stages.values())
+    log(f"[record_iter-stages] one thread, ms a batch of {REC_BATCH}: "
+        + ", ".join(f"{s} {v:.3f} ({v / total:.3f})"
+                    for s, v in stages.items())
+        + f"; {REC_BATCH * 1e3 / total:.1f} img/s; {smi}")
+    log(f"[record_iter-staging] {checked} sampled staged batches equal to "
+        f"their host buffers to the bit (fp64 sums); {smi}")
+    return {"img_s": rates, "stages_ms": stages, "staging_checked": checked}
+
+
+class _ConsumerSyncs(_SyncCounter):
+    """``_SyncCounter`` counting only the reads of the thread that runs
+    the loop: the pipeline's threads fill host buffers, no sync."""
+
+    def _counted(self, name):
+        consumer = threading.current_thread()
+
+        def f(*a, **kw):
+            if threading.current_thread() is consumer:
+                self.syncs.append(name)
+            return self.originals[name](*a, **kw)
+        return f
+
+
+class _Timed:
+    """An iterator's ``next`` timed: the ms the loop waits on it."""
+
+    def __init__(self, it):
+        self.it, self.waits = it, []
+        self.batch_size = it.batch_size
+        self.provide_data, self.provide_label = (it.provide_data,
+                                                 it.provide_label)
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return self.it.next()
+        finally:
+            self.waits.append((time.perf_counter() - t0) * 1e3)
+
+    next = __next__
+
+
+def _per_batch(marks, epoch=None, speedometer=None):
+    """Host syncs between consecutive batch ends within each ``epoch``
+    batches (the epoch boundary reads the metric), less the batches a
+    ``Speedometer(frequent=speedometer)`` logs the metric on; returns
+    (those counts, the Speedometer batches' counts)."""
+    other, logged = [], []
+    for i, (a, b) in enumerate(zip(marks, marks[1:])):
+        nbatch = (i + 1) % epoch if epoch else i + 1
+        if epoch and nbatch == 0:
+            continue
+        if speedometer and nbatch % speedometer == 0:
+            logged.append(b - a)
+        else:
+            other.append(b - a)
+    return other, logged
+
+
+def _loop_report(tag, wall, n_img, steps, busy_ms, waits, sync, smi,
+                 extra="", epoch=None, speedometer=None):
+    """The route's line and numbers."""
+    per_batch, logged = _per_batch(sync.marks, epoch, speedometer)
+    if logged:
+        extra += (f", the Speedometer's metric reads {sorted(set(logged))} "
+                  f"on each of its {len(logged)} log batches")
+    step_ms = wall / steps * 1e3
+    row = {"img_s": n_img / wall, "step_ms": step_ms,
+           "idle_share": 1 - busy_ms / step_ms,
+           "wait_ms_per_batch": sum(waits) / max(len(waits), 1),
+           "syncs_per_batch": (sum(per_batch) / len(per_batch)
+                               if per_batch else 0.0)}
+    log(f"[train_records] {tag}: {row['img_s']:.1f} img/s, step "
+        f"{step_ms:.3f} ms, idle share {row['idle_share']:.4f} (busy "
+        f"{busy_ms:.3f} ms a step), waiting on the iterator "
+        f"{row['wait_ms_per_batch']:.3f} ms a batch, host syncs a batch "
+        f"{row['syncs_per_batch']:.1f}{extra}; {smi}")
+    if any(per_batch):
+        raise AssertionError(f"{tag}: host syncs between batches "
+                             f"{per_batch}")
+    return row
+
+
+def phase_train_records(smi, recs):
+    """train_imagenet.py --fused 1 at full width: ResNet-50 bf16 with
+    fp32 masters (SGD lr 0.1, momentum 0.9) at batch 32 fed from the
+    records by ImageRecordIter(threads=cores) -> PrefetchingIter ->
+    DevicePrefetchIter, through fit (2 epochs) and through step_multi(8)
+    over step_multi_feeds (1 epoch), then step_multi fed by 4 mp_io
+    workers (1 epoch); the same captured step on device-resident
+    NDArrayIter data beside them."""
+    from mxnet_tpu_torch import callback, io, metric
+
+    cores = os.cpu_count() or 1
+    tr = _resnet_trainer("bfloat16")
+    # device-resident NDArrayIter data: the captured step's own rate
+    rs = np.random.RandomState(8)
+    n = REC_BATCH * REC_RESIDENT_BATCHES
+    x = rs.uniform(0, 255, (n,) + REC_SHAPE).astype(np.float32)
+    y = rs.randint(0, 1000, n).astype(np.float32)
+    resident = list(io.DevicePrefetchIter(io.NDArrayIter(
+        x, y, batch_size=REC_BATCH)))
+    del x
+    feeds = list(io.step_multi_feeds(resident, REC_K))
+    tr.step_multi(**feeds[0])           # capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for feed in feeds:
+            tr.step_multi(**feed)
+    torch.cuda.synchronize()
+    resident_wall = time.perf_counter() - t0
+    resident_steps = 2 * REC_RESIDENT_BATCHES
+    step_ms = resident_wall / resident_steps * 1e3
+    prof = _train_profile(lambda: tr.step_multi(**feeds[0]), REC_K, step_ms,
+                          "step_multi(8) device-resident",
+                          prefix="train_records")
+    busy = prof["busy_ms"]
+    rows = {"resident": {"img_s": resident_steps * REC_BATCH
+                         / resident_wall, "step_ms": step_ms,
+                         "idle_share": prof["idle_share"]}}
+    log(f"[train_records] step_multi({REC_K}) on device-resident "
+        f"NDArrayIter data: {rows['resident']['img_s']:.1f} img/s, step "
+        f"{step_ms:.3f} ms, idle share {prof['idle_share']:.4f}; {smi}")
+    del resident, feeds
+    # fit over the records, 2 epochs
+    pipe = _Timed(_stacked(_record_iter(recs["train"], cores)))
+    ce = _EpochCE()
+    batches = REC_TRAIN // REC_BATCH
+    with _StagingCheck() as staging, _ConsumerSyncs() as sync:
+        t0 = time.perf_counter()
+        tr.fit(pipe, eval_metric=ce.metric, num_epoch=REC_FIT_EPOCHS,
+               batch_end_callback=[callback.Speedometer(REC_BATCH, 20),
+                                   sync.mark], epoch_end_callback=ce)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    staged = staging.check("fit")
+    steps = REC_FIT_EPOCHS * batches
+    rows["fit"] = _loop_report(
+        f"fit over the records ({REC_FIT_EPOCHS} epochs of {batches} "
+        f"batches, threads={cores})", wall, steps * REC_BATCH, steps, busy,
+        pipe.waits, sync, smi, f", cross-entropy by epoch "
+        f"{[round(v, 4) for v in ce.values]}, {staged} staged batches "
+        f"checked", epoch=batches, speedometer=20)
+    rows["fit"]["ce_by_epoch"] = ce.values
+    if len(sync.marks) != steps or not ce.values[-1] < ce.values[0]:
+        raise AssertionError(f"fit ran {len(sync.marks)} of {steps} "
+                             f"batches, cross-entropy {ce.values}")
+    # step_multi(8) over step_multi_feeds, 1 epoch of threads, then 1 of
+    # decode processes
+    from mxnet_tpu_torch import image
+
+    feeders = {
+        "step_multi": (f"threads={cores}", lambda: _record_iter(
+            recs["train"], cores)),
+        "step_multi_mp": (f"MultiProcessImageRecordIter workers="
+                          f"{REC_MP_WORKERS}",
+                          lambda: image.MultiProcessImageRecordIter(
+                              recs["train"], REC_SHAPE, REC_BATCH,
+                              num_workers=REC_MP_WORKERS,
+                              preprocess_threads=1, shuffle=True,
+                              rand_crop=True, rand_mirror=True,
+                              stall_timeout=300))}
+    for tag, (what, make) in feeders.items():
+        base = make()
+        pipe = _Timed(_stacked(base))
+        ces = []
+        try:
+            with _StagingCheck() as staging, _ConsumerSyncs() as sync:
+                # the first call's batches (the pipeline's start: worker
+                # processes import and load their shards) are not timed
+                for i, feed in enumerate(io.step_multi_feeds(pipe, REC_K)):
+                    outs = tr.step_multi(**feed)
+                    ces.append(_cross_entropy(outs[0],
+                                              feed["softmax_label"]))
+                    sync.mark(None)
+                    if i == 0:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        del pipe.waits[:]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            if hasattr(base, "close"):
+                base.close()
+        staged = staging.check(tag)
+        steps = batches - REC_K
+        # the trainer's epochs 3 and 4 over the records: each one's mean
+        # cross-entropy against fit's two (one call is too noisy)
+        epoch_ce = torch.stack(ces).mean().item()
+        rows[tag] = _loop_report(
+            f"step_multi({REC_K}) over step_multi_feeds (1 epoch, {what}, "
+            f"the last {steps} batches timed)", wall, steps * REC_BATCH,
+            steps, busy, pipe.waits[:-1], sync, smi,
+            f", the epoch's cross-entropy {epoch_ce:.4f} after fit's "
+            f"{[round(v, 4) for v in ce.values]}, {staged} staged batches "
+            f"checked")
+        rows[tag]["ce_epoch"] = epoch_ce
+        if not epoch_ce < ce.values[0]:
+            raise AssertionError(f"{tag} over records: cross-entropy "
+                                 f"{epoch_ce} after fit's {ce.values}")
+    for tag in ("fit", "step_multi", "step_multi_mp"):
+        rows[tag]["vs_resident"] = (rows[tag]["img_s"]
+                                    / rows["resident"]["img_s"])
+    line = {"metric": "train_records_imgs_per_sec", "batch": REC_BATCH,
+            "dtype": "bfloat16", "threads": cores, "routes": rows,
+            "device_kind": torch.cuda.get_device_name(0), "card": smi}
+    log("[train_records] " + json.dumps(line))
+    del tr
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_module_records(smi, recs):
+    """train_imagenet.py --fused 0 and score.py at full width: Module.fit
+    as common/fit.py wires it (kvstore "device" on one card, SGD with
+    momentum, Xavier, a Speedometer) over the records in fp32 for one
+    epoch; a second short fit with Monitor(20, ".*weight"); then
+    score.py's forward-only sweep over the val records with center
+    crops, its epilogue launches each held against the plain version."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import callback, metric, models
+
+    cores = os.cpu_count() or 1
+    mx.random.seed(0)
+    mod = mx.mod.Module(models.get_symbol("resnet-50", num_classes=1000))
+    init = mx.init.Xavier(rnd_type="gaussian", factor_type="in", magnitude=2)
+    pipe = _Timed(_stacked(_record_iter(recs["train"], cores)))
+    acc = metric.Accuracy()
+    trace = _BatchCE()
+    batches = REC_TRAIN // REC_BATCH
+    with _ConsumerSyncs() as sync:
+        t0 = time.perf_counter()
+        mod.fit(pipe, num_epoch=1, kvstore="device", optimizer="sgd",
+                optimizer_params=dict(REC_MODULE_OPT), initializer=init,
+                eval_metric=acc,
+                batch_end_callback=[callback.Speedometer(REC_BATCH, 20),
+                                    sync.mark, trace])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_batch, logged = _per_batch(sync.marks, speedometer=20)
+    first, last = trace.first_last()
+    row = {"img_s": batches * REC_BATCH / wall,
+           "step_ms": wall / batches * 1e3,
+           "wait_ms_per_batch": sum(pipe.waits) / len(pipe.waits),
+           "syncs_per_batch": sum(per_batch) / len(per_batch),
+           "ce_first_last": [first, last]}
+    log(f"[module_records] Module.fit fp32 over the records (1 epoch of "
+        f"{batches} batches, threads={cores}, kvstore device): "
+        f"{row['img_s']:.1f} img/s, {row['step_ms']:.3f} ms a batch, "
+        f"waiting on the iterator {row['wait_ms_per_batch']:.3f} ms a "
+        f"batch, host syncs a batch {row['syncs_per_batch']:.1f} (the "
+        f"Speedometer's reads {sorted(set(logged))} on each of its "
+        f"{len(logged)} log batches), train "
+        f"accuracy {acc.get()[1]:.4f}, cross-entropy of the first and last "
+        f"20 batches {first:.4f} -> {last:.4f}; {smi}")
+    if any(per_batch) or len(sync.marks) != batches or not last < first:
+        raise AssertionError(f"Module.fit syncs {per_batch}, "
+                             f"cross-entropy {first} -> {last}")
+    # the monitor: a row for every weight each 20th batch, reads only then
+    weights = [n for n in mod.symbol.list_arguments() if n.endswith("weight")]
+    mon = mx.Monitor(REC_MONITOR_EVERY, pattern=".*weight")
+    rows = []
+
+    class _Rows(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Batch:"):
+                rows.append(record.getMessage())
+
+    handler = _Rows()
+    root = logging.getLogger()
+    root.addHandler(handler)
+    level = root.level
+    root.setLevel(logging.INFO)
+    pipe = _stacked(_record_iter(recs["train"], cores))
+    try:
+        with _ConsumerSyncs() as sync:
+            mod.fit(_Limited(pipe, REC_MONITOR_BATCHES), num_epoch=1,
+                    kvstore="device", optimizer="sgd",
+                    optimizer_params=dict(REC_MODULE_OPT), monitor=mon,
+                    batch_end_callback=sync.mark)
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    per_batch = [b - a for a, b in zip([0] + sync.marks, sync.marks)]
+    windows = [i for i, c in enumerate(per_batch) if c]
+    want = list(range(0, REC_MONITOR_BATCHES, REC_MONITOR_EVERY))
+    log(f"[module_records-monitor] Monitor({REC_MONITOR_EVERY}, "
+        f"'.*weight') over {REC_MONITOR_BATCHES} batches: {len(rows)} rows "
+        f"({len(weights)} weights x {len(want)} windows), host syncs by "
+        f"batch {per_batch[:3]}..., at batches {windows}; e.g. "
+        f"{rows[0].strip() if rows else None}; {smi}")
+    if windows != want or len(rows) != len(weights) * len(want):
+        raise AssertionError(f"monitor: rows {len(rows)}, syncs at "
+                             f"{windows}")
+    score = _score_records(mod, recs["val"], smi)
+    del mod
+    torch.cuda.empty_cache()
+    return {"fit": row, "monitor_rows": len(rows), "score": score}
+
+
+def _cross_entropy(probs, labels):
+    """The mean cross-entropy (a tensor on the card, not read) of softmax
+    outputs ``probs`` (``(..., B, classes)``) against ``labels`` (an
+    NDArray, tensor, or a tuple of per-step ones)."""
+    if isinstance(labels, (list, tuple)):
+        labels = torch.stack([getattr(x, "tensor", x) for x in labels])
+    labels = getattr(labels, "tensor", labels).long()
+    p = probs.float().gather(-1, labels.unsqueeze(-1))
+    return -p.clamp_min(1e-30).log().mean()
+
+
+class _EpochCE:
+    """A fused cross-entropy metric for ``fit`` and, as its epoch-end
+    callback, the metric's value at each epoch's end (the boundary,
+    where the loop reads anyway)."""
+
+    def __init__(self):
+        from mxnet_tpu_torch import metric
+
+        self.metric = metric.CrossEntropy()
+        self.values = []
+
+    def __call__(self, epoch, symbol, arg, aux):
+        self.values.append(self.metric.get()[1])
+
+
+class _BatchCE:
+    """A Module batch-end callback keeping each batch's cross-entropy on
+    the card (from the module's outputs and the batch's labels)."""
+
+    def __init__(self):
+        self.ces = []
+
+    def __call__(self, param):
+        mod, batch = param.locals["self"], param.locals["data_batch"]
+        self.ces.append(_cross_entropy(mod.get_outputs()[0].tensor,
+                                       batch.label[0]))
+
+    def first_last(self, n=20):
+        ces = torch.stack(self.ces).float()
+        n = max(1, min(n, len(self.ces) // 2))
+        return ces[:n].mean().item(), ces[-n:].mean().item()
+
+
+class _Limited:
+    """The first ``n`` batches of ``it``, as an iterator of its own."""
+
+    def __init__(self, it, n):
+        self.it, self.n, self.k = it, n, 0
+        self.batch_size = it.batch_size
+        self.provide_data, self.provide_label = (it.provide_data,
+                                                 it.provide_label)
+
+    def reset(self):
+        self.k = 0
+        self.it.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.k >= self.n:
+            raise StopIteration
+        self.k += 1
+        return self.it.next()
+
+
+def _score_records(mod, val, smi):
+    """score.py's route: the trained parameters into a forward-only
+    Module over the val records with center crops and no mirror; a
+    timed sweep (accuracy, top-5, images/s with the pipeline, as
+    score.py times it), then a second sweep whose every epilogue launch
+    is held against the plain version (4 a forward)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import image, metric
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    arg, aux = mod.get_params()
+
+    def sweep(check=None):
+        it = _stacked(image.ImageRecordIter(
+            val, REC_SHAPE, REC_BATCH, preprocess_threads=os.cpu_count()))
+        sm = mx.mod.Module(mod.symbol, label_names=["softmax_label"])
+        sm.bind(for_training=False, data_shapes=it.provide_data,
+                label_shapes=it.provide_label)
+        sm.set_params(arg, aux)
+        metrics = [metric.Accuracy(), metric.TopKAccuracy(top_k=5)]
+        n0, forwards, num, checked = tre.launch_count(), 0, 0, 0
+        t0 = time.perf_counter()
+        for batch in it:
+            sm.forward(batch, is_train=False)
+            for m in metrics:
+                sm.update_metric(m, batch.label)
+            num += batch.data[0].shape[0]
+            forwards += 1
+            if check is not None:
+                checked += check.check("score.py route")
+        res = [m.get() for m in metrics]
+        wall = time.perf_counter() - t0
+        return (res, num / wall, forwards, tre.launch_count() - n0,
+                checked)
+
+    res, img_s, forwards, launched, _ = sweep()
+    with _EpilogueRecorder() as rec:
+        res2, _, forwards2, launched2, checked = sweep(rec)
+    log(f"[module_records-score] score.py over {REC_VAL} val records "
+        f"(center crop, no mirror): {res}, {img_s:.1f} img/s, {launched} "
+        f"epilogue launches in {forwards} forwards; a second sweep's "
+        f"{launched2} launches each within its bound of the plain version "
+        f"({checked} checked, same metrics: {res2 == res}); {smi}")
+    if (launched != 4 * forwards or launched2 != 4 * forwards2
+            or checked != launched2 or res2 != res):
+        raise AssertionError(f"score.py route: {launched}/{launched2} "
+                             f"epilogue launches in {forwards} forwards, "
+                             f"{checked} checked, {res} vs {res2}")
+    return {"metrics": res, "img_s": img_s, "forwards": forwards,
+            "epilogue_launches": launched + launched2}
+
+
+def _mnist_files(workdir):
+    """Seeded idx files of MNIST's shape: class templates plus noise,
+    60,000 train and 10,000 test images of 28 x 28."""
+    import struct
+
+    rs = np.random.RandomState(11)
+    templates = rs.uniform(0, 255, (10, 28, 28))
+    paths = {}
+    for name, n in (("train", MNIST_TRAIN), ("t10k", MNIST_TEST)):
+        labels = rs.randint(0, 10, n)
+        images = np.clip(templates[labels] + rs.normal(0, 60, (n, 28, 28)),
+                         0, 255).astype(np.uint8)
+        for kind, arr in (("images-idx3-ubyte", images),
+                          ("labels-idx1-ubyte", labels.astype(np.uint8))):
+            path = os.path.join(workdir, f"{name}-{kind}")
+            with open(path, "wb") as f:
+                f.write(struct.pack(">I", 0x0800 | arr.ndim))
+                f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+                f.write(arr.tobytes())
+            paths[f"{name}-{kind}"] = path
+    return paths
+
+
+def phase_sequential(smi, workdir):
+    """examples/module/sequential_module.py's chain (32 -> 64 -> 5 at
+    batch 50) through SequentialModule.fit on the card, and
+    train_mnist.py's MLP (128-64-10) through Module.fit over MNISTIter
+    on seeded idx files of MNIST's shape."""
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(0)
+    x = rs.uniform(0, 1, (SEQ_SAMPLES, 32)).astype(np.float32)
+    w = rs.normal(size=(32, 5)).astype(np.float32)
+    y = (x @ w).argmax(axis=1).astype(np.float32)
+    mx.random.seed(0)
+    np.random.seed(0)
+    train = mx.io.NDArrayIter(x, y, SEQ_BATCH, shuffle=True)
+    data = mx.sym.Variable("data")
+    trunk = mx.sym.Activation(
+        mx.sym.FullyConnected(data, name="fc1", num_hidden=64),
+        name="relu1", act_type="relu")
+    feat = mx.sym.Variable("fc1_output")
+    head = mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(feat, name="fc2", num_hidden=5),
+        name="softmax")
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(trunk, label_names=[]))
+    seq.add(mx.mod.Module(head, data_names=["fc1_output"]),
+            take_labels=True, auto_wiring=True)
+    with _ConsumerSyncs() as sync:
+        t0 = time.perf_counter()
+        seq.fit(train, optimizer="sgd", num_epoch=SEQ_EPOCHS,
+                optimizer_params={"learning_rate": 0.2},
+                initializer=mx.init.Xavier(),
+                batch_end_callback=[mx.callback.Speedometer(SEQ_BATCH, 20),
+                                    sync.mark])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_batch, logged = _per_batch(sync.marks, SEQ_SAMPLES // SEQ_BATCH, 20)
+    acc = dict(seq.score(train, mx.metric.Accuracy()))["accuracy"]
+    seq_row = {"img_s": SEQ_EPOCHS * SEQ_SAMPLES / wall, "accuracy": acc,
+               "syncs_per_batch": sum(per_batch) / len(per_batch)}
+    log(f"[sequential] sequential_module.py's chain 32 -> 64 -> 5, batch "
+        f"{SEQ_BATCH}, {SEQ_EPOCHS} epochs: {seq_row['img_s']:.1f} "
+        f"samples/s, train accuracy {acc:.4f}, host syncs a batch "
+        f"{seq_row['syncs_per_batch']:.1f} (the Speedometer's reads "
+        f"{sorted(set(logged))} on each of its {len(logged)} log batches)"
+        f"; {smi}")
+    if any(per_batch) or not acc > 0.5:
+        raise AssertionError(f"SequentialModule: acc {acc}, syncs "
+                             f"{per_batch}")
+    files = _mnist_files(workdir)
+    train = mx.io.MNISTIter(image=files["train-images-idx3-ubyte"],
+                            label=files["train-labels-idx1-ubyte"],
+                            batch_size=MNIST_BATCH, shuffle=True)
+    val = mx.io.MNISTIter(image=files["t10k-images-idx3-ubyte"],
+                          label=files["t10k-labels-idx1-ubyte"],
+                          batch_size=MNIST_BATCH, shuffle=False)
+    mod = mx.mod.Module(mx.models.mlp.get_symbol(num_classes=10))
+    batches = MNIST_TRAIN // MNIST_BATCH
+    with _ConsumerSyncs() as sync:
+        t0 = time.perf_counter()
+        mod.fit(train, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+                initializer=mx.init.Xavier(),
+                batch_end_callback=[mx.callback.Speedometer(MNIST_BATCH,
+                                                            200), sync.mark])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_batch, logged = _per_batch(sync.marks, speedometer=200)
+    acc = dict(mod.score(val, mx.metric.Accuracy()))["accuracy"]
+    mnist_row = {"img_s": batches * MNIST_BATCH / wall, "val_accuracy": acc,
+                 "syncs_per_batch": sum(per_batch) / len(per_batch)}
+    log(f"[sequential-mnist] train_mnist.py's MLP 128-64-10 over MNISTIter "
+        f"({MNIST_TRAIN} x 28 x 28, batch {MNIST_BATCH}, 1 epoch): "
+        f"{mnist_row['img_s']:.1f} img/s, val accuracy {acc:.4f} on "
+        f"{MNIST_TEST}, host syncs a batch "
+        f"{mnist_row['syncs_per_batch']:.1f} (the Speedometer's reads "
+        f"{sorted(set(logged))} on each of its {len(logged)} log batches)"
+        f"; {smi}")
+    if any(per_batch) or not acc > 0.5:
+        raise AssertionError(f"MNIST MLP: acc {acc}, syncs {per_batch}")
+    return {"sequential": seq_row, "mnist": mnist_row}
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -3852,6 +4671,27 @@ def main():
     lstm_launches = _kernel_launches()
     log(f"[lstm] hand-written kernel launches in phases 12-13: "
         f"{json.dumps(lstm_launches)}")
+    # training from RecordIO: the epilogue runs in score.py's sweeps only
+    rec_launches = _kernel_launches(reset=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        recs = phase_records(smi, workdir)
+        iters = phase_record_iter(smi, recs)
+        train_rec = phase_train_records(smi, recs)
+        module_rec = phase_module_records(smi, recs)
+        phase_sequential(smi, workdir)
+    rec_launches = _kernel_launches()
+    step = train_rec["routes"]["resident"]["img_s"]
+    log(f"[records] hand-written kernel launches in phases 14-18: "
+        f"{json.dumps(rec_launches)}; iterator images/s over the captured "
+        f"step's {step:.1f} (device-resident, same call): "
+        + "; ".join(f"{k} {v / step:.3f}"
+                    for k, v in iters["img_s"].items()) + f"; {smi}")
+    want = module_rec["score"]["epilogue_launches"]
+    if rec_launches["residual_epilogue"] != want or any(
+            v for k, v in rec_launches.items()
+            if k != "residual_epilogue"):
+        raise AssertionError(f"phases 14-18 launched {rec_launches}, want "
+                             f"{want} epilogue launches and no other")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -3896,6 +4736,7 @@ def main():
     records.append(rec)
     for rec in records:
         rec["launches_lstm"] = lstm_launches[rec["name"]]
+        rec["launches_records"] = rec_launches[rec["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

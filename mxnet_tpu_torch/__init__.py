@@ -30,7 +30,14 @@ graph-pass pipeline of ``passes`` (``constant_fold``, ``cse``, ``dce``,
 ``residual_epilogue``, ``amp_cast``, ``prefuse``, ``convbn_fold``); and
 the image-classification zoo; and the LSTM language model —
 ``models.lstm``, ``rnn`` (the cells, ``FusedRNNCell`` over the ``RNN``
-op, ``BucketSentenceIter``) and ``mod.BucketingModule``.
+op, ``BucketSentenceIter``) and ``mod.BucketingModule``; and training
+from RecordIO — ``recordio``, ``filesystem`` (local, ``mem://``,
+``InputSplit``), the native record reader and JPEG decoder of
+``_native``, ``image`` (augmenters, ``ImageIter``, ``ImageRecordIter``,
+``MultiProcessImageRecordIter`` of ``mp_io``), the pinned staging pool
+``storage``, ``io.PrefetchingIter``/``DevicePrefetchIter``/
+``MNISTIter``/``CSVIter``, ``monitor.Monitor``, ``mod.SequentialModule``/
+``PythonModule`` and the rest of the initializers.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -45,6 +52,8 @@ from . import model, predict, rtc  # noqa: F401
 from . import callback, engine, io, lr_scheduler, metric, models  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
+from .initializer import (Initializer, Load, Mixed, MSRAPrelu,  # noqa: F401
+                          Normal, Orthogonal, Uniform, Xavier)
 from .base import MXNetError, __version__  # noqa: F401
 from .context import cpu, current_context, gpu, resolve_device  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
@@ -59,5 +68,10 @@ from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
-from .module import Module  # noqa: F401
+from .module import (BucketingModule, Module, PythonModule,  # noqa: F401
+                     SequentialModule)
 from . import rnn  # noqa: F401
+from . import filesystem, image, recordio, storage  # noqa: F401
+from . import monitor  # noqa: F401
+from . import monitor as mon  # noqa: F401
+from .monitor import Monitor  # noqa: F401

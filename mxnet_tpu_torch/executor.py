@@ -30,6 +30,14 @@ scaler's device scale first, in the gradient's dtype.  The graph is
 freed by the backward, so a second ``backward`` needs a new
 ``forward``.
 
+Monitoring (``set_monitor_callback``, parity:
+GraphExecutor::SetMonitorCallback): after each inference forward and
+each backward (a training step taps once, as the JAX executor) the
+internal outputs of the symbol (``get_internals``, without the passes)
+are evaluated in inference mode and handed to the callback by name.  A
+callback that is a bound method of an object with an ``activated`` flag
+(``monitor.Monitor.stat_helper``) is tapped only while the flag is set.
+
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
 of the tensors or NDArrays it is given), and ``outputs`` are tensors.
@@ -187,6 +195,9 @@ class Executor:
             _amp.global_scaler().place(device)
         self._outputs = None
         self._pending = None  # (outputs with their graph, grad leaves)
+        self._monitor_callback = None
+        self._monitor_fn = None
+        self._monitor_names = None
 
     @property
     def device(self) -> torch.device:
@@ -246,6 +257,7 @@ class Executor:
                 outs, _ = self._graph_fn(self.arg_dict, self.aux_dict, None,
                                          False)
             self._outputs = outs
+            self._run_monitor()
             return outs
         args = dict(self.arg_dict)
         leaves = {k: args[k].detach().requires_grad_(True)
@@ -315,6 +327,28 @@ class Executor:
                     buf.zero_()
                 else:
                     buf.copy_(g)
+        self._run_monitor()
+
+    def set_monitor_callback(self, callback):
+        """Tap every internal output: ``callback(name, NDArray)`` after
+        each inference forward and each backward (parity: GraphExecutor::
+        SetMonitorCallback, graph_executor.cc:63)."""
+        self._monitor_callback = callback
+
+    def _run_monitor(self):
+        cb = self._monitor_callback
+        if cb is None or not getattr(getattr(cb, "__self__", None),
+                                     "activated", True):
+            return
+        if self._monitor_fn is None:
+            internals = self._symbol.get_internals()
+            self._monitor_fn = _build_graph_fn(internals, self._device)
+            self._monitor_names = internals.list_outputs()
+        with torch.no_grad():
+            outs, _ = self._monitor_fn(self.arg_dict, self.aux_dict, None,
+                                       False)
+        for name, val in zip(self._monitor_names, outs):
+            cb(name, NDArray(val))
 
     def reshape(self, partial_shaping=False, allow_up_sizing=False,
                 **kwargs):

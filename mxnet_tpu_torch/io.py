@@ -1,30 +1,43 @@
-"""Data iterators of the port (``DataDesc``, ``DataBatch``, ``DataIter``,
-``NDArrayIter``, ``ResizeIter`` and ``step_multi_feeds`` of
-``mxnet_tpu/io.py``; parity: python/mxnet/io.py).
+"""Data iterators of the port (mirrors ``mxnet_tpu/io.py``; parity:
+python/mxnet/io.py and the C++ iterators of src/io/).
 
-Batches stay on the host: ``NDArrayIter`` yields NDArrays on the CPU,
-as MXNet's gives CPU arrays, and the trainer uploads them (through
+``NDArrayIter``, ``MNISTIter`` and ``CSVIter`` yield NDArrays on the
+host, as MXNet's give CPU arrays, and the trainer uploads them (through
 pinned memory, without a host sync).  The batching rules (``pad`` with
-wrap-around, ``discard``, ``roll_over``) and the shuffle (one
-permutation from numpy's global RNG, drawn at construction) are the
-reference's, so the same ``np.random.seed`` gives the same batches in
-both packages.
+wrap-around, ``discard``, ``roll_over``) and the shuffles (numpy's
+global RNG for ``NDArrayIter``, ``RandomState(seed)`` for ``MNISTIter``)
+are the reference's, so the same seed gives the same batches in both
+packages.  ``ImageRecordIter`` (``image.py``) yields batches already on
+its device.
 
-Not ported yet (ROADMAP Queue 1 item 6): ``PrefetchingIter``,
-``DevicePrefetchIter``, ``MNISTIter``, ``CSVIter`` and
-``ImageRecordIter``, and the telemetry of the batch waits.
+``PrefetchingIter`` runs one producer thread per iterator, so host
+batch preparation overlaps the device; ``DevicePrefetchIter`` keeps
+``depth`` batches already copied to the card, staging host batches
+through pinned buffers of ``storage`` on a staging stream (the
+consumer's stream waits on each copy's event, no host wait) and passing
+batches already on the device straight through.  Stack them as
+``ImageRecordIter -> PrefetchingIter -> DevicePrefetchIter``.
+
+Not ported: the telemetry of the batch waits (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
+import gzip
+import os
+import queue
+import struct
+import threading
 from collections import namedtuple
 
 import numpy as np
+import torch
 
 from . import ndarray as nd
 from .context import cpu
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "step_multi_feeds"]
+           "PrefetchingIter", "DevicePrefetchIter", "MNISTIter", "CSVIter",
+           "ImageRecordIter", "step_multi_feeds"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape"])
 
@@ -215,11 +228,307 @@ class ResizeIter(DataIter):
         return self.current_batch.pad
 
 
+class PrefetchingIter(DataIter):
+    """Thread-prefetching wrapper (parity: io.py PrefetchingIter;
+    src/io/iter_prefetcher.h:50-155): one producer thread per
+    iterator keeps one batch ready, so host batch preparation overlaps
+    the device.  ``rename_data``/``rename_label`` (one dict per
+    iterator) rename the descriptors.  An error in a producer is raised
+    in the consumer (the JAX package's thread dies with it, and the
+    consumer waits for ever)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.n_iter = len(iters)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.current_batch = [None] * self.n_iter
+        self.next_batch = [None] * self.n_iter
+        self.started = True
+        self.data_ready = [threading.Event() for _ in range(self.n_iter)]
+        self.data_taken = [threading.Event() for _ in range(self.n_iter)]
+        for e in self.data_taken:
+            e.set()
+
+        def prefetch(i):
+            while True:
+                self.data_taken[i].wait()
+                if not self.started:
+                    break
+                try:
+                    self.next_batch[i] = self.iters[i].next()
+                except StopIteration:
+                    self.next_batch[i] = None
+                except Exception as exc:  # noqa: BLE001 — for the consumer
+                    self.next_batch[i] = exc
+                self.data_taken[i].clear()
+                self.data_ready[i].set()
+
+        self.prefetch_threads = [
+            threading.Thread(target=prefetch, args=[i], daemon=True)
+            for i in range(self.n_iter)]
+        for t in self.prefetch_threads:
+            t.start()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[DataDesc(r[n], s) for n, s in i.provide_data]
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[DataDesc(r[n], s) for n, s in i.provide_label]
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def __del__(self):
+        self.started = False
+        for e in self.data_taken:
+            e.set()
+
+    def reset(self):
+        for e in self.data_ready:
+            e.wait()
+        for i in self.iters:
+            i.reset()
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+
+    def iter_next(self):
+        for e in self.data_ready:
+            e.wait()
+        for b in self.next_batch:
+            if isinstance(b, Exception):
+                raise b
+        if self.next_batch[0] is None:
+            return False
+        self.current_batch = DataBatch(
+            sum([b.data for b in self.next_batch], []),
+            sum([b.label for b in self.next_batch], []),
+            self.next_batch[0].pad, self.next_batch[0].index)
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class DevicePrefetchIter(DataIter):
+    """Keeps up to ``depth`` batches already on ``device`` (default: the
+    card) while the consumer computes (parity: the reference's
+    PrefetcherIter feeding device memory, src/io/iter_prefetcher.h).
+
+    A producer thread pulls batches from ``base_iter``; an array already
+    on ``device`` passes straight through, a host one is copied into a
+    pinned buffer of ``storage`` (unless it is pinned already) and
+    staged on the staging stream, with the stream that was current
+    where this iterator was made waiting on the copy.  A producer error
+    is raised in the consumer; ``reset`` stops the producer and drops
+    every staged batch before the next epoch starts."""
+
+    def __init__(self, base_iter, depth=2, device=None):
+        super().__init__()
+        self._base = base_iter
+        self.batch_size = base_iter.batch_size
+        self._device = nd._device(device)
+        self._stream = (torch.cuda.current_stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._q = queue.Queue(maxsize=max(1, int(depth)))
+        self._stop = False
+        self._exhausted = False
+        self._thread = None
+        self._start()
+
+    def _stage(self, arr):
+        from . import storage
+
+        t = arr.tensor if isinstance(arr, nd.NDArray) else torch.as_tensor(arr)
+        if t.device == self._device:
+            return nd.NDArray(t)
+        if self._device.type != "cuda" or t.is_cuda:
+            return nd.NDArray(t.to(self._device))
+        if not t.is_pinned():
+            buf = storage.staging_empty(t.shape, t.dtype, pin=True)
+            buf.copy_(t)
+            t = buf
+        return nd.NDArray(storage.stage_to_device(t, self._device,
+                                                  self._stream))
+
+    def _start(self):
+        def producer():
+            try:
+                for batch in self._base:
+                    if self._stop:
+                        return
+                    self._q.put(DataBatch(
+                        [self._stage(d) for d in batch.data],
+                        [self._stage(x) for x in batch.label or []],
+                        batch.pad, batch.index))
+            except Exception as exc:  # noqa: BLE001 — raised in the consumer
+                self._q.put(exc)
+                return
+            self._q.put(None)
+
+        self._thread = threading.Thread(target=producer, daemon=True)
+        self._thread.start()
+
+    @property
+    def provide_data(self):
+        return self._base.provide_data
+
+    @property
+    def provide_label(self):
+        return self._base.provide_label
+
+    def reset(self):
+        self._stop = True
+        # unblock the producer (it may wait on a full queue), let it end,
+        # then drain everything: a stale batch or the end marker would
+        # replay into, or end, the next epoch
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._base.reset()
+        self._stop = False
+        self._exhausted = False
+        self._start()
+
+    def iter_next(self):
+        try:
+            self._current = self.next()
+            return True
+        except StopIteration:
+            return False
+
+    def getdata(self):
+        return self._current.data
+
+    def getlabel(self):
+        return self._current.label
+
+    def getpad(self):
+        return self._current.pad
+
+    def next(self):
+        if self._exhausted:
+            # the producer has ended and its marker is taken: a blocking
+            # get would wait for ever
+            raise StopIteration
+        item = self._q.get()
+        if item is None:
+            self._exhausted = True
+            raise StopIteration
+        if isinstance(item, Exception):
+            self._exhausted = True
+            raise item
+        self._current = item
+        return item
+
+
+class MNISTIter(NDArrayIter):
+    """MNIST idx files, gzipped or not (parity: src/io/iter_mnist.cc:241):
+    pixels scaled to [0, 1], ``flat`` ``(batch, 784)`` else ``(batch, 1,
+    28, 28)``, shuffled once by ``RandomState(seed)``, the last partial
+    batch discarded."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, **kwargs):
+        images = self._read_idx(image)
+        labels = self._read_idx(label)
+        images = images.astype(np.float32) / 255.0
+        if flat:
+            images = images.reshape(images.shape[0], -1)
+        else:
+            images = images.reshape(images.shape[0], 1, images.shape[1],
+                                    images.shape[2])
+        if shuffle:
+            rs = np.random.RandomState(seed)
+            idx = rs.permutation(images.shape[0])
+            images, labels = images[idx], labels[idx]
+        super().__init__(images, labels.astype(np.float32),
+                         batch_size=batch_size, shuffle=False,
+                         last_batch_handle="discard")
+
+    @staticmethod
+    def _read_idx(path):
+        opener = gzip.open if path.endswith(".gz") else open
+        if not os.path.exists(path) and os.path.exists(path + ".gz"):
+            path, opener = path + ".gz", gzip.open
+        with opener(path, "rb") as f:
+            magic = struct.unpack(">I", f.read(4))[0]
+            ndim = magic & 0xFF
+            dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+            data = np.frombuffer(f.read(), dtype=np.uint8)
+            return data.reshape(dims)
+
+
+class CSVIter(NDArrayIter):
+    """CSV rows reshaped to ``data_shape`` (parity: src/io/iter_csv.cc:131);
+    labels from ``label_csv`` or zeros; the last partial batch
+    discarded."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=128, **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32)
+            label = label.reshape((data.shape[0],)
+                                  + tuple(label_shape)).squeeze()
+        else:
+            label = np.zeros((data.shape[0],), dtype=np.float32)
+        super().__init__(data, label, batch_size=batch_size,
+                         last_batch_handle="discard")
+
+
+def ImageRecordIter(*args, **kwargs):
+    """Parity: ImageRecordIter (src/io/iter_image_recordio.cc:459), the
+    RecordIO image pipeline of ``image.py``."""
+    from .image import ImageRecordIter as _impl
+
+    return _impl(*args, **kwargs)
+
+
 def step_multi_feeds(data_iter, steps_per_call, data_names=("data",),
                      label_names=("softmax_label",), drop_remainder=False):
     """Group a DataIter's batches into ``FusedTrainer.step_multi`` feeds:
-    dicts of input name -> a k-tuple of the per-step batches, with no
-    re-stacking on the host::
+    dicts of input name -> a k-tuple of the per-step batches (host or
+    device arrays, as the iterator yields them), with no re-stacking::
 
         for feed in io.step_multi_feeds(it, 8):
             trainer.step_multi(**feed)

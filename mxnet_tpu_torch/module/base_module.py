@@ -8,11 +8,13 @@ python/mxnet/module/base_module.py): ``forward_backward``, ``score``,
 ``update_metric`` per batch — with fused metrics and the
 :class:`~mxnet_tpu_torch.engine.AsyncWindow`: the loop makes no host
 sync per batch and waits only when the window is full and at the epoch
-boundary.  Not ported yet, and raising when asked for: the checkpoint
-manager (``checkpoint=``, ``resume=``, ``MXTPU_CKPT_DIR``; ROADMAP
-Queue 1 item 7), the elastic coordinator (``MXTPU_COORD_ADDR``, item
-10), the flight and perf recorders (item 11) and ``monitor=`` (item
-11).
+boundary.  ``monitor=`` installs a ``monitor.Monitor`` and brackets
+each batch with its ``tic``/``toc_print``: the monitor reads its
+statistics to the host only on the batches of its windows.  Not ported
+yet, and raising when asked for: the checkpoint manager
+(``checkpoint=``, ``resume=``, ``MXTPU_CKPT_DIR``; ROADMAP Queue 1
+item 7), the elastic coordinator (``MXTPU_COORD_ADDR``, item 10) and
+the flight and perf recorders (item 11).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def _not_ported(what, item):
                       f"1 item {item})")
 
 
-def _refuse_fit_options(checkpoint, resume, monitor):
+def _refuse_fit_options(checkpoint, resume):
     if (checkpoint or resume not in (None, False)
             or os.environ.get("MXTPU_CKPT_DIR", "").strip()):
         raise _not_ported("the checkpoint manager (checkpoint=, resume=, "
@@ -53,8 +55,6 @@ def _refuse_fit_options(checkpoint, resume, monitor):
     for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
         if os.environ.get(knob, "").strip().lower() not in _OFF:
             raise _not_ported(f"the flight and perf recorders ({knob})", 11)
-    if monitor is not None:
-        raise _not_ported("monitor= (monitor.py)", 11)
 
 
 class BaseModule:
@@ -156,10 +156,12 @@ class BaseModule:
         from ..initializer import Uniform
 
         assert num_epoch is not None, "please specify number of epochs"
-        _refuse_fit_options(checkpoint, resume, monitor)
+        _refuse_fit_options(checkpoint, resume)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer or Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
@@ -172,12 +174,13 @@ class BaseModule:
         self._fit_epochs(train_data, eval_data, eval_metric,
                          validation_metric, begin_epoch, num_epoch,
                          epoch_end_callback, batch_end_callback,
-                         eval_end_callback, eval_batch_end_callback)
+                         eval_end_callback, eval_batch_end_callback, monitor)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, begin_epoch, num_epoch,
                     epoch_end_callback, batch_end_callback,
-                    eval_end_callback, eval_batch_end_callback):
+                    eval_end_callback, eval_batch_end_callback,
+                    monitor=None):
         from .. import engine
 
         for epoch in range(begin_epoch, num_epoch):
@@ -185,10 +188,14 @@ class BaseModule:
             eval_metric.reset()
             window = engine.AsyncWindow()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
                 window.push(self._output_handles())
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

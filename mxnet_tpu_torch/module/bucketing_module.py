@@ -19,9 +19,9 @@ ignore_label=label_pad`` then takes exactly the gradients of the
 unpadded bucket, and ``update_metric`` reads the padded labels, whose
 padding the metric's ``ignore_label`` drops.  ``compile_buckets=True``
 runs every bucket through the default bucket's executor.
-
-Not ported yet: ``install_monitor`` (``monitor.py``, ROADMAP Queue 1
-item 11).
+``install_monitor`` taps every bucket's executor, and a bucket bound
+later gets the same monitor (as MXNet's ``switch_bucket`` does; the JAX
+package taps only the buckets bound before the install).
 """
 from __future__ import annotations
 
@@ -86,6 +86,7 @@ class BucketingModule(BaseModule):
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
+        self._monitor = None
         if compile_buckets is True:
             compile_buckets = [default_bucket_key]
         if compile_buckets:
@@ -198,6 +199,8 @@ class BucketingModule(BaseModule):
                 # buckets created after init_optimizer share its state
                 module.borrow_optimizer(
                     self._buckets[self._default_bucket_key])
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key
@@ -296,8 +299,9 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("BucketingModule.install_monitor (monitor.py) is "
-                         "not ported yet (ROADMAP Queue 1 item 11)")
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
 
     @property
     def _params_dirty(self):

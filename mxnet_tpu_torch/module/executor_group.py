@@ -158,3 +158,7 @@ class DataParallelExecutorGroup:
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, mon):
+        for ex in self.execs:
+            mon.install(ex)

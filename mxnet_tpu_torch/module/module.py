@@ -15,10 +15,11 @@ takes one batched ``push``/``pull`` per step, which the store routes to
 its bucketed engine.  The module's parameter copies (``get_params``)
 live on its device in the bound memory format.
 
-Not ported yet: ``install_monitor`` (``monitor.py``, ROADMAP Queue 1
-item 11), ``SequentialModule`` and ``PythonModule`` (item 6), and
-several contexts (item 10).  ``BucketingModule`` is in
-``module/bucketing_module.py``.
+``init_params`` honours a variable's own ``__init__`` attr (an
+initializer's ``dumps()``, as ``sym.Variable(init=...)`` writes it)
+before the module's initializer.  Not ported yet: several contexts
+(ROADMAP Queue 1 item 10).  ``BucketingModule``, ``SequentialModule``
+and ``PythonModule`` are in their own files.
 """
 from __future__ import annotations
 
@@ -178,8 +179,8 @@ class Module(BaseModule):
                     allow_missing=False, force_init=False):
         """Fill the parameters: given values (``arg_params``/
         ``aux_params``: NDArrays, tensors or numpy), else ``initializer``
-        (default ``Uniform(0.01)``); a variable's own ``__init__`` attr
-        raises (not ported yet).  A parameter missing from a non-empty
+        (default ``Uniform(0.01)``), or a variable's own ``__init__``
+        attr before it.  A parameter missing from a non-empty
         ``arg_params`` raises unless ``allow_missing``."""
         from .. import initializer as init_mod
 
@@ -191,11 +192,16 @@ class Module(BaseModule):
         initializer = (initializer if initializer is not None
                        else init_mod.Uniform(0.01))
         ex = self._exec_group.execs[0]
+        # a variable's own __init__ attr overrides the module's
+        # initializer (parity: the InitDesc/__init__ attr protocol)
+        var_inits = {}
         for node in self._symbol.nodes:
             if node.is_variable and node.extra_attrs.get("__init__"):
-                raise MXNetError(f"the __init__ attr of {node.name!r} "
-                                 "(per-variable initializers) is not "
-                                 "ported yet (ROADMAP Queue 1 item 6)")
+                try:
+                    var_inits[node.name] = init_mod.create(
+                        node.extra_attrs["__init__"])
+                except MXNetError:
+                    pass
         for kind, names, bound, given in (
                 ("param", self._param_names, ex.arg_dict, arg_params),
                 ("aux", self._aux_names, ex.aux_dict, aux_params)):
@@ -212,7 +218,7 @@ class Module(BaseModule):
                 # the bound memory format
                 arr = torch.zeros(dst.shape, dtype=dst.dtype,
                                   device=dst.device)
-                initializer(name, arr)
+                var_inits.get(name, initializer)(name, arr)
                 dst.copy_(arr)
         self._adopt_bound_params()
         self.params_initialized = True
@@ -334,8 +340,8 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("Module.install_monitor (monitor.py) is not ported "
-                         "yet (ROADMAP Queue 1 item 11)")
+        assert self.binded
+        self._exec_group.install_monitor(mon)
 
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized

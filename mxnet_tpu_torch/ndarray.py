@@ -447,9 +447,13 @@ def onehot_encode(indices, out):
     return _invoke("one_hot", [indices], {"depth": out.shape[1]}, out=out)
 
 
-def imdecode(*args, **kwargs):
-    raise MXNetError("nd.imdecode is not ported yet (ROADMAP Queue 1 "
-                     "item 1)")
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None, ctx=None):
+    """Parity: mx.nd.imdecode (src/io/image_io.cc ``_imdecode``): the
+    image's (H, W, C) float32 pixels on ``ctx`` (default: the card)."""
+    from .image import imdecode as _imdecode
+
+    return _imdecode(str_img, channels=channels, ctx=ctx)
 
 
 def waitall():

@@ -10,6 +10,10 @@ compiler's report (``-Xptxas -v``) is kept beside each library as
 ``.log`` and read back with it, so ``build_logs`` holds it whether this
 process compiled the library or found it built.  Nothing is built at
 import: the first launch builds.
+
+Host code (the record reader and the JPEG decoder of ``src/``) is built
+the same way by :func:`load_host`, with ``g++`` in place of ``nvcc``,
+into the same directory.
 """
 from __future__ import annotations
 
@@ -22,8 +26,8 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "source_path", "nvcc_path", "nvcc_command",
-           "build", "load"]
+__all__ = ["NVCC_FLAGS", "HOST_FLAGS", "source_path", "nvcc_path",
+           "nvcc_command", "build", "load", "links", "load_host"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -134,5 +138,68 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         _compile([name])
         lib = ctypes.CDLL(_lib_path(name, source_path(name)))
+        _libs[name] = lib
+        return lib
+
+
+# the flags of src/Makefile (CXXFLAGS), for host libraries
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
+
+_links = {}
+
+
+def links(lib: str) -> bool:
+    """Whether ``g++`` links an empty program against ``-l<lib>`` (the
+    probe of ``src/Makefile``); asked once per process."""
+    with _lock:
+        if lib not in _links:
+            cxx = os.environ.get("CXX") or shutil.which("g++")
+            ok = False
+            if cxx:
+                try:
+                    ok = subprocess.run(
+                        [cxx, "-x", "c++", "-", f"-l{lib}", "-o",
+                         os.devnull], input="int main(){return 0;}",
+                        capture_output=True, text=True,
+                        timeout=120).returncode == 0
+                except (OSError, subprocess.SubprocessError):
+                    ok = False
+            _links[lib] = ok
+        return _links[lib]
+
+
+def load_host(name: str, sources, libs=()) -> ctypes.CDLL:
+    """The loaded host library ``name``, compiled by ``g++`` with
+    :data:`HOST_FLAGS` from ``sources`` (paths; headers they include
+    are hashed too when listed) and linked against ``libs`` if no build
+    of these exact sources exists.  Raises :class:`MXNetError` when the
+    compiler is missing or fails."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        h = hashlib.sha256(" ".join(HOST_FLAGS + tuple(libs)).encode())
+        for src in sources:
+            with open(src, "rb") as f:
+                h.update(f.read())
+        path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            cxx = os.environ.get("CXX") or shutil.which("g++")
+            if not cxx:
+                raise MXNetError(f"g++ not found: {name} is built from "
+                                 "source at first use")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cc = [s for s in sources if s.endswith((".cc", ".cpp"))]
+            proc = subprocess.run(
+                [cxx, *HOST_FLAGS, *cc, "-o", tmp,
+                 *(f"-l{x}" for x in libs)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise MXNetError(f"g++ failed to build {name} (exit "
+                                 f"{proc.returncode}):\n{proc.stdout}"
+                                 f"{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
         _libs[name] = lib
         return lib

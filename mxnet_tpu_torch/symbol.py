@@ -15,9 +15,9 @@ symbol built there reaches the port as ``load_json(jax_symbol.tojson())``
 ``parse_attr``).  ``simple_bind`` and ``bind`` bind an
 :class:`~.executor.Executor` (forward and backward).  The arithmetic
 operators (``+ - * / **``, unary ``-`` and the reflected forms) make the
-reference's nodes.  ``get_internals``, ``infer_type``, nnvm-format JSON
-and ``structural_signature`` are not ported yet (ROADMAP Queue 1
-item 4).
+reference's nodes; ``get_internals`` lists every node's outputs (the
+executor's monitor taps them).  ``infer_type``, nnvm-format JSON and
+``structural_signature`` are not ported yet (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -110,6 +110,18 @@ class Symbol:
             else:
                 names.append(f"{node.name}_{od.output_names[idx]}")
         return names
+
+    def get_internals(self) -> "Symbol":
+        """Every node's outputs, variables included, in topological
+        order (parity: Symbol.get_internals)."""
+        outs = []
+        for node in self.nodes:
+            if node.is_variable:
+                outs.append((node, 0))
+            else:
+                for i in range(node.num_outputs()):
+                    outs.append((node, i))
+        return Symbol(outs)
 
     @property
     def name(self):
@@ -366,10 +378,11 @@ def load_json(json_str: str) -> Symbol:
 
 # ---------------------------------------------------------- composition
 def Variable(name, attr=None, shape=None, lr_mult=None,
-             wd_mult=None) -> Symbol:
+             wd_mult=None, init=None) -> Symbol:
     """A named input or parameter.  ``shape`` is stored as the
     ``__shape__`` attr, the multipliers as ``__lr_mult__`` /
-    ``__wd_mult__`` (read by the trainer)."""
+    ``__wd_mult__`` (read by the trainer), ``init`` (an initializer or
+    its ``dumps()``) as ``__init__`` (read by ``Module.init_params``)."""
     extra = dict(attr or {})
     if shape is not None:
         extra["__shape__"] = json.dumps(list(shape))
@@ -377,6 +390,8 @@ def Variable(name, attr=None, shape=None, lr_mult=None,
         extra["__lr_mult__"] = str(lr_mult)
     if wd_mult is not None:
         extra["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        extra["__init__"] = init if isinstance(init, str) else init.dumps()
     return Symbol([(_Node(None, name, extra_attrs=extra), 0)])
 
 

@@ -14,7 +14,12 @@ the port on the CPU, the Dropout mask drawn from an explicit card
 generator, and a draw on the card after a failed capture), and the LSTM
 language model's path (``step_multi`` over a graph with Dropout, a
 fresh mask per replay and the same sequence from the same seed; the
-``RNN`` op on the card against the CPU).
+``RNN`` op on the card against the CPU), and the input pipeline's
+staging (``DevicePrefetchIter`` and ``storage.stage_to_device`` under a
+slow consumer, every staged batch equal to its host source; a pinned
+buffer held until its copy's event completes; ``ImageRecordIter`` and
+``MultiProcessImageRecordIter`` batches on the card equal to those on
+the host, with decode workers that never touch CUDA).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1307,3 +1312,98 @@ def test_rnn_op_on_the_card_matches_the_cpu(card, no_tf32, mode, dtype,
         else:
             err = float((got - want).norm() / want.norm())
             assert err <= tol, err
+
+
+# ------------------------------------------------------------ staging
+def _records(tmp_path, n=21):
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch import recordio as trec
+
+    rs = np.random.RandomState(4)
+    rec = str(tmp_path / "c.rec")
+    w = trec.MXRecordIO(rec, "w")
+    for i in range(n):
+        img = rs.randint(0, 256, (20, 24, 3)).astype(np.uint8)
+        w.write(trec.pack(trec.IRHeader(0, float(i), i, 0),
+                          timg.imencode(img, img_fmt=".png")))
+    w.close()
+    return rec
+
+
+def test_device_prefetch_under_a_slow_consumer_stages_every_batch(card):
+    from mxnet_tpu_torch import io as tio
+
+    rs = np.random.RandomState(5)
+    x = rs.normal(size=(96, 3, 64, 64)).astype(np.float32)
+    y = rs.randint(0, 10, 96).astype(np.float32)
+    want = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+            for b in tio.NDArrayIter(x, y, batch_size=8)]
+    it = tio.DevicePrefetchIter(tio.NDArrayIter(x, y, batch_size=8),
+                                depth=3, device=card)
+    busy = torch.randn(2048, 2048, device=card)
+    for (wx, wy), batch in zip(want, it):
+        assert batch.data[0].tensor.is_cuda
+        for _ in range(8):         # queued work ahead of the read
+            busy = busy @ busy * 1e-3
+        torch.cuda._sleep(2_000_000)
+        np.testing.assert_array_equal(batch.data[0].asnumpy(), wx)
+        np.testing.assert_array_equal(batch.label[0].asnumpy(), wy)
+    assert not it.iter_next()
+
+
+def test_pinned_buffer_is_held_until_its_copy_completes(card):
+    from mxnet_tpu_torch import storage
+
+    storage.release_all()
+    buf = storage.staging_empty((1 << 20,), np.float32, pin=True)
+    assert buf.is_pinned()
+    buf.copy_(torch.arange(1 << 20, dtype=torch.float32))
+    ptr = buf.data_ptr()
+    stream = storage._staging_stream(torch.device("cuda",
+                                                  torch.cuda.current_device()))
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)   # the copy waits behind this
+    out = storage.stage_to_device(buf, card)
+    other = storage.staging_empty((1 << 20,), np.float32, pin=True)
+    assert other.data_ptr() != ptr       # its copy has not completed
+    other.fill_(-1.0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  np.arange(1 << 20, dtype=np.float32))
+    storage.staging_free(other)
+    again = storage.staging_empty((1 << 20,), np.float32, pin=True)
+    assert ptr in (again.data_ptr(), other.data_ptr())
+
+
+def test_image_record_iters_on_the_card_equal_the_host(card, tmp_path):
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch import io as tio
+
+    rec = _records(tmp_path)
+    host = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+            for b in timg.ImageRecordIter(rec, (3, 16, 16), 4, device="cpu")]
+    on_card = tio.DevicePrefetchIter(tio.PrefetchingIter(
+        timg.ImageRecordIter(rec, (3, 16, 16), 4, preprocess_threads=3)),
+        device=card)
+    got = [(b.data[0], b.label[0], b.pad) for b in on_card]
+    assert len(got) == len(host) == 6
+    for (hd, hl, hp), (d, lab, p) in zip(host, got):
+        assert d.tensor.is_cuda and lab.tensor.is_cuda and p == hp
+        np.testing.assert_array_equal(d.asnumpy(), hd)
+        np.testing.assert_array_equal(lab.asnumpy(), hl)
+    mp = timg.MultiProcessImageRecordIter(rec, (3, 16, 16), 4,
+                                          num_workers=2, stall_timeout=120)
+    try:
+        rows = {}
+        for b in mp:
+            assert b.data[0].tensor.is_cuda
+            d, lab = b.data[0].asnumpy(), b.label[0].asnumpy()
+            for i in range(4 - b.pad):
+                rows[int(lab[i])] = d[i]
+    finally:
+        mp.close()
+    flat = {int(hl[i]): hd[i] for hd, hl, hp in host
+            for i in range(4 - hp)}
+    assert sorted(rows) == sorted(flat) == list(range(21))
+    for k in rows:
+        np.testing.assert_array_equal(rows[k], flat[k])

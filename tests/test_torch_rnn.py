@@ -303,8 +303,12 @@ def test_parameters_initializer_by_statistics():
         assert x.min() >= -0.07 and x.max() < 0.07
         assert abs(x.mean()) < 4 * 0.07 / np.sqrt(3 * x.size)
         assert abs(x.std() - 0.07 / np.sqrt(3)) < 1e-3
-    with pytest.raises(tmx.MXNetError, match="bilinear"):
-        tinit.Uniform()("up_bilinear", torch.zeros(2, 2, 4, 4))
+    # bilinear names are ported (they raised here before): the upsampling
+    # kernel, whatever the initializer
+    up = torch.zeros(2, 2, 4, 4)
+    tinit.Uniform()("up_bilinear", up)
+    np.testing.assert_allclose(up[0, 0, 1].numpy(),
+                               [0.1875, 0.5625, 0.5625, 0.1875])
 
 
 def test_rnn_dropout_between_layers_by_statistics():

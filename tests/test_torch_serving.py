@@ -245,7 +245,11 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 os.path.join("ops", "_nvrtc.py"),
                 os.path.join("ops", "init_sample.py"), "io.py",
                 "metric.py", "engine.py", "callback.py", "lr_scheduler.py",
-                os.path.join("module", "base_module.py")):
+                os.path.join("module", "base_module.py"), "recordio.py",
+                "image.py", "filesystem.py", "storage.py", "mp_io.py",
+                "monitor.py", "_native.py",
+                os.path.join("module", "sequential_module.py"),
+                os.path.join("module", "python_module.py")):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -265,7 +269,13 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops._nvrtc, "
             "mxnet_tpu_torch.io, mxnet_tpu_torch.metric, "
             "mxnet_tpu_torch.engine, mxnet_tpu_torch.callback, "
-            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.module\n"
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.module, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.filesystem, mxnet_tpu_torch.storage, "
+            "mxnet_tpu_torch.mp_io, mxnet_tpu_torch.monitor, "
+            "mxnet_tpu_torch._native, "
+            "mxnet_tpu_torch.module.sequential_module, "
+            "mxnet_tpu_torch.module.python_module\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
@@ -273,6 +283,37 @@ def test_import_pulls_in_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "CLEAN" in r.stdout
+
+
+def test_mp_io_worker_imports_no_jax(tmp_path):
+    """A real decode worker of ``mp_io`` (started by forkserver) writes
+    its ``sys.modules`` once it has built its iterator."""
+    import numpy as np
+    from torch_mp_probe import RecordsModules
+
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch import recordio as trec
+
+    rec = str(tmp_path / "w.rec")
+    w = trec.MXRecordIO(rec, "w")
+    for i in range(4):
+        img = np.full((8, 8, 3), i, np.uint8)
+        w.write(trec.pack_img(trec.IRHeader(0, float(i), i, 0), img))
+    w.close()
+    out = str(tmp_path / "modules.json")
+    it = timg.MultiProcessImageRecordIter(
+        rec, (3, 8, 8), 2, num_workers=1, device="cpu", stall_timeout=120,
+        preprocess_threads=RecordsModules(out))
+    try:
+        assert it.next().data[0].shape == (2, 3, 8, 8)
+    finally:
+        it.close()
+    with open(out) as f:
+        mods = json.load(f)
+    assert "mxnet_tpu_torch.image" in mods and "torch" in mods
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "mxnet_tpu")]
+    assert not bad, bad
 
 
 def _smoke(cwd):
