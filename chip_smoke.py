@@ -165,7 +165,40 @@ holds each hand-written CUDA kernel
    ``SequentialModule.fit`` and ``train_mnist.py``'s MLP through
    ``Module.fit`` over ``MNISTIter`` on seeded idx files of MNIST's
    shape (``phase_sequential``).  Phases 14-18 launch the epilogue
-   kernel in the score sweeps only (their counts are read around them).
+   kernel in the score sweeps only (their counts are read around them);
+19. ``examples/recommenders/sparse_mf.py`` (``phase_sparse_mf``): its
+   model and loop through ``Module.fit`` at its own sizes (20000 users,
+   8000 items, rank 8, batch 256, Adam lr 0.05, ``Normal(0.1)``, 40000
+   samples, 2 epochs), fp32 and under ``MXTPU_AMP=bf16`` with dynamic
+   loss scaling: rmse by epoch (falling), both tables' gradient holders
+   row-sparse, touched rows a batch, 0 host syncs a batch, samples/s;
+20. ``_sparse_micro``'s kvstore step (``phase_sparse_update``, Adam,
+   rescale 1/lookups) sparse and dense at 300000 x 64 and 10,000,000 x
+   64 with 4096 lookups: µs a step, speedup, touched fraction and rows/s,
+   each side's bound, the sparse pushes under
+   ``set_sync_debug_mode("error")``, the small table's result equal to
+   the same pushes on the CPU.  Phases 19-20 launch no hand-written
+   kernel;
+21. the survival layer (``phase_survival``): ResNet-50 bf16 batch 32
+   through ``FusedTrainer``, ``_survival_micro``'s keys (40 plain steps,
+   40 with ``save_state(background=True)`` every 10, a synchronous
+   write, a restore into a fresh trainer, the state's bytes), the next
+   step from the restored state equal to the saving trainer's under
+   ``torch.use_deterministic_algorithms``, and ``predict.create`` from
+   the resumed trainer's checkpoint identical to the saving trainer's
+   Predictor with its 4 epilogue launches each held against the plain
+   version; the micro-bench's FC net alike;
+22. kill and resume (``phase_kill_resume``): ``train_mnist.py``'s MLP
+   through ``Module.fit`` with ``MXTPU_CKPT_DIR``/``MXTPU_CKPT_EVERY`` in
+   child processes on the card: a SIGKILL after a published checkpoint,
+   a resumed child equal to an uninterrupted one to the bit, a SIGTERM
+   that leaves a boundary checkpoint and ``Preempted``;
+23. recompute (``phase_remat``, run right after phase 5, on the same
+   cell): ``transformer_lm(**MFU_HEADLINE_CONFIG)``
+   bf16 with ``remat=False`` and ``remat=True``, eager and
+   ``step_multi(8)``: peak memory, step ms, tokens/s, flash launches a
+   step (16 forwards under remat), one step's agreement, and with
+   ``dropout=0.1`` the recompute replaying the forward's masks.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -176,6 +209,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import logging
 import math
@@ -2411,7 +2445,11 @@ def predict_parity(net, arg, aux, x):
     for dtype, tag, tol_pin, tol_off in ((None, "fp32", 1e-6, 1e-4),
                                          ("bfloat16", "bf16", 5e-2, 5e-2)):
         runs = {}
-        for kind, env in (("kernel", {}), ("pinned", {}),
+        # the pinned run edits its executor's post-pass graph in place,
+        # so it binds without the program cache: it must not share (and
+        # leave pinned) the entry the kernel runs bind through
+        for kind, env in (("kernel", {}),
+                          ("pinned", {"MXTPU_PROGRAM_CACHE": "0"}),
                           ("off", {"MXTPU_GRAPH_PASSES": "0"}),
                           ("nchw", {"MXTPU_CONV_LAYOUT": "NCHW"})):
             p = _predictor(both, arg, aux, dtype, env)
@@ -4617,6 +4655,708 @@ def phase_sequential(smi, workdir):
     return {"sequential": seq_row, "mnist": mnist_row}
 
 
+# ---------------------------------------------------------- phases 19-23
+# examples/recommenders/sparse_mf.py's sizes (USERS, ITEMS, RANK and its
+# argparse defaults, but 2 epochs)
+MF_USERS, MF_ITEMS, MF_RANK = 20000, 8000, 8
+MF_BATCH, MF_SAMPLES, MF_EPOCHS, MF_LR = 256, 40000, 2, 0.05
+# bench.py:1623-1689 (_sparse_micro): Adam lr 0.05, rescale 1/lookups,
+# 8 distinct steps, 3 warm-up and 20 timed pushes; and a 10 M-row catalog
+SPARSE_SIZES = ((300000, 64, 4096), (10_000_000, 64, 4096))
+SPARSE_STEPS, SPARSE_WARMUP = 20, 3
+SPARSE_TOL = 1e-6                # the card's row update vs the CPU's
+SURV_STEPS, SURV_EVERY = 40, 10  # bench.py:577-642 (_survival_micro)
+KILL_SAMPLES, KILL_BATCH, KILL_EPOCHS, KILL_EVERY = 4096, 64, 2, 10
+REMAT_K = 8
+REMAT_DROPOUT = 0.1
+
+
+def _mf_symbol():
+    """``sparse_mf.build()`` in the port: both tables ``grad_stype=
+    "row_sparse"``."""
+    from mxnet_tpu_torch import symbol as sym
+
+    uw = sym.Variable("user_embed_weight", grad_stype="row_sparse")
+    iw = sym.Variable("item_embed_weight", grad_stype="row_sparse")
+    u = sym.Embedding(sym.Variable("user"), weight=uw, input_dim=MF_USERS,
+                      output_dim=MF_RANK, name="user_embed")
+    v = sym.Embedding(sym.Variable("item"), weight=iw, input_dim=MF_ITEMS,
+                      output_dim=MF_RANK, name="item_embed")
+    return sym.LinearRegressionOutput(sym.sum(u * v, axis=1),
+                                      sym.Variable("score_label"),
+                                      name="score")
+
+
+def _mf_synth(rs, n):
+    """``sparse_mf.synth``: low-rank ratings over a popularity-skewed
+    catalog."""
+    gu = rs.randn(MF_USERS, MF_RANK).astype(np.float32) * 0.7
+    gi = rs.randn(MF_ITEMS, MF_RANK).astype(np.float32) * 0.7
+    users = rs.randint(0, MF_USERS, n)
+    items = np.minimum((rs.pareto(1.2, n) * MF_ITEMS / 60).astype(np.int64),
+                       MF_ITEMS - 1)
+    ratings = (gu[users] * gi[items]).sum(1) \
+        + rs.randn(n).astype(np.float32) * 0.1
+    return (users.astype(np.float32), items.astype(np.float32),
+            ratings.astype(np.float32))
+
+
+def _mf_route(tag, smi, data):
+    """``sparse_mf.py``'s loop through ``Module.fit`` on the card: rmse
+    by epoch, the holders' storage type, the touched rows, host syncs a
+    batch (0 within each epoch), samples/s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, metric
+
+    users, items, ratings = data
+    np.random.seed(0)  # the iterator's shuffle
+    mod = mx.mod.Module(_mf_symbol(), data_names=("user", "item"),
+                        label_names=("score_label",))
+    it = io.NDArrayIter({"user": users, "item": items},
+                        {"score_label": ratings}, batch_size=MF_BATCH,
+                        shuffle=True)
+    rmse = metric.create("rmse")
+    by_epoch, stamps = [], []
+
+    def epoch_end(epoch, sym, arg, aux):
+        by_epoch.append(rmse.get_global()[1])
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _SyncCounter() as sync:
+        mod.fit(it, num_epoch=MF_EPOCHS, optimizer="adam",
+                optimizer_params={"learning_rate": MF_LR},
+                initializer=mx.init.Normal(0.1), eval_metric=rmse,
+                batch_end_callback=sync.mark, epoch_end_callback=epoch_end)
+    wall = time.perf_counter() - t0
+    nb = len(sync.marks) // MF_EPOCHS
+    per_batch = [b - a for e in range(MF_EPOCHS)
+                 for a, b in zip(sync.marks[e * nb:(e + 1) * nb],
+                                 sync.marks[e * nb + 1:(e + 1) * nb])]
+    ex = mod._exec_group.execs[0]
+    holders = {w: ex.grad_dict[w] for w in ("user_embed_weight",
+                                            "item_embed_weight")}
+    stypes = {w: getattr(g, "stype", "default") for w, g in holders.items()}
+    slots = {w: int(g.indices.shape[0]) for w, g in holders.items()}
+    touched = {w: int(torch.unique(g.indices.tensor).numel())
+               for w, g in holders.items()}
+    epoch2_s = MF_SAMPLES / (stamps[1] - stamps[0])
+    log(f"[sparse_mf] {tag}: {MF_USERS} users x {MF_ITEMS} items, rank "
+        f"{MF_RANK}, batch {MF_BATCH}, Adam lr {MF_LR}, {MF_SAMPLES} samples "
+        f"x {MF_EPOCHS} epochs: train rmse by epoch "
+        f"{' '.join(f'{r:.4f}' for r in by_epoch)}; gradient holders "
+        f"{stypes}, {slots} row slots a batch ({touched} distinct rows in the "
+        f"last), of {MF_USERS} / {MF_ITEMS} rows; host syncs a batch within "
+        f"the epochs: max {max(per_batch)} over {len(per_batch)} batch "
+        f"pairs (before the first batch's end {sync.marks[0]}); "
+        f"{MF_EPOCHS * MF_SAMPLES / wall:.1f} samples/s over the fit, "
+        f"{epoch2_s:.1f} in epoch 2; {smi}")
+    if set(stypes.values()) != {"row_sparse"}:
+        raise AssertionError(f"sparse_mf {tag}: dense gradients {stypes}")
+    if any(per_batch):
+        raise AssertionError(f"sparse_mf {tag}: host syncs a batch "
+                             f"{per_batch}")
+    if not (len(by_epoch) == MF_EPOCHS and by_epoch[-1] < by_epoch[0]
+            and all(math.isfinite(r) for r in by_epoch)):
+        raise AssertionError(f"sparse_mf {tag}: rmse {by_epoch}")
+    return {"rmse": by_epoch, "samples_s": MF_EPOCHS * MF_SAMPLES / wall,
+            "epoch2_samples_s": epoch2_s, "syncs_per_batch": max(per_batch),
+            "row_slots": slots, "touched_rows": touched}
+
+
+def phase_sparse_mf(smi):
+    """(a1) ``examples/recommenders/sparse_mf.py`` on the card: fp32, then
+    ``MXTPU_AMP=bf16`` with dynamic loss scaling."""
+    data = _mf_synth(np.random.RandomState(0), MF_SAMPLES)
+    res = {"fp32": _mf_route("fp32", smi, data)}
+    from mxnet_tpu_torch import amp
+
+    amp.reset_scaler()
+    res["amp"] = _with_env(MODULE_AMP_ENV,
+                           lambda: _mf_route("amp bf16", smi, data))
+    amp.reset_scaler()
+    log(f"[sparse_mf] {json.dumps(res)}")
+    return res
+
+
+def _sparse_bounds(rows, dim, lookups, uniq):
+    """The least time of one Adam step: the dense side sweeps the table
+    and its two slots, read and written; the sparse side reads the
+    pushed rows and ids and reads and writes the touched rows of the
+    table and slots.  Both over the memory rate."""
+    dense = 3 * 2 * rows * dim * 4
+    sparse = lookups * (dim * 4 + 4) + 3 * 2 * uniq * dim * 4
+    return dense / PEAK_BYTES_S * 1e3, sparse / PEAK_BYTES_S * 1e3
+
+
+def phase_sparse_update(smi):
+    """(a2) ``_sparse_micro``'s kvstore step on the card, sparse and
+    dense, at its own table and a 10 M-row one: µs a step, the speedup,
+    the touched fraction, touched rows/s, each side's bound; the sparse
+    run queues no host sync (``set_sync_debug_mode("error")``) and, at
+    the small table, equals the same pushes on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sparse
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    out = []
+    for rows, dim, lookups in SPARSE_SIZES:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        table = torch.rand((rows, dim), generator=g, device="cuda") * 2 - 1
+        distinct = 8 if rows * dim * 4 * 8 < 8e9 else 2
+        idx = [torch.randint(0, rows, (lookups,), generator=g,
+                             device="cuda", dtype=torch.int32)
+               for _ in range(distinct)]
+        vals = [torch.rand((lookups, dim), generator=g, device="cuda") * 2 - 1
+                for _ in range(distinct)]
+        uniq = float(np.mean([torch.unique(i).numel() for i in idx]))
+
+        def store(device, sparse_grads):
+            kv = mx.kv.create("local")
+            kv.set_optimizer(mx.optimizer.create(
+                "adam", learning_rate=0.05, rescale_grad=1.0 / lookups))
+            t = NDArray(table.to(device))
+            kv.init(0, sparse.full_row_sparse(t) if sparse_grads else t)
+            return kv
+
+        def run(sparse_grads):
+            kv = store("cuda", sparse_grads)
+            grads = []
+            for i, v in zip(idx, vals):
+                rg = sparse.RowSparseNDArray(i, v, (rows, dim))
+                grads.append([rg] if sparse_grads else [rg.todense()])
+            for w in range(SPARSE_WARMUP):
+                kv.push([0], grads[w % distinct])
+            torch.cuda.synchronize()
+            if sparse_grads:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                for s in range(SPARSE_STEPS):
+                    kv.push([0], grads[s % distinct])
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            dt = (time.perf_counter() - t0) / SPARSE_STEPS
+            return dt, kv
+
+        dense_dt, kv = run(False)
+        del kv
+        torch.cuda.empty_cache()
+        sparse_dt, kv = run(True)
+        err = None
+        if rows * dim <= 5e7:
+            # the same pushes on the CPU: the row update's arithmetic
+            ref = store("cpu", True)
+            for s in range(SPARSE_WARMUP + SPARSE_STEPS):
+                k = (s if s < SPARSE_WARMUP else s - SPARSE_WARMUP) % distinct
+                ref.push([0], [sparse.RowSparseNDArray(
+                    idx[k].cpu(), vals[k].cpu(), (rows, dim))])
+            got = kv._store[0].tensor.cpu()
+            want = ref._store[0].tensor
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=SPARSE_TOL,
+                                  atol=SPARSE_TOL):
+                raise AssertionError(f"sparse update {rows} rows: card vs "
+                                     f"CPU max err {err}")
+            del ref
+        del kv, table, idx, vals
+        torch.cuda.empty_cache()
+        b_dense, b_sparse = _sparse_bounds(rows, dim, lookups, uniq)
+        rec = {"rows": rows, "dim": dim, "lookups": lookups,
+               "us_sparse": sparse_dt * 1e6, "us_dense": dense_dt * 1e6,
+               "speedup": dense_dt / sparse_dt,
+               "touched_fraction": uniq / rows,
+               "touched_rows_s": uniq / sparse_dt,
+               "bound_us_dense": b_dense * 1e3,
+               "bound_us_sparse": b_sparse * 1e3,
+               "card_vs_cpu_max_err": err}
+        out.append(rec)
+        log(f"[sparse_update] {rows} x {dim} table, {lookups} lookups "
+            f"({uniq:.1f} distinct rows, {uniq / rows:.3g} of the table), "
+            f"Adam: sparse {sparse_dt * 1e6:.1f} µs a step (bound "
+            f"{b_sparse * 1e3:.2f} µs), dense {dense_dt * 1e6:.1f} µs "
+            f"(bound {b_dense * 1e3:.1f} µs), speedup "
+            f"{dense_dt / sparse_dt:.1f}x; {uniq / sparse_dt:.4g} touched "
+            f"rows/s; sparse pushes with no host sync; card vs CPU max err "
+            f"{err} (tol {SPARSE_TOL}); {smi}")
+    log(f"[sparse_update] {json.dumps(out)}")
+    return out
+
+
+def _survival_micro(tr, batch, tag, smi):
+    """``_survival_micro``'s keys for trainer ``tr`` on one staged batch:
+    step µs plain and with a background ``save_state`` every
+    ``SURV_EVERY`` steps, the capture's cost a step, a synchronous
+    write, a restore into a fresh trainer of the same graph, the state
+    bytes.  Returns the keys and the directory's checkpoint."""
+    for _ in range(3):
+        tr.step(**batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SURV_STEPS):
+        tr.step(**batch)
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) / SURV_STEPS * 1e6
+    from mxnet_tpu_torch import checkpoint as ck
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_surv_")
+    writes, dispatch = [], 0.0
+    t0 = time.perf_counter()
+    for i in range(SURV_STEPS):
+        tr.step(**batch)
+        if i % SURV_EVERY == 0:
+            td = time.perf_counter()
+            writes.append(tr.save_state(d, background=True))
+            dispatch += time.perf_counter() - td
+    torch.cuda.synchronize()
+    armed_us = (time.perf_counter() - t0) / SURV_STEPS * 1e6
+    for w in writes:
+        w.wait()
+    # the same cadence with a writer of the same bytes from host memory
+    # (no CUDA in the writer): what the writer thread alone costs the
+    # training thread
+    host = {k: v.detach().cpu().numpy()
+            for k, v in tr._checkpoint_arrays().items()}
+    hd = tempfile.mkdtemp(prefix="chip_smoke_surv_host_")
+    writes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SURV_STEPS):
+        tr.step(**batch)
+        if i % SURV_EVERY == 0:
+            writes.append(ck.save(hd, i, host, background=True))
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / SURV_STEPS * 1e6
+    for w in writes:
+        w.wait()
+    shutil.rmtree(hd, ignore_errors=True)
+    del host
+    final = os.path.join(d, "final")
+    t0 = time.perf_counter()
+    tr.save_state(final, background=False)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in tr._checkpoint_arrays().values())
+    res = {"ckpt_step_us_plain": plain_us, "ckpt_step_us_armed": armed_us,
+           "ckpt_capture_us_per_step": armed_us - plain_us,
+           "ckpt_write_ms": write_ms, "ckpt_state_bytes": nbytes,
+           "snapshots": len(writes),
+           "save_state_call_ms": dispatch / len(writes) * 1e3,
+           "host_writer_us_per_step": host_us - plain_us}
+    log(f"[survival] {tag}: {json.dumps(res)}; {smi}")
+    return res, d, final
+
+
+def phase_survival(smi):
+    """(b1) ResNet-50 bf16 batch 32 (slice 5's ``FusedTrainer``) through
+    the survival layer: ``_survival_micro``'s keys; a restore into a
+    fresh trainer whose next step equals the saving trainer's (with
+    deterministic algorithms); ``predict.create`` from the resumed
+    trainer's checkpoint against the Predictor of the saving trainer's
+    parameters, every epilogue launch held against the plain version;
+    and the micro-bench's own FC net (512 -> 256, batch 64)."""
+    from mxnet_tpu_torch import predict, sym
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand((RESNET_BATCH, 3, 224, 224), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (RESNET_BATCH,), generator=g,
+                      device="cuda").float()
+    batch = {"data": x, "softmax_label": y}
+    tr = _resnet_trainer("bfloat16")
+    res, d, final = _survival_micro(tr, batch, "resnet-50 bf16 b32", smi)
+    try:
+        tr2 = _resnet_trainer("bfloat16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = tr2.restore_state(final)
+        torch.cuda.synchronize()
+        res["ckpt_resume_ms"] = (time.perf_counter() - t0) * 1e3
+        # predict.create from the resumed state, against the Predictor of
+        # the saving trainer's in-memory parameters
+        prefix = os.path.join(d, "resumed")
+        tr2.save_checkpoint(prefix, 0)
+        shapes = {"data": (RESNET_BATCH, 3, 224, 224)}
+        xn = x.cpu().numpy()
+        arg, aux = tr.get_params()
+        ref = _predictor(tr.symbol, arg, aux)
+        ref.forward(data=xn)
+        want = ref.get_output(0)
+        del ref
+        _kernel_launches(reset=True)
+        with _EpilogueRecorder() as rec:
+            p = predict.create(prefix, 0, shapes)
+            p.forward(data=xn)
+            got = p.get_output(0)
+            checked = rec.check("survival predict.create")
+        launches = _kernel_launches()
+        del p
+        err = float(np.abs(got - want).max())
+        if (launches["residual_epilogue"] != 4 or checked != 4
+                or any(v for k, v in launches.items()
+                       if k != "residual_epilogue")):
+            raise AssertionError(f"survival predict.create launched "
+                                 f"{launches}, {checked} checked; want 4 "
+                                 "epilogue launches and no other")
+        if got.shape != (RESNET_BATCH, 1000) or err != 0.0:
+            raise AssertionError(f"survival: resumed Predictor vs saving "
+                                 f"trainer's: {got.shape}, max err {err}")
+        # the next step from the restored state equals the saving
+        # trainer's next step
+        torch.use_deterministic_algorithms(True)
+        try:
+            o2 = tr2.step(**batch)[0]
+            o1 = tr.step(**batch)[0]
+            torch.cuda.synchronize()
+            det = "deterministic algorithms"
+        except RuntimeError as exc:
+            # an op with no deterministic CUDA implementation: name it
+            # and compare with the default algorithms instead
+            det = f"default algorithms ({str(exc).splitlines()[0][:160]})"
+            torch.use_deterministic_algorithms(False)
+            for t in (tr, tr2):
+                t.restore_state(final)
+            o2 = tr2.step(**batch)[0]
+            o1 = tr.step(**batch)[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        step_err = max(float((tr.params[k] - tr2.params[k]).abs().max())
+                       for k in tr.params)
+        out_err = float((o1.float() - o2.float()).abs().max())
+        log(f"[survival] restore into a fresh trainer: step {meta['step']}, "
+            f"{res['ckpt_resume_ms']:.1f} ms; the next step under {det}: "
+            f"max |param diff| {step_err:.3g}, max |output diff| "
+            f"{out_err:.3g}; predict.create from the resumed trainer's "
+            f"checkpoint vs the saving trainer's Predictor: max |prob diff| "
+            f"{err} (identical), {checked} epilogue launches each within its "
+            f"bound of the plain version; {smi}")
+        if det == "deterministic algorithms" and (step_err or out_err):
+            raise AssertionError(f"survival: resumed step differs by "
+                                 f"{step_err} / {out_err}")
+        res.update(resume_step_err=step_err, resume_out_err=out_err,
+                   determinism=det, epilogue_launches=launches[
+                       "residual_epilogue"], predict_err=err)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del tr, tr2
+    torch.cuda.empty_cache()
+    # the micro-bench's own net, like for like
+    net = sym.SoftmaxOutput(sym.FullyConnected(
+        sym.Variable("data"), num_hidden=256, name="surv_fc"),
+        name="softmax")
+    rs = np.random.RandomState(11)
+    fc = FusedTrainer(net, optimizer="adam", optimizer_params={
+        "lr": 0.05, "rescale_grad": 1.0 / 64}).init(data=(64, 512))
+    fb = {"data": torch.from_numpy(rs.uniform(-1, 1, (64, 512))
+                                   .astype(np.float32)).cuda(),
+          "softmax_label": torch.from_numpy(
+              rs.randint(0, 256, 64).astype(np.float32)).cuda()}
+    fres, fd, ffinal = _survival_micro(fc, fb, "fc 512->256 b64", smi)
+    t0 = time.perf_counter()
+    fc.restore_state(ffinal)
+    torch.cuda.synchronize()
+    fres["ckpt_resume_ms"] = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(fd, ignore_errors=True)
+    res["fc_net"] = fres
+    log(f"[survival] {json.dumps(res)}")
+    return res
+
+
+_KILL_CHILD = r'''
+import os, signal, sys, json, time
+import numpy as np
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, os.environ["CHIP_SMOKE_REPO"])
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import checkpoint as ck
+
+mode, out = sys.argv[1], sys.argv[2]
+ckdir = os.environ["MXTPU_CKPT_DIR"]
+rs = np.random.RandomState(0)
+n, b = int(sys.argv[3]), int(sys.argv[4])
+X = rs.uniform(0, 1, (n, 784)).astype(np.float32)
+Y = rs.randint(0, 10, n).astype(np.float32)
+it = mx.io.NDArrayIter(X, Y, batch_size=b, shuffle=False)
+mx.random.seed(0)
+mod = mx.mod.Module(mx.models.get_symbol("mlp", num_classes=10))
+term = []
+signal.signal(signal.SIGTERM, lambda s, f: term.append(s))
+cb = None
+if mode == "victim":
+    def cb(p):
+        if (p.epoch, p.nbatch) == (1, 10):
+            # killable once a checkpoint is published: poll for it
+            while ck.latest(ckdir) is None:
+                time.sleep(0.01)
+            print("KILLME", flush=True)
+            while True:
+                time.sleep(1)
+elif mode == "preempt":
+    def cb(p):
+        if (p.epoch, p.nbatch) == (0, 20):
+            print("TERMME", flush=True)
+            while not term:
+                time.sleep(0.01)
+try:
+    mod.fit(it, num_epoch=int(sys.argv[5]), optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=mx.init.Xavier(), resume=(mode == "resume"),
+            batch_end_callback=cb)
+except ck.Preempted as e:
+    print("PREEMPTED", e, flush=True)
+    sys.exit(3)
+arg, _ = mod.get_params()
+np.savez(out, **{k: v.asnumpy() for k, v in arg.items()})
+print("DONE", flush=True)
+'''
+
+
+def phase_kill_resume(smi):
+    """(b2) ``train_mnist.py``'s MLP through ``Module.fit`` in child
+    processes on the card with ``MXTPU_CKPT_DIR``/``MXTPU_CKPT_EVERY``
+    set: an uninterrupted child, a child SIGKILLed once it says a
+    checkpoint is published, a child resuming it, and a child given a
+    SIGTERM; deterministic algorithms and ``CUBLAS_WORKSPACE_CONFIG``
+    in all.  The resumed parameters must equal the uninterrupted ones to
+    the bit; the SIGTERM leaves a boundary checkpoint and ``Preempted``.
+    The parent waits on the children's markers, never on a sleep."""
+    import signal as _signal
+
+    from mxnet_tpu_torch import checkpoint as ck
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    script = os.path.join(tmp, "child.py")
+    with open(script, "w") as f:
+        f.write(_KILL_CHILD)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args = [str(KILL_SAMPLES), str(KILL_BATCH), str(KILL_EPOCHS)]
+
+    def start(mode, ckdir, out):
+        env = dict(os.environ, CHIP_SMOKE_REPO=repo, MXTPU_CKPT_DIR=ckdir,
+                   MXTPU_CKPT_EVERY=str(KILL_EVERY),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        return subprocess.Popen(
+            [sys.executable, script, mode, out] + args,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env)
+
+    def until(proc, marker, what):
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if marker in line:
+                return "".join(lines)
+        proc.wait(timeout=60)
+        raise AssertionError(f"{what} child ended without {marker}: "
+                             + "".join(lines)[-3000:])
+
+    def finish(proc, what, rc=0):
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != rc:
+            raise AssertionError(f"{what} child exited {proc.returncode}: "
+                                 f"{out[-3000:]}")
+        return out
+
+    t0 = time.perf_counter()
+    try:
+        d = {m: os.path.join(tmp, m) for m in ("straight", "victim",
+                                               "preempt")}
+        procs = {m: start(m, d[m], os.path.join(tmp, m + ".npz"))
+                 for m in d}
+        until(procs["victim"], "KILLME", "victim")
+        procs["victim"].send_signal(_signal.SIGKILL)
+        procs["victim"].wait(timeout=60)
+        killed = procs["victim"].returncode
+        published = ck.list_checkpoints(d["victim"])
+        until(procs["preempt"], "TERMME", "preempt")
+        procs["preempt"].send_signal(_signal.SIGTERM)
+        pout = finish(procs["preempt"], "preempt", rc=3)
+        finish(procs["straight"], "straight")
+        resumed = start("resume", d["victim"], os.path.join(tmp,
+                                                            "resume.npz"))
+        rout = finish(resumed, "resume")
+        straight = np.load(os.path.join(tmp, "straight.npz"))
+        again = np.load(os.path.join(tmp, "resume.npz"))
+        diffs = {k: float(np.abs(straight[k] - again[k]).max())
+                 for k in straight.files}
+        _, pman = ck.load(ck.latest(d["preempt"]))
+        cursor = (pman["meta"]["epoch"], pman["meta"]["nbatch"])
+        wall = time.perf_counter() - t0
+        log(f"[kill_resume] train_mnist MLP, {KILL_SAMPLES} samples, batch "
+            f"{KILL_BATCH}, {KILL_EPOCHS} epochs, a checkpoint every "
+            f"{KILL_EVERY} steps: the victim was SIGKILLed (exit {killed}) "
+            f"at epoch 1 batch 10 with {len(published)} complete "
+            f"checkpoints (newest step {published[-1][0]}); the resumed "
+            f"child's parameters vs the uninterrupted child's: max |diff| "
+            f"{max(diffs.values())} over {len(diffs)} arrays (deterministic "
+            f"algorithms); the SIGTERMed child saved its boundary checkpoint "
+            f"at (epoch, batch) {cursor} and exited by Preempted "
+            f"({pout.strip().splitlines()[-1][:120]}); {wall:.1f} s; {smi}")
+        if killed != -_signal.SIGKILL or not published:
+            raise AssertionError(f"kill_resume: victim exit {killed}, "
+                                 f"{published}")
+        if any(diffs.values()):
+            raise AssertionError(f"kill_resume: resumed params differ "
+                                 f"{diffs}; {rout[-2000:]}")
+        if cursor != (0, 21):
+            raise AssertionError(f"kill_resume: boundary checkpoint at "
+                                 f"{cursor}, want (0, 21)")
+        return {"killed_with_checkpoints": len(published),
+                "max_diff": max(diffs.values()), "preempt_cursor": cursor,
+                "wall_s": wall}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_remat(smi):
+    """(c) ``transformer_lm(**MFU_HEADLINE_CONFIG)`` through
+    ``FusedTrainer`` at bf16 (slice 2's step: Adam lr 1e-4, batch 8 x
+    1024) with ``remat=False`` and ``remat=True``, eager and
+    ``step_multi(8)``: peak memory, step ms, tokens/s, flash launches a
+    step (the forward twice under remat); one step of each from the same
+    weights agrees within the bf16 tolerance of ``phase_train``; with
+    ``dropout=0.1`` the recomputed masks are the forward's (remat and
+    plain agree from the same generator state, and a plain step from
+    another state does not).  Returns the flash launches of the remat
+    run and the numbers."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.convert import load_trainer_params
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = tr.MFU_HEADLINE_CONFIG
+    B, T, V, L = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"], \
+        cfg["num_layers"]
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+
+    def trainer(remat, dropout=0.0, params=None):
+        t = FusedTrainer(tr.transformer_lm(dropout=dropout, **cfg),
+                         optimizer="adam", optimizer_params={"lr": 1e-4},
+                         dtype="bfloat16", remat=remat).init(
+            data=(B, T), softmax_label=(B, T))
+        if params is not None:
+            load_trainer_params(t, params)
+        return t
+
+    def moments(t):
+        return {k: st[0].clone() for k, st in t.opt_state.items()}
+
+    def agree(o1, m1, o2, m2):
+        errs = sorted((_rel_err(m1[k], m2[k]), k) for k in m1
+                      if not k.endswith("_k_bias"))
+        return _rel_err(o1, o2), errs[-1]
+
+    def route(t, tag):
+        """Timed eager steps, then ``step_multi(8)``: ms a step, peak
+        allocated memory of each, flash launches a step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            t.step(data=data, softmax_label=label)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        launches = {k: v / TRAIN_STEPS for k, v in fa.launch_counts().items()}
+        eager_peak = torch.cuda.max_memory_allocated()
+        stacked = {"data": torch.stack([data] * REMAT_K),
+                   "softmax_label": torch.stack([label] * REMAT_K)}
+        # the capture's pool and the k stacked outputs (4 GiB) need
+        # whole segments: hand the cached ones back first
+        torch.cuda.empty_cache()
+        t.step_multi(**stacked)  # capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = t.step_multi(**stacked)[0]
+        torch.cuda.synchronize()
+        multi_ms = (time.perf_counter() - t0) / REMAT_K * 1e3
+        multi_peak = torch.cuda.max_memory_allocated()
+        if not bool(torch.isfinite(outs).all()):
+            raise AssertionError(f"remat {tag}: non-finite outputs")
+        r = {"eager_ms": eager_ms, "eager_tokens_s": B * T / eager_ms * 1e3,
+             "eager_peak_gib": eager_peak / 2**30, "multi_ms": multi_ms,
+             "multi_tokens_s": B * T / multi_ms * 1e3,
+             "multi_peak_gib": multi_peak / 2**30,
+             "flash_launches_per_step": launches}
+        log(f"[remat] {tag}: eager {eager_ms:.2f} ms a step "
+            f"({r['eager_tokens_s']:.1f} tokens/s, peak allocated "
+            f"{r['eager_peak_gib']:.2f} GiB), step_multi({REMAT_K}) "
+            f"{multi_ms:.2f} ms ({r['multi_tokens_s']:.1f} tokens/s, peak "
+            f"{r['multi_peak_gib']:.2f} GiB); flash launches a step "
+            f"{launches}; {smi}")
+        return r
+
+    # what earlier phases left (a failed capture's frames hold a graph
+    # pool until the collector runs) is released first
+    gc.collect()
+    torch.cuda.empty_cache()
+    mxrandom.seed(0)
+    plain = trainer(False)
+    init = {k: v.clone() for k, v in plain.params.items()}
+    o_p = plain.step(data=data, softmax_label=label)[0].clone()
+    m_p = moments(plain)
+    res = {"plain": route(plain, "remat=False")}
+    del plain
+    torch.cuda.empty_cache()
+    rem = trainer(True, params=init)
+    o_r = rem.step(data=data, softmax_label=label)[0]
+    out_err, (m_err, m_key) = agree(o_r, moments(rem), o_p, m_p)
+    del o_p, m_p
+    # the main path's run: every kernel count starts at 0 here
+    _kernel_launches(reset=True)
+    res["remat"] = route(rem, "remat=True")
+    launches = _kernel_launches()
+    del rem
+    torch.cuda.empty_cache()
+    per = res["remat"]["flash_launches_per_step"]
+    if per != {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}:
+        raise AssertionError(f"remat: flash launches a step {per}; want "
+                             f"{2 * L} forwards, {L} dQ and {L} dK/dV")
+    if any(launches[k] for k in launches if not k.startswith("flash")):
+        raise AssertionError(f"remat launched {launches}")
+    # Dropout: the recompute must replay the forward's masks
+    drop = {}
+    for tag, remat, seed in (("remat", True, 7), ("plain", False, 7),
+                             ("plain, another seed", False, 8)):
+        t = trainer(remat, REMAT_DROPOUT, init)
+        mxrandom.seed(seed)
+        o = t.step(data=data, softmax_label=label)[0].clone()
+        drop[tag] = (o, moments(t))
+        del t
+        torch.cuda.empty_cache()
+    same = agree(*drop["remat"], *drop["plain"])
+    other = agree(*drop["plain, another seed"], *drop["plain"])
+    del drop, init
+    torch.cuda.empty_cache()
+    log(f"[remat-parity] one step from the same weights, remat=True vs "
+        f"remat=False: softmax output rel err {out_err:.3g} (tol 1e-2), Adam "
+        f"first moment rel err max {m_err:.3g} ({m_key}; tol 5e-2); dropout "
+        f"{REMAT_DROPOUT}, same generator state: output {same[0]:.3g}, "
+        f"moment max {same[1][0]:.3g} ({same[1][1]}); plain from another "
+        f"seed: output {other[0]:.3g}, moment max {other[1][0]:.3g}; {smi}")
+    if not (out_err <= 1e-2 and m_err <= 5e-2):
+        raise AssertionError(f"remat vs plain: {out_err}, {m_err} {m_key}")
+    if not (same[0] <= 1e-2 and same[1][0] <= 5e-2):
+        raise AssertionError(f"remat with dropout vs plain: {same}")
+    if not other[1][0] > 10 * same[1][0]:
+        raise AssertionError(f"dropout masks do not move the moments: "
+                             f"{other} vs {same}")
+    res.update(parity_out=out_err, parity_moment=m_err,
+               dropout_same=same[1][0], dropout_other=other[1][0],
+               launches=launches)
+    log(f"[remat] {json.dumps(res)}")
+    return launches, res
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -4644,6 +5384,10 @@ def main():
     # fp32 products in full fp32 (the parity references assume it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS's deterministic workspace, which phase_survival's check
+    # under torch.use_deterministic_algorithms needs (set before any
+    # cuBLAS handle exists)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi, ptxas = phase_device()
     kern = phase_kernels()
     flash, flash_builds = phase_flash_kernels(ptxas)
@@ -4655,6 +5399,9 @@ def main():
     phase_parity(cfg, params)
     del params
     flash_launches, train = phase_train()
+    # recompute runs the same cell: next to it, before the image phases
+    # fill the allocator's cache
+    remat_launches, remat = phase_remat(smi)
     phase_train_resnet(smi)
     module = phase_module_resnet(smi)
     module_amp = phase_module_amp(smi, module)
@@ -4692,6 +5439,16 @@ def main():
             if k != "residual_epilogue"):
         raise AssertionError(f"phases 14-18 launched {rec_launches}, want "
                              f"{want} epilogue launches and no other")
+    # row-sparse training and the kill/resume children run no hand-written
+    # kernel; survival's Predictor runs the epilogue, remat the flash ones
+    sparse_launches = _kernel_launches(reset=True)
+    phase_sparse_mf(smi)
+    phase_sparse_update(smi)
+    sparse_launches = _kernel_launches()
+    if any(sparse_launches.values()):
+        raise AssertionError(f"phases 19-20 launched {sparse_launches}")
+    survival = phase_survival(smi)
+    phase_kill_resume(smi)
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -4709,6 +5466,9 @@ def main():
         rec.update(flash_builds[name])
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
         rec["train_step_device_ms"] = train["flash_ms"][name]
+        rec["launches_remat"] = remat_launches[name]
+        rec["launches_remat_per_step"] = \
+            remat["remat"]["flash_launches_per_step"][name]
         rec["fp32"] = flash[(torch.float32, True)][name]
         rec["non_causal"] = {"bf16": flash[(torch.bfloat16, False)][name],
                              "fp32": flash[(torch.float32, False)][name]}
@@ -4725,6 +5485,7 @@ def main():
     rec["module_amp_dtypes"] = module_amp["score"]["dtypes"]
     rec["launches_zoo"] = sum(zoo["epilogue_launches"].values())
     rec["launches_zoo_by_model"] = zoo["epilogue_launches"]
+    rec["launches_survival"] = survival["epilogue_launches"]
     records.append(rec)
     # Rtc compiles what the user writes: the record's times are those of
     # b_axpy (the full-width kernel), each user kernel's in "user_kernels"
@@ -4737,6 +5498,7 @@ def main():
     for rec in records:
         rec["launches_lstm"] = lstm_launches[rec["name"]]
         rec["launches_records"] = rec_launches[rec["name"]]
+        rec["launches_sparse"] = sparse_launches[rec["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,14 @@ from RecordIO — ``recordio``, ``filesystem`` (local, ``mem://``,
 ``MultiProcessImageRecordIter`` of ``mp_io``), the pinned staging pool
 ``storage``, ``io.PrefetchingIter``/``DevicePrefetchIter``/
 ``MNISTIter``/``CSVIter``, ``monitor.Monitor``, ``mod.SequentialModule``/
-``PythonModule`` and the rest of the initializers.
+``PythonModule`` and the rest of the initializers; and training that
+survives a crash — ``checkpoint`` (manifest-last atomic publishes,
+``FusedTrainer.save_state``/``restore_state``, ``fit(checkpoint=,
+resume=)``, preemption) — and row-sparse training — ``sparse``
+(``RowSparseNDArray``, also ``nd.sparse``) through the executor, the
+optimizer rules, the kvstore and its fused buckets — with the rest of
+``Symbol`` and ``Executor`` (``structural_signature``, the program
+cache, attrs, ``infer_type``, nnvm JSON) and ``FusedTrainer(remat=True)``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -57,6 +64,11 @@ from .initializer import (Initializer, Load, Mixed, MSRAPrelu,  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
 from .context import cpu, current_context, gpu, resolve_device  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
+from . import sparse  # noqa: F401
+from .sparse import RowSparseNDArray  # noqa: F401
+nd.sparse = sparse  # the reference surface: mx.nd.sparse.row_sparse_array
+from . import checkpoint  # noqa: F401
+from .model import load_checkpoint, save_checkpoint  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from .symbol import Group, Symbol, Variable  # noqa: F401

@@ -275,14 +275,21 @@ def reset_scaler():
 
 def maybe_unscale_grad(grad):
     """The eager ``Updater``'s unscale: ``grad * (1 / scale)`` (the
-    reciprocal in fp32, cast to the gradient's dtype) as a new NDArray,
-    the caller's gradient untouched; ``grad`` itself when loss scaling
-    is off."""
+    reciprocal in fp32, cast to the gradient's dtype) as a new NDArray —
+    of a row-sparse gradient, its value rows — the caller's gradient
+    untouched; ``grad`` itself when loss scaling is off."""
     if not scaling_active():
         return grad
     from .ndarray import NDArray
 
-    raw = grad.tensor if isinstance(grad, NDArray) else grad
     scaler = global_scaler()
+    if getattr(grad, "stype", "default") == "row_sparse":
+        from .sparse import RowSparseNDArray
+
+        vals = grad.data.tensor
+        scaler.place(vals.device)
+        return RowSparseNDArray(grad.indices, vals * scaler.inv_scale_raw()
+                                .to(vals.dtype), grad.shape)
+    raw = grad.tensor if isinstance(grad, NDArray) else grad
     scaler.place(raw.device)  # a no-op after a bind on this device
     return NDArray(raw * scaler.inv_scale_raw().to(raw.dtype))

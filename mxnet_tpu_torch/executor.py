@@ -38,16 +38,36 @@ are evaluated in inference mode and handed to the callback by name.  A
 callback that is a bound method of an object with an ``activated`` flag
 (``monitor.Monitor.stat_helper``) is tapped only while the flag is set.
 
+Row-sparse gradients (``Variable(grad_stype="row_sparse")`` on an
+Embedding weight, :func:`mxnet_tpu_torch.sparse.rs_plan`): ``simple_bind``
+gives such a weight a :class:`~mxnet_tpu_torch.sparse.RowSparseNDArray`
+holder instead of a table-sized buffer (unless ``MXTPU_SPARSE_UPDATE=0``).
+The training forward adds a zero "probe" of one row a lookup to the
+gathered rows, so the probe's gradient is the per-lookup row gradient
+and no dense scatter into the table is made; the backward coalesces it
+(``sparse.coalesce_rows``) and rebinds the holder to the ``(indices,
+values)`` pair.
+
+The program cache (the reference's ``MXTPU_PROGRAM_CACHE``, default 64
+entries, ``0``/``off`` disables, ``N`` sets the capacity): a bind runs
+the graph passes, then looks up the post-pass symbol and its graph
+function by the post-pass :meth:`~.symbol.Symbol.structural_signature`,
+the device and the layout, so a rebind of an equal graph reuses both;
+hits and misses count in ``executor_graph_cache_total``.  A captured
+CUDA graph is tied to the buffers it was captured on, so it stays with
+the trainer that captured it and is never cached across binds.
+
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
 of the tensors or NDArrays it is given), and ``outputs`` are tensors.
-Not ported yet, each raising where a caller can reach it: ctx-group
-placement (``group2ctx``) and the structural-signature program cache
-(ROADMAP Queue 1 item 4), and row-sparse gradients (item 7).
+Ctx-group placement (``group2ctx``) needs several cards and raises
+(ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
 import os
+import threading
+from collections import OrderedDict
 from typing import Dict
 
 import numpy as np
@@ -56,6 +76,8 @@ import torch
 from . import amp as _amp
 from . import ops
 from . import random as _random
+from . import sparse as _sparse
+from . import telemetry as _tm
 from .base import MXNetError, numeric_dtype
 from .context import resolve_device
 from .convert import _to_tensor
@@ -63,9 +85,18 @@ from .ndarray import NDArray
 from .symbol import Symbol, _topo_order
 
 __all__ = ["_build_graph_fn", "Executor", "simple_bind", "bind",
-           "channels_last_default"]
+           "channels_last_default", "program_cache_capacity",
+           "program_cache_clear", "program_cache_get", "program_cache_put"]
 
 _GRAD_REQ = ("null", "write", "add")
+_RS_PROBE = "__rs_probe__:"
+_RS_IDX = "__rs_idx__:"
+
+_TM_GRAPH_CACHE = _tm.counter(
+    "executor_graph_cache_total",
+    "program-cache lookups at bind (hit: an equal post-pass graph was "
+    "bound before; miss: its graph function was built)",
+    labels=("result",))
 
 
 def _eval_node(node, env, ctx):
@@ -91,6 +122,12 @@ def _build_graph_fn(symbol: Symbol, device=None):
     handed to the ops through their :class:`~.ops.registry.OpCtx`."""
     out_entries = list(symbol._outputs)
     topo = _topo_order([n for n, _ in out_entries])
+    # row-sparse Embedding nodes: with a probe among the arguments the
+    # gathered rows get the probe added (its gradient is the per-lookup
+    # row gradient) and the looked-up ids go out through new_aux;
+    # without one the node runs the Embedding op itself
+    rs_nodes = {id(node): wname
+                for wname, node in _sparse.rs_plan(symbol).items()}
 
     def fn(arg_vals: Dict, aux_vals: Dict, gen, is_train: bool):
         env = {}
@@ -100,6 +137,20 @@ def _build_graph_fn(symbol: Symbol, device=None):
             if node.is_variable:
                 src = aux_vals if node.is_aux else arg_vals
                 env[id(node)] = (src[node.name],)
+                continue
+            wname = rs_nodes.get(id(node))
+            probe = None if wname is None else \
+                arg_vals.get(_RS_PROBE + wname)
+            if probe is not None:
+                (dsrc, di), (wsrc, wi) = node.inputs
+                data, w = env[id(dsrc)][di], env[id(wsrc)][wi]
+                # the Embedding op's ids: truncated, clipped to the table
+                idx = data.long().clamp(0, w.shape[0] - 1)
+                rows = w.detach().index_select(0, idx.reshape(-1))
+                out = (rows + probe.to(rows.dtype)).reshape(
+                    tuple(idx.shape) + tuple(w.shape[1:]))
+                env[id(node)] = (out,)
+                new_aux[_RS_IDX + wname] = idx.reshape(-1)
                 continue
             new_aux.update(_eval_node(node, env, ctx))
         return [env[id(n)][i] for n, i in out_entries], new_aux
@@ -116,6 +167,77 @@ def channels_last_default() -> bool:
 def _not_ported(what, item):
     return MXNetError(f"{what} is not ported yet (ROADMAP Queue 1 item "
                       f"{item})")
+
+
+# ------------------------------------------------------------ program cache
+_PROGRAM_CACHE_DEFAULT_CAPACITY = 64
+_program_cache: "OrderedDict" = OrderedDict()
+_program_cache_lock = threading.Lock()
+
+
+def program_cache_capacity() -> int:
+    """``MXTPU_PROGRAM_CACHE`` as a capacity (0: the cache is off)."""
+    raw = os.environ.get("MXTPU_PROGRAM_CACHE", "").strip().lower()
+    if raw in ("", "on", "true", "yes", "default"):
+        return _PROGRAM_CACHE_DEFAULT_CAPACITY
+    if raw in ("0", "off", "false", "no", "disable", "disabled"):
+        return 0
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        return _PROGRAM_CACHE_DEFAULT_CAPACITY
+
+
+def program_cache_clear():
+    """Drop every cached entry."""
+    with _program_cache_lock:
+        _program_cache.clear()
+
+
+def program_cache_get(key):
+    """The entry under ``key`` (a hit moves it to the front and counts),
+    or None when absent or when the cache is off."""
+    if program_cache_capacity() <= 0:
+        return None
+    with _program_cache_lock:
+        entry = _program_cache.get(key)
+        if entry is not None:
+            _program_cache.move_to_end(key)
+    if entry is not None and _tm.enabled():
+        _TM_GRAPH_CACHE.inc(result="hit")
+    return entry
+
+
+def program_cache_put(key, entry):
+    """Insert an entry built after a miss (the miss counts), evicting
+    the least recently used past the capacity."""
+    if _tm.enabled():
+        _TM_GRAPH_CACHE.inc(result="miss")
+    capacity = program_cache_capacity()
+    if capacity <= 0:
+        return
+    with _program_cache_lock:
+        _program_cache[key] = entry
+        _program_cache.move_to_end(key)
+        while len(_program_cache) > capacity:
+            _program_cache.popitem(last=False)
+
+
+def _compiled_programs(symbol, device):
+    """``(post-pass symbol, graph function)`` of ``symbol`` on
+    ``device``, through the program cache.  The passes run first, so the
+    key is the post-pass signature: graphs that rewrite to one structure
+    share one entry."""
+    from .passes import apply_graph_passes
+
+    post = apply_graph_passes(symbol)
+    key = (post.structural_signature(), str(device),
+           channels_last_default())
+    entry = program_cache_get(key)
+    if entry is None:
+        entry = (post, _build_graph_fn(post, device))
+        program_cache_put(key, entry)
+    return entry
 
 
 def _as_list(names, given, what):
@@ -144,13 +266,6 @@ def _req_dict(arg_names, grad_req):
     return req
 
 
-def _refuse_row_sparse(symbol):
-    for node in symbol.nodes:
-        if (node.is_variable and node.extra_attrs.get("__grad_stype__")
-                == "row_sparse"):
-            raise _not_ported(f"row-sparse gradients ({node.name})", 7)
-
-
 class Executor:
     """A bound symbol.
 
@@ -161,9 +276,7 @@ class Executor:
     per ``grad_req``."""
 
     def __init__(self, symbol: Symbol, device, arg_dict, aux_dict,
-                 grad_dict=None, grad_req="null"):
-        from .passes import apply_graph_passes
-
+                 grad_dict=None, grad_req="null", shared_exec=None):
         self._symbol = symbol
         self._device = device
         arg_names = symbol.list_arguments()
@@ -182,12 +295,26 @@ class Executor:
             # an argument without a gradient buffer cannot be written
             if k not in self.grad_dict:
                 self.grad_req[k] = "null"
+        # row-sparse holders leave the autograd leaves: their gradient
+        # comes from the probe of their Embedding node
+        rs_holders = sorted(k for k, g in self.grad_dict.items()
+                            if getattr(g, "stype", "default") == "row_sparse")
         self._grad_names = [k for k in arg_names
-                            if self.grad_req[k] != "null"]
-        # the graph passes run once, at bind; they never rename or drop
-        # a variable, so the argument names stay as bound
-        self._exec_symbol = apply_graph_passes(symbol)
-        self._graph_fn = _build_graph_fn(self._exec_symbol, device)
+                            if self.grad_req[k] != "null"
+                            and k not in rs_holders]
+        # the graph passes run once, at bind (through the program cache);
+        # they never rename or drop a variable, so the argument names
+        # stay as bound
+        if shared_exec is not None and shared_exec._symbol is symbol:
+            self._exec_symbol = shared_exec._exec_symbol
+            self._graph_fn = shared_exec._graph_fn
+            if _tm.enabled():
+                _TM_GRAPH_CACHE.inc(result="hit")
+        else:
+            self._exec_symbol, self._graph_fn = _compiled_programs(symbol,
+                                                                   device)
+        self._rs_specs = self._build_rs_specs(rs_holders) \
+            if rs_holders else ()
         # AMP loss scaling is decided at bind; the scaler's state moves
         # to this bind's device once, here
         self._amp_scale = _amp.scaling_active()
@@ -198,6 +325,32 @@ class Executor:
         self._monitor_callback = None
         self._monitor_fn = None
         self._monitor_names = None
+
+    def _build_rs_specs(self, rs_holders):
+        """``(name, lookups, row width, dtype)`` of each row-sparse
+        holder; the lookup count is the size of the ids feeding its
+        Embedding node at the bound shapes, fixed per bind."""
+        plan = _sparse.rs_plan(self._exec_symbol)
+        known = {k: tuple(v.shape) for k, v in self.arg_dict.items()}
+        shapes = self._exec_symbol._infer(known, partial=True)
+        specs = []
+        for wname in rs_holders:
+            node = plan.get(wname)
+            w = self.arg_dict.get(wname)
+            if node is None or w is None or self.grad_req[wname] != "write":
+                raise MXNetError(
+                    f"bind: arg {wname!r} has a row_sparse gradient buffer "
+                    "but is not the sole weight of one Embedding op with "
+                    "grad_req='write'; bind a dense gradient instead")
+            src, oidx = node.inputs[0]
+            dshape = (shapes.get((src.name, "var")) if src.is_variable
+                      else shapes.get((id(src), oidx)))
+            if dshape is None or w.dim() != 2:
+                raise MXNetError(f"bind: cannot infer the lookup shape "
+                                 f"feeding Embedding weight {wname!r}")
+            specs.append((wname, int(np.prod(dshape)), int(w.shape[1]),
+                          w.dtype))
+        return tuple(specs)
 
     @property
     def device(self) -> torch.device:
@@ -262,17 +415,22 @@ class Executor:
         args = dict(self.arg_dict)
         leaves = {k: args[k].detach().requires_grad_(True)
                   for k in self._grad_names}
+        for wname, n_ids, row_dim, dt in self._rs_specs:
+            leaves[_RS_PROBE + wname] = torch.zeros(
+                (n_ids, row_dim), dtype=dt, device=self._device,
+                requires_grad=True)
         args.update(leaves)
         with torch.enable_grad():
             outs, new_aux = self._graph_fn(args, self.aux_dict,
                                            _random.generator(self._device),
                                            True)
+        rs_ids = {w: new_aux.pop(_RS_IDX + w) for w, *_ in self._rs_specs}
         with torch.no_grad():
             for k, v in new_aux.items():
                 dst = self.aux_dict[k]
                 if v is not dst:
                     dst.copy_(v)
-        self._pending = (outs, leaves)
+        self._pending = (outs, leaves, rs_ids)
         self._outputs = [o.detach() for o in outs]
         return self._outputs
 
@@ -293,7 +451,7 @@ class Executor:
         if self._pending is None:
             raise MXNetError("backward() requires forward(is_train=True) "
                              "first")
-        outs, leaves = self._pending
+        outs, leaves, rs_ids = self._pending
         self._pending = None
         if out_grads is None:
             heads = [torch.ones_like(o) for o in outs]
@@ -311,14 +469,28 @@ class Executor:
             grads = torch.autograd.grad(
                 [o for o, _ in pairs], [leaves[k] for k in names],
                 grad_outputs=[h for _, h in pairs], allow_unused=True)
+        grads = dict(zip(names, grads))
+        rows = {}
+        with torch.no_grad():
+            for wname, n_ids, row_dim, dt in self._rs_specs:
+                vals = grads.pop(_RS_PROBE + wname)
+                if vals is None:
+                    vals = torch.zeros((n_ids, row_dim), dtype=dt,
+                                       device=self._device)
+                sid, gvals, _ = _sparse.coalesce_rows(rs_ids[wname], vals)
+                rows[wname] = (sid, gvals)
         if self._amp_scale:
             # the loss scale multiplies each gradient here, not the head:
             # the loss ops discard the head gradient
             scale = _amp.global_scaler().scale_raw()
-            grads = [None if g is None else g * scale.to(g.dtype)
-                     for g in grads]
+            grads = {k: None if g is None else g * scale.to(g.dtype)
+                     for k, g in grads.items()}
+            rows = {k: (sid, v * scale.to(v.dtype))
+                    for k, (sid, v) in rows.items()}
+        for wname, (sid, vals) in rows.items():
+            self.grad_dict[wname]._set_rows(sid, vals)
         with torch.no_grad():
-            for k, g in zip(names, grads):
+            for k, g in grads.items():
                 buf = self.grad_dict[k]
                 if self.grad_req[k] == "add":
                     if g is not None:
@@ -360,7 +532,7 @@ class Executor:
         types = {k: v.dtype for k, v in self.arg_dict.items()}
         types.update({k: v.dtype for k, v in self.aux_dict.items()})
         new = simple_bind(self._symbol, self._device, grad_req=self.grad_req,
-                          type_dict=types, **shapes)
+                          type_dict=types, shared_exec=self, **shapes)
         for mine, theirs in ((self.arg_dict, new.arg_dict),
                              (self.aux_dict, new.aux_dict),
                              (self.grad_dict, new.grad_dict)):
@@ -398,11 +570,12 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
     (``type_dict``, else a ``__dtype__`` attr, else float32), a gradient
     buffer like each argument whose ``grad_req`` is not ``null``, and
     bind.  4-D arrays are channels-last unless
-    ``MXTPU_CONV_LAYOUT=NCHW``.  ``shared_exec`` is accepted for the
-    reference's signature; there is no program to share."""
+    ``MXTPU_CONV_LAYOUT=NCHW``.  A ``grad_stype="row_sparse"`` Embedding
+    weight gets a row-sparse gradient holder.  ``shared_exec`` bound on
+    the same symbol object lends its post-pass graph function."""
     if group2ctx:
-        raise _not_ported("ctx-group placement (group2ctx)", 4)
-    _refuse_row_sparse(symbol)
+        raise _not_ported("ctx-group placement (group2ctx, several cards)",
+                          10)
     device = resolve_device(device)
     arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
     if arg_shapes is None:
@@ -421,9 +594,23 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
     aux = {n: alloc(n, s)
            for n, s in zip(symbol.list_auxiliary_states(), aux_shapes)}
     req = _req_dict(arg_names, grad_req)
-    grads = {n: torch.zeros_like(args[n]) for n in arg_names
-             if req[n] != "null"}
-    return Executor(symbol, device, args, aux, grads, req)
+    # row-sparse holders for the grad_stype="row_sparse" Embedding
+    # weights (MXTPU_SPARSE_UPDATE=0 keeps dense buffers)
+    rs_names = set()
+    if _sparse.sparse_update_enabled() and _sparse.annotated_rs_names(symbol):
+        rs_names = {n for n in _sparse.rs_plan(symbol)
+                    if req.get(n) == "write"}
+    grads = {}
+    for n in arg_names:
+        if req[n] == "null":
+            continue
+        if n in rs_names:
+            grads[n] = _sparse.zeros("row_sparse", tuple(args[n].shape),
+                                     ctx=device, dtype=args[n].dtype)
+        else:
+            grads[n] = torch.zeros_like(args[n])
+    return Executor(symbol, device, args, aux, grads, req,
+                    shared_exec=shared_exec)
 
 
 def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
@@ -432,11 +619,13 @@ def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
     ``list_arguments()`` order; tensors and NDArrays are bound as they
     are, sharing their storage; numpy data is copied to ``device``)."""
     if group2ctx:
-        raise _not_ported("ctx-group placement (group2ctx)", 4)
-    _refuse_row_sparse(symbol)
+        raise _not_ported("ctx-group placement (group2ctx, several cards)",
+                          10)
     device = resolve_device(device)
 
     def tensor(v):
+        if getattr(v, "stype", "default") == "row_sparse":
+            return v  # a row-sparse gradient holder, bound as it is
         if isinstance(v, NDArray):
             return v.tensor
         if isinstance(v, torch.Tensor):
@@ -451,4 +640,5 @@ def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
              if v is not None}
     aux = {k: tensor(v) for k, v in _as_list(
         symbol.list_auxiliary_states(), aux_states, "aux_states").items()}
-    return Executor(symbol, device, args, aux, grads, grad_req)
+    return Executor(symbol, device, args, aux, grads, grad_req,
+                    shared_exec=shared_exec)

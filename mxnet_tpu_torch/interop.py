@@ -7,11 +7,17 @@ vector of arrays — each a TShape (uint32 ndim + uint32 dims), a Context
 (int32 dev_type + int32 dev_id), an int32 mshadow type flag and the raw
 row-major bytes — then a dmlc vector of name strings (``arg:``/``aux:``
 prefixed by ``model.save_checkpoint``).  :func:`mxnet_tpu_torch.ndarray.
-load` routes such files here.  Writing the format and the reference's
-symbol JSON are not ported yet.
+load` routes such files here.
+
+:func:`load_symbol_json` reads the reference's nnvm symbol JSON (every
+vintage the JAX package reads: op params under ``param``, ``attr`` or
+``attrs``, 2- or 3-element input references, the pre-0.9 op names and
+their missing aux inputs); :func:`mxnet_tpu_torch.symbol.load_json`
+routes such files here.  Writing the binary format is not ported.
 """
 from __future__ import annotations
 
+import json
 import struct
 from typing import Dict
 
@@ -87,3 +93,77 @@ def load_params_raw(blob: bytes, ctx=None) -> Dict:
         names = [str(i) for i in range(len(arrays))]
     return {name: NDArray(a, ctx=ctx) for name, a in zip(names, arrays)
             if a is not None}
+
+
+_OP_RENAMES = {
+    # pre-0.9 names upgraded by legacy_json_util.cc
+    "BatchNorm_v1": "BatchNorm",
+    "Convolution_v1": "Convolution",
+    "Pooling_v1": "Pooling",
+}
+
+
+def _node_attrs(jn):
+    """Op parameters: pre-0.9 files keep them under ``param`` (with user
+    annotations apart under ``attr``); newer files merge everything into
+    ``attrs``."""
+    if "param" in jn:
+        return dict(jn["param"])
+    return dict(jn.get("attrs") or jn.get("attr") or {})
+
+
+def _extra_attrs(jn):
+    """User annotations, separable only in the legacy layout."""
+    if "param" in jn:
+        return dict(jn.get("attr") or {})
+    return {}
+
+
+def load_symbol_json(text: str):
+    """A Symbol from reference/nnvm JSON (the JAX package's
+    ``interop.load_symbol_json``): aux inputs are recognised from the op
+    registry, and pre-0.9 files get the default-named aux variables
+    their BatchNorm nodes lack."""
+    from . import ops
+    from .symbol import Symbol, _Node
+
+    data = json.loads(text)
+    if "nodes" not in data:
+        raise MXNetError("not a symbol JSON file (no 'nodes')")
+    jnodes = data["nodes"]
+    aux_entries = set()
+    for jn in jnodes:
+        opname = _OP_RENAMES.get(jn["op"], jn["op"])
+        if opname == "null":
+            continue
+        od = ops.get(opname)  # an op the port lacks fails here, by name
+        if not od.aux_names:
+            continue
+        attrs = _node_attrs(jn)
+        arg_names = list(od.resolve_arg_names(attrs)) + list(od.aux_names)
+        for pos, ref in enumerate(jn["inputs"]):
+            if pos < len(arg_names) and arg_names[pos] in od.aux_names:
+                aux_entries.add(ref[0])
+    nodes = []
+    for i, jn in enumerate(jnodes):
+        opname = _OP_RENAMES.get(jn["op"], jn["op"])
+        if opname == "null":
+            node = _Node(None, jn["name"], is_aux=i in aux_entries,
+                         extra_attrs=_extra_attrs(jn))
+        else:
+            attrs = _node_attrs(jn)
+            node = _Node(opname, jn["name"], attrs=attrs,
+                         extra_attrs=_extra_attrs(jn))
+            node.inputs = [(nodes[ref[0]], ref[1] if len(ref) > 1 else 0)
+                           for ref in jn["inputs"]]
+            od = ops.get(opname)
+            expected = (list(od.resolve_arg_names(attrs))
+                        + list(od.aux_names))
+            while len(node.inputs) < len(expected):
+                arg_name = expected[len(node.inputs)]
+                var = _Node(None, f"{jn['name']}_{arg_name}",
+                            is_aux=arg_name in od.aux_names)
+                node.inputs.append((var, 0))
+        nodes.append(node)
+    heads = data.get("heads") or [[len(nodes) - 1, 0, 0]]
+    return Symbol([(nodes[h[0]], h[1] if len(h) > 1 else 0) for h in heads])

@@ -14,16 +14,27 @@ without one (NAG, centered RMSProp), a custom updater and keys the
 engine does not know keep the eager per-key loops, as in the reference.
 
 Stored values keep the memory format of the value they were initialised
-from (a channels-last conv weight stays channels-last).  ``dist_*``
-stores wait for ROADMAP Queue 1 item 10 and ``row_sparse_pull`` for
-item 7; both raise.
+from (a channels-last conv weight stays channels-last).
+
+Row-sparse keys (:mod:`mxnet_tpu_torch.sparse`): a key initialised with
+a ``RowSparseNDArray`` (``sparse.full_row_sparse(table)``) is row-sparse
+for good, and pushes to it must be row-sparse, as pushes to a dense key
+must be dense (a mismatch either way raises).  The stored table is dense;
+a row-sparse push runs the touched-rows-only update
+(``sparse.eager_update`` through the ``Updater``, or the bucketed
+engine's sparse buckets), and ``row_sparse_pull`` copies out only the
+rows asked for.  Every pull copies: the table is updated in place, so
+no array a caller holds aliases it.  ``dist_*`` stores wait for ROADMAP
+Queue 1 item 10 and raise.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from . import sparse as _sparse
 from .base import MXNetError
 from .ndarray import NDArray
 
@@ -57,19 +68,26 @@ class KVStore:
     def __init__(self, kv_type="local"):
         self.type = kv_type
         self._store: Dict = {}
+        # each key's storage type, fixed at init
+        self._stypes: Dict = {}
         self._updater: Optional[Callable] = None
         self._optimizer = None
         self._fused = None
 
     # ------------------------------------------------------------ basic
     def init(self, key, value):
-        """Store a copy of each value; each key once."""
+        """Store a copy of each value; each key once.  A row-sparse value
+        makes the key row-sparse (its table is stored dense)."""
         keys, _ = _key_list(key)
         values = value if isinstance(value, (list, tuple)) else [value]
         _check_pairs(keys, values, "init")
         for k, v in zip(keys, values):
             if k in self._store:
                 raise MXNetError(f"duplicate init of key {k}")
+            stype = getattr(v, "stype", "default")
+            self._stypes[k] = stype
+            if stype == "row_sparse":
+                v = v.todense()
             self._store[k] = NDArray(_tensor(v).detach().clone())
 
     def _merge(self, k, v) -> torch.Tensor:
@@ -92,6 +110,7 @@ class KVStore:
         else:
             values = value
             _check_pairs(keys, values, "push")
+        self._check_push_stypes(keys, values)
         if (self._fused is not None and not single
                 and self._fused.handle_push(keys, values)):
             return
@@ -99,6 +118,10 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError(f"KVStore.push: key {k!r} was never "
                                  "initialised")
+            vlist = v if isinstance(v, (list, tuple)) else [v]
+            if getattr(vlist[0], "stype", "default") == "row_sparse":
+                self._push_row_sparse(k, vlist)
+                continue
             merged = self._merge(k, v)
             if self._updater is not None:
                 self._updater(k, NDArray(merged), self._store[k])
@@ -106,25 +129,111 @@ class KVStore:
                 # aggregation only: the merged value replaces the stored
                 self._store[k].tensor.copy_(merged)
 
+    def _check_push_stypes(self, keys, values):
+        """A row-sparse gradient on a dense key, or a dense one on a
+        row-sparse key, raises: the dense path would scatter garbage and
+        the sparse path would decay rows it should not touch."""
+        for k, v in zip(keys, values):
+            vl = v if isinstance(v, (list, tuple)) else [v]
+            vstype = getattr(vl[0], "stype", "default") if vl else "default"
+            if any(getattr(o, "stype", "default") != vstype for o in vl[1:]):
+                raise MXNetError(f"KVStore.push: key {k!r} received mixed "
+                                 "storage types across device copies")
+            kstype = self._stypes.get(k)
+            if kstype is not None and vstype != kstype:
+                raise MXNetError(
+                    f"KVStore.push: key {k!r} was initialized {kstype!r} "
+                    f"but received a {vstype!r} value; init the key with "
+                    "the matching storage type (mx.nd.sparse / dense "
+                    "NDArray)")
+
+    def _push_row_sparse(self, k, vlist):
+        """The eager per-key row-sparse push: the device copies are
+        concatenated (the row update's segment sum adds them) and the
+        touched-rows-only update runs through the updater."""
+        merged = _sparse.concat_rows(vlist)
+        if self._updater is not None:
+            self._updater(k, merged, self._store[k])
+        else:
+            # aggregation only: the merged gradient replaces the value
+            self._store[k] = merged.copy()
+        if _sparse._tm.enabled():
+            rows = int(merged._indices.shape[0])
+            _sparse._TM_SPARSE_ROWS.inc(rows, store=self.type)
+            _sparse._TM_SPARSE_DENSITY.observe(
+                rows / max(merged.shape[0], 1), store=self.type)
+
     def pull(self, key, out=None, priority=0):
-        """Copy each key's stored value into its out array(s)."""
+        """Copy each key's stored value into its out array(s); a
+        row-sparse out array on a dense value raises (use
+        :meth:`row_sparse_pull`)."""
         keys, single = _key_list(key)
         if single:
             outs = [out]
         else:
             outs = out
             _check_pairs(keys, outs, "pull", what="out arrays")
+        for k, o in zip(keys, outs):
+            for oo in (o if isinstance(o, (list, tuple)) else [o]):
+                if (getattr(oo, "stype", "default") == "row_sparse"
+                        and getattr(self._store[k], "stype",
+                                    "default") == "default"):
+                    raise MXNetError(
+                        f"KVStore.pull: key {k!r} holds a 'default' (dense) "
+                        "value but the out array is 'row_sparse'; use "
+                        "row_sparse_pull(key, row_ids=...) for row subsets")
         if (self._fused is not None and not single
                 and self._fused.handle_pull(keys, outs)):
             return
         for k, o in zip(keys, outs):
-            src = self._store[k].tensor
+            stored = self._store[k]
             for oo in (o if isinstance(o, (list, tuple)) else [o]):
-                _tensor(oo).copy_(src)
+                if getattr(stored, "stype", "default") == "row_sparse":
+                    stored.copyto(oo)  # aggregation-mode gradients
+                else:
+                    _tensor(oo).copy_(stored.tensor)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("KVStore.row_sparse_pull (row-sparse keys) is not "
-                         "ported yet (ROADMAP Queue 1 item 7)")
+        """Copy only the rows ``row_ids`` (duplicates allowed, order
+        kept) of a row-sparse key out, as a ``RowSparseNDArray`` (into
+        ``out`` when given, a new one otherwise).  The rows are a copy:
+        a later push does not change them."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        keys, single = _key_list(key)
+        outs = [out] if out is None or isinstance(out, NDArray) \
+            else list(out)
+        ids_list = [row_ids] if not isinstance(row_ids, (list, tuple)) \
+            else list(row_ids)
+        if len(ids_list) != len(keys):
+            raise MXNetError(f"row_sparse_pull: got {len(keys)} keys but "
+                             f"{len(ids_list)} row_ids")
+        results = []
+        for k, o, ids in zip(keys, outs, ids_list):
+            if self._stypes.get(k) != "row_sparse":
+                raise MXNetError(
+                    f"row_sparse_pull: key {k!r} was initialized "
+                    f"{self._stypes.get(k, 'default')!r}, not 'row_sparse'")
+            stored = self._store[k]
+            if getattr(stored, "stype", "default") == "row_sparse":
+                stored = stored.todense()  # aggregation-mode gradients
+            raw = stored.tensor
+            if isinstance(ids, NDArray):
+                ids = ids.tensor
+            idx = (ids.to(device=raw.device, dtype=torch.int32)
+                   if isinstance(ids, torch.Tensor)
+                   else torch.from_numpy(np.asarray(ids, dtype=np.int32)
+                                         .copy()).to(raw.device)).reshape(-1)
+            rows = raw.index_select(0, idx.long())
+            if o is None:
+                o = _sparse.RowSparseNDArray(idx, rows, tuple(raw.shape))
+            else:
+                if getattr(o, "stype", "default") != "row_sparse":
+                    raise MXNetError("row_sparse_pull: out must be a "
+                                     "RowSparseNDArray")
+                o._set_rows(idx, rows)
+            results.append(o)
+        return results[0] if single else results
 
     # -------------------------------------------------------- optimizer
     def set_optimizer(self, optimizer):

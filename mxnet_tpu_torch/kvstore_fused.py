@@ -35,19 +35,31 @@ the skip-step.  The step's flags go to one
 ``amp.global_scaler().end_step``.  Nothing on this path reads a device
 value on the host.
 
+Row-sparse keys (a key initialised row-sparse, pushed
+``RowSparseNDArray`` gradients) get a sparse bucket each: one
+touched-rows-only update (:func:`mxnet_tpu_torch.sparse.make_row_program`,
+the function the eager path runs, so the two are bit-identical) over the
+concatenated device copies, its cost set by the rows a batch touched,
+not by the table.  Dense and sparse keys ride one push; under loss
+scaling the sparse buckets' finite flags join the dense buckets' in the
+step's one ``end_step``, and a bf16 table whose state holds an fp32
+master table updates the master rows and re-casts the table's.
+
 The sharded bucket program (ROADMAP Queue 1 item 10; it needs several
-cards, which the Module refuses), row-sparse buckets (item 7) and the
-numerics sentinel (``MXTPU_SENTINEL``, item 11, which raises when set)
-are not ported.
+cards, which the Module refuses) and the numerics sentinel
+(``MXTPU_SENTINEL``, item 11, which raises when set) are not ported.
 """
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import amp as _amp
+from . import sparse as _sparse
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
 from .optim_rules import multi_rule
@@ -123,6 +135,16 @@ class _Bucket:
         self.nbytes = 0
 
 
+class _SparseBucket:
+    """One row-sparse key's touched-rows-only update unit."""
+
+    __slots__ = ("key", "shape")
+
+    def __init__(self, key, shape):
+        self.key = key
+        self.shape = tuple(shape)
+
+
 class FusedUpdateEngine:
     """The bucketed update of one KVStore.  ``handle_push`` and
     ``handle_pull`` return False for a call they cannot bucket, and the
@@ -137,7 +159,9 @@ class FusedUpdateEngine:
         self._opt = optimizer
         self._updater = updater
         self._buckets: Optional[List[_Bucket]] = None
+        self._sparse_buckets: List[_SparseBucket] = []
         self._plan_keys: Optional[tuple] = None
+        self._plan_stypes: Optional[tuple] = None
         self._key_index: Dict = {}
         self._ndev = 0
         self._rule = None
@@ -150,8 +174,13 @@ class FusedUpdateEngine:
     def _build_plan(self, keys, vlists, ndev):
         cap = bucket_cap_bytes()
         buckets: List[_Bucket] = []
+        sparse_buckets: List[_SparseBucket] = []
         cur = None
         for k, vl in zip(keys, vlists):
+            if getattr(vl[0], "stype", "default") == "row_sparse":
+                sparse_buckets.append(_SparseBucket(k,
+                                                    self._kv._store[k].shape))
+                continue
             g0 = _t(vl[0])
             nbytes = g0.numel() * g0.element_size()
             if (cur is None or cur.dtype != g0.dtype
@@ -163,6 +192,7 @@ class FusedUpdateEngine:
             cur.sizes.append(g0.numel())
             cur.nbytes += nbytes
         self._buckets = buckets
+        self._sparse_buckets = sparse_buckets
         self._plan_keys = tuple(keys)
         self._key_index = {k: i for i, k in enumerate(keys)}
         self._ndev = ndev
@@ -171,7 +201,7 @@ class FusedUpdateEngine:
     def handle_push(self, keys, values) -> bool:
         """The bucketed update for one batched push; False when the call
         cannot be bucketed (an unregistered key, copy lists of unequal
-        length, a row-sparse value)."""
+        length).  The store has checked the storage types already."""
         kv = self._kv
         vlists = [list(v) if isinstance(v, (list, tuple)) else [v]
                   for v in values]
@@ -181,10 +211,11 @@ class FusedUpdateEngine:
         for k, vl in zip(keys, vlists):
             if k not in kv._store or len(vl) != ndev:
                 return False
-            if any(getattr(v, "stype", "default") != "default" for v in vl):
-                return False
-        if self._plan_keys != tuple(keys) or self._ndev != ndev:
+        stypes = tuple(getattr(vl[0], "stype", "default") for vl in vlists)
+        if (self._plan_keys != tuple(keys) or self._ndev != ndev
+                or self._plan_stypes != stypes):
             self._build_plan(keys, vlists, ndev)
+            self._plan_stypes = stypes
         opt = self._opt
         rule_name, opt_params = opt.fused_rule()
         if self._rule is None or self._rule[0] != (rule_name, opt_params):
@@ -207,9 +238,44 @@ class FusedUpdateEngine:
             inv = scaler.inv_scale_raw()
         flags = [self._step_bucket(b, vlists, nslots, update, lrs, wds, inv)
                  for b in self._buckets]
+        if self._sparse_buckets:
+            t0 = time.perf_counter() if _sparse._tm.enabled() else None
+            for sb in self._sparse_buckets:
+                flags.append(self._step_sparse_bucket(
+                    sb, vlists, nslots, rule_name, opt_params, lrs, wds,
+                    None if inv is None else scaler.scale_raw()))
+            if t0 is not None:
+                _sparse._TM_SPARSE_SEC.observe(time.perf_counter() - t0,
+                                               store=kv.type)
         if inv is not None:
             scaler.end_step(flags)
         return True
+
+    def _step_sparse_bucket(self, sb, vlists, nslots, rule_name, opt_params,
+                            lrs, wds, scale=None):
+        """One row-sparse key's update: the device copies' ``(idx,
+        vals)`` parts go through its row function, which updates the
+        table and its state rows in place; returns the finite flag under
+        loss scaling."""
+        kv, upd = self._kv, self._updater
+        w = kv._store[sb.key]
+        slots = _state_slots(upd.ensure_state(sb.key, w))
+        mp = len(slots) == nslots + 1
+        dev = w.tensor.device
+        parts = vlists[self._key_index[sb.key]]
+        idx_parts = tuple(v._indices.to(dev) for v in parts)
+        val_parts = tuple(v._values.to(dev) for v in parts)
+        fn = _sparse.row_program(rule_name, tuple(sorted(opt_params.items())),
+                                 wds[sb.key], mp, scale is not None)
+        flag = fn(idx_parts, val_parts, w.tensor,
+                  tuple(_t(x) for x in slots),
+                  float(np.float32(lrs[sb.key])), scale)
+        if _sparse._tm.enabled():
+            rows = sum(int(i.shape[0]) for i in idx_parts)
+            _sparse._TM_SPARSE_ROWS.inc(rows, store=kv.type)
+            _sparse._TM_SPARSE_DENSITY.observe(rows / max(sb.shape[0], 1),
+                                               store=kv.type)
+        return flag
 
     def _merged(self, b, vlists, device) -> torch.Tensor:
         """The bucket's gradients, concatenated once per device copy and

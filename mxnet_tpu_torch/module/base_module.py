@@ -10,11 +10,21 @@ python/mxnet/module/base_module.py): ``forward_backward``, ``score``,
 sync per batch and waits only when the window is full and at the epoch
 boundary.  ``monitor=`` installs a ``monitor.Monitor`` and brackets
 each batch with its ``tic``/``toc_print``: the monitor reads its
-statistics to the host only on the batches of its windows.  Not ported
-yet, and raising when asked for: the checkpoint manager
-(``checkpoint=``, ``resume=``, ``MXTPU_CKPT_DIR``; ROADMAP Queue 1
-item 7), the elastic coordinator (``MXTPU_COORD_ADDR``, item 10) and
-the flight and perf recorders (item 11).
+statistics to the host only on the batches of its windows.
+
+Checkpoints (:mod:`mxnet_tpu_torch.checkpoint`): ``checkpoint=`` (a
+``CheckpointManager`` or a directory; default ``MXTPU_CKPT_DIR`` with
+``MXTPU_CKPT_EVERY``) snapshots the module's training state every N
+steps through its checkpoint provider (``Module._checkpoint_arrays``),
+behind the queued steps and without a host sync; SIGTERM leads to a
+boundary checkpoint and ``checkpoint.Preempted``; a terminal checkpoint
+follows the last epoch.  ``resume=True`` (or a path) restores the newest
+complete checkpoint, then skips the batches its cursor already trained,
+so the run continues step for step.  A module without a provider
+(``BucketingModule``) warns and trains without checkpoints.  Not ported
+yet, and raising when asked for: the elastic coordinator
+(``MXTPU_COORD_ADDR``, ROADMAP Queue 1 item 10) and the flight and perf
+recorders (item 11).
 """
 from __future__ import annotations
 
@@ -45,11 +55,7 @@ def _not_ported(what, item):
                       f"1 item {item})")
 
 
-def _refuse_fit_options(checkpoint, resume):
-    if (checkpoint or resume not in (None, False)
-            or os.environ.get("MXTPU_CKPT_DIR", "").strip()):
-        raise _not_ported("the checkpoint manager (checkpoint=, resume=, "
-                          "MXTPU_CKPT_DIR)", 7)
+def _refuse_fit_options():
     if os.environ.get("MXTPU_COORD_ADDR", "").strip():
         raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)", 10)
     for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
@@ -156,7 +162,9 @@ class BaseModule:
         from ..initializer import Uniform
 
         assert num_epoch is not None, "please specify number of epochs"
-        _refuse_fit_options(checkpoint, resume)
+        from .. import checkpoint as _ckpt
+
+        _refuse_fit_options()
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -167,33 +175,97 @@ class BaseModule:
                          allow_missing=allow_missing, force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        mgr = _ckpt.resolve_manager(checkpoint)
+        if mgr is not None and not hasattr(self, "_checkpoint_arrays"):
+            self.logger.warning("checkpointing requested but %s has no "
+                                "checkpoint provider; disabled",
+                                type(self).__name__)
+            mgr = None
+        resume_nbatch, resume_step = -1, 0
+        if resume not in (None, False):
+            if mgr is None and not checkpoint:
+                raise MXNetError("fit(resume=...) needs MXTPU_CKPT_DIR (or "
+                                 "a checkpoint= manager/directory)")
+            if not hasattr(self, "_restore_checkpoint"):
+                raise MXNetError(f"{type(self).__name__} has no checkpoint "
+                                 "provider; resume is unsupported")
+            path = _ckpt.resolve_resume(resume, mgr)
+            if path is None:
+                self.logger.warning("fit(resume=%r): no complete checkpoint "
+                                    "found; starting fresh", resume)
+            else:
+                arrays, manifest = _ckpt.load(path)
+                meta = self._restore_checkpoint(arrays, manifest)
+                if meta.get("epoch") is not None:
+                    begin_epoch = int(meta["epoch"])
+                if meta.get("nbatch") is not None:
+                    resume_nbatch = int(meta["nbatch"])
+                resume_step = int(meta.get("step") or 0)
+                if _ckpt._tm.enabled():
+                    _ckpt._TM_RESUME.inc(status="ok")
+                self.logger.info("resumed from %s (step %d, epoch %d, batch "
+                                 "cursor %d)", path, resume_step, begin_epoch,
+                                 resume_nbatch)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
-        self._fit_epochs(train_data, eval_data, eval_metric,
-                         validation_metric, begin_epoch, num_epoch,
-                         epoch_end_callback, batch_end_callback,
-                         eval_end_callback, eval_batch_end_callback, monitor)
+        if mgr is not None:
+            mgr.install_preempt_handler()
+        try:
+            final_step = self._fit_epochs(
+                train_data, eval_data, eval_metric, validation_metric,
+                begin_epoch, num_epoch, epoch_end_callback,
+                batch_end_callback, eval_end_callback,
+                eval_batch_end_callback, monitor, mgr, resume_nbatch,
+                resume_step)
+            if mgr is not None:
+                # terminal checkpoint: resuming a finished run is a no-op
+                self._save_checkpoint_state(mgr, final_step, num_epoch, -1,
+                                            background=False)
+        finally:
+            if mgr is not None:
+                try:
+                    mgr.wait()
+                except Exception as exc:  # noqa: BLE001 — log, not mask
+                    self.logger.warning("checkpoint writer failed: %r", exc)
+                mgr.uninstall_preempt_handler()
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, begin_epoch, num_epoch,
                     epoch_end_callback, batch_end_callback,
                     eval_end_callback, eval_batch_end_callback,
-                    monitor=None):
+                    monitor=None, mgr=None, resume_nbatch=-1, start_step=0):
+        from .. import checkpoint as _ckpt
         from .. import engine
 
+        step_id = start_step
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             window = engine.AsyncWindow()
             for nbatch, data_batch in enumerate(train_data):
+                if epoch == begin_epoch and nbatch <= resume_nbatch:
+                    # the checkpoint's cursor trained these already
+                    continue
                 if monitor is not None:
                     monitor.tic()
+                step_id += 1
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
                 window.push(self._output_handles())
+                if mgr is not None:
+                    if mgr.preempted:
+                        w = self._save_checkpoint_state(
+                            mgr, step_id, epoch, nbatch, background=False)
+                        raise _ckpt.Preempted(
+                            "SIGTERM: checkpoint saved to "
+                            f"{getattr(w, 'path', mgr.directory)!r}; "
+                            "restart with fit(resume=True)")
+                    if mgr.due(step_id):
+                        self._save_checkpoint_state(mgr, step_id, epoch,
+                                                    nbatch)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:
@@ -221,6 +293,22 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+        return step_id
+
+    def _save_checkpoint_state(self, mgr, step, epoch, nbatch,
+                               background=True):
+        """One survival snapshot through the checkpoint provider
+        (:meth:`_checkpoint_arrays`): the tensors are cloned behind the
+        queued steps and the writer thread does the rest."""
+        from .. import checkpoint as _ckpt
+
+        arrays, extra = self._checkpoint_arrays()
+        meta = {"module": type(self).__name__, "step": int(step),
+                "epoch": int(epoch), "nbatch": int(nbatch),
+                "signature": self._symbol.structural_signature()}
+        meta.update(_ckpt.generator_meta(self._checkpoint_generator()))
+        meta.update(extra)
+        return mgr.save(step, arrays, meta=meta, background=background)
 
     # ------------------------------------------------- to be overridden
     @property

@@ -82,7 +82,9 @@ class DataParallelExecutorGroup:
         self.execs = [ex]
         self.device = devices[0]
         self._arg_nd = {k: NDArray(v) for k, v in ex.arg_dict.items()}
-        self._grad_nd = {k: NDArray(v) for k, v in ex.grad_dict.items()}
+        # a row-sparse gradient holder is an NDArray already
+        self._grad_nd = {k: v if isinstance(v, NDArray) else NDArray(v)
+                         for k, v in ex.grad_dict.items()}
 
     # ----------------------------------------------------------- params
     def set_params(self, arg_params, aux_params):

@@ -17,14 +17,25 @@ live on its device in the bound memory format.
 
 ``init_params`` honours a variable's own ``__init__`` attr (an
 initializer's ``dumps()``, as ``sym.Variable(init=...)`` writes it)
-before the module's initializer.  Not ported yet: several contexts
-(ROADMAP Queue 1 item 10).  ``BucketingModule``, ``SequentialModule``
+before the module's initializer.  A ``grad_stype="row_sparse"`` Embedding
+weight binds a row-sparse gradient (``executor.simple_bind``) and its
+kvstore key is initialised row-sparse.
+
+The survival checkpoint provider (``fit(checkpoint=, resume=)``):
+:meth:`Module._checkpoint_arrays` names the bound parameters and aux
+states, every optimizer slot of the active updater (the module's own on
+the eager route, the store's on the bucketed one) and the loss scaler's
+state (``amp/scale`` and its counters), in the JAX package's names;
+:meth:`Module._restore_checkpoint` puts them back, with the store's
+weight copies, the update counts and this package's generator state.
+Not ported yet: several contexts (ROADMAP Queue 1 item 10).  ``BucketingModule``, ``SequentialModule``
 and ``PythonModule`` are in their own files.
 """
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from .. import optimizer as opt
@@ -32,6 +43,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import _to_tensor
 from ..model import _create_kvstore, load_checkpoint, save_checkpoint
+from ..ndarray import NDArray
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -272,7 +284,15 @@ class Module(BaseModule):
                 if name in ex.arg_dict:
                     # the bound array: the same values as the module's
                     # copy, in the layout the updates run in
-                    kvstore_inst.init(idx, ex.arg_dict[name])
+                    init_val = ex.arg_dict[name]
+                    if getattr(ex.grad_dict.get(name), "stype",
+                               "default") == "row_sparse":
+                        # its gradient arrives row-sparse, so the key is
+                        # row-sparse (the store checks each push)
+                        from .. import sparse as _sparse
+
+                        init_val = _sparse.full_row_sparse(init_val)
+                    kvstore_inst.init(idx, init_val)
             if update_on_kvstore:
                 kvstore_inst.set_optimizer(self._optimizer)
         if not update_on_kvstore:
@@ -342,6 +362,143 @@ class Module(BaseModule):
     def install_monitor(self, mon):
         assert self.binded
         self._exec_group.install_monitor(mon)
+
+    # --------------------------------------------------- survival layer
+    def _active_updater(self):
+        if self._update_on_kvstore and self._kvstore is not None:
+            return getattr(self._kvstore, "_updater", None)
+        return self._updater
+
+    def _checkpoint_arrays(self):
+        """``(arrays, extra meta)`` of this module's training state: the
+        bound parameters and aux states, the optimizer slots (``opt/<key>
+        /<slot>``), and under loss scaling the scaler's state.  Tensors
+        are snapshotted by the checkpoint layer, behind the queued
+        steps."""
+        assert self.binded and self.params_initialized
+        from .. import amp as _amp
+        from ..kvstore_fused import _state_slots
+
+        ex = self._exec_group.execs[0]
+        arrs = {}
+        for name in self._param_names:
+            if name in ex.arg_dict:
+                arrs["param/" + name] = ex.arg_dict[name]
+        for name in self._aux_names:
+            if name in ex.aux_dict:
+                arrs["aux/" + name] = ex.aux_dict[name]
+        upd = self._active_updater()
+        if upd is not None:
+            for key, st in upd.states.items():
+                for j, leaf in enumerate(_state_slots(st)):
+                    if leaf is not None:
+                        arrs[f"opt/{key}/{j}"] = (
+                            leaf.tensor if hasattr(leaf, "tensor") else leaf)
+        extra = {}
+        if self._optimizer is not None:
+            extra["opt_counts"] = {
+                str(k): int(v) for k, v in getattr(
+                    self._optimizer, "_index_update_count", {}).items()}
+            extra["num_update"] = int(getattr(self._optimizer,
+                                              "num_update", 0))
+        if _amp.scaling_active():
+            sc = _amp.global_scaler()
+            arrs["amp/scale"] = sc._scale
+            arrs["amp/good"] = sc._good
+            arrs["amp/overflows"] = sc._overflows
+            arrs["amp/skipped"] = sc._skipped
+        return arrs, extra
+
+    def _checkpoint_generator(self):
+        from .. import random as _random
+
+        return _random.generator(self._exec_group.device)
+
+    @staticmethod
+    def _ckpt_key(raw):
+        """Integer kvstore keys come back from JSON as strings."""
+        if isinstance(raw, str) and raw.lstrip("-").isdigit():
+            return int(raw)
+        return raw
+
+    def _restore_checkpoint(self, arrays, manifest):
+        """Restore a survival checkpoint (of either package) into this
+        bound, initialised module: parameters and aux states, the store's
+        weight copies, the optimizer slots, the update counts, the loss
+        scaler and the generator.  Returns the manifest's meta."""
+        from .. import amp as _amp
+        from .. import checkpoint as _ckpt
+        from ..kvstore_fused import _state_slots
+
+        assert self.binded and self.params_initialized
+        meta = manifest.get("meta", {})
+        saved_sig = meta.get("signature")
+        sig = self._symbol.structural_signature()
+        if saved_sig is not None and saved_sig != sig:
+            raise _ckpt.CheckpointError(
+                "checkpoint was saved from a different graph (signature "
+                f"{saved_sig[:16]}... vs bound {sig[:16]}...); refusing to "
+                "load mismatched weights")
+        for what, names, prefix in (("params", self._param_names, "param/"),
+                                    ("aux states", self._aux_names, "aux/")):
+            missing = [n for n in names if prefix + n not in arrays]
+            if missing:
+                raise _ckpt.CheckpointError(
+                    f"checkpoint lacks {what} {missing[:5]}...")
+        self.set_params({n: arrays["param/" + n] for n in self._param_names},
+                        {n: arrays["aux/" + n] for n in self._aux_names},
+                        force_init=True)
+        kv = self._kvstore
+        ex = self._exec_group.execs[0]
+        if kv is not None:
+            # the store's weight copies feed the next update
+            for idx, name in enumerate(self._param_names):
+                if idx in kv._store:
+                    dst = kv._store[idx].tensor
+                    dst.copy_(_to_tensor(arrays["param/" + name], dst.dtype,
+                                         dst.device))
+        upd = self._active_updater()
+        if upd is not None:
+            def weight_for(key):
+                if kv is not None and key in kv._store:
+                    return kv._store[key]
+                if isinstance(key, int) and key < len(self._param_names):
+                    key = self._param_names[key]
+                t = ex.arg_dict.get(key)
+                return None if t is None else NDArray(t)
+
+            per_key = {}
+            for name, host in arrays.items():
+                if name.startswith("opt/"):
+                    _, key, j = name.split("/", 2)
+                    per_key.setdefault(self._ckpt_key(key), []).append(
+                        (int(j), host))
+            for key, slot_hosts in per_key.items():
+                w = weight_for(key)
+                if w is None:
+                    continue
+                leaves = _state_slots(upd.ensure_state(key, w))
+                for j, host in slot_hosts:
+                    if j < len(leaves) and leaves[j] is not None:
+                        dst = leaves[j].tensor
+                        dst.copy_(_to_tensor(host, dst.dtype, dst.device)
+                                  .reshape(dst.shape))
+        if self._optimizer is not None:
+            counts = meta.get("opt_counts") or {}
+            self._optimizer._index_update_count = {
+                self._ckpt_key(k): int(v) for k, v in counts.items()}
+            if meta.get("num_update") is not None:
+                self._optimizer.num_update = int(meta["num_update"])
+        if "amp/scale" in arrays and _amp.scaling_active():
+            sc = _amp.global_scaler()
+            dev = sc._scale.device
+            sc._scale, sc._good, sc._overflows, sc._skipped = (
+                torch.from_numpy(np.asarray(arrays[k])).to(dev)
+                for k in ("amp/scale", "amp/good", "amp/overflows",
+                          "amp/skipped"))
+        _ckpt.restore_generator(self._checkpoint_generator(), meta)
+        self._params_dirty = False
+        return meta
 
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized

@@ -19,9 +19,11 @@ the card (:func:`~mxnet_tpu_torch.context.current_context`) and raise
 without one; pass ``ctx="cpu"`` (or ``mx.cpu()``) for the host.
 
 ``save``/``load`` read and write the JAX package's npz layout key for
-key, and ``load`` also reads the reference's ``.params`` binary (magic
-``0x112``, :mod:`mxnet_tpu_torch.interop`).  Not ported yet, each raising
-"not ported yet": row-sparse entries and remote URIs in save/load,
+key — a row-sparse array (:mod:`mxnet_tpu_torch.sparse`, also reachable
+as ``nd.sparse``) as its ``ri:``/``rv:``/``rs:`` (indices, values,
+shape) triple — and ``load`` also reads the reference's ``.params``
+binary (magic ``0x112``, :mod:`mxnet_tpu_torch.interop`).  Not ported
+yet, each raising "not ported yet": remote URIs in save/load,
 ``imdecode``, and bfloat16 in files (below).
 
 bfloat16: numpy has no bfloat16 type, so the JAX package's ``nd.save``
@@ -476,10 +478,18 @@ def _local_path(fname: str) -> str:
     return fname
 
 
-def _host_array(key, v) -> np.ndarray:
+def _entries(key, v) -> dict:
+    """The npz entries of one value: itself, or a row-sparse array's
+    ``(indices, values, shape)`` triple (densifying would lose the
+    storage type and write a table-sized blob for a few rows)."""
     if getattr(v, "stype", "default") == "row_sparse":
-        raise MXNetError(f"nd.save: row-sparse {key} is not ported yet "
-                         "(sparse.py, ROADMAP Queue 1 item 7)")
+        return {f"ri:{key}": _host_array(key, v.indices),
+                f"rv:{key}": _host_array(key, v.data),
+                f"rs:{key}": np.asarray(v.shape, np.int64)}
+    return {key: _host_array(key, v)}
+
+
+def _host_array(key, v) -> np.ndarray:
     if isinstance(v, NDArray):
         v = v._t
     if isinstance(v, torch.Tensor):
@@ -505,11 +515,13 @@ def save(fname: str, data):
     path = _local_path(fname)
     if isinstance(data, (NDArray, torch.Tensor)):
         data = [data]
+    payload = {}
     if isinstance(data, dict):
-        payload = {f"d:{k}": _host_array(k, v) for k, v in data.items()}
+        for k, v in data.items():
+            payload.update(_entries(f"d:{k}", v))
     elif isinstance(data, (list, tuple)):
-        payload = {f"l:{i:08d}": _host_array(i, v)
-                   for i, v in enumerate(data)}
+        for i, v in enumerate(data):
+            payload.update(_entries(f"l:{i:08d}", v))
     else:
         raise TypeError("save expects NDArray, list or dict")
     np.savez(path, **payload)
@@ -517,7 +529,7 @@ def save(fname: str, data):
         os.replace(path + ".npz", path)
 
 
-_LIST_KEY = re.compile(r"^l:\d{8}$")
+_LIST_KEY = re.compile(r"^(r[ivs]:)?l:\d{8}$")
 
 
 def load_frombuffer(blob: bytes, ctx=None):
@@ -529,25 +541,38 @@ def load_frombuffer(blob: bytes, ctx=None):
         return load_params_raw(blob, dev)
     with np.load(io.BytesIO(blob), allow_pickle=False) as f:
         keys = list(f.keys())
-        sparse = [k for k in keys if k.startswith(("ri:", "rv:", "rs:"))]
-        if sparse:
-            raise MXNetError(f"nd.load: row-sparse entries ({sparse[0]}) are "
-                             "not ported yet (sparse.py, ROADMAP Queue 1 "
-                             "item 7)")
 
-        def get(k):
+        def arr(k):
             a = f[k]
             if a.dtype.kind == "V":
                 raise MXNetError(
                     f"nd.load: {k} holds untyped {a.dtype.str} records (how "
                     "the JAX package's nd.save writes bfloat16): not loadable")
-            return NDArray(_from_numpy(a, dev))
+            return _from_numpy(a, dev)
 
-        # a list is exactly l:%08d keys; a dict key that starts with
-        # "l:" is saved as "d:l:..." and does not match
+        def build(inner):
+            out = {}
+            for k in inner:
+                if k.startswith(("ri:", "rv:", "rs:")):
+                    name = k[3:]
+                    if name not in out:
+                        from .sparse import RowSparseNDArray
+
+                        out[name] = RowSparseNDArray(
+                            arr(f"ri:{name}"), arr(f"rv:{name}"),
+                            tuple(int(s) for s in f[f"rs:{name}"]))
+                else:
+                    out[k] = NDArray(arr(k))
+            return out
+
+        # a list is exactly l:%08d keys (and their row-sparse triples); a
+        # dict key that starts with "l:" is saved as "d:l:..."
         if all(_LIST_KEY.match(k) for k in keys):
-            return [get(k) for k in sorted(keys)]
-        return {k[2:]: get(k) for k in keys if k.startswith("d:")}
+            items = build(keys)
+            return [items[k] for k in sorted(items)]
+        items = build([k for k in keys if k.startswith(
+            ("d:", "ri:d:", "rv:d:", "rs:d:"))])
+        return {k[2:]: v for k, v in items.items()}
 
 
 def load(fname: str, ctx=None):

@@ -13,8 +13,10 @@ the JAX rules return their new values).
 the same arithmetic as the per-tensor rule, operation for operation,
 through ``torch._foreach_*`` ops, so a bucket costs a fixed number of
 launches whatever its key count (the JAX engine tree-maps the per-tensor
-rule inside one jitted program instead).  The flat (sharded) and sparse
-variants wait for ROADMAP Queue 1 items 10 and 7.
+rule inside one jitted program instead).  :func:`sparse_rule` is the
+row-wise lazy form the row-sparse update runs on gathered rows
+(:func:`mxnet_tpu_torch.sparse.make_row_program`).  The flat (sharded)
+variant waits for ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from . import ops
 from .base import parse_bool
 
-__all__ = ["_RULES", "multi_rule"]
+__all__ = ["_RULES", "multi_rule", "sparse_rule"]
 
 
 def _sgd_rule(opt_params):
@@ -90,6 +92,28 @@ def _rmsprop_rule(opt_params):
 
 
 _RULES = {"sgd": _sgd_rule, "adam": _adam_rule, "rmsprop": _rmsprop_rule}
+
+# the row-wise lazy variants: every per-tensor rule is elementwise, so
+# applied to the gathered touched rows of a table it is the exact
+# per-row arithmetic of the dense rule; untouched rows are neither
+# decayed nor moved (the reference's lazy_update)
+_SPARSE_NSLOTS = {"adam": 2, "rmsprop": 1}
+
+
+def sparse_rule(rule_name, opt_params):
+    """``(state slots, row_update)`` of rule ``rule_name`` for the
+    row-sparse update, or None when it has no sparse form.
+    ``row_update`` is the per-tensor rule's ``update``, applied to
+    ``(rows, ...)`` stacks instead of whole tensors."""
+    factory = _RULES.get(rule_name)
+    if factory is None:
+        return None
+    _init, update = factory(dict(opt_params))
+    if rule_name == "sgd":
+        nslots = 1 if opt_params.get("momentum") else 0
+    else:
+        nslots = _SPARSE_NSLOTS[rule_name]
+    return nslots, update
 
 
 # ---------------------------------------------------- multi-tensor rules

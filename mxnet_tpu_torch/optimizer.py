@@ -23,7 +23,9 @@ states loaded by ``set_states`` take their device and layout from the
 weight at the key's next update.  Under AMP loss scaling the
 ``Updater`` divides each gradient by the live scale first
 (``amp.maybe_unscale_grad``; no skip-step on this eager path, as in the
-reference).  Row-sparse gradients wait for ROADMAP Queue 1 item 7.
+reference).  A row-sparse gradient takes the touched-rows-only update
+(``sparse.eager_update``, the row update the bucketed engine runs), which
+needs an optimizer with a fused rule.
 """
 from __future__ import annotations
 
@@ -513,6 +515,11 @@ class Updater:
         # under AMP loss scaling: the gradient divided by the live scale
         # (a new array); the bucketed update unscales in its own step
         grad = _amp.maybe_unscale_grad(grad)
+        if getattr(grad, "stype", "default") == "row_sparse":
+            from . import sparse as _sparse
+
+            _sparse.eager_update(self.optimizer, self, index, weight, grad)
+            return
         self.optimizer.update(index, weight, grad,
                               self.ensure_state(index, weight))
 

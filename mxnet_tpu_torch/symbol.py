@@ -16,14 +16,22 @@ symbol built there reaches the port as ``load_json(jax_symbol.tojson())``
 :class:`~.executor.Executor` (forward and backward).  The arithmetic
 operators (``+ - * / **``, unary ``-`` and the reflected forms) make the
 reference's nodes; ``get_internals`` lists every node's outputs (the
-executor's monitor taps them).  ``infer_type``, nnvm-format JSON and
-``structural_signature`` are not ported yet (ROADMAP Queue 1 item 4).
+executor's monitor taps them).
+
+:meth:`Symbol.structural_signature` is the reference's digest for the
+same graph: it hashes ``repr()`` of every attr, so attrs keep the
+values the reference would hold (tuples, numpy dtype names, Python
+numbers), and a checkpoint written by one package names a graph the
+other recognises.  ``load_json`` also reads the reference's nnvm format
+(``param``/``attr`` dicts, ``node_row_ptr``) through
+:func:`mxnet_tpu_torch.interop.load_symbol_json`.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +39,8 @@ import torch
 from . import ops
 from .base import MXNetError, current_name_manager
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "zeros",
+           "ones", "arange"]
 
 
 class _Node:
@@ -123,6 +132,58 @@ class Symbol:
                     outs.append((node, i))
         return Symbol(outs)
 
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of the first output's node, or None for a
+        variable."""
+        node, _ = self._outputs[0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
+    def structural_signature(self) -> str:
+        """The reference's structure hash (its program cache key and a
+        survival checkpoint's graph identity): op topology, op attrs,
+        variable names, aux flags and extra attrs (``__shape__``,
+        ``__dtype__``), and the output entries.  Op-node names are left
+        out, so alpha-renamed graphs hash equal; variable names stay in,
+        since they are the bind interface."""
+        nodes = self.nodes
+        index = {id(n): i for i, n in enumerate(nodes)}
+        parts = []
+        for n in nodes:
+            parts.append((
+                n.op or "null",
+                n.name if n.is_variable else "",
+                n.is_aux,
+                tuple(sorted((k, repr(v)) for k, v in n.attrs.items())),
+                tuple(sorted((k, repr(v))
+                             for k, v in n.extra_attrs.items())),
+                tuple((index[id(src)], oidx) for src, oidx in n.inputs),
+            ))
+        heads = tuple((index[id(n)], i) for n, i in self._outputs)
+        return hashlib.sha256(repr((parts, heads)).encode()).hexdigest()
+
+    # ------------------------------------------------------------ attrs
+    def attr(self, key):
+        """The first output node's annotation ``key`` (None if unset)."""
+        node, _ = self._outputs[0]
+        return node.extra_attrs.get(key)
+
+    def list_attr(self):
+        """The first output node's annotations."""
+        node, _ = self._outputs[0]
+        return dict(node.extra_attrs)
+
+    def _set_attr(self, **kwargs):
+        node, _ = self._outputs[0]
+        node.extra_attrs.update({k: str(v) for k, v in kwargs.items()})
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
+
     @property
     def name(self):
         if len(self._outputs) == 1:
@@ -195,14 +256,22 @@ class Symbol:
         """``(arg_shapes, out_shapes, aux_shapes)`` from the shapes of some
         arguments, or ``(None, None, None)`` when the graph cannot be
         completed from them."""
+        try:
+            return self._infer_and_collect(args, kwargs, partial=False)
+        except _InferIncomplete:
+            return None, None, None
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """Like :meth:`infer_shape`, but whatever can be inferred is
+        returned and the rest is None."""
+        return self._infer_and_collect(args, kwargs, partial=True)
+
+    def _infer_and_collect(self, args, kwargs, partial):
         known = dict(kwargs)
         for name, shape in zip(self.list_arguments(), args):
             if shape is not None:
                 known[name] = shape
-        try:
-            shapes = self._infer(known)
-        except _InferIncomplete:
-            return None, None, None
+        shapes = self._infer(known, partial=partial)
 
         def out_shape(node, idx):
             if node.is_variable:
@@ -215,9 +284,25 @@ class Symbol:
         out_shapes = [out_shape(n, i) for n, i in self._outputs]
         return arg_shapes, out_shapes, aux_shapes
 
-    def _infer(self, known_shapes: Dict[str, tuple]):
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as numpy scalar types,
+        as the reference gives them: the given types for arguments,
+        float32 for everything else."""
+        known = dict(kwargs)
+        for name, ty in zip(self.list_arguments(), args):
+            if ty is not None:
+                known[name] = ty
+        arg_types = [np.dtype(known.get(a, np.float32)).type
+                     for a in self.list_arguments()]
+        aux_types = [np.float32 for _ in self.list_auxiliary_states()]
+        out_types = [np.float32 for _ in self._outputs]
+        return arg_types, out_types, aux_types
+
+    def _infer(self, known_shapes: Dict[str, tuple], partial=False):
         """Walk the graph on meta tensors; ``{key: shape}`` with keys
-        ``(arg_name, "var")`` for variables and ``(id(node), out_idx)``."""
+        ``(arg_name, "var")`` for variables and ``(id(node), out_idx)``.
+        With ``partial`` a node that cannot be inferred is skipped (and
+        so are its consumers) instead of ending the walk."""
         shapes: Dict = {}
         vals: Dict = {}  # id(node) -> tuple of meta tensors
 
@@ -236,49 +321,57 @@ class Symbol:
                 vals[id(node)] = (meta(shape),)
                 shapes[(node.name, "var")] = shape
                 continue
-            od = ops.get(node.op)
-            ins = []
-            for inp, oidx in node.inputs:
-                got = vals.get(id(inp))
-                if got is None and not inp.is_variable:
-                    raise _InferIncomplete(node.name)
-                ins.append(None if got is None else got[oidx])
-            if any(x is None for x in ins):
-                if od.infer_params is None:
-                    raise _InferIncomplete(node.name)
-                attrs = od.with_defaults(node.attrs)
-                names = od.resolve_arg_names(attrs) + list(od.aux_names)
-                if len(names) < len(node.inputs):
-                    # the JSON gives an input that the defaults drop (the
-                    # JAX package's Deconvolution makes a bias): read the
-                    # attrs as given
-                    attrs = node.attrs
-                    names = list(od.arg_names) + list(od.aux_names)
-                try:
-                    param_shapes = od.infer_params(
-                        attrs, *[None if x is None else tuple(x.shape)
-                                 for x in ins])
-                except (TypeError, IndexError, KeyError):
-                    raise _InferIncomplete(node.name) from None
-                for j, (inp, _) in enumerate(node.inputs):
-                    if ins[j] is None:
-                        pname = names[j] if j < len(names) else None
-                        if pname not in param_shapes:
-                            raise _InferIncomplete(f"{node.name}:{pname}")
-                        shape = tuple(param_shapes[pname])
-                        ins[j] = meta(shape)
-                        vals[id(inp)] = (ins[j],)
-                        shapes[(inp.name, "var")] = shape
-            ctx = ops.OpCtx(is_train=True, device=torch.device("meta"))
-            with torch.no_grad():
-                res = od.fn(ctx, *ins, **node.attrs)
-            if od.aux_names:
-                res = res[0]
-            res = res if isinstance(res, tuple) else (res,)
-            vals[id(node)] = res
-            for i, r in enumerate(res):
-                shapes[(id(node), i)] = tuple(r.shape)
+            try:
+                self._infer_node(node, vals, shapes, meta)
+            except _InferIncomplete:
+                if not partial:
+                    raise
         return shapes
+
+    @staticmethod
+    def _infer_node(node, vals, shapes, meta):
+        od = ops.get(node.op)
+        ins = []
+        for inp, oidx in node.inputs:
+            got = vals.get(id(inp))
+            if got is None and not inp.is_variable:
+                raise _InferIncomplete(node.name)
+            ins.append(None if got is None else got[oidx])
+        if any(x is None for x in ins):
+            if od.infer_params is None:
+                raise _InferIncomplete(node.name)
+            attrs = od.with_defaults(node.attrs)
+            names = od.resolve_arg_names(attrs) + list(od.aux_names)
+            if len(names) < len(node.inputs):
+                # the JSON gives an input that the defaults drop (the
+                # JAX package's Deconvolution makes a bias): read the
+                # attrs as given
+                attrs = node.attrs
+                names = list(od.arg_names) + list(od.aux_names)
+            try:
+                param_shapes = od.infer_params(
+                    attrs, *[None if x is None else tuple(x.shape)
+                             for x in ins])
+            except (TypeError, IndexError, KeyError):
+                raise _InferIncomplete(node.name) from None
+            for j, (inp, _) in enumerate(node.inputs):
+                if ins[j] is None:
+                    pname = names[j] if j < len(names) else None
+                    if pname not in param_shapes:
+                        raise _InferIncomplete(f"{node.name}:{pname}")
+                    shape = tuple(param_shapes[pname])
+                    ins[j] = meta(shape)
+                    vals[id(inp)] = (ins[j],)
+                    shapes[(inp.name, "var")] = shape
+        ctx = ops.OpCtx(is_train=True, device=torch.device("meta"))
+        with torch.no_grad():
+            res = od.fn(ctx, *ins, **node.attrs)
+        if od.aux_names:
+            res = res[0]
+        res = res if isinstance(res, tuple) else (res,)
+        vals[id(node)] = res
+        for i, r in enumerate(res):
+            shapes[(id(node), i)] = tuple(r.shape)
 
 
     # -------------------------------------------------------- save/load
@@ -329,10 +422,16 @@ class Symbol:
                      aux_states=aux_states, group2ctx=group2ctx,
                      shared_exec=shared_exec)
 
-    def structural_signature(self):
-        raise MXNetError("Symbol.structural_signature (the executor's "
-                         "program cache) is not ported yet (ROADMAP Queue 1 "
-                         "item 4)")
+    def eval(self, ctx=None, **kwargs):
+        """Bind for inference on the shapes of ``kwargs``, set them and
+        run one forward; returns the outputs as NDArrays."""
+        from .ndarray import NDArray
+
+        vals = {k: v.tensor if isinstance(v, NDArray) else v
+                for k, v in kwargs.items()}
+        ex = self.simple_bind(ctx, grad_req="null",
+                              **{k: tuple(v.shape) for k, v in vals.items()})
+        return [NDArray(o) for o in ex.forward(is_train=False, **vals)]
 
 
 class _InferIncomplete(Exception):
@@ -351,14 +450,17 @@ def load(fname: str) -> Symbol:
 
 def load_json(json_str: str) -> Symbol:
     """A Symbol from the JSON that :meth:`Symbol.tojson` (of either
-    package) writes.  The reference's nnvm format (node ``param`` dicts,
-    ``node_row_ptr``) is not ported yet (ROADMAP Queue 1 item 4)."""
+    package) writes, or from the reference's nnvm format (node ``param``
+    dicts, ``backward_source_id``, ``node_row_ptr``), which goes through
+    :func:`mxnet_tpu_torch.interop.load_symbol_json` as in the JAX
+    package."""
     data = json.loads(json_str)
-    if "node_row_ptr" in data or any(
+    if data.get("nodes") and ("node_row_ptr" in data or any(
             "param" in n or "backward_source_id" in n
-            for n in data.get("nodes", ())):
-        raise MXNetError("load_json: nnvm-format symbol JSON is not ported "
-                         "yet (ROADMAP Queue 1 item 4)")
+            for n in data["nodes"])):
+        from .interop import load_symbol_json
+
+        return load_symbol_json(json_str)
     nodes: List[_Node] = []
     for jn in data["nodes"]:
         if jn["op"] == "null":
@@ -377,12 +479,27 @@ def load_json(json_str: str) -> Symbol:
 
 
 # ---------------------------------------------------------- composition
+def _dtype_name(dtype) -> str:
+    """A dtype as the reference's ``__dtype__`` attr names it (numpy's
+    name; ``bfloat16``, which numpy lacks, by its name)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    if str(dtype) == "bfloat16":
+        return "bfloat16"
+    return np.dtype(dtype).name
+
+
 def Variable(name, attr=None, shape=None, lr_mult=None,
-             wd_mult=None, init=None) -> Symbol:
+             wd_mult=None, dtype=None, init=None, stype=None,
+             grad_stype=None, **kwargs) -> Symbol:
     """A named input or parameter.  ``shape`` is stored as the
     ``__shape__`` attr, the multipliers as ``__lr_mult__`` /
-    ``__wd_mult__`` (read by the trainer), ``init`` (an initializer or
-    its ``dumps()``) as ``__init__`` (read by ``Module.init_params``)."""
+    ``__wd_mult__`` (read by the trainer), ``dtype`` as ``__dtype__``,
+    ``init`` (an initializer or its ``dumps()``) as ``__init__`` (read
+    by ``Module.init_params``).  ``grad_stype="row_sparse"`` marks an
+    Embedding weight whose gradient the executor emits as the touched
+    rows only (:mod:`mxnet_tpu_torch.sparse`); ``stype`` is recorded as
+    the reference records it."""
     extra = dict(attr or {})
     if shape is not None:
         extra["__shape__"] = json.dumps(list(shape))
@@ -390,8 +507,18 @@ def Variable(name, attr=None, shape=None, lr_mult=None,
         extra["__lr_mult__"] = str(lr_mult)
     if wd_mult is not None:
         extra["__wd_mult__"] = str(wd_mult)
+    if dtype is not None:
+        extra["__dtype__"] = _dtype_name(dtype)
     if init is not None:
         extra["__init__"] = init if isinstance(init, str) else init.dumps()
+    for key, val in (("__storage_type__", stype),
+                     ("__grad_stype__", grad_stype)):
+        if val is not None:
+            if val not in ("default", "row_sparse"):
+                raise MXNetError(
+                    f"Variable {name!r}: unknown storage type {val!r} "
+                    "(expected 'default' or 'row_sparse')")
+            extra[key] = val
     return Symbol([(_Node(None, name, extra_attrs=extra), 0)])
 
 
@@ -461,6 +588,26 @@ def _make_symbol_fn(opname: str):
     creator.__name__ = opname
     creator.__doc__ = od.doc
     return creator
+
+
+def zeros(shape, dtype=np.float32, **kwargs) -> Symbol:
+    """A ``_zeros`` node (the reference's ``sym.zeros``)."""
+    return _create("_zeros", [], {"shape": tuple(shape),
+                                  "dtype": _dtype_name(dtype)}, **kwargs)
+
+
+def ones(shape, dtype=np.float32, **kwargs) -> Symbol:
+    """A ``_ones`` node (the reference's ``sym.ones``)."""
+    return _create("_ones", [], {"shape": tuple(shape),
+                                 "dtype": _dtype_name(dtype)}, **kwargs)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=np.float32,
+           **kwargs) -> Symbol:
+    """An ``_arange`` node (the reference's ``sym.arange``)."""
+    return _create("_arange", [], {"start": start, "stop": stop,
+                                   "step": step, "repeat": repeat,
+                                   "dtype": _dtype_name(dtype)}, **kwargs)
 
 
 def _init_symbol_functions():

@@ -40,13 +40,37 @@ The trainer runs the graph the pass pipeline rewrote
 ``MXTPU_AMP=bf16`` gives it the ``amp_cast`` graph; ``self.symbol``
 stays the user's symbol, whose names the passes never change.
 
-The steps make no host sync (no ``.item()`` / ``.cpu()``); the caller
-reads the returned outputs when it needs them.  Not ported yet, and
-raising when asked for: ``mesh`` / ``sharding_rules`` (ROADMAP Queue 1
-item 10), ``remat=True`` (item 4), checkpoints and ``fit(checkpoint=,
-resume=)`` (item 7), the elastic coordinator (item 10), the numerics
-sentinel ``MXTPU_SENTINEL`` and the flight and perf recorders (item
-11).
+Recompute (``remat=True``, or ``MXNET_BACKWARD_DO_MIRROR=1``): the
+whole forward runs under ``torch.utils.checkpoint`` (non-reentrant), as
+the JAX step wraps it in ``jax.checkpoint``: its activations are not
+kept, and the backward runs it again.  The random ops must draw the
+same numbers the second time, as JAX replays its key: the recompute
+draws from a second generator whose state is set to the trainer
+generator's before each step (outside any capture), and a captured step
+registers both with its graph, so the two advance together replay by
+replay.  The graph function is functional (BatchNorm returns its new
+moving statistics), so the recompute writes nothing.
+
+Checkpoints (:mod:`mxnet_tpu_torch.checkpoint`): :meth:`save_state` /
+:meth:`restore_state` write and read a survival checkpoint (masters, aux
+states, optimizer slots, the step, the graph's structural signature,
+this package's generator state), in the JAX package's layout, so either
+package resumes the other's (conv weights the JAX trainer stores HWIO
+are relaid out; a JAX threefry key cannot continue a torch generator,
+which is reseeded with a warning); :meth:`save_checkpoint` /
+:meth:`load_checkpoint` write the Module format plus a ``.states`` file;
+``fit(checkpoint=, resume=)`` (or ``MXTPU_CKPT_DIR``) snapshots every
+``MXTPU_CKPT_EVERY`` steps behind the queued steps, saves a boundary
+checkpoint and raises ``checkpoint.Preempted`` on SIGTERM, saves a
+terminal checkpoint at the end, and resumes mid-epoch from the batch
+cursor.
+
+The steps make no host sync (no ``.item()`` / ``.cpu()``), checkpoints
+armed or not; the caller reads the returned outputs when it needs them.
+Not ported yet, and raising when asked for: ``mesh`` /
+``sharding_rules`` (ROADMAP Queue 1 item 10), the elastic coordinator
+(item 10), the numerics sentinel ``MXTPU_SENTINEL`` and the flight and
+perf recorders (item 11).
 """
 from __future__ import annotations
 
@@ -59,6 +83,7 @@ import numpy as np
 import torch
 
 from . import random as _random
+from . import telemetry as _tm
 from .base import MXNetError, torch_dtype
 from .context import resolve_device
 from .executor import _build_graph_fn, channels_last_default
@@ -120,8 +145,7 @@ class FusedTrainer:
             raise _not_ported("mesh / sharding_rules", 10)
         if remat is None:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
-        if remat:
-            raise _not_ported("remat=True (MXNET_BACKWARD_DO_MIRROR)", 4)
+        self.remat = bool(remat)
         if os.environ.get("MXTPU_SENTINEL", "0").strip().lower() not in _OFF:
             raise _not_ported("the numerics sentinel (MXTPU_SENTINEL)", 11)
         self.symbol = symbol
@@ -182,6 +206,11 @@ class FusedTrainer:
         self._lr = None
         self._bufs: Dict[tuple, torch.Tensor] = {}
         self._graphs: Dict[tuple, _Captured] = {}
+        # the recompute's generator (remat): set to the trainer
+        # generator's state before each step
+        self._remat_gen = (torch.Generator(device=self.device)
+                           if self.remat else None)
+        self._signature = None
 
     # ------------------------------------------------------------ setup
     def init(self, **input_shapes):
@@ -343,8 +372,11 @@ class FusedTrainer:
         for k in self.label_names:
             args[k] = sb[k]
         compute_aux = {k: v.to(self.dtype) for k, v in self.aux.items()}
-        outs, new_aux = self._graph_fn(args, compute_aux,
-                                       _random.generator(self.device), True)
+        gen = _random.generator(self.device)
+        if self.remat:
+            outs, new_aux = self._remat_forward(args, compute_aux, gen)
+        else:
+            outs, new_aux = self._graph_fn(args, compute_aux, gen, True)
         # the head is ones, as in the JAX package; the loss ops ignore it
         grads = torch.autograd.grad(
             outs, list(trainable.values()),
@@ -375,6 +407,29 @@ class FusedTrainer:
                 self.aux[k].copy_(v)
         return [o.detach() for o in outs]
 
+    def _remat_forward(self, args, aux, gen):
+        """The forward under ``torch.utils.checkpoint``: the first run
+        draws from ``gen``, the recompute from the remat generator, which
+        holds the state ``gen`` had when the step began."""
+        calls = [0]
+
+        def run():
+            g = gen if calls[0] == 0 else self._remat_gen
+            calls[0] += 1
+            outs, new_aux = self._graph_fn(args, aux, g, True)
+            return tuple(outs), new_aux
+
+        outs, new_aux = torch.utils.checkpoint.checkpoint(
+            run, use_reentrant=False, preserve_rng_state=False)
+        return list(outs), new_aux
+
+    def _sync_remat_gen(self):
+        """Give the recompute's generator the trainer generator's state
+        (host values only; never inside a capture)."""
+        if self._remat_gen is not None:
+            self._remat_gen.set_state(
+                _random.generator(self.device).get_state())
+
     def step(self, **batch):
         """One training step, eagerly; returns the graph's outputs
         (tensors on the trainer's device, not synchronised)."""
@@ -384,6 +439,7 @@ class FusedTrainer:
         self._step += 1
         sb = self._stage(batch)
         self._lr.fill_(lr)
+        self._sync_remat_gen()
         return self._train_step(sb)
 
     def _steps_of(self, value):
@@ -445,6 +501,7 @@ class FusedTrainer:
             for name, r in rows.items():
                 cap.inputs[name].copy_(r[i], non_blocking=True)
             self._lr.fill_(lrs[i])
+            self._sync_remat_gen()
             cap.graph.replay()
             # the next replay overwrites the graph's outputs
             for dst, out in zip(stacked_outs, cap.outputs):
@@ -483,15 +540,19 @@ class FusedTrainer:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             for _ in range(_WARMUP_STEPS):
+                self._sync_remat_gen()
                 self._train_step(inputs)
         torch.cuda.current_stream(dev).wait_stream(stream)
         for t, s in zip(self._state(), saved):
             t.copy_(s)
         del saved
         gen.set_state(gen_offset)
+        self._sync_remat_gen()
         graph = torch.cuda.CUDAGraph()
         if random_ops:
             graph.register_generator_state(gen)
+            if self._remat_gen is not None:
+                graph.register_generator_state(self._remat_gen)
         # a capture registers the card's default generator (and the
         # trainer's); one that fails leaves them in capture mode (every
         # later draw raises) and the capture stream current, so all are
@@ -499,7 +560,9 @@ class FusedTrainer:
         default_gen = torch.cuda.default_generators[
             dev.index if dev.index is not None
             else torch.cuda.current_device()]
-        gen_states = [(g, g.clone_state()) for g in (default_gen, gen)]
+        gen_states = [(g, g.clone_state()) for g in (default_gen, gen,
+                                                      self._remat_gen)
+                      if g is not None]
         prev_stream = torch.cuda.current_stream(dev)
         try:
             with torch.cuda.graph(graph, stream=stream):
@@ -551,11 +614,15 @@ class FusedTrainer:
         epoch-end callbacks with ``(epoch, symbol, arg, aux)`` from
         :meth:`get_params`, and an eval pass per epoch.  The loop waits
         only in the async window (``MXTPU_ASYNC_DEPTH`` steps in flight)
-        and at the epoch boundary.  Returns self."""
-        if (checkpoint or resume not in (None, False)
-                or os.environ.get("MXTPU_CKPT_DIR", "").strip()):
-            raise _not_ported("checkpoints in fit (checkpoint=, resume=, "
-                              "MXTPU_CKPT_DIR)", 7)
+        and at the epoch boundary.
+
+        ``checkpoint`` (a ``CheckpointManager`` or a directory; default
+        ``MXTPU_CKPT_DIR`` with ``MXTPU_CKPT_EVERY``) arms snapshots
+        behind the queued steps, a boundary checkpoint and
+        ``checkpoint.Preempted`` on SIGTERM, and a terminal checkpoint;
+        ``resume=True`` (or a path) restores the newest complete
+        checkpoint and skips the batches its cursor already trained.
+        Returns self."""
         if os.environ.get("MXTPU_COORD_ADDR", "").strip():
             raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)",
                               10)
@@ -563,8 +630,8 @@ class FusedTrainer:
             if os.environ.get(knob, "").strip().lower() not in _OFF:
                 raise _not_ported(f"the flight and perf recorders ({knob})",
                                   11)
-        from . import engine, metric as metric_mod
-        from .module.base_module import BatchEndParam, _as_list
+        from . import checkpoint as _ckpt
+        from . import metric as metric_mod
 
         log = logger or logging.getLogger()
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -578,6 +645,53 @@ class FusedTrainer:
             raise ValueError(
                 "pass validation_metric when eval_metric is a metric "
                 "instance (instances hold state; eval needs its own)")
+        mgr = _ckpt.resolve_manager(checkpoint)
+        start_epoch, resume_nbatch = 0, -1
+        if resume not in (None, False):
+            if self._lr is None:
+                self.init(**{d[0]: tuple(d[1]) for d in
+                             list(train_data.provide_data)
+                             + list(train_data.provide_label or [])})
+            path = _ckpt.resolve_resume(resume, mgr)
+            if path is None:
+                log.warning("fit(resume=%r): no complete checkpoint found; "
+                            "starting fresh", resume)
+            else:
+                meta = self.restore_state(path)
+                if meta.get("epoch") is not None:
+                    start_epoch = int(meta["epoch"])
+                if meta.get("nbatch") is not None:
+                    resume_nbatch = int(meta["nbatch"])
+                log.info("resumed from %s (step %d, epoch %d, batch cursor "
+                         "%d)", path, self._step, start_epoch, resume_nbatch)
+        if mgr is not None:
+            mgr.install_preempt_handler()
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, num_epoch,
+                             batch_end_callback, epoch_end_callback, log,
+                             mgr, start_epoch, resume_nbatch)
+            if mgr is not None and self._lr is not None:
+                # terminal checkpoint: resuming a finished run is a no-op
+                self.save_state(mgr, epoch=num_epoch, nbatch=-1,
+                                background=False)
+        finally:
+            if mgr is not None:
+                try:
+                    mgr.wait()
+                except Exception as exc:  # noqa: BLE001 — log, not mask
+                    log.warning("checkpoint writer failed: %r", exc)
+                mgr.uninstall_preempt_handler()
+        return self
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, num_epoch, batch_end_callback,
+                    epoch_end_callback, log, mgr, start_epoch,
+                    resume_nbatch):
+        from . import checkpoint as _ckpt
+        from . import engine
+        from .module.base_module import BatchEndParam, _as_list
+
         train_names = ([d[0] for d in train_data.provide_data]
                        + [d[0] for d in train_data.provide_label])
         eval_label_names = ([d[0] for d in getattr(eval_data, "provide_label",
@@ -585,12 +699,15 @@ class FusedTrainer:
                             if eval_data is not None else [])
         eval_names = ([d[0] for d in eval_data.provide_data]
                       + eval_label_names if eval_data is not None else None)
-        for epoch in range(num_epoch):
+        for epoch in range(start_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             train_data.reset()
             window = engine.AsyncWindow()
             for nbatch, batch in enumerate(train_data):
+                if epoch == start_epoch and nbatch <= resume_nbatch:
+                    # the checkpoint's cursor trained these already
+                    continue
                 feed = dict(zip(train_names,
                                 list(batch.data) + list(batch.label)))
                 if self._lr is None:
@@ -598,6 +715,18 @@ class FusedTrainer:
                 outs = self.step(**feed)
                 eval_metric.update(batch.label, [NDArray(o) for o in outs])
                 window.push(outs)
+                if mgr is not None:
+                    if mgr.preempted:
+                        # the snapshot is ordered behind the queued steps
+                        # and written now; then the run stops by name
+                        w = self.save_state(mgr, epoch=epoch, nbatch=nbatch,
+                                            background=False)
+                        raise _ckpt.Preempted(
+                            "SIGTERM: checkpoint saved to "
+                            f"{getattr(w, 'path', mgr.directory)!r}; "
+                            "restart with fit(resume=True)")
+                    if mgr.due(self._step):
+                        self.save_state(mgr, epoch=epoch, nbatch=nbatch)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -628,20 +757,216 @@ class FusedTrainer:
                 window.drain()
                 for name, val in vm.get_global_name_value():
                     log.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
-        return self
+
+    # ------------------------------------------------------- survival
+    def structural_signature(self):
+        """The executed (post-pass) graph's signature, which a survival
+        checkpoint carries."""
+        if self._signature is None:
+            self._signature = self._exec_symbol.structural_signature()
+        return self._signature
+
+    def _checkpoint_arrays(self):
+        """The tensors a step owns: fp32 masters, aux states, every
+        optimizer slot (the compute-dtype copy is derived, not saved).
+        The snapshot copies them to logical (contiguous) layout."""
+        arrs = {"param/" + k: v for k, v in self.params.items()}
+        arrs.update({"aux/" + k: v for k, v in self.aux.items()})
+        for k, slots in self.opt_state.items():
+            for i, sl in enumerate(slots):
+                arrs[f"opt/{k}/{i}"] = sl
+        return arrs
+
+    def _checkpoint_meta(self, epoch=None, nbatch=None):
+        from . import checkpoint as _ckpt
+
+        meta = {"trainer": "fused", "step": int(self._step),
+                "epoch": None if epoch is None else int(epoch),
+                "nbatch": None if nbatch is None else int(nbatch),
+                "signature": self.structural_signature(),
+                # the port stores conv weights in logical OIHW (their
+                # channels-last storage is a memory format)
+                "hwio": []}
+        meta.update(_ckpt.generator_meta(_random.generator(self.device)))
+        return meta
+
+    def save_state(self, target, epoch=None, nbatch=None, background=True):
+        """Write a resumable checkpoint through
+        :mod:`~mxnet_tpu_torch.checkpoint`: the tensors are cloned behind
+        the queued steps (no host sync), the copy to the host and the
+        files go to a writer thread when ``background``.  ``target`` is a
+        ``CheckpointManager`` or a directory.  Returns the write handle
+        (None when the manager skipped the snapshot)."""
+        from . import checkpoint as _ckpt
+
+        self._require_init("save_state")
+        meta = self._checkpoint_meta(epoch=epoch, nbatch=nbatch)
+        arrays = self._checkpoint_arrays()
+        if isinstance(target, _ckpt.CheckpointManager):
+            return target.save(self._step, arrays, meta=meta,
+                               background=background)
+        return _ckpt.save(str(target), self._step, arrays, meta=meta,
+                          background=background)
+
+    def restore_state(self, source):
+        """Restore a survival checkpoint (of either package) into this
+        initialised trainer, in place (a captured step stays valid):
+        checksums and the graph's signature are checked, conv weights
+        the JAX trainer stored HWIO are relaid to OIHW, the step cursor
+        and this package's generator state come back.  ``source`` is a
+        checkpoint, a directory of them (the newest complete one) or a
+        ``CheckpointManager``.  Returns the manifest's meta."""
+        from . import checkpoint as _ckpt
+
+        self._require_init("restore_state")
+        if isinstance(source, _ckpt.CheckpointManager):
+            path = source.latest()
+        elif os.path.exists(os.path.join(str(source), _ckpt.MANIFEST)):
+            path = str(source)
+        else:
+            path = _ckpt.latest(str(source))
+        if path is None:
+            raise _ckpt.CheckpointError(
+                f"no complete checkpoint found under {source!r}")
+        arrays, manifest = _ckpt.load(path)
+        meta = manifest.get("meta", {})
+        sig = self.structural_signature()
+        saved_sig = meta.get("signature")
+        if saved_sig is not None and saved_sig != sig:
+            raise _ckpt.CheckpointError(
+                f"checkpoint {path!r} was saved from a different graph "
+                f"(signature {saved_sig[:16]}... vs bound {sig[:16]}...); "
+                "refusing to load mismatched weights")
+        saved_hwio = set(meta.get("hwio", ()))
+
+        def put(name, key, dst, relayout):
+            if name not in arrays:
+                raise _ckpt.CheckpointError(
+                    f"checkpoint {path!r} lacks {name!r} (a different "
+                    "optimizer?)")
+            host = arrays[name]
+            if relayout and host.ndim == 4 and key in saved_hwio:
+                host = np.transpose(host, (3, 2, 0, 1))  # HWIO -> OIHW
+            if tuple(host.shape) != tuple(dst.shape):
+                raise _ckpt.CheckpointError(
+                    f"checkpoint {path!r}: {name} has shape {host.shape}, "
+                    f"the trainer {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+
+        with torch.no_grad():
+            for k, v in self.params.items():
+                put("param/" + k, k, v, True)
+            for k, v in self.aux.items():
+                put("aux/" + k, k, v, False)
+            for k, slots in self.opt_state.items():
+                for i, sl in enumerate(slots):
+                    put(f"opt/{k}/{i}", k, sl, True)
+        if meta.get("step") is not None:
+            self._step = int(meta["step"])
+        _ckpt.restore_generator(_random.generator(self.device), meta)
+        self._refresh_compute_cache()
+        if _tm.enabled():
+            _ckpt._TM_RESUME.inc(status="ok")
+        return meta
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        background=False):
+        """``prefix-symbol.json`` and ``prefix-%04d.params`` (the Module
+        format; conv weights in logical OIHW), plus the reference's
+        FusedTrainer ``.states`` file (``key:slot`` arrays and
+        ``__step__``) when ``save_optimizer_states``.  ``background``
+        snapshots now and writes on a thread, which is returned (join it
+        with :meth:`wait_checkpoint`)."""
+        from . import checkpoint as _ckpt
+        from . import model as _model
+        from . import ndarray as nd_mod
+
+        self._require_init("save_checkpoint")
+        arrays = self._checkpoint_arrays()
+        if not save_optimizer_states:
+            arrays = {k: v for k, v in arrays.items()
+                      if not k.startswith("opt/")}
+        step = self._step
+        snap = _ckpt.snapshot(arrays)
+
+        def _write():
+            host = snap.host()
+            arg = {k[6:]: v for k, v in host.items()
+                   if k.startswith("param/")}
+            aux = {k[4:]: v for k, v in host.items() if k.startswith("aux/")}
+            _model.save_checkpoint(prefix, epoch, self.symbol, arg, aux)
+            if save_optimizer_states:
+                flat = {"__step__": np.array([step], np.int64)}
+                for k, v in host.items():
+                    if k.startswith("opt/"):
+                        name, i = k[4:].rsplit("/", 1)
+                        flat[f"{name}:{i}"] = v
+                nd_mod.save("%s-%04d.states" % (prefix, epoch), flat)
+
+        if not background:
+            _write()
+            return None
+        import threading
+
+        def _runner():
+            try:
+                _write()
+            except BaseException as e:  # noqa: BLE001 — surfaced in join
+                thread.exc = e
+
+        thread = threading.Thread(target=_runner, daemon=False,
+                                  name="mxtt-ckpt-writer")
+        thread.exc = None
+        thread.start()
+        return thread
+
+    @staticmethod
+    def wait_checkpoint(thread):
+        """Join a background :meth:`save_checkpoint` and re-raise its
+        error."""
+        if thread is None:
+            return
+        thread.join()
+        if getattr(thread, "exc", None) is not None:
+            raise thread.exc
+
+    def load_checkpoint(self, prefix, epoch, load_optimizer_states=False):
+        """Restore what :meth:`save_checkpoint` (of either package) wrote
+        into this initialised trainer, in place; a missing parameter,
+        aux state or optimizer slot raises."""
+        from . import model as _model
+        from . import ndarray as nd_mod
+
+        self._require_init("load_checkpoint")
+        _, arg, aux = _model.load_checkpoint(prefix, epoch, ctx="cpu")
+        for have, got, what in ((self.params, arg, "params"),
+                                (self.aux, aux, "aux states")):
+            missing = set(have) - set(got)
+            if missing:
+                raise MXNetError(f"checkpoint {prefix!r} lacks {what} "
+                                 f"{sorted(missing)[:5]}...")
+        with torch.no_grad():
+            for k, v in self.params.items():
+                v.copy_(arg[k].tensor)
+            for k, v in self.aux.items():
+                v.copy_(aux[k].tensor)
+            if load_optimizer_states:
+                spath = "%s-%04d.states" % (prefix, epoch)
+                flat = nd_mod.load(spath, ctx="cpu")
+                step = flat.pop("__step__", None)
+                if step is not None:
+                    self._step = int(step.asnumpy()[0])
+                for k, slots in self.opt_state.items():
+                    for i, sl in enumerate(slots):
+                        got = flat.get(f"{k}:{i}")
+                        if got is None:
+                            raise MXNetError(
+                                f"optimizer state {k}:{i} missing from "
+                                f"{spath!r} (different optimizer, or a "
+                                "truncated save?)")
+                        sl.copy_(got.tensor.reshape(sl.shape))
+        self._refresh_compute_cache()
 
     # ------------------------------------------------------- not ported
-    def save_checkpoint(self, *args, **kwargs):
-        raise _not_ported("save_checkpoint", 7)
-
-    def load_checkpoint(self, *args, **kwargs):
-        raise _not_ported("load_checkpoint", 7)
-
-    def save_state(self, *args, **kwargs):
-        raise _not_ported("save_state", 7)
-
-    def restore_state(self, *args, **kwargs):
-        raise _not_ported("restore_state", 7)
-
     def rebind_mesh(self, *args, **kwargs):
         raise _not_ported("rebind_mesh", 10)

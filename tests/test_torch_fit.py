@@ -447,13 +447,35 @@ def test_fit_host_syncs_do_not_grow_with_batches(monkeypatch):
     ({}, {"MXTPU_FLIGHT_RECORD": "1"}, "item 11"),
     ({}, {"MXTPU_PERF_ATTR": "1"}, "item 11"),
 ])
-def test_fit_refuses_what_is_not_ported(monkeypatch, kw, env, match):
+def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, kw, env,
+                                        match):
+    """The coordinator and the recorders still raise.  The item 7 cases
+    are ported: ``checkpoint=`` and ``MXTPU_CKPT_DIR`` arm checkpoints
+    (a terminal one lands), and ``resume=True`` with no directory raises
+    as the reference's does."""
+    monkeypatch.chdir(tmp_path)
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    x, y = _arrays()
+        # the checkpoint directory goes under the test's own tmp_path
+        monkeypatch.setenv(k, str(tmp_path / "env") if k == "MXTPU_CKPT_DIR"
+                           else v)
+    (x, y), _ = get_synthetic_mnist(8, 8)
     tt = TTrainer(_fit_net(tsym), device=CPU)
+    it = tio.NDArrayIter(x, y, batch_size=4)
+    if match == "item 7" and "resume" not in kw:
+        from mxnet_tpu_torch import checkpoint as tckpt
+
+        tt.fit(it, **kw)
+        where = tmp_path / ("ckpt" if kw else "env")
+        (step, path), = tckpt.list_checkpoints(str(where))
+        assert step == tt._step == 2
+        _, manifest = tckpt.load(path)
+        assert manifest["meta"]["epoch"] == 1
+        assert manifest["meta"]["nbatch"] == -1
+        return
+    if match == "item 7":
+        match = "needs a checkpoint directory"
     with pytest.raises(MXNetError, match=match):
-        tt.fit(tio.NDArrayIter(x, y, batch_size=2), **kw)
+        tt.fit(it, **kw)
     assert tt._step == 0
 
 

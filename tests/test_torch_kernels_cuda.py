@@ -19,7 +19,12 @@ staging (``DevicePrefetchIter`` and ``storage.stage_to_device`` under a
 slow consumer, every staged batch equal to its host source; a pinned
 buffer held until its copy's event completes; ``ImageRecordIter`` and
 ``MultiProcessImageRecordIter`` batches on the card equal to those on
-the host, with decode workers that never touch CUDA).
+the host, with decode workers that never touch CUDA), and the survival
+and row-sparse slice (the row-sparse update on the card against the
+CPU, with no host sync; a ``save_state`` taken while steps are queued
+holding the post-step values; ``remat=True`` through the flash kernels
+giving the plain step's gradients, its forward launched twice a step,
+also under ``step_multi`` with Dropout).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1407,3 +1412,123 @@ def test_image_record_iters_on_the_card_equal_the_host(card, tmp_path):
     assert sorted(rows) == sorted(flat) == list(range(21))
     for k in rows:
         np.testing.assert_array_equal(rows[k], flat[k])
+
+
+# --------------------------------------------- survival and row-sparse
+@pytest.mark.parametrize("rule,params", [
+    ("sgd", (("momentum", 0.9), ("rescale_grad", 0.5))),
+    ("adam", (("rescale_grad", 0.5),)),
+    ("rmsprop", ()),
+])
+def test_row_update_on_the_card_equals_the_cpu(card, rule, params):
+    """The touched-rows-only update (coalesce by sort and segment sum,
+    gather, the rule, the masked index_add_) on the card against the
+    same function on the CPU, with duplicate ids, queued without a host
+    sync.  fp32 elementwise arithmetic in both; the segment sum adds
+    each id's rows in order on both, so the tables agree to 1e-6."""
+    from mxnet_tpu_torch import sparse as tsparse
+
+    g = torch.Generator().manual_seed(0)
+    rows, dim, k = 5000, 64, 4096
+    w = torch.randn(rows, dim, generator=g)
+    nslots = {"sgd": 1, "adam": 2, "rmsprop": 1}[rule]
+    slots = [torch.rand(rows, dim, generator=g) for _ in range(nslots)]
+    idx = torch.randint(0, 300, (k,), generator=g, dtype=torch.int32)
+    vals = torch.randn(k, dim, generator=g)
+    fn = tsparse.make_row_program(rule, params, 1.0)
+    host = [w.clone()] + [s.clone() for s in slots]
+    fn((idx,), (vals,), host[0], tuple(host[1:]), 0.01)
+    dev = [t.to(card) for t in [w] + slots]
+    idx_d, vals_d = idx.to(card), vals.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn((idx_d,), (vals_d,), dev[0], tuple(dev[1:]), 0.01)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(dev, host):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+    untouched = torch.ones(rows, dtype=torch.bool)
+    untouched[idx.long()] = False
+    for a, b in zip(dev, [w] + slots):
+        assert torch.equal(a.cpu()[untouched], b[untouched])
+
+
+def test_save_state_in_flight_holds_the_post_step_values(card, tmp_path):
+    """A snapshot taken right after queued steps (no sync between) holds
+    the values those steps leave, not earlier ones, and later steps do
+    not change it."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+
+    t = _conv_trainer(card, None)
+    batches = _train_batches(6, 8)
+    for x, y in batches[:4]:
+        t.step(data=x, softmax_label=y)
+    w = t.save_state(str(tmp_path), background=True)
+    want = {k: v.detach().clone() for k, v in t.params.items()}
+    for x, y in batches[4:]:
+        t.step(data=x, softmax_label=y)
+    w.wait()
+    arrays, manifest = ckpt.load(w.path)
+    assert manifest["meta"]["step"] == 4
+    for k, v in want.items():
+        np.testing.assert_array_equal(arrays["param/" + k], v.cpu().numpy())
+    assert not torch.equal(t.params["fc_weight"], want["fc_weight"])
+
+
+def _lm_pair(card, dropout=0.0):
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.models import transformer as ttrm
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = dict(num_layers=2, num_heads=4, d_model=256, seq_len=256,
+               vocab_size=512, dropout=dropout)
+    shapes = {"data": (2, 256), "softmax_label": (2, 256)}
+    trandom.seed(0)
+    tts = [FusedTrainer(ttrm.transformer_lm(**cfg), optimizer="sgd",
+                        optimizer_params={"lr": 0.1}, dtype="bfloat16",
+                        device=card, remat=r).init(**shapes)
+           for r in (True, False)]
+    convert.load_trainer_params(tts[1], tts[0].params, tts[0].aux)
+    g = torch.Generator().manual_seed(1)
+    d = torch.randint(0, 512, (2, 256), generator=g).float()
+    return tts, d
+
+
+def test_remat_through_the_flash_kernels_gives_the_plain_gradients(card):
+    """``remat=True`` recomputes the forward in the backward: the flash
+    forward runs twice a step (4 launches for 2 layers, against 2), and
+    the step's outputs and weights equal the plain step's (bf16; the
+    same kernels on the same inputs, to 1e-2 of each weight's norm)."""
+    tts, d = _lm_pair(card)
+    outs, launches = [], []
+    for t in tts:
+        n0 = tfa.launch_counts()["flash_fwd"]
+        outs.append(t.step(data=d, softmax_label=d)[0])
+        torch.cuda.synchronize()
+        launches.append(tfa.launch_counts()["flash_fwd"] - n0)
+    assert launches == [4, 2]
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), rtol=1e-2,
+                               atol=1e-2)
+    assert _max_param_err(tts[0], tts[1]) <= 1e-2
+
+
+def test_remat_step_multi_with_dropout_equals_eager_remat(card):
+    """Captured recomputed steps with Dropout: the recompute's generator
+    is registered with the graph beside the trainer's, so k replays
+    equal k eager ``remat`` steps from the same generator state."""
+    from mxnet_tpu_torch import random as trandom
+
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        pytest.skip("this torch has no CUDAGraph.register_generator_state")
+    (eager, _), d = _lm_pair(card, 0.1)
+    (graph, _), _ = _lm_pair(card, 0.1)
+    trandom.seed(5)
+    want = [eager.step(data=d, softmax_label=d)[0] for _ in range(3)]
+    trandom.seed(5)
+    got = graph.step_multi(data=torch.stack([d] * 3),
+                           softmax_label=torch.stack([d] * 3))[0]
+    torch.testing.assert_close(got.float(), torch.stack(want).float(),
+                               rtol=1e-2, atol=1e-2)
+    assert _max_param_err(graph, eager) <= 1e-2

@@ -334,7 +334,9 @@ def test_store_surface_and_refusals():
             tmx.kv.create(name)
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tmx.kv.create("nosuch")
-    with pytest.raises(MXNetError, match="item 7"):
+    # row_sparse_pull is ported: a key that is not row-sparse refuses it
+    kv.init(0, tmx.nd.zeros((3, 2), ctx=CPU))
+    with pytest.raises(MXNetError, match="not 'row_sparse'"):
         kv.row_sparse_pull(0, row_ids=[0])
 
 

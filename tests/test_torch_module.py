@@ -394,7 +394,7 @@ def test_borrow_optimizer_and_shared_module():
 @pytest.mark.parametrize("what", ["contexts", "dist", "monitor",
                                   "checkpoint", "resume", "ckpt_dir",
                                   "fit_monitor"])
-def test_refusals(monkeypatch, what):
+def test_refusals(monkeypatch, tmp_path, what):
     net = tsym.load_json(_mlp(jsym).tojson())
     x, y = _blobs(16, 2)
     it = tio.NDArrayIter(x, y, batch_size=8)
@@ -421,14 +421,25 @@ def test_refusals(monkeypatch, what):
             mod.fit(it, num_epoch=1, monitor=mon)
         assert mon.exes == [mod._exec_group.execs[0]]
         return
-    kw, match = {"checkpoint": ({"checkpoint": "d"}, "item 7"),
-                 "resume": ({"resume": True}, "item 7"),
-                 "ckpt_dir": ({}, "item 7")}[what]
+    # checkpoints in fit are ported (ROADMAP Queue 1 item 7): a directory
+    # or MXTPU_CKPT_DIR arms them, and resume=True without either raises
+    # as the reference's does
+    from mxnet_tpu_torch import checkpoint as tckpt
+
+    where = str(tmp_path / "ck")
+    if what == "resume":
+        with pytest.raises(MXNetError, match="needs MXTPU_CKPT_DIR"):
+            mod.fit(it, num_epoch=1, resume=True)
+        return
     if what == "ckpt_dir":
-        monkeypatch.setenv("MXTPU_CKPT_DIR", "/nonexistent")
-    with pytest.raises(MXNetError, match=match):
-        mod.fit(it, num_epoch=1, **kw)
-    assert not mod.binded
+        monkeypatch.setenv("MXTPU_CKPT_DIR", where)
+    mod.fit(it, num_epoch=1,
+            **({"checkpoint": where} if what == "checkpoint" else {}))
+    (step, path), = tckpt.list_checkpoints(where)
+    assert step == 2
+    _, manifest = tckpt.load(path)
+    assert manifest["meta"]["module"] == "Module"
+    assert manifest["meta"]["signature"] == net.structural_signature()
 
 
 def test_module_without_a_card_raises():

@@ -439,14 +439,27 @@ def test_reference_binary_params_load(tmp_path):
 
 
 def test_row_sparse_and_remote_uris_are_not_ported(tmp_path):
+    """Remote URIs still raise; row-sparse entries are ported: the JAX
+    package's file loads as a port RowSparseNDArray, and the port's
+    file of it loads back in the JAX package."""
+    from mxnet_tpu.sparse import RowSparseNDArray as JRS
+
+    from mxnet_tpu_torch.sparse import RowSparseNDArray as TRS
+
     rs = jsparse.row_sparse_array((np.ones((2, 3), np.float32), [0, 2]),
                                   shape=(4, 3))
     fname = str(tmp_path / "rs.nd")
     jnd.save(fname, {"emb": rs})
-    with pytest.raises(MXNetError, match="row-sparse.*not ported yet"):
-        tnd.load(fname, ctx=CPU)
-    with pytest.raises(MXNetError, match="row-sparse.*not ported yet"):
-        tnd.save(str(tmp_path / "rs2.nd"), {"emb": rs})
+    got = tnd.load(fname, ctx=CPU)["emb"]
+    assert isinstance(got, TRS) and got.shape == (4, 3)
+    np.testing.assert_array_equal(got.indices.asnumpy(), [0, 2])
+    np.testing.assert_array_equal(got.todense().asnumpy(),
+                                  rs.todense().asnumpy())
+    tnd.save(str(tmp_path / "rs2.nd"), {"emb": got})
+    back = jnd.load(str(tmp_path / "rs2.nd"))["emb"]
+    assert isinstance(back, JRS)
+    np.testing.assert_array_equal(back.todense().asnumpy(),
+                                  rs.todense().asnumpy())
     for uri in ("s3://bucket/x.params", "mem://x.params"):
         with pytest.raises(MXNetError, match="not ported yet"):
             tnd.save(uri, [tnd.zeros((2,), ctx=CPU)])

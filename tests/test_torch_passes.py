@@ -261,10 +261,11 @@ def test_port_built_resnet_matches_the_jax_json():
 
 
 def test_load_json_refuses_what_it_cannot_read():
-    with pytest.raises(MXNetError, match="not ported yet"):
-        tsym.load_json(json.dumps({"nodes": [{"op": "null", "name": "x",
-                                              "param": {}}],
-                                   "heads": [[0, 0, 0]]}))
+    # nnvm-format JSON is ported: it reads as the JAX package reads it
+    nnvm = json.dumps({"nodes": [{"op": "null", "name": "x", "param": {}}],
+                       "heads": [[0, 0, 0]]})
+    assert tsym.load_json(nnvm).list_arguments() == \
+        jsym.load_json(nnvm).list_arguments() == ["x"]
     bad = json.loads(_epilogue_net().tojson())
     bad["nodes"][-1]["op"] = "NoSuchOp"
     with pytest.raises(MXNetError, match="not registered"):

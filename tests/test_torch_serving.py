@@ -249,7 +249,8 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 "image.py", "filesystem.py", "storage.py", "mp_io.py",
                 "monitor.py", "_native.py",
                 os.path.join("module", "sequential_module.py"),
-                os.path.join("module", "python_module.py")):
+                os.path.join("module", "python_module.py"), "sparse.py",
+                "checkpoint.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -275,7 +276,8 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.mp_io, mxnet_tpu_torch.monitor, "
             "mxnet_tpu_torch._native, "
             "mxnet_tpu_torch.module.sequential_module, "
-            "mxnet_tpu_torch.module.python_module\n"
+            "mxnet_tpu_torch.module.python_module, "
+            "mxnet_tpu_torch.sparse, mxnet_tpu_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
@@ -311,6 +313,9 @@ def test_mp_io_worker_imports_no_jax(tmp_path):
     with open(out) as f:
         mods = json.load(f)
     assert "mxnet_tpu_torch.image" in mods and "torch" in mods
+    # the package's import pulls in the newer modules too, all clean
+    assert "mxnet_tpu_torch.sparse" in mods
+    assert "mxnet_tpu_torch.checkpoint" in mods
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
                                                    "mxnet_tpu")]
     assert not bad, bad

@@ -401,18 +401,60 @@ def test_trainer_eval_matches_step_forward():
     ({"mesh": object()}, "item 10"), ({"remat": True}, "item 4"),
     ({"sharding_rules": ("x",)}, "item 10")])
 def test_trainer_refuses_what_is_not_ported(kw, match):
-    with pytest.raises(MXNetError, match=match):
-        TTrainer(ttrm.transformer_lm(**SMALL), device="cpu", **kw)
+    """``mesh``/``sharding_rules`` still raise; ``remat=True`` is ported
+    (item 4): a recomputed step equals the plain one from the same
+    weights."""
+    if match != "item 4":
+        with pytest.raises(MXNetError, match=match):
+            TTrainer(ttrm.transformer_lm(**SMALL), device="cpu", **kw)
+        return
+    shapes = {"data": (2, 32), "softmax_label": (2, 32)}
+    tts = [TTrainer(ttrm.transformer_lm(**SMALL), device="cpu",
+                    optimizer_params={"lr": 0.1}, **k).init(**shapes)
+           for k in (kw, {})]
+    assert tts[0].remat and not tts[1].remat
+    convert.load_trainer_params(
+        tts[1], {k: v.numpy() for k, v in tts[0].params.items()})
+    rs = np.random.RandomState(5)
+    d = rs.randint(0, SMALL["vocab_size"], (2, 32)).astype(np.float32)
+    outs = [t.step(data=d, softmax_label=d)[0] for t in tts]
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    for k in tts[0].params:
+        torch.testing.assert_close(tts[0].params[k], tts[1].params[k],
+                                   rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("method,match", [
     ("save_state", "item 7"), ("load_checkpoint", "item 7"),
     ("save_checkpoint", "item 7"), ("restore_state", "item 7"),
     ("rebind_mesh", "item 10")])
-def test_trainer_methods_not_ported(method, match):
+def test_trainer_methods_not_ported(method, match, tmp_path):
+    """``rebind_mesh`` still raises; the item 7 methods are ported and
+    need ``init()`` first, then round-trip the trainer's state."""
     tt = TTrainer(ttrm.transformer_lm(**SMALL), device="cpu")
-    with pytest.raises(MXNetError, match=match):
-        getattr(tt, method)()
+    if match != "item 7":
+        with pytest.raises(MXNetError, match=match):
+            getattr(tt, method)()
+        return
+    target = str(tmp_path / "ck")
+    args = {"save_state": (target,), "restore_state": (target,),
+            "save_checkpoint": (target, 1), "load_checkpoint": (target, 1)}
+    with pytest.raises(MXNetError, match="init"):
+        getattr(tt, method)(*args[method])
+    tt.init(data=(1, 32), softmax_label=(1, 32))
+    saved = {k: v.clone() for k, v in tt.params.items()}
+    if method in ("save_state", "restore_state"):
+        tt.save_state(target, background=False)
+    else:
+        tt.save_checkpoint(target, 1)
+    for v in tt.params.values():
+        v.zero_()
+    if method in ("save_state", "restore_state"):
+        tt.restore_state(target)
+    else:
+        tt.load_checkpoint(target, 1)
+    for k, v in saved.items():
+        torch.testing.assert_close(tt.params[k], v, rtol=0, atol=0)
 
 
 def test_trainer_refuses_the_sentinel(monkeypatch):
