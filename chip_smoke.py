@@ -4,6 +4,7 @@
 Drives the port's main paths — the paged decode server, the
 transformer-LM training step, ResNet-50 training (eager steps, the
 captured step and ``fit``), the Module path in fp32 and under AMP,
+``FeedForward``, a ``Custom`` op head and the profiler (phases 24-26),
 ResNet-50 inference through the Predictor,
 the same deployment loaded from a checkpoint, user CUDA C compiled
 at run time by ``rtc.Rtc``, the image-classification zoo (Inception-v3
@@ -198,7 +199,33 @@ holds each hand-written CUDA kernel
    bf16 with ``remat=False`` and ``remat=True``, eager and
    ``step_multi(8)``: peak memory, step ms, tokens/s, flash launches a
    step (16 forwards under remat), one step's agreement, and with
-   ``dropout=0.1`` the recompute replaying the forward's masks.
+   ``dropout=0.1`` the recompute replaying the forward's masks;
+24. ``mx.model.FeedForward`` (``phase_feedforward``, run right after
+   phase 5d, with phase 25) over ResNet-50 at ``phase_module_resnet``'s
+   cell (batch 256, fp32 with TF32 off, SGD lr 0.05 momentum 0.9,
+   seeded He-normal weights): ``fit`` over 2 + 10
+   device-resident batches (images/s, 0 host syncs a batch), one epoch
+   from numpy arrays (``numpy_batch_size`` 256, the last partial batch
+   discarded), ``score`` and ``predict`` over 2 batches with 4 epilogue
+   launches a forward each held against the plain version, ``save`` ->
+   ``FeedForward.load`` -> ``predict`` identical, and one step through
+   ``executor_manager.DataParallelExecutorManager`` equal to Module's;
+25. the ``Custom`` op (``phase_custom_op``): the same net with
+   examples/numpy-ops/custom_softmax.py's numpy softmax as its head
+   through ``FeedForward.fit``: step ms against the SoftmaxOutput head,
+   the op's host syncs (one each way) and host ms a batch, one step's
+   parameter gradients against SoftmaxOutput's, and
+   ``FusedTrainer.step_multi`` refusing the graph;
+26. the profiler (``phase_profiler``, run right after phase 23): the LM
+   step of phase 5 eagerly,
+   3 steps with the profiler off and 3 under ``profiler_set_config(
+   mode="symbolic", xla_trace_dir=...)``: step ms both ways, the
+   ``forward_backward`` spans, the sizes of ``profile.json`` and of the
+   torch.profiler device trace, the flash kernels named in the trace
+   (each launch of the first profiled step held against the plain
+   version) and the step's elementwise device time by kernel, the ten
+   largest; then ``nd`` ops under ``mode="all"`` and their
+   ``imperative`` spans.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -5356,6 +5383,649 @@ def phase_remat(smi):
     log(f"[remat] {json.dumps(res)}")
     return launches, res
 
+# ----------------------------------------------------- phases 24-26
+# (a) ResNet-50 through mx.model.FeedForward at phase_module_resnet's
+# cell (batch 256, fp32 with TF32 off, SGD lr 0.05 momentum 0.9, seeded
+# He-normal weights): 2 warm-up and 10 timed batches of fit over a
+# DataIter of device-resident batches, one epoch of 4 batches from
+# numpy arrays, score and predict over 2 batches
+FF_BATCH, FF_WARMUP, FF_STEPS = MODULE_BATCH, 2, 10
+FF_NUMPY_BATCHES, FF_SCORE_BATCHES = 4, 2
+FF_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+# the executor manager's step against Module's, from the same weights and
+# batch with cuDNN deterministic: the same executor and optimizer code,
+# so the parameters' largest error relative to their norms is held to
+# 1e-6
+FF_MANAGER_TOL = 1e-6
+# (b) custom_softmax.py's numpy softmax head against SoftmaxOutput, one
+# step's parameter gradients from the same weights and batch.  The head
+# gradients differ by numpy's float32 exp/sum against the card's (a few
+# ulps of p - onehot); propagated through 50 layers in fp32 (TF32 off)
+# the gradients of all parameters, as one vector, are held to 1e-4 of
+# its norm and the median parameter's to 1e-5 of its own.  A single
+# parameter's error is printed but not held: the first BatchNorm's gamma
+# gradient is a sum that cancels to a small remainder, where those
+# roundings weigh (0.035 of its norm at batch 2 on the CPU)
+CUSTOM_GRAD_TOL = (1e-4, 1e-5)
+# (c) the LM's step (slice 2's cell) with the profiler off and on
+PROF_STEPS = 3
+PROF_TOP = 10
+
+
+def _ff_symbols():
+    """ResNet-50 (1000 classes, 224 x 224) with its SoftmaxOutput head,
+    the same net with custom_softmax.py's numpy softmax as the head
+    (``op_type="softmax"``, the same argument names), and seeded weights
+    on the card."""
+    from mxnet_tpu_torch import models, symbol as tsym
+    from mxnet_tpu_torch.models import resnet
+
+    _register_numpy_softmax()
+    net = models.get_symbol("resnet-50", num_classes=1000,
+                            image_shape=(3, 224, 224))
+    logits = tsym.Symbol([net._outputs[0][0].inputs[0]])
+    custom = tsym.Custom(logits, tsym.Variable("softmax_label"),
+                         name="softmax", op_type="softmax")
+    arg, aux = resnet.random_params(net, seed=0,
+                                    data=(FF_BATCH, 3, 224, 224))
+    arg = {k: torch.from_numpy(v).cuda() for k, v in arg.items()}
+    aux = {k: torch.from_numpy(v).cuda() for k, v in aux.items()}
+    return net, custom, arg, aux
+
+
+def _register_numpy_softmax():
+    """examples/numpy-ops/custom_softmax.py's operator, registered in the
+    port as ``op_type="softmax"``: numpy forward and backward on the
+    host."""
+    import mxnet_tpu_torch as mx
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], mx.nd.array(y))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(int)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+    @mx.operator.register("softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def _ff_batches(seed, n):
+    """``n`` seeded batches on the card: ``(data, label)`` tensors."""
+    rs = np.random.RandomState(seed)
+    return [(torch.from_numpy(rs.uniform(0, 1, (FF_BATCH, 3, 224, 224))
+                              .astype(np.float32)).cuda(),
+             torch.from_numpy(rs.randint(0, 1000, FF_BATCH)
+                              .astype(np.float32)).cuda())
+            for _ in range(n)]
+
+
+def _resident_iter(batches, n):
+    """A DataIter of ``n`` batches cycling over device-resident
+    ``batches``."""
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    class Resident(io.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.batch_size = FF_BATCH
+            self.provide_data = [("data", tuple(batches[0][0].shape))]
+            self.provide_label = [("softmax_label",
+                                   tuple(batches[0][1].shape))]
+            self.k = 0
+
+        def reset(self):
+            self.k = 0
+
+        def next(self):
+            if self.k >= n:
+                raise StopIteration
+            x, y = batches[self.k % len(batches)]
+            self.k += 1
+            return io.DataBatch(data=[NDArray(x)], label=[NDArray(y)],
+                                pad=0)
+
+    return Resident()
+
+
+def _ff_fit(net, arg, aux, batches, tag, smi):
+    """``FeedForward.fit`` over ``FF_WARMUP + FF_STEPS`` resident
+    batches: images/s and ms a batch over the timed ones (host stamps at
+    each batch end, the last after a sync), host syncs between batches
+    (``_SyncCounter``), and the Custom op's own calls and syncs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import custom as tcustom
+
+    model = mx.model.FeedForward(net, ctx=mx.gpu(0), num_epoch=1,
+                                 numpy_batch_size=FF_BATCH,
+                                 arg_params=arg, aux_params=aux,
+                                 optimizer="sgd", **FF_OPT)
+    it = _resident_iter(batches, FF_WARMUP + FF_STEPS)
+    torch.cuda.synchronize()
+    tcustom.reset_stats()
+    t0 = time.perf_counter()
+    with _SyncCounter() as sync:
+        model.fit(it, eval_metric="acc", batch_end_callback=[sync.mark])
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    custom = tcustom.stats()
+    marks = sync.marks
+    per_batch = [b - a for a, b in zip(marks, marks[1:])]
+    timed = t_end - sync.stamps[FF_WARMUP - 1]
+    r = {"img_s": FF_BATCH * FF_STEPS / timed,
+         "step_ms": timed / FF_STEPS * 1e3, "wall_s": t_end - t0,
+         "syncs_per_batch": per_batch, "first_batch_syncs": marks[0],
+         "custom": custom}
+    log(f"[{tag}] FeedForward.fit over {FF_WARMUP} + {FF_STEPS} "
+        f"device-resident batches of {FF_BATCH} x 3 x 224 x 224 (fp32, "
+        f"TF32 off, SGD lr 0.05 momentum 0.9): {r['img_s']:.2f} img/s, "
+        f"{r['step_ms']:.2f} ms a batch over the last {FF_STEPS}; host "
+        f"syncs between batches {per_batch} (before the first batch's end "
+        f"{marks[0]}; {', '.join(sorted(set(sync.syncs)))}; sync-debug "
+        f"warnings {len(sync.warned())}); Custom op {json.dumps(custom)}; "
+        f"{smi}")
+    if len(marks) != FF_WARMUP + FF_STEPS:
+        raise AssertionError(f"{tag}: {len(marks)} batches")
+    return model, r
+
+
+def phase_feedforward(smi):
+    """(a) ResNet-50 through ``mx.model.FeedForward``: ``fit`` over
+    device-resident batches (0 host syncs a batch), an epoch from numpy
+    arrays, ``score`` and ``predict`` with each epilogue launch held
+    against the plain version, ``save``/``load``/``predict`` identical,
+    and one step through ``DataParallelExecutorManager`` equal to
+    Module's.  Returns the numbers, the seeded weights (for phase 25)
+    and the epilogue launches of the phase's main path."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor_manager import DataParallelExecutorManager
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, custom, arg, aux = _ff_symbols()
+    batches = _ff_batches(0, 2)
+    # the main path's run: every kernel count starts at 0 here
+    _kernel_launches(reset=True)
+    model, fit = _ff_fit(net, arg, aux, batches, "feedforward", smi)
+    if any(fit["syncs_per_batch"]):
+        raise AssertionError(f"FeedForward.fit made host syncs per batch: "
+                             f"{fit['syncs_per_batch']}")
+    # one epoch from numpy arrays: NDArrayIter, shuffled, last batch
+    # discarded
+    rs = np.random.RandomState(1)
+    n = FF_BATCH * FF_NUMPY_BATCHES
+    extra = max(1, FF_BATCH // 32)      # a partial batch, discarded
+    X = rs.uniform(0, 1, (n + extra, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, 1000, n + extra).astype(np.float32)
+    trained = (model.arg_params, model.aux_params)
+    model._module = None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    npm = mx.model.FeedForward(net, ctx=mx.gpu(0), num_epoch=1,
+                               numpy_batch_size=FF_BATCH,
+                               arg_params=trained[0], aux_params=trained[1],
+                               optimizer="sgd", **FF_OPT)
+    batches_seen = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    npm.fit(X, y, batch_end_callback=lambda p: batches_seen.append(p.nbatch))
+    torch.cuda.synchronize()
+    np_wall = time.perf_counter() - t0
+    del X, y
+    log(f"[feedforward-numpy] FeedForward.fit over a numpy X of "
+        f"{n + extra} images (numpy_batch_size {FF_BATCH}: "
+        f"{len(batches_seen)} batches, the last {extra} images discarded) "
+        f"in {np_wall:.3f} s "
+        f"({n / np_wall:.1f} img/s with the host batches' upload); {smi}")
+    if len(batches_seen) != FF_NUMPY_BATCHES:
+        raise AssertionError(f"numpy route ran {len(batches_seen)} batches")
+    # score and predict over 2 batches, every epilogue launch checked
+    rs = np.random.RandomState(7)
+    ne = FF_BATCH * FF_SCORE_BATCHES
+    Xe = rs.uniform(0, 1, (ne, 3, 224, 224)).astype(np.float32)
+    ye = rs.randint(0, 1000, ne).astype(np.float32)
+    n0 = _kernel_launches()["residual_epilogue"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ff_")
+        try:
+            with _EpilogueRecorder() as rec:
+                acc = npm.score(Xe, ye)
+                checked = rec.check("FeedForward.score")
+                probs = npm.predict(Xe)
+                checked += rec.check("FeedForward.predict")
+                prefix = os.path.join(tmp, "resnet50")
+                npm.save(prefix, 2)
+                npm._module = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                loaded = mx.model.FeedForward.load(
+                    prefix, 2, ctx=mx.gpu(0), numpy_batch_size=FF_BATCH)
+                reloaded = loaded.predict(Xe)
+                checked += rec.check("FeedForward.load -> predict")
+                del loaded
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        launched = _kernel_launches()["residual_epilogue"] - n0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    main_launches = _kernel_launches()
+    same = bool(np.array_equal(probs, reloaded))
+    log(f"[feedforward-score] score over {FF_SCORE_BATCHES} batches: "
+        f"accuracy {acc}; predict {probs.shape}; {launched} epilogue "
+        f"launches in {3 * FF_SCORE_BATCHES} forwards (score, predict, the "
+        f"reloaded model's predict), {checked} each held against the plain "
+        f"version; save -> FeedForward.load -> predict "
+        f"identical: {same} (max |diff| "
+        f"{float(np.abs(probs - reloaded).max()):.3g}); {smi}")
+    if launched != 4 * 3 * FF_SCORE_BATCHES or checked != launched:
+        raise AssertionError(f"FeedForward score/predict: {launched} "
+                             f"epilogue launches, {checked} checked")
+    if probs.shape != (ne, 1000) or not same:
+        raise AssertionError("FeedForward.load's predictions differ")
+    if any(v for k, v in main_launches.items() if k != "residual_epilogue"):
+        raise AssertionError(f"phase 24 launched {main_launches}")
+    del npm, probs, reloaded, Xe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one step through the executor manager against Module's
+    x0, y0 = batches[0]
+    it = _resident_iter(batches, 1)
+    opt = dict(FF_OPT, rescale_grad=1.0 / FF_BATCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mgr = DataParallelExecutorManager(net, [mx.gpu(0)], it)
+        mgr.set_params(arg, aux)
+        upd = mx.optimizer.get_updater(mx.optimizer.create("sgd", **opt))
+        mgr.load_data_batch(next(iter(it)))
+        mgr.forward(is_train=True)
+        mgr.backward()
+        for i, (w, g) in enumerate(zip(mgr.param_arrays, mgr.grad_arrays)):
+            upd(i, g[0], w[0])
+        got = {}
+        mgr.copy_to(got, {})
+        got = {k: v.tensor for k, v in got.items()}
+        del mgr
+        torch.cuda.empty_cache()
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mod.init_params(arg_params=arg, aux_params=aux)
+        mod.init_optimizer(kvstore=None, optimizer="sgd",
+                           optimizer_params=opt)
+        _module_step(mod, _batch(x0, y0))
+        want = {k: v.tensor for k, v in mod.get_params()[0].items()}
+        del mod
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err, key, med = _rel_errs(got, want)
+    diff = max(float((got[k] - want[k]).abs().max()) for k in want)
+    log(f"[feedforward-manager] one SGD step through "
+        f"DataParallelExecutorManager (forward, backward, the Updater over "
+        f"param_arrays/grad_arrays) vs Module's step, same weights and "
+        f"batch: parameters max |diff| {diff:.3g}, max rel err {err:.3g} "
+        f"({key}), median {med:.3g} (tol {FF_MANAGER_TOL}); {smi}")
+    if not err <= FF_MANAGER_TOL:
+        raise AssertionError(f"executor manager vs Module: {err} ({key})")
+    del got, want
+    torch.cuda.empty_cache()
+    res = {"fit": fit, "numpy_img_s": n / np_wall, "score": acc,
+           "epilogue_launches": launched, "epilogue_checked": checked,
+           "reload_identical": same, "manager_rel_err": err,
+           "manager_max_abs": diff}
+    log("[feedforward] " + json.dumps(res))
+    return res, (net, custom, arg, aux, batches), main_launches
+
+
+def _grads(net, arg, aux, x, y):
+    """One training forward and backward of ``net`` bound at ``x``'s
+    shape from ``arg``/``aux``: the parameters' gradients (clones)."""
+    ex = net.simple_bind("cuda", data=tuple(x.shape),
+                         softmax_label=tuple(y.shape))
+    ex.copy_params_from(arg, aux)
+    ex.forward(is_train=True, data=x, softmax_label=y)
+    ex.backward()
+    grads = {k: ex.grad_dict[k].clone() for k in arg}
+    del ex
+    torch.cuda.empty_cache()
+    return grads
+
+
+def phase_custom_op(smi, ff, fit_ref):
+    """(b) The same net and batch with custom_softmax.py's numpy softmax
+    as the head through ``FeedForward.fit`` (10 timed batches): step ms
+    against the SoftmaxOutput head of phase 24, the op's host ms and
+    host syncs a batch, one step's parameter gradients against the
+    SoftmaxOutput head's, and ``step_multi``'s refusal.  Returns the
+    numbers and the kernel launches of its fit (none)."""
+    from mxnet_tpu_torch.ops import custom as tcustom
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    net, custom, arg, aux, batches = ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    _kernel_launches(reset=True)
+    model, fit = _ff_fit(custom, arg, aux, batches, "custom_op", smi)
+    launches = _kernel_launches()
+    model._module = None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = fit["custom"]
+    per_batch = {"syncs": calls["syncs"] / (FF_WARMUP + FF_STEPS),
+                 "host_ms": calls["host_s"] * 1e3 / (FF_WARMUP + FF_STEPS)}
+    per_batch["wait_ms"] = calls["wait_s"] * 1e3 / (FF_WARMUP + FF_STEPS)
+    log(f"[custom_op] step {fit['step_ms']:.2f} ms with the numpy head vs "
+        f"{fit_ref['step_ms']:.2f} ms with SoftmaxOutput "
+        f"({fit['step_ms'] / fit_ref['step_ms']:.4f}x); the op per batch: "
+        f"{per_batch['syncs']:.1f} host syncs (download of its inputs, one "
+        f"each way), {per_batch['host_ms']:.3f} host ms in the op, of which "
+        f"{per_batch['wait_ms']:.3f} waiting in the syncs for the queued "
+        f"work and {per_batch['host_ms'] - per_batch['wait_ms']:.3f} "
+        f"copying, in numpy and uploading (forward {calls['forward']}, "
+        f"backward {calls['backward']} calls in {FF_WARMUP + FF_STEPS} "
+        f"batches); {smi}")
+    if (calls["forward"], calls["backward"]) != ((FF_WARMUP + FF_STEPS),) * 2 \
+            or per_batch["syncs"] != 2:
+        raise AssertionError(f"Custom op calls {calls}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 25 launched {launches}")
+    # one step's gradients against the SoftmaxOutput head
+    x, y = batches[0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = _grads(net, arg, aux, x, y)
+        got = _grads(custom, arg, aux, x, y)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err, key, med = _rel_errs(got, want)
+    whole = float(torch.sqrt(sum(((got[k] - want[k]).double() ** 2).sum()
+                                 for k in want))
+                  / torch.sqrt(sum((want[k].double() ** 2).sum()
+                                   for k in want)))
+    log(f"[custom_op-grads] one step's parameter gradients, numpy head vs "
+        f"SoftmaxOutput, same weights and batch: all parameters as one "
+        f"vector rel err {whole:.3g}, median parameter {med:.3g} (tol "
+        f"{CUSTOM_GRAD_TOL}); the largest {err:.3g} ({key}); {smi}")
+    if not (whole <= CUSTOM_GRAD_TOL[0] and med <= CUSTOM_GRAD_TOL[1]):
+        raise AssertionError(f"Custom head gradients: {whole}, {med}")
+    del got, want
+    torch.cuda.empty_cache()
+    tr = FusedTrainer(custom, optimizer="sgd", optimizer_params={
+        "lr": FF_OPT["learning_rate"]}).init(data=(FF_BATCH, 3, 224, 224))
+    try:
+        tr.step_multi(data=torch.stack([x, x]), softmax_label=torch.stack([
+            y, y]))
+    except Exception as exc:  # noqa: BLE001 — the refusal is the check
+        refusal = f"{type(exc).__name__}: {exc}"
+    else:
+        raise AssertionError("step_multi ran a graph with a Custom op")
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[custom_op-step_multi] {refusal}")
+    if not ("MXNetError" in refusal and "softmax" in refusal
+            and "step()" in refusal):
+        raise AssertionError(f"step_multi's refusal: {refusal}")
+    res = {"step_ms": fit["step_ms"], "img_s": fit["img_s"],
+           "vs_softmax_output": fit["step_ms"] / fit_ref["step_ms"],
+           "syncs_per_batch": per_batch["syncs"],
+           "host_ms_per_batch": per_batch["host_ms"],
+           "sync_wait_ms_per_batch": per_batch["wait_ms"],
+           "grad_rel_err_whole": whole, "grad_rel_err_median": med,
+           "grad_rel_err_max": [key, err], "refusal": refusal}
+    log("[custom_op] " + json.dumps(res))
+    return res, launches
+
+
+# each flash launch of a profiled LM step against the plain version:
+# every value within 1e-2 absolute and relative (as flash_check), and
+# each 64-row tile within these fractions of its norm.  The forward's O
+# is held as flash_check holds it.  dQ and dK/dV are sums over dS = P *
+# (dP - delta), whose rows sum to zero: with the step's real head
+# gradients the terms cancel to a remainder far below their size, and
+# the kernels' bf16 rounding of dS (2^-9 of each term, the tensor cores'
+# A operand) weighs more against that remainder than with flash_check's
+# unit-normal dO (1.47e-2 of a dQ tile in this PR's first chip call).
+# A tile left out is off by its whole norm.
+FLASH_STEP_TILE_TOL = {"flash_fwd": 1e-2, "flash_bwd_dq": 5e-2,
+                       "flash_bwd_dkv": 5e-2}
+
+
+class _FlashRecorder:
+    """Within ``with``, every launch of the three flash kernels is
+    recorded with its inputs and outputs; :meth:`check` holds each
+    against the plain version (``FLASH_STEP_TILE_TOL``), then forgets
+    them; :attr:`tiles` keeps each kernel's worst tile error."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.calls, self.tiles = fa, [], {}
+        self.kernels = (fa._cuda_fwd, fa._cuda_dq, fa._cuda_dkv)
+
+    def _wrap(self, name, fn):
+        def f(*args):
+            out = fn(*args)
+            self.calls.append((name, args, out))
+            return out
+        return f
+
+    def __enter__(self):
+        fa = self.fa
+        fa._cuda_fwd = self._wrap("flash_fwd", self.kernels[0])
+        fa._cuda_dq = self._wrap("flash_bwd_dq", self.kernels[1])
+        fa._cuda_dkv = self._wrap("flash_bwd_dkv", self.kernels[2])
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._cuda_fwd, self.fa._cuda_dq, self.fa._cuda_dkv = self.kernels
+        return False
+
+    @torch.no_grad()
+    def check(self, what):
+        fa, n = self.fa, {}
+        calls, self.calls = self.calls, []
+        for name, args, out in calls:
+            if name == "flash_fwd":
+                got, want = out[0], fa.fwd_plain(*args)[0]
+                pairs = [(got, want)]
+            elif name == "flash_bwd_dq":
+                pairs = [(out, fa.dq_plain(*args))]
+            else:
+                pairs = list(zip(out, fa.dkv_plain(*args)))
+            for got, want in pairs:
+                diff = (got.float() - want.float()).abs()
+                tile = tile_rel_err(got, want)
+                self.tiles[name] = max(self.tiles.get(name, 0.0), tile)
+                if bool((diff > 1e-2 + 1e-2 * want.float().abs()).any()) \
+                        or tile > FLASH_STEP_TILE_TOL[name]:
+                    raise AssertionError(
+                        f"{what}: {name} launch at {tuple(got.shape)}: max "
+                        f"abs err {float(diff.max())}, tile {tile}")
+            n[name] = n.get(name, 0) + 1
+        return n
+
+
+def _trace_kernels(path, steps, update="FusedTrainer.update"):
+    """``({kernel name: device ms a step}, the same for the kernels that
+    start inside the ``update`` range's spans on the device)`` from a
+    torch.profiler chrome trace (its ``kernel`` and
+    ``gpu_user_annotation`` events)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "gpu_user_annotation"
+             and e.get("name") == update]
+    rows, in_update = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms = e["dur"] / 1e3 / steps
+            rows[e["name"]] = rows.get(e["name"], 0.0) + ms
+            if any(a <= e["ts"] < b for a, b in spans):
+                in_update[e["name"]] = in_update.get(e["name"], 0.0) + ms
+    return rows, in_update
+
+
+def phase_profiler(smi):
+    """(c) ``transformer_lm(**MFU_HEADLINE_CONFIG)`` through
+    ``FusedTrainer`` (bf16, Adam lr 1e-4, batch 8 x 1024, eager steps):
+    3 steps with the profiler off, 3 under ``profiler_set_config(mode=
+    "symbolic", xla_trace_dir=...)`` (the first step's flash launches
+    each held against the plain version), the spans, both files and the
+    step's elementwise device time by kernel from the device trace; then
+    ``nd`` ops under ``mode="all"``.  Returns the numbers and the flash
+    launches of the phase's main path."""
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = tr.MFU_HEADLINE_CONFIG
+    B, T, V, L = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"], \
+        cfg["num_layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mxrandom.seed(0)
+    tk = FusedTrainer(tr.transformer_lm(**cfg), optimizer="adam",
+                      optimizer_params={"lr": 1e-4}, dtype="bfloat16").init(
+        data=(B, T), softmax_label=(B, T))
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+    tk.step(data=data, softmax_label=label)
+    torch.cuda.synchronize()
+    # the main path's run: every kernel count starts at 0 here
+    _kernel_launches(reset=True)
+
+    def steps(n, recorder=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if recorder is not None and i == 0:
+                with recorder:
+                    tk.step(data=data, softmax_label=label)
+            else:
+                tk.step(data=data, softmax_label=label)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    off_ms = steps(PROF_STEPS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profiler_")
+    try:
+        fname = os.path.join(tmp, "profile.json")
+        tdir = os.path.join(tmp, "trace")
+        profiler.profiler_set_config(mode="symbolic", filename=fname,
+                                     xla_trace_dir=tdir)
+        rec = _FlashRecorder()
+        profiler.profiler_set_state("run")
+        try:
+            on_ms = steps(PROF_STEPS, rec)
+        finally:
+            profiler.profiler_set_state("stop")
+        t0 = time.perf_counter()
+        checked = rec.check("profiled LM step")
+        check_s = time.perf_counter() - t0
+        launches = _kernel_launches()
+        profiler.dump_profile()
+        trace = profiler.device_trace_files()[-1]
+        with open(fname) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e["name"].startswith("forward_backward[")]
+        sizes = {"profile_json": os.path.getsize(fname),
+                 "device_trace": os.path.getsize(trace)}
+        kernels, in_update = _trace_kernels(trace, PROF_STEPS)
+        # the mode="all" half: imperative nd ops on the card
+        fname2 = os.path.join(tmp, "profile_all.json")
+        profiler.profiler_set_config(mode="all", filename=fname2)
+        a = tnd.array(np.ones((1024, 1024), np.float32), ctx="cuda")
+        profiler.profiler_set_state("run")
+        try:
+            tnd.sum(tnd.exp(tnd.dot(a, a))).wait_to_read()
+        finally:
+            profiler.profiler_set_state("stop")
+            profiler.profiler_set_config()
+        profiler.dump_profile(fname2)
+        with open(fname2) as f:
+            imperative = sorted(e["name"] for e in json.load(f)["traceEvents"]
+                                if e["cat"] == "imperative")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tk
+    torch.cuda.empty_cache()
+    flash = {k: v for k, v in kernels.items() if "flash_" in k}
+    elementwise = sorted(((t, k) for k, t in kernels.items()
+                          if "elementwise" in k), reverse=True)
+    busy = sum(kernels.values())
+    ew_total = sum(t for t, _ in elementwise)
+    ew_update = sum(t for k, t in in_update.items() if "elementwise" in k)
+    log(f"[profiler] LM step (bf16, batch {B} x {T}, eager): profiler off "
+        f"{off_ms:.2f} ms, on (mode symbolic, device trace) {on_ms:.2f} ms "
+        f"({on_ms / off_ms:.4f}x); {len(spans)} forward_backward spans; "
+        f"profile.json {sizes['profile_json']} bytes, device trace "
+        f"{sizes['device_trace']} bytes; {len(kernels)} kernel names in the "
+        f"trace, device busy {busy:.2f} ms a step; flash kernels in the "
+        f"trace {sorted(flash)}; the first profiled step's flash launches "
+        f"held against the plain versions {checked} ({check_s:.1f} s; "
+        f"worst tile error by kernel {json.dumps(rec.tiles)}, tol "
+        f"{json.dumps(FLASH_STEP_TILE_TOL)}); launches {launches}; {smi}")
+    log(f"[profiler-elementwise] the step's elementwise kernels "
+        f"{ew_total:.3f} ms a step ({len(elementwise)} names) of "
+        f"{busy:.2f} ms busy, {ew_update:.3f} of them inside "
+        f"FusedTrainer.update (all its kernels "
+        f"{sum(in_update.values()):.3f} ms); the {PROF_TOP} largest (ms a "
+        f"step, of which in the update): "
+        + "; ".join(f"{k[:160]} {t:.3f} ({in_update.get(k, 0.0):.3f})"
+                    for t, k in elementwise[:PROF_TOP]) + f"; {smi}")
+    log(f"[profiler-all] mode='all' imperative spans {imperative}")
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    per_step = {k: launches[k] / (2 * PROF_STEPS) for k in want}
+    if per_step != want or checked != want:
+        raise AssertionError(f"profiled LM steps: launches {launches}, "
+                             f"checked {checked}")
+    if any(launches[k] for k in launches if not k.startswith("flash")):
+        raise AssertionError(f"phase 26 launched {launches}")
+    if len(spans) != PROF_STEPS or not all(sizes.values()):
+        raise AssertionError(f"profiler files: {len(spans)} spans, {sizes}")
+    for pat in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if not any(pat in k for k in flash):
+            raise AssertionError(f"the device trace names no {pat} kernel: "
+                                 f"{sorted(flash)}")
+    if imperative != ["dot", "exp", "sum"]:
+        raise AssertionError(f"mode='all' spans {imperative}")
+    res = {"off_ms": off_ms, "on_ms": on_ms, "spans": len(spans),
+           "sizes": sizes, "busy_ms": busy, "elementwise_ms": ew_total,
+           "elementwise_update_ms": ew_update,
+           "update_ms": sum(in_update.values()),
+           "elementwise_top": [[k, t, in_update.get(k, 0.0)]
+                               for t, k in elementwise[:PROF_TOP]],
+           "flash_ms": flash, "flash_checked": checked,
+           "flash_tile_err": rec.tiles, "launches": launches,
+           "imperative": imperative}
+    log("[profiler] " + json.dumps(res))
+    return res, launches
+
 
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
@@ -5402,9 +6072,18 @@ def main():
     # recompute runs the same cell: next to it, before the image phases
     # fill the allocator's cache
     remat_launches, remat = phase_remat(smi)
+    # the profiled step is the same cell again
+    prof, prof_launches = phase_profiler(smi)
     phase_train_resnet(smi)
     module = phase_module_resnet(smi)
     module_amp = phase_module_amp(smi, module)
+    # FeedForward and the Custom head run phase_module_resnet's cell (50
+    # GiB at batch 256): next to it, before later phases fragment the
+    # allocator's cache.  The epilogue runs in FeedForward's score and
+    # predict, no hand-written kernel under the Custom head
+    ff, ff_state, ff_launches = phase_feedforward(smi)
+    custom, custom_launches = phase_custom_op(smi, ff_state, ff["fit"])
+    del ff_state
     epi, epi_launches = phase_predict()
     ckpt = phase_checkpoint()
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
@@ -5499,6 +6178,13 @@ def main():
         rec["launches_lstm"] = lstm_launches[rec["name"]]
         rec["launches_records"] = rec_launches[rec["name"]]
         rec["launches_sparse"] = sparse_launches[rec["name"]]
+        rec["launches_feedforward"] = ff_launches[rec["name"]]
+        rec["launches_custom_op"] = custom_launches[rec["name"]]
+        rec["launches_profiler"] = prof_launches[rec["name"]]
+    for rec in records[1:4]:
+        rec["profiler_trace_device_ms"] = sum(
+            t for k, t in prof["flash_ms"].items()
+            if rec["name"].replace("bwd_", "") in k)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,7 +44,15 @@ resume=)``, preemption) — and row-sparse training — ``sparse``
 (``RowSparseNDArray``, also ``nd.sparse``) through the executor, the
 optimizer rules, the kvstore and its fused buckets — with the rest of
 ``Symbol`` and ``Executor`` (``structural_signature``, the program
-cache, attrs, ``infer_type``, nnvm JSON) and ``FusedTrainer(remat=True)``.
+cache, attrs, ``infer_type``, nnvm JSON) and ``FusedTrainer(remat=True)``;
+and MXNet's classic top-level surface — ``Context`` (``cpu_pinned``,
+``tpu``, ``num_devices``, ``with ctx:`` scoping), ``random``,
+``resource``, ``operator`` with the ``Custom`` op, ``profiler`` (host
+spans and a ``torch.profiler`` device trace), ``faults``
+(``MXTPU_FAULT_PLAN``), ``executor_manager``, ``model.FeedForward``,
+``visualization`` and ``test_utils``.  The reference's top-level names
+not exported yet are ``kvstore_server`` and ``AttrScope`` (ROADMAP Queue
+1 item 10).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -62,13 +70,16 @@ from . import initializer as init  # noqa: F401
 from .initializer import (Initializer, Load, Mixed, MSRAPrelu,  # noqa: F401
                           Normal, Orthogonal, Uniform, Xavier)
 from .base import MXNetError, __version__  # noqa: F401
-from .context import cpu, current_context, gpu, resolve_device  # noqa: F401
+from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
+                      gpu, num_devices, resolve_device, tpu)
+from .base import NameManager  # noqa: F401
+from . import engine, ops, random  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 from . import sparse  # noqa: F401
 from .sparse import RowSparseNDArray  # noqa: F401
 nd.sparse = sparse  # the reference surface: mx.nd.sparse.row_sparse_array
 from . import checkpoint  # noqa: F401
-from .model import load_checkpoint, save_checkpoint  # noqa: F401
+from .model import FeedForward, load_checkpoint, save_checkpoint  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from .symbol import Group, Symbol, Variable  # noqa: F401
@@ -87,3 +98,7 @@ from . import filesystem, image, recordio, storage  # noqa: F401
 from . import monitor  # noqa: F401
 from . import monitor as mon  # noqa: F401
 from .monitor import Monitor  # noqa: F401
+from . import executor_manager, faults, operator, profiler  # noqa: F401
+from . import parallel, resource, test_utils, visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from .resource import ResourceManager, ResourceRequest  # noqa: F401

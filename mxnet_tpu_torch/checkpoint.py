@@ -25,9 +25,9 @@ arrays and a ``manifest.json``, so either package reads what the other
 writes.  Knobs (the reference's): ``MXTPU_CKPT_DIR`` arms the training
 loops, ``MXTPU_CKPT_EVERY`` (steps between snapshots, default 0: only at
 preemption and the end), ``MXTPU_CKPT_KEEP`` (complete checkpoints kept,
-default 3).  The reference's fault-injection site ``ckpt_write`` is the
-private :func:`_fault_hook` here (the fault plane is not ported); tests
-replace it to make a writer fail.
+default 3).  The writer is the fault site ``ckpt_write`` of
+:mod:`mxnet_tpu_torch.faults` (``MXTPU_FAULT_PLAN="ckpt_write:err_first:1"``
+makes it fail before a manifest is published).
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ import zlib
 import numpy as np
 import torch
 
+from . import faults as _faults
 from . import telemetry as _tm
 from .base import MXNetError
 
@@ -85,11 +86,6 @@ class Preempted(MXNetError):
     """Raised by a training loop after a SIGTERM-triggered boundary
     checkpoint landed; the message names the checkpoint to resume
     from."""
-
-
-def _fault_hook(site: str):
-    """The reference's fault-injection site (``faults.maybe_fail``); a
-    no-op here, replaced by tests to make a writer fail."""
 
 
 # ------------------------------------------------------------------ env
@@ -251,7 +247,7 @@ def save(directory, step, arrays: dict, meta=None, keep=None,
         try:
             # a failure here is a writer crash mid-checkpoint: no
             # manifest appears, so resume falls back
-            _fault_hook("ckpt_write")
+            _faults.maybe_fail("ckpt_write")
             host = snap.host()
             entries = {}
             total = 0

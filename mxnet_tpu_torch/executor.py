@@ -30,6 +30,12 @@ scaler's device scale first, in the gradient's dtype.  The graph is
 freed by the backward, so a second ``backward`` needs a new
 ``forward``.
 
+Profiling (``mx.profiler``): while the profiler runs, an inference
+forward is a ``forward[<symbol name>]`` span and a training forward
+with its backward one ``forward_backward[<symbol name>]`` span, each
+closed after a device sync, as the JAX executor's; while it is off
+neither records nor syncs.
+
 Monitoring (``set_monitor_callback``, parity:
 GraphExecutor::SetMonitorCallback): after each inference forward and
 each backward (a training step taps once, as the JAX executor) the
@@ -75,6 +81,7 @@ import torch
 
 from . import amp as _amp
 from . import ops
+from . import profiler as _prof
 from . import random as _random
 from . import sparse as _sparse
 from . import telemetry as _tm
@@ -322,6 +329,11 @@ class Executor:
             _amp.global_scaler().place(device)
         self._outputs = None
         self._pending = None  # (outputs with their graph, grad leaves)
+        # the profiler's spans (recorded only while it runs)
+        self._fb_start = None  # the training forward's start
+        name = symbol.name or "graph"
+        self._spans = (f"forward[{name}]", f"forward_backward[{name}]")
+        self._sync = _prof.device_sync(device)
         self._monitor_callback = None
         self._monitor_fn = None
         self._monitor_names = None
@@ -406,12 +418,15 @@ class Executor:
         # a forward drops the graph of one without its backward first
         self._pending = None
         if not is_train:
-            with torch.no_grad():
+            with _prof.span(self._spans[0], device=str(self._device),
+                            sync=self._sync), torch.no_grad():
                 outs, _ = self._graph_fn(self.arg_dict, self.aux_dict, None,
                                          False)
             self._outputs = outs
             self._run_monitor()
             return outs
+        # the forward_backward span opens here and closes in backward()
+        self._fb_start = _prof.now_us() if _prof.is_running() else None
         args = dict(self.arg_dict)
         leaves = {k: args[k].detach().requires_grad_(True)
                   for k in self._grad_names}
@@ -453,6 +468,19 @@ class Executor:
                              "first")
         outs, leaves, rs_ids = self._pending
         self._pending = None
+        start = self._fb_start
+        if start is None and _prof.is_running():
+            start = _prof.now_us()
+        self._backward(outs, leaves, rs_ids, out_grads)
+        if start is not None and _prof.is_running():
+            if self._sync is not None:
+                self._sync()
+            _prof.record(self._spans[1], str(self._device), start,
+                         _prof.now_us())
+        self._run_monitor()
+
+    def _backward(self, outs, leaves, rs_ids, out_grads):
+        """The gradients of ``outs`` into ``grad_dict``."""
         if out_grads is None:
             heads = [torch.ones_like(o) for o in outs]
         else:
@@ -499,7 +527,6 @@ class Executor:
                     buf.zero_()
                 else:
                     buf.copy_(g)
-        self._run_monitor()
 
     def set_monitor_callback(self, callback):
         """Tap every internal output: ``callback(name, NDArray)`` after

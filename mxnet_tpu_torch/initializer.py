@@ -11,7 +11,8 @@ kernel (computed as the reference does, so exactly its values);
 packed vector, whose per-matrix fan-in the 1-D shape cannot tell) draws
 ``U(-0.07, 0.07)``, as the JAX package does; ``_beta``, ``_bias``,
 ``_moving_mean`` and every unknown suffix (``pos_embed``) fill with
-zeros.  Tensors are filled
+zeros.  Tensors (or NDArrays, as the reference's initializers take) are
+filled
 in place from a ``torch.Generator``: the one given to the initializer,
 else the process generator of the tensor's device
 (:func:`mxnet_tpu_torch.random.generator`).  The JAX package draws from
@@ -28,6 +29,7 @@ import torch
 
 from . import random as _random
 from .base import MXNetError
+from .ndarray import NDArray
 
 __all__ = ["Initializer", "Uniform", "Normal", "Constant", "One", "Zero",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "Load", "Mixed",
@@ -41,9 +43,13 @@ class Initializer:
     def _gen(self, arr):
         return self._generator or _random.generator(arr.device)
 
-    def __call__(self, name, arr: torch.Tensor):
+    def __call__(self, name, arr):
+        """Fill ``arr`` (a tensor, or an NDArray whose tensor is filled)
+        in place by the rule of ``name``'s suffix."""
         if not isinstance(name, str):
             raise TypeError("name must be str")
+        if isinstance(arr, NDArray):
+            arr = arr.tensor
         if name.startswith("upsampling") or name.endswith("_bilinear"):
             self._init_bilinear(name, arr)
         elif name.endswith("_gamma"):

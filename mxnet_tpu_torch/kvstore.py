@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from . import faults as _faults
 from . import sparse as _sparse
 from .base import MXNetError
 from .ndarray import NDArray
@@ -103,7 +104,9 @@ class KVStore:
         return merged
 
     def push(self, key, value, priority=0):
-        """Push one value (or a list of per-device copies) per key."""
+        """Push one value (or a list of per-device copies) per key
+        (fault site ``kv_push``)."""
+        _faults.maybe_fail("kv_push")
         keys, single = _key_list(key)
         if single:
             values = [value]
@@ -166,7 +169,8 @@ class KVStore:
     def pull(self, key, out=None, priority=0):
         """Copy each key's stored value into its out array(s); a
         row-sparse out array on a dense value raises (use
-        :meth:`row_sparse_pull`)."""
+        :meth:`row_sparse_pull`; fault site ``kv_pull``)."""
+        _faults.maybe_fail("kv_pull")
         keys, single = _key_list(key)
         if single:
             outs = [out]

@@ -87,6 +87,19 @@ class DataParallelExecutorGroup:
                          for k, v in ex.grad_dict.items()}
 
     # ----------------------------------------------------------- params
+    @property
+    def param_arrays(self):
+        """Per parameter, the list of its bound arrays (one device)."""
+        return [[self._arg_nd[n]] for n in self.param_names
+                if n in self._arg_nd]
+
+    @property
+    def grad_arrays(self):
+        """Per parameter, the list of its gradient arrays (None where
+        the parameter has no gradient)."""
+        return [[self._grad_nd.get(n)] for n in self.param_names
+                if n in self._arg_nd]
+
     def set_params(self, arg_params, aux_params):
         ex = self.execs[0]
         for store, given in ((ex.arg_dict, arg_params),

@@ -15,8 +15,11 @@ its lowercase alias, unless that names another op) dispatching through
 :func:`mxnet_tpu_torch.ops.registry.invoke`; PyTorch's asynchronous
 launches take the place of the engine, and :meth:`NDArray.asnumpy` is
 the sync point.  The creators (``array``, ``zeros``, ...) default to
-the card (:func:`~mxnet_tpu_torch.context.current_context`) and raise
-without one; pass ``ctx="cpu"`` (or ``mx.cpu()``) for the host.
+the card (:func:`~mxnet_tpu_torch.context.current_context`, or the
+innermost ``with mx.Context(...)`` scope) and raise without one; pass
+``ctx="cpu"`` (or ``mx.cpu()``) for the host.  On ``mx.cpu_pinned()``
+(given or scoped) they, ``copyto`` and ``as_in_context`` place the
+array in pinned host memory from the ``storage`` pool.
 
 ``save``/``load`` read and write the JAX package's npz layout key for
 key — a row-sparse array (:mod:`mxnet_tpu_torch.sparse`, also reachable
@@ -43,8 +46,9 @@ import numpy as np
 import torch
 
 from . import ops
+from . import storage as _storage
 from .base import MXNetError, numeric_dtype
-from .context import current_context, resolve_device
+from .context import Context, current_context, is_pinned, resolve_device
 
 # generated op functions (``slice``, ``crop``) shadow builtins in this
 # module's namespace: keep the builtin
@@ -72,6 +76,16 @@ def _device(ctx=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _placed(t: torch.Tensor, ctx=None) -> torch.Tensor:
+    """``t`` (on the host when ``ctx`` is pinned) in pinned host memory
+    when ``ctx`` (None: the ``with`` scope's) is ``cpu_pinned``."""
+    if not is_pinned(ctx) or t.is_pinned():
+        return t
+    out = _storage.pinned_empty(t.shape, t.dtype)
+    out.copy_(t)
+    return out
 
 
 def _from_numpy(a, device) -> torch.Tensor:
@@ -221,11 +235,15 @@ class NDArray:
         CopyFromTo)."""
         if isinstance(other, NDArray):
             return other._set(self._t)
-        if isinstance(other, (torch.device, str, int)):
+        if is_pinned(other):
+            return NDArray(_placed(self._t.cpu(), other))
+        if isinstance(other, (torch.device, str, int, Context)):
             return NDArray(self._t.to(_device(other), copy=True))
         raise TypeError(f"copyto does not support type {type(other)}")
 
     def as_in_context(self, ctx) -> "NDArray":
+        if is_pinned(ctx):
+            return self if self._t.is_pinned() else self.copyto(ctx)
         return self if _device(ctx) == self._t.device else self.copyto(ctx)
 
     def astype(self, dtype) -> "NDArray":
@@ -406,25 +424,26 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     if isinstance(source, NDArray):
         source = source._t
     if isinstance(source, torch.Tensor):
-        return NDArray(source.detach().to(dev, tdt, copy=True))
+        return NDArray(_placed(source.detach().to(dev, tdt, copy=True), ctx))
     npdt = _NUMPY_TYPES.get(tdt, np.float32)   # bfloat16 via float32
-    return NDArray(_from_numpy(np.asarray(source, dtype=npdt), dev).to(tdt))
+    return NDArray(_placed(
+        _from_numpy(np.asarray(source, dtype=npdt), dev).to(tdt), ctx))
 
 
 def zeros(shape, ctx=None, dtype=np.float32) -> NDArray:
-    return NDArray(torch.zeros(shape, dtype=numeric_dtype(dtype),
-                               device=_device(ctx)))
+    return NDArray(_placed(torch.zeros(shape, dtype=numeric_dtype(dtype),
+                                       device=_device(ctx)), ctx))
 
 
 def ones(shape, ctx=None, dtype=np.float32) -> NDArray:
-    return NDArray(torch.ones(shape, dtype=numeric_dtype(dtype),
-                              device=_device(ctx)))
+    return NDArray(_placed(torch.ones(shape, dtype=numeric_dtype(dtype),
+                                      device=_device(ctx)), ctx))
 
 
 def full(shape, val, ctx=None, dtype=np.float32) -> NDArray:
-    return NDArray(torch.full(shape if not isinstance(shape, int)
-                              else (shape,), val,
-                              dtype=numeric_dtype(dtype), device=_device(ctx)))
+    return NDArray(_placed(torch.full(
+        shape if not isinstance(shape, int) else (shape,), val,
+        dtype=numeric_dtype(dtype), device=_device(ctx)), ctx))
 
 
 def empty(shape, ctx=None, dtype=np.float32) -> NDArray:

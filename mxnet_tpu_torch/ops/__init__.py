@@ -1,7 +1,8 @@
 """Operators of the port.  Importing the package registers every ported
 op; ``paged_attention`` has a CUDA kernel but no op (the decoder calls
-it directly)."""
-from . import (elemwise, flash_attention, indexing,  # noqa: F401
+it directly).  ``custom`` is the ``Custom`` op over the Props that
+:mod:`mxnet_tpu_torch.operator` registers."""
+from . import (custom, elemwise, flash_attention, indexing,  # noqa: F401
                init_sample, loss, matrix, nn, optimizer_ops,
                paged_attention, reduce, residual_epilogue, rnn_op,
                sequence)

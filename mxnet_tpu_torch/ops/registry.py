@@ -13,12 +13,14 @@ gradient) and ops backed by a hand-written kernel wrap themselves in a
 """
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import torch
 
+from .. import profiler as _prof
 from ..base import MXNetError
 
 __all__ = ["OpCtx", "OpDef", "register", "get", "list_ops", "invoke",
@@ -63,6 +65,8 @@ class OpDef:
     num_outputs_fn: Optional[Callable] = None
     # defaults of attrs that decide the inputs (Deconvolution's no_bias)
     attr_defaults: dict = field(default_factory=dict)
+    # attr-dependent input names (a Custom op's come from its Prop)
+    arg_names_fn: Optional[Callable] = None
     doc: str = ""
 
     def with_defaults(self, attrs) -> dict:
@@ -71,6 +75,8 @@ class OpDef:
             else attrs
 
     def resolve_arg_names(self, attrs) -> list:
+        if self.arg_names_fn is not None:
+            return list(self.arg_names_fn(attrs))
         names = list(self.arg_names)
         if self.optional_args is not None:
             dropped = self.optional_args(self.with_defaults(attrs))
@@ -88,7 +94,7 @@ class OpDef:
 def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
              output_names=("output",), infer_params=None, optional_args=None,
              varargs=False, needs_rng=False, num_outputs_fn=None,
-             attr_defaults=None, aliases=()):
+             attr_defaults=None, arg_names_fn=None, aliases=()):
     """Decorator registering an op implementation under ``name`` (and
     each of ``aliases``)."""
 
@@ -100,7 +106,7 @@ def register(name, *, arg_names=("data",), aux_names=(), num_outputs=1,
                    varargs=varargs, needs_rng=needs_rng,
                    num_outputs_fn=num_outputs_fn,
                    attr_defaults=dict(attr_defaults or {}),
-                   doc=fn.__doc__ or "")
+                   arg_names_fn=arg_names_fn, doc=fn.__doc__ or "")
         _OPS[name] = op
         for alias in aliases:
             _OPS[alias] = op
@@ -145,7 +151,9 @@ def invoke(name: str, inputs, attrs=None, is_train: bool = True,
     the JAX package's imperative calls do.  A random op draws from the
     process generator of its device (:func:`mxnet_tpu_torch.random.generator`,
     as the JAX package draws ``random.next_key()``).  Runs under
-    ``no_grad``: the imperative NDArray records no autograd graph."""
+    ``no_grad``: the imperative NDArray records no autograd graph.
+    While the profiler runs in mode ``all`` the call is an
+    ``imperative`` span that ends with a device sync."""
     op = get(name)
     attrs = {k: decode_attr(v) for k, v in (attrs or {}).items()}
     if device is None and inputs:
@@ -156,7 +164,13 @@ def invoke(name: str, inputs, attrs=None, is_train: bool = True,
 
         gen = _random.generator(device)
     ctx = OpCtx(is_train=is_train, device=device, generator=gen)
-    with torch.no_grad():
+    # profiled imperative ops (MXNET_PROFILER_MODE=all): the span closes
+    # after a device sync, so it times the op's work
+    span = (_prof.span(op.name, device=str(device), category="imperative",
+                       sync=_prof.device_sync(device))
+            if _prof.is_running() and _prof.mode() == "all"
+            else contextlib.nullcontext())
+    with span, torch.no_grad():
         out = op.fn(ctx, *inputs, **attrs)
     if op.aux_names:
         out = out[0]

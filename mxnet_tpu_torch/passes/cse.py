@@ -6,19 +6,21 @@ and (recursively deduplicated) input entries; internal op-node *names*
 are ignored, so a graph written twice (``a*b + a*b``) and a graph
 written once with a shared subexpression rewrite to the identical DAG.
 
-The JAX pass never merges random ops (two Dropout nodes draw different
-masks) or its Custom/native escape hatches; the port has none of those
-ops yet, so every op node is a candidate — the port of the first random
-op must bring that exclusion back (``OpDef.needs_rng`` in the JAX
-registry).  Aux-carrying ops (BatchNorm) merge only when every input
-including the aux-state variables is shared, in which case the duplicate
-would have produced identical aux updates.
+Random ops are never merged (two Dropout nodes draw different masks:
+``OpDef.needs_rng``), nor the Custom/native escape hatches (user code
+on the host may keep state), as in the JAX pass.  Aux-carrying ops
+(BatchNorm) merge only when every input including the aux-state
+variables is shared, in which case the duplicate would have produced
+identical aux updates.
 """
 from __future__ import annotations
 
+from .. import ops
 from ..base import frozen_attrs
 from ..symbol import Symbol, _Node
 from . import register_pass
+
+_BLOCKLIST = {"Custom", "_Native", "_NDArray"}
 
 
 @register_pass("cse", training_safe=True)
@@ -43,12 +45,14 @@ def cse(symbol):
             cand = _Node(node.op, node.name, attrs=node.attrs,
                          inputs=new_inputs, extra_attrs=node.extra_attrs)
         entries = tuple((cand, k) for k in range(cand.num_outputs()))
-        try:
-            key = (node.op, frozen_attrs(node.attrs),
-                   tuple(sorted(node.extra_attrs.items())),
-                   tuple((id(e[0]), e[1]) for e in new_inputs))
-        except TypeError:  # unhashable attr value: leave the node be
-            key = None
+        key = None
+        if not ops.get(node.op).needs_rng and node.op not in _BLOCKLIST:
+            try:
+                key = (node.op, frozen_attrs(node.attrs),
+                       tuple(sorted(node.extra_attrs.items())),
+                       tuple((id(e[0]), e[1]) for e in new_inputs))
+            except TypeError:  # unhashable attr value: leave the node be
+                pass
         if key is not None:
             prev = seen.get(key)
             if prev is not None:

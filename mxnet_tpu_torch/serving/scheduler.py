@@ -18,8 +18,11 @@ Backpressure is explicit: the admission queue is bounded
 Deadlines (``MXTPU_SERVE_DEADLINE_MS`` default, per-request override)
 are enforced both while queued and mid-generation.
 
-Not ported yet: the JAX scheduler's fault-injection hooks, its
-perf-attribution records and the flight-ring record of each request.
+Admission is the fault site ``serve_admit`` (``MXTPU_FAULT_PLAN``): an
+injected fault fails that request and the engine serves the next.  Not
+ported yet: the JAX scheduler's ``replica_kill``/``serve_slow`` sites
+(with the fleet router and the SLO plane), its perf-attribution records
+and the flight-ring record of each request.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from collections import deque
 
 import numpy as np
 
+from .. import faults as _faults
 from .. import telemetry as _tm
 from ..base import MXNetError, _env_int
 from ..telemetry import tracing as _tracing
@@ -490,6 +494,7 @@ class SlotScheduler:
                 # the whole admission for THIS request — prefill, first
                 # sample, cache write — fails only this request; the
                 # slot stays free and the engine moves on
+                _faults.maybe_fail("serve_admit")
                 t_pf0 = time.perf_counter()
                 logits = self.backend.admit(
                     free, req.prompt,

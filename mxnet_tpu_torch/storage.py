@@ -17,6 +17,10 @@ fresh ~19 MB batch each time is a synchronous ``cudaHostAlloc``:
 - :func:`staging_free` returns one; :func:`pool_bytes` counts the bytes
   parked in the free lists and :func:`release_all` drops them (parity:
   MXStorageEmptyCache);
+- :func:`pinned_empty` hands a pinned block of the pool to a caller
+  that keeps it (the ``cpu_pinned`` context's arrays): it leaves the
+  pool, and PyTorch's pinned-memory cache takes it back when the array
+  dies;
 - :func:`stage_to_device` is copy-on-stage, as in the reference: the
   returned tensor never aliases the pooled buffer.  To the card, the
   copy runs on a staging stream into a tensor allocated under that
@@ -40,9 +44,11 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import resolve_device
 
-__all__ = ["staging_empty", "host_array", "staging_free", "stage_to_device",
+__all__ = ["staging_empty", "host_array", "staging_free", "pinned_empty",
+           "stage_to_device",
            "release_after", "pool_bytes", "release_all", "pooling_disabled"]
 
 _lock = threading.Lock()
@@ -109,6 +115,30 @@ def staging_empty(shape, dtype=np.float32, pin=False) -> torch.Tensor:
     with _lock:
         _live[view.data_ptr()] = (block, size, bool(pin))
     return view
+
+
+def pinned_empty(shape, dtype=np.float32) -> torch.Tensor:
+    """An uninitialised pinned host tensor of ``shape`` that the caller
+    owns: a free pinned block of its size class when the pool has one,
+    else a new one.  Pinning needs a card: without one it raises
+    :class:`MXNetError`."""
+    if not torch.cuda.is_available():
+        raise MXNetError("pinned host memory (cpu_pinned) needs a CUDA "
+                         "device; use cpu() on a host without one")
+    if isinstance(shape, (int, np.integer)):
+        shape = (int(shape),)
+    shape = tuple(int(s) for s in shape)
+    tdtype = _torch_dtype(dtype)
+    nbytes = int(np.prod(shape)) * torch.empty(0, dtype=tdtype).element_size()
+    block = None
+    if _pool_on():
+        with _lock:
+            _reclaim()
+            free = _free[(_class_bytes(nbytes), True)]
+            block = free.pop() if free else None
+    t = block[0] if block is not None else torch.empty(
+        max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+    return t[:nbytes].view(tdtype).view(shape)
 
 
 def host_array(buf) -> np.ndarray:

@@ -4,20 +4,26 @@ A trimmed copy of ``mxnet_tpu/telemetry/registry.py`` holding what the
 serving path emits through: one process-wide registry of named metric
 families, one switch (``MXTPU_TELEMETRY`` / :func:`enable`) governing
 all of it, and a single flag check on every record path while it is
-off.  The profiler-backed ``span``/``timed`` helpers are not ported.
+off.  :func:`span` (and its decorator form :func:`timed`) times a
+region into two sinks: a latency histogram here while telemetry is on,
+and a chrome-trace event through ``profiler.record`` while the profiler
+runs, on the profiler's timeline.
 """
 from __future__ import annotations
 
+import functools
 import os
 import re
 import threading
+import time
+from contextlib import contextmanager
 from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry",
     "enabled", "enable",
     "counter", "gauge", "histogram", "get_registry",
-    "DEFAULT_BUCKETS",
+    "DEFAULT_BUCKETS", "sanitize_name", "span", "timed",
 ]
 
 _NAME_RE = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -48,6 +54,14 @@ def enable(on: bool = True):
     """Turn metric recording on (or off with ``on=False``).  Disabled is
     the default unless ``MXTPU_TELEMETRY=1`` is set in the environment."""
     _state.enabled = bool(on)
+
+
+def sanitize_name(name: str) -> str:
+    """Coerce an arbitrary string into a valid Prometheus metric name."""
+    name = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    if not name or not _NAME_RE.match(name):
+        name = "_" + name
+    return name
 
 
 class MetricFamily:
@@ -224,3 +238,58 @@ def gauge(name, help="", labels=()) -> Gauge:
 def histogram(name, help="", labels=(), buckets=DEFAULT_BUCKETS) -> Histogram:
     return _default_registry.get_or_create(Histogram, name, help, labels,
                                            buckets=buckets)
+
+
+# ---------------------------------------------------------------------------
+# spans: one region, two sinks (the reference's registry.py:296-359)
+# ---------------------------------------------------------------------------
+@contextmanager
+def span(name: str, category: str = "host", device: str = "host",
+         sync=None, histogram_name: Optional[str] = None, trace=None,
+         **labels):
+    """Time a region.  While the profiler runs, a chrome-trace event
+    ``name`` of ``category`` (the op spans' sink and timebase); while
+    telemetry is on, the seconds go to histogram ``histogram_name``
+    (default: the sanitised ``<name>_seconds``) with ``labels``; with
+    ``trace`` and request tracing on, a span of that trace in the span
+    buffer.  ``sync`` (a zero-argument callable) runs before the region
+    closes, so asynchronous device work is counted.  With every sink off
+    the region runs untimed."""
+    from .. import profiler as _prof
+    from . import tracing as _tracing
+
+    prof_on = _prof.is_running()
+    trace_on = trace is not None and _tracing.trace_on()
+    if not (prof_on or _state.enabled or trace_on):
+        yield
+        return
+    us0 = _prof.now_us() if prof_on else 0.0
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if sync is not None:
+            sync()
+        dt = time.perf_counter() - t0
+        if prof_on:
+            _prof.record(name, device, us0, _prof.now_us(), category)
+        if trace_on:
+            _tracing.record_span(name, category, trace, dt, **labels)
+        if _state.enabled:
+            hname = histogram_name or sanitize_name(name) + "_seconds"
+            histogram(hname, f"wall time of {name} (seconds)",
+                      labels=tuple(labels)).observe(dt, **labels)
+
+
+def timed(name: str, category: str = "host", **labels):
+    """Decorator form of :func:`span`."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(name, category=category, **labels):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

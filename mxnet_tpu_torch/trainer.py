@@ -49,7 +49,9 @@ draws from a second generator whose state is set to the trainer
 generator's before each step (outside any capture), and a captured step
 registers both with its graph, so the two advance together replay by
 replay.  The graph function is functional (BatchNorm returns its new
-moving statistics), so the recompute writes nothing.
+moving statistics), so the recompute writes nothing; a ``Custom`` op's
+user forward runs again in the recompute, as ``jax.checkpoint`` calls
+the reference's callback again.
 
 Checkpoints (:mod:`mxnet_tpu_torch.checkpoint`): :meth:`save_state` /
 :meth:`restore_state` write and read a survival checkpoint (masters, aux
@@ -82,6 +84,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from . import profiler as _prof
 from . import random as _random
 from . import telemetry as _tm
 from .base import MXNetError, torch_dtype
@@ -211,6 +214,9 @@ class FusedTrainer:
         self._remat_gen = (torch.Generator(device=self.device)
                            if self.remat else None)
         self._signature = None
+        # step()'s profiler span (recorded only while the profiler runs)
+        self._span = f"forward_backward[{symbol.name or 'graph'}]"
+        self._sync = _prof.device_sync(self.device)
 
     # ------------------------------------------------------------ setup
     def init(self, **input_shapes):
@@ -432,7 +438,9 @@ class FusedTrainer:
 
     def step(self, **batch):
         """One training step, eagerly; returns the graph's outputs
-        (tensors on the trainer's device, not synchronised)."""
+        (tensors on the trainer's device, not synchronised; while the
+        profiler runs, the step is a ``forward_backward[...]`` span that
+        ends with a device sync)."""
         self._require_init("step")
         # the JAX step receives lr as an fp32 scalar
         lr = float(np.float32(self.current_lr()))
@@ -440,7 +448,9 @@ class FusedTrainer:
         sb = self._stage(batch)
         self._lr.fill_(lr)
         self._sync_remat_gen()
-        return self._train_step(sb)
+        with _prof.span(self._span, device=str(self.device),
+                        sync=self._sync):
+            return self._train_step(sb)
 
     def _steps_of(self, value):
         """One ``step_multi`` input -> its k per-step tensors: the rows
@@ -469,10 +479,19 @@ class FusedTrainer:
         every step draws a fresh mask and the draws follow the seed.  A
         step that cannot be captured raises; it never falls back to
         eager steps.  On the CPU the k steps run through :meth:`step`.
+        A graph with a ``Custom`` op (user Python on the host) raises,
+        on any device.
 
         Returns the per-step outputs stacked on axis 0, not
         synchronised."""
         self._require_init("step_multi")
+        custom = sorted({str(n.attrs.get("op_type")) for n in
+                         self._exec_symbol.nodes if n.op == "Custom"})
+        if custom:
+            raise MXNetError(
+                f"FusedTrainer.step_multi: the graph runs the Custom op "
+                f"{', '.join(custom)} (user Python on the host), which a "
+                f"captured CUDA graph cannot replay; train it with step()")
         if not stacked:
             raise MXNetError("FusedTrainer.step_multi: no inputs given")
         rows = {name: self._steps_of(v) for name, v in stacked.items()}

@@ -24,7 +24,10 @@ and row-sparse slice (the row-sparse update on the card against the
 CPU, with no host sync; a ``save_state`` taken while steps are queued
 holding the post-step values; ``remat=True`` through the flash kernels
 giving the plain step's gradients, its forward launched twice a step,
-also under ``step_multi`` with Dropout).
+also under ``step_multi`` with Dropout), and the classic top-level
+surface (a ``Custom`` op on card tensors against the CPU with one host
+sync each way, ``cpu_pinned`` arrays in pinned memory, the profiler's
+device trace naming the flash kernels).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1532,3 +1535,126 @@ def test_remat_step_multi_with_dropout_equals_eager_remat(card):
     torch.testing.assert_close(got.float(), torch.stack(want).float(),
                                rtol=1e-2, atol=1e-2)
     assert _max_param_err(graph, eager) <= 1e-2
+
+
+# ------------------------------------------- the classic top-level surface
+def _custom_softmax_prop():
+    """The custom_softmax.py head, registered as ``cuda_test_softmax``."""
+    import mxnet_tpu_torch as mx
+
+    class _Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], y / y.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(int)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+    @mx.operator.register("cuda_test_softmax")
+    class _Prop(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return _Softmax()
+
+
+def test_custom_op_on_card_tensors_matches_the_cpu(card, no_tf32):
+    """A Custom softmax head over an FC layer on the card: outputs and
+    gradients equal the same net's on the CPU (fp32, 1e-6); one batch
+    makes one host sync each way, counted by the op."""
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.ops import custom as tcustom
+
+    _custom_softmax_prop()
+    net = tsym.Custom(tsym.FullyConnected(tsym.Variable("data"),
+                                          num_hidden=10, name="fc"),
+                      tsym.Variable("softmax_label"),
+                      op_type="cuda_test_softmax", name="softmax")
+    g = torch.Generator().manual_seed(0)
+    vals = {"data": torch.randn(32, 64, generator=g),
+            "softmax_label": torch.randint(0, 10, (32,), generator=g).float(),
+            "fc_weight": torch.randn(10, 64, generator=g) * 0.1,
+            "fc_bias": torch.randn(10, generator=g) * 0.1}
+    res = []
+    for dev in ("cpu", card):
+        ex = net.simple_bind(dev, data=(32, 64), softmax_label=(32,))
+        for k, v in vals.items():
+            ex.arg_dict[k].copy_(v)
+        tcustom.reset_stats()
+        out = ex.forward(is_train=True)[0]
+        ex.backward()
+        res.append((out.cpu(), {k: ex.grad_dict[k].cpu()
+                                for k in ("fc_weight", "fc_bias", "data")},
+                    tcustom.stats()))
+    (o_c, g_c, s_c), (o_g, g_g, s_g) = res
+    assert o_g.device.type == "cpu"
+    torch.testing.assert_close(o_g, o_c, rtol=1e-6, atol=1e-6)
+    for k in g_c:
+        torch.testing.assert_close(g_g[k], g_c[k], rtol=1e-6, atol=1e-6)
+    assert (s_c["syncs"], s_g["syncs"]) == (0, 2)
+    assert s_g["forward"] == s_g["backward"] == 1
+
+
+def test_cpu_pinned_arrays_live_in_pinned_memory(card):
+    import mxnet_tpu_torch as mx
+
+    a = tnd.zeros((4, 5), ctx=mx.cpu_pinned())
+    assert a.tensor.is_pinned() and a.context.type == "cpu"
+    with mx.cpu_pinned():
+        b = tnd.array(np.arange(6, dtype=np.float32))
+        c = tnd.ones((3,))
+    assert b.tensor.is_pinned() and c.tensor.is_pinned()
+    np.testing.assert_array_equal(b.asnumpy(), np.arange(6))
+    d = tnd.ones((3,), ctx=card).copyto(mx.cpu_pinned())
+    assert d.tensor.is_pinned()
+    np.testing.assert_array_equal(d.asnumpy(), np.ones(3))
+    assert d.as_in_context(mx.cpu_pinned()) is d
+    # temp space is pinned host scratch when a card is present
+    from mxnet_tpu_torch.resource import ResourceManager, ResourceRequest
+    from mxnet_tpu_torch import storage
+
+    res = ResourceManager().request(card, ResourceRequest.kTempSpace)
+    space = res.get_space((16,), np.float32)
+    assert storage._live[res._buf.data_ptr()][2] and space.shape == (16,)
+
+
+def test_device_trace_holds_the_flash_kernels(card, tmp_path):
+    """A transformer-LM step in bf16 under ``profiler_set_config(
+    xla_trace_dir=...)``: the torch.profiler trace written there names
+    the three flash kernels, and profile.json holds the step's
+    ``forward_backward`` span."""
+    import json
+
+    from mxnet_tpu_torch import profiler
+
+    (t, _), d = _lm_pair(card)
+    t.step(data=d, softmax_label=d)
+    torch.cuda.synchronize()
+    fname = str(tmp_path / "profile.json")
+    profiler.profiler_set_config(mode="symbolic", filename=fname,
+                                 xla_trace_dir=str(tmp_path / "trace"))
+    try:
+        profiler.profiler_set_state("run")
+        t.step(data=d, softmax_label=d)
+    finally:
+        profiler.profiler_set_state("stop")
+        profiler.profiler_set_config()
+    profiler.dump_profile(fname)
+    trace = json.load(open(profiler.device_trace_files()[-1]))
+    kernels = {e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"}
+    for pat in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert any(pat in k for k in kernels), (pat, sorted(kernels)[:20])
+    spans = [e["name"] for e in json.load(open(fname))["traceEvents"]]
+    assert [s for s in spans if s.startswith("forward_backward[")]

@@ -93,9 +93,30 @@ def _dce_cse_net():
     return jsym.Group([rs, added])
 
 
+def _random_custom_net():
+    """Two Dropout nodes, two uniform draws and two Custom nodes, each
+    pair written twice over the same inputs with the same attrs: cse
+    merges none of them (each draw is its own, user code may keep
+    state); the transpose pair beside them still merges."""
+    from mxnet_tpu import operator as joperator
+    from mxnet_tpu_torch import operator as toperator
+
+    # a one-input Custom op in both packages; its code never runs here
+    for op_mod in (joperator, toperator):
+        op_mod.register("cse_probe")(
+            type("CseProbeProp", (op_mod.CustomOpProp,), {}))
+    d = jsym.Variable("data")
+    drops = [jsym.Dropout(d, p=0.5, name=f"drop{i}") for i in range(2)]
+    draws = [jsym.uniform(shape=(2, 3), name=f"u{i}") for i in range(2)]
+    customs = [jsym.Custom(d, op_type="cse_probe", name=f"c{i}")
+               for i in range(2)]
+    dups = [jsym.transpose(d, axes=(1, 0), name=f"t{i}") for i in range(2)]
+    return jsym.Group(drops + draws + customs + dups)
+
+
 NETS = {"resnet50": _resnet50, "resnet18_small": _resnet18_small,
         "epilogue": _epilogue_net, "convbn": _convbn_net,
-        "dce_cse": _dce_cse_net}
+        "dce_cse": _dce_cse_net, "random_custom": _random_custom_net}
 SELECTIONS = ["cse", "dce", "residual_epilogue", "cse,dce,residual_epilogue"]
 
 

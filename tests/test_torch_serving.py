@@ -250,7 +250,10 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 "monitor.py", "_native.py",
                 os.path.join("module", "sequential_module.py"),
                 os.path.join("module", "python_module.py"), "sparse.py",
-                "checkpoint.py"):
+                "checkpoint.py", "context.py", "random.py", "resource.py",
+                "operator.py", os.path.join("ops", "custom.py"),
+                "profiler.py", "faults.py", "executor_manager.py",
+                "visualization.py", "test_utils.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -277,7 +280,11 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch._native, "
             "mxnet_tpu_torch.module.sequential_module, "
             "mxnet_tpu_torch.module.python_module, "
-            "mxnet_tpu_torch.sparse, mxnet_tpu_torch.checkpoint\n"
+            "mxnet_tpu_torch.sparse, mxnet_tpu_torch.checkpoint, "
+            "mxnet_tpu_torch.resource, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.ops.custom, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.faults, mxnet_tpu_torch.executor_manager, "
+            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")

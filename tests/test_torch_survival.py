@@ -2,8 +2,8 @@
 ``FusedTrainer.save_state``/``restore_state`` and ``fit(checkpoint=,
 resume=)`` in both loops.
 
-Mirrors ``tests/test_checkpoint.py`` case for case (the fault-injection
-plan becomes a patch of ``checkpoint._fault_hook``; the sync counter
+Mirrors ``tests/test_checkpoint.py`` case for case (the writer fails
+through ``MXTPU_FAULT_PLAN``'s ``ckpt_write`` site; the sync counter
 counts the host reads of tensors), and adds what crosses packages:
 checkpoints written by either package resumed by the other, the
 structural signature equal to the reference's on every zoo model and
@@ -121,20 +121,17 @@ def test_incomplete_checkpoint_is_invisible(tmp_path):
 def test_failed_write_publishes_nothing(tmp_path, monkeypatch):
     """A writer that dies mid-write leaves no manifest and no temp
     directory a resume could trip on."""
-    class Injected(RuntimeError):
-        pass
+    from mxnet_tpu_torch import faults
 
-    def fail(site):
-        if site == "ckpt_write":
-            raise Injected(site)
-
-    monkeypatch.setattr(ckpt, "_fault_hook", fail)
+    monkeypatch.setenv("MXTPU_FAULT_PLAN", "ckpt_write:err:1")
+    faults.reset()
     w = ckpt.save(str(tmp_path), 1, {"x": np.ones(3)}, background=True)
-    with pytest.raises(Injected):
+    with pytest.raises(faults.InjectedFault, match="ckpt_write"):
         w.wait()
     assert ckpt.list_checkpoints(str(tmp_path)) == []
     assert not [n for n in os.listdir(tmp_path) if n.startswith(".tmp")]
     monkeypatch.undo()
+    faults.reset()
     ckpt.save(str(tmp_path), 2, {"x": np.ones(3)}, background=False)
     assert [s for s, _ in ckpt.list_checkpoints(str(tmp_path))] == [2]
 
