@@ -225,7 +225,30 @@ holds each hand-written CUDA kernel
    (each launch of the first profiled step held against the plain
    version) and the step's elementwise device time by kernel, the ten
    largest; then ``nd`` ops under ``mode="all"`` and their
-   ``imperative`` spans.
+   ``imperative`` spans;
+27. int8 serving (``phase_serve_int8``): the served LM with int8 weights
+   (``KVDecoder(quantize="int8")``, bf16 compute) behind
+   ``serve_decoder(paged=True)``: weight bytes on the card against the
+   bf16 decoder's, 16 requests (tokens/s, TTFT, tick ms, idle share),
+   the paged kernel's logits against the gather path on the same int8
+   state, and the share of greedy tokens equal to the bf16 decoder's;
+28. generation loops (``phase_generate``): ``generate_scan`` greedy at
+   batch 8 x 256 new tokens against ``generate`` (token-equal, host
+   syncs counted, tokens/s both ways), an eos run that exits early, and
+   ``beam_search(beam_size=4)`` at batch 2 x 64;
+29. the replica router (``phase_router``): two full-width bf16 replicas
+   on the card behind ``start_router``, 64 requests spread over both and
+   token-equal to a reference scheduler on the same weights, a drain
+   and an undrain, one replica shut down mid-traffic (its requests
+   re-route, ``router_retries_total`` counts them), router-added latency
+   against direct requests;
+30. int8 inference (``phase_predict_int8``): ResNet-50 at batch 32
+   through ``Predictor(quantize="int8")`` and ``MXTPU_PREDICT_INT8=1``,
+   images/s beside fp32 and bf16 in the same run, top-1 agreement with
+   fp32, 4 epilogue launches a forward held against the epilogues
+   pinned to the plain version, ``output_index`` and
+   ``partial_forward`` once each, and a 4-deep ``forward_async``
+   pipeline equal to ``forward``.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -1012,7 +1035,7 @@ def _device_ms(prof, steps):
     return sorted(rows, reverse=True)
 
 
-def tick_profile(dec, steps=10):
+def tick_profile(dec, steps=10, tag="tick"):
     """Where a decode tick's time goes: 8 slots at ~500 cached tokens
     step the paged backend directly (the scheduler's tick minus its
     sampling).  Wall per tick from the host clock without the profiler;
@@ -1051,7 +1074,7 @@ def tick_profile(dec, steps=10):
     # matches the earlier one-kernel design, for tools/torch_ab.py)
     paged = {k: sum(t for t, name in rows if k in name)
              for k in ("paged_", "paged_split", "paged_combine")}
-    log(f"[tick] 8 slots at ~500 tokens: {wall_ms:.3f} ms/tick wall, "
+    log(f"[{tag}] 8 slots at ~500 tokens: {wall_ms:.3f} ms/tick wall, "
         f"device busy {busy:.3f} ms, idle share "
         f"{1 - busy / wall_ms:.3f}; paged attention {paged['paged_']:.3f} "
         f"ms (split {paged['paged_split']:.3f}, combine "
@@ -6027,6 +6050,541 @@ def phase_profiler(smi):
     return res, launches
 
 
+# --------------------------------------------------------------- phase 27
+SERVE_INT8_TOKENS = 32
+AGREE_PROMPT, AGREE_TOKENS = 64, 64
+
+
+def _serve_burst(port, prompts, max_tokens, workers=None):
+    """``prompts`` posted concurrently as greedy requests; every reply
+    must be a 200 "ok" with ``max_tokens`` tokens in the vocab."""
+    with ThreadPoolExecutor(workers or len(prompts)) as ex:
+        replies = list(ex.map(lambda p: _post(port, {
+            "prompt": p, "max_tokens": max_tokens, "temperature": 0,
+            "deadline_ms": 600000}), prompts))
+    for i, (st, body) in enumerate(replies):
+        if st != 200 or body.get("outcome") != "ok" \
+                or body.get("n_tokens") != max_tokens:
+            raise AssertionError(f"request {i} (prompt {len(prompts[i])}): "
+                                 f"HTTP {st} {body}")
+    return replies
+
+
+def phase_serve_int8(cfg, params, smi):
+    """The served LM with int8 weights, bf16 compute, paged, through the
+    kernel.  Returns (main-path launches by kernel, the bf16 decoder)."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.serving import serve_decoder
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    V, L = cfg["vocab_size"], cfg["num_layers"]
+    kw = dict(num_layers=L, num_heads=cfg["num_heads"], max_len=MAX_LEN,
+              dtype=torch.bfloat16)
+    tm.enable()
+    t0 = time.perf_counter()
+    dec8 = KVDecoder(params, quantize="int8", **kw)
+    build8 = time.perf_counter() - t0
+    dec16 = KVDecoder(params, **kw)
+    b8, b16 = dec8.weight_bytes(), dec16.weight_bytes()
+    log(f"[serve_int8] int8 decoder built in {build8:.1f} s (host "
+        f"quantization); weight bytes on the card: int8 {b8 / 1e9:.4f} GB "
+        f"against bf16 {b16 / 1e9:.4f} GB ({b8 / b16:.4f}); {smi}")
+    if not b8 < 0.6 * b16:
+        raise AssertionError(f"int8 weights {b8} B, bf16 {b16} B")
+    # the kernel against its plain version on the same int8 state (these
+    # launches are the check's, outside the main path's counts)
+    buckets = tuple(2 ** i for i in range(3, 11))
+    ref, fed = _drive(PagedSlots(dec8, 3, block=BLOCK,
+                                 prefill_buckets=buckets, kernel="gather"), V)
+    ker_pg = PagedSlots(dec8, 3, block=BLOCK, prefill_buckets=buckets,
+                        kernel="auto")
+    if ker_pg.kernel != "cuda":
+        raise AssertionError(f"auto picked {ker_pg.kernel!r}")
+    got, _ = _drive(ker_pg, V, forced=fed)
+    del ker_pg
+    errs = [float(np.abs(a - b).max()) for a, b in zip(ref, got)]
+    # phase_parity's bf16 tolerances: under one bf16 ulp at magnitude 2
+    # on the first kernel step, three ulps' room after it
+    log(f"[serve_int8-parity] {len(ref)} emissions, max |kernel - gather| "
+        f"logits {max(errs):.3g} (atol 0.1; first step {errs[1]:.3g}, atol "
+        f"1e-2)")
+    if not (errs[1] <= 1e-2 and max(errs) <= 1e-1):
+        raise AssertionError(f"int8 kernel vs gather logits: {errs}")
+    server, sched = serve_decoder(dec8, num_slots=SLOTS, paged=True,
+                                  kv_block=BLOCK, queue_size=32)
+    try:
+        port = server.server_address[1]
+        if sched.backend.kernel != "cuda":
+            raise AssertionError(f"paged backend picked "
+                                 f"{sched.backend.kernel!r}, not the kernel")
+        _serve_burst(port, [[1, 2, 3]], 2)          # warm-up
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(0, V, int(n)).tolist()
+                   for n in rng.integers(16, 701, 16)]
+        tick_hist = tm.get_registry().get("serve_tick_seconds")
+        tsum0, tcnt0 = tick_hist.sum(), tick_hist.count()
+        tick0 = sched.stats["ticks"]
+        # the main path's run: every kernel count starts at 0 here
+        _kernel_launches(reset=True)
+        t0 = time.perf_counter()
+        replies = _serve_burst(port, prompts, SERVE_INT8_TOKENS)
+        wall = time.perf_counter() - t0
+        launches = _kernel_launches()
+        ticks = sched.stats["ticks"] - tick0
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.close()
+    if launches["paged_attention"] < ticks * L or ticks < 1:
+        raise AssertionError(f"int8 serving: {launches} launches in "
+                             f"{ticks} ticks x {L} layers")
+    ttft = sorted(r[1]["ttft_ms"] for r in replies)
+    n_tok = sum(r[1]["n_tokens"] for r in replies)
+    tick_ms = (tick_hist.sum() - tsum0) / max(tick_hist.count() - tcnt0,
+                                             1) * 1e3
+    tick = tick_profile(dec8, tag="serve_int8-tick")
+    # greedy agreement with the bf16 decoder (reported, not asserted:
+    # int8 rounding moves near-tied logits)
+    prompt = np.random.default_rng(12).integers(0, V, (SLOTS, AGREE_PROMPT))
+    a8 = dec8.generate_scan(prompt, AGREE_TOKENS)
+    a16 = dec16.generate_scan(prompt, AGREE_TOKENS)
+    same = float((a8 == a16).mean())
+    prefix = float(np.mean([np.argmin(np.append(r8 == r16, False))
+                            for r8, r16 in zip(a8, a16)]))
+    out = {"weight_bytes_int8": b8, "weight_bytes_bf16": b16,
+           "tokens_per_s": n_tok / wall,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "tick_ms": tick_ms, "tick_wall_ms": tick["wall_ms"],
+           "idle_share": tick["idle_share"], "ticks": ticks,
+           "kernel_vs_gather": max(errs), "greedy_agreement": same,
+           "agreeing_prefix": prefix, "launches": launches}
+    log(f"[serve_int8] 16/16 ok, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['ttft_p99_ms']:.1f} ms; {ticks} ticks, mean tick "
+        f"{tick_ms:.2f} ms; paged kernel launches "
+        f"{launches['paged_attention']}; greedy tokens equal to bf16's "
+        f"{same:.4f} ({SLOTS} x {AGREE_TOKENS}, mean agreeing prefix "
+        f"{prefix:.1f}); {smi}")
+    log(f"[serve_int8] {json.dumps(out)}")
+    del dec8
+    torch.cuda.empty_cache()
+    return launches, dec16
+
+
+# --------------------------------------------------------------- phase 28
+SCAN_BATCH, SCAN_PROMPT, SCAN_TOKENS = 8, 64, 256
+BEAM_BATCH, BEAM_PROMPT, BEAM_TOKENS, BEAM_SIZE = 2, 32, 64, 4
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_generate(cfg, dec, smi):
+    """``generate_scan`` against ``generate``, an early eos exit, and
+    ``beam_search``, at full width in bf16.  Returns the counts of the
+    scan's run (no hand-written kernel: the contiguous decoder)."""
+    V = cfg["vocab_size"]
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(0, V, (SCAN_BATCH, SCAN_PROMPT))
+    dec.generate_scan(prompt, 4)                    # warm-up
+    dec.generate(prompt, 4, temperature=0)
+    _kernel_launches(reset=True)
+    # the syncs counted in one run (sync debug mode slows every launch),
+    # the rates timed in two more, scan and generate in turns
+    with _SyncCounter() as sc:
+        scan = dec.generate_scan(prompt, SCAN_TOKENS)
+    launches = _kernel_launches()
+    syncs = len(sc.warned())
+    _, t_scan = _timed(lambda: dec.generate_scan(prompt, SCAN_TOKENS))
+    ref, t_gen = _timed(lambda: dec.generate(prompt, SCAN_TOKENS,
+                                             temperature=0))
+    if not np.array_equal(scan, ref):
+        bad = np.argwhere(scan != ref)[0]
+        raise AssertionError(f"generate_scan differs from generate at "
+                             f"{tuple(bad)}")
+    if dec.last_scan_syncs != 1 or syncs > 4:
+        raise AssertionError(f"generate_scan: {dec.last_scan_syncs} reads "
+                             f"of the device, {syncs} synchronising calls")
+    n = SCAN_BATCH * SCAN_TOKENS
+    # eos: every row the same prompt, so every row ends together on the
+    # first token the greedy run emits for the first time at position 5
+    # or later, and the loop stops at its next check
+    same = np.repeat(prompt[:1], SCAN_BATCH, axis=0)
+    free = dec.generate_scan(same, SCAN_TOKENS)
+    j = next((j for j in range(5, SCAN_TOKENS)
+              if free[0, j] not in free[0, :j]), 5)
+    eos = int(free[0, j])
+    cut = int(np.argmax(free[0] == eos)) + 1
+    with _SyncCounter() as sc:
+        eos_out, t_eos = _timed(lambda: dec.generate_scan(
+            same, SCAN_TOKENS, eos_id=eos))
+    if not (np.array_equal(eos_out[:, :cut], free[:, :cut])
+            and (eos_out[:, cut:] == eos).all()):
+        raise AssertionError("eos run is not the free run eos-padded")
+    if dec.last_scan_syncs > 1 + -(-cut // 16) + 1:
+        raise AssertionError(f"eos run read the device "
+                             f"{dec.last_scan_syncs} times")
+    # beam search: beam 1 is greedy (up to an exact tie of bf16 logits,
+    # which numpy's argpartition and argmax may break apart), scores
+    # sorted best-first
+    bprompt = rng.integers(0, V, (BEAM_BATCH, BEAM_PROMPT))
+    b1, _ = dec.beam_search(bprompt, BEAM_TOKENS, beam_size=1)
+    greedy = dec.generate(bprompt, BEAM_TOKENS, temperature=0)
+    ties = 0
+    for r in range(BEAM_BATCH):
+        diff = np.flatnonzero(b1[r, 0] != greedy[r])
+        if diff.size:
+            # the greedy run's own logits at the first difference
+            j = int(diff[0])
+            st, lg = dec.prefill(bprompt)
+            lg = lg[:, -1]
+            for i in range(j):
+                st, lg = dec.step(st, greedy[:, i])
+            lg = lg[r].float().cpu().numpy()
+            if lg[b1[r, 0, j]] != lg[greedy[r, j]]:
+                raise AssertionError(f"beam_search(beam_size=1) row {r} "
+                                     f"leaves greedy at {j} without a tie")
+            ties += 1
+    (beams, scores), t_beam = _timed(lambda: dec.beam_search(
+        bprompt, BEAM_TOKENS, beam_size=BEAM_SIZE))
+    if beams.shape != (BEAM_BATCH, BEAM_SIZE, BEAM_TOKENS) or not (
+            np.diff(scores, axis=1) <= 1e-6).all() \
+            or not np.isfinite(scores).all():
+        raise AssertionError(f"beam_search: {beams.shape} {scores}")
+    out = {"scan_tokens_per_s": n / t_scan, "generate_tokens_per_s":
+           n / t_gen, "scan_syncs": syncs, "scan_reads": 1,
+           "eos_cut": cut, "eos_ms": t_eos * 1e3, "eos_reads":
+           dec.last_scan_syncs, "eos_syncs": len(sc.warned()),
+           "scan_ms": t_scan * 1e3, "beam_ms": t_beam * 1e3,
+           "beam_tokens_per_s": BEAM_BATCH * BEAM_SIZE * BEAM_TOKENS / t_beam,
+           "beam1_ties": ties, "launches": launches}
+    log(f"[generate] generate_scan batch {SCAN_BATCH} x {SCAN_TOKENS} new "
+        f"tokens: {n / t_scan:.1f} tok/s ({t_scan * 1e3:.1f} ms, "
+        f"{syncs} synchronising calls, 1 read of the tokens) against "
+        f"generate's {n / t_gen:.1f} tok/s ({t_gen * 1e3:.1f} ms), "
+        f"token-equal; eos at position {cut}: {t_eos * 1e3:.1f} ms, "
+        f"{dec.last_scan_syncs} reads; beam_search {BEAM_BATCH} x "
+        f"{BEAM_SIZE} beams x {BEAM_TOKENS}: {t_beam * 1e3:.1f} ms, best "
+        f"scores {scores[:, 0].round(3).tolist()}; {smi}")
+    log(f"[generate] {json.dumps(out)}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 29
+ROUTER_REQUESTS, ROUTER_TOKENS, ROUTER_KILL_WAVE, ROUTER_BURST = 64, 16, 32, 8
+ROUTER_LATENCY_CALLS = 16
+
+
+def _latencies(ports, prompt, n):
+    """ms of ``n`` sequential small requests to each port, in turns."""
+    out = {port: [] for port in ports}
+    for _ in range(n):
+        for port in ports:
+            t0 = time.perf_counter()
+            st, body = _post(port, {"prompt": prompt, "max_tokens": 4,
+                                    "temperature": 0})
+            out[port].append((time.perf_counter() - t0) * 1e3)
+            if st != 200 or body.get("outcome") != "ok":
+                raise AssertionError(f"latency probe: HTTP {st} {body}")
+    return [np.array(out[port]) for port in ports]
+
+
+def phase_router(cfg, params, smi):
+    """Two full-width bf16 replicas on the card behind the router.
+    Returns the main path's launches by kernel."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.serving import (ReplicaRouter, serve_decoder,
+                                         start_router)
+
+    V, L = cfg["vocab_size"], cfg["num_layers"]
+    tm.enable()
+    reps = []
+    for _ in range(2):
+        dec = KVDecoder(params, num_layers=L, num_heads=cfg["num_heads"],
+                        max_len=MAX_LEN, dtype=torch.bfloat16)
+        server, sched = serve_decoder(dec, num_slots=SLOTS, paged=True,
+                                      kv_block=BLOCK, queue_size=64)
+        if sched.backend.kernel != "cuda":
+            raise AssertionError(f"replica picked {sched.backend.kernel!r}")
+        reps.append((dec, server, sched,
+                     "127.0.0.1:%d" % server.server_address[1]))
+    addrs = [r[3] for r in reps]
+    router = ReplicaRouter(replicas=addrs, scrape_s=1.0, retries=2)
+    rsrv = start_router(router, port=0)
+    rport = rsrv.server_address[1]
+    ref_server = ref_sched = None
+    try:
+        for r in reps:
+            _serve_burst(int(r[3].rsplit(":", 1)[1]), [[1, 2, 3]], 2)
+        rng = np.random.default_rng(14)
+        prompts = [rng.integers(0, V, int(n)).tolist()
+                   for n in rng.integers(16, 201, ROUTER_REQUESTS
+                                         + ROUTER_KILL_WAVE + ROUTER_BURST)]
+        wave1 = prompts[:ROUTER_REQUESTS]
+        wave2 = prompts[ROUTER_REQUESTS:ROUTER_REQUESTS + ROUTER_KILL_WAVE]
+        burst = prompts[ROUTER_REQUESTS + ROUTER_KILL_WAVE:]
+        ticks0 = [r[2].stats["ticks"] for r in reps]
+        retries = tm.get_registry().get("router_retries_total")
+        r0 = retries.total()
+        used = {}
+
+        def routed(p):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{rport}/generate",
+                data=json.dumps({"prompt": p, "max_tokens": ROUTER_TOKENS,
+                                 "temperature": 0}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                body = json.loads(resp.read())
+                return resp.status, body, resp.headers["X-MXTPU-Replica"]
+
+        # the main path's run: every kernel count starts at 0 here
+        _kernel_launches(reset=True)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(32) as ex:
+            out1 = list(ex.map(routed, wave1))
+        wall1 = time.perf_counter() - t0
+        for st, body, addr in out1:
+            used[addr] = used.get(addr, 0) + 1
+        if set(used) != set(addrs):
+            raise AssertionError(f"load not spread: {used}")
+        # a drain and an undrain of replica 1
+        router.drain(addrs[1])
+        drained = [routed(p)[2] for p in wave1[:4]]
+        router.undrain(addrs[1])
+        router.scrape_once()
+        if set(drained) != {addrs[0]}:
+            raise AssertionError(f"drained replica served: {drained}")
+        # one replica shut down mid-traffic, as SIGTERM shuts a replica
+        # down: the replica the router's cached loads pick next stops
+        # admitting, a burst is sent before the next scrape can see it
+        # draining (its 503s re-route), its in-flight requests finish,
+        # then its listener closes (once the router's cache has it
+        # draining, so nothing is sent to a closing socket)
+        victim, burst_out = [], []
+
+        def kill():
+            deadline = time.monotonic() + 300
+            while len(done2) < 4 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            k = addrs.index(router.pick())
+            victim.append(k)
+            reps[k][2].drain()
+            with ThreadPoolExecutor(ROUTER_BURST) as ex:
+                burst_out.extend(ex.map(routed, burst))
+            deadline = time.monotonic() + 300
+            while not reps[k][2].drained and time.monotonic() < deadline:
+                time.sleep(0.01)
+            router.scrape_once()
+            reps[k][1].shutdown()
+            reps[k][1].server_close()
+
+        done2 = []
+
+        def routed2(p):
+            out = routed(p)
+            done2.append(out)
+            return out
+
+        killer = threading.Thread(target=kill)
+        killer.start()
+        with ThreadPoolExecutor(8) as ex:
+            out2 = list(ex.map(routed2, wave2))
+        killer.join()
+        launches = _kernel_launches()
+        per_replica = [r[2].stats["ticks"] - t for r, t in zip(reps, ticks0)]
+        retried = retries.total() - r0
+        if not victim or len(burst_out) != ROUTER_BURST:
+            raise AssertionError("the shutdown did not run")
+        outs = out1 + out2 + burst_out
+        for st, body, addr in outs:
+            if st != 200 or body.get("outcome") != "ok" \
+                    or body.get("n_tokens") != ROUTER_TOKENS:
+                raise AssertionError(f"routed request: {st} {body}")
+        if retried < 1:
+            raise AssertionError("no request re-routed after the shutdown")
+        if launches["paged_attention"] < sum(per_replica) * L:
+            raise AssertionError(f"{launches} launches for "
+                                 f"{per_replica} ticks x {L} layers")
+        # every answer against a reference scheduler on the same weights
+        # (same slots, buckets and kernel; prompts share no prefix block)
+        ref_server, ref_sched = serve_decoder(
+            reps[1][0], num_slots=SLOTS, paged=True, kv_block=BLOCK,
+            queue_size=128)
+        ref = _serve_burst(ref_server.server_address[1], prompts,
+                           ROUTER_TOKENS, workers=32)
+        mism = [i for i, ((_, body, _), (_, rb)) in
+                enumerate(zip(outs, ref))
+                if body["tokens"] != rb["tokens"]]
+        if mism:
+            raise AssertionError(f"{len(mism)} routed answers differ from "
+                                 f"the reference, first {mism[:5]}")
+        # router-added latency: the same small request direct and routed
+        live = int(addrs[1 - victim[0]].rsplit(":", 1)[1])
+        router.scrape_once()
+        direct, via = _latencies((live, rport), [5, 6, 7],
+                                 ROUTER_LATENCY_CALLS)
+        slo = router.slo.snapshot()
+    finally:
+        rsrv.shutdown()
+        rsrv.server_close()
+        router.stop()
+        for dec, server, sched, _ in reps:
+            server.shutdown()
+            server.server_close()
+            sched.close()
+        if ref_server is not None:
+            ref_server.shutdown()
+            ref_server.server_close()
+            ref_sched.close()
+    n_tok = len(wave1) * ROUTER_TOKENS
+    out = {"requests": len(prompts), "by_replica_wave1": used,
+           "shut_down": addrs[victim[0]],
+           "tokens_per_s_wave1": n_tok / wall1, "retries": retried,
+           "ticks_by_replica": per_replica,
+           "launches_by_replica": [t * L for t in per_replica],
+           "direct_p50_ms": float(np.percentile(direct, 50)),
+           "direct_p99_ms": float(np.percentile(direct, 99)),
+           "routed_p50_ms": float(np.percentile(via, 50)),
+           "routed_p99_ms": float(np.percentile(via, 99)),
+           "slo_60s": slo["windows"]["60s"], "launches": launches}
+    out["router_added_p50_ms"] = out["routed_p50_ms"] - out["direct_p50_ms"]
+    out["router_added_p99_ms"] = out["routed_p99_ms"] - out["direct_p99_ms"]
+    log(f"[router] {len(prompts)}/{len(prompts)} ok and equal to the "
+        f"reference; wave 1 ({len(wave1)} requests) {n_tok / wall1:.1f} "
+        f"tok/s spread {used}; replica {victim[0]} shut down mid-wave-2: "
+        f"{retried:.0f} re-routes counted; ticks by replica {per_replica} (paged kernel "
+        f"launches {[t * L for t in per_replica]}, total "
+        f"{launches['paged_attention']}); router-added latency p50 "
+        f"{out['router_added_p50_ms']:.2f} ms p99 "
+        f"{out['router_added_p99_ms']:.2f} ms (direct p50 "
+        f"{out['direct_p50_ms']:.2f} ms); {smi}")
+    log(f"[router] {json.dumps(out)}")
+    del reps
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 30
+def phase_predict_int8(smi):
+    """ResNet-50 inference with int8 weights through the Predictor.
+    Returns the main path's launches by kernel."""
+    from mxnet_tpu_torch.predict import Predictor
+
+    net, arg, aux = _resnet50()
+    x = np.random.default_rng(3).normal(
+        size=(PREDICT_BATCH, 3, 224, 224)).astype(np.float32)
+    shapes = {"data": (PREDICT_BATCH, 3, 224, 224)}
+
+    def build(**kw):
+        return Predictor(symbol=net, arg_params=arg, aux_params=aux,
+                         input_shapes=shapes, **kw)
+
+    preds = {"fp32": build(), "bf16": build(dtype="bfloat16"),
+             "int8": build(quantize="int8"),
+             "int8_env": _with_env({"MXTPU_PREDICT_INT8": "1"}, build)}
+    if preds["int8_env"]._quantize != "int8":
+        raise AssertionError("MXTPU_PREDICT_INT8=1 did not quantize")
+    q = preds["int8"]._qparams
+    qbytes = sum(t.q.numel() + 4 * t.scale.numel() for t in q.values())
+    fbytes = sum(4 * int(np.prod(preds["fp32"]._params[k].shape))
+                 for k in q)
+    outs = {}
+    for tag, p in preds.items():
+        for _ in range(3):                          # warm-up
+            p.forward(data=x)
+            outs[tag] = p.get_output(0)
+    # the kernel against the epilogues pinned to the plain version, both
+    # int8 (bit-identical arithmetic in fp32: 1e-6 relative, as in
+    # predict_parity)
+    pinned = _with_env({"MXTPU_PROGRAM_CACHE": "0"},
+                       lambda: build(quantize="int8"))
+    for node in pinned._exec._exec_symbol.nodes:
+        if node.op == "_residual_epilogue_bn":
+            node.attrs["impl"] = "lax"
+    pinned.forward(data=x)
+    pin_err = _rel_err(torch.from_numpy(outs["int8"]),
+                       torch.from_numpy(pinned.get_output(0)))
+    del pinned
+    if not pin_err <= 1e-6:
+        raise AssertionError(f"int8 kernel vs pinned plain: {pin_err}")
+    # the main path's run: every kernel count starts at 0 here
+    _kernel_launches(reset=True)
+    timed = {}
+    for tag in ("fp32", "bf16", "int8", "int8_env"):
+        p = preds[tag]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_CALLS):
+            p.forward(data=x)
+            out = p.get_output(0)
+        timed[tag] = PREDICT_BATCH * PREDICT_CALLS / (time.perf_counter()
+                                                      - t0)
+        if out.shape != (PREDICT_BATCH, 1000) or not np.isfinite(out).all():
+            raise AssertionError(f"{tag}: output {out.shape} not finite")
+    launches = _kernel_launches()
+    if launches["residual_epilogue"] != 4 * 4 * PREDICT_CALLS:
+        raise AssertionError(f"{launches} in {4 * PREDICT_CALLS} forwards; "
+                             "want 4 epilogue launches each")
+    top1 = float((outs["int8"].argmax(1) == outs["fp32"].argmax(1)).mean())
+    env_eq = bool(np.array_equal(outs["int8"], outs["int8_env"]))
+    # output_index and partial_forward, once each
+    cut = build(quantize="int8", output_index="fc1_output")
+    cut.forward(data=x)
+    logits = cut.get_output(0)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    cut_err = float(np.abs(e / e.sum(1, keepdims=True) - outs["int8"]).max())
+    names = preds["fp32"].symbol.get_internals().list_outputs()
+    part = preds["int8"].partial_forward(names.index("fc1_output"))[0]
+    fp_cut = build(output_index="fc1_output")
+    fp_cut.forward(data=x)
+    part_err = _rel_err(torch.from_numpy(part),
+                        torch.from_numpy(fp_cut.get_output(0)))
+    del cut, fp_cut
+    # a 4-deep forward_async pipeline against forward
+    xs = [np.random.default_rng(30 + i).normal(size=x.shape)
+          .astype(np.float32) for i in range(4)]
+    p8 = preds["int8"]
+    want = []
+    for xi in xs:
+        p8.forward(data=xi)
+        want.append(p8.get_output(0))
+    tickets = [p8.forward_async(data=xi) for xi in xs]
+    async_err = max(float(np.abs(p8.get_async(t) - w).max())
+                    for t, w in zip(tickets, want))
+    if not (cut_err <= 1e-5 and part_err <= 1e-4 and async_err <= 1e-5
+            and env_eq):
+        raise AssertionError(f"output_index {cut_err}, partial_forward "
+                             f"{part_err}, forward_async {async_err}, env "
+                             f"route equal {env_eq}")
+    out = {"imgs_per_s": timed, "top1_agreement_with_fp32": top1,
+           "int8_weight_bytes": qbytes, "fp32_weight_bytes": fbytes,
+           "kernel_vs_pinned": pin_err, "output_index_err": cut_err,
+           "partial_forward_rel_err": part_err,
+           "forward_async_err": async_err, "launches": launches}
+    log(f"[predict_int8] ResNet-50 b{PREDICT_BATCH} images/s over "
+        f"{PREDICT_CALLS} calls: fp32 {timed['fp32']:.2f}, bf16 "
+        f"{timed['bf16']:.2f}, int8 {timed['int8']:.2f}, int8 by "
+        f"MXTPU_PREDICT_INT8 {timed['int8_env']:.2f}; top-1 agreement with "
+        f"fp32 {top1:.4f}; quantized weights {qbytes / 1e6:.2f} MB against "
+        f"{fbytes / 1e6:.2f} MB fp32; epilogue kernel vs pinned plain "
+        f"{pin_err:.3g} (tol 1e-6), {launches['residual_epilogue']} "
+        f"launches; output_index {cut_err:.3g}, partial_forward "
+        f"{part_err:.3g}, forward_async x4 {async_err:.3g}; {smi}")
+    log(f"[predict_int8] {json.dumps(out)}")
+    del preds, p8
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -6067,7 +6625,6 @@ def main():
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
     phase_parity(cfg, params)
-    del params
     flash_launches, train = phase_train()
     # recompute runs the same cell: next to it, before the image phases
     # fill the allocator's cache
@@ -6128,6 +6685,24 @@ def main():
         raise AssertionError(f"phases 19-20 launched {sparse_launches}")
     survival = phase_survival(smi)
     phase_kill_resume(smi)
+    # slice 13: int8 serving, the generation loops, the router, int8
+    # inference; each phase reads its own main path's counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice13 = {}
+    slice13["serve_int8"], dec16 = phase_serve_int8(cfg, params, smi)
+    slice13["generate"] = phase_generate(cfg, dec16, smi)
+    del dec16
+    slice13["router"] = phase_router(cfg, params, smi)
+    del params
+    slice13["predict_int8"] = phase_predict_int8(smi)
+    for tag, want in (("serve_int8", "paged_attention"),
+                      ("router", "paged_attention"),
+                      ("predict_int8", "residual_epilogue")):
+        if not slice13[tag][want]:
+            raise AssertionError(f"{tag}: {want} never launched")
+    log(f"[slice13] hand-written kernel launches by phase: "
+        f"{json.dumps(slice13)}")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -6181,6 +6756,8 @@ def main():
         rec["launches_feedforward"] = ff_launches[rec["name"]]
         rec["launches_custom_op"] = custom_launches[rec["name"]]
         rec["launches_profiler"] = prof_launches[rec["name"]]
+        for tag, counts in slice13.items():
+            rec[f"launches_{tag}"] = counts[rec["name"]]
     for rec in records[1:4]:
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()

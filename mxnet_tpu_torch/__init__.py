@@ -50,9 +50,8 @@ and MXNet's classic top-level surface — ``Context`` (``cpu_pinned``,
 ``resource``, ``operator`` with the ``Custom`` op, ``profiler`` (host
 spans and a ``torch.profiler`` device trace), ``faults``
 (``MXTPU_FAULT_PLAN``), ``executor_manager``, ``model.FeedForward``,
-``visualization`` and ``test_utils``.  The reference's top-level names
-not exported yet are ``kvstore_server`` and ``AttrScope`` (ROADMAP Queue
-1 item 10).
+``visualization`` and ``test_utils``.  The reference's top-level name
+not exported yet is ``kvstore_server`` (ROADMAP Queue 1 item 10).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -72,7 +71,7 @@ from .initializer import (Initializer, Load, Mixed, MSRAPrelu,  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_devices, resolve_device, tpu)
-from .base import NameManager  # noqa: F401
+from .base import AttrScope, NameManager  # noqa: F401
 from . import engine, ops, random  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 from . import sparse  # noqa: F401

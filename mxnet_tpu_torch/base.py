@@ -138,3 +138,46 @@ _NAME_MANAGER = NameManager()
 
 def current_name_manager() -> NameManager:
     return _NAME_MANAGER
+
+
+class AttrScope:
+    """Scoped symbol attributes (mirrors ``mxnet_tpu.base.AttrScope``):
+    inside ``with AttrScope(ctx_group="dev1"):`` every new Variable and
+    op node gets the scope's attrs (as strings), merged under the attrs
+    the call itself passes; nested scopes merge outer then inner.
+    Placing nodes by ``ctx_group`` (``group2ctx``) needs several cards
+    (ROADMAP Queue 1 item 10)."""
+
+    _current = None
+
+    def __init__(self, **kwargs):
+        self._attr = {k: str(v) for k, v in kwargs.items()}
+
+    def get(self, attr):
+        merged = dict(self._attr)
+        if attr:
+            merged.update(attr)
+        return merged
+
+    def __enter__(self):
+        self._old = AttrScope._current
+        if self._old is not None:
+            scope = AttrScope()
+            scope._attr = {**self._old._attr, **self._attr}
+            AttrScope._current = scope
+        else:
+            AttrScope._current = self
+        return self
+
+    def __exit__(self, *exc):
+        AttrScope._current = self._old
+
+
+def current_attr_scope():
+    return AttrScope._current
+
+
+def scoped_attrs(attr):
+    """``attr`` merged over the current :class:`AttrScope`'s attrs."""
+    scope = AttrScope._current
+    return scope.get(attr) if scope else dict(attr or {})

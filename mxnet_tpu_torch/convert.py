@@ -35,12 +35,34 @@ def _to_tensor(value, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype).contiguous()
 
 
+def _quantized(value, dtype, device):
+    """A quantized weight of either package (anything with ``.q`` and
+    ``.scale``, e.g. the JAX package's ``quantize_params`` output) as the
+    port's ``QuantizedTensor`` on ``device``: ``q`` stays int8 and
+    ``scale`` fp32, bit for bit, never requantized."""
+    from .serving.quantize import QuantizedTensor
+
+    def tensor(a, np_dtype):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device)
+        return torch.from_numpy(np.array(a, np_dtype, order="C")).to(device)
+
+    return QuantizedTensor(tensor(value.q, np.int8),
+                           tensor(value.scale, np.float32), dtype=dtype,
+                           axis=getattr(value, "axis", 0))
+
+
 def from_jax_params(arg_params, dtype=torch.float32, device=None):
     """``{name: value}`` -> ``{name: tensor}`` in ``dtype`` on ``device``
-    (default: the card; pass ``device="cpu"`` for the host)."""
+    (default: the card; pass ``device="cpu"`` for the host).  A quantized
+    value (``.q`` and ``.scale``) comes across as a ``QuantizedTensor``
+    dequantizing to ``dtype``."""
     dtype = torch_dtype(dtype)
     device = resolve_device(device)
-    return {k: _to_tensor(v, dtype, device) for k, v in arg_params.items()}
+    return {k: (_quantized(v, dtype, device)
+                if hasattr(v, "q") and hasattr(v, "scale")
+                else _to_tensor(v, dtype, device))
+            for k, v in arg_params.items()}
 
 
 def load_trainer_params(trainer, arg_params, aux_params=None):

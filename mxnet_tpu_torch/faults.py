@@ -24,7 +24,10 @@ counts in ``fault_injected_total{site,mode}``.
 Sites wired in the port: ``kv_push`` and ``kv_pull`` (``KVStore.push``/
 ``pull``, the bucketed update included), ``ckpt_write`` (the checkpoint
 writer: no manifest is published) and ``serve_admit`` (a serving
-admission: the request fails, the engine serves on).  The reference's
+admission: the request fails, the engine serves on), ``replica_kill``
+(a serving engine tick: ``crash_after`` kills the replica mid-decode)
+and ``serve_slow`` (a serving engine tick: ``drop`` parks the engine
+thread for :func:`fault_slow_s` seconds).  The reference's
 other sites belong to modules not ported yet; a site no code fires, or
 one a plan does not name, never fires.  The reference attaches a
 flight-record dump to an injected error; the health plane that writes
@@ -41,7 +44,7 @@ from . import telemetry as _tm
 from .base import MXNetError
 
 __all__ = ["InjectedFault", "plan", "active", "fire", "maybe_fail",
-           "should_drop", "reset"]
+           "should_drop", "reset", "fault_slow_s"]
 
 _logger = logging.getLogger("mxnet_tpu_torch.faults")
 
@@ -119,6 +122,16 @@ def plan() -> dict:
             _state["rng"] = random.Random(
                 int(os.environ.get("MXTPU_FAULT_SEED", "0") or 0))
         return _state["plan"]
+
+
+def fault_slow_s() -> float:
+    """``MXTPU_FAULT_SLOW_S`` — seconds a slow-fault site parks its
+    thread (default 0.05); the reader of ``mxnet_tpu/telemetry/
+    health.py``'s ``_fault_slow_s``."""
+    try:
+        return max(float(os.environ.get("MXTPU_FAULT_SLOW_S", "0.05")), 0.0)
+    except ValueError:
+        return 0.05
 
 
 def active() -> bool:

@@ -20,8 +20,14 @@ Three differences from the JAX decoder, all deliberate:
   on every path; in fp32 that is the JAX math exactly, in bf16 it skips
   the JAX math's intermediate bf16 roundings.
 
-Not ported yet: ``generate_scan``, ``beam_search``, ``mesh=`` tensor
-parallelism and ``quantize="int8"`` (the last two raise).
+``quantize="int8"`` keeps every ``*weight`` matrix as int8 + per-row
+fp32 scales on the device (``serving/quantize.py``) and dequantizes it
+where it is consumed, inside each step; the embedding table is read
+row by row (:meth:`KVDecoder._embed`), so a step never dequantizes the
+whole table.  ``generate_scan`` runs its token loop on the device with
+no host sync per token; ``beam_search`` keeps the reference's host
+bookkeeping.  Not ported yet: ``mesh=`` tensor parallelism (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -34,9 +40,14 @@ from ..context import resolve_device
 from ..convert import from_jax_params
 from ..ops import paged_attention as _pa
 
-__all__ = ["KVDecoder", "NEG_INF"]
+__all__ = ["KVDecoder", "NEG_INF", "SCAN_EOS_CHECK"]
 
 NEG_INF = -1e30
+
+# generate_scan with an eos_id reads ``done.all()`` back to the host
+# every SCAN_EOS_CHECK tokens (one sync each) to exit early; finished
+# rows are eos-frozen, so the output equals a per-token test's
+SCAN_EOS_CHECK = 16
 
 
 def _snap(x, device, dtype=np.int32):
@@ -55,6 +66,28 @@ def _ln(x, g, b, eps=1e-5):
     m = x.mean(-1, keepdim=True)
     v = ((x - m) ** 2).mean(-1, keepdim=True)
     return (x - m) * torch.rsqrt(v + eps) * g + b
+
+
+class _DequantView(dict):
+    """Param dict whose quantized entries dequantize on read (the JAX
+    package's ``_DequantView``): ``p[name]`` of an int8 weight is
+    ``q.to(dtype) * scale``, made where the step consumes it, so the
+    device keeps only the int8 storage between steps."""
+
+    def __getitem__(self, key):
+        v = dict.__getitem__(self, key)
+        return v.dequantize() if _quantized(v) else v
+
+
+def _quantized(v):
+    """Is ``v`` a ``QuantizedTensor`` (torch tensors have a
+    ``dequantize`` method of their own)?"""
+    return not isinstance(v, torch.Tensor) and hasattr(v, "dequantize")
+
+
+def _logsumexp(x):
+    m = x.max(-1, keepdims=True)
+    return m + np.log(np.exp(x - m).sum(-1, keepdims=True))
 
 
 def _fc(x, w, b=None):
@@ -78,19 +111,24 @@ class KVDecoder:
     def __init__(self, arg_params, num_layers, num_heads, max_len,
                  dtype=torch.float32, mesh=None, model_axis="model",
                  quantize=None, device=None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             "(supported: 'int8')")
+        if quantize == "int8" and mesh is not None:
+            raise ValueError(
+                "quantize='int8' is not supported together with a "
+                "tensor-parallel mesh (shard the fp weights instead)")
         if mesh is not None:
             raise MXNetError(
                 "KVDecoder(mesh=...) tensor-parallel serving is not ported "
-                "yet")
-        if quantize is not None:
-            raise MXNetError(
-                f"KVDecoder(quantize={quantize!r}) is not ported yet")
+                "yet (ROADMAP Queue 1 item 10)")
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
+        # every param in the compute dtype first: int8 scales are taken
+        # from the rounded weights, as in the JAX decoder
         p = from_jax_params(arg_params, self.dtype, self.device)
         self.mesh = None
         self.model_axis = model_axis
-        self.quantize = None
         self.L, self.H = int(num_layers), int(num_heads)
         self.max_len = int(max_len)
         self.d_model = p["tok_embed_weight"].shape[1]
@@ -101,7 +139,27 @@ class KVDecoder:
             raise ValueError(
                 f"checkpoint pos table {p['pos_embed'].shape[1]} < "
                 f"max_len {self.max_len}")
+        if quantize == "int8":
+            from ..serving.quantize import quantize_params
+
+            p = quantize_params(p, dtype=self.dtype, device=self.device)
+        if any(_quantized(v) for v in p.values()):
+            p = _DequantView(p)
+        self.quantize = quantize
         self.p = p
+        self.last_scan_syncs = 0
+
+    def weight_bytes(self) -> int:
+        """Bytes the parameters hold on the device (int8 payloads and
+        their fp32 scales for quantized weights)."""
+        total = 0
+        for v in dict.values(self.p):
+            if _quantized(v):
+                total += v.q.numel() * v.q.element_size() \
+                    + v.scale.numel() * v.scale.element_size()
+            else:
+                total += v.numel() * v.element_size()
+        return total
 
     # ---------------------------------------------------------------- core
     def _block_qkv(self, i, h2):
@@ -129,6 +187,13 @@ class KVDecoder:
         h = _ln(h, p["final_ln_gamma"], p["final_ln_beta"])
         return _fc(h, p["lm_head_weight"], p["lm_head_bias"])
 
+    def _embed(self, tokens):
+        """Token embeddings ``tok_embed_weight[tokens]``; an int8 table
+        is gathered row by row and only those rows are scaled."""
+        w = dict.__getitem__(self.p, "tok_embed_weight")
+        idx = tokens.long()
+        return w.rows(idx) if _quantized(w) else w[idx]
+
     def _heads(self, a, B, n):
         """``(B, n, D) -> (B, H, n, dh)``."""
         return a.reshape(B, n, self.H, self.dh).transpose(1, 2)
@@ -148,7 +213,7 @@ class KVDecoder:
         writing their K/V at ``pos .. pos+n-1`` in place."""
         p = self.p
         B = tokens.shape[0]
-        tok = p["tok_embed_weight"][tokens.long()]             # (B, n, D)
+        tok = self._embed(tokens)                               # (B, n, D)
         h = tok + p["pos_embed"][:, pos:pos + n]
         span = pos + torch.arange(n, device=self.device)
         mask = torch.arange(self.max_len, device=self.device)[None, :] \
@@ -215,7 +280,7 @@ class KVDecoder:
         along; their writes land where :meth:`adopt_row` overwrites."""
         p = self.p
         B = tokens.shape[0]
-        tok = p["tok_embed_weight"][tokens.long()]              # (B, D)
+        tok = self._embed(tokens)                               # (B, D)
         pos_ids = (cursor - start).clamp(0, self.max_len - 1).long()
         h = (tok + p["pos_embed"][0][pos_ids])[:, None]         # (B, 1, D)
         s_idx = torch.arange(self.max_len, device=self.device)
@@ -242,7 +307,7 @@ class KVDecoder:
         ``[start[b], n]``; pad queries attend to themselves only."""
         p = self.p
         B, T = tokens.shape
-        tok = p["tok_embed_weight"][tokens.long()]              # (B, T, D)
+        tok = self._embed(tokens)                               # (B, T, D)
         n_idx = torch.arange(T, device=self.device)
         pos_ids = (n_idx[None, :] - start[:, None]).clamp(
             0, self.max_len - 1).long()                         # (B, T)
@@ -356,9 +421,161 @@ class KVDecoder:
                 state, last = self.step(state, nxt)
         return np.stack(out, axis=1)
 
-    def generate_scan(self, *args, **kwargs):
-        raise MXNetError("KVDecoder.generate_scan is not ported yet "
-                         "(use generate)")
+    def generate_scan(self, prompt, n_tokens, temperature=0.0,
+                      top_k=None, seed=0, eos_id=None):
+        """:meth:`generate`, with the whole token loop on the device: the
+        picked tokens go into a device buffer that the host reads once,
+        at the end, and no token waits for the host.  Greedy when
+        ``temperature <= 0`` (token-for-token :meth:`generate`'s output);
+        otherwise categorical sampling (Gumbel-max over ``logits /
+        temperature``, the JAX package's ``jax.random.categorical``)
+        from a ``torch.Generator`` seeded with ``seed``, after an
+        optional ``top_k`` cut.
 
-    def beam_search(self, *args, **kwargs):
-        raise MXNetError("KVDecoder.beam_search is not ported yet")
+        With ``eos_id``, rows that emit it are eos-padded from then on
+        (``beam_search``'s convention) and the loop exits once every row
+        has finished.  That test reads ``done.all()`` on the host every
+        :data:`SCAN_EOS_CHECK` (16) tokens, one sync each; finished rows
+        are frozen, so the output is the same as with a test after every
+        token.  ``last_scan_syncs`` holds the host syncs of the last
+        call: 1, or 1 + ceil((n_tokens - 1) / 16) at most with
+        ``eos_id``."""
+        prompt, empty = self._check_generation_budget(prompt, n_tokens)
+        if empty is not None:
+            return empty
+        (kc, vc, pos), logits = self.prefill(prompt)
+        greedy = temperature <= 0
+        gen = None
+        if not greedy:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+
+        def pick(lg):
+            lg = lg.float()
+            if top_k:
+                kth = torch.topk(lg, int(top_k), dim=-1).values[:, -1:]
+                lg = lg.masked_fill(lg < kth, NEG_INF)
+            if greedy:
+                return lg.argmax(-1)
+            u = torch.rand(lg.shape, generator=gen, device=lg.device)
+            return (lg / temperature - torch.log(-torch.log(u))).argmax(-1)
+
+        B = prompt.shape[0]
+        syncs = 0
+        with torch.inference_mode():
+            toks = torch.empty((B, n_tokens), dtype=torch.int64,
+                               device=self.device)
+            tok = pick(logits[:, -1])
+            toks[:, 0] = tok
+            done = None if eos_id is None else tok == eos_id
+            for i in range(n_tokens - 1):
+                if done is not None and i % SCAN_EOS_CHECK == 0:
+                    syncs += 1
+                    if bool(done.all()):
+                        toks[:, i + 1:] = eos_id
+                        break
+                (kc, vc), lg = self._forward_positions(
+                    kc, vc, pos + i, tok[:, None], 1)
+                tok = pick(lg[:, 0])
+                if done is not None:
+                    tok = tok.masked_fill(done, eos_id)   # freeze finished
+                    done = done | (tok == eos_id)
+                toks[:, i + 1] = tok
+            out = toks.cpu().numpy()
+        self.last_scan_syncs = syncs + 1
+        return out
+
+    def beam_search(self, prompt, n_tokens, beam_size=4,
+                    length_penalty=0.0, eos_id=None):
+        """Beam decode: returns (tokens (B, beam, n_tokens),
+        scores (B, beam)) sorted best-first per batch row.
+
+        With ``eos_id`` set, beams that emit it stop accumulating score
+        (further positions are eos-padded) and ``length_penalty``
+        normalizes each beam's score by its OWN length^penalty.  Without
+        an eos every beam has equal length and the penalty only rescales
+        scores.
+
+        The cache runs at batch B*beam from the start (prompt rows
+        replicated); the beams' reorder is a row gather of the device
+        cache (skipped on the last step), and the bookkeeping
+        (log-probs, back-pointers) is the JAX package's host numpy,
+        operation for operation."""
+        prompt = np.asarray(prompt)
+        B, T = prompt.shape
+        if T + n_tokens > self.max_len:
+            raise ValueError(
+                f"prompt+n_tokens = {T + n_tokens} exceeds max_len "
+                f"{self.max_len}")
+        if beam_size > self.vocab:
+            raise ValueError(
+                f"beam_size {beam_size} > vocab {self.vocab}")
+        if n_tokens <= 0:
+            return (np.zeros((B, beam_size, 0), np.int64),
+                    np.zeros((B, beam_size), np.float32))
+        K = beam_size
+
+        def topk(mat, k):
+            part = np.argpartition(-mat, k - 1, axis=-1)[:, :k]
+            vals = np.take_along_axis(mat, part, axis=-1)
+            order = np.argsort(-vals, axis=-1)
+            return np.take_along_axis(part, order, axis=-1)
+
+        def host(x):
+            return x.float().cpu().numpy()
+
+        state, logits = self.prefill(np.repeat(prompt, K, axis=0))
+        last = host(logits[:, -1])                       # (B*K, V)
+        V = last.shape[-1]
+        logp = last - _logsumexp(last)
+        # first expansion: distinct top-K continuations per batch row
+        first = logp.reshape(B, K, V)[:, 0]              # replicas identical
+        top = topk(first, K)                             # (B, K)
+        scores = np.take_along_axis(first, top, axis=-1)  # (B, K)
+        seqs = top[:, :, None]                           # (B, K, 1)
+        finished = (top == eos_id) if eos_id is not None \
+            else np.zeros((B, K), bool)
+        lengths = np.ones((B, K), np.int64)
+        nxt = top.reshape(-1)
+        for i in range(1, n_tokens):
+            if finished.all():
+                pad = np.full((B, K, n_tokens - i), eos_id, np.int64)
+                seqs = np.concatenate([seqs, pad], axis=2)
+                break
+            state, lg = self.step(state, nxt)
+            logp = host(lg)
+            logp = (logp - _logsumexp(logp)).reshape(B, K, V)
+            cand = scores[:, :, None] + logp             # (B, K, V)
+            if eos_id is not None:
+                # a finished beam contributes exactly one candidate:
+                # itself, eos-padded, score frozen
+                cand[finished] = NEG_INF
+                cand[finished, eos_id] = scores[finished]
+            flat = cand.reshape(B, K * V)
+            top = topk(flat, K)                          # (B, K)
+            beam_idx, tok = top // V, top % V
+            scores = np.take_along_axis(flat, top, axis=-1)
+            seqs = np.concatenate(
+                [np.take_along_axis(seqs, beam_idx[:, :, None], axis=1),
+                 tok[:, :, None]], axis=2)
+            parent_fin = np.take_along_axis(finished, beam_idx, axis=-1)
+            lengths = np.take_along_axis(lengths, beam_idx, axis=-1) \
+                + (~parent_fin)
+            if eos_id is not None:
+                finished = parent_fin | (tok == eos_id)
+            nxt = tok.reshape(-1)
+            if i + 1 < n_tokens and not finished.all():
+                # follow the survivors on the device cache (skipped on
+                # the last step — nothing consumes it)
+                rows = torch.as_tensor(
+                    (np.arange(B)[:, None] * K + beam_idx).reshape(-1),
+                    device=self.device)
+                kc, vc, pos = state
+                with torch.inference_mode():
+                    state = (kc[:, rows], vc[:, rows], pos)
+        if length_penalty:
+            scores = scores / (lengths.astype(np.float32)
+                               ** length_penalty)
+        order = np.argsort(-scores, axis=-1)
+        return (np.take_along_axis(seqs, order[:, :, None], axis=1),
+                np.take_along_axis(scores, order, axis=-1))

@@ -19,8 +19,11 @@ live:
   serving step also calls it on the card when ``MXTPU_PAGED_KERNEL``
   pins the gather path.
 
-The JAX package's ``pagewalk`` lowering and its autotuner schedules are
-not ported.
+A third lowering, :func:`_pagewalk_attention` (the JAX package's
+``_pagewalk_attention``), is plain tensor code that reads only the pages
+some slot's cursor has reached; the serving step takes it under
+``MXTPU_PAGED_KERNEL=pagewalk``.  The JAX package's autotuner schedules
+are not ported (ROADMAP Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -163,6 +166,24 @@ def _gather_attention(q, pool_k, pool_v, bt, cursor, layer, block):
     S = kc.shape[2]
     valid = torch.arange(S, device=q.device)[None, :] <= cursor[:, None]
     return _attend(q, kc, vc, valid[:, None, None, :])
+
+
+def _pagewalk_attention(q, pool_k, pool_v, bt, cursor, layer, block,
+                        n_live):
+    """The live-page walk: the first ``n_live`` pages of every slot's
+    table (the pages the largest cursor has reached, a host int the
+    caller knows without reading the device), then :func:`_attend` over
+    ``[0, cursor[b]]``.  The same values as the gather path, which
+    attends over all ``M * block`` positions with the dead ones masked
+    to exact zeros."""
+    B, H, _n, dh = q.shape
+    m = max(1, min(int(n_live), bt.shape[1]))
+    pgs = bt[:, :m].long()
+    k = pool_k[pgs, layer].permute(0, 2, 1, 3, 4).reshape(B, H, m * block, dh)
+    v = pool_v[pgs, layer].permute(0, 2, 1, 3, 4).reshape(B, H, m * block, dh)
+    valid = torch.arange(m * block, device=q.device)[None, :] \
+        <= cursor[:, None]
+    return _attend(q, k, v, valid[:, None, None, :])
 
 
 # ------------------------------------------------------------------ CUDA

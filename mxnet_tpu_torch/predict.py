@@ -13,13 +13,17 @@ A deployment loads a checkpoint: :func:`create` reads the
 ``param_bytes=`` takes the bytes of such a ``.params`` file (npz, or the
 reference's ``0x112`` binary), as the C ABI's ``MXPredCreate`` does.
 
-Not ported yet, each raising "not ported yet": ``output_index``
-(``get_internals``), ``quantize="int8"``, ``forward_async``/
-``get_async`` and ``partial_forward``.
+``output_index`` cuts the graph at internal outputs and
+``partial_forward`` runs it up to one (``MXPredCreatePartialOut`` /
+``MXPredPartialForward``); ``quantize="int8"`` keeps the matmul and conv
+weights as int8 + per-channel scales on the device
+(``serving/quantize.py``); ``forward_async``/``get_async`` pipeline
+forwards against their copy-outs.
 """
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -31,9 +35,30 @@ from .context import gpu, resolve_device
 __all__ = ["Predictor", "create"]
 
 
-def _not_ported(what, item="11"):
-    return MXNetError(f"Predictor {what} is not ported yet (ROADMAP Queue 1 "
-                      f"item {item})")
+# forward_async tickets kept before the oldest is evicted (a pipelined
+# client holds a handful; an abandoned ticket must not pin device memory)
+MAX_IN_FLIGHT = 64
+
+
+def _cut(symbol, output_index):
+    """``symbol`` cut at internal outputs: ``output_index`` is an index
+    or a name of ``get_internals()``'s outputs, or a list of them."""
+    internals = symbol.get_internals()
+    names = internals.list_outputs()
+    picked = []
+    for sel in (output_index if isinstance(output_index, (list, tuple))
+                else [output_index]):
+        if isinstance(sel, str):
+            if sel not in names:
+                raise MXNetError(f"unknown output {sel!r}; internals: "
+                                 f"{names}")
+            picked.append(internals[names.index(sel)])
+        elif isinstance(sel, int):
+            picked.append(internals[sel])
+        else:
+            raise MXNetError(
+                f"output_index entries must be int or str, got {sel!r}")
+    return picked[0] if len(picked) == 1 else sym_mod.Group(picked)
 
 
 def _device(dev_type, dev_id):
@@ -66,7 +91,18 @@ class Predictor:
     not given): fp32 params, aux states and inputs are cast to bf16 —
     the weights once here, the inputs on the device after upload — and
     the outputs are cast back to fp32.  ``dev_type`` defaults to the card (the JAX
-    Predictor defaults to the CPU); ``"cpu"`` runs on the host."""
+    Predictor defaults to the CPU); ``"cpu"`` runs on the host.
+
+    ``quantize="int8"`` (or ``MXTPU_PREDICT_INT8=1``): after the fold,
+    every float 2-D or 4-D ``*weight`` is quantized per output channel
+    (``serving.quantize.quantize_per_channel``, from the folded fp32
+    values); the device keeps the int8 payload and its fp32 scales, and
+    each forward dequantizes them in the compute dtype
+    (``q.to(dtype) * scale``) for the convolutions and matmuls.  The
+    fp32 copies of those weights move to the host (``reshape`` and
+    ``partial_forward`` read them).  ``output_index`` cuts the graph at
+    ``get_internals()`` outputs (an index, a name, or a list), before
+    the fold."""
 
     def __init__(self, symbol_json_str=None, param_bytes=None,
                  input_shapes=None, dev_type=None, dev_id=0, symbol=None,
@@ -75,17 +111,20 @@ class Predictor:
         from .executor import simple_bind
         from .passes import apply_convbn_fold
 
-        if output_index is not None:
-            raise _not_ported("output_index (it needs get_internals)", "3")
         if quantize is None and os.environ.get(
                 "MXTPU_PREDICT_INT8", "0").lower() not in ("", "0", "false"):
             quantize = "int8"
-        if quantize is not None:
-            raise _not_ported(f"quantize={quantize!r}")
+        if quantize not in (None, "int8"):
+            raise MXNetError(f"unknown quantize mode {quantize!r} "
+                             "(supported: 'int8')")
         if symbol is None:
             if symbol_json_str is None:
                 raise MXNetError("need symbol or symbol_json_str")
             symbol = sym_mod.load_json(symbol_json_str)
+        if output_index is not None:
+            # the cut comes before the Conv+BN fold, as in the reference:
+            # the names and indices are those of the checkpoint's graph
+            symbol = _cut(symbol, output_index)
         device = _device(dev_type, dev_id)
         if arg_params is None and param_bytes is not None:
             from .model import split_params
@@ -148,11 +187,42 @@ class Predictor:
         # the weights never change after construction (reshape builds a
         # new Predictor): cast them once; the inputs are the only
         # tensors a forward writes
-        self._params = {k: compute(v) for k, v in self._exec.arg_dict.items()}
+        self._quantize = quantize
+        self._qparams = {}
+        if quantize == "int8":
+            self._quantize_weights()
+        self._params = {k: compute(v) for k, v in self._exec.arg_dict.items()
+                        if k not in self._qparams}
         self._aux = {k: compute(v) for k, v in self._exec.aux_dict.items()}
         self._staged = {}   # input name -> (pinned buffer, upload event)
         self._outs = None
         self._dirty = True
+        self._inflight = {}     # ticket -> [(host buffer, copy event)]
+        self._inflight_lock = threading.Lock()
+        self._ticket = 0
+        self._copy_stream = None
+
+    def _quantize_weights(self):
+        """Move the bound float 2-D/4-D ``*weight`` params into
+        ``self._qparams`` as int8 + fp32 scales on the device, their fp32
+        values onto the host."""
+        from .serving.quantize import (QuantizedTensor, _host,
+                                       default_weight_filter,
+                                       quantize_per_channel)
+
+        dq = self._cast or torch.float32
+        for k, v in list(self._exec.arg_dict.items()):
+            if k in self._input_names or k in self._label_args \
+                    or not default_weight_filter(k, v):
+                continue
+            q, scale = quantize_per_channel(_host(v), axis=0)
+            q = torch.from_numpy(q).to(v.device)
+            if v.ndim == 4 and v.is_contiguous(
+                    memory_format=torch.channels_last):
+                q = q.contiguous(memory_format=torch.channels_last)
+            self._qparams[k] = QuantizedTensor(
+                q, torch.from_numpy(scale).to(v.device), dtype=dq)
+            self._exec.arg_dict[k] = v.cpu()
 
     # ------------------------------------------------------------------ API
     @property
@@ -200,9 +270,13 @@ class Predictor:
         copies out."""
         for name, value in inputs.items():
             self.set_input(name, value)
+        params = self._params
+        if self._qparams:
+            params = dict(params)
+            params.update((k, qt.dequantize())
+                          for k, qt in self._qparams.items())
         with torch.no_grad():
-            outs, _ = self._exec._graph_fn(self._params, self._aux, None,
-                                           False)
+            outs, _ = self._exec._graph_fn(params, self._aux, None, False)
         if self._cast is not None:
             outs = [o.float() if o.dtype == self._cast else o for o in outs]
         self._outs = outs
@@ -236,17 +310,99 @@ class Predictor:
         new = Predictor(symbol=self.symbol, arg_params=arg_params,
                         aux_params=dict(self._exec.aux_dict),
                         input_shapes=input_shapes, dev_type=self.device,
-                        dtype=self._dtype)
+                        dtype=self._dtype, quantize=self._quantize)
         self.__dict__.update(new.__dict__)
 
     def forward_async(self, **inputs):
-        raise _not_ported("forward_async")
+        """Run a forward and start copying its outputs out, without
+        waiting; returns a ticket for :meth:`get_async`.  On the card
+        the copies run on a side stream into pinned host buffers, each
+        with its own event, so consecutive calls pipeline each one's
+        copy-out against the next one's compute, and ``get_async`` waits
+        for its own output only.  At most :data:`MAX_IN_FLIGHT` (64)
+        tickets are kept, the oldest evicted first.  ``get_output``
+        afterwards reads this forward (the latest)."""
+        self.forward(**inputs)
+        outs = list(self._outs)
+        if outs and outs[0].is_cuda:
+            dev = outs[0].device
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            entries = []
+            with torch.cuda.stream(stream):
+                for o in outs:
+                    host = torch.empty(o.shape, dtype=o.dtype,
+                                       pin_memory=True)
+                    host.copy_(o, non_blocking=True)
+                    o.record_stream(stream)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    entries.append((host, done))
+        else:
+            entries = [(o, None) for o in outs]
+        with self._inflight_lock:
+            self._ticket += 1
+            ticket = self._ticket
+            self._inflight[ticket] = entries
+            while len(self._inflight) > MAX_IN_FLIGHT:
+                self._inflight.pop(next(iter(self._inflight)))
+        return ticket
 
-    def get_async(self, ticket, index=0):
-        raise _not_ported("get_async")
+    def get_async(self, ticket, index=0) -> np.ndarray:
+        """Output ``index`` of a :meth:`forward_async` ticket as a host
+        array, after its own copy has finished.  Each output is
+        fetchable once; the ticket retires with its last output (or
+        through :meth:`discard_async`)."""
+        with self._inflight_lock:
+            entries = self._inflight.get(ticket)
+            if entries is None:
+                raise MXNetError(
+                    f"unknown or already-retired ticket {ticket}")
+            if not 0 <= index < len(entries) or entries[index] is None:
+                raise MXNetError(
+                    f"ticket {ticket}: output {index} is out of range or "
+                    f"already fetched ({len(entries)} outputs)")
+            (host, done), entries[index] = entries[index], None
+            if all(e is None for e in entries):
+                del self._inflight[ticket]
+        if done is not None:
+            done.synchronize()
+        return host.detach().float().numpy() if host.dtype != torch.float32 \
+            else host.detach().numpy()
+
+    def discard_async(self, ticket):
+        """Drop an in-flight ticket without fetching it; an unknown
+        ticket is a no-op."""
+        with self._inflight_lock:
+            self._inflight.pop(ticket, None)
 
     def partial_forward(self, step):
-        raise _not_ported("partial_forward (it needs get_internals)", "3")
+        """Output ``step`` of ``get_internals()`` of the bound (folded)
+        graph, as host arrays: the graph cut there, bound on the same
+        device with the same params and inputs, run once
+        (``MXPredPartialForward``; ``step`` past the end is the last
+        internal output).  A step that names a variable returns its
+        bound value."""
+        from .executor import simple_bind
+
+        internals = self.symbol.get_internals()
+        sub = internals[min(step, len(internals.list_outputs()) - 1)]
+        # every argument's bound shape: an internal output that is a
+        # variable (a weight, a label) then binds too (the JAX Predictor
+        # passes the input shapes only and fails on those)
+        shapes = {n: tuple(self._exec.arg_dict[n].shape)
+                  for n in sub.list_arguments() if n in self._exec.arg_dict}
+        ex = simple_bind(sub, self.device, grad_req="null", **shapes)
+        ex.copy_params_from(
+            {k: v for k, v in self._exec.arg_dict.items()
+             if k not in self._input_names},
+            dict(self._exec.aux_dict), allow_extra_params=True)
+        inputs = {n: self._params[n] for n in self._input_names
+                  if n in ex.arg_dict}
+        outs = ex.forward(is_train=False, **inputs)
+        return [o.detach().float().cpu().numpy() for o in outs]
 
 
 def create(prefix, epoch, input_shapes, dev_type=None, dev_id=0, dtype=None,

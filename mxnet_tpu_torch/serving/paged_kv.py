@@ -17,9 +17,9 @@ Unlike the JAX package, the pool ``(P, L, H, block, dh)`` is updated IN
 PLACE: JAX rebuilds it functionally (``.at[].set``), which here would
 copy the whole pool (0.5 GB at full width) on every tick.  The step's
 attention is the hand-written CUDA kernel (``ops/paged_attention.py``)
-or, with ``MXTPU_PAGED_KERNEL=gather``, the plain gather math; the
-prefill always gathers the slot's table and attends with plain tensor
-code.
+or, by ``MXTPU_PAGED_KERNEL``, the plain gather math or the live-page
+walk; the prefill always gathers the slot's table and attends with
+plain tensor code.
 """
 from __future__ import annotations
 
@@ -52,8 +52,6 @@ _TM_PAGES = _tm.gauge(
     "pages, and pages pinned by the prompt-prefix cache",
     labels=("state",))
 
-# lowerings of the JAX package that this port has not carried over
-_NOT_PORTED_KERNELS = ("pallas", "interpret", "pagewalk")
 
 
 class PoolExhausted(MXNetError):
@@ -88,9 +86,15 @@ def paged_kernel_mode() -> str:
     ``auto`` (default, also ``1``): the CUDA kernel on a CUDA pool (a
     page shape, dtype or context the kernel cannot take raises
     :class:`MXNetError`), the plain gather path on a CPU pool.
-    ``0``/``off``/``gather``: pin the gather path.  The JAX package's
-    ``pallas``/``interpret``/``pagewalk`` modes are not ported and
-    raise at :class:`PagedSlots` construction."""
+    ``0``/``off``/``gather``: pin the gather path.  ``pagewalk``: the
+    plain live-page walk (``ops/paged_attention.py:_pagewalk_attention``)
+    on either device.  ``pallas``: force the hand-written kernel (the
+    JAX package's name for it): a CPU pool, or a shape the kernel
+    refuses, raises, with no switch to gather.  ``interpret`` (the JAX
+    package runs its Pallas kernel in an interpreter on the CPU) raises:
+    a CUDA kernel has no CPU interpreter, and ``gather`` is its plain
+    twin.  An unknown mode raises at :class:`PagedSlots`
+    construction."""
     raw = os.environ.get("MXTPU_PAGED_KERNEL", "auto").strip().lower()
     if raw in ("", "1", "auto"):
         return "auto"
@@ -111,7 +115,7 @@ class _PagedPrograms:
         self.block = int(block)
         self.max_blocks = int(max_blocks)
         self.num_pages = int(num_pages)
-        self.kernel = kernel           # "cuda" or "gather"
+        self.kernel = kernel           # "cuda", "gather" or "pagewalk"
 
     def init_pool(self):
         d = self.dec
@@ -122,19 +126,20 @@ class _PagedPrograms:
 
     # ---------------------------------------------------------------- step
     @torch.inference_mode()
-    def step(self, pool_k, pool_v, bt, tokens, cursor):
+    def step(self, pool_k, pool_v, bt, tokens, cursor, n_live):
         """One decode position for every slot, the pool updated in
         place: row ``b`` writes its new K/V at absolute cache position
         ``cursor[b]`` (page ``bt[b, cursor//block]``, offset
         ``cursor%block``) and then attends over ``[0, cursor[b]]``.  Free
         rows ride along with ``bt[b]=0``/``cursor=0`` — their writes land
-        in the scratch page the allocator never hands out.  Returns
+        in the scratch page the allocator never hands out.  ``n_live``
+        is the pagewalk's page count, from the host's cursors.  Returns
         logits ``(B, V)``."""
         d = self.dec
         p = d.p
         B = tokens.shape[0]
         cur = cursor.long()
-        tok = p["tok_embed_weight"][tokens.long()]              # (B, D)
+        tok = d._embed(tokens)                                  # (B, D)
         pos_ids = cur.clamp(0, d.max_len - 1)
         h = (tok + p["pos_embed"][0][pos_ids])[:, None]         # (B, 1, D)
         pages = bt.long().gather(1, (cur // self.block)[:, None])[:, 0]
@@ -151,6 +156,9 @@ class _PagedPrograms:
             if self.kernel == "cuda":
                 ctx = _pa.paged_attention(qh, pool_k, pool_v, bt, cursor, i,
                                           block=self.block)
+            elif self.kernel == "pagewalk":
+                ctx = _pa._pagewalk_attention(
+                    qh, pool_k, pool_v, bt, cursor, i, self.block, n_live)
             else:
                 ctx = _pa._gather_attention(qh, pool_k, pool_v, bt, cursor,
                                             i, self.block)
@@ -177,7 +185,7 @@ class _PagedPrograms:
         dev = d.device
         j = torch.arange(T, device=dev)
         qpos = hist + j                                         # absolute
-        tok = p["tok_embed_weight"][tokens.long()]              # (1, T, D)
+        tok = d._embed(tokens)                                  # (1, T, D)
         h = tok + p["pos_embed"][0][qpos.clamp(0, d.max_len - 1)][None]
         rpos = qpos[:t]                                         # real rows
         pages = bt_row.long()[rpos // self.block]
@@ -265,19 +273,25 @@ class PagedSlots:
         """The step-attention lowering, decided ONCE here, never per
         tick: ``"cuda"`` (the hand-written kernel) or ``"gather"``."""
         mode = self.kernel_mode
-        if mode == "gather":
-            return "gather"
-        if mode in _NOT_PORTED_KERNELS:
+        if mode in ("gather", "pagewalk"):
+            return mode
+        if mode == "interpret":
             raise MXNetError(
-                f"MXTPU_PAGED_KERNEL mode {mode!r} is not ported (the "
-                f"port has auto and gather; {', '.join(_NOT_PORTED_KERNELS)}"
-                " are the JAX package's)")
-        if mode != "auto":
+                "MXTPU_PAGED_KERNEL=interpret: the port's kernel is CUDA, "
+                "which has no CPU interpreter; MXTPU_PAGED_KERNEL=gather is "
+                "its plain twin (the JAX package interprets its Pallas "
+                "kernel)")
+        if mode not in ("auto", "pallas"):
             raise MXNetError(
-                f"unknown MXTPU_PAGED_KERNEL mode {mode!r} (want auto or "
-                "gather/0)")
+                f"unknown MXTPU_PAGED_KERNEL mode {mode!r} (want auto, "
+                "gather/0, pallas, pagewalk or interpret)")
         d = self.decoder
         if d.device.type != "cuda":
+            if mode == "pallas":
+                raise MXNetError(
+                    "MXTPU_PAGED_KERNEL=pallas forces the hand-written "
+                    f"kernel, which needs a CUDA pool (this one is on "
+                    f"{d.device}); use auto, gather or pagewalk")
             return "gather"             # a CPU pool: the kernel needs the card
         # a CUDA pool the kernel cannot take is an error, never a quiet
         # switch to the gather path: pin MXTPU_PAGED_KERNEL=gather for that
@@ -444,9 +458,11 @@ class PagedSlots:
         dev = self.decoder.device
         # _snap: bt/cursor are mutated in place right below and on the
         # next tick — the uploads must never alias them
+        # pages the largest cursor has reached (the pagewalk's trip count)
+        n_live = int(self.cursor.max()) // self.block + 1
         logits = self.programs.step(
             self.pool[0], self.pool[1], _snap(self.bt, dev),
-            _snap(tokens, dev), _snap(self.cursor, dev))
+            _snap(tokens, dev), _snap(self.cursor, dev), n_live)
         adv = occupied.copy()
         adv[starved] = False
         self.cursor[adv] += 1

@@ -18,11 +18,14 @@ Backpressure is explicit: the admission queue is bounded
 Deadlines (``MXTPU_SERVE_DEADLINE_MS`` default, per-request override)
 are enforced both while queued and mid-generation.
 
-Admission is the fault site ``serve_admit`` (``MXTPU_FAULT_PLAN``): an
-injected fault fails that request and the engine serves the next.  Not
-ported yet: the JAX scheduler's ``replica_kill``/``serve_slow`` sites
-(with the fleet router and the SLO plane), its perf-attribution records
-and the flight-ring record of each request.
+Fault sites (``MXTPU_FAULT_PLAN``): admission is ``serve_admit`` (an
+injected fault fails that request and the engine serves the next); each
+tick first fires ``replica_kill`` (``crash_after:n`` kills the process
+mid-decode, the death the router's re-route and 502 paths survive) and
+``serve_slow`` (``drop`` parks the engine thread for
+``MXTPU_FAULT_SLOW_S`` seconds, so queue wait and TTFT really grow).
+Not ported yet: the JAX scheduler's perf-attribution records and the
+flight-ring record of each request (ROADMAP Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -533,6 +536,9 @@ class SlotScheduler:
 
     def _tick(self):
         """ONE decode step over the whole pool + host sampling."""
+        _faults.fire("replica_kill")
+        if _faults.active() and _faults.should_drop("serve_slow"):
+            time.sleep(_faults.fault_slow_s())
         t0 = time.perf_counter()
         occupied = [i for i, r in enumerate(self.slots) if r is not None]
         # sampled decode-tick spans: every TICK_EVERY-th tick

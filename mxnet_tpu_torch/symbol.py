@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import ops
-from .base import MXNetError, current_name_manager
+from .base import MXNetError, current_name_manager, scoped_attrs
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json", "zeros",
            "ones", "arange"]
@@ -499,8 +499,9 @@ def Variable(name, attr=None, shape=None, lr_mult=None,
     by ``Module.init_params``).  ``grad_stype="row_sparse"`` marks an
     Embedding weight whose gradient the executor emits as the touched
     rows only (:mod:`mxnet_tpu_torch.sparse`); ``stype`` is recorded as
-    the reference records it."""
-    extra = dict(attr or {})
+    the reference records it.  The attrs of the current ``AttrScope``
+    are merged under ``attr``."""
+    extra = scoped_attrs(attr)
     if shape is not None:
         extra["__shape__"] = json.dumps(list(shape))
     if lr_mult is not None:
@@ -540,7 +541,7 @@ def _create_named(od, sym_inputs, attrs, name, extra_attr=None) -> Symbol:
                              "input")
         inputs.append(s._outputs[0])
     node = _Node(od.name, name, attrs=attrs, inputs=inputs,
-                 extra_attrs=dict(extra_attr or {}))
+                 extra_attrs=scoped_attrs(extra_attr))
     return Symbol([(node, i) for i in range(node.num_outputs())])
 
 

@@ -1,15 +1,16 @@
-"""Telemetry of the port: metrics registry, exporters and span buffer.
+"""Telemetry of the port: metrics registry, exporters, tracing and fleet.
 
-Trimmed copies of ``mxnet_tpu/telemetry``'s registry, exporters and
-tracing modules — what the serving path emits through — with the
-profiler-backed ``span``/``timed``.  The perf attribution plane and the
-health/flight-ring plane are not ported yet (fault injection is
+Copies of ``mxnet_tpu/telemetry``'s registry, exporters, tracing (with
+the SLO plane) and fleet modules — what the serving path and its router
+emit through — with the profiler-backed ``span``/``timed``.  The perf
+attribution plane and the health/flight-ring plane are not ported yet
+(ROADMAP Queue 1 item 11b; fault injection is
 :mod:`mxnet_tpu_torch.faults`).  ``MXTPU_TELEMETRY=1`` enables recording
 at import.
 """
 from __future__ import annotations
 
-from . import tracing  # noqa: F401
+from . import fleet, tracing  # noqa: F401
 from .exporters import generate_text, json_snapshot  # noqa: F401
 from .registry import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry, counter,

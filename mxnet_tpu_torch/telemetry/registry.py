@@ -111,6 +111,11 @@ class Counter(MetricFamily):
         with self._lock:
             self._samples[key] = self._samples.get(key, 0.0) + amount
 
+    def value(self, **labels) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return float(self._samples.get(key, 0.0))
+
     def total(self) -> float:
         """Sum over every label combination (test/report convenience)."""
         with self._lock:
@@ -128,6 +133,11 @@ class Gauge(MetricFamily):
         key = self._key(labels)
         with self._lock:
             self._samples[key] = float(value)
+
+    def value(self, **labels) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return float(self._samples.get(key, 0.0))
 
 
 class _HistSample:

@@ -196,18 +196,24 @@ def test_snap_never_aliases_host_state():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"quantize": "int8"},
+    {"mesh": object()}, {"quantize": "int8", "mesh": object()},
 ])
 def test_unported_decoder_options_raise(lm_params, kwargs):
-    with pytest.raises(MXNetError, match="not ported"):
+    """``mesh=`` waits for ROADMAP Queue 1 item 10; int8 with a mesh is
+    the reference's own ``ValueError``."""
+    exc, match = ((ValueError, "tensor-parallel mesh")
+                  if "quantize" in kwargs else (MXNetError, "not ported"))
+    with pytest.raises(exc, match=match):
         KVDecoder(lm_params, num_layers=L, num_heads=H, max_len=T,
                   device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("method", ["generate_scan", "beam_search"])
 def test_unported_decoder_methods_raise(tdec, method):
-    with pytest.raises(MXNetError, match="not ported"):
-        getattr(tdec, method)(np.zeros((1, 3), np.int64), 2)
+    """Both are ported; each refuses a budget past ``max_len`` with the
+    reference's ``ValueError``."""
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        getattr(tdec, method)(np.zeros((1, 3), np.int64), T)
 
 
 def test_default_device_without_cuda_raises(lm_params, monkeypatch):
@@ -304,7 +310,16 @@ def test_prefill_pad_rows_write_nothing(tdec):
 
 @pytest.mark.parametrize("mode", ["pallas", "interpret", "pagewalk"])
 def test_unported_kernel_modes_raise(tdec, mode):
-    with pytest.raises(MXNetError, match="not ported"):
+    """On a CPU pool ``pallas`` (the forced kernel) and ``interpret``
+    (no CPU interpreter for a CUDA kernel) raise; ``pagewalk`` is
+    ported and builds."""
+    match = {"pallas": "needs a CUDA pool",
+             "interpret": "no CPU interpreter"}.get(mode)
+    if match is None:
+        pg = PagedSlots(tdec, 2, block=8, prefill_buckets=(8,), kernel=mode)
+        assert pg.kernel == mode
+        return
+    with pytest.raises(MXNetError, match=match):
         PagedSlots(tdec, 2, block=8, prefill_buckets=(8,), kernel=mode)
 
 

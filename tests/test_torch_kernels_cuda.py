@@ -27,7 +27,10 @@ giving the plain step's gradients, its forward launched twice a step,
 also under ``step_multi`` with Dropout), and the classic top-level
 surface (a ``Custom`` op on card tensors against the CPU with one host
 sync each way, ``cpu_pinned`` arrays in pinned memory, the profiler's
-device trace naming the flash kernels).
+device trace naming the flash kernels), and the rest of decode serving
+(an int8 decoder's paged step through the kernel against the gather
+path; ``generate_scan`` on the card equal to ``generate`` with one read
+of the device).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -1658,3 +1661,58 @@ def test_device_trace_holds_the_flash_kernels(card, tmp_path):
         assert any(pat in k for k in kernels), (pat, sorted(kernels)[:20])
     spans = [e["name"] for e in json.load(open(fname))["traceEvents"]]
     assert [s for s in spans if s.startswith("forward_backward[")]
+
+
+# -------------------------------------------- int8 serving, generate_scan
+def _lm_params(L=2, H=2, D=128, V=256, T=128, seed=0):
+    from mxnet_tpu_torch.models import transformer as tr
+
+    shapes = tr.lm_param_shapes(L, H, D, 4 * D, V, T)
+    return tr.lm_random_params(shapes, seed=seed, std=0.05)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_paged_step_kernel_matches_gather(card, dtype):
+    """An int8 decoder's paged step through the kernel against the same
+    pools stepped through the plain gather path: fp32 within 1e-4 of the
+    logits, bf16 within one bf16 rounding at magnitude ~2 (1e-2), and
+    the kernel launched once per layer."""
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    dec = KVDecoder(_lm_params(), num_layers=2, num_heads=2, max_len=128,
+                    dtype=dtype, quantize="int8", device=card)
+    outs = {}
+    for kernel in ("gather", "auto"):
+        pg = PagedSlots(dec, 3, block=16, prefill_buckets=(16, 32, 64),
+                        kernel=kernel)
+        assert pg.kernel == ("cuda" if kernel == "auto" else "gather")
+        rng = np.random.default_rng(3)
+        tok = np.array([int(pg.admit(b, rng.integers(0, 256, n))
+                            .float().argmax()) for b, n in
+                        enumerate((5, 17, 40))])
+        n0 = tpa.launch_count()
+        lg, _ = pg.step(tok, np.ones(3, bool))
+        outs[kernel] = (lg.float().cpu(), tpa.launch_count() - n0)
+    assert outs["auto"][1] == 2 and outs["gather"][1] == 0
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(outs["auto"][0], outs["gather"][0],
+                               rtol=0, atol=tol)
+
+
+def test_generate_scan_on_the_card_equals_generate(card):
+    """Greedy ``generate_scan`` on the card equals ``generate`` token for
+    token, reads the host once without eos, and with an eos at most once
+    per ``SCAN_EOS_CHECK`` tokens more."""
+    from mxnet_tpu_torch.models import decode as tdecode
+
+    dec = tdecode.KVDecoder(_lm_params(), num_layers=2, num_heads=2,
+                            max_len=128, device=card)
+    prompt = np.random.default_rng(4).integers(0, 256, (3, 6))
+    ref = dec.generate(prompt, 40, temperature=0)
+    got = dec.generate_scan(prompt, 40)
+    np.testing.assert_array_equal(got, ref)
+    assert dec.last_scan_syncs == 1
+    eos = int(ref[0, 3])
+    dec.generate_scan(prompt, 40, eos_id=eos)
+    assert dec.last_scan_syncs <= 1 + -(-39 // tdecode.SCAN_EOS_CHECK)

@@ -213,19 +213,22 @@ def test_predict_dtype_env(net_and_params, monkeypatch):
 
 
 def test_left_out_arguments_raise(net_and_params, monkeypatch):
+    """What the Predictor still refuses: an unknown quantize mode (also
+    through ``MXTPU_PREDICT_INT8``'s kwarg-less path), a bad
+    ``output_index`` entry, a ticket it never issued, no symbol."""
     jnet, arg, aux, _ = net_and_params
-    for kw in ({"output_index": 0}, {"quantize": "int8"}):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            _port(jnet, arg, aux, **kw)
+    with pytest.raises(MXNetError, match="unknown quantize mode"):
+        _port(jnet, arg, aux, quantize="int4")
+    with pytest.raises(MXNetError, match="unknown output 'nope'"):
+        _port(jnet, arg, aux, output_index="nope")
+    with pytest.raises(MXNetError, match="int or str"):
+        _port(jnet, arg, aux, output_index=[1.5])
     monkeypatch.setenv("MXTPU_PREDICT_INT8", "1")
-    with pytest.raises(MXNetError, match="not ported yet"):
-        _port(jnet, arg, aux)
+    assert _port(jnet, arg, aux)._quantize == "int8"
     monkeypatch.delenv("MXTPU_PREDICT_INT8")
     p = _port(jnet, arg, aux)
-    for call in (p.forward_async, lambda: p.get_async(1),
-                 lambda: p.partial_forward(3)):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            call()
+    with pytest.raises(MXNetError, match="unknown or already-retired"):
+        p.get_async(1)
     with pytest.raises(MXNetError, match="need symbol"):
         Predictor(arg_params=arg, dev_type="cpu")
 

@@ -33,15 +33,24 @@ from mxnet_tpu_torch import telemetry as tm
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _reset_profilers():
+    """Both packages' profilers stopped, at their default config, with
+    empty buffers.  An earlier test file in the same worker may leave
+    events behind in either module-level buffer (``tests/test_dist.py``
+    records ``kvstore_push[p]``/``kvstore_pull[p]`` into the JAX
+    profiler's and never clears it), and ``dump_profile`` would write
+    them into this file's profiles."""
+    for prof in (profiler, jmx.profiler):
+        prof.profiler_set_state("stop")
+        prof.profiler_set_config()
+        prof.clear()
+
+
 @pytest.fixture(autouse=True)
 def _profiler_stopped():
-    profiler.profiler_set_state("stop")
-    profiler.profiler_set_config()
-    profiler.clear()
+    _reset_profilers()
     yield
-    profiler.profiler_set_state("stop")
-    profiler.profiler_set_config()
-    profiler.clear()
+    _reset_profilers()
 
 
 def _events(fname):
@@ -141,8 +150,8 @@ def test_span_names_match_the_jax_package(tmp_path):
         mxmod.profiler.dump_profile()
         got[mxmod.__name__] = sorted((e["name"], e["cat"], e["ph"])
                                      for e in _events(fname))
-    jmx.profiler.profiler_set_config()
-    assert got["mxnet_tpu_torch"] == got["mxnet_tpu"]
+    assert got["mxnet_tpu_torch"] == got["mxnet_tpu"], (
+        f"port {got['mxnet_tpu_torch']} != JAX {got['mxnet_tpu']}")
 
 
 def test_trainer_step_span_and_device_trace(tmp_path):

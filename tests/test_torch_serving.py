@@ -253,7 +253,11 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 "checkpoint.py", "context.py", "random.py", "resource.py",
                 "operator.py", os.path.join("ops", "custom.py"),
                 "profiler.py", "faults.py", "executor_manager.py",
-                "visualization.py", "test_utils.py"):
+                "visualization.py", "test_utils.py",
+                os.path.join("serving", "quantize.py"),
+                os.path.join("serving", "router.py"),
+                os.path.join("serving", "__main__.py"),
+                os.path.join("telemetry", "fleet.py")):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -284,7 +288,11 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.resource, mxnet_tpu_torch.operator, "
             "mxnet_tpu_torch.ops.custom, mxnet_tpu_torch.profiler, "
             "mxnet_tpu_torch.faults, mxnet_tpu_torch.executor_manager, "
-            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils\n"
+            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.serving.quantize, "
+            "mxnet_tpu_torch.serving.router, "
+            "mxnet_tpu_torch.serving.__main__, "
+            "mxnet_tpu_torch.telemetry.fleet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")

@@ -33,7 +33,7 @@ from mxnet_tpu_torch.resource import Resource, ResourceManager, \
 
 # the reference's top-level names the port does not export yet, with the
 # ROADMAP Queue 1 item each waits for
-WAITING = {"kvstore_server": 10, "AttrScope": 10}
+WAITING = {"kvstore_server": 10}
 
 
 # ------------------------------------------------------------- Context
@@ -328,3 +328,34 @@ def test_top_level_names_are_exported_or_listed():
         assert name in tnames, name
     assert mx.viz is mx.visualization
     assert mx.model.FeedForward is mx.FeedForward
+
+
+# ------------------------------------------------------------ AttrScope
+def _scoped_net(mxmod):
+    s = mxmod.symbol
+    with mxmod.AttrScope(ctx_group="dev1", lr="0.5"):
+        data = s.Variable("data", attr={"lr": "2"})
+        fc = s.FullyConnected(data, num_hidden=4, name="fc")
+        with mxmod.AttrScope(ctx_group="dev2", tag=7):
+            act = s.Activation(fc, act_type="relu", name="act")
+            w = s.Variable("w")
+    out = s.FullyConnected(act, weight=w, num_hidden=2, name="out")
+    return s.Group([out, s.Variable("plain")])
+
+
+def test_attr_scope_merges_like_the_reference():
+    """Scoped attrs land on every new Variable and op node (the call's
+    own ``attr`` winning), nested scopes merge outer then inner, and
+    nodes outside every scope get none: the port's ``attr_dict()``
+    equals the JAX package's."""
+    t, j = _scoped_net(mx), _scoped_net(jmx)
+    assert t.attr_dict() == j.attr_dict()
+    got = t.attr_dict()
+    assert got["data"] == {"ctx_group": "dev1", "lr": "2"}
+    assert got["fc"] == {"ctx_group": "dev1", "lr": "0.5"}
+    assert got["act"] == got["w"] == {"ctx_group": "dev2", "lr": "0.5",
+                                      "tag": "7"}
+    assert "out" not in got and "plain" not in got
+    assert mx.base.current_attr_scope() is None
+    # the weight FullyConnected creates for itself is scoped too
+    assert got["fc_weight"] == {"ctx_group": "dev1", "lr": "0.5"}
