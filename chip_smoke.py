@@ -9,8 +9,10 @@ ResNet-50 inference through the Predictor,
 the same deployment loaded from a checkpoint, user CUDA C compiled
 at run time by ``rtc.Rtc``, the image-classification zoo (Inception-v3
 training, AlexNet through ``Module``, a nine-model inference sweep) and
-the LSTM language model (``FusedTrainer`` and ``BucketingModule``) — and
-holds each hand-written CUDA kernel
+the LSTM language model (``FusedTrainer`` and ``BucketingModule``), and
+the detection zoo (SSD-VGG16-300 training and detection, Faster
+R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC) — and holds each
+hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
@@ -248,7 +250,38 @@ holds each hand-written CUDA kernel
    fp32, 4 epilogue launches a forward held against the epilogues
    pinned to the plain version, ``output_index`` and
    ``partial_forward`` once each, and a 4-deep ``forward_async``
-   pipeline equal to ``forward``.
+   pipeline equal to ``forward``;
+31. SSD training (``phase_ssd_train``, examples/ssd/train.py's executor
+   loop): ``ssd.get_symbol_train(num_classes=20)`` (SSD-VGG16-300, 8732
+   anchors) at batch 32 x 3 x 300 x 300 in fp32 through ``simple_bind``,
+   Xavier (the conv4_3 scale at its own init, 20), SGD lr 1e-3 momentum
+   0.9 wd 5e-4 through ``optimizer.get_updater``, over the example's 64
+   synthetic images on the card: 20 timed steps after 3 (images/s, step
+   ms, MFU, 0 host syncs a step, peak memory, a falling class loss) and
+   a profile with device ms of convolutions, ``MultiBoxTarget``, the NMS
+   loop of the ``det_out`` output and the rest, and launch calls a step
+   (in the NMS loop among them);
+32. SSD detection (``phase_ssd_detect``): the deploy graph (softmax +
+   ``MultiBoxDetection``) with the trained weights through the
+   ``Predictor`` at batch 32: images/s over 20 calls, the NMS loop's
+   share of a forward, the first 4 images' detections against the port
+   on the CPU, the op alone on the card against the CPU on the same
+   inputs, VOC mAP (examples/ssd/eval_metric.py's metrics) over the 64
+   images;
+33. Faster R-CNN (``phase_rcnn``, examples/rcnn at its config's sizes,
+   batch 8 x 3 x 64 x 64): the eval graph (RPN -> ``Proposal`` ->
+   ``ROIPooling`` -> head) and a ``train_rois=True`` step with its
+   backward through ``ROIPooling``, each against the CPU from the same
+   weights, then ms per forward and per step and ``Proposal``'s NMS
+   launch calls;
+34. LSTM-OCR (``phase_ocr``, examples/warpctc/lstm_ocr.py at its
+   defaults: batch 32 of 16 x 48 captchas, ``LSTMCell(48)`` over 48
+   columns, ``WarpCTC``, Adam lr 4e-3): the first step's loss and
+   gradients against the CPU, 200 steps (steps/s, the CTC loss first and
+   last, the CTC backward's device ms and launch calls), the greedy
+   decode's sequence accuracy on a held-out batch.  Phases 31-34 launch
+   none of the six hand-written kernels (their counts are read around
+   them: ``launches_detection``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -6585,6 +6618,1002 @@ def phase_predict_int8(smi):
     return launches
 
 
+# ----------------------------------------------------------- phases 31-34
+SSD_BATCH = 32
+SSD_SIZE = 300
+SSD_CLASSES = 20                 # get_symbol_train's default: VOC's 20
+SSD_MAX_BOXES = 8
+SSD_IMAGES = 64                  # examples/ssd/train.py's synthetic set
+SSD_WARMUP = 3
+SSD_STEPS = 20
+SSD_OPT = {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
+SSD_ANCHORS = 8732
+SSD_SCALE = "relu_conv4_3_scale"  # conv4_3's L2-norm scale, init 20
+SSD_DETECT_CALLS = 20
+SSD_CPU_IMAGES = 4               # the CPU's share of the end-to-end check
+SSD_DETECT_TOL = 1e-5            # card vs CPU scores and boxes, fp32
+SSD_RANGES = ("MultiBoxTarget", "MultiBoxDetection.nms")
+SSD_KINDS = (        # the first matching kind wins
+    ("layout converters", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "xmma",
+                     "gemm", "nvjet", "cutlass", "winograd", "fft",
+                     "_complex", "DSE::")),
+)
+# examples/rcnn/rcnn/config.py's sizes; train_end2end.py's batch
+RCNN_CFG = {"im_size": 64, "feature_stride": 4, "num_classes": 3,
+            "anchor_scales": (2, 4, 8), "anchor_ratios": (0.5, 1, 2),
+            "rpn_pre_nms_top_n": 64, "rpn_post_nms_top_n": 16,
+            "rpn_nms_thresh": 0.7, "rpn_min_size": 4, "rcnn_batch_rois": 16}
+RCNN_BATCH = 8
+RCNN_CALLS = 20
+RCNN_TOL = (1e-4, 1e-5)          # card vs CPU, relative and absolute
+RCNN_ROI_TOL = 1e-3              # RoI corners in pixels of a 64 image
+# examples/warpctc/lstm_ocr.py's defaults
+OCR_H, OCR_W, OCR_DIGITS = 16, 48, 5
+OCR_BATCH = 32
+OCR_HIDDEN = 48
+OCR_CLASSES = 11                 # blank + 10 digits
+OCR_LR = 4e-3
+OCR_STEPS = 200
+# the first step, card vs CPU: relative, and absolute as a share of
+# each tensor's largest entry (a gradient sums 48 steps x 32 sequences)
+OCR_TOL = (1e-4, 1e-6)
+OCR_SEGMENTS = {
+    0: (1, 1, 1, 0, 1, 1, 1), 1: (0, 0, 1, 0, 0, 1, 0),
+    2: (1, 0, 1, 1, 1, 0, 1), 3: (1, 0, 1, 1, 0, 1, 1),
+    4: (0, 1, 1, 1, 0, 1, 0), 5: (1, 1, 0, 1, 0, 1, 1),
+    6: (1, 1, 0, 1, 1, 1, 1), 7: (1, 0, 1, 0, 0, 1, 0),
+    8: (1, 1, 1, 1, 1, 1, 1), 9: (1, 1, 1, 1, 0, 1, 1),
+}
+
+
+def synthetic_detections(num, size, max_boxes, num_classes, seed=5):
+    """examples/ssd/train.py's data: images with coloured rectangles,
+    labels (num, max_boxes, 5) [cls, x1, y1, x2, y2] normalized, -1
+    padded."""
+    rs = np.random.RandomState(seed)
+    imgs = np.zeros((num, 3, size, size), np.float32)
+    labels = np.full((num, max_boxes, 5), -1.0, np.float32)
+    for i in range(num):
+        nbox = rs.randint(1, max_boxes + 1)
+        for j in range(nbox):
+            cls = rs.randint(0, num_classes)
+            w, h = rs.uniform(0.2, 0.5, 2)
+            x1, y1 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            x2, y2 = x1 + w, y1 + h
+            px = (np.array([x1, y1, x2, y2]) * size).astype(int)
+            imgs[i, cls % 3, px[1]:px[3], px[0]:px[2]] = 1.0
+            labels[i, j] = [cls, x1, y1, x2, y2]
+    return imgs, labels
+
+
+def _box_iou(box, boxes):
+    x1 = np.maximum(box[0], boxes[:, 0])
+    y1 = np.maximum(box[1], boxes[:, 1])
+    x2 = np.minimum(box[2], boxes[:, 2])
+    y2 = np.minimum(box[3], boxes[:, 3])
+    inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    area = (box[2] - box[0]) * (box[3] - box[1])
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    union = area + areas - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+
+
+def map_metrics():
+    """``(MApMetric(), VOC07MApMetric())``: examples/ssd/eval_metric.py's
+    two metrics over the port's ``EvalMetric`` (the example imports the
+    JAX package's).  ``update(labels, preds)``: preds (batch, num_det, 6)
+    [cls, score, x1, y1, x2, y2], labels (batch, num_gt, 5), cls < 0
+    padding; per-class ranked matching at IoU 0.5, AP by the continuous
+    precision envelope or VOC-2007's 11 points."""
+    from mxnet_tpu_torch.metric import EvalMetric
+
+    class MApMetric(EvalMetric):
+        def __init__(self, iou_thresh=0.5, name="mAP"):
+            self.iou_thresh = iou_thresh
+            super().__init__(name)
+
+        def reset(self):
+            self._records, self._gt_counts = [], {}
+            super().reset()
+
+        def update(self, labels, preds):
+            for lab, pred in zip(labels, preds):
+                for b in range(lab.shape[0]):
+                    self._update_one(np.asarray(lab[b]), np.asarray(pred[b]))
+
+        def _update_one(self, gts, dets):
+            gts = gts[gts[:, 0] >= 0]
+            dets = dets[dets[:, 0] >= 0]
+            for c in np.unique(gts[:, 0]).astype(int):
+                self._gt_counts[c] = (self._gt_counts.get(c, 0)
+                                      + int((gts[:, 0] == c).sum()))
+            order = np.argsort(-dets[:, 1]) if len(dets) else []
+            taken = np.zeros(len(gts), bool)
+            for di in order:
+                d = dets[di]
+                c = int(d[0])
+                cand = np.where(gts[:, 0] == c)[0]
+                matched = False
+                if len(cand):
+                    ious = _box_iou(d[2:6], gts[cand, 1:5])
+                    best = int(np.argmax(ious))
+                    # VOC: the best gt only; taken already = false positive
+                    if ious[best] >= self.iou_thresh and not taken[cand[best]]:
+                        taken[cand[best]] = matched = True
+                self._records.append((c, float(d[1]), matched))
+
+        def _average_precision(self, rec, prec):
+            mrec = np.concatenate([[0.0], rec, [1.0]])
+            mpre = np.concatenate([[0.0], prec, [0.0]])
+            for i in range(len(mpre) - 2, -1, -1):
+                mpre[i] = max(mpre[i], mpre[i + 1])
+            idx = np.where(mrec[1:] != mrec[:-1])[0]
+            return float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+
+        def get(self):
+            aps = []
+            for c, n_gt in sorted(self._gt_counts.items()):
+                recs = sorted((r for r in self._records if r[0] == c),
+                              key=lambda r: -r[1])
+                tp = np.cumsum([1.0 if m else 0.0 for _, _, m in recs])
+                fp = np.cumsum([0.0 if m else 1.0 for _, _, m in recs])
+                rec = tp / n_gt if len(recs) else np.array([0.0])
+                prec = (tp / np.maximum(tp + fp, 1e-12) if len(recs)
+                        else np.array([0.0]))
+                aps.append(self._average_precision(rec, prec))
+            return self.name, float(np.mean(aps)) if aps else float("nan")
+
+    class VOC07MApMetric(MApMetric):
+        def __init__(self, iou_thresh=0.5, name="VOC07_mAP"):
+            super().__init__(iou_thresh, name)
+
+        def _average_precision(self, rec, prec):
+            ap = 0.0
+            for t in np.linspace(0, 1, 11):
+                mask = rec >= t
+                ap += (float(np.max(prec[mask])) if mask.any() else 0.0) / 11
+            return ap
+
+    return MApMetric(), VOC07MApMetric()
+
+
+def rcnn_symbol(cfg, batch, train_rois=False):
+    """examples/rcnn/rcnn/symbols.py's ``get_symbol`` over the port's
+    ``sym``: the 3-conv backbone, the RPN heads, ``Proposal`` (or a
+    ``rois`` input under ``train_rois``), ``ROIPooling`` and the
+    fast-rcnn head.  Outputs [rpn_cls_prob, rpn_bbox_loss, cls_prob,
+    bbox_loss (train) | bbox_pred (eval), rois]."""
+    from mxnet_tpu_torch import symbol as sym
+
+    a0 = len(cfg["anchor_scales"]) * len(cfg["anchor_ratios"])
+    f = cfg["im_size"] // cfg["feature_stride"]
+    classes = cfg["num_classes"]
+    data = sym.Variable("data")
+    im_info = sym.Variable("im_info")
+    rpn_label = sym.Variable("rpn_label")
+    rpn_bbox_target = sym.Variable("rpn_bbox_target")
+    rpn_bbox_weight = sym.Variable("rpn_bbox_weight")
+    roi_label = sym.Variable("roi_label")
+
+    net = sym.Convolution(data, kernel=(3, 3), pad=(1, 1), num_filter=16,
+                          name="conv1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = sym.Convolution(net, kernel=(3, 3), pad=(1, 1), num_filter=32,
+                          name="conv2")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = sym.Convolution(net, kernel=(3, 3), pad=(1, 1), num_filter=32,
+                          name="conv3")
+    feat = sym.Activation(net, act_type="relu", name="feat")
+
+    rpn = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1), num_filter=32,
+                          name="rpn_conv")
+    rpn = sym.Activation(rpn, act_type="relu")
+    rpn_cls = sym.Convolution(rpn, kernel=(1, 1), num_filter=2 * a0,
+                              name="rpn_cls_score")
+    rpn_bbox = sym.Convolution(rpn, kernel=(1, 1), num_filter=4 * a0,
+                               name="rpn_bbox_pred")
+    rpn_cls_flat = sym.Reshape(rpn_cls, shape=(0, 2, -1),
+                               name="rpn_cls_flat")
+    rpn_cls_prob = sym.SoftmaxOutput(rpn_cls_flat, rpn_label,
+                                     multi_output=True, use_ignore=True,
+                                     ignore_label=-1,
+                                     normalization="valid",
+                                     name="rpn_cls_prob")
+    rpn_bbox_loss = sym.smooth_l1(
+        rpn_bbox_weight * (rpn_bbox - rpn_bbox_target), scalar=3.0)
+    rpn_bbox_loss = sym.MakeLoss(sym.sum(rpn_bbox_loss) / batch,
+                                 name="rpn_bbox_loss")
+    rpn_cls_act = sym.SoftmaxActivation(rpn_cls_flat, mode="channel",
+                                        name="rpn_cls_act")
+    rpn_cls_act = sym.Reshape(rpn_cls_act, shape=(0, 2 * a0, f, f))
+    if train_rois:
+        rois = sym.BlockGrad(sym.Variable("rois"), name="rois")
+    else:
+        rois = sym.Proposal(
+            sym.BlockGrad(rpn_cls_act), sym.BlockGrad(rpn_bbox), im_info,
+            feature_stride=cfg["feature_stride"],
+            scales=cfg["anchor_scales"], ratios=cfg["anchor_ratios"],
+            rpn_pre_nms_top_n=cfg["rpn_pre_nms_top_n"],
+            rpn_post_nms_top_n=cfg["rpn_post_nms_top_n"],
+            threshold=cfg["rpn_nms_thresh"], rpn_min_size=cfg["rpn_min_size"],
+            name="rois")
+    pooled = sym.ROIPooling(feat, rois, pooled_size=(4, 4),
+                            spatial_scale=1.0 / cfg["feature_stride"],
+                            name="roi_pool")
+    head = sym.FullyConnected(sym.Flatten(pooled), num_hidden=64,
+                              name="fc6")
+    head = sym.Activation(head, act_type="relu")
+    cls_score = sym.FullyConnected(head, num_hidden=classes,
+                                   name="cls_score")
+    cls_prob = sym.SoftmaxOutput(cls_score, roi_label, use_ignore=True,
+                                 ignore_label=-1, normalization="valid",
+                                 name="cls_prob")
+    bbox_pred = sym.FullyConnected(head, num_hidden=4 * classes,
+                                   name="bbox_pred")
+    if train_rois:
+        bbox_target = sym.Variable("bbox_target")
+        bbox_weight = sym.Variable("bbox_weight")
+        n_rois = batch * cfg["rcnn_batch_rois"]
+        bbox_loss = sym.smooth_l1(
+            bbox_weight * (bbox_pred - bbox_target), scalar=1.0)
+        bbox_branch = sym.MakeLoss(sym.sum(bbox_loss) / n_rois,
+                                   name="bbox_loss")
+    else:
+        bbox_branch = sym.BlockGrad(bbox_pred, name="bbox_pred_out")
+    return sym.Group([rpn_cls_prob, rpn_bbox_loss, cls_prob, bbox_branch,
+                      sym.BlockGrad(rois)])
+
+
+def rcnn_shapes(cfg, batch, train_rois):
+    """The input shapes of :func:`rcnn_symbol` (train_utils.py's bind)."""
+    a0 = len(cfg["anchor_scales"]) * len(cfg["anchor_ratios"])
+    f = cfg["im_size"] // cfg["feature_stride"]
+    r = batch * (cfg["rcnn_batch_rois"] if train_rois
+                 else cfg["rpn_post_nms_top_n"])
+    shapes = {"data": (batch, 3, cfg["im_size"], cfg["im_size"]),
+              "im_info": (batch, 3), "rpn_label": (batch, a0 * f * f),
+              "rpn_bbox_target": (batch, 4 * a0, f, f),
+              "rpn_bbox_weight": (batch, 4 * a0, f, f), "roi_label": (r,)}
+    if train_rois:
+        shapes.update(rois=(r, 5), bbox_target=(r, 4 * cfg["num_classes"]),
+                      bbox_weight=(r, 4 * cfg["num_classes"]))
+        del shapes["im_info"]
+    return shapes
+
+
+def _draw_digit(digit, height, width):
+    img = np.zeros((height, width), np.float32)
+    t, tl, tr, m, bl, br, b = OCR_SEGMENTS[digit]
+    mid = height // 2
+    if t:
+        img[0:2, 1:width - 1] = 1
+    if m:
+        img[mid - 1:mid + 1, 1:width - 1] = 1
+    if b:
+        img[height - 2:height, 1:width - 1] = 1
+    if tl:
+        img[0:mid, 0:2] = 1
+    if tr:
+        img[0:mid, width - 2:width] = 1
+    if bl:
+        img[mid:height, 0:2] = 1
+    if br:
+        img[mid:height, width - 2:width] = 1
+    return img
+
+
+def gen_captcha(rs):
+    """examples/warpctc/lstm_ocr.py's seven-segment captcha: (image (H,
+    W), label (MAX_DIGITS,) 0-padded with digits as 1..10)."""
+    n = int(rs.randint(3, OCR_DIGITS + 1))
+    want = [int(rs.randint(0, 10)) for _ in range(n)]
+    img = np.zeros((OCR_H, OCR_W), np.float32)
+    x = int(rs.randint(0, 4))
+    drawn = []
+    for d in want:
+        w = int(rs.randint(6, 9))
+        if x + w > OCR_W:
+            break
+        y0 = int(rs.randint(0, 3))
+        img[y0:y0 + 12, x:x + w] = np.maximum(
+            img[y0:y0 + 12, x:x + w], _draw_digit(d, 12, w))
+        drawn.append(d)
+        x += w + int(rs.randint(1, 4))
+    img = np.clip(img + rs.normal(0, 0.08, img.shape), 0, 1)
+    label = np.zeros((OCR_DIGITS,), np.float32)
+    for i, d in enumerate(drawn):
+        label[i] = d + 1
+    return img.astype(np.float32), label
+
+
+def ocr_batches(rs, n, batch):
+    """``n`` batches of :func:`gen_captcha` in the example's draw order:
+    images (n, batch, H, W), labels (n, batch, MAX_DIGITS)."""
+    out = [gen_captcha(rs) for _ in range(n * batch)]
+    imgs = np.stack([o[0] for o in out]).reshape(n, batch, OCR_H, OCR_W)
+    labels = np.stack([o[1] for o in out]).reshape(n, batch, OCR_DIGITS)
+    return imgs, labels
+
+
+def ocr_net(num_hidden, num_classes):
+    """lstm_ocr.py's ``build_net`` over the port: image columns through
+    ``LSTMCell`` unrolled over W, a per-step FC, ``WarpCTC`` over (T, N,
+    C) with label_length 5 and input_length W."""
+    from mxnet_tpu_torch import rnn
+    from mxnet_tpu_torch import symbol as sym
+
+    data = sym.Variable("data")
+    cols = sym.transpose(data, axes=(0, 2, 1))
+    stack = rnn.SequentialRNNCell()
+    stack.add(rnn.LSTMCell(num_hidden, prefix="l0_"))
+    outputs, _ = stack.unroll(OCR_W, inputs=cols, layout="NTC",
+                              merge_outputs=True)
+    feat = sym.Reshape(outputs, shape=(-1, num_hidden))
+    fc = sym.FullyConnected(feat, num_hidden=num_classes, name="pred_fc")
+    pred = sym.Reshape(fc, shape=(-1, OCR_W, num_classes))
+    pred = sym.transpose(pred, axes=(1, 0, 2))
+    label = sym.Variable("label")
+    return sym.WarpCTC(pred, label, label_length=OCR_DIGITS,
+                       input_length=OCR_W, name="ctc")
+
+
+def seq_accuracy(probs_tnc, labels):
+    """Greedy CTC decode of probs (T, N, C) (collapse repeats, drop
+    blanks) against 0-padded labels: the share of exact sequences."""
+    correct = 0
+    for row, lab in zip(probs_tnc.argmax(axis=2).T, labels):
+        out, prev = [], None
+        for p in row:
+            if p != prev and p != 0:
+                out.append(int(p))
+            prev = p
+        correct += out == [int(v) for v in lab if v > 0]
+    return correct / len(labels)
+
+
+def _range_profile(run, steps, ranges, kinds):
+    """Over ``run()`` (``steps`` steps) under torch.profiler: device ms
+    per step of the kernels that start inside each named range's span on
+    the device, of the others by kind of kernel name ("rest" for none),
+    busy ms, host launch calls per step in all and inside each range's
+    span on the host, and each range's host ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = {r: [] for r in ranges}
+    host = {r: [] for r in ranges}
+    kernels, launches = [], []
+    for ev in prof.events():
+        span = (ev.time_range.start, ev.time_range.end)
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.name in dev:
+                dev[ev.name].append(span)
+            else:
+                kernels.append((span, ev.name))
+        elif ev.name in host:
+            host[ev.name].append(span)
+        elif ev.name in LAUNCH_CALLS:
+            launches.append(span[0])
+    by = dict.fromkeys(list(ranges) + [k for k, _ in kinds] + ["rest"], 0.0)
+    top = {}
+    for (t0, t1), name in kernels:
+        ms = (t1 - t0) / 1e3 / steps
+        key = next((r for r in ranges
+                    if any(a <= t0 < b for a, b in dev[r])), None) \
+            or next((k for k, pats in kinds
+                     if any(p in name for p in pats)), "rest")
+        by[key] += ms
+        top[name] = top.get(name, 0.0) + ms
+    return {"by_kind_ms": by, "busy_ms": sum(by.values()),
+            "kernels_per_step": len(kernels) / steps,
+            "launch_calls_per_step": len(launches) / steps,
+            "range_launch_calls_per_step": {
+                r: sum(any(a <= t < b for a, b in host[r])
+                       for t in launches) / steps for r in ranges},
+            "range_host_ms": {r: sum(b - a for a, b in host[r]) / 1e3 / steps
+                              for r in ranges},
+            "top": sorted(((t, n) for n, t in top.items()), reverse=True)[:6]}
+
+
+def _profile_line(tag, prof, wall_ms, unit="step"):
+    return (f"[{tag}-profile] per {unit}: {wall_ms:.3f} ms wall, device "
+            f"busy {prof['busy_ms']:.3f} ms, idle share "
+            f"{1 - prof['busy_ms'] / wall_ms:.4f}; host launch calls "
+            f"{prof['launch_calls_per_step']:.1f}, kernels "
+            f"{prof['kernels_per_step']:.1f}; by kind: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in prof["by_kind_ms"].items())
+            + "; ranges (host ms, host launch calls): "
+            + ", ".join(f"{r} {prof['range_host_ms'][r]:.3f} / "
+                        f"{c:.1f}" for r, c in
+                        prof["range_launch_calls_per_step"].items())
+            + "; top: " + "; ".join(f"{n[:70]} {t:.3f}"
+                                    for t, n in prof["top"]))
+
+
+def _xavier_args(net, ex, skip, seed):
+    """examples/ssd/train.py's init: Xavier on every argument but
+    ``skip``, from a seeded generator on the card, except a variable's
+    own ``__init__`` attr (SSD's conv4_3 scale: 20), which the port
+    honours as ``Module.init_params`` does (the example's loop, which
+    calls Xavier by name, leaves that scale at 0 in the JAX package)."""
+    from mxnet_tpu_torch import initializer
+
+    xavier = initializer.Xavier(
+        generator=torch.Generator(device=CARD).manual_seed(seed))
+    own = initializer.variable_initializers(net)
+    for name, arr in ex.arg_dict.items():
+        if not skip(name):
+            own.get(name, xavier)(name, arr)
+    return sorted(own)
+
+
+def _ssd_losses(outs):
+    """The step's class cross-entropy over the targets that count
+    (cls_label >= 0) and smooth-L1 loc loss per positive anchor, on the
+    card (nothing read)."""
+    cls_prob, loc_loss, cls_label = outs[0], outs[1], outs[2]
+    valid = cls_label >= 0
+    p = cls_prob.gather(1, cls_label.clamp(min=0).long()[:, None])[:, 0]
+    ce = -(torch.log(p.clamp(min=1e-30)) * valid).sum() \
+        / valid.sum().clamp(min=1)
+    return torch.stack([ce, loc_loss.sum()
+                        / (cls_label > 0).sum().clamp(min=1)])
+
+
+def phase_ssd_train(smi):
+    """examples/ssd/train.py's executor loop at full width: SSD-VGG16-300
+    (20 classes) at batch 32 x 3 x 300 x 300, fp32, Xavier, SGD lr 1e-3
+    momentum 0.9 wd 5e-4 through ``optimizer.get_updater``, over the
+    example's 64 synthetic images on the card."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.models import ssd
+
+    b = SSD_BATCH
+    net = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    shapes = {"data": (b, 3, SSD_SIZE, SSD_SIZE),
+              "label": (b, SSD_MAX_BOXES, 5)}
+    _, out_shapes, _ = net.infer_shape(**shapes)
+    anchors = out_shapes[3][1]
+    if anchors != SSD_ANCHORS or out_shapes[0] != (b, SSD_CLASSES + 1,
+                                                   SSD_ANCHORS):
+        raise AssertionError(f"ssd_train: output shapes {out_shapes}, want "
+                             f"{SSD_ANCHORS} anchors")
+    flops = _graph_flops(ssd.get_symbol(num_classes=SSD_CLASSES),
+                         (1, 3, SSD_SIZE, SSD_SIZE))
+    ex = net.simple_bind(CARD, **shapes)
+    own = _xavier_args(net, ex, lambda n: n in ("data", "label"), seed=17)
+    scale = float(ex.arg_dict[SSD_SCALE].mean())
+    imgs, labels = synthetic_detections(SSD_IMAGES, SSD_SIZE, SSD_MAX_BOXES,
+                                        SSD_CLASSES)
+    imgs = torch.from_numpy(imgs).to(CARD)
+    labels = torch.from_numpy(labels).to(CARD)
+    opt = optimizer.create("sgd", **SSD_OPT)
+    updater = optimizer.get_updater(opt)
+    names = net.list_arguments()
+    losses = []
+
+    def step(i):
+        sel = slice((i * b) % SSD_IMAGES, (i * b) % SSD_IMAGES + b)
+        ex.arg_dict["data"].copy_(imgs[sel])
+        ex.arg_dict["label"].copy_(labels[sel])
+        ex.forward(is_train=True)
+        ex.backward()
+        for k, name in enumerate(names):
+            if name in ("data", "label") or ex.grad_dict.get(name) is None:
+                continue
+            updater(k, ex.grad_dict[name], ex.arg_dict[name])
+        losses.append(_ssd_losses(ex.outputs))
+
+    t0 = time.perf_counter()
+    for i in range(SSD_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with _SyncCounter() as sc:
+        t0 = time.perf_counter()
+        for i in range(SSD_WARMUP, SSD_WARMUP + SSD_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = sc.total()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / SSD_STEPS * 1e3
+    img_s = b * SSD_STEPS / wall
+    n = SSD_WARMUP + SSD_STEPS
+    prof = _range_profile(lambda: [step(n + i) for i in range(2)], 2,
+                          SSD_RANGES, SSD_KINDS)
+    curve = torch.stack(losses).cpu().numpy()
+    first, last = curve[:3].mean(axis=0), curve[-3:].mean(axis=0)
+    nms_calls = prof["range_launch_calls_per_step"]["MultiBoxDetection.nms"]
+    out = {"img_s": img_s, "step_ms": step_ms, "warmup_s": warm_s,
+           "anchors": anchors, "gflop_per_img_fwd": flops / 1e9,
+           "mfu_fp32": 3 * flops * img_s / PEAK_FLOPS[torch.float32],
+           "host_syncs_per_step": syncs / SSD_STEPS,
+           "peak_gib": peak / 2**30, "busy_ms": prof["busy_ms"],
+           "idle_share": 1 - prof["busy_ms"] / step_ms,
+           "device_ms_by_kind": prof["by_kind_ms"],
+           "launch_calls_per_step": prof["launch_calls_per_step"],
+           "nms_launch_calls_per_step": nms_calls,
+           "nms_host_ms_per_step": prof["range_host_ms"][
+               "MultiBoxDetection.nms"],
+           "cls_ce_first_last": [float(first[0]), float(last[0])],
+           "loc_loss_first_last": [float(first[1]), float(last[1])],
+           "conv4_3_scale_init": scale, "own_init": own}
+    log(_profile_line("ssd_train", prof, step_ms))
+    log(f"[ssd_train] SSD-VGG16-300, {SSD_CLASSES} classes, b{b} fp32: "
+        f"{img_s:.2f} img/s, {step_ms:.3f} ms a step ({SSD_STEPS} steps; "
+        f"{SSD_WARMUP} warm-up steps {warm_s:.2f} s), {anchors} anchors, "
+        f"{flops / 1e9:.2f} GFLOP a forward image, MFU "
+        f"{out['mfu_fp32']:.4f} of fp32 67 TFLOP/s; busy "
+        f"{prof['busy_ms']:.3f} ms, idle {out['idle_share']:.4f}; "
+        f"{prof['launch_calls_per_step']:.1f} launch calls a step, "
+        f"{nms_calls:.1f} in the NMS loop; host syncs a step "
+        f"{out['host_syncs_per_step']:.2f}; peak {out['peak_gib']:.2f} GiB; "
+        f"class CE {first[0]:.4f} -> {last[0]:.4f}, loc loss "
+        f"{first[1]:.4f} -> {last[1]:.4f}; own init {own} ({scale:.1f} "
+        f"after init); {smi}")
+    log(f"[ssd_train] {json.dumps(out)}")
+    if syncs:
+        raise AssertionError(f"ssd_train: {syncs} host syncs in "
+                             f"{SSD_STEPS} steps")
+    if not last[0] < first[0]:
+        raise AssertionError(f"ssd_train: the class loss did not fall: "
+                             f"{curve[:, 0].tolist()}")
+    if scale != 20.0 or own != [SSD_SCALE]:
+        raise AssertionError(f"ssd_train: {SSD_SCALE} {scale} after init, "
+                             f"own inits {own}")
+    params = {k: v.detach().clone() for k, v in ex.arg_dict.items()
+              if k not in ("data", "label")}
+    del ex, updater, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params, (imgs, labels)
+
+
+def _detections_agree(card, cpu, tol):
+    """Card and CPU detections (n, A, 6) of the same weights and inputs:
+    class ids, kept rows and scores/boxes within ``tol`` wherever the
+    CPU's score is not within ``tol`` of a neighbour's (there, the order
+    of equal scores decides); the sorted scores within ``tol``
+    throughout.  Returns (rows compared, tie rows, worst error)."""
+    rows = ties = 0
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(np.sort(a[:, 1]), np.sort(b[:, 1]),
+                                   rtol=0, atol=tol)
+        s = b[:, 1]
+        gap = np.abs(np.diff(s))
+        tie = np.zeros(len(s), bool)
+        tie[:-1] |= gap <= tol
+        tie[1:] |= gap <= tol
+        tie &= s > 0
+        keep = ~tie
+        np.testing.assert_array_equal(a[keep, 0], b[keep, 0])
+        np.testing.assert_allclose(a[keep, 1:], b[keep, 1:], rtol=0,
+                                   atol=tol)
+        worst = max(worst, float(np.abs(a[keep, 1:] - b[keep, 1:]).max(
+            initial=0.0)))
+        rows += int(keep.sum())
+        ties += int(tie.sum())
+    return rows, ties, worst
+
+
+def phase_ssd_detect(smi, params, data):
+    """SSD's deploy graph (softmax + ``MultiBoxDetection``, nms_topk 400)
+    through the ``Predictor`` at batch 32 x 300 x 300 with the trained
+    weights: images/s, the NMS loop's share of a forward, the detections
+    against the port's CPU run, the op alone on the card against the CPU
+    on the same inputs, and VOC mAP over the 64 images."""
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import registry as treg
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.symbol import Symbol
+
+    imgs, labels = data
+    b = SSD_BATCH
+    deploy = ssd.get_symbol(num_classes=SSD_CLASSES)
+    p = Predictor(symbol=deploy, arg_params=params, aux_params={},
+                  input_shapes={"data": (b, 3, SSD_SIZE, SSD_SIZE)})
+    x = imgs[:b]
+    for _ in range(2):
+        p.forward(data=x)
+        p.get_output(0)
+    t0 = time.perf_counter()
+    for _ in range(SSD_DETECT_CALLS):
+        p.forward(data=x)
+        det = p.get_output(0)
+    fwd_ms = (time.perf_counter() - t0) / SSD_DETECT_CALLS * 1e3
+    img_s = b / fwd_ms * 1e3
+
+    def calls():
+        for _ in range(3):
+            p.forward(data=x)
+            p.get_output(0)
+
+    prof = _range_profile(calls, 3, ("MultiBoxDetection.nms",), SSD_KINDS)
+    nms_ms = prof["by_kind_ms"]["MultiBoxDetection.nms"]
+    nms_host = prof["range_host_ms"]["MultiBoxDetection.nms"]
+    nms_calls = prof["range_launch_calls_per_step"]["MultiBoxDetection.nms"]
+    log(_profile_line("ssd_detect", prof, fwd_ms, unit="forward"))
+
+    # the end-to-end check: the port on the CPU, same weights and images
+    cpu = Predictor(symbol=deploy,
+                    arg_params={k: v.cpu() for k, v in params.items()},
+                    aux_params={}, dev_type="cpu",
+                    input_shapes={"data": (SSD_CPU_IMAGES, 3, SSD_SIZE,
+                                           SSD_SIZE)})
+    cpu.forward(data=x[:SSD_CPU_IMAGES].cpu())
+    rows, ties, worst = _detections_agree(det[:SSD_CPU_IMAGES],
+                                          cpu.get_output(0), SSD_DETECT_TOL)
+    del cpu
+
+    # the op alone: the card's MultiBoxDetection against the CPU's on the
+    # card's own inputs (the graph's softmax, loc predictions, anchors)
+    node = next(nd for nd in deploy.nodes if nd.op == "MultiBoxDetection")
+    feed = Predictor(symbol=Symbol(list(node.inputs)), arg_params=params,
+                     aux_params={},
+                     input_shapes={"data": (b, 3, SSD_SIZE, SSD_SIZE)})
+    feed.forward(data=x)
+    ins = [torch.from_numpy(feed.get_output(i)).to(CARD) for i in range(3)]
+    op = treg.get("MultiBoxDetection")
+    on_card = op.fn(None, *ins, **node.attrs).cpu().numpy()
+    on_cpu = op.fn(None, *[t.cpu() for t in ins], **node.attrs).numpy()
+    # the op alone, unprofiled: host ms to enqueue a call, and ms a call
+    # to the device's end
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SSD_DETECT_CALLS):
+        op.fn(None, *ins, **node.attrs)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    op_host_ms = (t1 - t0) / SSD_DETECT_CALLS * 1e3
+    op_ms = (t2 - t0) / SSD_DETECT_CALLS * 1e3
+    np.testing.assert_array_equal(on_card[..., 0], on_cpu[..., 0])
+    op_err = float(np.abs(on_card - on_cpu).max())
+    if op_err > 1e-6:
+        raise AssertionError(f"ssd_detect: the op on the card differs from "
+                             f"the CPU's by {op_err}")
+    del feed
+
+    m, m07 = map_metrics()
+    for i in range(0, SSD_IMAGES, b):
+        p.forward(data=imgs[i:i + b])
+        d = p.get_output(0)
+        lab = labels[i:i + b].cpu().numpy()
+        m.update([lab], [d])
+        m07.update([lab], [d])
+    kept = int((det[..., 0] >= 0).sum())
+    out = {"img_s": img_s, "forward_ms": fwd_ms, "busy_ms": prof["busy_ms"],
+           "idle_share": 1 - prof["busy_ms"] / fwd_ms,
+           "nms_device_ms": nms_ms,
+           "nms_device_share": nms_ms / max(prof["busy_ms"], 1e-9),
+           "nms_host_ms": nms_host,
+           "nms_wall_share": nms_host / fwd_ms,
+           "nms_launch_calls": nms_calls,
+           "launch_calls_per_forward": prof["launch_calls_per_step"],
+           "kept_per_image": kept / b, "cpu_rows_equal": rows,
+           "cpu_tie_rows": ties, "cpu_worst_err": worst,
+           "op_card_vs_cpu_err": op_err, "op_alone_host_ms": op_host_ms,
+           "op_alone_ms": op_ms, "mAP": m.get()[1],
+           "VOC07_mAP": m07.get()[1]}
+    log(f"[ssd_detect] deploy graph b{b} through the Predictor: {img_s:.2f} "
+        f"img/s ({fwd_ms:.3f} ms a forward + copy-out, {SSD_DETECT_CALLS} "
+        f"calls); the NMS loop {nms_calls:.0f} launch calls, host "
+        f"{nms_host:.3f} ms ({out['nms_wall_share']:.3f} of the wall), "
+        f"device {nms_ms:.3f} ms ({out['nms_device_share']:.3f} of busy "
+        f"{prof['busy_ms']:.3f}); MultiBoxDetection alone (unprofiled) "
+        f"{op_host_ms:.3f} host ms to enqueue, {op_ms:.3f} ms to the "
+        f"device's end; {kept / b:.1f} kept rows an image; CPU "
+        f"run of {SSD_CPU_IMAGES} images: {rows} rows equal (worst "
+        f"{worst:.3g} <= {SSD_DETECT_TOL}), {ties} rows in score ties "
+        f"within {SSD_DETECT_TOL}; the op alone card vs CPU {op_err:.3g}; "
+        f"mAP {out['mAP']:.4f}, VOC07 mAP {out['VOC07_mAP']:.4f}; {smi}")
+    log(f"[ssd_detect] {json.dumps(out)}")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _match_rows(a, b, tol):
+    """The permutation of ``b``'s rows that puts each next to its equal
+    in ``a`` (L-inf within ``tol``): the order of two proposals with
+    scores within rounding may differ between the card and the CPU."""
+    perm = []
+    for row in a:
+        d = np.abs(b - row).max(axis=1)
+        j = int(np.argmin(d))
+        if d[j] > tol:
+            raise AssertionError(f"no row of the CPU's within {tol} of "
+                                 f"{row}: nearest {b[j]}")
+        perm.append(j)
+    return np.array(perm)
+
+
+def _rcnn_inputs(cfg, batch, seed):
+    """Seeded inputs of both graphs: examples/ssd/train.py's rectangles
+    at the rcnn image size, RPN targets and head targets."""
+    a0 = len(cfg["anchor_scales"]) * len(cfg["anchor_ratios"])
+    f = cfg["im_size"] // cfg["feature_stride"]
+    rs = np.random.RandomState(seed)
+    imgs, _ = synthetic_detections(batch, cfg["im_size"], 4,
+                                   cfg["num_classes"] - 1, seed=seed)
+    r = batch * cfg["rcnn_batch_rois"]
+    c4 = 4 * cfg["num_classes"]
+    return {
+        "data": imgs,
+        "im_info": np.tile(np.array([[cfg["im_size"], cfg["im_size"], 1.0]],
+                                    np.float32), (batch, 1)),
+        "rpn_label": rs.randint(-1, 2, (batch, a0 * f * f)).astype(
+            np.float32),
+        "rpn_bbox_target": rs.normal(0, 0.5, (batch, 4 * a0, f, f)).astype(
+            np.float32),
+        "rpn_bbox_weight": (rs.uniform(size=(batch, 4 * a0, f, f))
+                            < 0.2).astype(np.float32),
+        "roi_label": rs.randint(0, cfg["num_classes"], (r,)).astype(
+            np.float32),
+        "bbox_target": rs.normal(0, 0.5, (r, c4)).astype(np.float32),
+        "bbox_weight": (rs.uniform(size=(r, c4)) < 0.3).astype(np.float32),
+    }
+
+
+def _bind_rcnn(net, shapes, params, values, device):
+    ex = net.simple_bind(device, **shapes)
+    ex.copy_params_from({k: v for k, v in params.items()
+                         if k in ex.arg_dict})
+    for k in shapes:
+        ex.arg_dict[k].copy_(torch.from_numpy(values[k]))
+    return ex
+
+
+def phase_rcnn(smi):
+    """Faster R-CNN at examples/rcnn/rcnn/config.py's sizes (image 64,
+    stride 4, 3 classes, pre-NMS 64, post-NMS 16, 16 RoIs an image),
+    batch 8: the eval graph's forward (RPN -> ``Proposal`` ->
+    ``ROIPooling`` -> head) and a ``train_rois=True`` step (forward,
+    backward through ``ROIPooling``, SGD), each against the port on the
+    CPU from the same weights and inputs, then timed."""
+    from mxnet_tpu_torch import optimizer
+
+    cfg, b = RCNN_CFG, RCNN_BATCH
+    eval_net = rcnn_symbol(cfg, b, train_rois=False)
+    train_net = rcnn_symbol(cfg, b, train_rois=True)
+    eval_shapes = rcnn_shapes(cfg, b, False)
+    train_shapes = rcnn_shapes(cfg, b, True)
+    values = _rcnn_inputs(cfg, b, seed=8)
+    ex = train_net.simple_bind(CARD, **train_shapes)
+    _xavier_args(train_net, ex, lambda n: not n.endswith(("weight", "bias")),
+                 seed=18)
+    params = {k: v.detach().clone() for k, v in ex.arg_dict.items()
+              if k.endswith(("weight", "bias"))}
+    del ex
+    rtol, atol = RCNN_TOL
+
+    # the eval forward, card against CPU
+    outs = {}
+    for dev in (CARD, "cpu"):
+        ex = _bind_rcnn(eval_net, eval_shapes, params, values, dev)
+        outs[dev] = [o.detach().cpu().numpy()
+                     for o in ex.forward(is_train=False)]
+        if dev == CARD:
+            eval_ex = ex
+    card, cpu = outs[CARD], outs["cpu"]
+    post = cfg["rpn_post_nms_top_n"]
+    perm = np.concatenate([
+        i * post + _match_rows(card[4][i * post:(i + 1) * post],
+                               cpu[4][i * post:(i + 1) * post], RCNN_ROI_TOL)
+        for i in range(b)])
+    eval_err = {}
+    for k, (c, h) in enumerate(zip(card, cpu)):
+        if k >= 2:  # the head's rows follow the RoIs
+            h = h[perm]
+        np.testing.assert_allclose(c, h, rtol=rtol,
+                                   atol=RCNN_ROI_TOL if k == 4 else atol)
+        eval_err[k] = float(np.abs(c - h).max())
+    reordered = int((perm != np.arange(len(perm))).sum())
+    values["rois"] = card[4]
+
+    # the train step's forward and backward, card against CPU
+    grads = {}
+    for dev in (CARD, "cpu"):
+        ex = _bind_rcnn(train_net, train_shapes, params, values, dev)
+        o = ex.forward(is_train=True)
+        ex.backward()
+        grads[dev] = ([t.detach().cpu().numpy() for t in o],
+                      {k: ex.grad_dict[k].detach().cpu().numpy()
+                       for k in params})
+        if dev == CARD:
+            train_ex = ex
+    worst = 0.0
+    for c, h in zip(grads[CARD][0], grads["cpu"][0]):
+        np.testing.assert_allclose(c, h, rtol=rtol, atol=atol)
+    for k in params:
+        c, h = grads[CARD][1][k], grads["cpu"][1][k]
+        np.testing.assert_allclose(c, h, rtol=rtol, atol=atol, err_msg=k)
+        worst = max(worst, float(np.abs(c - h).max()
+                                 / max(np.abs(h).max(), 1e-12)))
+    roi_grad = float(np.abs(grads[CARD][1]["fc6_weight"]).sum())
+    if not roi_grad > 0:
+        raise AssertionError("rcnn: no gradient through ROIPooling")
+
+    # timed: eval forwards, then train steps with SGD (example's momentum)
+    def forward():
+        eval_ex.forward(is_train=False)
+
+    opt = optimizer.create("sgd", learning_rate=1e-3, momentum=0.9,
+                           rescale_grad=1.0 / b)
+    updater = optimizer.get_updater(opt)
+    names = sorted(params)
+
+    def train_step():
+        train_ex.forward(is_train=True)
+        train_ex.backward()
+        for i, name in enumerate(names):
+            updater(i, train_ex.grad_dict[name], train_ex.arg_dict[name])
+
+    times, syncs = {}, {}
+    for tag, fn in (("forward", forward), ("step", train_step)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with _SyncCounter() as sc:
+            t0 = time.perf_counter()
+            for _ in range(RCNN_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            times[tag] = (time.perf_counter() - t0) / RCNN_CALLS * 1e3
+            syncs[tag] = sc.total() / RCNN_CALLS
+    prof = _range_profile(lambda: [forward() for _ in range(3)], 3,
+                          ("Proposal.nms",), SSD_KINDS)
+    log(_profile_line("rcnn", prof, times["forward"], unit="forward"))
+    out = {"forward_ms": times["forward"], "step_ms": times["step"],
+           "img_s_forward": b / times["forward"] * 1e3,
+           "proposal_nms_launch_calls": prof["range_launch_calls_per_step"][
+               "Proposal.nms"],
+           "proposal_nms_device_ms": prof["by_kind_ms"]["Proposal.nms"],
+           "launch_calls_per_forward": prof["launch_calls_per_step"],
+           "idle_share": 1 - prof["busy_ms"] / times["forward"],
+           "host_syncs": syncs,
+           "eval_max_err": eval_err, "rois_reordered": reordered,
+           "grad_worst_rel_err": worst}
+    log(f"[rcnn] Faster R-CNN b{b} x 3 x 64 x 64 (stride 4, 3 classes, "
+        f"pre/post NMS 64/16, 16 RoIs an image): eval forward "
+        f"{times['forward']:.3f} ms ({out['img_s_forward']:.1f} img/s), "
+        f"train_rois step {times['step']:.3f} ms (host syncs a forward "
+        f"{syncs['forward']:.1f}, a step {syncs['step']:.1f}); Proposal's NMS "
+        f"{out['proposal_nms_launch_calls']:.0f} launch calls a forward of "
+        f"{prof['launch_calls_per_step']:.0f}; card vs CPU: eval outputs "
+        f"within ({rtol}, {atol}) ({reordered} RoI rows in another order), "
+        f"the step's gradients worst {worst:.3g} of each tensor's largest; "
+        f"{smi}")
+    log(f"[rcnn] {json.dumps(out)}")
+    if any(syncs.values()):
+        raise AssertionError(f"rcnn: host syncs a call {syncs}")
+    del eval_ex, train_ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ocr(smi):
+    """examples/warpctc/lstm_ocr.py at its defaults: batch 32 of 16 x 48
+    seven-segment captchas, ``LSTMCell(48)`` unrolled over the 48
+    columns, ``WarpCTC`` (label_length 5), Adam lr 4e-3 through
+    ``optimizer.get_updater``: the first step against the port on the CPU
+    from the same weights, then 200 steps (steps/s, the CTC loss at the
+    first and last step, a profile of the CTC backward) and the greedy
+    decode's sequence accuracy on a held-out batch."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.ops import ctc
+
+    b = OCR_BATCH
+    net = ocr_net(OCR_HIDDEN, OCR_CLASSES)
+    shapes = {"data": (b, OCR_H, OCR_W), "label": (b, OCR_DIGITS),
+              "l0_begin_state_0": (b, OCR_HIDDEN),
+              "l0_begin_state_1": (b, OCR_HIDDEN)}
+    skip = lambda n: n in ("data", "label") or "state" in n  # noqa: E731
+    ex = net.simple_bind(CARD, **shapes)
+    _xavier_args(net, ex, skip, seed=19)
+    names = sorted(n for n in ex.arg_dict if not skip(n))
+    params = {k: ex.arg_dict[k].detach().clone() for k in names}
+    imgs, labels = ocr_batches(np.random.RandomState(0), OCR_STEPS + 1, b)
+    imgs_d = torch.from_numpy(imgs).to(CARD)
+    labels_d = torch.from_numpy(labels).to(CARD)
+
+    def loss_of(probs, lab):
+        # WarpCTC's output is softmax(pred); log of it is log_softmax
+        return ctc.ctc_loss(torch.log(probs), lab).mean()
+
+    # the first step, card against CPU
+    first = {}
+    for dev in (CARD, "cpu"):
+        e = ex if dev == CARD else net.simple_bind("cpu", **shapes)
+        e.copy_params_from(params)
+        e.forward(is_train=True, data=torch.from_numpy(imgs[0]),
+                  label=torch.from_numpy(labels[0]))
+        e.backward()
+        probs = e.outputs[0].detach()
+        first[dev] = (probs.cpu().numpy(),
+                      float(loss_of(probs, e.arg_dict["label"])),
+                      {k: e.grad_dict[k].detach().cpu().numpy()
+                       for k in names})
+    rtol, atol = OCR_TOL
+    np.testing.assert_allclose(first[CARD][0], first["cpu"][0], rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(first[CARD][1], first["cpu"][1], rtol=rtol)
+    gworst = 0.0
+    for k in names:
+        c, h = first[CARD][2][k], first["cpu"][2][k]
+        top = max(float(np.abs(h).max()), 1e-12)
+        np.testing.assert_allclose(c, h, rtol=rtol, atol=atol * top,
+                                   err_msg=k)
+        gworst = max(gworst, float(np.abs(c - h).max()) / top)
+
+    opt = optimizer.create("adam", learning_rate=OCR_LR)
+    updater = optimizer.get_updater(opt)
+    ex.copy_params_from(params)
+    losses = []
+
+    def step(i):
+        ex.arg_dict["data"].copy_(imgs_d[i])
+        ex.arg_dict["label"].copy_(labels_d[i])
+        ex.forward(is_train=True)
+        ex.backward()
+        for k, name in enumerate(names):
+            updater(k, ex.grad_dict[name], ex.arg_dict[name])
+        losses.append(loss_of(ex.outputs[0].detach(), labels_d[i]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OCR_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    curve = torch.stack(losses).cpu().numpy()
+    prof = _range_profile(lambda: [step(i) for i in range(2)], 2,
+                          ("WarpCTC.backward",), SSD_KINDS)
+    ex.forward(is_train=False, data=imgs_d[OCR_STEPS],
+               label=labels_d[OCR_STEPS])
+    acc = seq_accuracy(ex.outputs[0].cpu().numpy(), labels[OCR_STEPS])
+    step_ms = wall / OCR_STEPS * 1e3
+    log(_profile_line("ocr", prof, step_ms))
+    out = {"steps_s": OCR_STEPS / wall, "step_ms": step_ms,
+           "ctc_loss_first_last": [float(curve[0]), float(curve[-1])],
+           "first_step_loss_card_cpu": [first[CARD][1], first["cpu"][1]],
+           "first_step_grad_worst_rel_err": gworst,
+           "heldout_seq_accuracy": acc,
+           "ctc_backward_device_ms": prof["by_kind_ms"]["WarpCTC.backward"],
+           "ctc_backward_launch_calls": prof["range_launch_calls_per_step"][
+               "WarpCTC.backward"],
+           "launch_calls_per_step": prof["launch_calls_per_step"],
+           "busy_ms": prof["busy_ms"],
+           "idle_share": 1 - prof["busy_ms"] / step_ms}
+    log(f"[ocr] lstm_ocr b{b}, LSTM 48 over 48 columns, WarpCTC: "
+        f"{out['steps_s']:.2f} steps/s ({step_ms:.3f} ms a step, "
+        f"{OCR_STEPS} steps); CTC loss {curve[0]:.4f} -> {curve[-1]:.4f}; "
+        f"held-out sequence accuracy {acc:.3f}; first step card vs CPU: "
+        f"loss {first[CARD][1]:.6f} / {first['cpu'][1]:.6f}, gradients "
+        f"worst {gworst:.3g} of each tensor's largest; the CTC backward "
+        f"{out['ctc_backward_device_ms']:.3f} device ms and "
+        f"{out['ctc_backward_launch_calls']:.0f} launch calls of "
+        f"{prof['launch_calls_per_step']:.0f} a step; {smi}")
+    log(f"[ocr] {json.dumps(out)}")
+    if not curve[-10:].mean() < curve[:10].mean():
+        raise AssertionError(f"ocr: the CTC loss did not fall: "
+                             f"{curve[:10]} ... {curve[-10:]}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -6703,6 +7732,22 @@ def main():
             raise AssertionError(f"{tag}: {want} never launched")
     log(f"[slice13] hand-written kernel launches by phase: "
         f"{json.dumps(slice13)}")
+    # slice 14: SSD-VGG16-300 training and detection, Faster R-CNN's
+    # Proposal -> ROIPooling, LSTM-OCR over WarpCTC.  None of the six
+    # kernels lies on these paths: their counts stay 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    det_launches = _kernel_launches(reset=True)
+    _, ssd_params, ssd_data = phase_ssd_train(smi)
+    phase_ssd_detect(smi, ssd_params, ssd_data)
+    del ssd_params, ssd_data
+    phase_rcnn(smi)
+    phase_ocr(smi)
+    det_launches = _kernel_launches()
+    log(f"[detection] hand-written kernel launches in phases 31-34: "
+        f"{json.dumps(det_launches)}")
+    if any(det_launches.values()):
+        raise AssertionError(f"phases 31-34 launched {det_launches}")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -6758,6 +7803,7 @@ def main():
         rec["launches_profiler"] = prof_launches[rec["name"]]
         for tag, counts in slice13.items():
             rec[f"launches_{tag}"] = counts[rec["name"]]
+        rec["launches_detection"] = det_launches[rec["name"]]
     for rec in records[1:4]:
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()

@@ -33,7 +33,7 @@ from .ndarray import NDArray
 
 __all__ = ["Initializer", "Uniform", "Normal", "Constant", "One", "Zero",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "Load", "Mixed",
-           "create"]
+           "create", "variable_initializers"]
 
 
 class Initializer:
@@ -288,3 +288,19 @@ def create(dumps_json: str) -> Initializer:
     if name not in registry:
         raise MXNetError(f"unknown initializer '{name}'")
     return registry[name](**kwargs)
+
+
+def variable_initializers(symbol) -> dict:
+    """``{name: initializer}`` of the variables of ``symbol`` that carry
+    their own ``__init__`` attr (``Variable(init=...)``, e.g. SSD's
+    ``conv4_3_scale``); an attr naming no known initializer is left
+    out.  What ``Module.init_params`` uses before its own initializer,
+    and what a loop over an executor's ``arg_dict`` should too."""
+    inits = {}
+    for node in symbol.nodes:
+        if node.is_variable and node.extra_attrs.get("__init__"):
+            try:
+                inits[node.name] = create(node.extra_attrs["__init__"])
+            except MXNetError:
+                pass
+    return inits

@@ -5,16 +5,14 @@ reference's does), and :func:`get_symbol`, the dispatcher of
 ``mxnet_tpu/models/__init__.py`` (parity:
 example/image-classification/train_model.py).
 
-Every builder of the reference's zoo is here but ``ssd-vgg16``, which
-raises "not ported yet" (it waits for the vision ops, ROADMAP Queue 1
-item 11); a name neither package knows raises the reference's
-``ValueError``."""
-from ..base import MXNetError
+Every builder of the reference's zoo is here; ``ssd-vgg16`` is SSD's
+training graph (:func:`ssd.get_symbol_train`), as in the reference.  A
+name neither package knows raises the reference's ``ValueError``."""
 from . import (alexnet, decode, googlenet, inception_bn,  # noqa: F401
                inception_resnet, inception_v3, lenet, lstm, mlp, resnet,
-               resnext, transformer, vgg)
+               resnext, ssd, transformer, vgg)
 
-# the reference's builder names; None marks a builder not ported yet
+# the reference's builder names
 _BUILDERS = {
     "mlp": mlp.get_symbol, "lenet": lenet.get_symbol,
     "alexnet": alexnet.get_symbol, "vgg": vgg.get_symbol,
@@ -23,7 +21,8 @@ _BUILDERS = {
     "inception-v3": inception_v3.get_symbol,
     "inception-resnet-v2": inception_resnet.get_symbol,
     "resnet": resnet.get_symbol, "resnext": resnext.get_symbol,
-    "ssd-vgg16": None, "transformer-lm": transformer.get_symbol,
+    "ssd-vgg16": ssd.get_symbol_train,
+    "transformer-lm": transformer.get_symbol,
 }
 
 
@@ -40,8 +39,4 @@ def get_symbol(name, num_classes=1000, **kwargs):
                                   **kwargs)
     if name not in _BUILDERS:
         raise ValueError(f"unknown model {name}; have {sorted(_BUILDERS)}")
-    if _BUILDERS[name] is None:
-        raise MXNetError(f"models.get_symbol({name!r}): the {name} builder "
-                         "is not ported yet (ROADMAP Queue 1 item 6, after "
-                         "the vision ops of item 11)")
     return _BUILDERS[name](num_classes, **kwargs)

@@ -206,14 +206,7 @@ class Module(BaseModule):
         ex = self._exec_group.execs[0]
         # a variable's own __init__ attr overrides the module's
         # initializer (parity: the InitDesc/__init__ attr protocol)
-        var_inits = {}
-        for node in self._symbol.nodes:
-            if node.is_variable and node.extra_attrs.get("__init__"):
-                try:
-                    var_inits[node.name] = init_mod.create(
-                        node.extra_attrs["__init__"])
-                except MXNetError:
-                    pass
+        var_inits = init_mod.variable_initializers(self._symbol)
         for kind, names, bound, given in (
                 ("param", self._param_names, ex.arg_dict, arg_params),
                 ("aux", self._aux_names, ex.aux_dict, aux_params)):

@@ -1,6 +1,8 @@
 """The op set of ``ops/matrix.py``, ``ops/reduce.py``, ``ops/indexing.py``,
 ``ops/loss.py``, ``ops/init_sample.py`` and ``ops/sequence.py`` in the
-port against the JAX package's, on the CPU.
+port against the JAX package's, on the CPU (``ops/vision.py`` and
+``ops/ctc.py`` have their own files; their signatures are held here,
+with the registry as a whole).
 
 Each case runs the op's forward and, where it has one, its gradient (a
 seeded cotangent through ``jax.vjp`` and ``torch.autograd.grad``; the
@@ -35,8 +37,8 @@ from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch.ops import registry as treg
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# the reference's names the port leaves to ROADMAP Queue 1 item 11
-UNPORTED_MODULES = ("mxnet_tpu.ops.vision", "mxnet_tpu.ops.ctc")
+# the reference's op modules the port has not ported: none
+UNPORTED_MODULES = ()
 
 
 def _n(seed, *shape, scale=1.0):
@@ -318,25 +320,39 @@ def test_op_matches_jax_bf16(case):
            TOL["bfloat16"])
 
 
-def test_registry_is_the_reference_but_vision_ctc_custom():
+def test_registry_holds_all_227_reference_names():
     # the reference's own names: a plugin that another test imports
-    # (mxnet_tpu/plugins/) registers more into the JAX registry.  The
-    # Custom op is ported: the names still lacking are those of vision
-    # and ctc
+    # (mxnet_tpu/plugins/) registers more into the JAX registry.  Every
+    # one is ported, Custom, vision and ctc included
     jnames = {n for n in jops.list_ops()
               if not jops.get(n).fn.__module__.startswith(
                   "mxnet_tpu.plugins.")}
     assert len(jnames) == 227
     unported = {n for n in jnames
                 if jops.get(n).fn.__module__ in UNPORTED_MODULES}
-    assert len(unported) == 17
-    assert set(treg.list_ops()) == jnames - unported
-    assert len(treg.list_ops()) == 210
+    assert not unported
+    assert set(treg.list_ops()) == jnames
+    assert len(treg.list_ops()) == 227
     assert "Custom" in treg.list_ops()
 
 
+def test_vision_and_ctc_names_have_parity_cases():
+    """Each name of ``ops/vision.py`` and ``ops/ctc.py`` is reached by a
+    case of ``test_torch_detection_ops.py`` or ``test_torch_ctc.py``."""
+    import test_torch_ctc
+    import test_torch_detection_ops
+
+    jnames = {n for n in jops.list_ops()
+              if jops.get(n).fn.__module__ in ("mxnet_tpu.ops.vision",
+                                               "mxnet_tpu.ops.ctc")}
+    assert len(jnames) == 17
+    assert jnames <= (test_torch_detection_ops.PARITY_OPS
+                      | test_torch_ctc.PARITY_OPS)
+
+
 @pytest.mark.parametrize("module", ["matrix", "reduce", "indexing", "loss",
-                                    "init_sample", "sequence"])
+                                    "init_sample", "sequence", "vision",
+                                    "ctc"])
 def test_op_signatures_match_the_reference(module):
     jnames = {n for n in jops.list_ops()
               if jops.get(n).fn.__module__ == f"mxnet_tpu.ops.{module}"}

@@ -257,7 +257,10 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 os.path.join("serving", "quantize.py"),
                 os.path.join("serving", "router.py"),
                 os.path.join("serving", "__main__.py"),
-                os.path.join("telemetry", "fleet.py")):
+                os.path.join("telemetry", "fleet.py"),
+                os.path.join("ops", "vision.py"),
+                os.path.join("ops", "ctc.py"),
+                os.path.join("models", "ssd.py")):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -292,7 +295,8 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.serving.quantize, "
             "mxnet_tpu_torch.serving.router, "
             "mxnet_tpu_torch.serving.__main__, "
-            "mxnet_tpu_torch.telemetry.fleet\n"
+            "mxnet_tpu_torch.telemetry.fleet, mxnet_tpu_torch.ops.vision, "
+            "mxnet_tpu_torch.ops.ctc, mxnet_tpu_torch.models.ssd\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")

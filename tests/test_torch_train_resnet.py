@@ -75,9 +75,17 @@ def test_get_symbol_matches_jax(monkeypatch, name, kw):
 
 
 @pytest.mark.parametrize("name", ["ssd-vgg16"])
-def test_get_symbol_refuses_builders_not_ported(name):
-    with pytest.raises(MXNetError, match="Queue 1 item 6"):
-        tmodels.get_symbol(name)
+def test_get_symbol_refuses_builders_not_ported(monkeypatch, name):
+    # no builder is left unported: the last one (ssd-vgg16, SSD's
+    # training graph) builds the JAX dispatcher's graph
+    from mxnet_tpu import base as jbase
+    from mxnet_tpu_torch import base as tbase
+
+    assert None not in tmodels._BUILDERS.values()
+    monkeypatch.setattr(tbase, "_NAME_MANAGER", tbase.NameManager())
+    with jbase.NameManager():
+        want = jmodels.get_symbol(name).tojson()
+    assert tmodels.get_symbol(name).tojson() == want
 
 
 def test_get_symbol_unknown_name_raises_as_jax():
