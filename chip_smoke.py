@@ -281,7 +281,34 @@ hand-written CUDA kernel
    last, the CTC backward's device ms and launch calls), the greedy
    decode's sequence accuracy on a held-out batch.  Phases 31-34 launch
    none of the six hand-written kernels (their counts are read around
-   them: ``launches_detection``).
+   them: ``launches_detection``);
+35. the autotuner (``phase_autotune``): serving ``MFU_HEADLINE_CONFIG``
+   in bf16 (8 slots, 16-token pages, ``max_len`` 1024) under
+   ``MXTPU_SCHEDULE_CACHE=search:<tmp>``: every paged candidate's µs per
+   tick (all layers; the kernel's splits), the search's trials, its
+   winner (a split of the kernel) and seconds, a second ``PagedSlots``
+   hitting the cache
+   with 0 trials, ``readonly:`` on a fresh path writing nothing and
+   keeping the default, the 16 prompts served under the winner and under
+   the default schedule (greedy tokens equal, or teacher-forced logits
+   within ``phase_parity``'s tolerance; the kernel launched on every layer
+   of every tick of both); then ``residual_epilogue.tune``
+   on ResNet-50's four tails at batch 32 in fp32 and bf16 (every launch
+   schedule's µs, each bit-equal to the default's output, the winner
+   against the default and the bound), the tuned Predictor's fp32
+   outputs bit-equal to the untuned one's, the program cache's
+   fingerprint moving with the search (``launches_autotune``);
+36. the health and perf planes (``phase_planes``): the LM step
+   (``MFU_HEADLINE_CONFIG``, b8 x 1024, bf16 Adam) through
+   ``FusedTrainer.fit`` with ``MXTPU_PERF_ATTR``, ``MXTPU_FLIGHT_RECORD``
+   and ``MXTPU_SENTINEL=raise``: step ms with the planes on and off, host
+   syncs a batch (0), the plane's MFU beside this script's own, the cost
+   row's FLOPs beside the analytic count, the flight ring's length, the
+   ``/profile`` top rows; then one parameter set to inf (a
+   ``NumericsError`` naming it at the epoch boundary, and a flight dump),
+   one oversized ``torch.empty`` (``DeviceOOMError`` with the ranked
+   report) and 20 decode ticks with the perf plane on (the decode cost
+   rows and step buckets; ``launches_planes``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -1138,10 +1165,11 @@ def _drive(pg, V, forced=None):
         return x.float().cpu().numpy()
 
     outs.append(host(pg.admit(0, fa)))
-    tok = np.zeros(3, np.int64)
+    tok = np.zeros(pg.num_slots, np.int64)
     tok[0] = pick(outs[-1])
     fed.append(int(tok[0]))
-    occ = np.array([True, False, False])
+    occ = np.zeros(pg.num_slots, bool)
+    occ[0] = True
     for _ in range(4):
         lg, _ = pg.step(tok, occ)
         outs.append(host(lg)[:1])
@@ -1150,7 +1178,7 @@ def _drive(pg, V, forced=None):
     outs.append(host(pg.admit(1, fb)))
     tok[1] = pick(outs[-1])
     fed.append(int(tok[1]))
-    occ = np.array([True, True, False])
+    occ[1] = True
     for _ in range(4):
         lg, _ = pg.step(tok, occ)
         outs.append(host(lg)[:2])
@@ -7614,6 +7642,494 @@ def phase_ocr(smi):
     return out
 
 
+# ------------------------------------------------------------ phases 35-36
+AUTOTUNE_CALLS = 50              # timed calls of each paged candidate
+EPI_TUNE_CALLS = 50              # timed replays of each epilogue schedule
+PLANES_STEPS = 10                # LM steps an epoch of phase_planes
+PLANES_DECODE_TICKS = 20         # decode ticks with the perf plane on
+PLANES_INF = "layer0_q_weight"   # the parameter the sentinel check poisons
+OOM_BYTES = 1 << 40              # one torch.empty far past the card's 80 GB
+
+
+def _sched_name(sched):
+    """``cuda/p8``, ``pagewalk/c2``, ``gather``, ``t256/b8``."""
+    if "threads" in sched:
+        return f"t{sched['threads']}/b{sched['blocks_per_sm']}"
+    knob = ("/p%d" % sched["chunk_pages"] if "chunk_pages" in sched
+            else "/c%d" % sched["chunk"] if "chunk" in sched else "")
+    return sched["impl"] + knob
+
+
+def _serve_prompts(V):
+    """phase_serve's 16 prompts: 8 behind a shared 256-token prefix."""
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, V, 256).tolist()
+    prompts = [prefix + rng.integers(0, V, int(n)).tolist()
+               for n in rng.integers(16, 201, 8)]
+    return prompts + [rng.integers(0, V, int(n)).tolist()
+                      for n in rng.integers(16, 701, 8)]
+
+
+def _serve_under(dec, prompts, env):
+    """The 16 prompts served (32 greedy tokens each) by a paged server
+    built under ``env``: ``(tokens, schedule, paged launches, ticks)``."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import serve_decoder
+
+    server, sched = _with_env(env, lambda: serve_decoder(
+        dec, num_slots=SLOTS, paged=True, kv_block=BLOCK, queue_size=32))
+    try:
+        port = server.server_address[1]
+        _serve_burst(port, [[1, 2, 3]], 2)      # warm-up, outside the counts
+        n0, t0 = pa.launch_count(), sched.stats["ticks"]
+        replies = _serve_burst(port, prompts, 32)
+        return ([r[1]["tokens"] for r in replies],
+                dict(sched.backend.schedule), pa.launch_count() - n0,
+                sched.stats["ticks"] - t0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.close()
+
+
+def _paged_autotune(cfg, params, smi, wd):
+    """The paged half of phase_autotune; returns the served runs' paged
+    launches."""
+    from mxnet_tpu_torch import autotune as at
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    V, L, H = cfg["vocab_size"], cfg["num_layers"], cfg["num_heads"]
+    dh, M, dt = cfg["d_model"] // H, MAX_LEN // BLOCK, torch.bfloat16
+    dec = KVDecoder(params, num_layers=L, num_heads=H, max_len=MAX_LEN,
+                    dtype=dt)
+    default = pa.default_schedule("cuda", BLOCK, dh, dt)
+    us = {}
+    for c in pa.candidate_schedules("cuda", BLOCK, dh, M, dt):
+        fn = pa.make_bench_fn(c, B=SLOTS, H=H, M=M, block=BLOCK, dh=dh, L=L,
+                              dtype=dt, device=CARD)
+        us[_sched_name(c)] = _time_ms(lambda i: fn(), AUTOTUNE_CALLS,
+                                      warmup=3) * 1e3
+        del fn
+    log(f"[autotune] paged candidates, µs per tick's attention over {L} "
+        f"layers (B {SLOTS}, H {H}, dh {dh}, 16-token pages, M {M}, bf16, "
+        f"cursors spread over the context; CUDA events over "
+        f"{AUTOTUNE_CALLS} calls): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in us.items())
+        + f"; default {_sched_name(default)}; {smi}")
+    path = os.path.join(wd, "schedules.json")
+    env = {"MXTPU_SCHEDULE_CACHE": "search:" + path}
+    trials = tm.get_registry().get("autotune_trials_total")
+    buckets = tuple(2 ** i for i in range(3, 11))
+
+    def slots(e, n=SLOTS):
+        return _with_env(e, lambda: PagedSlots(dec, n, block=BLOCK,
+                                               prefill_buckets=buckets))
+
+    at.reset()
+    n0, t0 = trials.total(), time.perf_counter()
+    pg = slots(env)
+    search_s, n_trials = time.perf_counter() - t0, int(trials.total() - n0)
+    won = dict(pg.schedule)
+    best = json.load(open(path))["entries"][at.device_kind()][
+        "paged_attention|" + pa.keysig(SLOTS, H, M, BLOCK, dh, dt)]
+    del pg
+    at.reset()                     # a fresh process: the winner from disk
+    again = slots(env)
+    if again.schedule != won or trials.total() != n0 + n_trials:
+        raise AssertionError(f"the second PagedSlots did not hit the "
+                             f"cache: {again.schedule} vs {won}, trials "
+                             f"{trials.total() - n0 - n_trials}")
+    del again
+    ro = os.path.join(wd, "readonly.json")
+    at.reset()
+    kept = slots({"MXTPU_SCHEDULE_CACHE": "readonly:" + ro})
+    if os.path.exists(ro) or kept.schedule != default:
+        raise AssertionError(f"readonly: {kept.schedule}, file written "
+                             f"{os.path.exists(ro)}")
+    del kept
+    if n_trials != len(us) or won["impl"] != "cuda":
+        raise AssertionError(f"search: {n_trials} trials for {len(us)} "
+                             f"candidates, winner {won}")
+    log(f"[autotune] paged search: {n_trials} trials in {search_s:.2f} s "
+        f"(host wall, warm-up 2 + best of 5 each), winner "
+        f"{_sched_name(won)} at {best['best_us']} µs (the default "
+        f"{_sched_name(default)}: {us[_sched_name(default)]:.2f} µs by "
+        f"events); a second PagedSlots: 0 trials, {_sched_name(won)}; "
+        f"readonly on a fresh path: nothing written, default kept")
+    prompts = _serve_prompts(V)
+    at.reset()
+    tok_won, sch, n_won, ticks = _serve_under(dec, prompts, env)
+    if sch != won:
+        raise AssertionError(f"the server ran {sch}, not the winner {won}")
+    tok_def, sch, n_def, ticks_d = _serve_under(
+        dec, prompts, {"MXTPU_SCHEDULE_CACHE": "off"})
+    if sch != default:
+        raise AssertionError(f"the untuned server ran {sch}")
+    equal = sum(a == b for a, b in zip(tok_won, tok_def))
+    # teacher-forced logits of the winner against the default, with
+    # phase_parity's bf16 tolerance (a split of other chunks merges the
+    # same partials in another order)
+    ref, fed = _drive(_with_env({"MXTPU_SCHEDULE_CACHE": "off"},
+                                lambda: PagedSlots(
+                                    dec, SLOTS, block=BLOCK,
+                                    prefill_buckets=buckets)), V)
+    got, _ = _drive(slots(env), V, forced=fed)
+    errs = [float(np.abs(a - b).max()) for a, b in zip(ref, got)]
+    log(f"[autotune] served 16 prompts x 32 greedy tokens under the winner "
+        f"({ticks} ticks, {n_won} paged launches) and the default ({ticks_d}"
+        f" ticks, {n_def} launches): {equal}/16 token sequences equal; "
+        f"teacher-forced logits winner vs default max |diff| {max(errs):.3g}"
+        f" (first step {errs[1]:.3g}; phase_parity's bf16 tolerance 1e-2 "
+        f"first, 1e-1 all)")
+    if equal != len(prompts) and not (errs[1] <= 1e-2 and max(errs) <= 0.1):
+        raise AssertionError(f"winner {won} vs default: {equal}/16 equal, "
+                             f"logits differ by {max(errs)}")
+    if n_def < ticks_d * L or n_won < ticks * L:
+        raise AssertionError(f"paged launches {n_won}/{n_def} in "
+                             f"{ticks}/{ticks_d} ticks")
+    del dec
+    torch.cuda.empty_cache()
+    return {"paged_us": us, "paged_winner": _sched_name(won),
+            "paged_trials": n_trials, "paged_search_s": search_s,
+            "paged_launches": n_won + n_def}
+
+
+def _epilogue_autotune(smi, wd):
+    """The epilogue half of phase_autotune; returns its records and the
+    tuned Predictor's epilogue launches."""
+    from mxnet_tpu_torch import autotune as at
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    env = {"MXTPU_SCHEDULE_CACHE": "search:" + os.path.join(wd, "epi.json")}
+    at.reset()
+    fp0 = _with_env(env, at.fingerprint)
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(35)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for name, hw, c in EPI_TAILS:
+            # the Predictor's layout: logical NCHW in channels-last memory
+            rows = PREDICT_BATCH * hw
+            shape = (PREDICT_BATCH, c, int(hw ** 0.5), int(hw ** 0.5))
+            x = torch.randn(shape, generator=g, device=dev).to(dtype) \
+                .contiguous(memory_format=torch.channels_last)
+            s = torch.randn(shape, generator=g, device=dev).to(dtype) \
+                .contiguous(memory_format=torch.channels_last)
+            scale = torch.rand((c,), generator=g, device=dev) + 0.5
+            bias = torch.rand((c,), generator=g, device=dev) - 0.5
+            ref = tre._plain_fwd(x, s, scale, bias, 1)
+            base = tre._cuda_fwd(x, s, scale, bias, 1,
+                                 schedule=tre.DEFAULT_SCHEDULE)
+            diff = (base.float() - ref.float()).abs()
+            if not bool((diff <= _epi_tolerance(x, s, scale, ref)).all()):
+                raise AssertionError(f"epilogue {name} {tag}: default "
+                                     f"schedule off its plain version")
+            # timed as tune() times them: replays of a captured pass over
+            # copies cold in L2, µs a launch
+            bench = tre.make_bench_fn(rows, c, dtype)
+            us = {}
+            for cand in tre.candidate_schedules():
+                got = tre._cuda_fwd(x, s, scale, bias, 1, schedule=cand)
+                if not torch.equal(got, base):
+                    raise AssertionError(f"epilogue {name} {tag}: schedule "
+                                         f"{cand} changed the output")
+                thunk = bench(cand)
+                n_pass = len(thunk())
+                us[_sched_name(cand)] = _time_ms(
+                    lambda i: thunk(), EPI_TUNE_CALLS) * 1e3 / n_pass
+                del thunk
+            t0 = time.perf_counter()
+            won = _with_env(env, lambda: tre.tune(rows, c, dtype))
+            tune_s = time.perf_counter() - t0
+            bound, _ = _epi_bound_ms(rows, c, dtype)
+            d = _sched_name(tre.DEFAULT_SCHEDULE)
+            w = _sched_name(won)
+            out[(tag, name)] = {"rows": rows, "C": c, "us": us, "winner": w,
+                                "winner_us": us[w], "default_us": us[d],
+                                "bound_us": bound * 1e3, "tune_s": tune_s}
+            log(f"[autotune] epilogue {tag} {name} ({rows} x {c}): "
+                f"candidates µs a launch (events over {EPI_TUNE_CALLS} "
+                f"replays of a captured pass, inputs cold in L2) "
+                + " ".join(f"{k} {v:.2f}" for k, v in us.items())
+                + f"; every output bit-equal to the default's; tune() "
+                f"picked {w} in {tune_s:.2f} s: {us[w]:.2f} µs vs default "
+                f"{d} {us[d]:.2f} µs, bound {bound * 1e3:.2f} µs (share "
+                f"{bound * 1e3 / us[w]:.3f})")
+            del x, s, ref, base, got, bench
+    for tag in ("float32", "bfloat16"):
+        rows = [r for (t, _), r in out.items() if t == tag]
+        ratio = (sum(r["winner_us"] for r in rows)
+                 / sum(r["default_us"] for r in rows))
+        log(f"[autotune] epilogue {tag}: the four tails under tune()'s "
+            f"winners take {ratio:.4f} of the default's µs; {smi}")
+    fp1 = _with_env(env, at.fingerprint)
+    if fp1 == fp0:
+        raise AssertionError("the search did not move the fingerprint")
+    # the tuned Predictor against the untuned one, fp32, bit for bit
+    net, arg, aux = _resnet50()
+    x = np.random.default_rng(3).normal(
+        size=(PREDICT_BATCH, 3, 224, 224)).astype(np.float32)
+    cache = tm.get_registry().get("executor_graph_cache_total")
+    plain = _predictor(net, arg, aux, env={"MXTPU_SCHEDULE_CACHE": "off"})
+    plain.forward(data=x)
+    want = plain.get_output(0)
+    del plain
+    m0 = cache.value(result="miss")
+    tuned = _predictor(net, arg, aux, env=env)
+    misses = cache.value(result="miss") - m0
+    used = {name: _sched_name(_with_env(env, lambda: tre._schedule_for(
+        PREDICT_BATCH * hw, c, torch.float32))) for name, hw, c in EPI_TAILS}
+
+    def run():
+        tuned.forward(data=x)
+        return tuned.get_output(0)
+
+    run()
+    tre.reset_launch_count()
+    got = [_with_env(env, run) for _ in range(3)]
+    launches = tre.launch_count()
+    if launches != 12 or not all(np.array_equal(o, want) for o in got):
+        raise AssertionError(f"tuned Predictor: {launches} epilogue "
+                             f"launches in 3 forwards, outputs equal "
+                             f"{[np.array_equal(o, want) for o in got]}")
+    log(f"[autotune] fingerprint {fp0} -> {fp1} after the search; the "
+        f"re-bind missed the program cache {int(misses)} time(s) and its "
+        f"fp32 tails run {used}; 3 tuned forwards: {launches} epilogue "
+        f"launches, softmax outputs bit-equal to the untuned Predictor's; "
+        f"{smi}")
+    del tuned
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_autotune(smi, cfg, params):
+    """35: the autotuner on the card (see the module docstring).  Returns
+    (summary, launches by kernel in its main path runs)."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    tm.enable()       # the autotune_* and executor cache counters
+    counts = _kernel_launches(reset=True)
+    with tempfile.TemporaryDirectory() as wd:
+        paged = _paged_autotune(cfg, params, smi, wd)
+        epi, epi_launches = _epilogue_autotune(smi, wd)
+    counts = {k: 0 for k in counts}
+    counts["paged_attention"] = paged["paged_launches"]
+    counts["residual_epilogue"] = epi_launches
+    return {"paged": paged, "epilogue": epi}, counts
+
+
+def _lm_epoch(tk, data, label):
+    """One ``fit`` epoch over the host batches; ``(wall s, sync counter)``."""
+    from mxnet_tpu_torch import io
+
+    it = io.NDArrayIter(data, label, batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _SyncCounter() as sync:
+        tk.fit(it, eval_metric="ce", num_epoch=1,
+               batch_end_callback=[sync.mark])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, sync
+
+
+def phase_planes(smi, cfg, params):
+    """36: the health and perf planes on the card (see the module
+    docstring).  Returns (summary, launches by kernel in its main path
+    runs)."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving.scheduler import SlotScheduler
+    from mxnet_tpu_torch.telemetry import health, perf
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    B, T, V, L = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"], \
+        cfg["num_layers"]
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, V, (B * PLANES_STEPS, T)).astype(np.float32)
+    label = rng.integers(0, V, (B * PLANES_STEPS, T)).astype(np.float32)
+    fpt = tr.lm_train_flops_per_token(L, cfg["d_model"], cfg["d_ff"], T, V)
+    counts = {k: 0 for k in _kernel_launches(reset=True)}
+    tm.enable()
+    label_of = "fused_step[%s]" % (tr.transformer_lm(**cfg).name or "graph")
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        dump = os.path.join(wd, "flight.json")
+        on = {"MXTPU_SENTINEL": "raise", "MXTPU_FLIGHT_RECORD": dump}
+        off = {"MXTPU_SENTINEL": "0", "MXTPU_FLIGHT_RECORD": "0"}
+
+        def trainer():
+            return FusedTrainer(tr.transformer_lm(**cfg), optimizer="adam",
+                                optimizer_params={"lr": 1e-4},
+                                dtype="bfloat16").init(
+                data=(B, T), softmax_label=(B, T))
+
+        health._ring.clear()
+        perf.reset()
+        perf.enable()
+        tk = _with_env(on, trainer)
+        _with_env(on, lambda: _lm_epoch(tk, data, label))   # warm, counted
+        cost = [r for r in perf.cost_table() if r["program"] == label_of]
+        perf.reset(costs=False)
+        fa.reset_launch_counts()
+        wall_on, sync = _with_env(on, lambda: _lm_epoch(tk, data, label))
+        flash = fa.launch_counts()
+        per_batch = [b - a for a, b in zip(sync.marks, sync.marks[1:])]
+        if (len(sync.marks) != PLANES_STEPS or any(per_batch)
+                or sync.marks[0]):
+            raise AssertionError(f"planes on: host syncs per batch "
+                                 f"{sync.marks}")
+        if flash != {k: L * PLANES_STEPS for k in flash}:
+            raise AssertionError(f"flash launches {flash}")
+        prof = perf.profile_payload()
+        row = [p for p in prof["programs"] if p["program"] == label_of][0]
+        ring = len(health.flight_ring())
+        srv = tm.start_http_server(0)
+        try:
+            top = _get(srv.server_address[1], "/profile")["programs"][:3]
+        finally:
+            srv.shutdown()
+        own_mfu = B * T * PLANES_STEPS / wall_on * fpt \
+            / PEAK_FLOPS[torch.bfloat16]
+        flops = cost[0]["flops"] if cost else None
+        log(f"[planes] LM fit, {PLANES_STEPS} steps of {B} x {T} with "
+            f"MXTPU_PERF_ATTR, MXTPU_FLIGHT_RECORD and MXTPU_SENTINEL=raise: "
+            f"step {wall_on / PLANES_STEPS * 1e3:.2f} ms; host syncs per "
+            f"batch {per_batch} (epoch boundary "
+            f"{sync.total() - sync.marks[-1]}: the metric and the "
+            f"sentinel); plane MFU {row['mfu']:.4f} (counted FLOPs x "
+            f"dispatches over the steps' host dispatch wall "
+            f"{row['wall_s']:.3f} s) vs this script's {own_mfu:.4f} (model "
+            f"FLOPs {fpt * B * T / 1e12:.3f} T a step over the epoch's wall);"
+            f" cost row FLOPs {flops / 1e12 if flops else float('nan'):.4f} "
+            f"T ({cost[0]['source'] if cost else 'none'}) vs the analytic "
+            f"model count {fpt * B * T / 1e12:.4f} T (ratio "
+            f"{(flops or 0) / (fpt * B * T):.4f}); flight ring "
+            f"{ring} records; buckets "
+            + ", ".join(f"{k} {v['seconds']:.3f} s"
+                        for k, v in prof["buckets"].items())
+            + f"; /profile top rows "
+            + "; ".join(f"{p['program']}: {p['dispatches']} x, "
+                        f"{p['wall_s']:.3f} s, mfu {p['mfu']}"
+                        for p in top) + f"; flash launches {flash}; {smi}")
+        if not cost or not flops or ring < PLANES_STEPS:
+            raise AssertionError(f"planes: cost row {cost}, ring {ring}")
+        counts.update(flash)
+        out.update(step_ms_on=wall_on / PLANES_STEPS * 1e3,
+                   plane_mfu=row["mfu"], own_mfu=own_mfu, cost_flops=flops,
+                   model_flops=fpt * B * T, ring=ring)
+        # one parameter set to inf: the sentinel names it at the boundary,
+        # and fit writes the flight record on its way out
+        with torch.no_grad():
+            tk.params[PLANES_INF].view(-1)[0] = float("inf")
+        tk._refresh_compute_cache()
+        step0 = tk._step
+        try:
+            _with_env(on, lambda: _lm_epoch(tk, data[:2 * B], label[:2 * B]))
+        except health.NumericsError as exc:
+            msg = str(exc)
+        else:
+            raise AssertionError("an inf parameter raised no NumericsError")
+        if PLANES_INF not in msg or f"step {step0 + 1} " not in msg:
+            raise AssertionError(f"NumericsError does not name "
+                                 f"{PLANES_INF} at step {step0 + 1}: {msg}")
+        record = json.load(open(dump))
+        log(f"[planes] {PLANES_INF}[0] = inf: NumericsError at the epoch "
+            f"boundary: {msg[:160]}...; flight record written "
+            f"({record['trigger']}, {len(record['ring'])} ring records, "
+            f"{os.path.getsize(dump)} bytes)")
+        del tk
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the planes off: the same step
+        perf.disable()
+        tk = _with_env(off, trainer)
+        _with_env(off, lambda: _lm_epoch(tk, data, label))
+        wall_off, _ = _with_env(off, lambda: _lm_epoch(tk, data, label))
+        del tk
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["step_ms_off"] = wall_off / PLANES_STEPS * 1e3
+        log(f"[planes] step ms with the planes on "
+            f"{out['step_ms_on']:.2f}, off {out['step_ms_off']:.2f} (ratio "
+            f"{out['step_ms_on'] / out['step_ms_off']:.4f}); {smi}")
+    # an allocator failure: one oversized torch.empty
+    try:
+        try:
+            torch.empty(OOM_BYTES, dtype=torch.uint8, device=CARD)
+        except Exception as exc:  # noqa: BLE001 — the dispatch-site guard
+            health.reraise_if_oom(exc, site="chip_smoke.empty")
+            raise
+    except health.DeviceOOMError as exc:
+        report = str(exc)
+    else:
+        raise AssertionError("an oversized torch.empty did not fail")
+    # the caching allocator's line exists on a card only
+    for want in ("ranked by peak",) + (("caching allocator",)
+                                       if CARD == "cuda" else ()):
+        if want not in report:
+            raise AssertionError(f"the OOM report lacks {want!r}: {report}")
+    log(f"[planes] torch.empty of {OOM_BYTES} bytes: DeviceOOMError with "
+        f"the ranked report ({len(report.splitlines())} lines): "
+        + " | ".join(report.splitlines()[1:4]))
+    # 20 decode ticks with the perf plane on
+    perf.reset()
+    perf.enable()
+    dec = KVDecoder(params, num_layers=L, num_heads=cfg["num_heads"],
+                    max_len=MAX_LEN, dtype=torch.bfloat16)
+    sched = _with_env({"MXTPU_SCHEDULE_CACHE": "off"}, lambda: SlotScheduler(
+        dec, num_slots=SLOTS, queue_size=32, paged=True, kv_block=BLOCK))
+    try:
+        sched.generate([1, 2, 3], max_new_tokens=2, timeout=600)  # warm-up
+        t0 = sched.stats["ticks"]
+        pa.reset_launch_count()
+        # the first token comes from the prefill, the rest from ticks
+        reqs = [sched.submit(p[:100], max_new_tokens=PLANES_DECODE_TICKS + 1)
+                for p in _serve_prompts(V)[:SLOTS]]
+        for r in reqs:
+            r.wait(600)
+        ticks = sched.stats["ticks"] - t0
+        paged = pa.launch_count()
+    finally:
+        sched.close()
+        perf.disable()
+    if not all(r.outcome == "ok" for r in reqs) or ticks < \
+            PLANES_DECODE_TICKS or paged < ticks * L:
+        raise AssertionError(f"decode ticks {ticks}, paged launches "
+                             f"{paged}, outcomes "
+                             f"{[r.outcome for r in reqs]}")
+    rows = {r["program"]: r for r in perf.cost_table()}
+    buckets = perf.bucket_table()
+    step_row = rows.get("decode_step_paged")
+    if not step_row or not step_row["flops"] or buckets.get(
+            "dispatch", {}).get("count", 0) < PLANES_DECODE_TICKS:
+        raise AssertionError(f"decode cost rows {sorted(rows)}, buckets "
+                             f"{buckets}")
+    log(f"[planes] {ticks} decode ticks ({SLOTS} slots, "
+        f"{PLANES_DECODE_TICKS + 1} tokens each) with the "
+        f"perf plane on: cost rows "
+        + "; ".join(f"{k} {v['flops'] / 1e9:.3f} GFLOP" for k, v in
+                    sorted(rows.items()))
+        + "; buckets " + ", ".join(f"{k} {v['seconds'] * 1e3:.1f} ms / "
+                                    f"{v['count']}"
+                                    for k, v in buckets.items())
+        + f"; paged launches {paged} (= {paged / ticks:.1f} a tick); {smi}")
+    counts["paged_attention"] = paged
+    out["decode_rows"] = sorted(rows)
+    perf.reset()
+    del dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -7748,6 +8264,18 @@ def main():
         f"{json.dumps(det_launches)}")
     if any(det_launches.values()):
         raise AssertionError(f"phases 31-34 launched {det_launches}")
+    # slice 15: the autotuner, then the health and perf planes, on the
+    # LM's weights again
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = _params(seed=0)
+    _, tune_launches = phase_autotune(smi, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, plane_launches = phase_planes(smi, cfg, params)
+    del params
+    log(f"[slice15] hand-written kernel launches: autotune "
+        f"{json.dumps(tune_launches)}; planes {json.dumps(plane_launches)}")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -7804,6 +8332,8 @@ def main():
         for tag, counts in slice13.items():
             rec[f"launches_{tag}"] = counts[rec["name"]]
         rec["launches_detection"] = det_launches[rec["name"]]
+        rec["launches_autotune"] = tune_launches[rec["name"]]
+        rec["launches_planes"] = plane_launches[rec["name"]]
     for rec in records[1:4]:
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()

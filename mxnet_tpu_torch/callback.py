@@ -9,13 +9,18 @@ reports per-interval metric values; with ``auto_reset=False`` it reads
 the metric (the fused path's host sync) only when the metric's
 ``update_stamp`` says it received updates since the last report.
 ``module_checkpoint`` saves through a ``Module`` (with its optimizer
-states when asked).  The Speedometer's telemetry gauges and multi-host
-log prefix wait for ROADMAP Queue 1 items 10 and 11.
+states when asked).  With the perf plane armed (``MXTPU_PERF_ATTR``)
+the Speedometer's line carries ``telemetry.perf.speedometer_suffix()``
+(`` mfu=0.42 top=dispatch``: pure reads of the host ledgers, no device
+sync).  Its telemetry gauges and multi-host log prefix wait for ROADMAP
+Queue 1 items 10 and 11b.
 """
 from __future__ import annotations
 
 import logging
 import time
+
+from . import telemetry as _tm
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar"]
@@ -92,10 +97,12 @@ class Speedometer:
             self._mark = (now, param.nbatch)
             return
         speed = nbatches * self.batch_size / elapsed
+        # perf plane armed: " mfu=0.42 top=dispatch" rides the line
+        perf_sfx = _tm.perf.speedometer_suffix()
         metric = param.eval_metric
         if metric is None:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                         param.epoch, param.nbatch, speed)
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
+                         param.epoch, param.nbatch, speed, perf_sfx)
         else:
             # reading the metric is the fused path's host sync: without
             # auto_reset, pay it only when the metric moved
@@ -106,8 +113,8 @@ class Speedometer:
                 parts = "".join("\tTrain-%s=%f" % nv
                                 for nv in metric.get_name_value())
                 logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f "
-                             "samples/sec%s", param.epoch, param.nbatch,
-                             speed, parts)
+                             "samples/sec%s%s", param.epoch, param.nbatch,
+                             speed, perf_sfx, parts)
                 if self.auto_reset:
                     # the local window only: the epoch-end log still
                     # covers the whole epoch
@@ -117,7 +124,8 @@ class Speedometer:
                                     else None)
             else:
                 logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f "
-                             "samples/sec", param.epoch, param.nbatch, speed)
+                             "samples/sec%s", param.epoch, param.nbatch,
+                             speed, perf_sfx)
         self._mark = (now, param.nbatch)
 
 

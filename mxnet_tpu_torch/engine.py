@@ -1,25 +1,105 @@
-"""Host-side waiting of the port (the async window of
-``mxnet_tpu/engine.py``).
+"""Host-side waiting and live-memory accounting of the port (the async
+window and the live-array half of ``mxnet_tpu/engine.py``).
 
 PyTorch launches CUDA work asynchronously, as PjRt dispatches, so a
 training loop that never reads a value can run arbitrarily far ahead
 of the card.  :class:`AsyncWindow` bounds that: each pushed step
 records a CUDA event, and once more than ``depth`` steps are in flight
 the host waits on the oldest event.  With fused metrics the window is
-the only place the steady-state ``fit`` loop waits.
+the only place the steady-state ``fit`` loop waits.  Its drain, and
+:func:`wait_for_all`, are reporting boundaries: they sync the numerics
+sentinel's parked flags (``MXTPU_SENTINEL``).
 
-Not ported yet (ROADMAP Queue 1 item 11): the host task engine
-(``push``/``new_host_var``), ``track``/``live_memory`` and the
-telemetry of the waits.
+:func:`track` registers every NDArray's tensor (weakly) so
+:func:`live_memory` can rank the live ones for the OOM report;
+:func:`on_push` makes every imperative op wait under
+``MXNET_ENGINE_TYPE=NaiveEngine``; :func:`wait_for_var` is
+``Engine::WaitForVar``.  Not ported yet (ROADMAP Queue 1 item 11b): the
+host task engine (``push``/``new_host_var``).
 """
 from __future__ import annotations
 
 import os
+import time
+import weakref
 from collections import deque
 
 import torch
 
-__all__ = ["async_depth", "AsyncWindow", "wait_for_all"]
+from . import telemetry as _tm
+
+__all__ = ["async_depth", "AsyncWindow", "wait_for_all", "wait_for_var",
+           "track", "live_memory", "on_push"]
+
+_live_arrays: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
+    weakref.WeakValueDictionary()
+_counter = 0
+_live_bytes = 0.0
+
+# --- telemetry families (the JAX package's names) ---------------------------
+_TM_LIVE = _tm.gauge(
+    "engine_live_arrays",
+    "live device arrays currently tracked for wait_for_all")
+_TM_LIVE_BYTES = _tm.gauge(
+    "engine_live_bytes",
+    "total bytes of the live tracked device arrays (running total while "
+    "telemetry is enabled; the OOM report's live breakdown recomputes "
+    "exactly on demand)")
+_TM_WAIT_SEC = _tm.histogram(
+    "engine_wait_seconds",
+    "time the host blocked on device results (wait_to_read / "
+    "wait_for_all)", labels=("call",))
+
+
+def _nbytes(t) -> int:
+    try:
+        return int(t.numel()) * int(t.element_size())
+    except Exception:  # noqa: BLE001 — non-tensor trackees count as 0
+        return 0
+
+
+def _on_freed(nbytes):
+    global _live_bytes
+    _live_bytes -= nbytes
+    if _tm.enabled():
+        _TM_LIVE_BYTES.set(max(_live_bytes, 0.0))
+
+
+def track(t) -> int:
+    """Register a live tensor (weakly) for :func:`live_memory`; with
+    telemetry on, its bytes join the ``engine_live_bytes`` gauge until it
+    is freed."""
+    global _counter, _live_bytes
+    _counter += 1
+    try:
+        _live_arrays[_counter] = t
+    except TypeError:
+        return _counter
+    if _tm.enabled():
+        _TM_LIVE.set(len(_live_arrays))
+        nbytes = _nbytes(t)
+        if nbytes:
+            _live_bytes += nbytes
+            weakref.finalize(t, _on_freed, nbytes)
+        _TM_LIVE_BYTES.set(max(_live_bytes, 0.0))
+    return _counter
+
+
+def live_memory(top: int = 10) -> dict:
+    """Exact live-tensor breakdown computed on demand (count, total
+    bytes, the ``top`` largest tensors) — the OOM report's live view,
+    independent of the telemetry switch."""
+    items = []
+    total = 0
+    for t in list(_live_arrays.values()):
+        nbytes = _nbytes(t)
+        total += nbytes
+        items.append((nbytes, str(t.dtype).replace("torch.", ""),
+                      str(tuple(t.shape))))
+    items.sort(reverse=True)
+    return {"arrays": len(items), "bytes": total,
+            "top": [{"bytes": b, "dtype": d, "shape": s}
+                    for b, d, s in items[:top]]}
 
 
 def _engine_is_naive() -> bool:
@@ -88,11 +168,43 @@ class AsyncWindow:
     def drain(self):
         while self._dq:
             self._wait_one()
+        # epoch/checkpoint boundaries are the loops' reporting points:
+        # the sentinel syncs HERE (never per batch), where fused metrics
+        # drain
+        _tm.health.sentinel_check("boundary")
+
+
+def on_push(result):
+    """Called after every imperative op: under ``NaiveEngine`` each op
+    waits for its own launches (parity with src/engine/naive_engine.cc,
+    where work runs on the pushing thread)."""
+    if _engine_is_naive():
+        dev = _cuda_device(result)
+        if dev is not None:
+            torch.cuda.current_stream(dev).synchronize()
+    return result
+
+
+def wait_for_var(t):
+    """Wait until ``t``'s producing launches are done (parity:
+    ``Engine::WaitForVar``, include/mxnet/engine.h:180)."""
+    dev = _cuda_device(t)
+    if dev is None:
+        return
+    t0 = time.perf_counter() if _tm.enabled() else None
+    torch.cuda.current_stream(dev).synchronize()
+    if t0 is not None:
+        _TM_WAIT_SEC.observe(time.perf_counter() - t0, call="wait_for_var")
 
 
 def wait_for_all():
     """Wait for every launch on every card (parity:
-    ``Engine::WaitForAll``)."""
-    if torch.cuda.is_available():
+    ``Engine::WaitForAll``), then sync the sentinel's parked flags: the
+    device is drained, a reporting boundary."""
+    t0 = time.perf_counter() if _tm.enabled() else None
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
+    if t0 is not None:
+        _TM_WAIT_SEC.observe(time.perf_counter() - t0, call="wait_for_all")
+    _tm.health.sentinel_check("boundary")

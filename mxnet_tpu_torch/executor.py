@@ -58,10 +58,21 @@ The program cache (the reference's ``MXTPU_PROGRAM_CACHE``, default 64
 entries, ``0``/``off`` disables, ``N`` sets the capacity): a bind runs
 the graph passes, then looks up the post-pass symbol and its graph
 function by the post-pass :meth:`~.symbol.Symbol.structural_signature`,
-the device and the layout, so a rebind of an equal graph reuses both;
-hits and misses count in ``executor_graph_cache_total``.  A captured
+the device, the layout and the autotuner's ``fingerprint()`` (a new
+schedule winner re-keys the programs bound before it), so a rebind of an
+equal graph reuses both; hits and misses count in
+``executor_graph_cache_total``.  A captured
 CUDA graph is tied to the buffers it was captured on, so it stays with
 the trainer that captured it and is never cached across binds.
+
+Health and perf planes: a bind records the executor's memory row
+(``telemetry.health.record_program``, label ``name[signature]``); an
+allocator failure in ``forward``/``backward`` re-raises as
+``DeviceOOMError`` with the ranked memory report; under
+``MXTPU_PERF_ATTR`` the first inference forward and the first training
+forward + backward count their FLOPs into the label's cost row (the
+training pair's row wins once training runs), and every dispatch adds
+its host wall (a training forward's to its backward's).
 
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
@@ -73,6 +84,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict
 
@@ -80,6 +92,7 @@ import numpy as np
 import torch
 
 from . import amp as _amp
+from . import autotune as _autotune
 from . import ops
 from . import profiler as _prof
 from . import random as _random
@@ -239,7 +252,7 @@ def _compiled_programs(symbol, device):
 
     post = apply_graph_passes(symbol)
     key = (post.structural_signature(), str(device),
-           channels_last_default())
+           channels_last_default(), _autotune.fingerprint())
     entry = program_cache_get(key)
     if entry is None:
         entry = (post, _build_graph_fn(post, device))
@@ -337,6 +350,43 @@ class Executor:
         self._monitor_callback = None
         self._monitor_fn = None
         self._monitor_names = None
+        # health and perf planes: one memory row per bound structure;
+        # the cost rows are counted at the first dispatches
+        self._program_label = self._record_bind_memory()
+        self._cost_fwd_done = False
+        self._cost_fwdbwd_done = False
+        self._fwd_flops = None      # the counted training forward
+        self._pending_fwd_wall = 0.0
+
+    def _record_bind_memory(self):
+        """The bind's memory row (arguments + aux + gradients in, the
+        inferred outputs out; shape math) under ``name[signature]``."""
+        try:
+            sig = str(self._symbol.structural_signature())[:10]
+        except Exception:  # noqa: BLE001 — accounting never breaks a bind
+            sig = "%x" % (id(self._symbol) & 0xFFFFFF)
+        label = f"{self._symbol.name or 'graph'}[{sig}]"
+
+        def nbytes(t):
+            return int(t.numel()) * int(t.element_size())
+
+        try:
+            arg_b = sum(nbytes(v) for v in self.arg_dict.values())
+            arg_b += sum(nbytes(v) for v in self.aux_dict.values())
+            grad_b = sum(nbytes(v) for v in self.grad_dict.values()
+                         if isinstance(v, torch.Tensor))
+            out_b = 0
+            try:
+                _, out_shapes, _ = self._symbol.infer_shape(
+                    **{k: tuple(v.shape) for k, v in self.arg_dict.items()})
+                out_b = sum(int(np.prod(s)) * 4 for s in out_shapes or ())
+            except Exception:  # noqa: BLE001 — unknown outputs stay 0
+                pass
+            _tm.health.record_program(label, argument=arg_b + grad_b,
+                                      output=out_b, source="shape_math")
+        except Exception:  # noqa: BLE001 — accounting never breaks a bind
+            pass
+        return label
 
     def _build_rs_specs(self, rs_holders):
         """``(name, lookups, row width, dtype)`` of each row-sparse
@@ -417,12 +467,27 @@ class Executor:
             dst.copy_(_value(v, dst))
         # a forward drops the graph of one without its backward first
         self._pending = None
+        perf_on = _tm.perf.enabled()
+        tp0 = time.perf_counter() if perf_on else 0.0
         if not is_train:
             with _prof.span(self._spans[0], device=str(self._device),
                             sync=self._sync), torch.no_grad():
-                outs, _ = self._graph_fn(self.arg_dict, self.aux_dict, None,
-                                         False)
+                try:
+                    if perf_on and not self._cost_fwd_done:
+                        self._cost_fwd_done = True
+                        outs, _ = _tm.perf.count_cost(
+                            self._program_label, self._graph_fn,
+                            self.arg_dict, self.aux_dict, None, False)
+                    else:
+                        outs, _ = self._graph_fn(self.arg_dict,
+                                                 self.aux_dict, None, False)
+                except Exception as e:  # noqa: BLE001 — OOM: the report
+                    _tm.health.reraise_if_oom(e, site="executor.forward")
+                    raise
             self._outputs = outs
+            if perf_on:
+                _tm.perf.record_dispatch(self._program_label,
+                                         time.perf_counter() - tp0)
             self._run_monitor()
             return outs
         # the forward_backward span opens here and closes in backward()
@@ -435,10 +500,20 @@ class Executor:
                 (n_ids, row_dim), dtype=dt, device=self._device,
                 requires_grad=True)
         args.update(leaves)
+        gen = _random.generator(self._device)
         with torch.enable_grad():
-            outs, new_aux = self._graph_fn(args, self.aux_dict,
-                                           _random.generator(self._device),
-                                           True)
+            try:
+                if perf_on and not self._cost_fwdbwd_done:
+                    with _tm.perf.counting() as c:
+                        outs, new_aux = self._graph_fn(args, self.aux_dict,
+                                                       gen, True)
+                    self._fwd_flops = c.flops
+                else:
+                    outs, new_aux = self._graph_fn(args, self.aux_dict, gen,
+                                                   True)
+            except Exception as e:  # noqa: BLE001 — OOM: the report
+                _tm.health.reraise_if_oom(e, site="executor.forward")
+                raise
         rs_ids = {w: new_aux.pop(_RS_IDX + w) for w, *_ in self._rs_specs}
         with torch.no_grad():
             for k, v in new_aux.items():
@@ -447,6 +522,9 @@ class Executor:
                     dst.copy_(v)
         self._pending = (outs, leaves, rs_ids)
         self._outputs = [o.detach() for o in outs]
+        # the training forward's wall joins its backward's dispatch
+        self._pending_fwd_wall = (time.perf_counter() - tp0) if perf_on \
+            else 0.0
         return self._outputs
 
     @property
@@ -471,7 +549,29 @@ class Executor:
         start = self._fb_start
         if start is None and _prof.is_running():
             start = _prof.now_us()
-        self._backward(outs, leaves, rs_ids, out_grads)
+        perf_on = _tm.perf.enabled()
+        t0 = time.perf_counter() if perf_on else 0.0
+        try:
+            if self._fwd_flops is not None:
+                # the first training pair: its forward was counted too,
+                # and the pair's row takes the label
+                with _tm.perf.counting() as c:
+                    self._backward(outs, leaves, rs_ids, out_grads)
+                _tm.perf.record_cost(self._program_label,
+                                     flops=self._fwd_flops + c.flops,
+                                     source="flop_counter")
+                self._fwd_flops = None
+                self._cost_fwdbwd_done = True
+            else:
+                self._backward(outs, leaves, rs_ids, out_grads)
+        except Exception as e:  # noqa: BLE001 — OOM: the report
+            _tm.health.reraise_if_oom(e, site="executor.backward")
+            raise
+        if perf_on:
+            _tm.perf.record_dispatch(
+                self._program_label,
+                time.perf_counter() - t0 + self._pending_fwd_wall)
+            self._pending_fwd_wall = 0.0
         if start is not None and _prof.is_running():
             if self._sync is not None:
                 self._sync()

@@ -25,13 +25,16 @@ Sites wired in the port: ``kv_push`` and ``kv_pull`` (``KVStore.push``/
 ``pull``, the bucketed update included), ``ckpt_write`` (the checkpoint
 writer: no manifest is published) and ``serve_admit`` (a serving
 admission: the request fails, the engine serves on), ``replica_kill``
-(a serving engine tick: ``crash_after`` kills the replica mid-decode)
-and ``serve_slow`` (a serving engine tick: ``drop`` parks the engine
-thread for :func:`fault_slow_s` seconds).  The reference's
-other sites belong to modules not ported yet; a site no code fires, or
-one a plan does not name, never fires.  The reference attaches a
-flight-record dump to an injected error; the health plane that writes
-it waits for ROADMAP Queue 1 item 11.
+(a serving engine tick: ``crash_after`` kills the replica mid-decode),
+``serve_slow`` (a serving engine tick: ``drop`` parks the engine
+thread for :func:`fault_slow_s` seconds) and ``slow_step`` (the flight
+recorder's per-step record, ``telemetry.health.record_step``: ``drop``
+parks the training host as long, so the ring's step walls see a
+straggler).  The reference's other sites belong to modules not ported
+yet; a site no code fires, or one a plan does not name, never fires.
+An injected error, and a ``crash_after`` crash, first write the flight
+record (``telemetry.health.auto_dump("fault")``) when
+``MXTPU_FLIGHT_RECORD`` names a path, and the error names the dump.
 """
 from __future__ import annotations
 
@@ -126,12 +129,8 @@ def plan() -> dict:
 
 def fault_slow_s() -> float:
     """``MXTPU_FAULT_SLOW_S`` — seconds a slow-fault site parks its
-    thread (default 0.05); the reader of ``mxnet_tpu/telemetry/
-    health.py``'s ``_fault_slow_s``."""
-    try:
-        return max(float(os.environ.get("MXTPU_FAULT_SLOW_S", "0.05")), 0.0)
-    except ValueError:
-        return 0.05
+    thread (default 0.05), read by ``telemetry.health._fault_slow_s``."""
+    return _tm.health._fault_slow_s()
 
 
 def active() -> bool:
@@ -171,6 +170,8 @@ def fire(site: str):
     if action == "crash":
         _logger.error("MXTPU_FAULT_PLAN: crashing at site %r after %d "
                       "hits (crash_after:%d)", site, hits - 1, e.arg)
+        # best-effort black box before the simulated preemption
+        _tm.health.auto_dump("fault")
         os._exit(137)
     _logger.warning("MXTPU_FAULT_PLAN: injected %r at site %r (hit %d)",
                     action, site, hits)
@@ -183,8 +184,12 @@ def maybe_fail(site: str) -> bool:
     payload), False when nothing fired."""
     action = fire(site)
     if action == "err":
+        # the named error carries the black box (when
+        # MXTPU_FLIGHT_RECORD names a dump path)
+        dump = _tm.health.auto_dump("fault")
         raise InjectedFault(
-            f"injected fault at site {site!r} (MXTPU_FAULT_PLAN)")
+            f"injected fault at site {site!r} (MXTPU_FAULT_PLAN)"
+            + (f" (flight record: {dump})" if dump else ""))
     return action == "drop"
 
 

@@ -45,9 +45,19 @@ scaling the sparse buckets' finite flags join the dense buckets' in the
 step's one ``end_step``, and a bf16 table whose state holds an fp32
 master table updates the master rows and re-casts the table's.
 
+The numerics sentinel (``MXTPU_SENTINEL``): each bucket also computes a
+per-key ``isfinite(g).all()`` flag and the bucket's gradient norm on the
+device, packed into one tensor that ``telemetry.health.sentinel_record``
+parks unread (site ``kv_bucket<i>``, or ``kv_sparse<i>`` for a sparse
+bucket, step = this store's push count); the sync happens at the next
+reporting boundary.  Each plan records a memory row per bucket
+(``telemetry.health.record_program``), the perf plane counts each
+bucket's FLOPs at its first step after a plan (``MXTPU_PERF_ATTR``), and
+an allocator failure in a push re-raises as ``DeviceOOMError`` with the
+ranked memory report.
+
 The sharded bucket program (ROADMAP Queue 1 item 10; it needs several
-cards, which the Module refuses) and the numerics sentinel
-(``MXTPU_SENTINEL``, item 11, which raises when set) are not ported.
+cards, which the Module refuses) is not ported.
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ import torch
 
 from . import amp as _amp
 from . import sparse as _sparse
+from . import telemetry as _tm
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
 from .optim_rules import multi_rule
@@ -67,7 +78,6 @@ from .optim_rules import multi_rule
 __all__ = ["fused_update_enabled", "bucket_cap_bytes", "FusedUpdateEngine"]
 
 _DEFAULT_BUCKET_MB = 4.0
-_OFF = ("", "0", "off", "false", "no")
 
 
 def fused_update_enabled() -> bool:
@@ -151,10 +161,6 @@ class FusedUpdateEngine:
     store then runs its eager loops."""
 
     def __init__(self, kvstore, optimizer, updater):
-        if os.environ.get("MXTPU_SENTINEL", "").strip().lower() not in _OFF:
-            raise MXNetError("the numerics sentinel (MXTPU_SENTINEL) of the "
-                             "bucketed update is not ported yet (ROADMAP "
-                             "Queue 1 item 11)")
         self._kv = kvstore
         self._opt = optimizer
         self._updater = updater
@@ -165,6 +171,23 @@ class FusedUpdateEngine:
         self._key_index: Dict = {}
         self._ndev = 0
         self._rule = None
+        self._push_count = 0       # the sentinel's step id for this store
+        self._cost_done = set()    # buckets whose FLOPs were counted
+
+    def _key_name(self, k):
+        """Kvstore key -> the name the sentinel reports (the optimizer's
+        ``param_idx2name`` when keys are indices)."""
+        if isinstance(k, str):
+            return k
+        name = getattr(self._opt, "idx2name", {}).get(k)
+        return name if name else str(k)
+
+    @staticmethod
+    def _label(i, b):
+        """A bucket's program label (the JAX package's format, less its
+        ``/mp`` suffix: the port finds fp32 masters at each step)."""
+        return f"kv_bucket{i}[{str(b.dtype).replace('torch.', '')}" \
+            f"x{len(b.keys)}]"
 
     @property
     def num_buckets(self) -> int:
@@ -196,6 +219,23 @@ class FusedUpdateEngine:
         self._plan_keys = tuple(keys)
         self._key_index = {k: i for i, k in enumerate(keys)}
         self._ndev = ndev
+        self._cost_done = set()
+        nslots = self._rule[1][0]
+        for i, b in enumerate(buckets):
+            # memory row per bucket: ndev gradient copies + weights in,
+            # weights (+ state, weight-sized per slot) out — shape math,
+            # enough to RANK programs in the OOM report
+            state_b = b.nbytes * max(nslots, 1)
+            _tm.health.record_program(
+                self._label(i, b), argument=b.nbytes * (ndev + 1) + state_b,
+                output=b.nbytes + state_b, temp=b.nbytes,
+                source="shape_math")
+        for si, sb in enumerate(sparse_buckets):
+            w = self._kv._store[sb.key]
+            state_b = _t(w).numel() * _t(w).element_size() * max(nslots, 1)
+            _tm.health.record_program(
+                f"kv_sparse[{sb.key}:{'x'.join(map(str, sb.shape))}]",
+                argument=state_b, output=state_b, source="shape_math")
 
     # ------------------------------------------------------------- push
     def handle_push(self, keys, values) -> bool:
@@ -212,16 +252,16 @@ class FusedUpdateEngine:
             if k not in kv._store or len(vl) != ndev:
                 return False
         stypes = tuple(getattr(vl[0], "stype", "default") for vl in vlists)
-        if (self._plan_keys != tuple(keys) or self._ndev != ndev
-                or self._plan_stypes != stypes):
-            self._build_plan(keys, vlists, ndev)
-            self._plan_stypes = stypes
         opt = self._opt
         rule_name, opt_params = opt.fused_rule()
         if self._rule is None or self._rule[0] != (rule_name, opt_params):
             self._rule = ((rule_name, opt_params),
                           multi_rule(rule_name, opt_params))
         nslots, update = self._rule[1]
+        if (self._plan_keys != tuple(keys) or self._ndev != ndev
+                or self._plan_stypes != stypes):
+            self._build_plan(keys, vlists, ndev)
+            self._plan_stypes = stypes
         # host bookkeeping first, as the eager order gives every key of
         # the step the same num_update
         for k in keys:
@@ -236,27 +276,48 @@ class FusedUpdateEngine:
             # the scale lives where the weights do (a no-op after a bind)
             scaler.place(kv._store[keys[0]].tensor.device)
             inv = scaler.inv_scale_raw()
-        flags = [self._step_bucket(b, vlists, nslots, update, lrs, wds, inv)
-                 for b in self._buckets]
-        if self._sparse_buckets:
-            t0 = time.perf_counter() if _sparse._tm.enabled() else None
-            for sb in self._sparse_buckets:
-                flags.append(self._step_sparse_bucket(
-                    sb, vlists, nslots, rule_name, opt_params, lrs, wds,
-                    None if inv is None else scaler.scale_raw()))
-            if t0 is not None:
-                _sparse._TM_SPARSE_SEC.observe(time.perf_counter() - t0,
-                                               store=kv.type)
-        if inv is not None:
-            scaler.end_step(flags)
+        self._push_count += 1
+        sentinel = _tm.health.sentinel_mode() is not None
+        perf_on = _tm.perf.enabled()
+        try:
+            flags = []
+            for bi, b in enumerate(self._buckets):
+                args = (b, bi, vlists, nslots, update, lrs, wds, inv,
+                        sentinel)
+                if perf_on and bi not in self._cost_done:
+                    # the bucket's FLOPs, once per plan (its first step)
+                    self._cost_done.add(bi)
+                    with _tm.perf.counting() as c:
+                        flags.append(self._step_bucket(*args))
+                    _tm.perf.record_cost(self._label(bi, b), flops=c.flops,
+                                         source="flop_counter")
+                else:
+                    flags.append(self._step_bucket(*args))
+            if self._sparse_buckets:
+                t0 = time.perf_counter() if _sparse._tm.enabled() else None
+                for si, sb in enumerate(self._sparse_buckets):
+                    flags.append(self._step_sparse_bucket(
+                        sb, si, vlists, nslots, rule_name, opt_params, lrs,
+                        wds, None if inv is None else scaler.scale_raw(),
+                        sentinel))
+                if t0 is not None:
+                    _sparse._TM_SPARSE_SEC.observe(time.perf_counter() - t0,
+                                                   store=kv.type)
+            if inv is not None:
+                scaler.end_step(flags)
+        except Exception as e:  # noqa: BLE001 — an OOM gets the report
+            _tm.health.reraise_if_oom(e, site="kvstore_fused.push")
+            raise
         return True
 
-    def _step_sparse_bucket(self, sb, vlists, nslots, rule_name, opt_params,
-                            lrs, wds, scale=None):
+    def _step_sparse_bucket(self, sb, si, vlists, nslots, rule_name,
+                            opt_params, lrs, wds, scale=None,
+                            sentinel=False):
         """One row-sparse key's update: the device copies' ``(idx,
         vals)`` parts go through its row function, which updates the
         table and its state rows in place; returns the finite flag under
-        loss scaling."""
+        loss scaling.  With the sentinel, the gradient rows' finite flag
+        and norm are parked (site ``kv_sparse<si>``)."""
         kv, upd = self._kv, self._updater
         w = kv._store[sb.key]
         slots = _state_slots(upd.ensure_state(sb.key, w))
@@ -265,6 +326,14 @@ class FusedUpdateEngine:
         parts = vlists[self._key_index[sb.key]]
         idx_parts = tuple(v._indices.to(dev) for v in parts)
         val_parts = tuple(v._values.to(dev) for v in parts)
+        if sentinel:
+            # the key's one flag covers every device copy's rows
+            vec = _tm.health.sentinel_vector(val_parts)
+            _tm.health.sentinel_record(
+                site=f"kv_sparse{si}", step=self._push_count,
+                names=[self._key_name(sb.key)],
+                finite=torch.stack([vec[:-1].min(), vec[-1]]),
+                packed_norm=True)
         fn = _sparse.row_program(rule_name, tuple(sorted(opt_params.items())),
                                  wds[sb.key], mp, scale is not None)
         flag = fn(idx_parts, val_parts, w.tensor,
@@ -289,9 +358,13 @@ class FusedUpdateEngine:
             flat = part if flat is None else flat.add_(part)
         return flat
 
-    def _step_bucket(self, b, vlists, nslots, update, lrs, wds, inv=None):
+    def _step_bucket(self, b, bi, vlists, nslots, update, lrs, wds,
+                     inv=None, sentinel=False):
         """One bucket's update; with ``inv`` (the fp32 ``1 / scale``),
-        the skip-step, returning the bucket's finite flag."""
+        the skip-step, returning the bucket's finite flag.  With the
+        sentinel, the per-key finite flags and the bucket's gradient norm
+        (of the unscaled gradient, before the rule uses it as scratch)
+        are parked as one tensor."""
         kv, upd = self._kv, self._updater
         weights = [kv._store[k] for k in b.keys]
         slots = [_state_slots(upd.ensure_state(k, w))
@@ -325,6 +398,11 @@ class FusedUpdateEngine:
         # each key's slice, in its gradient's layout
         idx = self._key_index
         gs = _views(flat, [_t(vlists[idx[k]][0]) for k in b.keys])
+        if sentinel:
+            _tm.health.sentinel_record(
+                site=f"kv_bucket{bi}", step=self._push_count,
+                names=[self._key_name(k) for k in b.keys],
+                finite=_tm.health.sentinel_vector(gs), packed_norm=True)
         update(flat, ws, gs, states, [lrs[k] for k in b.keys],
                [wds[k] for k in b.keys])
         if mp:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as _tm
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..convert import from_jax_params
@@ -148,6 +149,10 @@ class KVDecoder:
         self.quantize = quantize
         self.p = p
         self.last_scan_syncs = 0
+        # perf plane: one cost row per decode program, at its first
+        # dispatch
+        self._cost_step_done = False
+        self._cost_prefill_done = set()
 
     def weight_bytes(self) -> int:
         """Bytes the parameters hold on the device (int8 payloads and
@@ -351,6 +356,12 @@ class KVDecoder:
                 f"lengths must be (B,) in [1, {T}], got {lengths!r}")
         kc, vc, _ = self.init_state(B)
         start = _snap(T - lengths, self.device)
+        if T not in self._cost_prefill_done and _tm.perf.enabled():
+            # perf plane: the bucket's cost row, at its first dispatch
+            self._cost_prefill_done.add(T)
+            return _tm.perf.count_cost(f"decode_prefill[b{T}]",
+                                       self._forward_padded, kc, vc, tokens,
+                                       start)
         return self._forward_padded(kc, vc, tokens, start)
 
     def step_slots(self, cache, tokens, start, cursor):
@@ -364,9 +375,14 @@ class KVDecoder:
             raise ValueError(
                 f"slot cursor at max_len {self.max_len}: finish or evict "
                 "the request before ticking it")
-        return self._forward_slots(
-            kc, vc, _snap(tokens, self.device), _snap(start, self.device),
-            _snap(cursor, self.device))
+        args = (kc, vc, _snap(tokens, self.device),
+                _snap(start, self.device), _snap(cursor, self.device))
+        if not self._cost_step_done and _tm.perf.enabled():
+            # perf plane: the tick's cost row, at its first dispatch
+            self._cost_step_done = True
+            return _tm.perf.count_cost("decode_step_slots",
+                                       self._forward_slots, *args)
+        return self._forward_slots(*args)
 
     def adopt_row(self, cache, row_cache, slot):
         """Copy a freshly prefilled batch-1 cache (from

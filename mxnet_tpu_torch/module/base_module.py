@@ -21,10 +21,16 @@ boundary checkpoint and ``checkpoint.Preempted``; a terminal checkpoint
 follows the last epoch.  ``resume=True`` (or a path) restores the newest
 complete checkpoint, then skips the batches its cursor already trained,
 so the run continues step for step.  A module without a provider
-(``BucketingModule``) warns and trains without checkpoints.  Not ported
-yet, and raising when asked for: the elastic coordinator
-(``MXTPU_COORD_ADDR``, ROADMAP Queue 1 item 10) and the flight and perf
-recorders (item 11).
+(``BucketingModule``) warns and trains without checkpoints.
+
+The health and perf planes (:mod:`mxnet_tpu_torch.telemetry`): each
+batch is appended to the flight ring (``MXTPU_FLIGHT_RECORD``, default
+on), and under ``MXTPU_PERF_ATTR`` its wall splits into ``data_wait`` /
+``dispatch`` / ``window_stall`` and the epoch's drain into
+``boundary_sync`` — host clock stamps only, no device sync; an uncaught
+exception writes the flight record first when ``MXTPU_FLIGHT_RECORD``
+names a path.  Not ported yet, and raising when asked for: the elastic
+coordinator (``MXTPU_COORD_ADDR``, ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -35,14 +41,12 @@ from collections import namedtuple
 
 import torch
 
+from .. import telemetry as _tm
 from ..base import MXNetError
 from ..ndarray import NDArray
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
-
-_OFF = ("", "0", "off", "false", "no")
-
 
 def _as_list(obj):
     if obj is None:
@@ -58,9 +62,6 @@ def _not_ported(what, item):
 def _refuse_fit_options():
     if os.environ.get("MXTPU_COORD_ADDR", "").strip():
         raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)", 10)
-    for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
-        if os.environ.get(knob, "").strip().lower() not in _OFF:
-            raise _not_ported(f"the flight and perf recorders ({knob})", 11)
 
 
 class BaseModule:
@@ -223,6 +224,11 @@ class BaseModule:
                 # terminal checkpoint: resuming a finished run is a no-op
                 self._save_checkpoint_state(mgr, final_step, num_epoch, -1,
                                             background=False)
+        except BaseException:
+            # black box first, then crash: the ring, the registry and the
+            # memory report (when MXTPU_FLIGHT_RECORD names a path)
+            _tm.health.auto_dump("exception")
+            raise
         finally:
             if mgr is not None:
                 try:
@@ -239,11 +245,22 @@ class BaseModule:
         from .. import checkpoint as _ckpt
         from .. import engine
 
+        flight = _tm.health.flight_enabled()
+        perf_on = _tm.perf.enabled()
+        rec = flight or perf_on
+        program = None
+        if flight:
+            try:
+                program = getattr(self._exec_group.execs[0],
+                                  "_program_label", None)
+            except Exception:  # noqa: BLE001 — PythonModule and kin
+                pass
         step_id = start_step
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             window = engine.AsyncWindow()
+            prev_tick = None  # per epoch: wall_s must not span eval/reset
             for nbatch, data_batch in enumerate(train_data):
                 if epoch == begin_epoch and nbatch <= resume_nbatch:
                     # the checkpoint's cursor trained these already
@@ -251,10 +268,29 @@ class BaseModule:
                 if monitor is not None:
                     monitor.tic()
                 step_id += 1
+                t0 = time.perf_counter() if rec else 0.0
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                tp = time.perf_counter() if perf_on else 0.0
                 window.push(self._output_handles())
+                if rec:
+                    # host clock stamps only: no device sync
+                    now = time.perf_counter()
+                    wall = now - (prev_tick if prev_tick is not None else t0)
+                    if flight:
+                        _tm.health.record_step(
+                            loop="module", step=step_id, epoch=epoch,
+                            nbatch=nbatch, depth=len(window),
+                            dispatch_s=now - t0, wall_s=wall,
+                            program=program)
+                    if perf_on:
+                        _tm.perf.record_step_buckets(
+                            wall_s=wall,
+                            data_wait=(max(t0 - prev_tick, 0.0)
+                                       if prev_tick is not None else 0.0),
+                            dispatch=tp - t0, window_stall=now - tp)
+                    prev_tick = now
                 if mgr is not None:
                     if mgr.preempted:
                         w = self._save_checkpoint_state(
@@ -275,7 +311,11 @@ class BaseModule:
                     for cb in _as_list(batch_end_callback):
                         cb(params)
             # the epoch boundary: callbacks and the log need the card
+            td0 = time.perf_counter() if perf_on else 0.0
             window.drain()
+            if perf_on:
+                _tm.perf.record_bucket("boundary_sync",
+                                       time.perf_counter() - td0)
             for name, val in eval_metric.get_global_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

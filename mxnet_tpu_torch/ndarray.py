@@ -45,6 +45,7 @@ import sys
 import numpy as np
 import torch
 
+from . import engine as _engine
 from . import ops
 from . import storage as _storage
 from .base import MXNetError, numeric_dtype
@@ -120,6 +121,7 @@ class NDArray:
         else:
             data = _from_numpy(data, _device(ctx))
         self._t = data
+        _engine.track(data)
 
     # ------------------------------------------------------------ reads
     @property
@@ -172,8 +174,7 @@ class NDArray:
         return a.reshape(-1)[0]
 
     def wait_to_read(self):
-        if self._t.is_cuda:
-            torch.cuda.current_stream(self._t.device).synchronize()
+        _engine.wait_for_var(self._t)
 
     # ----------------------------------------------------------- writes
     def _set(self, new):

@@ -35,18 +35,23 @@
 // TPU kernel's lane rule) keeps each vector inside one row, on
 // consecutive channels, and 16-byte aligned; the wrapper checks the
 // pointers' alignment.  A grid-stride loop covers rows * C / vec vectors
-// with at most 8 blocks of 256 threads per SM.  scale and bias (at most
-// a few KB) are read through the read-only cache as float4.  The TPU
-// kernel's (block_rows, C) VMEM tiles and its tuned block_rows have no
+// with at most blocks_per_sm blocks of `threads` threads per SM.  scale
+// and bias (at most a few KB) are read through the read-only cache as
+// float4.  The TPU kernel's (block_rows, C) VMEM tiles have no
 // counterpart: a row block is only a unit of the TPU's sequential grid.
+//
+// Schedule: the pair (threads, blocks_per_sm) is the launch schedule the
+// autotuner searches (ops/residual_epilogue.py:tune), in place of the
+// TPU kernel's tuned block_rows.  threads is 128, 256 or 512, each its
+// own instantiation so __launch_bounds__ stays exact; blocks_per_sm
+// caps the grid.  Every element is computed by the same expression
+// whatever the schedule, so every schedule gives bit-identical output.
+// The default is (256, 8).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
 
 __device__ __forceinline__ float epilogue(float x, float s, float sc,
                                           float b) {
@@ -55,6 +60,7 @@ __device__ __forceinline__ float epilogue(float x, float s, float sc,
 }
 
 // fp32: one vector is 4 channels
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 residual_epilogue_f32(const float4* __restrict__ x,
                       const float4* __restrict__ s,
@@ -79,6 +85,7 @@ residual_epilogue_f32(const float4* __restrict__ x,
 }
 
 // bf16: one vector (uint4) is 8 channels, as 4 __nv_bfloat162 pairs
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 residual_epilogue_bf16(const uint4* __restrict__ x,
                        const uint4* __restrict__ s,
@@ -129,34 +136,54 @@ int sm_count() {
   return sms;
 }
 
+template <int kThreads>
+void launch(int dtype, const void* x, const void* s, const void* scale,
+            const void* bias, void* out, long long nvec, int cvec,
+            int blocks_per_sm, cudaStream_t st) {
+  long long blocks = (nvec + kThreads - 1) / kThreads;
+  const long long cap = (long long)sm_count() * blocks_per_sm;
+  if (blocks > cap) blocks = cap;
+  if (dtype == 1) {
+    residual_epilogue_bf16<kThreads><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const uint4*>(x), static_cast<const uint4*>(s),
+        static_cast<const float4*>(scale), static_cast<const float4*>(bias),
+        static_cast<uint4*>(out), nvec, cvec);
+  } else {
+    residual_epilogue_f32<kThreads><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const float4*>(x), static_cast<const float4*>(s),
+        static_cast<const float4*>(scale), static_cast<const float4*>(bias),
+        static_cast<float4*>(out), nvec, cvec);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  rows * C elements; C % 128 == 0 and
-// every pointer 16-byte aligned (the wrapper checks both).  Returns
+// every pointer 16-byte aligned (the wrapper checks both).  The schedule:
+// threads per block (128, 256 or 512) and the most blocks per SM (>= 1).
+// Returns -1 for a schedule outside those (nothing is launched), else
 // cudaGetLastError() after the launch (0 on success); the Python wrapper
 // raises on anything else.
 extern "C" int mxtt_residual_epilogue(int dtype, const void* x, const void* s,
                                       const void* scale, const void* bias,
                                       void* out, long long rows, int C,
+                                      int threads, int blocks_per_sm,
                                       void* stream) {
+  if (blocks_per_sm < 1 ||
+      (threads != 128 && threads != 256 && threads != 512)) {
+    return -1;
+  }
   if (rows <= 0) return 0;
   const int per_vec = dtype == 1 ? 8 : 4;
   const int cvec = C / per_vec;
   const long long nvec = rows * (long long)cvec;
-  long long blocks = (nvec + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count() * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    residual_epilogue_bf16<<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const uint4*>(x), static_cast<const uint4*>(s),
-        static_cast<const float4*>(scale), static_cast<const float4*>(bias),
-        static_cast<uint4*>(out), nvec, cvec);
+  if (threads == 128) {
+    launch<128>(dtype, x, s, scale, bias, out, nvec, cvec, blocks_per_sm, st);
+  } else if (threads == 256) {
+    launch<256>(dtype, x, s, scale, bias, out, nvec, cvec, blocks_per_sm, st);
   } else {
-    residual_epilogue_f32<<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const float4*>(x), static_cast<const float4*>(s),
-        static_cast<const float4*>(scale), static_cast<const float4*>(bias),
-        static_cast<float4*>(out), nvec, cvec);
+    launch<512>(dtype, x, s, scale, bias, out, nvec, cvec, blocks_per_sm, st);
   }
   return (int)cudaGetLastError();
 }

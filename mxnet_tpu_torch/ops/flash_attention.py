@@ -25,6 +25,10 @@ Semantics kept from the JAX package: masked scores are ``NEG_INF``
 ``δ = rowsum(O∘dO)`` is computed in fp32 outside the kernels; dQ and dK
 come back in q's dtype and dV in v's; the scale defaults to 1/√D.
 
+Each kernel launch reports its analytic FLOPs to the perf plane
+(``telemetry.perf.kernel_flops``; a dispatch-mode counter sees the
+plain versions' matmuls but not a ctypes launch).
+
 :func:`flash_attention` is the differentiable entry point (a
 ``torch.autograd.Function`` in place of the ``jax.custom_vjp``), and the
 ``FlashAttention`` op is registered at the end of this module.
@@ -37,6 +41,7 @@ import math
 import torch
 
 from ..base import MXNetError, parse_attr, parse_bool
+from ..telemetry import perf as _perf
 from .registry import register
 
 __all__ = ["NEG_INF", "MAX_D", "supports", "flash_attention", "apply",
@@ -178,6 +183,17 @@ def _require(q, k, v, extra=()):
                 f"{tuple(t.shape)} on {t.device}")
 
 
+def _kernel_flops(products, q, causal):
+    """Report a launch's analytic FLOPs to the perf plane (its counter
+    cannot see a ctypes launch): each (query, key) pair the kernel
+    visits — T(T+1)/2 of them when causal — costs 2*D flops in each of
+    its ``products`` matrix products (2 in the forward, 3 in dQ, 4 in
+    dK/dV)."""
+    B, H, T, D = q.shape
+    pairs = T * (T + 1) // 2 if causal else T * T
+    _perf.kernel_flops(2 * products * B * H * pairs * D)
+
+
 def _launch(name, q, args):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -199,6 +215,7 @@ def _cuda_fwd(q, k, v, scale, causal):
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B * H, T, D, float(scale),
         int(causal)))
+    _kernel_flops(2, q, causal)
     return o, lse
 
 
@@ -217,6 +234,7 @@ def _cuda_dq(q, k, v, do, lse, delta, scale, causal):
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B * H, T, D, float(scale), int(causal)))
+    _kernel_flops(3, q, causal)
     return dq
 
 
@@ -229,6 +247,7 @@ def _cuda_dkv(q, k, v, do, lse, delta, scale, causal):
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B * H, T, D, float(scale), int(causal)))
+    _kernel_flops(4, q, causal)
     return dk, dv
 
 
@@ -270,13 +289,17 @@ class _FlashAttention(torch.autograd.Function):
         o, lse = _fwd_impl(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
+        # the perf plane's regions counting this forward count its
+        # backward too, on whichever thread autograd runs it
+        ctx.perf_regions = _perf.open_regions()
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd_impl(q, k, v, o, lse, do.contiguous(), ctx.scale,
-                               ctx.causal)
+        with _perf.reporting_to(ctx.perf_regions):
+            dq, dk, dv = _bwd_impl(q, k, v, o, lse, do.contiguous(),
+                                   ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
 
 

@@ -21,9 +21,19 @@ live:
 
 A third lowering, :func:`_pagewalk_attention` (the JAX package's
 ``_pagewalk_attention``), is plain tensor code that reads only the pages
-some slot's cursor has reached; the serving step takes it under
-``MXTPU_PAGED_KERNEL=pagewalk``.  The JAX package's autotuner schedules
-are not ported (ROADMAP Queue 1 item 11b).
+some slot's cursor has reached, in granules of ``chunk`` pages; the
+serving step takes it under ``MXTPU_PAGED_KERNEL=pagewalk``.
+
+Schedules are plain dicts chosen by ``mxnet_tpu_torch.autotune`` at
+``PagedSlots`` construction — never per tick — under the reference's key
+(:func:`keysig`).  On a card whose shape :func:`supports` takes, the
+search picks the kernel's split, ``{"impl": "cuda", "chunk_pages": p}``
+with ``p`` pages a chunk; elsewhere it picks among ``{"impl":
+"gather"}`` and ``{"impl": "pagewalk", "chunk": c}``
+(:func:`candidate_schedules`).  :func:`default_schedule` on a card is
+today's split (:func:`split_of`), so a search never loses to not
+searching; :func:`make_bench_fn` times one tick's attention over all
+layers for the search.
 """
 from __future__ import annotations
 
@@ -33,10 +43,12 @@ import functools
 import torch
 
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["supports", "require", "gather_tables", "paged_attention",
            "split_of", "launch_count", "reset_launch_count", "MAX_DH",
-           "MAX_CONTEXT"]
+           "MAX_CONTEXT", "keysig", "default_schedule",
+           "candidate_schedules", "make_bench_fn"]
 
 # the masking constant of the decode stack (== models.decode.NEG_INF;
 # kept literal so this op module never imports the models package)
@@ -57,6 +69,11 @@ MAX_CONTEXT = 49152                  # M * block positions
 # shared-memory table of page ids)
 SPLIT_POSITIONS = 128
 MAX_CHUNK_PAGES = 16
+
+# the schedules' knobs: the pagewalk's page granules (the JAX package's
+# _PAGEWALK_CHUNKS) and the kernel's pages a chunk (up to MAX_CHUNK_PAGES)
+_PAGEWALK_CHUNKS = (1, 2, 4, 8)
+_CHUNK_PAGES = (1, 2, 4, 8, MAX_CHUNK_PAGES)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,10 +115,12 @@ def supports(block: int, dh: int, dtype) -> bool:
             and dh <= MAX_DH)
 
 
-def require(block: int, dh: int, dtype, context: int):
+def require(block: int, dh: int, dtype, context: int, chunk_pages=None):
     """Raise :class:`MXNetError` naming the limit unless the CUDA kernel
     can take ``(block, dh)`` pages of ``dtype`` over ``context``
-    positions (``M * block``)."""
+    positions (``M * block``), split into chunks of ``chunk_pages``
+    pages (when given: 1 to ``MAX_CHUNK_PAGES``, the kernel's
+    shared-memory table of page ids)."""
     if not supports(block, dh, dtype):
         raise MXNetError(
             f"paged_attention CUDA kernel does not support block={block}, "
@@ -111,6 +130,51 @@ def require(block: int, dh: int, dtype, context: int):
         raise MXNetError(
             f"paged_attention CUDA kernel: context {context} exceeds "
             f"MAX_CONTEXT {MAX_CONTEXT}")
+    if chunk_pages is not None and not 1 <= int(chunk_pages) \
+            <= MAX_CHUNK_PAGES:
+        raise MXNetError(
+            f"paged_attention CUDA kernel: chunk_pages {chunk_pages} is "
+            f"outside 1..{MAX_CHUNK_PAGES} (its table of page ids)")
+
+
+# ------------------------------------------------------------- schedules
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def keysig(B: int, H: int, M: int, block: int, dh: int, dtype) -> str:
+    """The autotuner shape signature of one decode-step workload (the
+    JAX package's format)."""
+    return "b%dh%dm%dk%dd%d_%s" % (B, H, M, block, dh, _dtype_name(dtype))
+
+
+def default_schedule(platform: str, block: int, dh: int, dtype) -> dict:
+    """What runs with no tuned winner: on a card (``platform`` "cuda")
+    whose shape the kernel takes, the kernel under today's split
+    (:func:`split_of`); the gather path everywhere else."""
+    if platform == "cuda" and supports(block, dh, dtype):
+        # split_of's pages a chunk depend on the page size alone
+        return {"impl": "cuda", "chunk_pages": split_of(1, block)[0]}
+    return {"impl": "gather"}
+
+
+def candidate_schedules(platform: str, block: int, dh: int, M: int,
+                        dtype) -> list:
+    """The search space for one shape signature.  On a card whose shape
+    the kernel takes, the kernel's splits of ``p`` pages a chunk, ``p <=
+    MAX_CHUNK_PAGES`` (today's split among them): a search picks how
+    the kernel runs, never whether it runs — the gather and pagewalk
+    paths are the plain versions, reached on a card only by pinning
+    ``MXTPU_PAGED_KERNEL``.  Elsewhere the JAX package's list: gather
+    (a winner never loses to not tuning) and the pagewalk granules that
+    divide the table width."""
+    if platform == "cuda" and supports(block, dh, dtype):
+        return [{"impl": "cuda", "chunk_pages": p} for p in _CHUNK_PAGES]
+    cands = [{"impl": "gather"}]
+    for ch in _PAGEWALK_CHUNKS:
+        if ch <= M and M % ch == 0:
+            cands.append({"impl": "pagewalk", "chunk": ch})
+    return cands
 
 
 # ---------------------------------------------------------------- gather
@@ -169,15 +233,17 @@ def _gather_attention(q, pool_k, pool_v, bt, cursor, layer, block):
 
 
 def _pagewalk_attention(q, pool_k, pool_v, bt, cursor, layer, block,
-                        n_live):
+                        n_live, chunk=1):
     """The live-page walk: the first ``n_live`` pages of every slot's
     table (the pages the largest cursor has reached, a host int the
-    caller knows without reading the device), then :func:`_attend` over
-    ``[0, cursor[b]]``.  The same values as the gather path, which
-    attends over all ``M * block`` positions with the dead ones masked
-    to exact zeros."""
+    caller knows without reading the device), rounded up to whole
+    granules of ``chunk`` pages, then :func:`_attend` over ``[0,
+    cursor[b]]``.  The same values as the gather path, which attends
+    over all ``M * block`` positions with the dead ones masked to exact
+    zeros."""
     B, H, _n, dh = q.shape
-    m = max(1, min(int(n_live), bt.shape[1]))
+    chunk = max(1, int(chunk))
+    m = max(1, min(-(-int(n_live) // chunk) * chunk, bt.shape[1]))
     pgs = bt[:, :m].long()
     k = pool_k[pgs, layer].permute(0, 2, 1, 3, 4).reshape(B, H, m * block, dh)
     v = pool_v[pgs, layer].permute(0, 2, 1, 3, 4).reshape(B, H, m * block, dh)
@@ -200,12 +266,15 @@ def _lib():
     return fn
 
 
-def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block):
+def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block,
+                    chunk_pages=None, live_rows=None):
     global _launches
     B, H, n, dh = q.shape
     P, L, Hp, blk, dhp = pool_k.shape
     M = bt.shape[1]
-    require(block, dh, q.dtype, M * block)
+    if chunk_pages is None:
+        chunk_pages = split_of(M, block)[0]
+    require(block, dh, q.dtype, M * block, chunk_pages)
     if (n != 1 or (Hp, blk, dhp) != (H, block, dh)
             or pool_v.shape != pool_k.shape or bt.shape[0] != B
             or cursor.shape != (B,) or not 0 <= layer < L):
@@ -225,7 +294,8 @@ def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block):
             raise MXNetError(f"paged_attention: {name} must start on a "
                              f"16-byte boundary (the kernel's loads)")
     out = torch.empty_like(q)
-    chunk_pages, n_split = split_of(M, block)
+    chunk_pages = int(chunk_pages)
+    n_split = -(-M // chunk_pages)
     # the chunks' partials (acc[dh], m, l), from the caching allocator
     part = torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
                        device=q.device)
@@ -240,22 +310,95 @@ def _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block):
         raise MXNetError(f"paged_attention CUDA launch failed: cuda error "
                          f"{err}")
     _launches += 1
+    if live_rows is not None:
+        # the perf plane's count: 2 products of 2*dh flops a live row
+        _perf.kernel_flops(4 * int(live_rows) * H * dh)
     return out
 
 
 # ------------------------------------------------------------------ entry
-def paged_attention(q, pool_k, pool_v, bt, cursor, layer, *, block):
+def paged_attention(q, pool_k, pool_v, bt, cursor, layer, *, block,
+                    chunk_pages=None, live_rows=None):
     """Decode attention for one layer straight off the page pool.
 
     ``q``: ``(B, H, 1, dh)``; ``pool_k``/``pool_v``: ``(P, L, H, block,
     dh)``; ``bt``: ``(B, M)`` int32 page ids; ``cursor``: ``(B,)`` int32
     absolute positions (attend over ``[0, cursor[b]]``).  Returns ``(B,
     H, 1, dh)`` in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise when it cannot take the shape."""
+    tensors launch the kernel split into chunks of ``chunk_pages`` pages
+    (None: :func:`split_of`, the default schedule), or raise when it
+    cannot take the shape or the split.  ``live_rows`` (the caller's
+    host count of live K/V rows, ``sum(cursor + 1)``) feeds the perf
+    plane's FLOP count of the launch."""
     if q.device.type == "cpu":
         return _gather_attention(q, pool_k, pool_v, bt, cursor, layer,
                                  block)
     if q.device.type != "cuda":
         raise MXNetError(f"paged_attention: no lowering for device "
                          f"{q.device}")
-    return _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block)
+    return _cuda_attention(q, pool_k, pool_v, bt, cursor, layer, block,
+                           chunk_pages, live_rows)
+
+
+# ------------------------------------------------------------- benchmark
+def make_bench_fn(schedule, *, B, H, M, block, dh, L, dtype=torch.float32,
+                  device="cpu"):
+    """A thunk timing one decode tick's attention (all ``L`` layers)
+    under ``schedule`` on a seeded steady-state pool on ``device``:
+    per-slot cursors spread raggedly across the context (mean about half
+    full — the regime a serving mix sits in), block tables dense.  Each
+    lowering runs as the serving step runs it, layer by layer (the
+    gather path gathers one layer's pages at a time).  A CUDA schedule
+    the kernel refuses (its shape or its split) raises
+    ``autotune.ScheduleRejected`` here, before any launch; the search
+    skips it.  Used by the ``PagedSlots`` tuning call site."""
+    from ..autotune import ScheduleRejected
+
+    sched = dict(schedule or {"impl": "gather"})
+    impl = sched.get("impl", "gather")
+    device = torch.device(device)
+    if impl == "cuda":
+        try:
+            if device.type != "cuda":
+                raise MXNetError(f"the kernel needs a CUDA pool, not "
+                                 f"{device}")
+            require(block, dh, dtype, M * block, sched.get("chunk_pages"))
+        except MXNetError as exc:
+            raise ScheduleRejected(f"paged_attention schedule {sched}: "
+                                   f"{exc}") from exc
+    elif impl not in ("gather", "pagewalk"):
+        raise ScheduleRejected(f"paged_attention: unknown schedule {sched}")
+    S = M * block
+    P = B * M + 1
+    # drawn where they live: a full-width pool is 10^8 values a table
+    gen = torch.Generator(device=device).manual_seed(0)
+    pool_k = torch.randn((P, L, H, block, dh), generator=gen,
+                         device=device).to(dtype)
+    pool_v = torch.randn((P, L, H, block, dh), generator=gen,
+                         device=device).to(dtype)
+    q = torch.randn((B, H, 1, dh), generator=gen, device=device).to(dtype)
+    bt = (torch.randperm(P - 1, generator=gen, device=device)[:B * M]
+          + 1).reshape(B, M).to(torch.int32)
+    cursor_host = torch.linspace(block, S - 1, B).to(torch.int32)
+    cursor = cursor_host.to(device)
+    n_live = int(cursor_host.max()) // block + 1
+
+    def gather():
+        with torch.inference_mode():
+            return sum(_gather_attention(q, pool_k, pool_v, bt, cursor, i,
+                                         block)
+                       for i in range(L))
+
+    def pagewalk():
+        with torch.inference_mode():
+            return sum(_pagewalk_attention(q, pool_k, pool_v, bt, cursor, i,
+                                           block, n_live,
+                                           sched.get("chunk", 1))
+                       for i in range(L))
+
+    def kernel():
+        return sum(_cuda_attention(q, pool_k, pool_v, bt, cursor, i, block,
+                                   sched["chunk_pages"])
+                   for i in range(L))
+
+    return {"gather": gather, "pagewalk": pagewalk, "cuda": kernel}[impl]

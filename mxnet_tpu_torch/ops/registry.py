@@ -174,4 +174,6 @@ def invoke(name: str, inputs, attrs=None, is_train: bool = True,
         out = op.fn(ctx, *inputs, **attrs)
     if op.aux_names:
         out = out[0]
-    return out
+    from .. import engine
+
+    return engine.on_push(out)

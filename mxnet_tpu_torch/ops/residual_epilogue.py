@@ -25,10 +25,18 @@ kernel (like the TPU kernel) adds x and s in fp32, the plain version
 fp32 they are bit-identical.
 
 The backward is plain torch (``_epilogue_bwd``'s selects and two
-per-channel sums) behind one ``torch.autograd.Function``.  The tuned
-``block_rows`` of the JAX package and its ``tune()`` search wait for the
-autotuner port (ROADMAP Queue 1 item 11); the CUDA kernel has no row
-block.
+per-channel sums) behind one ``torch.autograd.Function``.
+
+Schedule: where the JAX package tunes the Pallas kernel's ``block_rows``,
+the port tunes the CUDA kernel's launch — ``{"threads": 128|256|512,
+"blocks_per_sm": 2|4|8|16}`` (default ``{"threads": 256,
+"blocks_per_sm": 8}``).  :func:`tune` searches the candidates on the card
+through the autotuner (``MXTPU_SCHEDULE_CACHE``) under the reference's
+key ``r<rows>c<C>_<dtype>``; each launch reads its schedule with the pure
+``autotune.schedule_for`` and falls back to the default for one it
+cannot read (the reference's ``{"block_rows": ...}`` from a shared CPU
+cache, say).  The kernel is a grid-stride elementwise pass, so every
+schedule gives bit-identical output.
 
 Graph entry points (matched by ``passes/residual_epilogue.py``):
 ``_residual_epilogue(data, shortcut)`` and
@@ -45,10 +53,22 @@ from .registry import get as _get_op
 from .registry import register
 
 __all__ = ["supports", "residual_epilogue", "tune", "launch_count",
-           "reset_launch_count"]
+           "reset_launch_count", "DEFAULT_SCHEDULE", "candidate_schedules",
+           "make_bench_fn"]
 
 # the JAX package's static row block; only supports() reads it here
 _BLOCK_ROWS = 256
+
+# the CUDA kernel's launch schedule: threads per block (one kernel
+# instantiation each) and the most blocks per SM of its grid-stride grid
+DEFAULT_SCHEDULE = {"threads": 256, "blocks_per_sm": 8}
+_THREADS = (128, 256, 512)
+_BLOCKS_PER_SM = (2, 4, 8, 16)
+# the bytes a timed pass of tune() moves at least (three times the
+# H100's 50 MB L2): each launch of a pass reads its own copy of x and s,
+# so a candidate is timed on cold inputs, as the Predictor's launches
+# read them
+_COLD_BYTES = 150e6
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,11 +106,123 @@ def _default_block_rows(rows: int) -> int:
     return rows  # not tileable; supports() returns False upstream
 
 
+def _keysig(rows: int, channels: int, dtype) -> str:
+    """The autotuner key, the JAX package's format (``r%dc%d_%s`` with
+    the dtype's name, ``float32`` or ``bfloat16``)."""
+    return "r%dc%d_%s" % (rows, channels,
+                          str(dtype).replace("torch.", ""))
+
+
+def candidate_schedules():
+    """Every launch schedule :func:`tune` measures, the default among
+    them (a search never loses to not searching)."""
+    return [{"threads": t, "blocks_per_sm": b}
+            for t in _THREADS for b in _BLOCKS_PER_SM]
+
+
+def _valid(sched) -> bool:
+    try:
+        return (int(sched["threads"]) in _THREADS
+                and int(sched["blocks_per_sm"]) >= 1)
+    except (KeyError, TypeError, ValueError):
+        return False
+
+
+def _schedule_for(rows: int, channels: int, dtype) -> dict:
+    """The launch schedule of this ``(rows, C, dtype)``: the tuned winner
+    when the schedule cache holds one this kernel can read, else
+    :data:`DEFAULT_SCHEDULE`.  A dict read (``autotune.schedule_for``):
+    no clock, no device, safe inside a CUDA-graph capture."""
+    from .. import autotune as _autotune
+
+    sched = _autotune.schedule_for("residual_epilogue",
+                                   _keysig(rows, channels, dtype),
+                                   DEFAULT_SCHEDULE)
+    return sched if _valid(sched) else DEFAULT_SCHEDULE
+
+
+def make_bench_fn(rows, channels, dtype):
+    """``bench(schedule) -> thunk`` for the autotuner on the card: the
+    thunk replays one pass that launches the kernel under ``schedule``
+    once on each of ``n`` seeded copies of a ``(rows, C)`` x and s, ``n``
+    chosen so the pass moves at least ``_COLD_BYTES`` (its launches
+    never find their inputs in L2; drawn at the first call, so a cache
+    hit draws nothing), and returns the pass's ``n`` outputs.  The pass
+    is captured as a CUDA graph, so a replay runs its launches back to
+    back and times the card, not the Python wrapper (~30 µs a launch,
+    more than a small tail's kernel).  A schedule outside the kernel's
+    raises ``autotune.ScheduleRejected`` before any launch."""
+    from .. import autotune as _autotune
+
+    inputs = []
+
+    def draw():
+        dev = torch.device("cuda")
+        item = torch.tensor([], dtype=dtype).element_size()
+        n = max(1, min(16, -(-int(_COLD_BYTES)
+                             // (3 * rows * channels * item))))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        xs = [torch.randn((rows, channels), generator=gen,
+                          device=dev).to(dtype) for _ in range(n)]
+        ss = [torch.randn((rows, channels), generator=gen,
+                          device=dev).to(dtype) for _ in range(n)]
+        scale = torch.randn((channels,), generator=gen, device=dev)
+        bias = torch.randn((channels,), generator=gen, device=dev)
+        return list(zip(xs, ss)), scale, bias
+
+    def bench(cand):
+        if not _valid(cand):
+            raise _autotune.ScheduleRejected(
+                f"residual_epilogue: schedule {cand!r} is not one of the "
+                f"kernel's ({_THREADS} threads, blocks_per_sm >= 1)")
+        if not inputs:
+            inputs.append(draw())
+        pairs, scale, bias = inputs[0]
+
+        def launch():
+            return [_cuda_fwd(x, s, scale, bias, 1, schedule=cand)
+                    for x, s in pairs]
+
+        launch()                       # loads the library before capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = launch()
+
+        def replay():
+            graph.replay()
+            return outs
+
+        return replay
+
+    return bench
+
+
 def tune(rows, channels, dtype=torch.float32):
-    """The JAX package's ``block_rows`` search: not ported yet (it
-    needs the autotuner, ROADMAP Queue 1 item 11)."""
-    raise MXNetError("residual_epilogue.tune is not ported yet (it needs "
-                     "the autotuner, ROADMAP Queue 1 item 11)")
+    """Search the CUDA kernel's launch schedule for the ``(rows, C)``
+    view and install the winner in the schedule cache (a bind-time call
+    site; each launch only reads it).  Returns the schedule dict.
+
+    On the card every candidate of :func:`candidate_schedules` is timed
+    by CUDA events (warm-up, best of 10, ``autotune.measure``) over
+    replays of :func:`make_bench_fn`'s captured pass, on inputs cold in
+    L2 (the cache's ``best_us`` is that of one pass): the card's time,
+    not the host's.  The default stays unless a candidate beats it by
+    more than its spread.  A CUDA error raises.
+    Without a card the plain version runs, which has no schedule: the
+    default is returned and nothing is recorded — the port's counterpart
+    of the JAX package tuning its kernel in interpret mode on the CPU.
+    A shape :func:`supports` refuses keeps the default too."""
+    from .. import autotune as _autotune
+
+    rows, channels = int(rows), int(channels)
+    dtype = getattr(torch, str(dtype).replace("torch.", ""), dtype)
+    if (not supports(rows, channels) or dtype not in _DTYPE_CODE
+            or not torch.cuda.is_available()):
+        return dict(DEFAULT_SCHEDULE)
+    return _autotune.ensure(
+        "residual_epilogue", _keysig(rows, channels, dtype),
+        dict(DEFAULT_SCHEDULE), candidate_schedules(),
+        make_bench_fn(rows, channels, dtype), warmup=3, best_of=10)
 
 
 def has_rows_view(t: torch.Tensor, channel_axis: int) -> bool:
@@ -122,16 +254,18 @@ def _lib():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_longlong,
-                       ctypes.c_int, p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _cuda_fwd(x, s, scale, bias, channel_axis):
-    """Launch the kernel; raise :class:`MXNetError` on anything it cannot
-    take (a CPU tensor, no dense ``(rows, C)`` view, mismatched shapes
-    or dtypes, a shape :func:`supports` refuses, a dtype other than
-    fp32/bf16, a pointer not 16-byte aligned)."""
+def _cuda_fwd(x, s, scale, bias, channel_axis, schedule=None):
+    """Launch the kernel under ``schedule`` (None: :func:`_schedule_for`
+    this shape); raise :class:`MXNetError` on anything it cannot take (a
+    CPU tensor, no dense ``(rows, C)`` view, mismatched shapes or
+    dtypes, a shape :func:`supports` refuses, a dtype other than
+    fp32/bf16, a pointer not 16-byte aligned, a schedule outside the
+    kernel's)."""
     global _launches
     if x.device.type != "cuda":
         raise MXNetError(f"residual_epilogue CUDA kernel: x lies on "
@@ -167,10 +301,18 @@ def _cuda_fwd(x, s, scale, bias, channel_axis):
     if any(p % 16 for p in ptrs):
         raise MXNetError("residual_epilogue CUDA kernel: every tensor must "
                          "start on a 16-byte boundary (a sliced view?)")
+    if schedule is None:
+        schedule = _schedule_for(rows, c, x.dtype)
+    elif not _valid(schedule):
+        raise MXNetError(f"residual_epilogue: schedule {schedule!r} is not "
+                         f"one of the kernel's ({_THREADS} threads, "
+                         f"blocks_per_sm >= 1)")
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], *ptrs, rows, c, stream)
+        err = fn(_DTYPE_CODE[x.dtype], *ptrs, rows, c,
+                 int(schedule["threads"]), int(schedule["blocks_per_sm"]),
+                 stream)
     if err != 0:
         raise MXNetError(f"residual_epilogue CUDA launch failed: cuda error "
                          f"{err}")

@@ -22,11 +22,12 @@ The port of ``mxnet_tpu/serving``:
   where they are consumed, for ``KVDecoder(quantize="int8")`` and
   ``Predictor(quantize="int8")``.
 
-``python -m mxnet_tpu_torch.serving`` runs a replica or a router.  Not
-ported yet: replica self-registration through a coordinator
-(``register_replica``, ``coordinator=``; ROADMAP Queue 1 item 10), the
-paged-attention autotuner and the scheduler's perf and health hooks
-(item 11b).
+``python -m mxnet_tpu_torch.serving`` runs a replica or a router.  The
+paged step's attention schedule is searched by the autotuner at
+``PagedSlots`` construction (``MXTPU_SCHEDULE_CACHE``), and the
+scheduler feeds the perf plane and the flight ring.  Not ported yet:
+replica self-registration through a coordinator (``register_replica``,
+``coordinator=``; ROADMAP Queue 1 item 10).
 """
 from . import quantize  # noqa: F401
 from .paged_kv import PagedSlots, PoolExhausted  # noqa: F401

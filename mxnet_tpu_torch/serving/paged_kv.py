@@ -19,7 +19,13 @@ copy the whole pool (0.5 GB at full width) on every tick.  The step's
 attention is the hand-written CUDA kernel (``ops/paged_attention.py``)
 or, by ``MXTPU_PAGED_KERNEL``, the plain gather math or the live-page
 walk; the prefill always gathers the slot's table and attends with
-plain tensor code.
+plain tensor code.  Under ``MXTPU_PAGED_KERNEL=auto`` with a schedule
+cache (``MXTPU_SCHEDULE_CACHE``) the autotuner picks the step's
+attention schedule at construction — the kernel's split on a card,
+gather or the pagewalk on the CPU — and never per tick.  Under
+``MXTPU_PERF_ATTR`` the first step and each prefill bucket's first
+admission count their FLOPs into the perf plane's cost rows
+(``decode_step_paged``, ``decode_prefill_paged[b<bucket>]``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import autotune as _autotune
 from .. import telemetry as _tm
 from ..base import MXNetError
 from ..models.decode import _ln, _snap
@@ -85,7 +92,9 @@ def paged_kernel_mode() -> str:
 
     ``auto`` (default, also ``1``): the CUDA kernel on a CUDA pool (a
     page shape, dtype or context the kernel cannot take raises
-    :class:`MXNetError`), the plain gather path on a CPU pool.
+    :class:`MXNetError`), the plain gather path on a CPU pool; with a
+    schedule cache, the autotuner's winner among the kernel's splits
+    (among gather and pagewalk on a CPU pool).
     ``0``/``off``/``gather``: pin the gather path.  ``pagewalk``: the
     plain live-page walk (``ops/paged_attention.py:_pagewalk_attention``)
     on either device.  ``pallas``: force the hand-written kernel (the
@@ -110,12 +119,15 @@ class _PagedPrograms:
     page id reconstructs a slot's table.  The layer math is the
     decoder's own (``_block_qkv``/``_block_tail``/``_head``)."""
 
-    def __init__(self, decoder, block, max_blocks, num_pages, kernel):
+    def __init__(self, decoder, block, max_blocks, num_pages, schedule):
         self.dec = decoder
         self.block = int(block)
         self.max_blocks = int(max_blocks)
         self.num_pages = int(num_pages)
-        self.kernel = kernel           # "cuda", "gather" or "pagewalk"
+        # {"impl": "cuda", "chunk_pages": p}, {"impl": "gather"} or
+        # {"impl": "pagewalk", "chunk": c}
+        self.schedule = dict(schedule)
+        self.kernel = self.schedule["impl"]
 
     def init_pool(self):
         d = self.dec
@@ -126,15 +138,17 @@ class _PagedPrograms:
 
     # ---------------------------------------------------------------- step
     @torch.inference_mode()
-    def step(self, pool_k, pool_v, bt, tokens, cursor, n_live):
+    def step(self, pool_k, pool_v, bt, tokens, cursor, n_live,
+             live_rows=None):
         """One decode position for every slot, the pool updated in
         place: row ``b`` writes its new K/V at absolute cache position
         ``cursor[b]`` (page ``bt[b, cursor//block]``, offset
         ``cursor%block``) and then attends over ``[0, cursor[b]]``.  Free
         rows ride along with ``bt[b]=0``/``cursor=0`` — their writes land
         in the scratch page the allocator never hands out.  ``n_live``
-        is the pagewalk's page count, from the host's cursors.  Returns
-        logits ``(B, V)``."""
+        is the pagewalk's page count and ``live_rows`` the kernel's live
+        K/V rows (the perf plane's count), both from the host's cursors.
+        Returns logits ``(B, V)``."""
         d = self.dec
         p = d.p
         B = tokens.shape[0]
@@ -154,11 +168,14 @@ class _PagedPrograms:
             pool_v[pages, i, :, offs] = d._heads(v, B, 1)[:, :, 0]
             qh = d._heads(q, B, 1)                              # (B, H, 1, dh)
             if self.kernel == "cuda":
-                ctx = _pa.paged_attention(qh, pool_k, pool_v, bt, cursor, i,
-                                          block=self.block)
+                ctx = _pa.paged_attention(
+                    qh, pool_k, pool_v, bt, cursor, i, block=self.block,
+                    chunk_pages=self.schedule["chunk_pages"],
+                    live_rows=live_rows)
             elif self.kernel == "pagewalk":
                 ctx = _pa._pagewalk_attention(
-                    qh, pool_k, pool_v, bt, cursor, i, self.block, n_live)
+                    qh, pool_k, pool_v, bt, cursor, i, self.block, n_live,
+                    self.schedule.get("chunk", 1))
             else:
                 ctx = _pa._gather_attention(qh, pool_k, pool_v, bt, cursor,
                                             i, self.block)
@@ -252,10 +269,11 @@ class PagedSlots:
         self.prefill_buckets = tuple(prefill_buckets or ())
         self.kernel_mode = (paged_kernel_mode() if kernel is None
                             else str(kernel).strip().lower())
-        self.kernel = self._resolve_kernel()
+        self.schedule = self._resolve_schedule()
+        self.kernel = self.schedule["impl"]
         self.programs = _PagedPrograms(
             decoder, self.block, self.max_blocks, self.num_pages + 1,
-            self.kernel)
+            self.schedule)
         self.pool = self.programs.init_pool()
         self.bt = np.zeros((self.num_slots, self.max_blocks), np.int32)
         self.cursor = np.zeros(self.num_slots, np.int32)
@@ -266,15 +284,24 @@ class PagedSlots:
         # trace id of the admission currently allocating, so _alloc can
         # attribute its prefix evictions; None for step-time evictions
         self._trace_ctx = None
+        # perf plane: one cost row for the step and one per prefill
+        # bucket, counted at their first dispatch
+        self._cost_step_done = False
+        self._cost_prefill_done = set()
         self._set_gauges()
 
-    # ------------------------------------------------------------- kernel
-    def _resolve_kernel(self):
-        """The step-attention lowering, decided ONCE here, never per
-        tick: ``"cuda"`` (the hand-written kernel) or ``"gather"``."""
+    # ----------------------------------------------------------- schedule
+    def _resolve_schedule(self):
+        """The step-attention schedule, decided ONCE here, never per tick
+        (a search's device syncs are ``autotune.search.measure``'s
+        declared boundary): ``{"impl": "cuda", "chunk_pages": p}`` (the
+        hand-written kernel), ``{"impl": "gather"}`` or ``{"impl":
+        "pagewalk", "chunk": c}``."""
         mode = self.kernel_mode
-        if mode in ("gather", "pagewalk"):
-            return mode
+        if mode == "gather":
+            return {"impl": "gather"}
+        if mode == "pagewalk":
+            return {"impl": "pagewalk", "chunk": 1}
         if mode == "interpret":
             raise MXNetError(
                 "MXTPU_PAGED_KERNEL=interpret: the port's kernel is CUDA, "
@@ -286,18 +313,37 @@ class PagedSlots:
                 f"unknown MXTPU_PAGED_KERNEL mode {mode!r} (want auto, "
                 "gather/0, pallas, pagewalk or interpret)")
         d = self.decoder
-        if d.device.type != "cuda":
+        M, blk = self.max_blocks, self.block
+        dtype = d._cache_dtype
+        platform = d.device.type
+        if platform != "cuda":
             if mode == "pallas":
                 raise MXNetError(
                     "MXTPU_PAGED_KERNEL=pallas forces the hand-written "
                     f"kernel, which needs a CUDA pool (this one is on "
                     f"{d.device}); use auto, gather or pagewalk")
-            return "gather"             # a CPU pool: the kernel needs the card
-        # a CUDA pool the kernel cannot take is an error, never a quiet
-        # switch to the gather path: pin MXTPU_PAGED_KERNEL=gather for that
-        _pa.require(self.block, d.dh, d._cache_dtype,
-                    self.max_blocks * self.block)
-        return "cuda"
+        else:
+            # a CUDA pool the kernel cannot take is an error, never a
+            # quiet switch to the gather path: pin
+            # MXTPU_PAGED_KERNEL=gather for that
+            _pa.require(blk, d.dh, dtype, M * blk)
+            if mode == "pallas":
+                return _pa.default_schedule(platform, blk, d.dh, dtype)
+        # auto: the default (the kernel under today's split on a card,
+        # gather on the CPU) unless a schedule cache holds or finds a
+        # winner.  On a card every candidate is a split of the kernel,
+        # and a cached winner outside the candidates (a gather winner a
+        # shared file holds, say) is not taken: a search never hands a
+        # card's work to a plain version
+        B = self.num_slots
+        cands = _pa.candidate_schedules(platform, blk, d.dh, M, dtype)
+        return dict(_autotune.ensure(
+            "paged_attention", _pa.keysig(B, d.H, M, blk, d.dh, dtype),
+            _pa.default_schedule(platform, blk, d.dh, dtype), cands,
+            lambda c: _pa.make_bench_fn(c, B=B, H=d.H, M=M, block=blk,
+                                        dh=d.dh, L=d.L, dtype=dtype,
+                                        device=d.device),
+            accept=lambda s: s in cands))
 
     # --------------------------------------------------------- bookkeeping
     def _set_gauges(self):
@@ -311,7 +357,8 @@ class PagedSlots:
                 "pages_total": self.num_pages,
                 "pages_free": len(self._free),
                 "prefix_pages": len(self._prefix),
-                "kernel": self.kernel}
+                "kernel": self.kernel,
+                "schedule": dict(self.schedule)}
 
     def _alloc(self, n):
         """``n`` pages off the free list, evicting LRU prefix-only pages
@@ -406,9 +453,14 @@ class PagedSlots:
         padded[0, :t] = tail
         dev = self.decoder.device
         # _snap: self.bt is mutated in place by later admits/steps
-        logits = self.programs.prefill(
-            self.pool[0], self.pool[1], _snap(self.bt[slot], dev),
-            _snap(padded, dev, np.int64), hist, t)
+        args = (self.pool[0], self.pool[1], _snap(self.bt[slot], dev),
+                _snap(padded, dev, np.int64), hist, t)
+        if bucket not in self._cost_prefill_done and _tm.perf.enabled():
+            self._cost_prefill_done.add(bucket)
+            logits = _tm.perf.count_cost(f"decode_prefill_paged[b{bucket}]",
+                                         self.programs.prefill, *args)
+        else:
+            logits = self.programs.prefill(*args)
         self.cursor[slot] = p_len
         # promote this prompt's full blocks: they are never written
         # again (writes happen at cursor >= p_len), so they are safe to
@@ -460,9 +512,18 @@ class PagedSlots:
         # next tick — the uploads must never alias them
         # pages the largest cursor has reached (the pagewalk's trip count)
         n_live = int(self.cursor.max()) // self.block + 1
-        logits = self.programs.step(
-            self.pool[0], self.pool[1], _snap(self.bt, dev),
-            _snap(tokens, dev), _snap(self.cursor, dev), n_live)
+        args = (self.pool[0], self.pool[1], _snap(self.bt, dev),
+                _snap(tokens, dev), _snap(self.cursor, dev), n_live)
+        if not self._cost_step_done and _tm.perf.enabled():
+            self._cost_step_done = True
+            # the kernel's live K/V rows, for its analytic FLOPs
+            live_rows = int(np.minimum(self.cursor + 1, self.max_blocks
+                                       * self.block).sum())
+            logits = _tm.perf.count_cost("decode_step_paged",
+                                         self.programs.step, *args,
+                                         live_rows)
+        else:
+            logits = self.programs.step(*args)
         adv = occupied.copy()
         adv[starved] = False
         self.cursor[adv] += 1

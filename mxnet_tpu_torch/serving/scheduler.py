@@ -24,8 +24,13 @@ tick first fires ``replica_kill`` (``crash_after:n`` kills the process
 mid-decode, the death the router's re-route and 502 paths survive) and
 ``serve_slow`` (``drop`` parks the engine thread for
 ``MXTPU_FAULT_SLOW_S`` seconds, so queue wait and TTFT really grow).
-Not ported yet: the JAX scheduler's perf-attribution records and the
-flight-ring record of each request (ROADMAP Queue 1 item 11b).
+
+Health and perf planes: a sampled request's terminal span is mirrored
+into the flight ring (``loop="serve"``, its trace id, outcome, wall and
+TTFT), and under ``MXTPU_PERF_ATTR`` each tick's wall splits into the
+decode dispatch (the step and its one logits fetch) and the host
+sampling loop, the dispatch attributed to ``decode_step_paged`` or
+``decode_step_slots`` — clock stamps the tick takes anyway.
 """
 from __future__ import annotations
 
@@ -538,7 +543,7 @@ class SlotScheduler:
         """ONE decode step over the whole pool + host sampling."""
         _faults.fire("replica_kill")
         if _faults.active() and _faults.should_drop("serve_slow"):
-            time.sleep(_faults.fault_slow_s())
+            time.sleep(_tm.health._fault_slow_s())
         t0 = time.perf_counter()
         occupied = [i for i, r in enumerate(self.slots) if r is not None]
         # sampled decode-tick spans: every TICK_EVERY-th tick
@@ -553,6 +558,7 @@ class SlotScheduler:
         occ_mask = np.array([r is not None for r in self.slots])
         logits, starved = self.backend.step(self._next_tok, occ_mask)
         logits = _host(logits)                    # the ONE host sync/tick
+        t_fetch = time.perf_counter()
         now = time.monotonic()
         for i in occupied:
             if i in starved:
@@ -571,6 +577,16 @@ class SlotScheduler:
         self.stats["slot_ticks"] += len(occupied)
         tick_dur = time.perf_counter() - t0
         _TM_TICK.observe(tick_dur)
+        if _tm.perf.enabled() and occupied:
+            # the tick's wall: the decode dispatch (step + the logits
+            # fetch above) and the host sampling loop
+            _tm.perf.record_dispatch(
+                "decode_step_paged"
+                if getattr(self.backend, "paged", False)
+                else "decode_step_slots", t_fetch - t0)
+            _tm.perf.record_step_buckets(
+                wall_s=tick_dur, dispatch=t_fetch - t0,
+                sample=tick_dur - (t_fetch - t0))
         for i, req in tick_reqs:
             _tracing.record_span(
                 "decode_tick", "replica", req.trace, tick_dur,
@@ -614,6 +630,11 @@ class SlotScheduler:
                 "request", "replica", req.trace, wall,
                 parent=req.parent, outcome=outcome,
                 tokens=len(req.tokens), request=req.id)
+            # mirrored into the flight ring, so post-mortem dumps carry
+            # the trace id
+            _tm.health.record_step(
+                loop="serve", trace=req.trace, outcome=outcome,
+                wall_s=wall, ttft_s=req.ttft)
         req._event.set()
 
     @staticmethod

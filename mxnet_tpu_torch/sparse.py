@@ -369,6 +369,12 @@ def make_row_program(rule_name: str, opt_params: tuple, wd_mult: float,
     _nslots, update = rule
 
     def step(idx_parts, val_parts, w, slots, lr, scale=None):
+        if _tm.enabled():
+            # the table and its slots are updated in place (the JAX
+            # program donates them)
+            _tm.health.donation_saved(
+                sum(t.numel() * t.element_size() for t in (w,) + slots),
+                site="kv_sparse")
         idx = idx_parts[0] if len(idx_parts) == 1 else torch.cat(idx_parts)
         vals = val_parts[0] if len(val_parts) == 1 \
             else torch.cat(val_parts)

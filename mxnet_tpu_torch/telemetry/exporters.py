@@ -1,19 +1,25 @@
-"""Exporters of the port: Prometheus text exposition and JSON snapshot.
+"""Exporters of the port: Prometheus text exposition, JSON snapshot and
+the telemetry HTTP server.
 
-A trimmed copy of ``mxnet_tpu/telemetry/exporters.py``: the two
-renderers the serving front-end's ``/metrics`` and ``/metrics.json``
-endpoints call.  The text format follows the Prometheus exposition
+A copy of ``mxnet_tpu/telemetry/exporters.py`` less its logging reporter
+and JSON dump: the two renderers the serving front-end's ``/metrics``
+and ``/metrics.json`` endpoints call, and :func:`start_http_server`
+(``/metrics``, ``/metrics.json``, ``/profile``, ``/spans.json``,
+``/healthz``).  The text format follows the Prometheus exposition
 format v0.0.4 (``# HELP`` / ``# TYPE`` headers, escaped label values,
 cumulative histogram buckets with an explicit ``+Inf``).
 """
 from __future__ import annotations
 
+import json
+import os
+import threading
 import time
 from typing import Optional
 
 from .registry import Histogram, Registry, get_registry
 
-__all__ = ["generate_text", "json_snapshot"]
+__all__ = ["generate_text", "json_snapshot", "start_http_server"]
 
 
 def _escape_help(s: str) -> str:
@@ -94,3 +100,120 @@ def json_snapshot(registry: Optional[Registry] = None) -> dict:
                     "labels": dict(zip(fam.labelnames, key)), "value": v})
         snap["metrics"][fam.name] = entry
     return snap
+
+
+def start_http_server(port: int = 0, addr: str = "127.0.0.1",
+                      registry: Optional[Registry] = None,
+                      max_tries: int = 1):
+    """Serve ``/metrics`` (Prometheus text) and ``/metrics.json`` on a
+    daemon thread.  ``port=0`` binds an ephemeral port — read it back
+    from the returned server's ``server_address``.  ``max_tries`` > 1
+    auto-increments past ports already bound (multi-worker-per-host
+    runs must not fight over the socket — each worker lands on the next
+    free port).  ``/profile`` serves the perf plane's ranked programs,
+    ``/spans.json`` the span buffer and ``/healthz`` a liveness probe
+    with this process's fleet identity and flight-ring length, as the
+    JAX package's server does.  Call ``.shutdown()`` to stop."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    reg = registry or get_registry()
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            if path in ("/", "/metrics", "/metrics.json"):
+                # fold the perf-attribution ledgers into program_mfu/
+                # program_roofline right before the render — derived
+                # gauges are computed per scrape, not per batch (lazy
+                # import: perf pulls health which pulls this module)
+                from . import perf as _perf
+
+                _perf.publish_gauges()
+            if path in ("/", "/metrics"):
+                body = generate_text(reg).encode("utf-8")
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            elif path == "/metrics.json":
+                body = json.dumps(json_snapshot(reg)).encode("utf-8")
+                ctype = "application/json"
+            elif path == "/profile":
+                # the perf-attribution plane's ranked-programs document:
+                # cost rows x runtime ledger x peak table, rendered by
+                # tools/explain.py
+                from . import perf as _perf
+
+                body = json.dumps(_perf.profile_payload(),
+                                  default=str).encode("utf-8")
+                ctype = "application/json"
+            elif path == "/spans.json":
+                # the bounded trace-span buffer + identity/clock offset
+                # (telemetry/tracing.py) — every metrics endpoint serves
+                # it, so fleetstat.py trace can join spans from training
+                # hosts too, not just the serving fleet
+                from . import tracing as _tracing
+
+                body = json.dumps(_tracing.spans_payload(),
+                                  default=str).encode("utf-8")
+                ctype = "application/json"
+            elif path == "/healthz":
+                # liveness probe, distinct from the scrape endpoint:
+                # answers "is the process serving" without the cost (or
+                # cardinality) of a full exposition render
+                from . import health as _health
+
+                ident = _health.host_identity()
+                payload = {
+                    "status": "ok",
+                    "families": len(reg.collect()),
+                    "flight_ring_len": len(_health.flight_ring()),
+                    # fleet topology self-assembly: a scraper probing
+                    # health endpoints alone learns who this process is
+                    # and where its membership authority lives
+                    "rank": ident["rank"],
+                    "generation": ident["generation"],
+                    "coordinator_addr": os.environ.get(
+                        "MXTPU_COORD_ADDR", "").strip() or None,
+                }
+                # cluster-health gauges ride along when their families
+                # exist: the dead-worker count the PS / coordinator
+                # tracks, and the elastic generation — the two numbers
+                # an operator probing a sick cluster needs
+                for fam_name, key in (("kvstore_dead_workers",
+                                       "kvstore_dead_workers"),
+                                      ("dist_generation",
+                                       "dist_generation"),
+                                      ("dist_hosts_alive",
+                                       "dist_hosts_alive")):
+                    for fam in reg.collect():
+                        if fam.name == fam_name:
+                            vals = [v for _, v in fam.samples()]
+                            if vals:
+                                payload[key] = max(vals)
+                body = json.dumps(payload).encode("utf-8")
+                ctype = "application/json"
+            else:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # scrapers are chatty; stay quiet
+            pass
+
+    last_exc = None
+    for i in range(max(int(max_tries), 1)):
+        try:
+            srv = ThreadingHTTPServer((addr, port + i if port else 0),
+                                      _Handler)
+            break
+        except OSError as exc:
+            last_exc = exc
+    else:
+        raise last_exc
+    srv.daemon_threads = True
+    thread = threading.Thread(target=srv.serve_forever, daemon=True,
+                              name="mxtt-telemetry-http")
+    thread.start()
+    return srv

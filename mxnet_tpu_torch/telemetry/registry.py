@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry",
-    "enabled", "enable",
+    "enabled", "enable", "disable", "reset",
     "counter", "gauge", "histogram", "get_registry",
     "DEFAULT_BUCKETS", "sanitize_name", "span", "timed",
 ]
@@ -54,6 +54,10 @@ def enable(on: bool = True):
     """Turn metric recording on (or off with ``on=False``).  Disabled is
     the default unless ``MXTPU_TELEMETRY=1`` is set in the environment."""
     _state.enabled = bool(on)
+
+
+def disable():
+    enable(False)
 
 
 def sanitize_name(name: str) -> str:
@@ -90,6 +94,10 @@ class MetricFamily:
                 f"{self.name}: expected labels {self.labelnames}, "
                 f"got {tuple(labels)}")
         return tuple(str(labels[ln]) for ln in self.labelnames)
+
+    def clear(self):
+        with self._lock:
+            self._samples.clear()
 
     def samples(self):
         """[(label_values_tuple, sample)] — a consistent snapshot."""
@@ -229,12 +237,23 @@ class Registry:
         with self._lock:
             return list(self._families.values())
 
+    def reset(self):
+        """Zero every family's samples.  Families stay registered —
+        instrumented modules hold references created at import time."""
+        for fam in self.collect():
+            fam.clear()
+
 
 _default_registry = Registry()
 
 
 def get_registry() -> Registry:
     return _default_registry
+
+
+def reset():
+    """Zero all metric values in the default registry (test isolation)."""
+    _default_registry.reset()
 
 
 def counter(name, help="", labels=()) -> Counter:

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import os
 import re
-import socket
 import threading
 import time
 from collections import deque
@@ -203,22 +202,15 @@ def clear_spans():
         _spans.clear()
 
 
-def _rank() -> int:
-    try:
-        return int(os.environ.get("MXTPU_RANK",
-                                  os.environ.get("DMLC_RANK", "0")) or 0)
-    except ValueError:
-        return 0
-
-
 def spans_payload(trace=None) -> dict:
-    """The ``GET /spans.json`` body: this process's identity, its clock
-    offset and the span snapshot.  The port has no coordinator client
-    yet, so the offset is always the local clock's (0)."""
-    return {"host": socket.gethostname(), "pid": os.getpid(),
-            "rank": _rank(),
-            "clock": {"offset_s": 0.0, "rtt_s": None, "at": None,
-                      "source": "none"},
+    """The ``GET /spans.json`` body: this process's identity and clock
+    offset (so ``fleetstat.py trace`` lanes and aligns it) and the span
+    snapshot.  A pure host-side buffer read."""
+    from . import health as _health
+
+    ident = _health.host_identity()
+    return {"host": ident["host"], "pid": ident["pid"],
+            "rank": ident["rank"], "clock": _health.clock_offset(),
             "trace_on": trace_on(), "spans": spans(trace)}
 
 

@@ -67,23 +67,47 @@ checkpoint and raises ``checkpoint.Preempted`` on SIGTERM, saves a
 terminal checkpoint at the end, and resumes mid-epoch from the batch
 cursor.
 
+Health and perf planes (:mod:`mxnet_tpu_torch.telemetry`): under
+``MXTPU_SENTINEL`` each step also computes, from the raw (pre-clip)
+fp32 gradients, a per-parameter ``isfinite`` flag and the global
+gradient norm, packed into one device tensor that
+``health.sentinel_record`` parks unread (site ``fused_step``, or
+``fused_step_multi`` with one row a step; in a captured step the graph
+writes it to a buffer that each replay's row is copied out of); the
+sync happens at the next reporting boundary (the async window's drain,
+``engine.wait_for_all``, an explicit ``sentinel_check``).  The first
+step records the step's memory row (``health.record_program``), an
+allocator failure in a step re-raises as ``DeviceOOMError`` with the
+ranked memory report, and the bytes updated in place count as
+``device_memory_donated_bytes_total``.  Under ``MXTPU_PERF_ATTR`` the
+first eager step (for ``step_multi`` on the card, its first warm-up
+step, never the capture) counts its FLOPs into the step's cost row, and
+every step adds its host wall; ``fit`` appends each batch to the flight
+ring (``MXTPU_FLIGHT_RECORD``, default on), splits each batch's wall
+into ``data_wait`` / ``dispatch`` / ``window_stall`` and the epoch's
+drain into ``boundary_sync``, and writes the flight record on an
+uncaught exception when ``MXTPU_FLIGHT_RECORD`` names a path.  A new
+autotuner winner (``autotune.fingerprint()``) drops the captured graphs
+that launch a tuned kernel (the residual epilogue), so a step never
+replays a launch schedule it captured before a search; the others stay.
+
 The steps make no host sync (no ``.item()`` / ``.cpu()``), checkpoints
-armed or not; the caller reads the returned outputs when it needs them.
-Not ported yet, and raising when asked for: ``mesh`` /
-``sharding_rules`` (ROADMAP Queue 1 item 10), the elastic coordinator
-(item 10), the numerics sentinel ``MXTPU_SENTINEL`` and the flight and
-perf recorders (item 11).
+and planes armed or not; the caller reads the returned outputs when it
+needs them.  Not ported yet, and raising when asked for: ``mesh`` /
+``sharding_rules`` (ROADMAP Queue 1 item 10) and the elastic coordinator
+(item 10).
 """
 from __future__ import annotations
 
 import logging
 import os
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from . import autotune as _autotune
 from . import profiler as _prof
 from . import random as _random
 from . import telemetry as _tm
@@ -92,6 +116,7 @@ from .context import resolve_device
 from .executor import _build_graph_fn, channels_last_default
 from .initializer import Uniform
 from .ndarray import NDArray
+from .ops import residual_epilogue as _epilogue
 from .optim_rules import _RULES
 from .passes import apply_graph_passes
 
@@ -106,7 +131,6 @@ _RANDOM_OPS = frozenset({"Dropout", "LeakyReLU", "RNN", "uniform",
 # eager steps run on the capture stream before a capture, so cuDNN's
 # plans, cuBLAS's workspaces and the allocator's blocks are settled
 _WARMUP_STEPS = 2
-_OFF = ("", "0", "off", "false", "no")
 
 
 def _not_ported(what, item):
@@ -126,10 +150,15 @@ def _as_tensor(value) -> torch.Tensor:
 
 class _Captured(NamedTuple):
     """One captured training step: replaying ``graph`` runs the step on
-    the batch in ``inputs`` and leaves its outputs in ``outputs``."""
+    the batch in ``inputs`` and leaves its outputs in ``outputs`` (and
+    the sentinel's flags and norm in ``sent`` under ``MXTPU_SENTINEL``)."""
     graph: "torch.cuda.CUDAGraph"
     inputs: Dict[str, torch.Tensor]
     outputs: list
+    sent: Optional[torch.Tensor]
+    # the graph launches the residual epilogue, whose schedule the
+    # autotuner may change
+    tuned: bool
 
 
 class FusedTrainer:
@@ -149,8 +178,6 @@ class FusedTrainer:
         if remat is None:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
         self.remat = bool(remat)
-        if os.environ.get("MXTPU_SENTINEL", "0").strip().lower() not in _OFF:
-            raise _not_ported("the numerics sentinel (MXTPU_SENTINEL)", 11)
         self.symbol = symbol
         self.data_names = list(data_names)
         self.label_names = list(label_names)
@@ -209,6 +236,7 @@ class FusedTrainer:
         self._lr = None
         self._bufs: Dict[tuple, torch.Tensor] = {}
         self._graphs: Dict[tuple, _Captured] = {}
+        self._graphs_fingerprint = None
         # the recompute's generator (remat): set to the trainer
         # generator's state before each step
         self._remat_gen = (torch.Generator(device=self.device)
@@ -217,6 +245,14 @@ class FusedTrainer:
         # step()'s profiler span (recorded only while the profiler runs)
         self._span = f"forward_backward[{symbol.name or 'graph'}]"
         self._sync = _prof.device_sync(self.device)
+        # the health and perf planes' label of the step, and their state
+        # (set for real by init)
+        self._label = f"fused_step[{symbol.name or 'graph'}]"
+        self._sentinel = False
+        self._sent_names = ()
+        self._mem_recorded = False
+        self._cost_recorded = False
+        self._donated_bytes = 0
 
     # ------------------------------------------------------------ setup
     def init(self, **input_shapes):
@@ -260,6 +296,13 @@ class FusedTrainer:
         self._cparams = {}
         self._bufs = {}
         self._graphs = {}
+        # the numerics sentinel is sampled here, as the JAX trainer samples
+        # it when it builds its step program
+        self._sentinel = _tm.health.sentinel_mode() is not None
+        self._sent_names = tuple(k for k in self.params
+                                 if k not in self._fixed)
+        self._mem_recorded = False
+        self._cost_recorded = False
         self._refresh_compute_cache()
         return self
 
@@ -369,7 +412,9 @@ class FusedTrainer:
     def _train_step(self, sb):
         """Forward, backward and update on the staged batch ``sb`` at the
         rate in ``self._lr``; the state is updated in place.  The body
-        of both :meth:`step` and the captured graph."""
+        of both :meth:`step` and the captured graph.  Returns ``(outputs,
+        sent)``: ``sent`` is the sentinel's ``(n_params + 1,)`` fp32
+        tensor (flags, then the norm) or None when it is off."""
         compute = self._compute_params()
         trainable = {k: v.detach().requires_grad_(True)
                      for k, v in compute.items() if k not in self._fixed}
@@ -394,6 +439,11 @@ class FusedTrainer:
             f32 = {k: (torch.zeros_like(self.params[k]) if g is None
                        else g.float())
                    for k, g in zip(trainable, grads)}
+            # raw (pre-clip) gradients: a finite clip rescale cannot mask
+            # an inf/nan, and the norm is the divergence signal
+            sent = (_tm.health.sentinel_vector(
+                f32[k] for k in self._sent_names)
+                if self._sentinel else None)
             if self._clip_global_norm is not None:
                 gnorm = torch.sqrt(sum(g.square().sum() for g in f32.values()))
                 scale = (self._clip_global_norm
@@ -411,7 +461,7 @@ class FusedTrainer:
                     self._cparams[k].copy_(w)
             for k, v in new_aux.items():
                 self.aux[k].copy_(v)
-        return [o.detach() for o in outs]
+        return [o.detach() for o in outs], sent
 
     def _remat_forward(self, args, aux, gen):
         """The forward under ``torch.utils.checkpoint``: the first run
@@ -442,15 +492,65 @@ class FusedTrainer:
         profiler runs, the step is a ``forward_backward[...]`` span that
         ends with a device sync)."""
         self._require_init("step")
+        return self._eager_step(batch, "fused_step")
+
+    def _eager_step(self, batch, site):
+        """:meth:`step`'s body; the sentinel parks its flags under
+        ``site``."""
         # the JAX step receives lr as an fp32 scalar
         lr = float(np.float32(self.current_lr()))
         self._step += 1
+        perf_on = _tm.perf.enabled()
+        t0 = time.perf_counter() if (perf_on or _tm.enabled()) else None
         sb = self._stage(batch)
+        self._record_step_memory(sb)
         self._lr.fill_(lr)
         self._sync_remat_gen()
         with _prof.span(self._span, device=str(self.device),
                         sync=self._sync):
+            try:
+                outs, sent = self._counted_step(sb)
+            except Exception as e:  # noqa: BLE001 — an OOM gets the report
+                _tm.health.reraise_if_oom(e, site="trainer.step")
+                raise
+        if sent is not None:
+            _tm.health.sentinel_record(site=site, step=self._step,
+                                       names=self._sent_names, finite=sent,
+                                       packed_norm=True)
+        if t0 is not None:
+            _tm.health.donation_saved(self._donated_bytes,
+                                      site="trainer_step")
+            if perf_on:
+                _tm.perf.record_dispatch(self._label,
+                                         time.perf_counter() - t0)
+        return outs
+
+    def _counted_step(self, sb):
+        """:meth:`_train_step`; under ``MXTPU_PERF_ATTR`` the first one
+        counts its FLOPs into the step's cost row (eager only: never
+        called inside a capture)."""
+        if self._cost_recorded or not _tm.perf.enabled():
             return self._train_step(sb)
+        self._cost_recorded = True
+        with _tm.perf.counting() as c:
+            res = self._train_step(sb)
+        _tm.perf.record_cost(self._label, flops=c.flops,
+                             source="flop_counter")
+        return res
+
+    def _record_step_memory(self, sb):
+        """The step's memory row, once: the state is updated in place
+        (the JAX step donates it), so the peak is about the state plus
+        the batch.  Shape math."""
+        if self._mem_recorded:
+            return
+        self._mem_recorded = True
+        state = sum(t.numel() * t.element_size() for t in self._state())
+        batch = sum(t.numel() * t.element_size() for t in sb.values())
+        self._donated_bytes = state
+        _tm.health.record_program(self._label, argument=state + batch,
+                                  output=state, alias=state,
+                                  source="shape_math")
 
     def _steps_of(self, value):
         """One ``step_multi`` input -> its k per-step tensors: the rows
@@ -507,29 +607,63 @@ class FusedTrainer:
                 raise MXNetError(f"FusedTrainer.step_multi: the steps of "
                                  f"{name!r} differ in shape or dtype")
         if self.device.type != "cuda":
-            outs = [self.step(**{n: r[i] for n, r in rows.items()})
+            outs = [self._eager_step({n: r[i] for n, r in rows.items()},
+                                     "fused_step_multi")
                     for i in range(k)]
             return [torch.stack(o) for o in zip(*outs)]
-        cap = self._captured({n: r[0] for n, r in rows.items()})
+        perf_on = _tm.perf.enabled()
+        t0 = time.perf_counter() if (perf_on or _tm.enabled()) else None
+        try:
+            cap = self._captured({n: r[0] for n, r in rows.items()})
+        except Exception as e:  # noqa: BLE001 — an OOM gets the report
+            _tm.health.reraise_if_oom(e, site="trainer.step_multi")
+            raise
         lrs = [float(np.float32(self._lr_at(self._step + 1 + i)))
                for i in range(k)]
+        step0 = self._step
         self._step += k
         stacked_outs = [torch.empty((k,) + tuple(o.shape), dtype=o.dtype,
                                     device=o.device) for o in cap.outputs]
+        sents = (torch.empty((k,) + tuple(cap.sent.shape),
+                             dtype=cap.sent.dtype, device=cap.sent.device)
+                 if cap.sent is not None else None)
         for i in range(k):
             for name, r in rows.items():
                 cap.inputs[name].copy_(r[i], non_blocking=True)
             self._lr.fill_(lrs[i])
             self._sync_remat_gen()
             cap.graph.replay()
-            # the next replay overwrites the graph's outputs
+            # the next replay overwrites the graph's outputs (and the
+            # sentinel's row)
             for dst, out in zip(stacked_outs, cap.outputs):
                 dst[i].copy_(out)
+            if sents is not None:
+                sents[i].copy_(cap.sent)
+        if sents is not None:
+            # rows map to steps step0+1 .. step0+k
+            _tm.health.sentinel_record(site="fused_step_multi",
+                                       step=step0 + 1,
+                                       names=self._sent_names, finite=sents,
+                                       packed_norm=True)
+        if t0 is not None:
+            _tm.health.donation_saved(self._donated_bytes * k,
+                                      site="trainer_step_multi")
+            if perf_on:
+                _tm.perf.record_dispatch(self._label,
+                                         time.perf_counter() - t0)
         return stacked_outs
 
     def _captured(self, example):
         """The captured step for the per-step batch shapes and dtypes of
         ``example`` (captured now if there is none)."""
+        # a new autotuner winner drops the captures that launch a tuned
+        # kernel: a graph bakes in the launch schedules its kernels read
+        # at capture time
+        fingerprint = _autotune.fingerprint()
+        if fingerprint != self._graphs_fingerprint:
+            self._graphs = {k: c for k, c in self._graphs.items()
+                            if not c.tuned}
+            self._graphs_fingerprint = fingerprint
         key = tuple(sorted((n, tuple(t.shape), t.dtype)
                            for n, t in example.items()))
         cap = self._graphs.get(key)
@@ -549,6 +683,7 @@ class FusedTrainer:
                 f"one draw, so it is not captured (use step()): this torch "
                 f"has no CUDAGraph.register_generator_state")
         inputs = self._stage(example)
+        self._record_step_memory(inputs)
         dev = self.device
         gen = _random.generator(dev)
         # warm up on the capture stream, then put the state back: the
@@ -560,7 +695,8 @@ class FusedTrainer:
         with torch.cuda.stream(stream):
             for _ in range(_WARMUP_STEPS):
                 self._sync_remat_gen()
-                self._train_step(inputs)
+                # eager: the perf plane may count the first one
+                self._counted_step(inputs)
         torch.cuda.current_stream(dev).wait_stream(stream)
         for t, s in zip(self._state(), saved):
             t.copy_(s)
@@ -583,9 +719,10 @@ class FusedTrainer:
                                                       self._remat_gen)
                       if g is not None]
         prev_stream = torch.cuda.current_stream(dev)
+        n_epi = _epilogue.launch_count()
         try:
             with torch.cuda.graph(graph, stream=stream):
-                outputs = self._train_step(inputs)
+                outputs, sent = self._train_step(inputs)
         except RuntimeError as exc:
             for g, state in gen_states:
                 g.graphsafe_set_state(state)
@@ -595,7 +732,8 @@ class FusedTrainer:
                 f"FusedTrainer.step_multi: the training step could not be "
                 f"captured as a CUDA graph ({first}); an op on its path "
                 f"synchronises with the host or is not capturable") from exc
-        return _Captured(graph, inputs, outputs)
+        return _Captured(graph, inputs, outputs, sent,
+                         _epilogue.launch_count() != n_epi)
 
     def eval(self, **batch):
         """Forward in inference mode; a missing label is zeros."""
@@ -645,10 +783,6 @@ class FusedTrainer:
         if os.environ.get("MXTPU_COORD_ADDR", "").strip():
             raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)",
                               10)
-        for knob in ("MXTPU_FLIGHT_RECORD", "MXTPU_PERF_ATTR"):
-            if os.environ.get(knob, "").strip().lower() not in _OFF:
-                raise _not_ported(f"the flight and perf recorders ({knob})",
-                                  11)
         from . import checkpoint as _ckpt
         from . import metric as metric_mod
 
@@ -694,6 +828,11 @@ class FusedTrainer:
                 # terminal checkpoint: resuming a finished run is a no-op
                 self.save_state(mgr, epoch=num_epoch, nbatch=-1,
                                 background=False)
+        except BaseException:
+            # black box first, then crash: the ring, the registry and the
+            # memory report of the dying run (MXTPU_FLIGHT_RECORD path)
+            _tm.health.auto_dump("exception")
+            raise
         finally:
             if mgr is not None:
                 try:
@@ -718,11 +857,15 @@ class FusedTrainer:
                             if eval_data is not None else [])
         eval_names = ([d[0] for d in eval_data.provide_data]
                       + eval_label_names if eval_data is not None else None)
+        flight = _tm.health.flight_enabled()
+        perf_on = _tm.perf.enabled()
+        rec = flight or perf_on
         for epoch in range(start_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             train_data.reset()
             window = engine.AsyncWindow()
+            prev_tick = None  # per epoch: wall_s must not span eval/reset
             for nbatch, batch in enumerate(train_data):
                 if epoch == start_epoch and nbatch <= resume_nbatch:
                     # the checkpoint's cursor trained these already
@@ -731,9 +874,31 @@ class FusedTrainer:
                                 list(batch.data) + list(batch.label)))
                 if self._lr is None:
                     self.init(**{k: tuple(v.shape) for k, v in feed.items()})
+                t0 = time.perf_counter() if rec else 0.0
                 outs = self.step(**feed)
                 eval_metric.update(batch.label, [NDArray(o) for o in outs])
+                tp = time.perf_counter() if perf_on else 0.0
                 window.push(outs)
+                if rec:
+                    # host clock stamps only: no device sync
+                    now = time.perf_counter()
+                    wall = now - (prev_tick if prev_tick is not None else t0)
+                    if flight:
+                        _tm.health.record_step(
+                            loop="fused", step=self._step, epoch=epoch,
+                            nbatch=nbatch, depth=len(window),
+                            dispatch_s=now - t0, wall_s=wall,
+                            program=self._label)
+                    if perf_on:
+                        # the three buckets partition the batch's wall:
+                        # the iterator and host work between steps, the
+                        # step's launches, the window's backpressure
+                        _tm.perf.record_step_buckets(
+                            wall_s=wall,
+                            data_wait=(max(t0 - prev_tick, 0.0)
+                                       if prev_tick is not None else 0.0),
+                            dispatch=tp - t0, window_stall=now - tp)
+                    prev_tick = now
                 if mgr is not None:
                     if mgr.preempted:
                         # the snapshot is ordered behind the queued steps
@@ -752,7 +917,11 @@ class FusedTrainer:
                                            locals=None)
                     for cb in _as_list(batch_end_callback):
                         cb(params)
+            td0 = time.perf_counter() if perf_on else 0.0
             window.drain()
+            if perf_on:
+                _tm.perf.record_bucket("boundary_sync",
+                                       time.perf_counter() - td0)
             for name, val in eval_metric.get_global_name_value():
                 log.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             log.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)

@@ -10,8 +10,8 @@ the engine serves the next; ``ckpt_write`` publishes nothing; and
 ``crash_after`` ends a child process with exit 137.  One plan and seed
 fire at the same hits in both packages (both draw from Python's
 ``random.Random(MXTPU_FAULT_SEED)``).  The flight-record dump the
-reference attaches to an injected error waits for the health plane
-(ROADMAP Queue 1 item 11).
+reference attaches to an injected error is held in
+``tests/test_torch_health.py``.
 """
 import os
 import subprocess

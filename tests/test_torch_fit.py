@@ -449,10 +449,11 @@ def test_fit_host_syncs_do_not_grow_with_batches(monkeypatch):
 ])
 def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, kw, env,
                                         match):
-    """The coordinator and the recorders still raise.  The item 7 cases
-    are ported: ``checkpoint=`` and ``MXTPU_CKPT_DIR`` arm checkpoints
-    (a terminal one lands), and ``resume=True`` with no directory raises
-    as the reference's does."""
+    """The coordinator still raises.  The item 7 cases are ported:
+    ``checkpoint=`` and ``MXTPU_CKPT_DIR`` arm checkpoints (a terminal
+    one lands), and ``resume=True`` with no directory raises as the
+    reference's does.  The item 11 cases are ported too: the flight
+    recorder and the perf plane take their batches."""
     monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         # the checkpoint directory goes under the test's own tmp_path
@@ -471,6 +472,24 @@ def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, kw, env,
         _, manifest = tckpt.load(path)
         assert manifest["meta"]["epoch"] == 1
         assert manifest["meta"]["nbatch"] == -1
+        return
+    if match == "item 11":
+        from mxnet_tpu_torch.telemetry import health, perf
+
+        health._ring.clear()
+        perf.reset()
+        if "MXTPU_PERF_ATTR" in env:
+            perf.enable()
+        try:
+            tt.fit(it)
+            steps = [r for r in health.flight_ring()
+                     if r.get("loop") == "fused"]
+            assert [r["step"] for r in steps] == [1, 2]
+            if "MXTPU_PERF_ATTR" in env:
+                assert perf.bucket_table()["dispatch"]["count"] == 2
+        finally:
+            perf.disable()
+            perf.reset()
         return
     if match == "item 7":
         match = "needs a checkpoint directory"

@@ -1716,3 +1716,217 @@ def test_generate_scan_on_the_card_equals_generate(card):
     eos = int(ref[0, 3])
     dec.generate_scan(prompt, 40, eos_id=eos)
     assert dec.last_scan_syncs <= 1 + -(-39 // tdecode.SCAN_EOS_CHECK)
+
+
+# ------------------------------------------------ schedules (the autotuner)
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_every_schedule_matches_plain(card, dtype, shape):
+    """Every launch schedule the autotuner may pick gives the default's
+    output bit for bit, which is the plain version's bit for bit in fp32
+    and within the add rounding in bf16; a schedule outside the kernel's
+    raises before launch."""
+    x, s, scale, bias = _epi_case(card, dtype, shape)
+    ref = tre._plain_fwd(x, s, scale, bias, 1)
+    tol = _epi_tolerance(x, s, scale, ref)
+    base = tre._cuda_fwd(x, s, scale, bias, 1,
+                         schedule=tre.DEFAULT_SCHEDULE)
+    for sched in tre.candidate_schedules():
+        got = tre._cuda_fwd(x, s, scale, bias, 1, schedule=sched)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base), sched
+        if dtype == torch.float32:
+            assert torch.equal(got, ref), sched
+        else:
+            assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    for bad in ({"threads": 96, "blocks_per_sm": 8},
+                {"threads": 256, "blocks_per_sm": 0}, {"block_rows": 256}):
+        with pytest.raises(MXNetError, match="schedule"):
+            tre._cuda_fwd(x, s, scale, bias, 1, schedule=bad)
+
+
+@pytest.mark.parametrize("chunk_pages", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-3)])
+def test_kernel_every_split_at_max_context_matches_plain(card, dtype, tol,
+                                                         chunk_pages):
+    """The paged kernel under each ``chunk_pages`` the autotuner may pick,
+    at ``MAX_CONTEXT``'s edge and beside a chunk boundary, within the
+    gather tolerance of ``test_kernel_at_max_context_matches_plain``."""
+    block = 16
+    M = tpa.MAX_CONTEXT // block
+    chunk = chunk_pages * block
+    args = _split_case(card, dtype, [tpa.MAX_CONTEXT - 1, chunk - 1, chunk,
+                                     100], M, block, 128, H=2, L=1)
+    n0 = tpa.launch_count()
+    got = tpa.paged_attention(*args, 0, block=block, chunk_pages=chunk_pages)
+    ref = tpa._gather_attention(*args, 0, block)
+    torch.cuda.synchronize()
+    assert tpa.launch_count() == n0 + 1
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_kernel_refuses_a_split_that_does_not_fit(card):
+    args = _case(card, torch.bfloat16)
+    for bad in (0, tpa.MAX_CHUNK_PAGES + 1):
+        with pytest.raises(MXNetError, match="chunk_pages"):
+            tpa.paged_attention(*args, 0, block=16, chunk_pages=bad)
+
+
+def test_autotune_measure_returns_positive_us_on_the_card(card):
+    from mxnet_tpu_torch import autotune
+
+    x = torch.randn(1 << 22, device=card)
+    us = autotune.measure(lambda: x * 2, warmup=1, best_of=3)
+    assert 0 < us < 1e6
+    assert autotune.device_kind() not in ("cpu", "unknown")
+
+
+@pytest.fixture()
+def search_cache(tmp_path, monkeypatch):
+    from mxnet_tpu_torch import autotune
+
+    path = tmp_path / "schedules.json"
+    monkeypatch.setenv("MXTPU_SCHEDULE_CACHE", "search:%s" % path)
+    monkeypatch.delenv("MXTPU_PAGED_KERNEL", raising=False)
+    autotune.reset()
+    yield path
+    autotune.reset()
+
+
+def test_epilogue_tune_searches_every_schedule_on_the_card(card,
+                                                            search_cache):
+    import json
+
+    from mxnet_tpu_torch import autotune
+
+    won = tre.tune(6272, 1024, torch.float32)
+    assert won in tre.candidate_schedules()
+    ent = json.load(open(search_cache))["entries"][autotune.device_kind()]
+    assert ent["residual_epilogue|r6272c1024_float32"]["trials"] == 12
+    assert tre._schedule_for(6272, 1024, torch.float32) == won
+    assert tre.tune(6272, 1024, torch.float32) == won     # a cache hit
+
+
+def test_epilogue_tune_winner_is_never_slower_than_the_default(
+        card, search_cache):
+    """The winner, timed again as the search times it (CUDA events over
+    passes on inputs cold in L2), is within the default's spread of the
+    default or faster."""
+    from mxnet_tpu_torch.autotune import search
+
+    rows, c, dtype = 25088, 512, torch.bfloat16
+    won = tre.tune(rows, c, dtype)
+    bench = tre.make_bench_fn(rows, c, dtype)
+    td = search._timings(bench(tre.DEFAULT_SCHEDULE), warmup=3, best_of=10)
+    tw = search._timings(bench(won), warmup=3, best_of=10)
+    assert min(tw) <= min(td) + search._spread(td), (won, tw, td)
+
+
+def test_paged_slots_on_the_card_never_take_a_cached_plain_winner(
+        card, search_cache, monkeypatch, tmp_path):
+    """A gather winner a shared cache holds for the card's kind is not
+    installed on a CUDA pool: search mode searches the kernel's splits,
+    readonly mode keeps the kernel's default split."""
+    import json
+
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.models import decode as tdecode
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    dec = tdecode.KVDecoder(_lm_params(), num_layers=2, num_heads=2,
+                            max_len=128, device=card, dtype=torch.bfloat16)
+    sig = tpa.keysig(4, 2, 8, 16, 64, torch.bfloat16)
+    autotune.record("paged_attention", sig, {"impl": "gather"}, 1.0, 1)
+    pg = PagedSlots(dec, 4, block=16, prefill_buckets=(16, 32, 64, 128))
+    assert pg.schedule["impl"] == "cuda"
+    ro = tmp_path / "shared.json"
+    ro.write_text(json.dumps({"version": autotune.SCHEMA_VERSION,
+                              "entries": {autotune.device_kind(): {
+                                  "paged_attention|" + sig: {
+                                      "schedule": {"impl": "pagewalk",
+                                                   "chunk": 1},
+                                      "best_us": 1.0, "trials": 1}}}}))
+    monkeypatch.setenv("MXTPU_SCHEDULE_CACHE", "readonly:%s" % ro)
+    autotune.reset()
+    pg = PagedSlots(dec, 4, block=16, prefill_buckets=(16, 32, 64, 128))
+    assert pg.schedule == tpa.default_schedule("cuda", 16, 64,
+                                               torch.bfloat16)
+
+
+def test_paged_search_on_the_card_and_a_cuda_failure_raises(
+        card, search_cache, monkeypatch):
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.models import decode as tdecode
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    dec = tdecode.KVDecoder(_lm_params(), num_layers=2, num_heads=2,
+                            max_len=128, device=card, dtype=torch.bfloat16)
+    pg = PagedSlots(dec, 4, block=16, prefill_buckets=(16, 32, 64, 128))
+    assert pg.schedule in tpa.candidate_schedules("cuda", 16, 64, 8,
+                                                  torch.bfloat16)
+    assert pg.schedule["impl"] == "cuda"
+    autotune.reset()
+
+    def broken(*a, **k):
+        raise MXNetError("paged_attention CUDA launch failed: cuda error 1")
+
+    monkeypatch.setattr(tpa, "_cuda_attention", broken)
+    with pytest.raises(MXNetError, match="launch failed"):
+        PagedSlots(dec, 2, block=16, prefill_buckets=(16, 32, 64, 128))
+
+
+# ---------------------------------------------------- the health plane
+def test_sentinel_vector_on_the_card_matches_the_cpu(card):
+    from mxnet_tpu_torch.telemetry import health
+
+    ts = [torch.randn(300, 7), torch.tensor([1.0, float("nan")]),
+          torch.tensor([float("inf"), 2.0]), torch.zeros(0),
+          torch.full((5,), 3e30)]
+    want = health.sentinel_vector(ts)
+    got = health.sentinel_vector([t.to(card) for t in ts]).cpu()
+    assert got[:-1].tolist() == want[:-1].tolist() == [1, 0, 0, 1, 1]
+    assert torch.isnan(got[-1]) and torch.isnan(want[-1])
+    clean = [ts[0], ts[3], ts[4]]
+    torch.testing.assert_close(
+        health.sentinel_vector([t.to(card) for t in clean]).cpu(),
+        health.sentinel_vector(clean), rtol=1e-6, atol=0)
+
+
+def test_step_multi_capture_parks_the_sentinel_rows(card, monkeypatch):
+    """The sentinel inside the captured step: each replay's flags are
+    copied out of the graph's buffer, the rows map to steps step0+1 ..
+    step0+k, and nothing is read before the boundary."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.telemetry import health
+
+    monkeypatch.setenv("MXTPU_SENTINEL", "warn")
+    health._pending.clear()
+    t = _conv_trainer(card, "bfloat16")
+    xs = _train_batches(3, 8)
+    x = torch.stack([x for x, _ in xs])
+    y = torch.stack([y for _, y in xs])
+    t.step_multi(data=x, softmax_label=y)
+    assert health.sentinel_pending() == 1
+    assert health.sentinel_check() == []
+    with torch.no_grad():
+        t.params["fc_weight"].view(-1)[0] = float("inf")
+    t._refresh_compute_cache()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.step_multi(data=x, softmax_label=y)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(t._graphs) == 1 and t._step == 6
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        offenders = health.sentinel_check()
+    assert {s for s, _, _ in offenders} == {4, 5, 6}
+    assert {b for _, b, _ in offenders} == {"fused_step_multi"}
+    assert (4, "fused_step_multi", "fc_weight") in offenders
+    monkeypatch.setenv("MXTPU_SENTINEL", "raise")
+    t.step(data=xs[0][0], softmax_label=xs[0][1])
+    with pytest.raises(health.NumericsError, match="fc_weight"):
+        engine.AsyncWindow().drain()

@@ -554,9 +554,9 @@ def test_pallas_mode_forces_the_kernel(decs, monkeypatch):
     pg.decoder, pg.block, pg.max_blocks = td, 4, 8
     pg.kernel_mode = "pallas"
     with pytest.raises(MXNetError, match="block=4"):
-        pg._resolve_kernel()
+        pg._resolve_schedule()
     pg.block = 8
-    assert pg._resolve_kernel() == "cuda"
+    assert pg._resolve_schedule()["impl"] == "cuda"
     pg.kernel_mode = "bogus"
     with pytest.raises(MXNetError, match="unknown MXTPU_PAGED_KERNEL"):
-        pg._resolve_kernel()
+        pg._resolve_schedule()

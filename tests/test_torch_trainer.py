@@ -458,9 +458,19 @@ def test_trainer_methods_not_ported(method, match, tmp_path):
 
 
 def test_trainer_refuses_the_sentinel(monkeypatch):
+    """The sentinel is ported: it no longer refuses, and a clean step
+    parks one record that the boundary check finds clean."""
+    from mxnet_tpu_torch.telemetry import health
+
     monkeypatch.setenv("MXTPU_SENTINEL", "raise")
-    with pytest.raises(MXNetError, match="sentinel"):
-        TTrainer(ttrm.transformer_lm(**SMALL), device="cpu")
+    health._pending.clear()
+    tt = TTrainer(ttrm.transformer_lm(**SMALL), device="cpu").init(
+        data=(1, 32), softmax_label=(1, 32))
+    rs = np.random.RandomState(0)
+    tt.step(data=rs.randint(0, SMALL["vocab_size"], (1, 32)).astype(
+        np.float32), softmax_label=np.zeros((1, 32), np.float32))
+    assert health.sentinel_pending() == 1
+    assert health.sentinel_check() == []
 
 
 def test_load_trainer_params_checks_names_and_shapes():
