@@ -11,7 +11,9 @@ at run time by ``rtc.Rtc``, the image-classification zoo (Inception-v3
 training, AlexNet through ``Module``, a nine-model inference sweep) and
 the LSTM language model (``FusedTrainer`` and ``BucketingModule``), and
 the detection zoo (SSD-VGG16-300 training and detection, Faster
-R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC) — and holds each
+R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), and MXNet from
+C (the predict ABI, the general C API from C++, the native runtime) —
+and holds each
 hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
@@ -308,7 +310,39 @@ hand-written CUDA kernel
    ``NumericsError`` naming it at the epoch boundary, and a flight dump),
    one oversized ``torch.empty`` (``DeviceOOMError`` with the ranked
    report) and 20 decode ticks with the perf plane on (the decode cost
-   rows and step buckets; ``launches_planes``).
+   rows and step buckets; ``launches_planes``);
+37. the predict ABI (``phase_c_predict``, run with phase 38 right after
+   phase 2, while this process holds little of the card, since each
+   starts a C program that needs its own memory): a C program
+   (``mxnet_tpu_torch/csrc/clients/predict.c``) built with ``gcc``
+   against the port's predict library runs ResNet-50 at batch 32 in fp32
+   on the card (``dev_type`` 2) from the symbol's JSON and the bytes of
+   an ``nd.save`` file: 20 timed calls of ``MXPredSetInput`` +
+   ``MXPredForward`` + ``MXPredGetOutput`` (images/s) and two
+   ``MXPredForwardAsync`` tickets; its probabilities against the Python
+   ``Predictor`` in this process within ``MODULE_PREDICT_TOL`` (both
+   with TF32 off: ``NVIDIA_TF32_OVERRIDE=0`` in the child); then the
+   same library loaded here through ``ctypes``, 4 epilogue launches a
+   forward, each held against the plain version
+   (``launches_c_predict``);
+38. the general C API (``phase_c_api``): a C++ client on
+   ``bindings/cpp/mxtpu.hpp`` (``csrc/clients/train_step.cc``) binds
+   ResNet-50 at batch 32 on the card through ``MXExecutorSimpleBind``
+   and takes 3 steps of forward(is_train=1) + backward, every weight
+   updated on the card by ``MXImperativeInvoke("sgd_update")``; its
+   first gradients against the port's Python ``Executor`` in this
+   process within ``MODULE_TOL["vs_trainer"]``, step ms beside the
+   Python loop's; ``bindings/cpp/example_train.cc``, unchanged, built
+   against the same library prints ``CPP TRAIN OK`` (``launches_c_api``);
+39. the native runtime (``phase_native``): the core library and
+   ``_mxtpu_ext`` built from ``src/`` into ``build/`` and used by the
+   host engine; the engine's per-var order, parallel readers, a task's
+   error at ``wait_for_var`` and tasks/s through both FFI backends; one
+   arena pool shared by both backends behind ``resource``'s temp space;
+   then phase 15's stacked route rerun with telemetry on:
+   ``data_batches_total`` of the consuming stage equal to the batches
+   consumed, the wait histogram counting as many, 0 host syncs a batch
+   (``launches_native``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -8130,6 +8164,616 @@ def phase_planes(smi, cfg, params):
     return out, counts
 
 
+# ------------------------------------------------------------ phases 37-39
+CPRED_CLIENT = "mxnet_tpu_torch/csrc/clients/predict.c"
+CAPI_CLIENT = "mxnet_tpu_torch/csrc/clients/train_step.cc"
+CPP_EXAMPLE = "bindings/cpp/example_train.cc"
+CPRED_CALLS = 20                 # timed SetInput + Forward + GetOutput calls
+CPRED_INPROC_CALLS = 3           # forwards through the library in process
+CAPI_STEPS = 3                   # forward + backward + sgd_update steps
+CAPI_LR = 0.05
+# a gradient that is zero but for rounding (_scale_invariant_gammas):
+# its norm against the median norm of the other gammas' gradients
+CAPI_ZERO_GRAD = 1e-2
+# the C clients run in fresh processes, whose torch starts with cuDNN's
+# TF32 on: the override keeps their fp32 products in full fp32
+TF32_OFF = {"NVIDIA_TF32_OVERRIDE": "0"}
+# what the C++ training client's embedded interpreter runs at start-up
+# (a sitecustomize first on its path): PyTorch's deterministic
+# algorithms, which the Python side of the gradient comparison uses too
+# (cuBLAS's workspace: CUBLAS_WORKSPACE_CONFIG, inherited from main)
+DETERMINISTIC_SITE = "import torch\ntorch.use_deterministic_algorithms(True)\n"
+IMPORT_PROBE = ("import time; t = time.perf_counter(); import torch, "
+                "mxnet_tpu_torch; torch.zeros(1, device='cuda'); "
+                "print(time.perf_counter() - t)")
+NATIVE_TASKS = 5000              # empty host tasks timed per backend
+TEL_BATCHES = 12                 # record batches rerun with telemetry on
+
+
+def _client_build(cmd, what):
+    """Compile a C/C++ client; raise with the compiler's output."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{what} does not build:\n{r.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _client_run(cmd, env, what, timeout=600):
+    """Run a C/C++ client; its stdout, or raise with its output's tail
+    and the card's free memory when it started."""
+    free, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(
+            f"{what} exited {r.returncode} (the card had {free / 2**30:.1f}"
+            f" of {total / 2**30:.1f} GiB free; this process reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f}):\n"
+            f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def _link_cmd(src, lib, exe):
+    from mxnet_tpu_torch import libinfo
+
+    cc = ["gcc"] if src.endswith(".c") else ["g++", "-std=c++17"]
+    return cc + ["-O2", src, *(f"-I{d}" for d in libinfo.include_dirs()),
+                 lib, "-lm", "-o", exe, f"-Wl,-rpath,{os.path.dirname(lib)}"]
+
+
+def _pred_lib(path):
+    """The predict library loaded into this process through ctypes."""
+    lib = ctypes.CDLL(path)
+    lib.MXPredGetLastError.restype = ctypes.c_char_p
+    lib.MXPredCreate.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint32, ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_void_p)]
+    lib.MXPredSetInput.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                   ctypes.c_void_p, ctypes.c_uint32]
+    lib.MXPredGetOutput.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                    ctypes.c_void_p, ctypes.c_uint32]
+    lib.MXPredForward.argtypes = [ctypes.c_void_p]
+    lib.MXPredForwardAsync.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int64)]
+    lib.MXPredGetOutputAsync.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_uint32, ctypes.c_void_p,
+                                         ctypes.c_uint32]
+    lib.MXPredFree.argtypes = [ctypes.c_void_p]
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what}: {lib.MXPredGetLastError()}")
+    return lib, check
+
+
+def phase_c_predict(smi):
+    """ResNet-50 at batch 32 in fp32 through the predict ABI: a C program
+    (csrc/clients/predict.c) against the port's predict library on the
+    card (dev_type 2) from the symbol's JSON and the bytes of an
+    ``nd.save`` file, 20 timed calls; its probabilities against the
+    Python ``Predictor`` in this process (both with TF32 off); then the
+    same library loaded here through ctypes, whose forwards launch the
+    epilogue 4 times each, every launch held against the plain version,
+    and ``MXPredForwardAsync``/``GetOutputAsync`` over the same input.
+    Returns (record, launches)."""
+    from mxnet_tpu_torch import libinfo
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+    from mxnet_tpu_torch.predict import Predictor
+
+    n = PREDICT_BATCH
+    net, arg, aux = _resnet50()
+    x = np.random.default_rng(3).normal(size=(n, 3, 224, 224)).astype(
+        np.float32)
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        sym_path, params = os.path.join(wd, "net.json"), \
+            os.path.join(wd, "net.params")
+        with open(sym_path, "w") as f:
+            f.write(net.tojson())
+        tnd.save(params, {**{f"arg:{k}": tnd.array(v, ctx="cpu")
+                             for k, v in arg.items()},
+                          **{f"aux:{k}": tnd.array(v, ctx="cpu")
+                             for k, v in aux.items()}})
+        x.tofile(os.path.join(wd, "x.f32"))
+        t0 = time.perf_counter()
+        lib = libinfo.find_lib_path("predict")
+        build_s = time.perf_counter() - t0
+        exe = os.path.join(wd, "predict")
+        cc_s = _client_build(_link_cmd(CPRED_CLIENT, lib, exe), CPRED_CLIENT)
+        probs_path = os.path.join(wd, "probs.f32")
+        stdout, run_s = _client_run(
+            [exe, sym_path, params, os.path.join(wd, "x.f32"), probs_path,
+             "2", str(CPRED_CALLS), str(n), "3", "224", "224"],
+            libinfo.client_env({**os.environ, **TF32_OFF}), CPRED_CLIENT)
+        if "PREDICT OK" not in stdout:
+            raise AssertionError(f"C predict client: {stdout[-2000:]}")
+        # what a fresh interpreter spends before MXPredCreate's own work
+        probe, _ = _client_run([sys.executable, "-c", IMPORT_PROBE],
+                               libinfo.client_env(), "import probe")
+        import_s = float(probe.strip().splitlines()[-1])
+        c_probs = np.fromfile(probs_path, np.float32).reshape(n, 1000)
+        c_rate = float(re.search(r"images/s ([\d.]+)", stdout).group(1))
+        calls_ms = [float(v) for v in re.findall(r"call \d+ ms ([\d.]+)",
+                                                 stdout)]
+        create_ms = float(re.search(r"create ms ([\d.]+)", stdout).group(1))
+        with open(params, "rb") as f:
+            blob = f.read()
+    log(f"[c_predict] libmxtpu_predict built or found in {build_s:.2f} s, "
+        f"client compiled in {cc_s:.2f} s; the C program ran {run_s:.1f} s "
+        f"(MXPredCreate {create_ms:.0f} ms, of which a fresh interpreter's "
+        f"import of torch and the port and CUDA's start take about "
+        f"{import_s:.1f} s): resnet50 b{n} fp32 "
+        f"{c_rate:.2f} images/s over {CPRED_CALLS} calls of SetInput + "
+        f"Forward + GetOutput after 3 (median call "
+        f"{np.median(calls_ms):.3f} ms), "
+        f"the async tickets equal to the synchronous output; "
+        f"NVIDIA_TF32_OVERRIDE=0; {smi}")
+    if c_probs.shape != (n, 1000) or not np.isfinite(c_probs).all() or \
+            not np.allclose(c_probs.sum(1), 1.0, atol=1e-3):
+        raise AssertionError("C predict: probabilities not finite rows of 1")
+
+    # the Python Predictor in this process on the same JSON and bytes
+    p = Predictor(symbol_json_str=net.tojson(), param_bytes=blob,
+                  input_shapes={"data": (n, 3, 224, 224)}, dev_type="cuda")
+    for _ in range(3):
+        p.forward(data=x)
+        py_probs = p.get_output(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CPRED_CALLS):
+        p.forward(data=x)
+        py_probs = p.get_output(0)
+    py_rate = n * CPRED_CALLS / (time.perf_counter() - t0)
+    err = float(np.abs(c_probs - py_probs).max())
+    log(f"[c_predict-parity] C program vs the Python Predictor: max |prob "
+        f"diff| {err:.3g} (tol {MODULE_PREDICT_TOL}); images/s C ABI "
+        f"{c_rate:.2f} vs Python {py_rate:.2f} (ratio "
+        f"{c_rate / py_rate:.4f}); {smi}")
+    if not err <= MODULE_PREDICT_TOL:
+        raise AssertionError(f"C predict vs Predictor: {err}")
+    del p
+
+    # the same library in this process: the main path's counted run
+    plib, check = _pred_lib(lib)
+    keys = (ctypes.c_char_p * 1)(b"data")
+    indptr = (ctypes.c_uint32 * 2)(0, 4)
+    shape = (ctypes.c_uint32 * 4)(n, 3, 224, 224)
+    h = ctypes.c_void_p()
+    check(plib.MXPredCreate(net.tojson().encode(), blob, len(blob), 2, 0, 1,
+                            keys, indptr, shape, ctypes.byref(h)),
+          "MXPredCreate")
+    got = np.empty((n, 1000), np.float32)
+    xp = x.ctypes.data_as(ctypes.c_void_p)
+    gp = got.ctypes.data_as(ctypes.c_void_p)
+    check(plib.MXPredSetInput(h, b"data", xp, x.size), "MXPredSetInput")
+    check(plib.MXPredForward(h), "MXPredForward")       # warm-up
+    check(plib.MXPredGetOutput(h, 0, gp, got.size), "MXPredGetOutput")
+    _kernel_launches(reset=True)
+    with _EpilogueRecorder() as recorder:
+        t0 = time.perf_counter()
+        for _ in range(CPRED_INPROC_CALLS):
+            check(plib.MXPredSetInput(h, b"data", xp, x.size),
+                  "MXPredSetInput")
+            check(plib.MXPredForward(h), "MXPredForward")
+            check(plib.MXPredGetOutput(h, 0, gp, got.size),
+                  "MXPredGetOutput")
+        inproc_ms = (time.perf_counter() - t0) / CPRED_INPROC_CALLS * 1e3
+        tickets = [ctypes.c_int64(), ctypes.c_int64()]
+        for t in tickets:
+            check(plib.MXPredForwardAsync(h, ctypes.byref(t)),
+                  "MXPredForwardAsync")
+        asyncs = [np.empty((n, 1000), np.float32) for _ in tickets]
+        for t, a in zip(reversed(tickets), reversed(asyncs)):
+            check(plib.MXPredGetOutputAsync(
+                h, t, 0, a.ctypes.data_as(ctypes.c_void_p), a.size),
+                "MXPredGetOutputAsync")
+    launches = _kernel_launches()
+    checked = recorder.check("c_predict in process")
+    plib.MXPredFree(h)
+    forwards = CPRED_INPROC_CALLS + len(tickets)
+    if launches["residual_epilogue"] != 4 * forwards or checked != \
+            4 * forwards or any(v for k, v in launches.items()
+                                if k != "residual_epilogue"):
+        raise AssertionError(f"c_predict in process: {launches}, {checked} "
+                             f"checked; want 4 epilogue launches in each of "
+                             f"{forwards} forwards")
+    err_in = float(np.abs(got - c_probs).max())
+    err_async = max(float(np.abs(a - got).max()) for a in asyncs)
+    log(f"[c_predict-inproc] the library through ctypes in this process: "
+        f"{forwards} forwards ({CPRED_INPROC_CALLS} sync at "
+        f"{inproc_ms:.3f} ms a call, 2 async tickets), "
+        f"{launches['residual_epilogue']} epilogue launches each held "
+        f"against the plain version; max |prob diff| vs the C program "
+        f"{err_in:.3g}, async vs sync {err_async:.3g} (tol "
+        f"{MODULE_PREDICT_TOL}); {smi}")
+    if not (err_in <= MODULE_PREDICT_TOL and err_async <= MODULE_PREDICT_TOL):
+        raise AssertionError(f"in-process C ABI: {err_in}, {err_async}")
+    out = {"c_img_s": c_rate, "python_img_s": py_rate, "max_prob_diff": err,
+           "create_ms": create_ms, "fresh_import_s": import_s,
+           "inproc_call_ms": inproc_ms,
+           "epilogue_launches": launches["residual_epilogue"]}
+    log(f"[c_predict] {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _scale_invariant_gammas(net):
+    """The ``*_gamma`` of each BatchNorm whose output reaches the loss
+    only through ReLU and max pooling into other BatchNorms.  In training
+    mode those normalise each channel again, so the loss does not change
+    with that channel's scale: the exact gradient of such a gamma is zero
+    (but for BN's eps) and its computed value is rounding, whose relative
+    error between two summation orders is of order one.  ResNet-50's
+    ``bn0`` (-> relu0 -> pool0 -> stage1_unit1_bn1, whose output also
+    feeds the first shortcut) is one."""
+    consumers = {}
+    for node in net.nodes:
+        for src, _ in node.inputs:
+            consumers.setdefault(id(src), []).append(node)
+    passes = {("Activation", "act_type", "relu"),
+              ("Pooling", "pool_type", "max")}
+    found = []
+    for node in net.nodes:
+        if node.op != "BatchNorm" or str(node.attrs.get(
+                "fix_gamma", "True")).lower() in ("true", "1"):
+            continue
+        frontier, invariant = [node], True
+        while frontier and invariant:
+            for c in consumers.get(id(frontier.pop()), []):
+                if c.op == "BatchNorm":
+                    continue
+                if any(c.op == op and str(c.attrs.get(k, v)) == v
+                       for op, k, v in passes):
+                    frontier.append(c)
+                else:
+                    invariant = False
+        if invariant:
+            found.append(node.name + "_gamma")
+    return found
+
+
+def phase_c_api(smi):
+    """ResNet-50 at batch 32 trained from C++ through the general C API:
+    csrc/clients/train_step.cc on ``mxtpu.hpp`` binds it on the card
+    (``MXExecutorSimpleBind``, dev_type 2), takes 3 steps of
+    forward(is_train=1) + backward with every weight updated on the card
+    by ``MXImperativeInvoke("sgd_update")``; its first gradients against
+    the port's Python ``Executor`` in this process from the same weights
+    and batch (``MODULE_TOL["vs_trainer"]``), both under
+    ``torch.use_deterministic_algorithms`` (a ``sitecustomize`` on the
+    client's path sets it in its embedded interpreter).  The gammas whose
+    exact gradient is zero (``_scale_invariant_gammas``: ``bn0_gamma``)
+    are held instead to vanish on both sides, each gradient's norm under
+    ``CAPI_ZERO_GRAD`` of the median gamma gradient's; then
+    ``bindings/cpp/example_train.cc``, unchanged, against the same
+    library (it binds the CPU: the binding's own check).  Returns
+    (record, launches)."""
+    from mxnet_tpu_torch import libinfo
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.executor import simple_bind
+
+    n = RESNET_BATCH
+    net, arg, _ = _resnet50()
+    names = [k for k in net.list_arguments()
+             if k not in ("data", "softmax_label")]
+    rs = np.random.RandomState(11)
+    x = rs.uniform(0, 1, (n, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, 1000, n).astype(np.float32)
+    rescale = 1.0 / n
+    with tempfile.TemporaryDirectory() as wd:
+        paths = {k: os.path.join(wd, k) for k in
+                 ("net.json", "w.f32", "x.f32", "y.f32", "g.f32")}
+        with open(paths["net.json"], "w") as f:
+            f.write(net.tojson())
+        np.concatenate([arg[k].ravel() for k in names]).tofile(
+            paths["w.f32"])
+        x.tofile(paths["x.f32"])
+        y.tofile(paths["y.f32"])
+        t0 = time.perf_counter()
+        lib = libinfo.find_lib_path("capi")
+        build_s = time.perf_counter() - t0
+        exe = os.path.join(wd, "train_step")
+        cc_s = _client_build(_link_cmd(CAPI_CLIENT, lib, exe), CAPI_CLIENT)
+        site_dir = os.path.join(wd, "site")
+        os.makedirs(site_dir)
+        with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+            f.write(DETERMINISTIC_SITE)
+        env = libinfo.client_env({**os.environ, **TF32_OFF})
+        env["PYTHONPATH"] = site_dir + os.pathsep + env["PYTHONPATH"]
+        _kernel_launches(reset=True)
+        stdout, run_s = _client_run(
+            [exe, paths["net.json"], paths["w.f32"], paths["x.f32"],
+             paths["y.f32"], paths["g.f32"], "2", str(CAPI_STEPS),
+             str(CAPI_LR), repr(rescale), str(n), "3", "224", "224"],
+            env, CAPI_CLIENT)
+        flat = np.fromfile(paths["g.f32"], np.float32)
+        example = os.path.join(wd, "example_train")
+        _client_build(_link_cmd(CPP_EXAMPLE, lib, example), CPP_EXAMPLE)
+        ex_out, ex_s = _client_run([example], libinfo.client_env(),
+                                   CPP_EXAMPLE)
+    if "TRAIN STEP OK" not in stdout:
+        raise AssertionError(f"C++ train_step: {stdout[-2000:]}")
+    if "CPP TRAIN OK" not in ex_out:
+        raise AssertionError(f"example_train.cc: {ex_out[-2000:]}")
+    step_ms = [float(v) for v in re.findall(r"ms ([\d.]+) loss", stdout)]
+    losses = [float(v) for v in re.findall(r"loss ([-\d.]+)", stdout)]
+    if len(step_ms) != CAPI_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"C++ train_step: {stdout[-2000:]}")
+    c_grads, off = {}, 0
+    for k in names:
+        c_grads[k] = torch.from_numpy(
+            flat[off:off + arg[k].size].reshape(arg[k].shape))
+        off += arg[k].size
+    if off != flat.size:
+        raise AssertionError(f"C++ gradients: {flat.size} values, want {off}")
+
+    # the Python executor in this process, the same weights and batch
+    ex = simple_bind(net, "cuda", grad_req="write", data=x.shape,
+                     softmax_label=y.shape)
+    ex.copy_params_from({k: arg[k] for k in names}, {},
+                        allow_extra_params=True)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+    def grads(deterministic):
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            ex.forward(is_train=True, data=xd, softmax_label=yd)
+            ex.backward()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return {k: ex.grad_dict[k].detach().float().cpu() for k in names}
+
+    py_grads = grads(True)
+    zero = _scale_invariant_gammas(net)
+    scale = float(np.median([float(g.norm()) for k, g in py_grads.items()
+                             if k.endswith("_gamma") and k not in zero]))
+    vanish = {k: (float(c_grads[k].norm()) / scale,
+                  float(py_grads[k].norm()) / scale) for k in zero}
+    worst, where, median = _rel_errs(
+        c_grads, {k: g for k, g in py_grads.items() if k not in zero})
+    # the same step again in this process, with the deterministic
+    # algorithms and without them: the spread between two runs
+    again = _rel_errs(grads(True), py_grads)
+    free = _rel_errs(grads(False), py_grads)
+    ranked = sorted(((_rel_err(c_grads[k], py_grads[k]), k) for k in names),
+                    reverse=True)[:4]
+    tol_max, tol_med = MODULE_TOL["vs_trainer"]
+    # the Python side of the same loop, timed like the client's step
+    py_ms = []
+    for _ in range(CAPI_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.forward(is_train=True)
+        ex.backward()
+        for k in names:
+            tnd.sgd_update(tnd.NDArray(ex.arg_dict[k]),
+                           tnd.NDArray(ex.grad_dict[k]), lr=CAPI_LR,
+                           rescale_grad=rescale)
+        torch.cuda.synchronize()
+        py_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_launches()
+    log(f"[c_api] C++ (mxtpu.hpp) ResNet-50 b{n} fp32 on the card through "
+        f"libmxtpu_capi (built or found in {build_s:.2f} s, client compiled "
+        f"in {cc_s:.2f} s, ran {run_s:.1f} s): step ms "
+        + ", ".join(f"{v:.1f}" for v in step_ms) + " (forward + backward + "
+        f"{len(names)} sgd_update invokes + MXNDArrayWaitAll), losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; Python executor, same step: "
+        + ", ".join(f"{v:.1f}" for v in py_ms)
+        + f" ms; first gradients vs the Python Executor: max rel err "
+        f"{worst:.3g} ({where}), median {median:.3g} (tol {tol_max}, "
+        f"{tol_med}; deterministic algorithms on both sides) over every "
+        f"parameter but {zero}, whose exact gradient is zero: norm over "
+        f"the median gamma gradient's, C++ vs Python, "
+        + ", ".join(f"{k} {a:.3g} vs {b:.3g}" for k, (a, b) in
+                    vanish.items())
+        + f" (under {CAPI_ZERO_GRAD}); all parameters: the worst "
+        + ", ".join(f"{k} {e:.3g}" for e, k in ranked)
+        + f"; a second Python run: max {again[0]:.3g} ({again[1]}); one "
+        f"without the deterministic algorithms: max {free[0]:.3g} "
+        f"({free[1]}), median {free[2]:.3g}; NVIDIA_TF32_OVERRIDE=0; "
+        f"{smi}")
+    log(f"[c_api-example] bindings/cpp/example_train.cc unchanged against "
+        f"the port's library ({ex_s:.1f} s): "
+        + " | ".join(ex_out.strip().splitlines()[-2:]))
+    if not (worst <= tol_max and median <= tol_med):
+        raise AssertionError(f"C++ gradients vs Executor: {worst} ({where}),"
+                             f" median {median}")
+    if zero != ["bn0_gamma"] or not all(
+            max(v) <= CAPI_ZERO_GRAD for v in vanish.values()):
+        raise AssertionError(f"zero gradients {zero}: {vanish}")
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"C++ training: losses {losses}")
+    del ex
+    torch.cuda.empty_cache()
+    out = {"step_ms": step_ms, "python_step_ms": py_ms, "losses": losses,
+           "grad_max_rel_err": worst, "grad_median_rel_err": median,
+           "zero_grads": vanish,
+           "rerun_max_rel_err": again[0],
+           "nondeterministic_max_rel_err": free[0]}
+    log(f"[c_api] {json.dumps(out)}")
+    return out, launches
+
+
+def _native_engine_check(backend):
+    """The engine of ``backend``: writers of a var in push order, its
+    readers side by side, a task's error raised at ``wait_for_var``,
+    and the push rate of empty tasks."""
+    from mxnet_tpu_torch import _native
+
+    eng = _native.NativeEngine(num_threads=8, backend=backend)
+    try:
+        v = eng.new_var()
+        order = []
+        for i in range(200):
+            eng.push(lambda i=i: order.append(i), mutable_vars=[v])
+        active, peak = [0], [0]
+        lock = threading.Lock()
+
+        def reader():
+            with lock:
+                active[0] += 1
+                peak[0] = max(peak[0], active[0])
+            time.sleep(0.02)
+            with lock:
+                active[0] -= 1
+
+        for _ in range(8):
+            eng.push(reader, const_vars=[v])
+        eng.push(lambda: order.append("w"), mutable_vars=[v])
+        eng.wait_for_var(v)
+        if order != list(range(200)) + ["w"] or peak[0] < 2:
+            raise AssertionError(f"engine {backend}: order {order[-3:]}, "
+                                 f"{peak[0]} readers at once")
+
+        def boom():
+            raise RuntimeError("raised by a task")
+
+        eng.push(boom, mutable_vars=[v])
+        try:
+            eng.wait_for_var(v)
+        except RuntimeError as e:
+            if "raised by a task" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"engine {backend}: the error was lost")
+        w = eng.new_var()
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_TASKS):
+            eng.push(_noop, mutable_vars=[w])
+        eng.wait_all()
+        rate = NATIVE_TASKS / (time.perf_counter() - t0)
+    finally:
+        eng._shutdown()
+    return {"readers_at_once": peak[0], "tasks_per_s": rate}
+
+
+def _noop():
+    pass
+
+
+def _telemetry_rerun(smi, recs, img_s):
+    """phase_record_iter's stacked route at 4 threads with telemetry on:
+    ``data_batches_total`` of the consumer-facing stage equal to the
+    batches consumed, the wait histogram counting as many, 0 host syncs
+    a batch on the consuming thread, images/s beside the same route's
+    with telemetry off."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    route = "ImageRecordIter threads=4 -> PrefetchingIter -> " \
+            "DevicePrefetchIter"
+    tm.reset()
+    tm.enable()
+    base = _record_iter(recs["train"], 4)
+    it = _stacked(base)
+    acc = torch.zeros((), device=CARD, dtype=torch.float64)
+    n = 0
+    try:
+        with _ConsumerSyncs() as syncs:
+            t0 = time.perf_counter()
+            for batch in it:
+                acc += batch.data[0].tensor.sum(dtype=torch.float64)
+                n += 1
+                if n == TEL_BATCHES:
+                    break
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        snap = tm.json_snapshot()["metrics"]
+    finally:
+        tm.reset()
+        tm.enable(False)
+    counts = {s["labels"]["iterator"]: s["value"]
+              for s in snap["data_batches_total"]["samples"]}
+    waits = {s["labels"]["iterator"]: s["count"]
+             for s in snap["data_batch_wait_seconds"]["samples"]}
+    rate = n * REC_BATCH / wall
+    log(f"[native-telemetry] {route} with telemetry on: {n} batches "
+        f"consumed; data_batches_total {json.dumps(counts)}; "
+        f"data_batch_wait_seconds counts {json.dumps(waits)}; host syncs "
+        f"{syncs.total()} in {n} batches; {rate:.1f} img/s (off, "
+        f"phase 15: {img_s.get(route, float('nan')):.1f}; {n} batches from "
+        f"a cold start here, {REC_TIMED} after {REC_WARMUP} there); {smi}")
+    if not math.isfinite(acc.item()):
+        raise AssertionError("telemetry rerun: non-finite batch sums")
+    want = "DevicePrefetchIter"
+    if counts.get(want) != n or waits.get(want) != n or syncs.total():
+        raise AssertionError(f"telemetry rerun: {counts}, {waits}, "
+                             f"{syncs.total()} syncs for {n} batches")
+    if counts.get("PrefetchingIter", 0) < n or \
+            counts.get("ImageRecordIter", 0) < n:
+        raise AssertionError(f"telemetry rerun: upstream stages {counts}")
+    return {"batches": n, "counts": counts, "syncs": syncs.total(),
+            "img_s": rate}
+
+
+def phase_native(smi, recs, img_s):
+    """The native runtime on the card's host: the core library
+    (src/engine.cc, recordio.cc, storage.cc) and ``_mxtpu_ext``
+    (src/py_ext.cc) built into build/ and used; the engine's ordering,
+    parallel readers and error through both FFI backends; the arena's
+    one pool shared by both backends and backing ``resource``'s temp
+    space; then the record pipeline rerun with telemetry on.  No kernel
+    of the six lies on this path (its counts are read around it).
+    Returns (record, launches)."""
+    from mxnet_tpu_torch import _native, engine, resource
+    from mxnet_tpu_torch.ops import _build
+
+    _kernel_launches(reset=True)
+    t0 = time.perf_counter()
+    ext = _native.get_ext()
+    core = _native.lib_path()
+    build_s = time.perf_counter() - t0
+    if core is None or ext is None or \
+            os.path.dirname(core) != _build.BUILD_DIR or \
+            os.path.dirname(ext.__file__) != _build.BUILD_DIR:
+        raise AssertionError(f"native runtime not built into build/: core "
+                             f"{core}, ext {ext}")
+    if _native.ffi_backend() != "cext" or not isinstance(
+            engine.host_engine(), _native.NativeEngine) or \
+            engine.host_engine()._be != "cext":
+        raise AssertionError("the host engine does not run on _mxtpu_ext")
+    out = {"build_s": build_s}
+    for backend in ("ctypes", "cext"):
+        out[backend] = _native_engine_check(backend)
+    a = _native.NativeArena(backend="ctypes")
+    b = _native.NativeArena(backend="cext")
+    b.release_all()
+    blk = a.alloc((1 << 20,), np.float32)
+    a.free(blk)
+    shared = b.pool_bytes()
+    again = b.alloc((1 << 20,), np.float32)
+    reused = again.ctypes.data == blk.ctypes.data
+    b.free(again)
+    b.release_all()
+    space = resource.ResourceManager.get().request(
+        "cpu", resource.ResourceRequest.kTempSpace)
+    space.get_space((256, 256), np.float32)
+    in_arena = space._buf.ctypes.data in resource._arena()._ptrs
+    if shared != 4 << 20 or not reused or a.pool_bytes() != 0 or \
+            not in_arena:
+        raise AssertionError(f"arena: pooled {shared} across backends, "
+                             f"reused {reused}, temp space in arena "
+                             f"{in_arena}")
+    log(f"[native] core {os.path.basename(core)} and "
+        f"{os.path.basename(ext.__file__)} built or found in {build_s:.2f} "
+        f"s; engine ctypes: {out['ctypes']['tasks_per_s']:.0f} tasks/s, "
+        f"{out['ctypes']['readers_at_once']} readers at once; cext: "
+        f"{out['cext']['tasks_per_s']:.0f} tasks/s, "
+        f"{out['cext']['readers_at_once']} readers at once; a 4 MiB block "
+        f"freed through ctypes pooled and reused through cext (one pool); "
+        f"the temp space in the arena; {smi}")
+    out["telemetry"] = _telemetry_rerun(smi, recs, img_s)
+    launches = _kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"phase_native launched {launches}")
+    return out, launches
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -8167,6 +8811,14 @@ def main():
     paged_build = paged_build_record(ptxas["paged_attention"])
     log(f"[build] paged_attention (registers and spills: split, combine): "
         f"{json.dumps(paged_build)}")
+    # slice 16's C programs (phases 37-38) run here, while this process
+    # holds little of the card: each child needs its own ~5 and ~20 GB,
+    # which the cache of the later phases, fragmented by their live
+    # tensors, would not leave free.  Each phase reads its own main
+    # path's counts
+    slice16 = {}
+    _, slice16["c_predict"] = phase_c_predict(smi)
+    _, slice16["c_api"] = phase_c_api(smi)
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
     phase_parity(cfg, params)
@@ -8201,12 +8853,14 @@ def main():
         f"{json.dumps(lstm_launches)}")
     # training from RecordIO: the epilogue runs in score.py's sweeps only
     rec_launches = _kernel_launches(reset=True)
-    with tempfile.TemporaryDirectory() as workdir:
-        recs = phase_records(smi, workdir)
-        iters = phase_record_iter(smi, recs)
-        train_rec = phase_train_records(smi, recs)
-        module_rec = phase_module_records(smi, recs)
-        phase_sequential(smi, workdir)
+    # the records stay for phase_native's rerun with telemetry on
+    rec_dir = tempfile.TemporaryDirectory()
+    workdir = rec_dir.name
+    recs = phase_records(smi, workdir)
+    iters = phase_record_iter(smi, recs)
+    train_rec = phase_train_records(smi, recs)
+    module_rec = phase_module_records(smi, recs)
+    phase_sequential(smi, workdir)
     rec_launches = _kernel_launches()
     step = train_rec["routes"]["resident"]["img_s"]
     log(f"[records] hand-written kernel launches in phases 14-18: "
@@ -8276,6 +8930,14 @@ def main():
     del params
     log(f"[slice15] hand-written kernel launches: autotune "
         f"{json.dumps(tune_launches)}; planes {json.dumps(plane_launches)}")
+    # slice 16: the native runtime and the data iterators' telemetry
+    # (phases 37-38 ran after phase 2)
+    _, slice16["native"] = phase_native(smi, recs, iters["img_s"])
+    rec_dir.cleanup()
+    if not slice16["c_predict"]["residual_epilogue"]:
+        raise AssertionError("c_predict: the epilogue never launched")
+    log(f"[slice16] hand-written kernel launches by phase: "
+        f"{json.dumps(slice16)}")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -8329,7 +8991,7 @@ def main():
         rec["launches_feedforward"] = ff_launches[rec["name"]]
         rec["launches_custom_op"] = custom_launches[rec["name"]]
         rec["launches_profiler"] = prof_launches[rec["name"]]
-        for tag, counts in slice13.items():
+        for tag, counts in (*slice13.items(), *slice16.items()):
             rec[f"launches_{tag}"] = counts[rec["name"]]
         rec["launches_detection"] = det_launches[rec["name"]]
         rec["launches_autotune"] = tune_launches[rec["name"]]

@@ -14,8 +14,16 @@ sentinel's parked flags (``MXTPU_SENTINEL``).
 :func:`live_memory` can rank the live ones for the OOM report;
 :func:`on_push` makes every imperative op wait under
 ``MXNET_ENGINE_TYPE=NaiveEngine``; :func:`wait_for_var` is
-``Engine::WaitForVar``.  Not ported yet (ROADMAP Queue 1 item 11b): the
-host task engine (``push``/``new_host_var``).
+``Engine::WaitForVar``.
+
+The host task engine (:func:`push`, :func:`new_host_var`,
+:func:`wait_for_host_var`, :func:`wait_for_all_host`) runs host work —
+the reference's IO prefetch, checkpoint writes and staging lambdas —
+on the native var-ordered scheduler of ``src/engine.cc``
+(``_native.NativeEngine``, ``MXNET_CPU_WORKER_NTHREADS`` threads, 0 for
+one a core).  Device work is ordered by CUDA streams, not here.
+``MXNET_ENGINE_TYPE=NaiveEngine`` runs each task on the pushing thread,
+and so does a host where the library cannot be built.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import torch
 from . import telemetry as _tm
 
 __all__ = ["async_depth", "AsyncWindow", "wait_for_all", "wait_for_var",
-           "track", "live_memory", "on_push"]
+           "track", "live_memory", "on_push", "host_engine", "push",
+           "new_host_var", "wait_for_host_var", "wait_for_all_host"]
 
 _live_arrays: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
     weakref.WeakValueDictionary()
@@ -208,3 +217,60 @@ def wait_for_all():
     if t0 is not None:
         _TM_WAIT_SEC.observe(time.perf_counter() - t0, call="wait_for_all")
     _tm.health.sentinel_check("boundary")
+
+
+# --- the host task engine ----------------------------------------------------
+_host_engine = None
+
+
+def host_engine():
+    """The process's ``NativeEngine`` (built on first use), or None when
+    the native library cannot be built here."""
+    global _host_engine
+    if _host_engine is None:
+        from . import _native
+
+        try:
+            threads = int(os.environ.get("MXNET_CPU_WORKER_NTHREADS", "0")
+                          or 0)
+        except ValueError:
+            threads = 0
+        _host_engine = _native.NativeEngine(num_threads=threads) \
+            if _native.available() else False
+    return _host_engine or None
+
+
+def push(fn, const_vars=(), mutable_vars=(), priority=0):
+    """Run ``fn()`` on the host engine once the tasks before it on its
+    vars are done: writers of a var (``mutable_vars``) one at a time in
+    push order, readers (``const_vars``) side by side (parity:
+    Engine::PushAsync, include/mxnet/engine.h:125).  Synchronous under
+    ``NaiveEngine`` or without the library."""
+    eng = host_engine()
+    if eng is None or _engine_is_naive():
+        fn()
+        return
+    eng.push(fn, const_vars=const_vars, mutable_vars=mutable_vars,
+             priority=priority)
+
+
+def new_host_var():
+    """A new var of the host engine (parity: Engine::NewVariable); 0
+    without the library, where every task runs synchronously."""
+    eng = host_engine()
+    return eng.new_var() if eng is not None else 0
+
+
+def wait_for_host_var(var):
+    """Wait for the host tasks of ``var``; a task's exception is raised
+    here."""
+    eng = host_engine()
+    if eng is not None:
+        eng.wait_for_var(var)
+
+
+def wait_for_all_host():
+    """Wait for every host task; a task's exception is raised here."""
+    eng = host_engine()
+    if eng is not None:
+        eng.wait_all()

@@ -33,9 +33,11 @@ Batches land on ``device`` (default: the card; ``device="cpu"`` for the
 host): data ``(batch,) + data_shape`` float32, labels ``(batch,)`` or
 ``(batch, label_width)``.  The iterators resolve the device at their
 first batch, so a decode worker process (``mp_io``) that only calls
-``ImageRecordIter._next_into`` never touches CUDA.  Not ported: the
-telemetry spans and counters of the batch waits (ROADMAP Queue 1 item
-11).
+``ImageRecordIter._next_into`` never touches CUDA.  Each batch is a
+``data-io`` span (``ImageIter.next``/``ImageRecordIter.next``: a
+profiler event while the profiler runs, ``data_batch_wait_seconds``
+with telemetry on) and a ``data_batches_total`` count, as in the JAX
+package; the end of an epoch records neither.
 """
 from __future__ import annotations
 
@@ -427,10 +429,23 @@ class ImageIter(DataIter, _OnDevice):
         return img.transpose(2, 0, 1)  # HWC -> CHW
 
     def next(self):
-        from . import storage
+        from . import telemetry as _tm
+        from .io import _TM_BATCHES
 
+        # the end of the epoch is checked before the span: its
+        # StopIteration records no data-io event
         if self.seq is not None and self.cur >= len(self.seq):
             raise StopIteration
+        with _tm.span("ImageIter.next", category="data-io",
+                      histogram_name="data_batch_wait_seconds",
+                      iterator="ImageIter"):
+            batch = self._next_impl()
+        _TM_BATCHES.inc(iterator="ImageIter")
+        return batch
+
+    def _next_impl(self):
+        from . import storage
+
         dev = self._target()
         data = storage.staging_empty((self.batch_size,) + self.data_shape,
                                      np.float32, pin=dev.type == "cuda")
@@ -577,10 +592,23 @@ class ImageRecordIter(DataIter, _OnDevice):
         return pad
 
     def next(self):
-        from . import storage
+        from . import telemetry as _tm
+        from .io import _TM_BATCHES
 
         if self.cur >= len(self.order):
             raise StopIteration
+        # data-io profiling (parity: profiler_imageiter.py); the span
+        # feeds data_batch_wait_seconds while telemetry is on
+        with _tm.span("ImageRecordIter.next", category="data-io",
+                      histogram_name="data_batch_wait_seconds",
+                      iterator="ImageRecordIter"):
+            batch = self._next_impl()
+        _TM_BATCHES.inc(iterator="ImageRecordIter")
+        return batch
+
+    def _next_impl(self):
+        from . import storage
+
         dev = self._target()
         data = storage.staging_empty((self.batch_size,) + self.data_shape,
                                      np.float32, pin=dev.type == "cuda")

@@ -18,7 +18,12 @@ consumer's stream waits on each copy's event, no host wait) and passing
 batches already on the device straight through.  Stack them as
 ``ImageRecordIter -> PrefetchingIter -> DevicePrefetchIter``.
 
-Not ported: the telemetry of the batch waits (ROADMAP Queue 1 item 11).
+With telemetry on (``MXTPU_TELEMETRY=1``), each stage counts the
+batches it hands out in ``data_batches_total{iterator}`` and the time
+its consumer spent inside ``next()`` in
+``data_batch_wait_seconds{iterator}`` (the JAX package's families;
+filter a stacked pipeline by the ``iterator`` label).  Neither reads
+anything back from the card.
 """
 from __future__ import annotations
 
@@ -27,12 +32,14 @@ import os
 import queue
 import struct
 import threading
+import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
 from . import ndarray as nd
+from . import telemetry as _tm
 from .context import cpu
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
@@ -40,6 +47,26 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "ImageRecordIter", "step_multi_feeds"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape"])
+
+
+# --- telemetry families (the JAX package's names).  Stacked pipelines
+# (ImageRecordIter -> PrefetchingIter) report per stage: filter by the
+# `iterator` label for the stage you care about.
+_TM_BATCHES = _tm.counter(
+    "data_batches_total", "batches produced, per iterator class",
+    labels=("iterator",))
+_TM_BATCH_WAIT = _tm.histogram(
+    "data_batch_wait_seconds",
+    "time the consumer spent inside next() waiting for a batch "
+    "(input-pipeline starvation when the upstream stage is prefetched)",
+    labels=("iterator",))
+
+
+def _record_batch(it, t0):
+    """One produced batch: count it and record the consumer's wait."""
+    name = type(it).__name__
+    _TM_BATCHES.inc(iterator=name)
+    _TM_BATCH_WAIT.observe(time.perf_counter() - t0, iterator=name)
 
 
 class DataBatch:
@@ -65,9 +92,13 @@ class DataIter:
         pass
 
     def next(self):
+        t0 = time.perf_counter() if _tm.enabled() else None
         if self.iter_next():
-            return DataBatch(data=self.getdata(), label=self.getlabel(),
-                             pad=self.getpad(), index=self.getindex())
+            batch = DataBatch(data=self.getdata(), label=self.getlabel(),
+                              pad=self.getpad(), index=self.getindex())
+            if t0 is not None:
+                _record_batch(self, t0)
+            return batch
         raise StopIteration
 
     def __next__(self):
@@ -322,7 +353,10 @@ class PrefetchingIter(DataIter):
         return True
 
     def next(self):
+        t0 = time.perf_counter() if _tm.enabled() else None
         if self.iter_next():
+            if t0 is not None:
+                _record_batch(self, t0)
             return self.current_batch
         raise StopIteration
 
@@ -447,6 +481,7 @@ class DevicePrefetchIter(DataIter):
             # the producer has ended and its marker is taken: a blocking
             # get would wait for ever
             raise StopIteration
+        t0 = time.perf_counter() if _tm.enabled() else None
         item = self._q.get()
         if item is None:
             self._exhausted = True
@@ -455,6 +490,8 @@ class DevicePrefetchIter(DataIter):
             self._exhausted = True
             raise item
         self._current = item
+        if t0 is not None:
+            _record_batch(self, t0)
         return item
 
 

@@ -210,6 +210,18 @@ class MultiProcessImageRecordIter(DataIter):
         pass
 
     def next(self):
+        from . import telemetry as _tm
+        from .io import _TM_BATCHES
+
+        with _tm.span("MultiProcessImageRecordIter.next",
+                      category="data-io",
+                      histogram_name="data_batch_wait_seconds",
+                      iterator="MultiProcessImageRecordIter"):
+            batch = self._next_impl()
+        _TM_BATCHES.inc(iterator="MultiProcessImageRecordIter")
+        return batch
+
+    def _next_impl(self):
         from . import ndarray as nd
         from . import storage
         from .image import _stage_batch

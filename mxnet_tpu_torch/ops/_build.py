@@ -11,9 +11,10 @@ compiler's report (``-Xptxas -v``) is kept beside each library as
 process compiled the library or found it built.  Nothing is built at
 import: the first launch builds.
 
-Host code (the record reader and the JPEG decoder of ``src/``) is built
-the same way by :func:`load_host`, with ``g++`` in place of ``nvcc``,
-into the same directory.
+Host code (the native runtime and the JPEG decoder of ``src/``, the
+compiled FFI backend, the C ABIs of ``csrc/``) is built the same way by
+:func:`build_host`/:func:`load_host`, with ``g++`` in place of
+``nvcc``, into the same directory.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import threading
 from ..base import MXNetError
 
 __all__ = ["NVCC_FLAGS", "HOST_FLAGS", "source_path", "nvcc_path",
-           "nvcc_command", "build", "load", "links", "load_host"]
+           "nvcc_command", "build", "load", "links", "build_host",
+           "load_host"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -168,38 +170,51 @@ def links(lib: str) -> bool:
         return _links[lib]
 
 
+def build_host(name: str, sources, libs=(), include_dirs=(), cflags=(),
+               ldflags=()) -> str:
+    """The path of host library ``name``, compiled by ``g++`` with
+    :data:`HOST_FLAGS` plus ``cflags`` and ``-I`` of ``include_dirs``
+    from ``sources`` (paths; headers they include are hashed too when
+    listed) and linked with ``ldflags`` and ``libs`` if no build of
+    these exact sources and flags exists.  A library named in
+    ``ldflags`` by its path is hashed by its path, which names its
+    content.  Raises :class:`MXNetError` when the compiler is missing or
+    fails."""
+    flags = (HOST_FLAGS + tuple(cflags)
+             + tuple(f"-I{d}" for d in include_dirs))
+    tail = tuple(ldflags) + tuple(f"-l{x}" for x in libs)
+    h = hashlib.sha256(" ".join(flags + ("|",) + tail).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    with _lock:
+        if os.path.exists(path):
+            return path
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if not cxx:
+            raise MXNetError(f"g++ not found: {name} is built from "
+                             "source at first use")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cc = [s for s in sources if s.endswith((".cc", ".cpp"))]
+        proc = subprocess.run([cxx, *flags, *cc, "-o", tmp, *tail],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise MXNetError(f"g++ failed to build {name} (exit "
+                             f"{proc.returncode}):\n{proc.stdout}"
+                             f"{proc.stderr}")
+        os.replace(tmp, path)
+        return path
+
+
 def load_host(name: str, sources, libs=()) -> ctypes.CDLL:
-    """The loaded host library ``name``, compiled by ``g++`` with
-    :data:`HOST_FLAGS` from ``sources`` (paths; headers they include
-    are hashed too when listed) and linked against ``libs`` if no build
-    of these exact sources exists.  Raises :class:`MXNetError` when the
-    compiler is missing or fails."""
+    """The loaded host library ``name`` (:func:`build_host` with the
+    same arguments), loaded once per process."""
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        h = hashlib.sha256(" ".join(HOST_FLAGS + tuple(libs)).encode())
-        for src in sources:
-            with open(src, "rb") as f:
-                h.update(f.read())
-        path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
-        if not os.path.exists(path):
-            cxx = os.environ.get("CXX") or shutil.which("g++")
-            if not cxx:
-                raise MXNetError(f"g++ not found: {name} is built from "
-                                 "source at first use")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cc = [s for s in sources if s.endswith((".cc", ".cpp"))]
-            proc = subprocess.run(
-                [cxx, *HOST_FLAGS, *cc, "-o", tmp,
-                 *(f"-l{x}" for x in libs)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise MXNetError(f"g++ failed to build {name} (exit "
-                                 f"{proc.returncode}):\n{proc.stdout}"
-                                 f"{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        _libs[name] = lib
-        return lib
+    if lib is None:
+        path = build_host(name, sources, libs)
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(path))
+    return lib

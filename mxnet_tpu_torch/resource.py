@@ -10,10 +10,13 @@ host-side consumers (``Custom`` ops, plugins):
 - ``kRandom``: a seeded ``numpy.random.Generator`` stream per context,
   the same stream as the JAX package's for the same seed
   (``numpy.random.default_rng``); ``mx.random.seed`` reseeds every one;
-- ``kTempSpace``: reusable host scratch from the ``storage`` pool,
-  pinned when a card is present (so a copy to it runs asynchronously),
-  grown on demand and never shrunk; ``MXNET_EXEC_NUM_TEMP`` (default 1)
-  bounds the spaces per context, handed out round-robin.
+- ``kTempSpace``: reusable host scratch from the native arena
+  (``_native.NativeArena``, ``src/storage.cc``), as in the reference
+  (``mxnet_tpu/resource.py:102-120``): a space that grows hands its
+  block back to the arena's size-class pool; pageable numpy memory
+  where the library cannot be built.  Grown on demand, never shrunk;
+  ``MXNET_EXEC_NUM_TEMP`` (default 1) bounds the spaces per context,
+  handed out round-robin.
 """
 from __future__ import annotations
 
@@ -21,9 +24,7 @@ import os
 import threading
 
 import numpy as np
-import torch
 
-from . import storage as _storage
 from .base import MXNetError
 
 __all__ = ["ResourceRequest", "Resource", "ResourceManager"]
@@ -58,7 +59,7 @@ class Resource:
         if req.type == ResourceRequest.kRandom:
             self._gen = np.random.default_rng(0)
         else:
-            self._buf = None  # a uint8 staging tensor, grown on demand
+            self._buf = None  # a uint8 array, grown on demand
 
     # ------------------------------------------------------------ kRandom
     def generator(self):
@@ -79,13 +80,30 @@ class Resource:
         count = int(np.prod(shape)) if shape else 1
         nbytes = count * dtype.itemsize
         with self._lock:
-            if self._buf is None or self._buf.numel() < nbytes:
-                if self._buf is not None:
-                    _storage.staging_free(self._buf)
-                self._buf = _storage.staging_empty(
-                    (nbytes,), np.uint8, pin=torch.cuda.is_available())
-            flat = _storage.host_array(self._buf)[:nbytes].view(dtype)
+            if self._buf is None or self._buf.nbytes < nbytes:
+                arena = _arena()
+                if self._buf is not None and arena is not None:
+                    arena.free(self._buf)   # back to its size class
+                self._buf = arena.alloc((nbytes,), np.uint8) \
+                    if arena is not None else np.empty(nbytes, np.uint8)
+            flat = self._buf[:nbytes].view(dtype)
         return flat[:count].reshape(shape)
+
+
+_ARENA = None       # the shared NativeArena; False: no library here
+_ARENA_LOCK = threading.Lock()
+
+
+def _arena():
+    """The native arena that backs the temp spaces, or None where the
+    library cannot be built."""
+    global _ARENA
+    with _ARENA_LOCK:
+        if _ARENA is None:
+            from . import _native
+
+            _ARENA = _native.NativeArena() if _native.available() else False
+        return _ARENA or None
 
 
 class ResourceManager:

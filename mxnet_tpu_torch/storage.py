@@ -4,9 +4,12 @@ and the MXStorageEmptyCache C API).
 
 What the reference's pooled storage manager buys on a card is host
 *staging*: the per-batch buffers the data pipeline fills before the
-copy to the device.  Here they are pinned host tensors, because only a
+copy to the device.  The JAX package stages in the native arena
+(``mxnet_tpu/storage.py:45-56``, ``NativeArena`` over
+``src/storage.cc``); here they are pinned host tensors, because only a
 copy from pinned memory runs asynchronously on a stream, and pinning a
-fresh ~19 MB batch each time is a synchronous ``cudaHostAlloc``:
+fresh ~19 MB batch each time is a synchronous ``cudaHostAlloc``.  The
+arena itself backs the host temp spaces of ``resource.py``:
 
 - :func:`staging_empty` hands out an uninitialised host tensor from the
   pool, pinned when ``pin`` (the target is the card); blocks are

@@ -72,10 +72,11 @@ setup(
     long_description_content_type="text/markdown",
     packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
                                     "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
-    # the PyTorch port's CUDA kernels ship as sources: nvcc builds them on
-    # the machine with the card at first use (mxnet_tpu_torch/ops/_build.py)
+    # the PyTorch port's CUDA kernels and C ABIs ship as sources: nvcc and
+    # g++ build them at first use (mxnet_tpu_torch/ops/_build.py)
     package_data={"mxnet_tpu": ["lib/*.so"],
-                  "mxnet_tpu_torch": ["ops/csrc/*.cu"]},
+                  "mxnet_tpu_torch": ["ops/csrc/*.cu", "csrc/*.cc",
+                                      "csrc/*.h", "csrc/clients/*"]},
     include_package_data=True,
     distclass=_BinaryDistribution,
     python_requires=">=3.10",

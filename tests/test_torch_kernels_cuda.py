@@ -1623,13 +1623,14 @@ def test_cpu_pinned_arrays_live_in_pinned_memory(card):
     assert d.tensor.is_pinned()
     np.testing.assert_array_equal(d.asnumpy(), np.ones(3))
     assert d.as_in_context(mx.cpu_pinned()) is d
-    # temp space is pinned host scratch when a card is present
+    # temp space is host scratch from the native arena (src/storage.cc)
+    from mxnet_tpu_torch import resource
     from mxnet_tpu_torch.resource import ResourceManager, ResourceRequest
-    from mxnet_tpu_torch import storage
 
     res = ResourceManager().request(card, ResourceRequest.kTempSpace)
     space = res.get_space((16,), np.float32)
-    assert storage._live[res._buf.data_ptr()][2] and space.shape == (16,)
+    assert res._buf.ctypes.data in resource._arena()._ptrs
+    assert space.shape == (16,)
 
 
 def test_device_trace_holds_the_flash_kernels(card, tmp_path):
@@ -1930,3 +1931,67 @@ def test_step_multi_capture_parks_the_sentinel_rows(card, monkeypatch):
     t.step(data=xs[0][0], softmax_label=xs[0][1])
     with pytest.raises(health.NumericsError, match="fc_weight"):
         engine.AsyncWindow().drain()
+
+
+# ------------------------------------------------------- MXNet from C
+def test_c_api_arrays_executor_and_update_on_the_card(card, no_tf32):
+    """``_c_api_impl`` with ``dev_type`` 2: arrays on ``cuda:0``, sync
+    copies both ways, an executor bound on the card whose forward and
+    backward equal the CPU's, and ``sgd_update`` through
+    ``imperative_invoke`` writing the bound weight on the card."""
+    from mxnet_tpu_torch import _c_api_impl as impl
+    from mxnet_tpu_torch import symbol as tsym
+
+    a = impl.ndarray_create([2, 3], 2, 0)
+    assert a.tensor.device == torch.device("cuda", 0)
+    impl.ndarray_sync_copy_from(
+        a, memoryview(np.arange(6, dtype=np.float32).tobytes()))
+    assert np.frombuffer(impl.ndarray_sync_copy_to(a), np.float32
+                         ).tolist() == [0, 1, 2, 3, 4, 5]
+    net = tsym.SoftmaxOutput(tsym.FullyConnected(
+        tsym.Variable("data"), num_hidden=4, name="fc"), name="softmax")
+    rs = np.random.RandomState(0)
+    vals = {"data": rs.normal(size=(8, 5)),
+            "fc_weight": rs.normal(size=(4, 5)), "fc_bias": np.zeros(4),
+            "softmax_label": rs.randint(0, 4, 8)}
+    grads = {}
+    for dev_type in (1, 2):
+        ex = impl.executor_simple_bind(net, dev_type, 0, "write",
+                                       ["data", "softmax_label"],
+                                       [[8, 5], [8]])
+        for name in impl.executor_arg_names(ex):
+            impl.ndarray_sync_copy_from(
+                impl.executor_arg_array(ex, name), memoryview(
+                    np.ascontiguousarray(vals[name], np.float32).tobytes()))
+        impl.executor_forward(ex, 1)
+        impl.executor_backward(ex)
+        g = impl.executor_grad_array(ex, "fc_weight")
+        grads[dev_type] = np.frombuffer(impl.ndarray_sync_copy_to(g),
+                                        np.float32)
+        if dev_type == 2:
+            w = impl.executor_arg_array(ex, "fc_weight")
+            assert w.tensor.is_cuda
+            before = ex.arg_dict["fc_weight"].clone()
+            impl.imperative_invoke("sgd_update", [w, g], ["lr"], ["0.5"])
+            torch.testing.assert_close(ex.arg_dict["fc_weight"],
+                                       before - 0.5 * ex.grad_dict[
+                                           "fc_weight"])
+    np.testing.assert_allclose(grads[2], grads[1], rtol=1e-5, atol=1e-6)
+    with pytest.raises(MXNetError, match="dev_id 7"):
+        impl.ndarray_create([2], 2, 7)
+
+
+def test_native_runtime_and_host_engine_on_the_card_host(card):
+    """The card's host builds the core library and ``_mxtpu_ext`` from
+    ``src/`` and the host engine runs on the compiled backend."""
+    from mxnet_tpu_torch import _native, engine
+
+    assert _native.get_ext() is not None
+    assert _native.ffi_backend() == "cext"
+    assert engine.host_engine()._be == "cext"
+    v = engine.new_host_var()
+    out = []
+    for i in range(10):
+        engine.push(lambda i=i: out.append(i), mutable_vars=[v])
+    engine.wait_for_host_var(v)
+    assert out == list(range(10))

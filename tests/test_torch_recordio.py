@@ -9,11 +9,11 @@ against the Python reader, and ``filesystem`` (``InputSplit`` shards,
 Records come from numpy seeds; every comparison here is exact.
 """
 import os
+import re
 
 import numpy as np
 import pytest
 
-from mxnet_tpu import _native as jnative
 from mxnet_tpu import filesystem as jfs
 from mxnet_tpu import recordio as jrec
 
@@ -21,6 +21,10 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import _native as tnative
 from mxnet_tpu_torch import filesystem as tfs
 from mxnet_tpu_torch import recordio as trec
+
+# the JAX package's native library, built and loaded under the lock
+# shared by the test processes (see test_torch_native_engine.py)
+from test_torch_native_engine import jax_native  # noqa: F401
 
 
 def _payloads(n=23, seed=0):
@@ -129,8 +133,9 @@ def test_native_library_builds_into_the_port_build_dir():
     from mxnet_tpu_torch.ops import _build
 
     assert tnative.available()
+    # the core library (engine, records, arena): libmxtpu_<hash>.so
     built = [f for f in os.listdir(_build.BUILD_DIR)
-             if f.startswith("libmxtpu_recordio_")]
+             if re.fullmatch(r"libmxtpu_[0-9a-f]{16}\.so", f)]
     assert built
 
 
@@ -162,7 +167,7 @@ def test_native_read_batch_takes_a_record_larger_than_its_buffer(tmp_path):
     assert got == recs
 
 
-def test_native_writer_and_index_match_jax(tmp_path):
+def test_native_writer_and_index_match_jax(tmp_path, jax_native):
     recs = _payloads(19, seed=4)
     path = str(tmp_path / "w.rec")
     w = tnative.NativeRecordWriter(path)
@@ -172,7 +177,7 @@ def test_native_writer_and_index_match_jax(tmp_path):
     _write(jrec, str(tmp_path / "j.rec"), recs)
     assert _bytes(path) == _bytes(tmp_path / "j.rec")
     np.testing.assert_array_equal(tnative.native_index(path),
-                                  jnative.native_index(path))
+                                  jax_native.native_index(path))
     idx = tnative.native_index(path)
     r = trec.MXRecordIO(path, "r")
     for off, rec in zip(idx, recs):
@@ -181,15 +186,15 @@ def test_native_writer_and_index_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("num_parts", [2, 3, 4])
-def test_native_shards_match_jax(tmp_path, num_parts):
+def test_native_shards_match_jax(tmp_path, num_parts, jax_native):
     recs = _payloads(50, seed=5)
     path = str(tmp_path / "s.rec")
     _write(trec, path, recs)
     union = []
     for part in range(num_parts):
         mine = list(tnative.NativeRecordReader(path, part, num_parts))
-        theirs = list(jnative.NativeRecordReader(path, part, num_parts,
-                                                 backend="ctypes"))
+        theirs = list(jax_native.NativeRecordReader(path, part, num_parts,
+                                                    backend="ctypes"))
         assert mine == theirs
         union.extend(mine)
     assert union == recs

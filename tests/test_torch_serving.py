@@ -260,7 +260,8 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 os.path.join("telemetry", "fleet.py"),
                 os.path.join("ops", "vision.py"),
                 os.path.join("ops", "ctc.py"),
-                os.path.join("models", "ssd.py")):
+                os.path.join("models", "ssd.py"), "_c_api_impl.py",
+                "libinfo.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -296,7 +297,8 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.serving.router, "
             "mxnet_tpu_torch.serving.__main__, "
             "mxnet_tpu_torch.telemetry.fleet, mxnet_tpu_torch.ops.vision, "
-            "mxnet_tpu_torch.ops.ctc, mxnet_tpu_torch.models.ssd\n"
+            "mxnet_tpu_torch.ops.ctc, mxnet_tpu_torch.models.ssd, "
+            "mxnet_tpu_torch._c_api_impl, mxnet_tpu_torch.libinfo\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")
