@@ -11,9 +11,10 @@ at run time by ``rtc.Rtc``, the image-classification zoo (Inception-v3
 training, AlexNet through ``Module``, a nine-model inference sweep) and
 the LSTM language model (``FusedTrainer`` and ``BucketingModule``), and
 the detection zoo (SSD-VGG16-300 training and detection, Faster
-R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), and MXNet from
-C (the predict ABI, the general C API from C++, the native runtime) —
-and holds each
+R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), MXNet from
+C (the predict ABI, the general C API from C++, the native runtime),
+and MXNet's parameter-server training (``dist_sync``/``dist_async``
+under the port's launcher) — and holds each
 hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
@@ -342,7 +343,38 @@ hand-written CUDA kernel
    then phase 15's stacked route rerun with telemetry on:
    ``data_batches_total`` of the consuming stage equal to the batches
    consumed, the wait histogram counting as many, 0 host syncs a batch
-   (``launches_native``).
+   (``launches_native``);
+40. MXNet's parameter-server training (``phase_dist_sync``, run right
+   after phases 37-38 for the same reason): ``python -m
+   mxnet_tpu_torch.launch -n 2 -s 2 --launcher local`` on a worker script
+   this file writes (``DIST_WORKER``); each worker trains ResNet-50 at
+   full width (3 x 224 x 224, 1000 classes, fp32, cuDNN deterministic,
+   TF32 off) at batch 32 through ``Module.fit(kvstore="dist_sync")`` for
+   12 steps over its own seeded shard on the card, with SGD (momentum)
+   on the two CPU-only servers, and joins a coordinator this process
+   runs (``MXTPU_COORD_ADDR``; its ``/cluster`` and ``/fleet``, with
+   both workers' metric families merged, and the step-time skew are
+   printed).  Checked: the two workers' weights bit-equal after every
+   step (a 64-bit digest of their bits taken on the card each step, and
+   the weights themselves after steps 1 and 12); after step 1 the pulled
+   weights bit-equal to the servers' update applied here on the host
+   (the port's updater, each server's share of each key) to the two
+   workers' own saved step-1 gradients; after 12 steps the weights
+   within ``DIST_TOL`` of a one-process run here that sums the two
+   shards' gradients each step; the servers never initialised CUDA; the
+   six kernels' counts in each worker 0 (``launches_dist_sync``).
+   Printed: images/s across both workers and step ms, per step the
+   push and pull waits on the loop's thread and the bytes moved, the
+   servers' update ms, and bench.py's PS micro shape timed by the same
+   workers (``dist_step_us_per_step_ps``);
+41. ``dist_async`` (``phase_dist_async``): the same model with ``-n 2 -s
+   1 --max-restarts 1`` for 6 steps a worker over 2 repeated batches;
+   worker 1 dies at the coordinator poll of its 4th batch
+   (``MXTPU_FAULT_PLAN=host_crash:crash_after:3``) and is restarted with
+   ``MXTPU_KV_RECOVERY=1``: it pulls the servers' trained model (not its
+   own initialisation), worker 0's ``get_num_dead_node`` sees it dead,
+   worker 0's loss falls, and images/s and the restart's wall are
+   printed (``launches_dist_async``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -5607,7 +5639,7 @@ def _resident_iter(batches, n):
     class Resident(io.DataIter):
         def __init__(self):
             super().__init__()
-            self.batch_size = FF_BATCH
+            self.batch_size = int(batches[0][0].shape[0])
             self.provide_data = [("data", tuple(batches[0][0].shape))]
             self.provide_label = [("softmax_label",
                                    tuple(batches[0][1].shape))]
@@ -8774,6 +8806,548 @@ def phase_native(smi, recs, img_s):
     return out, launches
 
 
+# ------------------------------------------------------------ phases 40-41
+# MXNet's parameter-server training (bench.py:836-858's launch, at the
+# ResNet-50 cell of bench.py:1985-2077): 2 workers on the card, CPU-only
+# servers, a worker's batch 32 x 3 x 224 x 224 in fp32
+DIST_BATCH = 32
+DIST_STEPS = 12                  # phase 40's synchronous steps
+DIST_TIMED_FROM = 2              # steps 1-2 save state: time steps 3-12
+DIST_ASYNC_STEPS, DIST_ASYNC_BATCHES = 6, 2
+DIST_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+DIST_SEED = 1000                 # worker r's shard: a CUDA generator at 1000+r
+# (max, median) over the parameters of ||a - b|| / ||b||: the workers'
+# step 12 against one process summing both shards' gradients each step.
+# The arithmetic and data are the same, but each process picks its own
+# cuDNN algorithms (PERF.md section 7), and 12 momentum steps of a BN
+# net compound a first-step difference of MODULE_TOL's size
+DIST_TOL = (1e-2, 1e-3)
+# bench.py:836-858's PS micro shape: 8 keys x 256 x 64, 20 rounds
+DIST_MICRO_KEYS, DIST_MICRO_SHAPE, DIST_MICRO_ROUNDS = 8, (256, 64), 20
+DIST_COORD_LEASE_S = 5.0         # phase 40: heartbeats every 1.7 s
+DIST_ASYNC_LEASE_S = 600.0       # phase 41: the crash must not end a lease
+DIST_DEAD_TIMEOUT_S = 2.0        # phase 41's get_num_dead_node staleness
+DIST_TIMEOUT_S = 600
+
+DIST_WORKER = r"""
+# A worker of chip_smoke.py's phases 40-41, or, under MXTPU_ROLE=server,
+# a parameter server: the server serves inside `import mxnet_tpu_torch`
+# and exits there, before this script could touch the card.
+import json, os, sys, time
+T_START = time.time()
+RANK = int(os.environ.get("MXTPU_RANK", "-1"))         # servers have none
+MODE = os.environ.get("DIST_MODE", "sync")
+RECOVERED = os.environ.get("MXTPU_KV_RECOVERY") == "1"
+if MODE == "async" and RANK == 1 and not RECOVERED:
+    # the first life dies at the coordinator poll after its 4th batch
+    os.environ["MXTPU_FAULT_PLAN"] = "host_crash:crash_after:3"
+import numpy as np
+import mxnet_tpu_torch as mx
+import torch
+import chip_smoke as cs
+from mxnet_tpu_torch import kvstore_server
+from mxnet_tpu_torch.models import resnet
+
+OUT = os.environ["DIST_OUT"]
+TAG = "%s%d%s" % (MODE, RANK, "r" if RECOVERED else "")
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+mx.random.seed(RANK)              # each worker initialises differently
+
+
+def save(name, tensors):
+    np.savez(os.path.join(OUT, name + "_" + TAG + ".npz"),
+             **{k: v.detach().contiguous().cpu().numpy()
+                for k, v in tensors.items()})
+
+
+steps = cs.DIST_STEPS if MODE == "sync" else cs.DIST_ASYNC_STEPS
+batches = cs._dist_shard(RANK, steps if MODE == "sync"
+                         else cs.DIST_ASYNC_BATCHES)
+it = cs._resident_iter(batches, steps)
+net = resnet.get_symbol(num_classes=1000, num_layers=50,
+                        image_shape=(3, 224, 224))
+mod = mx.mod.Module(net, context=mx.gpu(0))
+mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+mod.init_params(initializer=mx.init.Xavier())
+ex = mod._exec_group.execs[0]
+names = list(mod._param_names)
+weights = [ex.arg_dict[n] for n in names]
+local = cs._bits_digest(weights)
+cs._kernel_launches(reset=True)
+mod.init_optimizer(kvstore="dist_" + MODE, optimizer="sgd",
+                   optimizer_params=cs.DIST_OPT)
+kv = mod._kvstore
+res = {"rank": RANK, "recovered": RECOVERED, "t_start": T_START,
+       "t_ready": time.time(), "num_workers": kv.num_workers,
+       "rescale_grad": mod._optimizer.rescale_grad}
+if MODE == "sync" and RANK == 0:
+    with open(os.path.join(OUT, "optimizer.bin"), "wb") as f:
+        f.write(kvstore_server.dumps_host(mod._optimizer))
+digests, losses, comm, t_in, t_out, walls = [], [], [], [], [], []
+dead = {"max": 0, "t": None}
+if MODE == "async" and RANK == 0:
+    import threading
+
+    def watch():
+        # worker 1 dies mid-run: its heartbeats stop and the servers say
+        # so until its restart beats again
+        while dead["max"] < 1:
+            n = kv.get_num_dead_node(0, timeout=cs.DIST_DEAD_TIMEOUT_S)
+            if n > dead["max"]:
+                dead["max"], dead["t"] = n, time.time()
+            time.sleep(0.25)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def cb(param):
+    t_in.append(time.perf_counter())
+    walls.append(time.time())
+    n = param.nbatch
+    # the weights here are those after step n: a step's pulls land at
+    # the next forward (or the next parameter read)
+    digests.append(cs._bits_digest(weights))
+    p = ex.outputs[0]
+    y = batches[n % len(batches)][1].long()
+    losses.append(-p[torch.arange(len(y), device=p.device), y]
+                  .clamp_min(1e-30).log().mean())
+    if MODE == "sync" and n == 0:
+        save("w0", dict(zip(names, weights)))
+        save("g1", {k: ex.grad_dict[k] for k in names})
+    if MODE == "sync" and n == 1:
+        save("w1", dict(zip(names, weights)))
+    comm.append(kv.comm_stats())
+    with open(os.path.join(OUT, "steps_" + TAG + ".jsonl"), "a") as f:
+        f.write(json.dumps({"step": n + 1, "t": walls[-1]}) + "\n")
+    t_out.append(time.perf_counter())
+
+
+mod.fit(it, num_epoch=1, batch_end_callback=cb)
+mod.get_params()                   # lands the last step's pulls
+digests.append(cs._bits_digest(weights))
+res["launches"] = cs._kernel_launches()
+res["digests"] = [str(int(d)) for d in digests]
+res["local_digest"] = str(int(local))
+res["losses"] = [float(v) for v in losses]
+res["comm"] = comm
+res["t_in"], res["t_out"], res["walls"] = t_in, t_out, walls
+if MODE == "sync":
+    save("w%d" % steps, dict(zip(names, weights)))
+if MODE == "async" and RANK == 0:
+    deadline = time.monotonic() + 180
+    while time.monotonic() < deadline and dead["max"] < 1:
+        time.sleep(0.25)
+    res["dead_seen"], res["t_dead_seen"] = dead["max"], dead["t"]
+kv.barrier()                       # both workers are members here
+if RANK == 0:
+    import urllib.request
+    addr = os.environ["MXTPU_COORD_ADDR"]
+    for path in ("cluster", "fleet"):
+        with urllib.request.urlopen("http://%s/%s" % (addr, path),
+                                    timeout=30) as r:
+            with open(os.path.join(OUT, path + "_" + TAG + ".json"),
+                      "wb") as f:
+                f.write(r.read())
+if MODE == "sync":
+    # bench.py's PS micro shape on the same store and servers
+    shape, ctx = cs.DIST_MICRO_SHAPE, mx.gpu(0)
+    keys = list(range(1000, 1000 + cs.DIST_MICRO_KEYS))
+    kv.init(keys, [mx.nd.ones(shape, ctx=ctx) for _ in keys])
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.01,
+                                         rescale_grad=1.0))
+    grads = [[mx.nd.ones(shape, ctx=ctx)] for _ in keys]
+    outs = [mx.nd.zeros(shape, ctx=ctx) for _ in keys]
+    kv.push(keys, grads)
+    kv.pull(keys, outs)
+    kv.barrier()
+    tic = time.perf_counter()
+    for _ in range(cs.DIST_MICRO_ROUNDS):
+        kv.push(keys, grads)
+        kv.pull(keys, outs)
+    kv.wait_pulls()
+    torch.cuda.synchronize()
+    res["ps_micro_us"] = ((time.perf_counter() - tic)
+                          / cs.DIST_MICRO_ROUNDS * 1e6)
+    kv.barrier()
+res["comm_end"] = kv.comm_stats()
+with open(os.path.join(OUT, "result_" + TAG + ".json"), "w") as f:
+    json.dump(res, f)
+"""
+
+
+def _dist_shard(rank, n):
+    """Worker ``rank``'s ``n`` seeded batches on the card, ``(data,
+    label)`` (a CUDA generator seeded per rank, so any process on the
+    card remakes any worker's shard)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(DIST_SEED + rank)
+    return [(torch.randn((DIST_BATCH, 3, 224, 224), generator=g,
+                         device="cuda"),
+             torch.randint(0, 1000, (DIST_BATCH,), generator=g,
+                           device="cuda").float())
+            for _ in range(n)]
+
+
+def _bits_digest(tensors):
+    """A 64-bit digest of the tensors' bits, taken on their device (no
+    host sync): each 32-bit word times an odd multiplier of its
+    position, summed mod 2**64, so any one word that differs changes
+    it."""
+    acc, off = None, 0
+    for t in tensors:
+        w = t.detach().contiguous().view(-1).view(torch.int32).to(
+            torch.int64)
+        pos = torch.arange(off, off + w.numel(), device=w.device,
+                           dtype=torch.int64)
+        off += w.numel()
+        part = (w * (2 * pos + 1)).sum()
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _dist_launch(mode, workers, servers, out, env_extra, args=()):
+    """``python -m mxnet_tpu_torch.launch`` on ``DIST_WORKER``: the
+    launcher's log and the servers' summaries.  Any worker or server
+    that exits non-zero fails the phase; every process it started is
+    killed on a timeout."""
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(out, "dist_worker.py")
+    with open(script, "w") as f:
+        f.write(DIST_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXTPU_", "DMLC_"))}
+    env.update(PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p),
+        DIST_MODE=mode, DIST_OUT=out, NVIDIA_TF32_OVERRIDE="0")
+    env.update(env_extra)
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+           str(workers), "-s", str(servers), *args, "--launcher", "local",
+           sys.executable, script]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"dist_{mode}: no end in {DIST_TIMEOUT_S} s:\n"
+                             f"{text[-4000:]}")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, f"launch_{mode}.log"), "w") as f:
+        f.write(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"dist_{mode}: the launch exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    summaries = [json.loads(line.split(" ", 1)[1])
+                 for line in text.splitlines()
+                 if line.startswith("kvstore_server {")]
+    if len(summaries) != servers or any(s["cuda_initialized"]
+                                        for s in summaries):
+        raise AssertionError(f"dist_{mode}: servers reported {summaries}")
+    return text, summaries, wall
+
+
+def _dist_result(out, tag):
+    with open(os.path.join(out, f"result_{tag}.json")) as f:
+        return json.load(f)
+
+
+def _npz(out, name):
+    with np.load(os.path.join(out, name + ".npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _host_update(out, names):
+    """The servers' first update, applied here on the host: each key's
+    two step-1 gradients summed (exact in either order), each server's
+    share of the key updated by the port's updater from the optimizer
+    worker 0 shipped (``kvstore_server._make_updater``); returns the
+    largest |difference| from the workers' pulled step-1 weights and the
+    number of parameters bit-equal."""
+    from mxnet_tpu_torch import kvstore, kvstore_server
+
+    with open(os.path.join(out, "optimizer.bin"), "rb") as f:
+        body = f.read()
+    w0, w1 = _npz(out, "w0_sync0"), _npz(out, "w1_sync0")
+    g0, g1 = _npz(out, "g1_sync0"), _npz(out, "g1_sync1")
+    ups = [kvstore_server._make_updater(body) for _ in range(2)]
+    worst, equal = 0.0, 0
+    for idx, name in enumerate(names):
+        w = w0[name].reshape(-1).copy()
+        g = (g0[name] + g1[name]).reshape(-1)
+        for server, pkey, sl in kvstore.key_assignment(idx, w.size, 2):
+            part = w[sl].copy()
+            ups[server](pkey, g[sl].copy(), part)
+            w[sl] = part
+        got = w1[name].reshape(-1)
+        worst = max(worst, float(np.abs(got - w).max()))
+        equal += int(np.array_equal(got, w))
+    return worst, equal
+
+
+def _dist_reference(names, w0):
+    """One process summing both shards' gradients each step, from worker
+    0's initial weights ``w0``, through the Module's own updater with the
+    same SGD (rescale 1 / 64): its weights after ``DIST_STEPS`` steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+
+    net = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, 224, 224))
+    shards = [_dist_shard(r, DIST_STEPS) for r in range(2)]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.bind(data_shapes=[("data", (DIST_BATCH, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (DIST_BATCH,))])
+        mod.init_params(initializer=mx.init.Xavier(),
+                        arg_params={k: torch.from_numpy(v) for k, v in
+                                    w0.items()})
+        mod.init_optimizer(kvstore=None, optimizer="sgd",
+                           optimizer_params=dict(
+                               DIST_OPT, rescale_grad=1.0 / (2 * DIST_BATCH)))
+        ex = mod._exec_group.execs[0]
+        for k in range(DIST_STEPS):
+            mod.forward_backward(_batch(*shards[0][k]))
+            g0 = {n: ex.grad_dict[n].clone() for n in names}
+            mod.forward_backward(_batch(*shards[1][k]))
+            for n in names:
+                ex.grad_dict[n].add_(g0[n])
+            mod.update()
+        return {n: ex.arg_dict[n].detach().contiguous().cpu()
+                for n in names}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+
+
+def phase_dist_sync(smi):
+    """Phase 40: ``dist_sync`` under the launcher, 2 workers x 2 servers
+    (see the module docstring); returns ``(result, launches)``."""
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.parallel.coordinator import CoordinatorService
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not _native.available():      # built once here, not by each worker
+        raise AssertionError("the native host engine does not build")
+    svc = _with_env({"MXTPU_FLEET_SCRAPE_S": "1"}, lambda: CoordinatorService(
+        port=0, lease_s=DIST_COORD_LEASE_S).start())
+    tmp = tempfile.TemporaryDirectory()
+    out = tmp.name
+    try:
+        _, servers, wall = _dist_launch("sync", 2, 2, out, {
+            "MXTPU_COORD_ADDR": svc.address,
+            "MXTPU_TELEMETRY_HTTP_PORT": "0"})
+        res = [_dist_result(out, f"sync{r}") for r in range(2)]
+        with open(os.path.join(out, "cluster_sync0.json")) as f:
+            cluster = json.load(f)
+        with open(os.path.join(out, "fleet_sync0.json")) as f:
+            fleet = json.load(f)
+        # the param order the store keyed: Module's _param_names
+        order = list(_npz(out, "g1_sync0"))
+        # the workers' weights after every step, and after steps 1 and 12
+        if res[0]["digests"] != res[1]["digests"] or \
+                len(res[0]["digests"]) != DIST_STEPS + 1:
+            raise AssertionError("dist_sync: the workers' weights part: "
+                                 f"{res[0]['digests']} vs "
+                                 f"{res[1]['digests']}")
+        if res[0]["local_digest"] == res[1]["local_digest"] or \
+                res[1]["local_digest"] == res[1]["digests"][0]:
+            raise AssertionError("dist_sync: worker 1 did not start from "
+                                 "worker 0's initial weights")
+        for step in (1, DIST_STEPS):
+            a, b = _npz(out, f"w{step}_sync0"), _npz(out, f"w{step}_sync1")
+            bad = [n for n in order if not np.array_equal(a[n], b[n])]
+            if bad:
+                raise AssertionError(f"dist_sync: step {step}: the "
+                                     f"workers' {bad[:3]} differ")
+        worst, equal = _host_update(out, order)
+        if equal != len(order):
+            raise AssertionError(f"dist_sync: step 1 against the host "
+                                 f"update: {equal} of {len(order)} "
+                                 f"parameters bit-equal, worst {worst:g}")
+        ref = _dist_reference(order, _npz(out, "w0_sync0"))
+        final = {n: torch.from_numpy(v) for n, v in
+                 _npz(out, f"w{DIST_STEPS}_sync0").items()}
+        emax, ename, emed = _rel_errs(final, ref)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        if emax > DIST_TOL[0] or emed > DIST_TOL[1]:
+            raise AssertionError(f"dist_sync: step {DIST_STEPS} against "
+                                 f"one process: max {emax:.3e} ({ename}), "
+                                 f"median {emed:.3e}, tolerance {DIST_TOL}")
+    finally:
+        svc.stop()
+        tmp.cleanup()
+    launches = {k: res[0]["launches"][k] + res[1]["launches"][k]
+                for k in res[0]["launches"]}
+    if any(launches.values()):
+        raise AssertionError(f"dist_sync launched {launches}")
+    members = cluster["members"]
+    if len(members) != 2 or cluster["generation"] != 0:
+        raise AssertionError(f"dist_sync: /cluster {cluster}")
+    if sorted(fleet["hosts"]) != sorted(members) or not all(
+            h["scrape_ok"] for h in fleet["hosts"].values()):
+        raise AssertionError(f"dist_sync: /fleet hosts {fleet['hosts']}")
+    fams = [k for k, v in fleet["metrics"].items()
+            if {s["labels"].get("host") for s in v["samples"]}
+            >= set(members)]
+    if "kvstore_push_total" not in fams:
+        raise AssertionError(f"dist_sync: /fleet merged families {fams}")
+    # timed steps 3-12: callback to callback, less each callback's own time
+    lo = DIST_TIMED_FROM
+    per = []
+    for r in res:
+        span = r["t_in"][-1] - r["t_out"][lo - 1]
+        cbs = sum(o - i for i, o in zip(r["t_in"][lo:-1], r["t_out"][lo:-1]))
+        c0, c1 = r["comm"][lo - 1], r["comm"][-1]
+        n = DIST_STEPS - lo
+        per.append({
+            "step_ms": (span - cbs) / n * 1e3,
+            "push_enqueue_ms": (c1["push_enqueue_s"] - c0["push_enqueue_s"])
+            / n * 1e3,
+            "pull_wait_ms": (c1["pull_wait_s"] - c0["pull_wait_s"]) / n * 1e3,
+            "loop_waits": (c1["loop_waits"] - c0["loop_waits"]) / n,
+            "push_mb": (c1["push_bytes"] - c0["push_bytes"]) / n / 1e6,
+            "pull_mb": (c1["pull_bytes"] - c0["pull_bytes"]) / n / 1e6,
+            "wire_mb_sent": (c1["wire_bytes_sent"] - c0["wire_bytes_sent"])
+            / n / 1e6})
+    step_ms = max(p["step_ms"] for p in per)
+    result = {
+        "img_s": 2 * DIST_BATCH / step_ms * 1e3, "step_ms": step_ms,
+        "workers": per, "launch_wall_s": wall,
+        "servers": [{k: s[k] for k in ("rank", "pushes", "pulls",
+                                       "updates", "update_ms_mean",
+                                       "update_s", "bytes_in",
+                                       "bytes_out", "cuda_initialized")}
+                    for s in servers],
+        "host_update_bit_equal": equal, "params": len(order),
+        "vs_one_process": {"max": emax, "max_param": ename,
+                           "median": emed, "tol": DIST_TOL},
+        "cluster": {"generation": cluster["generation"],
+                    "members": sorted(members),
+                    "step_skew_ratio": cluster["step_skew_ratio"],
+                    "straggler": cluster["straggler"]},
+        "fleet": {"hosts": sorted(fleet["hosts"]),
+                  "merged_families": len(fams)},
+        "dist_step_us_per_step_ps": res[0]["ps_micro_us"],
+        "loss_first_last": [res[0]["losses"][0], res[0]["losses"][-1]]}
+    log(f"[dist_sync] ResNet-50 b{DIST_BATCH}/worker x 2 workers, 2 servers, "
+        f"fp32: {result['img_s']:.2f} img/s across both, step "
+        f"{step_ms:.1f} ms (steps {lo + 1}-{DIST_STEPS}); per worker "
+        + "; ".join(f"rank {r}: step {p['step_ms']:.1f} ms, push enqueue "
+                    f"{p['push_enqueue_ms']:.2f} ms, pull wait "
+                    f"{p['pull_wait_ms']:.1f} ms, {p['loop_waits']:.0f} "
+                    f"loop waits, pushed {p['push_mb']:.1f} MB, pulled "
+                    f"{p['pull_mb']:.1f} MB, sent {p['wire_mb_sent']:.1f} "
+                    f"MB on the wire" for r, p in enumerate(per))
+        + f" a step; {smi}")
+    log(f"[dist_sync] servers: " + "; ".join(
+        f"rank {s['rank']}: {s['updates']} updates, "
+        f"{s['update_ms_mean']:.3f} ms mean, {s['update_s']:.2f} s total, "
+        f"{s['bytes_in'] / 1e9:.2f} GB in, {s['bytes_out'] / 1e9:.2f} GB "
+        f"out, cuda_initialized={s['cuda_initialized']}"
+        for s in result["servers"]))
+    log(f"[dist_sync] checks: weights bit-equal across workers after each "
+        f"of {DIST_STEPS} steps; step 1 bit-equal to the host update "
+        f"({equal}/{len(order)} params); step {DIST_STEPS} vs one process "
+        f"max {emax:.3e} ({ename}) median {emed:.3e} (tol {DIST_TOL}); "
+        f"/cluster generation {cluster['generation']} members "
+        f"{sorted(members)} skew {cluster['step_skew_ratio']}; /fleet "
+        f"{len(fams)} families merged over both hosts; launches "
+        f"{json.dumps(launches)}")
+    log(f"[dist_sync] PS micro (8 keys x 256 x 64, {DIST_MICRO_ROUNDS} "
+        f"push+pull rounds, 2 workers x 2 servers): "
+        f"dist_step_us_per_step_ps {res[0]['ps_micro_us']:.1f}; {smi}")
+    log(f"[dist_sync] {json.dumps(result)}")
+    return result, launches
+
+
+def phase_dist_async(smi):
+    """Phase 41: ``dist_async``, 2 workers x 1 server, worker 1 crashed
+    and restarted (see the module docstring); returns ``(result,
+    launches)``."""
+    import datetime
+
+    from mxnet_tpu_torch.parallel.coordinator import CoordinatorService
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    svc = CoordinatorService(port=0, lease_s=DIST_ASYNC_LEASE_S).start()
+    tmp = tempfile.TemporaryDirectory()
+    out = tmp.name
+    try:
+        text, servers, wall = _dist_launch(
+            "async", 2, 1, out, {"MXTPU_COORD_ADDR": svc.address,
+                                 "MXTPU_PS_HEARTBEAT_S": "0.5"},
+            args=("--max-restarts", "1"))
+        r0, r1 = (_dist_result(out, t) for t in ("async0", "async1r"))
+        with open(os.path.join(out, "steps_async1.jsonl")) as f:
+            first = [json.loads(line) for line in f]
+    finally:
+        svc.stop()
+        tmp.cleanup()
+    m = re.search(r"^(\S+ \S+) launch worker 1 exited with code (\d+); "
+                  r"restarting", text, re.M)
+    if m is None or m.group(2) != "137":
+        raise AssertionError(f"dist_async: no crash and restart:\n"
+                             f"{text[-4000:]}")
+    t_crash = datetime.datetime.strptime(
+        m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    if not r1["recovered"] or r0["dead_seen"] < 1:
+        raise AssertionError(f"dist_async: recovered {r1['recovered']}, "
+                             f"dead seen {r0['dead_seen']}")
+    # the restarted worker pulled the servers' trained model: neither its
+    # own initialisation nor the model the servers started from
+    took = r1["digests"][0]
+    if took in (r1["local_digest"], r0["digests"][0]):
+        raise AssertionError("dist_async: the restarted worker did not "
+                             "take the servers' model")
+    loss = r0["losses"]
+    falls = (loss[-1] + loss[-2]) < (loss[0] + loss[1])
+    if not falls:
+        raise AssertionError(f"dist_async: worker 0's loss {loss}")
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    if any(launches.values()):
+        raise AssertionError(f"dist_async launched {launches}")
+    steps0 = r0["t_in"][-1] - r0["t_out"][0]
+    result = {
+        "img_s_worker0": DIST_BATCH * (DIST_ASYNC_STEPS - 1) / steps0,
+        "step_ms_worker0": steps0 / (DIST_ASYNC_STEPS - 1) * 1e3,
+        "restart_wall_s": r1["walls"][0] - t_crash,
+        "restart_ready_s": r1["t_ready"] - t_crash,
+        "first_life_steps": len(first),
+        "dead_seen": r0["dead_seen"], "loss_worker0": loss,
+        "loss_worker1_restarted": r1["losses"], "launch_wall_s": wall,
+        "servers": [{k: s[k] for k in ("updates", "update_ms_mean",
+                                       "cuda_initialized")}
+                    for s in servers]}
+    log(f"[dist_async] ResNet-50 b{DIST_BATCH}, 2 workers x 1 server: worker "
+        f"0 {result['img_s_worker0']:.2f} img/s ({result['step_ms_worker0']:.1f}"
+        f" ms a step); worker 1 crashed after {len(first)} steps at the "
+        f"host_crash site and was restarted with MXTPU_KV_RECOVERY=1: its "
+        f"first step {result['restart_wall_s']:.2f} s after the crash "
+        f"(ready {result['restart_ready_s']:.2f} s), on the servers' model; "
+        f"get_num_dead_node saw {r0['dead_seen']}; worker 0 loss "
+        f"{loss[0]:.4f} -> {loss[-1]:.4f}; launches {json.dumps(launches)}; "
+        f"{smi}")
+    log(f"[dist_async] {json.dumps(result)}")
+    return result, launches
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -8819,6 +9393,13 @@ def main():
     slice16 = {}
     _, slice16["c_predict"] = phase_c_predict(smi)
     _, slice16["c_api"] = phase_c_api(smi)
+    # slice 17's workers (phases 40-41) each need ~7 GiB of their own:
+    # next to 37-38, for the same reason
+    slice17 = {}
+    _, slice17["dist_sync"] = phase_dist_sync(smi)
+    _, slice17["dist_async"] = phase_dist_async(smi)
+    log(f"[slice17] hand-written kernel launches by phase: "
+        f"{json.dumps(slice17)}")
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
     phase_parity(cfg, params)
@@ -8991,7 +9572,8 @@ def main():
         rec["launches_feedforward"] = ff_launches[rec["name"]]
         rec["launches_custom_op"] = custom_launches[rec["name"]]
         rec["launches_profiler"] = prof_launches[rec["name"]]
-        for tag, counts in (*slice13.items(), *slice16.items()):
+        for tag, counts in (*slice13.items(), *slice16.items(),
+                            *slice17.items()):
             rec[f"launches_{tag}"] = counts[rec["name"]]
         rec["launches_detection"] = det_launches[rec["name"]]
         rec["launches_autotune"] = tune_launches[rec["name"]]

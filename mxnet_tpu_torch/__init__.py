@@ -50,8 +50,15 @@ and MXNet's classic top-level surface — ``Context`` (``cpu_pinned``,
 ``resource``, ``operator`` with the ``Custom`` op, ``profiler`` (host
 spans and a ``torch.profiler`` device trace), ``faults``
 (``MXTPU_FAULT_PLAN``), ``executor_manager``, ``model.FeedForward``,
-``visualization`` and ``test_utils``.  The reference's top-level name
-not exported yet is ``kvstore_server`` (ROADMAP Queue 1 item 10).
+``visualization`` and ``test_utils``; and MXNet's parameter-server
+training — ``kvstore_server`` and the ``dist_sync``/``dist_device_sync``/
+``dist_async`` stores of ``kvstore`` through ``Module.fit``, the launcher
+``python -m mxnet_tpu_torch.launch``, ``parallel.dist`` (ranks, the
+barrier watchdog, generations) and ``parallel.coordinator`` (leases,
+``/cluster``, ``/fleet``) with the fit loops' and the router's hooks.
+A process launched with ``MXTPU_ROLE=server`` serves the parameter store
+inside ``import mxnet_tpu_torch`` and exits there (the import's last
+statement), before user code could touch the card.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``ctx="cpu"`` for ``nd``); with no card and no explicit device they
@@ -101,3 +108,9 @@ from . import executor_manager, faults, operator, profiler  # noqa: F401
 from . import parallel, resource, test_utils, visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .resource import ResourceManager, ResourceRequest  # noqa: F401
+from . import kvstore_server  # noqa: F401
+
+# Must be the last statement: a server-role process serves the parameter
+# store here and exits without reaching user code (parity: MXNet's
+# __init__.py importing kvstore_server at the bottom).
+kvstore_server._init_kvstore_server_module()

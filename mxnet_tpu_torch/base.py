@@ -146,7 +146,7 @@ class AttrScope:
     op node gets the scope's attrs (as strings), merged under the attrs
     the call itself passes; nested scopes merge outer then inner.
     Placing nodes by ``ctx_group`` (``group2ctx``) needs several cards
-    (ROADMAP Queue 1 item 10)."""
+    (ROADMAP Queue 1 item 10b)."""
 
     _current = None
 

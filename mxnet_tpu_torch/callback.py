@@ -12,8 +12,8 @@ the metric (the fused path's host sync) only when the metric's
 states when asked).  With the perf plane armed (``MXTPU_PERF_ATTR``)
 the Speedometer's line carries ``telemetry.perf.speedometer_suffix()``
 (`` mfu=0.42 top=dispatch``: pure reads of the host ledgers, no device
-sync).  Its telemetry gauges and multi-host log prefix wait for ROADMAP
-Queue 1 items 10 and 11b.
+sync).  Its telemetry gauges wait for ROADMAP Queue 1 item 11b, and its
+multi-host log prefix for the process-group path of item 10b.
 """
 from __future__ import annotations
 

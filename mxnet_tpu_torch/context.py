@@ -19,7 +19,7 @@ Every entry point of the port resolves its ``device`` argument through
 :func:`resolve_device`, which takes a Context, a ``torch.device``, a
 string or an index: the default is the card, and without one it raises
 instead of quietly running on the CPU.  Tests pass ``device="cpu"``.
-``process_mesh``/``mesh_sharding`` wait for ROADMAP Queue 1 item 10.
+``process_mesh``/``mesh_sharding`` wait for ROADMAP Queue 1 item 10b.
 """
 from __future__ import annotations
 

@@ -78,7 +78,7 @@ Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
 of the tensors or NDArrays it is given), and ``outputs`` are tensors.
 Ctx-group placement (``group2ctx``) needs several cards and raises
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -702,7 +702,7 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
     the same symbol object lends its post-pass graph function."""
     if group2ctx:
         raise _not_ported("ctx-group placement (group2ctx, several cards)",
-                          10)
+                          "10b")
     device = resolve_device(device)
     arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
     if arg_shapes is None:
@@ -747,7 +747,7 @@ def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
     are, sharing their storage; numpy data is copied to ``device``)."""
     if group2ctx:
         raise _not_ported("ctx-group placement (group2ctx, several cards)",
-                          10)
+                          "10b")
     device = resolve_device(device)
 
     def tensor(v):

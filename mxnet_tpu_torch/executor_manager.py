@@ -7,7 +7,7 @@ executor_manager.py ``_split_input_slice``, ``_check_arguments``,
 over the port's executor group (:class:`~.module.executor_group.
 DataParallelExecutorGroup`), which binds one executor on one device.
 Contexts that name more than one device (data parallelism over several
-cards) raise, naming ROADMAP Queue 1 item 10.
+cards) raise, naming ROADMAP Queue 1 item 10b.
 """
 from __future__ import annotations
 

@@ -30,8 +30,14 @@ admission: the request fails, the engine serves on), ``replica_kill``
 thread for :func:`fault_slow_s` seconds) and ``slow_step`` (the flight
 recorder's per-step record, ``telemetry.health.record_step``: ``drop``
 parks the training host as long, so the ring's step walls see a
-straggler).  The reference's other sites belong to modules not ported
-yet; a site no code fires, or one a plan does not name, never fires.
+straggler), ``dist_send``/``dist_recv`` (a parameter-server RPC: ``drop``
+breaks the connection before the send or the reply, and the client
+retries), ``dist_barrier`` (``parallel.dist.barrier``: ``drop`` is a dead
+peer without the wait), ``coord_heartbeat`` (a coordinator heartbeat:
+``drop`` loses it, so the lease lapses) and ``host_crash`` (the
+coordinator's per-batch poll: ``crash_after`` is a host's death
+mid-training).  A site no code fires, or one a plan does not name,
+never fires.
 An injected error, and a ``crash_after`` crash, first write the flight
 record (``telemetry.health.auto_dump("fault")``) when
 ``MXTPU_FLIGHT_RECORD`` names a path, and the error names the dump.

@@ -56,7 +56,7 @@ bucket's FLOPs at its first step after a plan (``MXTPU_PERF_ATTR``), and
 an allocator failure in a push re-raises as ``DeviceOOMError`` with the
 ranked memory report.
 
-The sharded bucket program (ROADMAP Queue 1 item 10; it needs several
+The sharded bucket program (ROADMAP Queue 1 item 10b; it needs several
 cards, which the Module refuses) is not ported.
 """
 from __future__ import annotations

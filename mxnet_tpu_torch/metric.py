@@ -22,7 +22,7 @@ Both paths share the accumulators, so they may interleave.  The local
 window / global total split (``reset_local``, ``get_global``) and the
 sync-free ``update_stamp`` that ``callback.Speedometer`` reads are the
 reference's.  Not ported: the mesh-sharded (multi-device) fused path
-(ROADMAP Queue 1 item 10) and the metric telemetry (item 11).
+(ROADMAP Queue 1 item 10b) and the metric telemetry (item 11).
 """
 from __future__ import annotations
 

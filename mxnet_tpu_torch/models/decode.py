@@ -27,7 +27,7 @@ row by row (:meth:`KVDecoder._embed`), so a step never dequantizes the
 whole table.  ``generate_scan`` runs its token loop on the device with
 no host sync per token; ``beam_search`` keeps the reference's host
 bookkeeping.  Not ported yet: ``mesh=`` tensor parallelism (ROADMAP
-Queue 1 item 10).
+Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -122,7 +122,7 @@ class KVDecoder:
         if mesh is not None:
             raise MXNetError(
                 "KVDecoder(mesh=...) tensor-parallel serving is not ported "
-                "yet (ROADMAP Queue 1 item 10)")
+                "yet (ROADMAP Queue 1 item 10b)")
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
         # every param in the compute dtype first: int8 scales are taken

@@ -29,13 +29,19 @@ on), and under ``MXTPU_PERF_ATTR`` its wall splits into ``data_wait`` /
 ``dispatch`` / ``window_stall`` and the epoch's drain into
 ``boundary_sync`` — host clock stamps only, no device sync; an uncaught
 exception writes the flight record first when ``MXTPU_FLIGHT_RECORD``
-names a path.  Not ported yet, and raising when asked for: the elastic
-coordinator (``MXTPU_COORD_ADDR``, ROADMAP Queue 1 item 10).
+names a path.
+
+Membership (:mod:`mxnet_tpu_torch.parallel.coordinator`): with
+``MXTPU_COORD_ADDR`` set the loop joins the coordinator (background
+heartbeats carry the flight ring's step times), polls it once a batch
+(a host-side flag check: fault site ``host_crash``), and when the
+cluster's generation moves it writes a boundary checkpoint (when
+checkpoints are armed) and raises
+:class:`~mxnet_tpu_torch.parallel.dist.GenerationChanged`.
 """
 from __future__ import annotations
 
 import logging
-import os
 import time
 from collections import namedtuple
 
@@ -52,16 +58,6 @@ def _as_list(obj):
     if obj is None:
         return []
     return obj if isinstance(obj, list) else [obj]
-
-
-def _not_ported(what, item):
-    return MXNetError(f"Module.fit: {what} is not ported yet (ROADMAP Queue "
-                      f"1 item {item})")
-
-
-def _refuse_fit_options():
-    if os.environ.get("MXTPU_COORD_ADDR", "").strip():
-        raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)", 10)
 
 
 class BaseModule:
@@ -165,7 +161,6 @@ class BaseModule:
         assert num_epoch is not None, "please specify number of epochs"
         from .. import checkpoint as _ckpt
 
-        _refuse_fit_options()
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -244,7 +239,11 @@ class BaseModule:
                     monitor=None, mgr=None, resume_nbatch=-1, start_step=0):
         from .. import checkpoint as _ckpt
         from .. import engine
+        from ..parallel import coordinator as _coordinator
 
+        # membership: armed by MXTPU_COORD_ADDR; step_poll is a
+        # host-side flag check
+        coord = _coordinator.client_from_env()
         flight = _tm.health.flight_enabled()
         perf_on = _tm.perf.enabled()
         rec = flight or perf_on
@@ -291,6 +290,15 @@ class BaseModule:
                                        if prev_tick is not None else 0.0),
                             dispatch=tp - t0, window_stall=now - tp)
                     prev_tick = now
+                if coord is not None and coord.step_poll():
+                    # the generation moved (a host died or a rejoiner
+                    # announced): checkpoint this boundary, then leave
+                    # by name
+                    w = None
+                    if mgr is not None:
+                        w = self._save_checkpoint_state(
+                            mgr, step_id, epoch, nbatch, background=False)
+                    coord.raise_generation_changed(getattr(w, "path", None))
                 if mgr is not None:
                     if mgr.preempted:
                         w = self._save_checkpoint_state(

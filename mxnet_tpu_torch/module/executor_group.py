@@ -10,7 +10,7 @@ host sync); outputs stay on the device.  The bound tensors are wrapped
 once in NDArrays, which the kvstore and the updater write in place.
 
 Several contexts (data parallelism over a mesh) wait for ROADMAP Queue 1
-item 10 and raise.
+item 10b and raise.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class DataParallelExecutorGroup:
         if len(devices) != 1:
             raise MXNetError(f"a Module over {len(devices)} devices (data "
                              "parallelism) is not ported yet (ROADMAP Queue "
-                             "1 item 10)")
+                             "1 item 10b)")
         self.symbol = symbol
         self.contexts = contexts
         self.workload = workload or [1] * len(contexts)

@@ -7,13 +7,22 @@ group), ``init_params``, ``init_optimizer``, ``forward``/``backward``/
 The default context is the card; ``context=mx.cpu()`` runs on the host,
 and without a card and a CPU context the constructor raises.
 
-``update`` keeps the reference's two routes (``model._create_kvstore``):
+``update`` keeps the reference's routes (``model._create_kvstore``):
 one device with a store named by a string trains through the module's
 own eager ``Updater`` (one ``sgd_mom_update`` per parameter), while a
 ``KVStore`` instance (``init_optimizer(kvstore=mx.kv.create("local"))``)
 takes one batched ``push``/``pull`` per step, which the store routes to
-its bucketed engine.  The module's parameter copies (``get_params``)
-live on its device in the bound memory format.
+its bucketed engine.  A parameter-server store (``kvstore="dist_sync"``,
+``"dist_device_sync"`` or ``"dist_async"`` under the launcher) keeps
+MXNet's per-key loop, ``push``/``pull`` with ``priority=-index``, so
+each key's RPC overlaps the others; the optimizer and its states live
+on the servers, the effective batch of a sync store is the batch times
+the workers (``rescale_grad``), every worker starts from worker 0's
+initial weights (pulled back after ``init``), and BatchNorm's moving
+statistics stay each worker's own.  The pulled weights land at the next
+``forward`` (or parameter read), one wait per key.  The module's
+parameter copies (``get_params``) live on its device in the bound memory
+format.
 
 ``init_params`` honours a variable's own ``__init__`` attr (an
 initializer's ``dumps()``, as ``sym.Variable(init=...)`` writes it)
@@ -28,8 +37,9 @@ the eager route, the store's on the bucketed one) and the loss scaler's
 state (``amp/scale`` and its counters), in the JAX package's names;
 :meth:`Module._restore_checkpoint` puts them back, with the store's
 weight copies, the update counts and this package's generator state.
-Not ported yet: several contexts (ROADMAP Queue 1 item 10).  ``BucketingModule``, ``SequentialModule``
-and ``PythonModule`` are in their own files.
+Not ported yet: several contexts (ROADMAP Queue 1 item 10b).
+``BucketingModule``, ``SequentialModule`` and ``PythonModule`` are in
+their own files.
 """
 from __future__ import annotations
 
@@ -174,7 +184,20 @@ class Module(BaseModule):
         self._sync_params_from_devices()
         return self._arg_params, self._aux_params
 
+    def _resolve_pulls(self):
+        """Land a parameter-server store's pending pulls in the bound
+        arrays (the lazy half of ``update``)."""
+        if self._ps_store():
+            self._kvstore.wait_pulls()
+
+    def _ps_store(self) -> bool:
+        """A dist store that talks to parameter servers."""
+        kv = self._kvstore
+        return (kv is not None and "dist" in kv.type
+                and not kv.collective)
+
     def _sync_params_from_devices(self):
+        self._resolve_pulls()
         if self._params_dirty and self._exec_group is not None:
             self._arg_params = self._arg_params or {}
             self._aux_params = self._aux_params or {}
@@ -259,7 +282,14 @@ class Module(BaseModule):
             return
         kvstore_inst, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if (kvstore_inst and "dist" in kvstore_inst.type
+                and "_sync" in kvstore_inst.type
+                and not kvstore_inst.collective):
+            # PS sync: every worker pushes its own batch's gradient and
+            # the servers sum them, so the effective batch is B * workers
+            batch_size *= kvstore_inst.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
             optimizer_params = dict(optimizer_params)
@@ -273,6 +303,9 @@ class Module(BaseModule):
         self._updater = None
         if kvstore_inst:
             ex = self._exec_group.execs[0]
+            # the workers' random inits differ: only worker 0's defines
+            # the model, and every worker pulls it back after init
+            pull_back = update_on_kvstore and kvstore_inst.num_workers > 1
             for idx, name in enumerate(self._param_names):
                 if name in ex.arg_dict:
                     # the bound array: the same values as the module's
@@ -286,6 +319,12 @@ class Module(BaseModule):
 
                         init_val = _sparse.full_row_sparse(init_val)
                     kvstore_inst.init(idx, init_val)
+                    if pull_back:
+                        kvstore_inst.pull(idx, ex.arg_dict[name],
+                                          priority=-idx)
+            if pull_back:
+                self._resolve_pulls()
+                self._adopt_bound_params()
             if update_on_kvstore:
                 kvstore_inst.set_optimizer(self._optimizer)
         if not update_on_kvstore:
@@ -307,6 +346,7 @@ class Module(BaseModule):
     # ------------------------------------------------------ computation
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        self._resolve_pulls()
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -316,12 +356,27 @@ class Module(BaseModule):
     def update(self):
         """One optimizer step over the gradients of the last backward:
         a batched push (and pull) through the store when there is one,
+        per key with ``priority=-index`` on a parameter-server store,
         else the module's updater per parameter."""
         assert (self.binded and self.params_initialized
                 and self.optimizer_initialized)
         self._params_dirty = True
         group = self._exec_group
         with torch.profiler.record_function("Module.update"):
+            if self._ps_store():
+                kv = self._kvstore
+                idxs, grads, weights = group.get_update_data()
+                for idx, g, w in zip(idxs, grads, weights):
+                    kv.push(idx, g, priority=-idx)
+                    kv.pull(idx, w if self._update_on_kvstore else g[0],
+                            priority=-idx)
+                if not self._update_on_kvstore:
+                    # aggregation only: the summed gradients come back,
+                    # then the module's updater runs per key
+                    kv.wait_pulls()
+                    for idx, g, w in zip(idxs, grads, weights):
+                        self._updater(idx, g[0], w)
+                return
             if self._kvstore is not None:
                 idxs, grads, weights = group.get_update_data()
                 self._kvstore.push(idxs, grads)
@@ -372,6 +427,7 @@ class Module(BaseModule):
         from .. import amp as _amp
         from ..kvstore_fused import _state_slots
 
+        self._resolve_pulls()
         ex = self._exec_group.execs[0]
         arrs = {}
         for name in self._param_names:
@@ -400,6 +456,9 @@ class Module(BaseModule):
             arrs["amp/good"] = sc._good
             arrs["amp/overflows"] = sc._overflows
             arrs["amp/skipped"] = sc._skipped
+        if self._ps_store():
+            extra["dist_note"] = ("dist store: optimizer state lives "
+                                  "server-side; weights only")
         return arrs, extra
 
     def _checkpoint_generator(self):

@@ -107,6 +107,29 @@ def _from_numpy(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+# tensors a host engine task will write (a dist kvstore's lazy pull):
+# id(tensor) -> (weakref to it, the function that lands the write).
+# asnumpy and wait_to_read land it before they read (WaitToRead).
+_pending_writes: dict = {}
+
+
+def set_pending_write(t: torch.Tensor, resolve):
+    import weakref
+
+    _pending_writes[id(t)] = (weakref.ref(t), resolve)
+
+
+def clear_pending_write(t: torch.Tensor):
+    _pending_writes.pop(id(t), None)
+
+
+def resolve_pending_write(t: torch.Tensor):
+    """Land the pending write into ``t``, if one is registered."""
+    entry = _pending_writes.get(id(t))
+    if entry is not None and entry[0]() is t:
+        entry[1]()
+
+
 class NDArray:
     """An n-dimensional array on one device, over a torch tensor."""
 
@@ -155,6 +178,8 @@ class NDArray:
 
     def asnumpy(self) -> np.ndarray:
         """A host copy (the sync point: waits for the writes before it)."""
+        if _pending_writes:
+            resolve_pending_write(self._t)
         t = self._t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -174,6 +199,8 @@ class NDArray:
         return a.reshape(-1)[0]
 
     def wait_to_read(self):
+        if _pending_writes:
+            resolve_pending_write(self._t)
         _engine.wait_for_var(self._t)
 
     # ----------------------------------------------------------- writes

@@ -16,7 +16,7 @@ launches whatever its key count (the JAX engine tree-maps the per-tensor
 rule inside one jitted program instead).  :func:`sparse_rule` is the
 row-wise lazy form the row-sparse update runs on gathered rows
 (:func:`mxnet_tpu_torch.sparse.make_row_program`).  The flat (sharded)
-variant waits for ROADMAP Queue 1 item 10.
+variant waits for ROADMAP Queue 1 item 10b.
 """
 from __future__ import annotations
 

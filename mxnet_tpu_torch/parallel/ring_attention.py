@@ -3,7 +3,7 @@
 
 Only :func:`full_attention`, :func:`attention` and :func:`_env_block`
 are ported; the ring itself (K/V rotation over a mesh) waits for ROADMAP
-Queue 1 item 10.
+Queue 1 item 10b.
 """
 from __future__ import annotations
 

@@ -25,9 +25,9 @@ The port of ``mxnet_tpu/serving``:
 ``python -m mxnet_tpu_torch.serving`` runs a replica or a router.  The
 paged step's attention schedule is searched by the autotuner at
 ``PagedSlots`` construction (``MXTPU_SCHEDULE_CACHE``), and the
-scheduler feeds the perf plane and the flight ring.  Not ported yet:
-replica self-registration through a coordinator (``register_replica``,
-``coordinator=``; ROADMAP Queue 1 item 10).
+scheduler feeds the perf plane and the flight ring.  Replicas
+self-register with a coordinator (``register_replica``), and a router
+given ``coordinator=`` folds them into its registry.
 """
 from . import quantize  # noqa: F401
 from .paged_kv import PagedSlots, PoolExhausted  # noqa: F401

@@ -20,6 +20,12 @@ module::
     # a router over running replicas
     python -m mxnet_tpu_torch.serving --router --replicas h1:9200,h2:9200
 
+    # a router over a coordinator's registry, and a replica joining it
+    python -m mxnet_tpu_torch.parallel.coordinator --port 8476
+    python -m mxnet_tpu_torch.serving --router --coord 127.0.0.1:8476
+    python -m mxnet_tpu_torch.serving --demo --register \
+        --coord 127.0.0.1:8476
+
     curl -s localhost:9200/generate -d '{"prompt": [1, 2, 3], "max_tokens": 16}'
 
 Replicas run on the card (``--device cuda``, the default) unless
@@ -27,9 +33,10 @@ Replicas run on the card (``--device cuda``, the default) unless
 stops admitting, queued and in-flight requests finish, then the process
 exits 0.  ``--trace`` (or ``MXTPU_TRACE=1``) records request spans:
 every process serves its span buffer at ``GET /spans.json`` and the
-router serves burn rates at ``GET /slo``.  ``--coord``/``--register``
-(coordinator discovery) wait for ``parallel/coordinator.py`` (ROADMAP
-Queue 1 item 10) and refuse.
+router serves burn rates at ``GET /slo``.  ``--register`` (with
+``--coord`` or ``MXTPU_COORD_ADDR``) makes a replica join a coordinator
+with ``role="serve"``; a router given ``--coord`` folds those replicas
+into its registry.
 
 Knobs (flags override env): MXTPU_SERVE_SLOTS, MXTPU_SERVE_QUEUE,
 MXTPU_SERVE_DEADLINE_MS, MXTPU_PREDICT_INT8, MXTPU_KV_BLOCK,
@@ -47,11 +54,6 @@ import subprocess
 import sys
 import threading
 import time
-
-COORD_REFUSAL = ("--coord/--register need parallel/coordinator.py, which "
-                 "is not ported yet (ROADMAP Queue 1 item 10); list the "
-                 "replicas with --replicas or MXTPU_SERVE_REPLICAS")
-
 
 def _parse_args(argv=None):
     ap = argparse.ArgumentParser(
@@ -86,7 +88,8 @@ def _parse_args(argv=None):
                     help="paged KV cache page size in tokens "
                          "(MXTPU_KV_BLOCK; 0/unset = contiguous)")
     ap.add_argument("--register", action="store_true",
-                    help="self-register with a coordinator (refused)")
+                    help="self-register this replica with a coordinator "
+                         "(--coord / MXTPU_COORD_ADDR)")
     ap.add_argument("--router", action="store_true",
                     help="run the fleet router instead of a replica")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
@@ -97,7 +100,9 @@ def _parse_args(argv=None):
                     help="with --router: static host:port list "
                          "(MXTPU_SERVE_REPLICAS)")
     ap.add_argument("--coord", default=None,
-                    help="coordinator host:port (refused)")
+                    help="coordinator host:port (MXTPU_COORD_ADDR): a "
+                         "replica registers there, a router discovers "
+                         "replicas there")
     ap.add_argument("--scrape-s", type=float, default=None,
                     help="router healthz scrape interval "
                          "(MXTPU_ROUTER_SCRAPE_S, 1s)")
@@ -182,14 +187,22 @@ def _main_replica(args):
         queue_size=args.queue, default_deadline_ms=args.deadline_ms,
         kv_block=args.kv_block)
     host, port = server.server_address[:2]
-    paged = scheduler.paged_stats()
-    print(f"serving on http://{host}:{port}  "
-          f"(slots={scheduler.num_slots} queue={scheduler.queue_size} "
-          f"deadline_ms={scheduler.default_deadline_ms} "
-          f"int8={decoder.quantize == 'int8'} "
-          f"paged={paged['block'] if paged else 0} "
-          f"device={decoder.device})", flush=True)
+    client = None
     try:
+        if args.register or args.coord:
+            from .router import register_replica
+
+            client = register_replica(f"{host}:{port}",
+                                      coordinator=args.coord)
+            print(f"registered with coordinator {client.addr} as "
+                  f"{client.member}", flush=True)
+        paged = scheduler.paged_stats()
+        print(f"serving on http://{host}:{port}  "
+              f"(slots={scheduler.num_slots} queue={scheduler.queue_size} "
+              f"deadline_ms={scheduler.default_deadline_ms} "
+              f"int8={decoder.quantize == 'int8'} "
+              f"paged={paged['block'] if paged else 0} "
+              f"device={decoder.device})", flush=True)
         while not stop.wait(0.5):
             pass
         print("SIGTERM: draining (in-flight requests finishing)",
@@ -199,6 +212,8 @@ def _main_replica(args):
             time.sleep(0.05)
         print("drained, exiting", flush=True)
     finally:
+        if client is not None:
+            client.leave(why="drained")
         server.shutdown()
         scheduler.close()
     return 0
@@ -287,8 +302,8 @@ def _main_router(args):
         procs, spawned = _spawn_fleet(args)
         replicas = (replicas or []) + spawned
     try:
-        router = ReplicaRouter(replicas=replicas, scrape_s=args.scrape_s,
-                               retries=args.retries)
+        router = ReplicaRouter(replicas=replicas, coordinator=args.coord,
+                               scrape_s=args.scrape_s, retries=args.retries)
         server = start_router(router, port=args.port, addr=args.addr)
         host, port = server.server_address[:2]
         print(f"routing on http://{host}:{port} over "
@@ -319,8 +334,6 @@ def _main_router(args):
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.coord or args.register:
-        raise SystemExit(COORD_REFUSAL)
     if args.router:
         return _main_router(args)
     return _main_replica(args)

@@ -6,9 +6,11 @@ A router process (``python -m mxnet_tpu_torch.serving --router``) owns
 the replica registry and fronts ``POST /generate``:
 
 - **registry** — a static ``host:port`` list (``MXTPU_SERVE_REPLICAS``
-  or ``replicas=``).  Self-registration through a coordinator
-  (``coordinator=``, :func:`register_replica`) waits for
-  ``parallel/coordinator.py`` (ROADMAP Queue 1 item 10) and raises.
+  or ``replicas=``) and/or a coordinator
+  (:mod:`mxnet_tpu_torch.parallel.coordinator`): replicas join it with
+  ``role="serve"`` (:func:`register_replica`, the serve CLI's
+  ``--register``), and a router given ``coordinator=`` folds them into
+  the registry each sweep and drops them when their lease lapses.
 - **balancing** — each replica's ``/healthz`` ``{slots, occupied,
   queue_depth, queue_size, draining}`` is scraped every
   ``MXTPU_ROUTER_SCRAPE_S`` on a background thread and cached;
@@ -134,40 +136,45 @@ def replicas_from_env():
     return [a.strip() for a in raw.split(",") if a.strip()]
 
 
-def _coordinator_refused():
-    return MXNetError(
-        "replica self-registration through a coordinator is not ported "
-        "yet: it needs parallel/coordinator.py (ROADMAP Queue 1 item 10); "
-        "list the replicas instead (MXTPU_SERVE_REPLICAS or replicas=)")
-
-
 def register_replica(serve_addr, coordinator=None, member=None):
-    """Self-register a serving replica with a coordinator — not ported
-    yet (ROADMAP Queue 1 item 10): raises :class:`MXNetError`."""
-    raise _coordinator_refused()
+    """Self-register a serving replica with a coordinator
+    (``role="serve"``): the replica holds a heartbeat lease like any
+    training host, routers find it in ``GET /cluster``, and its death
+    lapses the lease.  ``serve_addr`` is also its health and metrics
+    endpoint (one port serves /generate, /healthz and /metrics).
+    Returns the ``CoordinatorClient`` (call ``.leave()`` on a clean
+    shutdown)."""
+    from ..parallel.coordinator import CoordinatorClient, coord_addr
+
+    addr = coordinator or coord_addr()
+    if not addr:
+        raise MXNetError(
+            "no coordinator address: pass coordinator= or set "
+            "MXTPU_COORD_ADDR")
+    member = member or f"serve:{socket.gethostname()}:{os.getpid()}"
+    return CoordinatorClient(addr, member=member, rank=-1,
+                             telemetry_addr=str(serve_addr), role="serve")
 
 
 class ReplicaRouter:
     """The replica registry + least-loaded balancer.
 
     ``replicas``: static ``host:port`` list (default:
-    ``MXTPU_SERVE_REPLICAS``).  ``coordinator`` (a coordinator whose
-    members join the registry) is not ported yet and raises.
+    ``MXTPU_SERVE_REPLICAS``).  ``coordinator``: ``host:port`` of a
+    coordinator whose ``role="serve"`` members join the registry.
     ``start()`` launches the background health scrape;
     :func:`start_router` adds the HTTP front-end.
     """
 
     def __init__(self, replicas=None, coordinator=None, scrape_s=None,
                  retries=None, generate_timeout_s=300.0):
-        if coordinator:
-            raise _coordinator_refused()
         static = list(replicas) if replicas is not None \
             else replicas_from_env()
-        self.coordinator = None
-        if not static:
+        self.coordinator = coordinator
+        if not static and not coordinator:
             raise MXNetError(
                 "router needs replicas: set MXTPU_SERVE_REPLICAS or pass "
-                "replicas=")
+                "a coordinator address for self-registration")
         self.scrape_s = (router_scrape_s() if scrape_s is None
                          else float(scrape_s))
         self.retries = router_retries() if retries is None \
@@ -190,10 +197,40 @@ class ReplicaRouter:
                 "at": 0.0}
 
     # ------------------------------------------------------------- registry
+    def _coordinator_members(self):
+        """The advertised endpoints of the coordinator's ``role="serve"``
+        members (the self-registered half of the registry)."""
+        cl = _fleet.fetch_json(self.coordinator, "/cluster",
+                               timeout=min(self.scrape_s * 2, 5.0))
+        return {m["telemetry"] for m in (cl.get("members") or {}).values()
+                if m.get("role") == "serve" and m.get("telemetry")}
+
     def scrape_once(self):
-        """One registry sweep: re-scrape every replica's /healthz into
-        the routing cache.  Pure host-side HTTP; one dead replica costs a
-        bounded timeout, never the sweep."""
+        """One registry sweep: fold in the coordinator's replicas, then
+        re-scrape every replica's /healthz into the routing cache.  Pure
+        host-side HTTP; one dead replica costs a bounded timeout, never
+        the sweep."""
+        if self.coordinator:
+            try:
+                seen = self._coordinator_members()
+            except Exception as exc:  # noqa: BLE001 — a dead coordinator
+                #   degrades discovery, never routing over known replicas
+                _logger.warning("router: coordinator %s unreachable: %r",
+                                self.coordinator, exc)
+            else:
+                with self._lock:
+                    for addr in seen:
+                        if addr not in self._replicas:
+                            self._replicas[addr] = self._new_row(
+                                addr, "coordinator")
+                            _logger.info("router: replica %s joined via "
+                                         "coordinator", addr)
+                    for addr in [a for a, r in self._replicas.items()
+                                 if r["source"] == "coordinator"
+                                 and a not in seen]:
+                        del self._replicas[addr]
+                        _logger.warning("router: replica %s left the "
+                                        "coordinator registry", addr)
         with self._lock:
             addrs = list(self._replicas)
         for addr in addrs:

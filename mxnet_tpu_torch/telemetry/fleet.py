@@ -14,7 +14,8 @@ A copy of ``mxnet_tpu/telemetry/fleet.py`` (pure stdlib):
 - the straggler knobs (``MXTPU_STRAGGLER_RATIO``,
   :data:`STRAGGLER_MIN_STEPS`, :data:`STRAGGLER_SUSTAIN`) and the
   ``dist_step_skew_ratio`` / ``dist_straggler_host`` families, which the
-  coordinator will publish once it is ported (ROADMAP Queue 1 item 10).
+  coordinator (:mod:`mxnet_tpu_torch.parallel.coordinator`) publishes
+  from its members' heartbeat step times.
 
 The scrape loop is pure host-side HTTP and never touches the device.
 """

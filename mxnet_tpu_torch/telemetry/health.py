@@ -447,12 +447,11 @@ _clock_lock = threading.Lock()
 def set_clock_offset(offset_s: float, rtt_s=None, source="coordinator"):
     """Record this host's clock-offset estimate vs the coordinator.
 
-    ``offset_s`` is (coordinator clock - local clock), as the JAX
-    package's coordinator client derives it from each heartbeat's RTT
-    midpoint (the port has no coordinator yet, ROADMAP Queue 1 item 10,
-    so only a caller sets it).  The estimate rides every flight dump and
-    span so ``tools/fleetstat.py merge-trace`` can put per-host lanes on
-    one timebase."""
+    ``offset_s`` is (coordinator clock - local clock), as the
+    coordinator client (:mod:`mxnet_tpu_torch.parallel.coordinator`)
+    derives it from each heartbeat's RTT midpoint.  The estimate rides
+    every flight dump and span so a trace merger can put per-host lanes
+    on one timebase."""
     with _clock_lock:
         _clock["offset_s"] = float(offset_s)
         _clock["rtt_s"] = None if rtt_s is None else float(rtt_s)

@@ -93,9 +93,13 @@ replays a launch schedule it captured before a search; the others stay.
 
 The steps make no host sync (no ``.item()`` / ``.cpu()``), checkpoints
 and planes armed or not; the caller reads the returned outputs when it
-needs them.  Not ported yet, and raising when asked for: ``mesh`` /
-``sharding_rules`` (ROADMAP Queue 1 item 10) and the elastic coordinator
-(item 10).
+needs them.  With ``MXTPU_COORD_ADDR`` set, ``fit`` joins the
+coordinator (:mod:`mxnet_tpu_torch.parallel.coordinator`), polls it once
+a step on the host and, when the cluster's generation moves, writes a
+boundary checkpoint (when armed) and raises
+:class:`~mxnet_tpu_torch.parallel.dist.GenerationChanged`.  Not ported
+yet, and raising when asked for: ``mesh`` / ``sharding_rules``
+(ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -174,7 +178,7 @@ class FusedTrainer:
                  fixed_param_names=(), clip_global_norm=None,
                  lr_scheduler=None, device=None):
         if mesh is not None or sharding_rules:
-            raise _not_ported("mesh / sharding_rules", 10)
+            raise _not_ported("mesh / sharding_rules", "10b")
         if remat is None:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
         self.remat = bool(remat)
@@ -780,9 +784,6 @@ class FusedTrainer:
         ``resume=True`` (or a path) restores the newest complete
         checkpoint and skips the batches its cursor already trained.
         Returns self."""
-        if os.environ.get("MXTPU_COORD_ADDR", "").strip():
-            raise _not_ported("the elastic coordinator (MXTPU_COORD_ADDR)",
-                              10)
         from . import checkpoint as _ckpt
         from . import metric as metric_mod
 
@@ -849,7 +850,11 @@ class FusedTrainer:
         from . import checkpoint as _ckpt
         from . import engine
         from .module.base_module import BatchEndParam, _as_list
+        from .parallel import coordinator as _coordinator
 
+        # membership: armed by MXTPU_COORD_ADDR; step_poll is a
+        # host-side flag check
+        coord = _coordinator.client_from_env()
         train_names = ([d[0] for d in train_data.provide_data]
                        + [d[0] for d in train_data.provide_label])
         eval_label_names = ([d[0] for d in getattr(eval_data, "provide_label",
@@ -899,6 +904,14 @@ class FusedTrainer:
                                        if prev_tick is not None else 0.0),
                             dispatch=tp - t0, window_stall=now - tp)
                     prev_tick = now
+                if coord is not None and coord.step_poll():
+                    # the generation moved: checkpoint this boundary,
+                    # then leave by name
+                    w = None
+                    if mgr is not None:
+                        w = self.save_state(mgr, epoch=epoch, nbatch=nbatch,
+                                            background=False)
+                    coord.raise_generation_changed(getattr(w, "path", None))
                 if mgr is not None:
                     if mgr.preempted:
                         # the snapshot is ordered behind the queued steps
@@ -1157,4 +1170,4 @@ class FusedTrainer:
 
     # ------------------------------------------------------- not ported
     def rebind_mesh(self, *args, **kwargs):
-        raise _not_ported("rebind_mesh", 10)
+        raise _not_ported("rebind_mesh", "10b")

@@ -449,7 +449,9 @@ def test_fit_host_syncs_do_not_grow_with_batches(monkeypatch):
 ])
 def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, kw, env,
                                         match):
-    """The coordinator still raises.  The item 7 cases are ported:
+    """The item 10 case is ported: ``MXTPU_COORD_ADDR`` joins the
+    coordinator before the first step, and one nobody runs is the named
+    ``HostLostError`` (site "coordinator").  The item 7 cases are ported:
     ``checkpoint=`` and ``MXTPU_CKPT_DIR`` arm checkpoints (a terminal
     one lands), and ``resume=True`` with no directory raises as the
     reference's does.  The item 11 cases are ported too: the flight
@@ -493,6 +495,8 @@ def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, kw, env,
         return
     if match == "item 7":
         match = "needs a checkpoint directory"
+    if match == "item 10":
+        match = "host lost at site 'coordinator': host=localhost:1"
     with pytest.raises(MXNetError, match=match):
         tt.fit(it, **kw)
     assert tt._step == 0

@@ -1995,3 +1995,74 @@ def test_native_runtime_and_host_engine_on_the_card_host(card):
         engine.push(lambda i=i: out.append(i), mutable_vars=[v])
     engine.wait_for_host_var(v)
     assert out == list(range(10))
+
+
+def test_dist_store_moves_card_values_through_pinned_buffers(card,
+                                                             monkeypatch):
+    """A parameter-server store on card tensors: the push snapshots a
+    channels-last gradient into a pinned host buffer behind the kernel
+    that wrote it (the loop makes no host sync), the server applies the
+    port's SGD on the host, and the lazy pull lands the update in the
+    card weight, ordered before the next kernel reads it.  The server
+    never initialises CUDA (it runs in this process here, so only its
+    arithmetic is checked: the card's values equal the host update)."""
+    import socket
+    import threading
+
+    from mxnet_tpu_torch import kvstore as tkv
+    from mxnet_tpu_torch import kvstore_server as tserver
+    from mxnet_tpu_torch import optimizer as topt
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    monkeypatch.setenv("MXTPU_PS_SERVERS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("MXTPU_NUM_WORKERS", "1")
+    monkeypatch.setenv("MXTPU_RANK", "0")
+    srv = tserver.KVStoreServer(num_workers=1, port=port, host="127.0.0.1")
+    t = threading.Thread(target=srv.run, daemon=True)
+    t.start()
+    kv = tkv.create("dist_sync")
+    try:
+        g = torch.Generator(device="cpu").manual_seed(5)
+        w0 = torch.randn(8, 4, 3, 3, generator=g)
+        w = w0.to(card).contiguous(memory_format=torch.channels_last)
+        kv.init(0, tnd.NDArray(w))
+        opt = topt.create("sgd", learning_rate=0.1, momentum=0.9,
+                          rescale_grad=0.5)
+        kv.set_optimizer(opt)
+        ref_w, ref = w0.clone(), topt.get_updater(topt.create(
+            "sgd", learning_rate=0.1, momentum=0.9, rescale_grad=0.5))
+        x = torch.randn(8, 4, 3, 3, generator=g).to(card)
+        for step in range(3):
+            grad = (x * (step + 1)).contiguous(
+                memory_format=torch.channels_last)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                kv.push(0, tnd.NDArray(grad))
+                kv.pull(0, tnd.NDArray(w))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            kv.wait_pulls()
+            y = w * 2.0                     # reads the pulled weight
+            ref(0, tnd.NDArray(grad.cpu().contiguous()), tnd.NDArray(ref_w))
+            torch.testing.assert_close(y.cpu(), ref_w * 2.0, rtol=0, atol=0)
+        stats = kv.comm_stats()
+        assert stats["pushes"] == stats["pulls"] == 3
+        assert stats["loop_waits"] == 3
+    finally:
+        kv._send_stop()
+        t.join(30)
+    assert not t.is_alive()
+
+
+def test_server_optimizer_pickle_moves_card_tensors_to_the_host(card):
+    from mxnet_tpu_torch import kvstore_server as tserver
+    from mxnet_tpu_torch import optimizer as topt
+
+    opt = topt.create("sgd", learning_rate=0.1)
+    opt.scale = torch.ones(3, device=card)
+    back = tserver._loads_no_import(tserver.dumps_host(opt))
+    assert back.scale.device.type == "cpu"
+    torch.testing.assert_close(back.scale, torch.ones(3))

@@ -323,14 +323,23 @@ def test_length_mismatches_raise():
         kv.init(0, tnd.ones((2,), ctx=CPU))
 
 
-def test_store_surface_and_refusals():
+def test_store_surface_and_refusals(monkeypatch):
     kv = tmx.kv.create("device")
     assert (kv.type, kv.rank, kv.num_workers) == ("device", 0, 1)
     kv.barrier()
     with pytest.raises(MXNetError, match="no updater"):
         kv.save_optimizer_states("x")
+    monkeypatch.delenv("MXTPU_PS_SERVERS", raising=False)
+    monkeypatch.delenv("DMLC_NUM_WORKER", raising=False)
     for name in ("dist_sync", "dist_async", "dist_device_sync"):
-        with pytest.raises(MXNetError, match="item 10"):
+        # one process without servers keeps the local semantics
+        monkeypatch.delenv("MXTPU_NUM_WORKERS", raising=False)
+        dkv = tmx.kv.create(name)
+        assert (dkv.type, dkv.rank, dkv.num_workers) == (name, 0, 1)
+        assert dkv.collective and dkv.get_num_dead_node(0) == 0
+        # several workers without servers would be the collective path
+        monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")
+        with pytest.raises(MXNetError, match="item 10b"):
             tmx.kv.create(name)
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tmx.kv.create("nosuch")

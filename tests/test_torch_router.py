@@ -328,13 +328,72 @@ def test_rolling_upgrade_under_live_traffic(decs, metrics):
         _teardown(servers, scheds, router, rsrv)
 
 
-def test_coordinator_registration_is_refused():
-    with pytest.raises(MXNetError, match="Queue 1 item 10"):
-        register_replica("127.0.0.1:1", coordinator="127.0.0.1:2")
-    with pytest.raises(MXNetError, match="Queue 1 item 10"):
-        ReplicaRouter(replicas=["127.0.0.1:1"], coordinator="127.0.0.1:2")
+def _closed_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()  # nothing listens here
+    return port
+
+
+def test_coordinator_registration_is_refused(monkeypatch):
+    """Registration with a coordinator nobody runs is refused by name
+    (the JAX package's HostLostError, site "coordinator"); without any
+    address it names the missing address; a router with neither replicas
+    nor a coordinator still refuses."""
+    from mxnet_tpu_torch.parallel.dist import HostLostError
+
+    dead = f"127.0.0.1:{_closed_port()}"
+    with pytest.raises(HostLostError, match=dead) as ei:
+        register_replica("127.0.0.1:1", coordinator=dead)
+    assert ei.value.site == "coordinator" and ei.value.host == dead
+    monkeypatch.delenv("MXTPU_COORD_ADDR", raising=False)
+    with pytest.raises(MXNetError, match="no coordinator address"):
+        register_replica("127.0.0.1:1")
     with pytest.raises(MXNetError, match="needs replicas"):
         ReplicaRouter(replicas=[])
+
+
+def test_register_replica_through_port_coordinator(decs):
+    """A replica joins the port's coordinator with role "serve"; a router
+    given only the coordinator finds it in /cluster, routes to it, and
+    drops it once it leaves (the JAX package's registry, copied)."""
+    from mxnet_tpu_torch.parallel.coordinator import CoordinatorService
+
+    svc = CoordinatorService(port=0, lease_s=5.0).start()
+    srv, sch = serve_decoder(decs[1], port=0, num_slots=2, queue_size=4)
+    addr = "127.0.0.1:%d" % srv.server_address[1]
+    router = rsrv = client = None
+    try:
+        client = register_replica(addr, coordinator=svc.address)
+        member = svc.cluster()["members"][client.member]
+        assert member["role"] == "serve" and member["telemetry"] == addr
+        assert member["rank"] == -1
+        router = ReplicaRouter(coordinator=svc.address, scrape_s=0.1)
+        rows = router.scrape_once()
+        assert set(rows) == {addr}
+        assert rows[addr]["source"] == "coordinator" and rows[addr]["ok"]
+        rsrv = start_router(router, port=0)
+        status, body, _ = _post(rsrv.server_address[1],
+                                {"prompt": [1, 2, 3], "max_tokens": 4})
+        assert status == 200 and len(body["tokens"]) == 4
+        client.leave(why="drained")
+        client = None
+        assert router.scrape_once() == {}
+    finally:
+        if client is not None:
+            client.stop()
+        if rsrv is not None:
+            rsrv.shutdown()
+            rsrv.server_close()
+        if router is not None:
+            router.stop()
+        srv.shutdown()
+        srv.server_close()
+        sch.close()
+        svc.stop()
 
 
 def test_router_knobs_read_the_jax_names(monkeypatch):
@@ -483,13 +542,23 @@ def test_serve_cli_demo_params_are_the_jax_demo():
     assert list(p) == names
 
 
-def test_serve_cli_refuses_the_coordinator():
-    with pytest.raises(SystemExit, match="Queue 1 item 10"):
-        serve_cli.main(["--demo", "--device", "cpu", "--coord", "h:1"])
-    with pytest.raises(SystemExit, match="Queue 1 item 10"):
+def test_serve_cli_refuses_the_coordinator(monkeypatch):
+    """``--coord``/``--register`` are the JAX CLI's flags: a replica
+    told of a coordinator nobody runs stops with the named error (its
+    server shut down), and a router with neither replicas nor a
+    coordinator refuses."""
+    from mxnet_tpu_torch.parallel.dist import HostLostError
+
+    dead = f"127.0.0.1:{_closed_port()}"
+    monkeypatch.setattr(serve_cli, "_arm_sigterm", threading.Event)
+    with pytest.raises(HostLostError, match=dead):
+        serve_cli.main(CLI_MODEL + ["--demo", "--device", "cpu", "--coord",
+                                    dead, "--port", "0"])
+    monkeypatch.delenv("MXTPU_SERVE_REPLICAS", raising=False)
+    with pytest.raises(MXNetError, match="needs replicas"):
         serve_cli.main(["--router", "--register"])
     args = serve_cli._parse_args([])
-    assert args.device == "cuda"
+    assert args.device == "cuda" and args.coord is None
 
 
 # --------------------------------------------------- MXTPU_PAGED_KERNEL

@@ -261,7 +261,9 @@ def test_sources_import_neither_jax_nor_mxnet_tpu():
                 os.path.join("ops", "vision.py"),
                 os.path.join("ops", "ctc.py"),
                 os.path.join("models", "ssd.py"), "_c_api_impl.py",
-                "libinfo.py"):
+                "libinfo.py", "kvstore_server.py", "launch.py",
+                os.path.join("parallel", "dist.py"),
+                os.path.join("parallel", "coordinator.py")):
         assert os.path.join(REPO, "mxnet_tpu_torch", new) in files, new
     for f in files:
         for mod in _imports(f):
@@ -298,7 +300,10 @@ def test_import_pulls_in_no_jax():
             "mxnet_tpu_torch.serving.__main__, "
             "mxnet_tpu_torch.telemetry.fleet, mxnet_tpu_torch.ops.vision, "
             "mxnet_tpu_torch.ops.ctc, mxnet_tpu_torch.models.ssd, "
-            "mxnet_tpu_torch._c_api_impl, mxnet_tpu_torch.libinfo\n"
+            "mxnet_tpu_torch._c_api_impl, mxnet_tpu_torch.libinfo, "
+            "mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch.launch, "
+            "mxnet_tpu_torch.parallel.dist, "
+            "mxnet_tpu_torch.parallel.coordinator\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\nprint('CLEAN')\n")

@@ -32,8 +32,8 @@ from mxnet_tpu_torch.resource import Resource, ResourceManager, \
     ResourceRequest
 
 # the reference's top-level names the port does not export yet, with the
-# ROADMAP Queue 1 item each waits for
-WAITING = {"kvstore_server": 10}
+# ROADMAP Queue 1 item each waits for (kvstore_server is ported)
+WAITING = {}
 
 
 # ------------------------------------------------------------- Context
