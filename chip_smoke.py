@@ -13,8 +13,8 @@ the LSTM language model (``FusedTrainer`` and ``BucketingModule``), and
 the detection zoo (SSD-VGG16-300 training and detection, Faster
 R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), MXNet from
 C (the predict ABI, the general C API from C++, the native runtime),
-and MXNet's parameter-server training (``dist_sync``/``dist_async``
-under the port's launcher) — and holds each
+MXNet's parameter-server training (``dist_sync``/``dist_async``
+under the port's launcher) and its core telemetry — and holds each
 hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
@@ -374,7 +374,26 @@ hand-written CUDA kernel
    ``MXTPU_KV_RECOVERY=1``: it pulls the servers' trained model (not its
    own initialisation), worker 0's ``get_num_dead_node`` sees it dead,
    worker 0's loss falls, and images/s and the restart's wall are
-   printed (``launches_dist_async``).
+   printed (``launches_dist_async``);
+42. MXNet's core telemetry (``phase_core_telemetry``; its Module half,
+   ``_core_module``, runs right after phase 25, beside
+   ``phase_module_resnet``'s cell): ResNet-50 through ``Module.fit`` at
+   b256 fp32 with the bucketed kvstore, ``Accuracy`` and a
+   ``Speedometer``, 2 rounds of a 6-batch epoch with the families off
+   then on after a warm-up epoch — the families' values as
+   ``core_loop_counts`` predicts (the CPU tests hold both packages to
+   it), the bucket families equal to a new store's plan, both stall
+   sites, no compile after the warm-up, host syncs on the Speedometer's
+   report batches only; the LM ``FusedTrainer`` at phase 36's cell, 2
+   rounds of a 10-step ``fit`` epoch off then on — 10 x B samples, 10
+   step observations, no compile, 0 host syncs a batch, L launches of
+   each flash kernel a step, one step's launches held against the plain
+   versions; the ResNet-50 ``Predictor`` at b32, 20 forwards — 20
+   ``executor_forward_seconds`` observations, 80 epilogue launches each
+   held against the plain version; ``dump_json`` and one
+   ``LoggingReporter.report_once`` checked for those families; the step
+   ms on and off, their ratio, tokens/s and images/s
+   (``launches_core_telemetry``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -1673,11 +1692,11 @@ class _SyncCounter:
             return self.originals[name](*a, **kw)
         return f
 
-    def _window_wait(self, window):
+    def _window_wait(self, window, site):
         self.waits.append(1)
         torch.cuda.set_sync_debug_mode(0)
         try:
-            self.wait_one(window)
+            self.wait_one(window, site)
         finally:
             torch.cuda.set_sync_debug_mode("warn")
 
@@ -1704,7 +1723,7 @@ class _SyncCounter:
             setattr(torch.Tensor, m, self._counted(m))
         self.wait_one = engine.AsyncWindow._wait_one
         engine.AsyncWindow._wait_one = \
-            lambda window: self._window_wait(window)
+            lambda window, site: self._window_wait(window, site)
         torch.cuda.set_sync_debug_mode("warn")
         return self
 
@@ -7816,10 +7835,16 @@ def _paged_autotune(cfg, params, smi, wd):
         raise AssertionError(f"readonly: {kept.schedule}, file written "
                              f"{os.path.exists(ro)}")
     del kept
-    if n_trials != len(us) or won["impl"] != "cuda":
-        raise AssertionError(f"search: {n_trials} trials for {len(us)} "
-                             f"candidates, winner {won}")
-    log(f"[autotune] paged search: {n_trials} trials in {search_s:.2f} s "
+    # every candidate once, and the four re-timings of a winner the
+    # search confirmed against the default (autotune_trials_total)
+    if best["trials"] != len(us) or n_trials - len(us) not in (0, 4) or \
+            won["impl"] != "cuda":
+        raise AssertionError(f"search: {n_trials} trials ({best['trials']} "
+                             f"recorded) for {len(us)} candidates, winner "
+                             f"{won}")
+    log(f"[autotune] paged search: {n_trials} trials ({len(us)} candidates"
+        f"{', 4 re-timings to confirm a winner' if n_trials > len(us) else ''}"
+        f") in {search_s:.2f} s "
         f"(host wall, warm-up 2 + best of 5 each), winner "
         f"{_sched_name(won)} at {best['best_us']} µs (the default "
         f"{_sched_name(default)}: {us[_sched_name(default)]:.2f} µs by "
@@ -9348,6 +9373,415 @@ def phase_dist_async(smi):
     return result, launches
 
 
+# -------------------------------------------------------------- phase 42
+# MXNet's core telemetry (the trainer, engine, executor, kvstore, metric
+# and Speedometer families) on the card: the LM step and the ResNet-50
+# Module loop with the families off and on, the Predictor's forwards,
+# dump_json and one LoggingReporter line
+CORE_STEPS = 10                  # LM steps an epoch (one epoch a setting)
+CORE_ROUNDS = 2                  # off/on epochs alternated, each model
+CORE_MODULE_BATCHES = 6          # Module.fit batches of MODULE_BATCH
+CORE_FREQUENT = 2                # the Speedometer's reporting period
+CORE_PREDICT_CALLS = 20
+
+
+def core_loop_counts(batches, batch, frequent, epochs=1, depth=2):
+    """The deterministic values of the core families after ``epochs``
+    epochs of ``Module.fit`` over ``batches`` full batches of ``batch``
+    through a local kvstore, with the fused ``Accuracy`` and
+    ``Speedometer(batch, frequent)`` (auto_reset), as both packages record
+    them: ``{family: {label items: value}}`` in the shape of
+    tests/test_torch_core_telemetry.py's ``_values``, which holds the two
+    packages to it on the CPU.  The Speedometer reports at every
+    ``frequent``-th batch after the first (a drain of the accuracy each),
+    the epoch's end drains once more when batches came after the last
+    report, and the async window waits once a batch past its ``depth``,
+    the rest at the boundary."""
+    reports = (batches - 1) // frequent
+    drains = reports + (1 if (batches - 1) % frequent else 0)
+
+    def nonzero(d):             # a count that never moved has no sample
+        return {k: v for k, v in d.items() if v}
+
+    counts = {
+        "trainer_samples_total": {(("loop", "module"),):
+                                  float(epochs * batches * batch)},
+        "speedometer_samples_total": {(): float(epochs * reports * frequent
+                                                * batch)},
+        "kvstore_fused_update_seconds": {(("store", "local"),):
+                                         epochs * batches},
+        "metric_fused_update_total": {(("metric", "accuracy"),):
+                                      float(epochs * batches)},
+        "metric_host_sync_total": {(("metric", "accuracy"),):
+                                   float(epochs * drains)},
+        "executor_forward_seconds": {(): epochs * batches},
+        "executor_backward_seconds": {(): epochs * batches},
+        "trainer_host_stall_seconds": {
+            (("site", "window"),): epochs * max(batches - depth, 0),
+            (("site", "boundary"),): epochs * min(batches, depth)},
+    }
+    counts = {k: nonzero(v) for k, v in counts.items()}
+    counts["engine_pipeline_depth"] = {(): 0.0}
+    return counts
+
+
+def _core_values(tm, names):
+    """``core_loop_counts``'s shape from the registry: a counter's or a
+    gauge's value, a histogram's observation count, by label items."""
+    snap = tm.json_snapshot()["metrics"]
+    return {n: {tuple(sorted(s["labels"].items())):
+                s["count"] if "count" in s else s["value"]
+                for s in snap[n]["samples"]} for n in names}
+
+
+def _core_lm(smi, cfg):
+    """The LM ``FusedTrainer`` at phase_planes' cell, one fit epoch of
+    CORE_STEPS steps a setting, CORE_ROUNDS rounds of off then on; with
+    the families on: CORE_STEPS x B samples, CORE_STEPS step observations,
+    no compile, 0 host syncs a batch, L launches of each flash kernel a
+    step; first, one step's flash launches held against the plain
+    versions.  Returns (summary, flash launches of the on epochs)."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    B, T, V, L = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"], \
+        cfg["num_layers"]
+    tm.enable(False)
+    mxrandom.seed(0)
+    tk = FusedTrainer(tr.transformer_lm(**cfg), optimizer="adam",
+                      optimizer_params={"lr": 1e-4},
+                      dtype="bfloat16").init(data=(B, T),
+                                             softmax_label=(B, T))
+    # one step's launches, each against its plain version, at the state
+    # where phase_profiler holds them (FLASH_STEP_TILE_TOL's calibration:
+    # seed 0, its batch, the fifth step): a late step's dQ tiles cancel
+    # further, and a tile's error relative to its norm grows with that
+    rng = np.random.default_rng(0)
+    d0 = rng.integers(0, V, (B, T)).astype(np.float32)
+    l0 = rng.integers(0, V, (B, T)).astype(np.float32)
+    for _ in range(4):
+        tk.step(data=d0, softmax_label=l0)
+    with _FlashRecorder() as rec:
+        tk.step(data=d0, softmax_label=l0)
+    checked = rec.check("core telemetry LM step")
+    if checked != {k: L for k in fa.launch_counts()}:
+        raise AssertionError(f"LM step checked {checked}")
+    rng = np.random.default_rng(42)
+    data = rng.integers(0, V, (B * CORE_STEPS, T)).astype(np.float32)
+    label = rng.integers(0, V, (B * CORE_STEPS, T)).astype(np.float32)
+    _lm_epoch(tk, data, label)                    # warm-up, families off
+    walls = {"off": [], "on": []}
+    flash = {k: 0 for k in fa.launch_counts()}
+    for _ in range(CORE_ROUNDS):
+        tm.enable(False)
+        wall, _ = _lm_epoch(tk, data, label)
+        walls["off"].append(wall)
+        tm.reset()
+        tm.enable()
+        reg = tm.get_registry()
+        compiles = reg.get("executor_compile_total").total()
+        fa.reset_launch_counts()
+        wall, sync = _lm_epoch(tk, data, label)
+        got = fa.launch_counts()
+        walls["on"].append(wall)
+        per_batch = [b - a for a, b in zip(sync.marks, sync.marks[1:])]
+        samples = reg.get("trainer_samples_total").value(loop="fused")
+        steps = reg.get("trainer_step_seconds").count(loop="fused")
+        if (len(sync.marks) != CORE_STEPS or any(per_batch)
+                or sync.marks[0]):
+            raise AssertionError(f"LM with the families on: host syncs "
+                                 f"{sync.marks}")
+        if samples != CORE_STEPS * B or steps != CORE_STEPS or \
+                reg.get("executor_compile_total").total() != compiles:
+            raise AssertionError(f"LM families: samples {samples}, steps "
+                                 f"{steps}, compiles {compiles} -> "
+                                 f"{reg.get('executor_compile_total').total()}")
+        if got != {k: L * CORE_STEPS for k in got}:
+            raise AssertionError(f"LM flash launches {got}")
+        for k, v in got.items():
+            flash[k] += v
+    step_ms = reg.get("trainer_step_seconds").sum(loop="fused") \
+        / CORE_STEPS * 1e3
+    tm.enable(False)
+    del tk
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = sum(walls["off"]) / (CORE_ROUNDS * CORE_STEPS) * 1e3
+    on = sum(walls["on"]) / (CORE_ROUNDS * CORE_STEPS) * 1e3
+    out = {"step_ms_off": off, "step_ms_on": on, "ratio": on / off,
+           "tokens_per_s_off": B * T / off * 1e3,
+           "tokens_per_s_on": B * T / on * 1e3,
+           "dispatch_ms_on": step_ms, "tiles": rec.tiles}
+    log(f"[core_telemetry] LM fit ({B} x {T}, bf16 Adam), {CORE_ROUNDS} "
+        f"rounds of {CORE_STEPS} steps off then on: step {off:.3f} ms off, "
+        f"{on:.3f} ms on (ratio {on / off:.4f}); tokens/s "
+        f"{out['tokens_per_s_off']:.1f} off, {out['tokens_per_s_on']:.1f} "
+        f"on; with the families on: trainer_samples_total {samples:.0f}, "
+        f"{steps} trainer_step_seconds observations (mean dispatch "
+        f"{step_ms:.3f} ms), compiles flat, 0 host syncs a batch; flash "
+        f"launches {got} an epoch; one step's launches against the plain "
+        f"versions {checked} (worst tile {json.dumps(rec.tiles)}); {smi}")
+    return out, flash
+
+
+def _core_module(smi):
+    """ResNet-50 through ``Module.fit`` at phase_module_resnet's cell
+    (b256, fp32, TF32 off, SGD lr 0.05 momentum 0.9, a local kvstore
+    instance: the bucketed update) with ``Accuracy`` and a Speedometer,
+    CORE_ROUNDS rounds of one epoch off then one on after a warm-up
+    epoch; with the families on, the values ``core_loop_counts``
+    predicts, the bucket families equal to the plan, both stall sites,
+    no compile, and host syncs on the Speedometer's report batches only.
+    Returns (summary, kernel launches of the on epochs)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import callback, io, metric, models
+    from mxnet_tpu_torch import telemetry as tm
+
+    net = models.get_symbol("resnet-50", num_classes=1000,
+                            image_shape=(3, 224, 224))
+    rs = np.random.RandomState(7)
+    n = MODULE_BATCH * CORE_MODULE_BATCHES
+    x = rs.uniform(0, 1, (n, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, 1000, n).astype(np.float32)
+    kv = mx.kv.create("local")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    names = ("trainer_samples_total", "speedometer_samples_total",
+             "kvstore_fused_update_seconds", "metric_fused_update_total",
+             "metric_host_sync_total", "executor_forward_seconds",
+             "executor_backward_seconds", "trainer_host_stall_seconds",
+             "engine_pipeline_depth")
+    want = core_loop_counts(CORE_MODULE_BATCHES, MODULE_BATCH, CORE_FREQUENT)
+
+    def epoch(first=False):
+        it = io.NDArrayIter(x, y, batch_size=MODULE_BATCH)
+        kw = dict(kvstore=kv, optimizer="sgd", optimizer_params=MODULE_OPT,
+                  initializer=mx.init.Xavier()) if first else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _SyncCounter() as sync:
+            mod.fit(it, eval_metric=metric.Accuracy(), num_epoch=1,
+                    batch_end_callback=[
+                        callback.Speedometer(MODULE_BATCH, CORE_FREQUENT),
+                        sync.mark], **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sync
+
+    tm.enable(False)
+    epoch(first=True)                             # warm-up, families off
+    walls = {"off": [], "on": []}
+    launches = {k: 0 for k in _kernel_launches(reset=True)}
+    for _ in range(CORE_ROUNDS):
+        tm.enable(False)
+        wall, _ = epoch()
+        walls["off"].append(wall)
+        tm.reset()
+        tm.enable()
+        _kernel_launches(reset=True)
+        wall, sync = epoch()
+        for k, v in _kernel_launches().items():
+            launches[k] += v
+        walls["on"].append(wall)
+        got = _core_values(tm, names)
+        reg = tm.get_registry()
+        engine = kv._fused
+        nb = engine.num_buckets
+        nbytes = sum(b.nbytes for b in engine._buckets)
+        bucket = (reg.get("kvstore_bucket_count").value(store="local"),
+                  reg.get("kvstore_bucket_bytes").count(store="local"),
+                  reg.get("kvstore_bucket_bytes").sum(store="local"))
+        per_batch = [b - a for a, b in zip([0] + sync.marks, sync.marks)]
+        report = [i for i in range(CORE_MODULE_BATCHES)
+                  if i and i % CORE_FREQUENT == 0]
+        if got != want:
+            raise AssertionError(f"Module families {got}, predicted {want}")
+        # the plan is built at the first push of a store, in the warm-up:
+        # the on epochs keep it, and record no bucket family
+        if bucket != (0.0, 0, 0.0) or not nb:
+            raise AssertionError(f"bucket families {bucket} on a plan of "
+                                 f"{nb} buckets")
+        if reg.get("executor_compile_total").total():
+            raise AssertionError("Module compiles after the warm-up")
+        if any(s for i, s in enumerate(per_batch) if i not in report):
+            raise AssertionError(f"Module host syncs a batch {per_batch}")
+    # the bucket families at a plan's build: a new store, one step
+    tm.reset()
+    tm.enable()
+    kv2 = mx.kv.create("local")
+    mod.init_optimizer(kvstore=kv2, optimizer="sgd",
+                       optimizer_params=MODULE_OPT, force_init=True)
+    b0 = io.DataBatch(data=[mx.nd.array(x[:MODULE_BATCH], ctx=mx.gpu(0))],
+                      label=[mx.nd.array(y[:MODULE_BATCH], ctx=mx.gpu(0))])
+    mod.forward_backward(b0)
+    mod.update()
+    torch.cuda.synchronize()
+    reg = tm.get_registry()
+    plan = (reg.get("kvstore_bucket_count").value(store="local"),
+            reg.get("kvstore_bucket_bytes").count(store="local"),
+            reg.get("kvstore_bucket_bytes").sum(store="local"))
+    engine = kv2._fused
+    nb2 = engine.num_buckets
+    nbytes2 = sum(b.nbytes for b in engine._buckets)
+    kv_compiles = reg.get("executor_compile_total").value(kind="kv_update")
+    tm.enable(False)
+    if plan != (float(nb2), nb2, float(nbytes2)) or nb2 != nb or \
+            nbytes2 != nbytes:
+        raise AssertionError(f"bucket families {plan}; plan {nb2} buckets "
+                             f"of {nbytes2} bytes")
+    del mod, kv, kv2, x, y, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = sum(walls["off"]) / (CORE_ROUNDS * CORE_MODULE_BATCHES) * 1e3
+    on = sum(walls["on"]) / (CORE_ROUNDS * CORE_MODULE_BATCHES) * 1e3
+    out = {"batch_ms_off": off, "batch_ms_on": on, "ratio": on / off,
+           "img_s_off": MODULE_BATCH / off * 1e3,
+           "img_s_on": MODULE_BATCH / on * 1e3, "buckets": nb,
+           "bucket_bytes": nbytes, "families": {
+               k: {"/".join(f"{a}={b}" for a, b in lk) or "-": v
+                   for lk, v in d.items()} for k, d in got.items()},
+           "report_syncs": per_batch, "kv_update_compiles": kv_compiles}
+    log(f"[core_telemetry] ResNet-50 Module.fit (b{MODULE_BATCH}, fp32, "
+        f"bucketed kvstore, Speedometer every {CORE_FREQUENT}), "
+        f"{CORE_ROUNDS} rounds of {CORE_MODULE_BATCHES} batches off then "
+        f"on: {off:.3f} ms a batch off, {on:.3f} ms on (ratio "
+        f"{on / off:.4f}); images/s {out['img_s_off']:.2f} off, "
+        f"{out['img_s_on']:.2f} on; families as predicted: "
+        f"{json.dumps(out['families'])}; plan {nb} buckets of {nbytes} "
+        f"bytes = kvstore_bucket_count/_bytes at a new store's plan "
+        f"({kv_compiles:.0f} kv_update compiles there); host syncs a batch "
+        f"{per_batch} (the Speedometer's reports read the accuracy); "
+        f"launches {json.dumps(launches)}; {smi}")
+    return out, launches
+
+
+def _core_predict(smi):
+    """The ResNet-50 Predictor at b32, fp32: CORE_PREDICT_CALLS forwards
+    with the families on, one ``executor_forward_seconds`` observation
+    each and 4 epilogue launches each, every launch held against the
+    plain version.  Returns (summary, launches)."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    net, arg, aux = _resnet50()
+    x = np.random.default_rng(4).normal(
+        size=(PREDICT_BATCH, 3, 224, 224)).astype(np.float32)
+    p = _predictor(net, arg, aux)
+    for _ in range(3):
+        p.forward(data=x)
+        p.get_output(0)
+    tm.enable()
+    reg = tm.get_registry()
+    n0 = reg.get("executor_forward_seconds").count()
+    tre.reset_launch_count()
+    checked = 0
+    with _EpilogueRecorder() as rec:
+        for _ in range(CORE_PREDICT_CALLS):
+            p.forward(data=x)
+            out = p.get_output(0)
+            checked += rec.check("core telemetry Predictor")
+    launches = tre.launch_count()
+    fwd = reg.get("executor_forward_seconds").count() - n0
+    if fwd != CORE_PREDICT_CALLS or launches != 4 * CORE_PREDICT_CALLS or \
+            checked != launches:
+        raise AssertionError(f"Predictor: {fwd} forward observations, "
+                             f"{launches} epilogue launches, {checked} "
+                             f"checked in {CORE_PREDICT_CALLS} forwards")
+    if out.shape != (PREDICT_BATCH, 1000) or not np.isfinite(out).all() \
+            or not np.allclose(out.sum(1), 1.0, atol=1e-3):
+        raise AssertionError(f"Predictor output {out.shape} not a softmax")
+    mean_ms = reg.get("executor_forward_seconds").sum() / fwd * 1e3
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[core_telemetry] ResNet-50 Predictor b{PREDICT_BATCH} fp32, "
+        f"{CORE_PREDICT_CALLS} forwards: executor_forward_seconds counted "
+        f"{fwd} (mean dispatch {mean_ms:.3f} ms), {launches} epilogue "
+        f"launches, each within its bound of the plain version; {smi}")
+    counts = {k: 0 for k in _kernel_launches()}
+    counts["residual_epilogue"] = launches
+    return {"forwards": fwd, "dispatch_ms": mean_ms}, counts
+
+
+def _core_exports(smi):
+    """``dump_json`` of the registry as phase 42 left it (the LM's last on
+    epoch, the Predictor's forwards) and one ``LoggingReporter`` line,
+    each checked for the families."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    with tempfile.TemporaryDirectory() as wd:
+        path = tm.dump_json(os.path.join(wd, "metrics.json"))
+        size = os.path.getsize(path)
+        with open(path) as f:
+            dumped = json.load(f)["metrics"]
+    want = {"trainer_samples_total": float(CORE_STEPS * TRAIN_BATCH),
+            "trainer_step_seconds": CORE_STEPS,
+            "executor_forward_seconds": CORE_PREDICT_CALLS}
+    got = {}
+    for name in want:
+        s = dumped[name]["samples"]
+        got[name] = s[0].get("count", s[0].get("value")) if s else None
+    if got != want:
+        raise AssertionError(f"dump_json: {got}, want {want}")
+
+    class _Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    logger = logging.getLogger("chip_smoke.core_telemetry")
+    logger.propagate = False
+    handler = _Lines()
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        tm.LoggingReporter(logger=logger).report_once()
+    finally:
+        logger.removeHandler(handler)
+    line = handler.lines[0] if handler.lines else ""
+    for part in (f"trainer_samples_total{{loop=fused}}="
+                 f"{CORE_STEPS * TRAIN_BATCH}",
+                 f"trainer_step_seconds{{loop=fused}} n={CORE_STEPS} ",
+                 f"executor_forward_seconds n={CORE_PREDICT_CALLS} "):
+        if part not in line:
+            raise AssertionError(f"LoggingReporter line lacks {part!r}: "
+                                 f"{line[:400]}")
+    tm.reset()
+    tm.enable(False)
+    log(f"[core_telemetry] dump_json: {len(dumped)} families, {size} bytes, "
+        f"{json.dumps(got)}; LoggingReporter.report_once: one line of "
+        f"{len(line)} characters: {line[:240]}...; {smi}")
+    return {"families": len(dumped), "bytes": size}
+
+
+def phase_core_telemetry(smi, cfg, module):
+    """Phase 42, MXNet's core telemetry on the card (see the module
+    docstring).  ``module`` is ``_core_module``'s result, run earlier
+    beside phase_module_resnet's cell.  Returns (summary, launches of
+    its main path runs)."""
+    lm, flash = _core_lm(smi, cfg)
+    pred, pred_launches = _core_predict(smi)
+    exports = _core_exports(smi)
+    counts = dict(module[1])
+    for k, v in flash.items():
+        counts[k] += v
+    counts["residual_epilogue"] += pred_launches["residual_epilogue"]
+    mod = module[0]
+    log(f"[core_telemetry] step ms with the families on vs off: LM "
+        f"{lm['step_ms_on']:.3f} vs {lm['step_ms_off']:.3f} (ratio "
+        f"{lm['ratio']:.4f}, {lm['tokens_per_s_on']:.1f} tokens/s on); "
+        f"ResNet-50 Module b{MODULE_BATCH} {mod['batch_ms_on']:.3f} vs "
+        f"{mod['batch_ms_off']:.3f} (ratio {mod['ratio']:.4f}, "
+        f"{mod['img_s_on']:.2f} images/s on); launches "
+        f"{json.dumps(counts)}; {smi}")
+    return {"lm": lm, "module": mod, "predict": pred,
+            "exports": exports}, counts
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -9368,6 +9802,15 @@ def _kernel_launches(reset=False):
 
 
 # -------------------------------------------------------------------- main
+_T0 = None                       # main's start, for the [timing] lines
+
+
+def _elapsed(tag):
+    """Log the script's wall so far, after ``tag``: each phase's share of
+    the time limit the whole script runs under."""
+    log(f"[timing] {tag} done at {time.perf_counter() - _T0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -9379,9 +9822,14 @@ def main():
     # under torch.use_deterministic_algorithms needs (set before any
     # cuBLAS handle exists)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    global _T0
+    _T0 = time.perf_counter()
     smi, ptxas = phase_device()
+    _elapsed("phase_device")
     kern = phase_kernels()
+    _elapsed("phase_kernels")
     flash, flash_builds = phase_flash_kernels(ptxas)
+    _elapsed("phase_flash_kernels")
     paged_build = paged_build_record(ptxas["paged_attention"])
     log(f"[build] paged_attention (registers and spills: split, combine): "
         f"{json.dumps(paged_build)}")
@@ -9392,43 +9840,71 @@ def main():
     # path's counts
     slice16 = {}
     _, slice16["c_predict"] = phase_c_predict(smi)
+    _elapsed("phase_c_predict")
     _, slice16["c_api"] = phase_c_api(smi)
+    _elapsed("phase_c_api")
     # slice 17's workers (phases 40-41) each need ~7 GiB of their own:
     # next to 37-38, for the same reason
     slice17 = {}
     _, slice17["dist_sync"] = phase_dist_sync(smi)
+    _elapsed("phase_dist_sync")
     _, slice17["dist_async"] = phase_dist_async(smi)
+    _elapsed("phase_dist_async")
     log(f"[slice17] hand-written kernel launches by phase: "
         f"{json.dumps(slice17)}")
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
+    _elapsed("phase_serve")
     phase_parity(cfg, params)
+    _elapsed("phase_parity")
     flash_launches, train = phase_train()
+    _elapsed("phase_train")
     # recompute runs the same cell: next to it, before the image phases
     # fill the allocator's cache
     remat_launches, remat = phase_remat(smi)
+    _elapsed("phase_remat")
     # the profiled step is the same cell again
     prof, prof_launches = phase_profiler(smi)
+    _elapsed("phase_profiler")
     phase_train_resnet(smi)
+    _elapsed("phase_train_resnet")
     module = phase_module_resnet(smi)
+    _elapsed("phase_module_resnet")
     module_amp = phase_module_amp(smi, module)
+    _elapsed("phase_module_amp")
     # FeedForward and the Custom head run phase_module_resnet's cell (50
     # GiB at batch 256): next to it, before later phases fragment the
     # allocator's cache.  The epilogue runs in FeedForward's score and
     # predict, no hand-written kernel under the Custom head
     ff, ff_state, ff_launches = phase_feedforward(smi)
+    _elapsed("phase_feedforward")
     custom, custom_launches = phase_custom_op(smi, ff_state, ff["fit"])
+    _elapsed("phase_custom_op")
     del ff_state
+    # phase 42's Module half runs the same cell: next to it, for the same
+    # reason (its LM half, Predictor and exporters run last)
+    gc.collect()
+    torch.cuda.empty_cache()
+    core_module = _core_module(smi)
+    _elapsed("_core_module")
     epi, epi_launches = phase_predict()
+    _elapsed("phase_predict")
     ckpt = phase_checkpoint()
+    _elapsed("phase_checkpoint")
     rtc_kernels, rtc_launches = phase_rtc(ckpt["logits"], ckpt["n_params"])
+    _elapsed("phase_rtc")
     phase_train_inception(smi)
+    _elapsed("phase_train_inception")
     phase_module_alexnet(smi)
+    _elapsed("phase_module_alexnet")
     zoo = phase_zoo_score(smi)
+    _elapsed("phase_zoo_score")
     # the LSTM LM's path runs no hand-written kernel: the counts stay 0
     lstm_launches = _kernel_launches(reset=True)
     phase_train_lstm(smi)
+    _elapsed("phase_train_lstm")
     phase_bucketing_lstm(smi)
+    _elapsed("phase_bucketing_lstm")
     lstm_launches = _kernel_launches()
     log(f"[lstm] hand-written kernel launches in phases 12-13: "
         f"{json.dumps(lstm_launches)}")
@@ -9438,10 +9914,15 @@ def main():
     rec_dir = tempfile.TemporaryDirectory()
     workdir = rec_dir.name
     recs = phase_records(smi, workdir)
+    _elapsed("phase_records")
     iters = phase_record_iter(smi, recs)
+    _elapsed("phase_record_iter")
     train_rec = phase_train_records(smi, recs)
+    _elapsed("phase_train_records")
     module_rec = phase_module_records(smi, recs)
+    _elapsed("phase_module_records")
     phase_sequential(smi, workdir)
+    _elapsed("phase_sequential")
     rec_launches = _kernel_launches()
     step = train_rec["routes"]["resident"]["img_s"]
     log(f"[records] hand-written kernel launches in phases 14-18: "
@@ -9459,23 +9940,31 @@ def main():
     # kernel; survival's Predictor runs the epilogue, remat the flash ones
     sparse_launches = _kernel_launches(reset=True)
     phase_sparse_mf(smi)
+    _elapsed("phase_sparse_mf")
     phase_sparse_update(smi)
+    _elapsed("phase_sparse_update")
     sparse_launches = _kernel_launches()
     if any(sparse_launches.values()):
         raise AssertionError(f"phases 19-20 launched {sparse_launches}")
     survival = phase_survival(smi)
+    _elapsed("phase_survival")
     phase_kill_resume(smi)
+    _elapsed("phase_kill_resume")
     # slice 13: int8 serving, the generation loops, the router, int8
     # inference; each phase reads its own main path's counts
     gc.collect()
     torch.cuda.empty_cache()
     slice13 = {}
     slice13["serve_int8"], dec16 = phase_serve_int8(cfg, params, smi)
+    _elapsed("phase_serve_int8")
     slice13["generate"] = phase_generate(cfg, dec16, smi)
+    _elapsed("phase_generate")
     del dec16
     slice13["router"] = phase_router(cfg, params, smi)
+    _elapsed("phase_router")
     del params
     slice13["predict_int8"] = phase_predict_int8(smi)
+    _elapsed("phase_predict_int8")
     for tag, want in (("serve_int8", "paged_attention"),
                       ("router", "paged_attention"),
                       ("predict_int8", "residual_epilogue")):
@@ -9490,10 +9979,14 @@ def main():
     torch.cuda.empty_cache()
     det_launches = _kernel_launches(reset=True)
     _, ssd_params, ssd_data = phase_ssd_train(smi)
+    _elapsed("phase_ssd_train")
     phase_ssd_detect(smi, ssd_params, ssd_data)
+    _elapsed("phase_ssd_detect")
     del ssd_params, ssd_data
     phase_rcnn(smi)
+    _elapsed("phase_rcnn")
     phase_ocr(smi)
+    _elapsed("phase_ocr")
     det_launches = _kernel_launches()
     log(f"[detection] hand-written kernel launches in phases 31-34: "
         f"{json.dumps(det_launches)}")
@@ -9505,20 +9998,32 @@ def main():
     torch.cuda.empty_cache()
     cfg, params = _params(seed=0)
     _, tune_launches = phase_autotune(smi, cfg, params)
+    _elapsed("phase_autotune")
     gc.collect()
     torch.cuda.empty_cache()
     _, plane_launches = phase_planes(smi, cfg, params)
+    _elapsed("phase_planes")
     del params
     log(f"[slice15] hand-written kernel launches: autotune "
         f"{json.dumps(tune_launches)}; planes {json.dumps(plane_launches)}")
     # slice 16: the native runtime and the data iterators' telemetry
     # (phases 37-38 ran after phase 2)
     _, slice16["native"] = phase_native(smi, recs, iters["img_s"])
+    _elapsed("phase_native")
     rec_dir.cleanup()
     if not slice16["c_predict"]["residual_epilogue"]:
         raise AssertionError("c_predict: the epilogue never launched")
     log(f"[slice16] hand-written kernel launches by phase: "
         f"{json.dumps(slice16)}")
+    # slice 18: the core telemetry families (phase 42)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, core_launches = phase_core_telemetry(smi, cfg, core_module)
+    _elapsed("phase_core_telemetry")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "residual_epilogue"):
+        if not core_launches[name]:
+            raise AssertionError(f"phase 42: {name} never launched")
     k = kern["bf16"]       # the serving path runs the kernel in bf16
     rec = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
            "replaces": PAGED_REPLACES, "launches": launches}
@@ -9578,6 +10083,7 @@ def main():
         rec["launches_detection"] = det_launches[rec["name"]]
         rec["launches_autotune"] = tune_launches[rec["name"]]
         rec["launches_planes"] = plane_launches[rec["name"]]
+        rec["launches_core_telemetry"] = core_launches[rec["name"]]
     for rec in records[1:4]:
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()

@@ -18,6 +18,20 @@ class MXNetError(RuntimeError):
     """Error raised by mxnet_tpu_torch (parity: dmlc::Error)."""
 
 
+def get_env(name: str, default, dtype=None):
+    """Read an environment variable with a typed default (parity:
+    dmlc::GetEnv): unset gives ``default``; otherwise the value parsed
+    as ``dtype`` (default: ``type(default)``), where a bool is false for
+    ``"0"``, ``"false"`` (any case) and ``""``."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    ty = dtype or type(default)
+    if ty is bool:
+        return val.lower() not in ("0", "false", "")
+    return ty(val)
+
+
 def _env_int(name, default):
     """Integer env knob; unset or empty means ``default``."""
     v = os.environ.get(name)

@@ -12,8 +12,11 @@ the metric (the fused path's host sync) only when the metric's
 states when asked).  With the perf plane armed (``MXTPU_PERF_ATTR``)
 the Speedometer's line carries ``telemetry.perf.speedometer_suffix()``
 (`` mfu=0.42 top=dispatch``: pure reads of the host ledgers, no device
-sync).  Its telemetry gauges wait for ROADMAP Queue 1 item 11b, and its
-multi-host log prefix for the process-group path of item 10b.
+sync).  Each completed Speedometer window sets the gauge
+``speedometer_samples_per_sec`` and adds its samples to
+``speedometer_samples_total`` (telemetry on), and its lines carry the
+``[rank/size@g<generation>]`` prefix of ``parallel.dist.log_prefix``
+while a process group spans several processes.
 """
 from __future__ import annotations
 
@@ -24,6 +27,23 @@ from . import telemetry as _tm
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar"]
+
+# the Speedometer through the registry: the windowed samples/sec its
+# line reports, scrapeable from /metrics
+_TM_SPEED = _tm.gauge(
+    "speedometer_samples_per_sec",
+    "throughput of the last completed Speedometer window")
+_TM_SPEED_SAMPLES = _tm.counter(
+    "speedometer_samples_total",
+    "samples covered by completed Speedometer windows")
+
+
+def _log_prefix() -> str:
+    """``[rank/size@g<generation>] `` in multi-process runs, so the
+    workers' interleaved Speedometer lines stay attributable."""
+    from .parallel import dist as _dist
+
+    return _dist.log_prefix()
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
@@ -97,12 +117,15 @@ class Speedometer:
             self._mark = (now, param.nbatch)
             return
         speed = nbatches * self.batch_size / elapsed
+        _TM_SPEED.set(speed)
+        _TM_SPEED_SAMPLES.inc(nbatches * self.batch_size)
         # perf plane armed: " mfu=0.42 top=dispatch" rides the line
         perf_sfx = _tm.perf.speedometer_suffix()
+        prefix = _log_prefix()
         metric = param.eval_metric
         if metric is None:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
-                         param.epoch, param.nbatch, speed, perf_sfx)
+            logging.info("%sIter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
+                         prefix, param.epoch, param.nbatch, speed, perf_sfx)
         else:
             # reading the metric is the fused path's host sync: without
             # auto_reset, pay it only when the metric moved
@@ -112,9 +135,9 @@ class Speedometer:
                     or stamp != self._last_stamp):
                 parts = "".join("\tTrain-%s=%f" % nv
                                 for nv in metric.get_name_value())
-                logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f "
-                             "samples/sec%s%s", param.epoch, param.nbatch,
-                             speed, perf_sfx, parts)
+                logging.info("%sEpoch[%d] Batch [%d]\tSpeed: %.2f "
+                             "samples/sec%s%s", prefix, param.epoch,
+                             param.nbatch, speed, perf_sfx, parts)
                 if self.auto_reset:
                     # the local window only: the epoch-end log still
                     # covers the whole epoch
@@ -123,9 +146,9 @@ class Speedometer:
                 self._last_stamp = (stamp_fn() if stamp_fn is not None
                                     else None)
             else:
-                logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f "
-                             "samples/sec%s", param.epoch, param.nbatch,
-                             speed, perf_sfx)
+                logging.info("%sEpoch[%d] Batch [%d]\tSpeed: %.2f "
+                             "samples/sec%s", prefix, param.epoch,
+                             param.nbatch, speed, perf_sfx)
         self._mark = (now, param.nbatch)
 
 

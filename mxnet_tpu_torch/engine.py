@@ -8,7 +8,10 @@ records a CUDA event, and once more than ``depth`` steps are in flight
 the host waits on the oldest event.  With fused metrics the window is
 the only place the steady-state ``fit`` loop waits.  Its drain, and
 :func:`wait_for_all`, are reporting boundaries: they sync the numerics
-sentinel's parked flags (``MXTPU_SENTINEL``).
+sentinel's parked flags (``MXTPU_SENTINEL``).  With telemetry on, the
+window reports ``engine_pipeline_depth`` and each wait as a
+``trainer_host_stall_seconds{site}`` observation; ``engine_naive_mode``
+says whether ``MXNET_ENGINE_TYPE=NaiveEngine`` is set.
 
 :func:`track` registers every NDArray's tensor (weakly) so
 :func:`live_memory` can rank the live ones for the OOM report;
@@ -54,10 +57,22 @@ _TM_LIVE_BYTES = _tm.gauge(
     "total bytes of the live tracked device arrays (running total while "
     "telemetry is enabled; the OOM report's live breakdown recomputes "
     "exactly on demand)")
+_TM_NAIVE = _tm.gauge(
+    "engine_naive_mode",
+    "1 when MXNET_ENGINE_TYPE=NaiveEngine (every dispatch blocks)")
 _TM_WAIT_SEC = _tm.histogram(
     "engine_wait_seconds",
     "time the host blocked on device results (wait_to_read / "
     "wait_for_all)", labels=("call",))
+_TM_PIPE_DEPTH = _tm.gauge(
+    "engine_pipeline_depth",
+    "training steps currently in flight in the loop's bounded async "
+    "window")
+_TM_HOST_STALL = _tm.histogram(
+    "trainer_host_stall_seconds",
+    "host time blocked on an in-flight step (site=window: the async "
+    "window was full; site=boundary: an epoch/checkpoint boundary "
+    "drained it)", labels=("site",))
 
 
 def _nbytes(t) -> int:
@@ -112,8 +127,10 @@ def live_memory(top: int = 10) -> dict:
 
 
 def _engine_is_naive() -> bool:
-    return os.environ.get("MXNET_ENGINE_TYPE",
-                          "ThreadedEnginePerDevice") == "NaiveEngine"
+    naive = os.environ.get("MXNET_ENGINE_TYPE",
+                           "ThreadedEnginePerDevice") == "NaiveEngine"
+    _TM_NAIVE.set(1.0 if naive else 0.0)
+    return naive
 
 
 def async_depth(default: int = 2) -> int:
@@ -148,7 +165,11 @@ class AsyncWindow:
     steps are in flight the host waits on the OLDEST event.  Outputs on
     the CPU are already computed and record nothing.  :meth:`drain`
     waits for everything in flight (epoch end, any boundary that needs
-    the card caught up)."""
+    the card caught up).  With telemetry on, ``engine_pipeline_depth``
+    follows the steps in flight and each step leaving the window is a
+    ``trainer_host_stall_seconds`` observation (``site="window"`` when
+    the window was full, the drain's ``site`` otherwise): host clock
+    stamps around the event wait the window makes anyway."""
 
     def __init__(self, depth=None):
         self.depth = async_depth() if depth is None else max(1, int(depth))
@@ -165,18 +186,24 @@ class AsyncWindow:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
         self._dq.append(event)
+        if _tm.enabled():
+            _TM_PIPE_DEPTH.set(len(self._dq))
         while len(self._dq) > self.depth:
-            self._wait_one()
+            self._wait_one("window")
 
-    def _wait_one(self):
+    def _wait_one(self, site):
         event = self._dq.popleft()
+        t0 = time.perf_counter() if _tm.enabled() else None
         if event is not None:
             self.waits += 1
             event.synchronize()
+        if t0 is not None:
+            _TM_HOST_STALL.observe(time.perf_counter() - t0, site=site)
+            _TM_PIPE_DEPTH.set(len(self._dq))
 
-    def drain(self):
+    def drain(self, site: str = "boundary"):
         while self._dq:
-            self._wait_one()
+            self._wait_one(site)
         # epoch/checkpoint boundaries are the loops' reporting points:
         # the sentinel syncs HERE (never per batch), where fused metrics
         # drain

@@ -74,6 +74,17 @@ forward + backward count their FLOPs into the label's cost row (the
 training pair's row wins once training runs), and every dispatch adds
 its host wall (a training forward's to its backward's).
 
+Telemetry (``MXTPU_TELEMETRY``): each ``forward`` and ``backward`` is an
+``executor_forward_seconds`` / ``executor_backward_seconds`` observation
+of its dispatch.  The port compiles nothing, so ``executor_compile_total``
+and ``executor_compile_seconds`` count what takes a compile's place: a
+graph function's first forward (``fwd``, per mode) and first backward
+(``fwdbwd``) at a bind's input signature, kept on the cached function,
+so an equal graph bound again at the same shapes adds none; the fused
+trainer's CUDA-graph captures (``fwdbwd``), the kvstore's bucket
+programs (``kv_update``, ``kv_sparse``) and the decoders' first steps at
+a shape (``decode_*``) count there too.
+
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
 of the tensors or NDArrays it is given), and ``outputs`` are tensors.
@@ -85,6 +96,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Dict
 
@@ -117,6 +129,51 @@ _TM_GRAPH_CACHE = _tm.counter(
     "program-cache lookups at bind (hit: an equal post-pass graph was "
     "bound before; miss: its graph function was built)",
     labels=("result",))
+_TM_COMPILE = _tm.counter(
+    "executor_compile_total",
+    "what takes an XLA compile's place in the port, which compiles "
+    "nothing: the first run of a program at an input signature (a graph "
+    "function's forward or forward+backward, a kvstore bucket's update, "
+    "a decode step or prefill at a shape) and each CUDA-graph capture "
+    "of the fused step; flat after warm-up", labels=("kind",))
+_TM_COMPILE_SEC = _tm.histogram(
+    "executor_compile_seconds",
+    "host wall of each executor_compile_total event: that first run's "
+    "dispatch (cuDNN/cuBLAS plan choice and lazy kernel loads happen "
+    "there) or the capture (seconds)", labels=("kind",))
+_TM_FWD_SEC = _tm.histogram(
+    "executor_forward_seconds",
+    "Executor.forward wall time (dispatch; device-complete only under "
+    "the profiler's sync mode); the port's Predictor.forward, which runs "
+    "its executor's graph, counts here too")
+_TM_BWD_SEC = _tm.histogram(
+    "executor_backward_seconds", "Executor.backward wall time (dispatch)")
+
+# program -> the (kind, signature) pairs it has run: a pair's first run
+# is the port's "compile" (the JAX package's jit traces one per pair)
+_first_runs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_first_runs_lock = threading.Lock()
+
+
+def _compile_start(program, kind, sig=()):
+    """``time.perf_counter()`` when this is ``program``'s first run of
+    ``(kind, sig)`` and telemetry is on, else None.  The pair is marked
+    run either way, as a jit cache fills whether or not it is counted."""
+    with _first_runs_lock:
+        seen = _first_runs.get(program)
+        if seen is None:
+            seen = _first_runs[program] = set()
+        if (kind, sig) in seen:
+            return None
+        seen.add((kind, sig))
+    return time.perf_counter() if _tm.enabled() else None
+
+
+def _compile_done(t0, kind):
+    """Count the event :func:`_compile_start` opened at ``t0`` (if any)."""
+    if t0 is not None:
+        _TM_COMPILE.inc(kind=kind)
+        _TM_COMPILE_SEC.observe(time.perf_counter() - t0, kind=kind)
 
 
 def _eval_node(node, env, ctx):
@@ -357,6 +414,10 @@ class Executor:
         self._cost_fwdbwd_done = False
         self._fwd_flops = None      # the counted training forward
         self._pending_fwd_wall = 0.0
+        # the (kind, mode) pairs this executor has run, and its input
+        # signature: executor_compile_total's keys on the graph function
+        self._ran = set()
+        self._sig = None
 
     def _record_bind_memory(self):
         """The bind's memory row (arguments + aux + gradients in, the
@@ -387,6 +448,19 @@ class Executor:
         except Exception:  # noqa: BLE001 — accounting never breaks a bind
             pass
         return label
+
+    def _first_run(self, kind, mode):
+        """:func:`_compile_start` on this bind's graph function, at the
+        bound shapes: None once this executor has run ``(kind, mode)``."""
+        if (kind, mode) in self._ran:
+            return None
+        self._ran.add((kind, mode))
+        if self._sig is None:
+            self._sig = (str(self._device), tuple(self._grad_names),
+                         tuple((k, tuple(v.shape), str(v.dtype))
+                               for d in (self.arg_dict, self.aux_dict)
+                               for k, v in d.items()))
+        return _compile_start(self._graph_fn, kind, (mode, self._sig))
 
     def _build_rs_specs(self, rs_holders):
         """``(name, lookups, row width, dtype)`` of each row-sparse
@@ -469,6 +543,8 @@ class Executor:
         self._pending = None
         perf_on = _tm.perf.enabled()
         tp0 = time.perf_counter() if perf_on else 0.0
+        t0 = time.perf_counter() if _tm.enabled() else None
+        tc = self._first_run("fwd", bool(is_train))
         if not is_train:
             with _prof.span(self._spans[0], device=str(self._device),
                             sync=self._sync), torch.no_grad():
@@ -485,6 +561,9 @@ class Executor:
                     _tm.health.reraise_if_oom(e, site="executor.forward")
                     raise
             self._outputs = outs
+            _compile_done(tc, "fwd")
+            if t0 is not None:
+                _TM_FWD_SEC.observe(time.perf_counter() - t0)
             if perf_on:
                 _tm.perf.record_dispatch(self._program_label,
                                          time.perf_counter() - tp0)
@@ -522,6 +601,9 @@ class Executor:
                     dst.copy_(v)
         self._pending = (outs, leaves, rs_ids)
         self._outputs = [o.detach() for o in outs]
+        _compile_done(tc, "fwd")
+        if t0 is not None:
+            _TM_FWD_SEC.observe(time.perf_counter() - t0)
         # the training forward's wall joins its backward's dispatch
         self._pending_fwd_wall = (time.perf_counter() - tp0) if perf_on \
             else 0.0
@@ -550,7 +632,8 @@ class Executor:
         if start is None and _prof.is_running():
             start = _prof.now_us()
         perf_on = _tm.perf.enabled()
-        t0 = time.perf_counter() if perf_on else 0.0
+        t0 = time.perf_counter() if (perf_on or _tm.enabled()) else None
+        tc = self._first_run("fwdbwd", out_grads is None)
         try:
             if self._fwd_flops is not None:
                 # the first training pair: its forward was counted too,
@@ -567,6 +650,9 @@ class Executor:
         except Exception as e:  # noqa: BLE001 — OOM: the report
             _tm.health.reraise_if_oom(e, site="executor.backward")
             raise
+        _compile_done(tc, "fwdbwd")
+        if t0 is not None and _tm.enabled():
+            _TM_BWD_SEC.observe(time.perf_counter() - t0)
         if perf_on:
             _tm.perf.record_dispatch(
                 self._program_label,

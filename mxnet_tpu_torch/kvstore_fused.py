@@ -56,6 +56,14 @@ bucket's FLOPs at its first step after a plan (``MXTPU_PERF_ATTR``), and
 an allocator failure in a push re-raises as ``DeviceOOMError`` with the
 ranked memory report.
 
+Telemetry (``MXTPU_TELEMETRY``): each bucketed push is a
+``kvstore_fused_update_seconds`` observation of its dispatch; a plan
+sets ``kvstore_bucket_count`` and observes each dense bucket's bytes in
+``kvstore_bucket_bytes``; a bucket program's first step in the process
+(keyed through the executor's program cache, as the JAX package keys
+its jitted programs) counts in ``executor_compile_total{kind=kv_update}``
+(``kv_sparse`` for a row-sparse key).
+
 The sharded bucket program (ROADMAP Queue 1 item 10b; it needs several
 cards, which the Module refuses) is not ported.
 """
@@ -69,6 +77,7 @@ import numpy as np
 import torch
 
 from . import amp as _amp
+from . import executor as _executor
 from . import sparse as _sparse
 from . import telemetry as _tm
 from .base import MXNetError, parse_bool
@@ -76,6 +85,22 @@ from .ndarray import NDArray
 from .optim_rules import multi_rule
 
 __all__ = ["fused_update_enabled", "bucket_cap_bytes", "FusedUpdateEngine"]
+
+# --- telemetry families (the JAX package's names) ---------------------------
+_TM_FUSED_SEC = _tm.histogram(
+    "kvstore_fused_update_seconds",
+    "wall time of one batched fused push (bucket reductions + jitted "
+    "multi-tensor optimizer updates; dispatch, not device completion)",
+    labels=("store",))
+_TM_BUCKET_COUNT = _tm.gauge(
+    "kvstore_bucket_count",
+    "flat buckets in the current fused-update plan", labels=("store",))
+_TM_BUCKET_BYTES = _tm.histogram(
+    "kvstore_bucket_bytes",
+    "bytes per flat bucket at plan build (dtype-segregated, capped by "
+    "MXTPU_KV_BUCKET_MB)", labels=("store",),
+    buckets=(1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20,
+             1 << 22, 1 << 23, 1 << 24, 1 << 26))
 
 _DEFAULT_BUCKET_MB = 4.0
 
@@ -173,6 +198,8 @@ class FusedUpdateEngine:
         self._rule = None
         self._push_count = 0       # the sentinel's step id for this store
         self._cost_done = set()    # buckets whose FLOPs were counted
+        self._ran = set()          # buckets stepped since the plan
+        self._programs = set()     # program keys run by this engine
 
     def _key_name(self, k):
         """Kvstore key -> the name the sentinel reports (the optimizer's
@@ -220,6 +247,11 @@ class FusedUpdateEngine:
         self._key_index = {k: i for i, k in enumerate(keys)}
         self._ndev = ndev
         self._cost_done = set()
+        self._ran = set()
+        if _tm.enabled():
+            _TM_BUCKET_COUNT.set(len(buckets), store=self._kv.type)
+            for b in buckets:
+                _TM_BUCKET_BYTES.observe(b.nbytes, store=self._kv.type)
         nslots = self._rule[1][0]
         for i, b in enumerate(buckets):
             # memory row per bucket: ndev gradient copies + weights in,
@@ -251,6 +283,7 @@ class FusedUpdateEngine:
         for k, vl in zip(keys, vlists):
             if k not in kv._store or len(vl) != ndev:
                 return False
+        t0 = time.perf_counter() if _tm.enabled() else None
         stypes = tuple(getattr(vl[0], "stype", "default") for vl in vlists)
         opt = self._opt
         rule_name, opt_params = opt.fused_rule()
@@ -284,6 +317,13 @@ class FusedUpdateEngine:
             for bi, b in enumerate(self._buckets):
                 args = (b, bi, vlists, nslots, update, lrs, wds, inv,
                         sentinel)
+                tc = None
+                if bi not in self._ran:
+                    self._ran.add(bi)
+                    tc = self._program_start(
+                        ("kvfused", str(b.dtype), tuple(b.shapes),
+                         tuple(wds[k] for k in b.keys)),
+                        rule_name, opt_params, sentinel, inv is not None)
                 if perf_on and bi not in self._cost_done:
                     # the bucket's FLOPs, once per plan (its first step)
                     self._cost_done.add(bi)
@@ -293,22 +333,48 @@ class FusedUpdateEngine:
                                          source="flop_counter")
                 else:
                     flags.append(self._step_bucket(*args))
+                _executor._compile_done(tc, "kv_update")
             if self._sparse_buckets:
-                t0 = time.perf_counter() if _sparse._tm.enabled() else None
+                ts = time.perf_counter() if _sparse._tm.enabled() else None
                 for si, sb in enumerate(self._sparse_buckets):
+                    tc = None
+                    if ("sparse", si) not in self._ran:
+                        self._ran.add(("sparse", si))
+                        tc = self._program_start(
+                            ("kvsparse", sb.shape, wds[sb.key]), rule_name,
+                            opt_params, sentinel, inv is not None)
                     flags.append(self._step_sparse_bucket(
                         sb, si, vlists, nslots, rule_name, opt_params, lrs,
                         wds, None if inv is None else scaler.scale_raw(),
                         sentinel))
-                if t0 is not None:
-                    _sparse._TM_SPARSE_SEC.observe(time.perf_counter() - t0,
+                    _executor._compile_done(tc, "kv_sparse")
+                if ts is not None:
+                    _sparse._TM_SPARSE_SEC.observe(time.perf_counter() - ts,
                                                    store=kv.type)
             if inv is not None:
                 scaler.end_step(flags)
         except Exception as e:  # noqa: BLE001 — an OOM gets the report
             _tm.health.reraise_if_oom(e, site="kvstore_fused.push")
             raise
+        if t0 is not None:
+            _TM_FUSED_SEC.observe(time.perf_counter() - t0, store=kv.type)
         return True
+
+    def _program_start(self, key, rule_name, opt_params, sentinel, scaling):
+        """The first step of a bucket program not run in this process
+        (the JAX package's program-cache miss, a trace there): its start
+        time under telemetry, for ``executor_compile_total``; else None.
+        The keys go through the executor's program cache as the JAX
+        package's jitted bucket programs do."""
+        key = key + (rule_name, tuple(sorted(opt_params.items())),
+                     sentinel, scaling)
+        if key in self._programs:
+            return None
+        self._programs.add(key)
+        if _executor.program_cache_get(key) is not None:
+            return None
+        _executor.program_cache_put(key, key)
+        return time.perf_counter() if _tm.enabled() else None
 
     def _step_sparse_bucket(self, sb, si, vlists, nslots, rule_name,
                             opt_params, lrs, wds, scale=None,

@@ -21,8 +21,12 @@ Two accumulation paths, as in the reference:
 Both paths share the accumulators, so they may interleave.  The local
 window / global total split (``reset_local``, ``get_global``) and the
 sync-free ``update_stamp`` that ``callback.Speedometer`` reads are the
-reference's.  Not ported: the mesh-sharded (multi-device) fused path
-(ROADMAP Queue 1 item 10b) and the metric telemetry (item 11).
+reference's.  With telemetry on, ``metric_fused_update_total{metric}``
+counts the updates folded into a device window and
+``metric_host_sync_total{metric}`` the device-to-host reads: one a
+drain with updates pending, one an eager (label, pred) pair, as the
+JAX package counts them.  Not ported: the mesh-sharded (multi-device)
+fused path (ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -31,12 +35,25 @@ import os
 import numpy as _np
 import torch
 
+from . import telemetry as _tm
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MAE", "MSE", "RMSE", "CrossEntropy", "Perplexity", "Loss",
            "Torch", "CustomMetric", "np", "create", "fused_metrics_enabled"]
+
+
+# --- telemetry families (the JAX package's names) ---------------------------
+_TM_FUSED = _tm.counter(
+    "metric_fused_update_total",
+    "metric updates accumulated device-side (no host sync)",
+    labels=("metric",))
+_TM_SYNC = _tm.counter(
+    "metric_host_sync_total",
+    "device->host metric syncs: fused-path drains (one per value read "
+    "with pending updates) + eager-path asnumpy updates (one per "
+    "label/pred pair)", labels=("metric",))
 
 
 def fused_metrics_enabled() -> bool:
@@ -151,6 +168,8 @@ class EvalMetric:
             self._dev_sum += ds
             self._dev_num += dn
         self._version += 1
+        if _tm.enabled():
+            _TM_FUSED.inc(metric=self.name)
         return True
 
     def _drain(self):
@@ -165,6 +184,14 @@ class EvalMetric:
         n = pair[1]
         # eager counts are ints (len(label)); keep that type when exact
         self.num_inst += int(n) if float(n).is_integer() else n
+        if _tm.enabled():
+            _TM_SYNC.inc(metric=self.name)
+
+    def _eager_sync(self):
+        """Count one eager-path update pair (read through the host) in
+        the family the fused drains use."""
+        if _tm.enabled():
+            _TM_SYNC.inc(metric=self.name)
 
     def update_stamp(self):
         """A sync-free token that changes whenever this metric received
@@ -283,6 +310,7 @@ class Accuracy(EvalMetric):
         for label, pred in zip(labels, preds):
             if self._fused_accumulate(label, pred):
                 continue
+            self._eager_sync()
             pred_np = _host(pred)
             label_np = _host(label).astype(_np.int32)
             if pred_np.ndim > 1 and pred_np.shape != label_np.shape:
@@ -313,6 +341,7 @@ class TopKAccuracy(EvalMetric):
         for label, pred in zip(labels, preds):
             if self._fused_accumulate(label, pred):
                 continue
+            self._eager_sync()
             pred_np = _host(pred)
             label_np = _host(label).astype(_np.int32).reshape(-1)
             argsorted = _np.argsort(-pred_np, axis=1)[:, :self.top_k]
@@ -360,6 +389,7 @@ class _Regression(EvalMetric):
         for label, pred in zip(labels, preds):
             if self._fused_accumulate(label, pred):
                 continue
+            self._eager_sync()
             p = _host(pred)
             lab = _host(label)
             self.sum_metric += float(self._err(lab.reshape(p.shape) - p))
@@ -405,6 +435,7 @@ class CrossEntropy(EvalMetric):
         for label, pred in zip(labels, preds):
             if self._fused_accumulate(label, pred):
                 continue
+            self._eager_sync()
             label_np = _host(label).astype(_np.int32).reshape(-1)
             pred_np = _host(pred)
             prob = pred_np[_np.arange(label_np.shape[0]), label_np]
@@ -439,6 +470,7 @@ class Perplexity(EvalMetric):
         for label, pred in zip(labels, preds):
             if self._fused_accumulate(label, pred):
                 continue
+            self._eager_sync()
             fused_all = False
             label_np = _host(label).astype(_np.int32).reshape(-1)
             pred_np = _host(pred)
@@ -473,6 +505,7 @@ class Loss(EvalMetric):
         for pred in preds:
             if self._fused_accumulate(None, pred):
                 continue
+            self._eager_sync()
             pred_np = _host(pred)
             self.sum_metric += float(pred_np.sum())
             self.num_inst += pred_np.size

@@ -14,7 +14,10 @@ Three differences from the JAX decoder, all deliberate:
   and return those same tensors, so no per-token copy of the cache is
   made.  A state passed to ``step`` is consumed by it.
 - Everything runs eagerly under ``torch.inference_mode()``; there is no
-  compile step and no program cache.
+  compile step and no program cache.  What the JAX decoder counts as a
+  compile in ``executor_compile_total`` — the slot API's first step,
+  co-batched prefill or row adoption at a shape (``decode_step``,
+  ``decode_prefill``, ``decode_adopt``) — is counted at that first run.
 - Attention scores, softmax and the weighted sum run in fp32 and are
   rounded once to the cache dtype (``ops/paged_attention.py:_attend``),
   on every path; in fp32 that is the JAX math exactly, in bf16 it skips
@@ -39,6 +42,7 @@ from .. import telemetry as _tm
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..convert import from_jax_params
+from ..executor import _compile_done, _compile_start
 from ..ops import paged_attention as _pa
 
 __all__ = ["KVDecoder", "NEG_INF", "SCAN_EOS_CHECK"]
@@ -356,13 +360,17 @@ class KVDecoder:
                 f"lengths must be (B,) in [1, {T}], got {lengths!r}")
         kc, vc, _ = self.init_state(B)
         start = _snap(T - lengths, self.device)
+        tc = _compile_start(self, "decode_prefill", (B, T))
         if T not in self._cost_prefill_done and _tm.perf.enabled():
             # perf plane: the bucket's cost row, at its first dispatch
             self._cost_prefill_done.add(T)
-            return _tm.perf.count_cost(f"decode_prefill[b{T}]",
-                                       self._forward_padded, kc, vc, tokens,
-                                       start)
-        return self._forward_padded(kc, vc, tokens, start)
+            out = _tm.perf.count_cost(f"decode_prefill[b{T}]",
+                                      self._forward_padded, kc, vc, tokens,
+                                      start)
+        else:
+            out = self._forward_padded(kc, vc, tokens, start)
+        _compile_done(tc, "decode_prefill")
+        return out
 
     def step_slots(self, cache, tokens, start, cursor):
         """One decode tick over the whole slot pool: (B,) next tokens in,
@@ -377,12 +385,16 @@ class KVDecoder:
                 "the request before ticking it")
         args = (kc, vc, _snap(tokens, self.device),
                 _snap(start, self.device), _snap(cursor, self.device))
+        tc = _compile_start(self, "decode_step", tuple(kc.shape))
         if not self._cost_step_done and _tm.perf.enabled():
             # perf plane: the tick's cost row, at its first dispatch
             self._cost_step_done = True
-            return _tm.perf.count_cost("decode_step_slots",
-                                       self._forward_slots, *args)
-        return self._forward_slots(*args)
+            out = _tm.perf.count_cost("decode_step_slots",
+                                      self._forward_slots, *args)
+        else:
+            out = self._forward_slots(*args)
+        _compile_done(tc, "decode_step")
+        return out
 
     def adopt_row(self, cache, row_cache, slot):
         """Copy a freshly prefilled batch-1 cache (from
@@ -393,9 +405,12 @@ class KVDecoder:
         kr, vr = row_cache
         if kr.shape[1] != 1:
             raise ValueError(f"row cache must be batch-1, got {kr.shape}")
+        tc = _compile_start(self, "decode_adopt",
+                            (tuple(kc.shape), tuple(kr.shape)))
         with torch.inference_mode():
             kc[:, slot:slot + 1] = kr
             vc[:, slot:slot + 1] = vr
+        _compile_done(tc, "decode_adopt")
         return kc, vc
 
     def _check_generation_budget(self, prompt, n_tokens):

@@ -23,6 +23,10 @@ complete checkpoint, then skips the batches its cursor already trained,
 so the run continues step for step.  A module without a provider
 (``BucketingModule``) warns and trains without checkpoints.
 
+With telemetry on, ``fit`` adds each batch's samples less its padding
+to ``trainer_samples_total{loop="module"}`` (the executor, the kvstore,
+the metric and the async window report their own families).
+
 The health and perf planes (:mod:`mxnet_tpu_torch.telemetry`): each
 batch is appended to the flight ring (``MXTPU_FLIGHT_RECORD``, default
 on), and under ``MXTPU_PERF_ATTR`` its wall splits into ``data_wait`` /
@@ -50,6 +54,12 @@ import torch
 from .. import telemetry as _tm
 from ..base import MXNetError
 from ..ndarray import NDArray
+
+# the family the fused path counts in (trainer.py); the loop label tells
+# them apart
+_TM_SAMPLES = _tm.counter(
+    "trainer_samples_total", "training samples dispatched",
+    labels=("loop",))
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -310,6 +320,11 @@ class BaseModule:
                     if mgr.due(step_id):
                         self._save_checkpoint_state(mgr, step_id, epoch,
                                                     nbatch)
+                if _tm.enabled() and data_batch.data:
+                    # host shapes: the batch less its padding
+                    _TM_SAMPLES.inc(
+                        data_batch.data[0].shape[0]
+                        - (data_batch.pad or 0), loop="module")
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:

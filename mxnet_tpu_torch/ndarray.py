@@ -203,6 +203,12 @@ class NDArray:
             resolve_pending_write(self._t)
         _engine.wait_for_var(self._t)
 
+    def wait_to_write(self):
+        """Wait until the array may be written (parity: WaitToWrite): its
+        pending writes landed and every launch reading it is done — one
+        stream orders both, so this is :meth:`wait_to_read`'s wait."""
+        self.wait_to_read()
+
     # ----------------------------------------------------------- writes
     def _set(self, new):
         """Write ``new`` (a tensor of this shape, or broadcastable to it)

@@ -13,7 +13,8 @@ regression heads' ``grad_scale / num_output * f(out, label)``.  A
 reproduces that, so the trainer's ``ones`` head changes nothing.  With
 the default ``normalization="null"`` there is no 1/N: gradients sum
 over every row.  ``softmax_cross_entropy`` and ``SoftmaxActivation``
-are plain functions with autograd's gradient, as in the JAX package.
+are plain functions with autograd's gradient, as in the JAX package,
+and so is :func:`token_nll`, the LM loss outside the op registry.
 """
 from __future__ import annotations
 
@@ -25,6 +26,18 @@ from ..base import MXNetError, parse_attr, parse_bool
 from .indexing import jax_gather
 from .nn import _weak
 from .registry import register
+
+
+def token_nll(logits, labels):
+    """Mean next-token negative log-likelihood of ``[..., T, V]`` logits
+    against ``[..., T]`` integer (or float-encoded, truncated) labels:
+    the functional LM loss (parity: the loss SoftmaxOutput computes
+    implicitly in its backward).  A plain torch function; its gradient
+    is autograd's."""
+    logits = torch.as_tensor(logits)
+    labels = torch.as_tensor(labels, device=logits.device)
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, labels.long()[..., None]).mean()
 
 
 def _norm_enum(attrs):

@@ -23,8 +23,8 @@ import torch
 from .. import profiler as _prof
 from ..base import MXNetError
 
-__all__ = ["OpCtx", "OpDef", "register", "get", "list_ops", "invoke",
-           "decode_attr"]
+__all__ = ["OpCtx", "OpDef", "register", "get", "exists", "list_ops",
+           "invoke", "decode_attr"]
 
 _OPS: dict = {}
 
@@ -120,6 +120,11 @@ def get(name: str) -> OpDef:
         return _OPS[name]
     except KeyError:
         raise MXNetError(f"operator '{name}' is not registered") from None
+
+
+def exists(name: str) -> bool:
+    """Is ``name`` a registered op name (or alias)?"""
+    return name in _OPS
 
 
 def list_ops() -> list:

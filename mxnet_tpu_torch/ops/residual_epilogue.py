@@ -150,11 +150,14 @@ def make_bench_fn(rows, channels, dtype):
     hit draws nothing), and returns the pass's ``n`` outputs.  The pass
     is captured as a CUDA graph, so a replay runs its launches back to
     back and times the card, not the Python wrapper (~30 µs a launch,
-    more than a small tail's kernel).  A schedule outside the kernel's
+    more than a small tail's kernel).  A schedule asked for again gets
+    the thunk of its first capture, so two timings of one schedule time
+    one pass on the same buffers.  A schedule outside the kernel's
     raises ``autotune.ScheduleRejected`` before any launch."""
     from .. import autotune as _autotune
 
     inputs = []
+    replays = {}
 
     def draw():
         dev = torch.device("cuda")
@@ -175,6 +178,9 @@ def make_bench_fn(rows, channels, dtype):
             raise _autotune.ScheduleRejected(
                 f"residual_epilogue: schedule {cand!r} is not one of the "
                 f"kernel's ({_THREADS} threads, blocks_per_sm >= 1)")
+        key = (int(cand["threads"]), int(cand["blocks_per_sm"]))
+        if key in replays:
+            return replays[key]
         if not inputs:
             inputs.append(draw())
         pairs, scale, bias = inputs[0]
@@ -192,6 +198,7 @@ def make_bench_fn(rows, channels, dtype):
             graph.replay()
             return outs
 
+        replays[key] = replay
         return replay
 
     return bench

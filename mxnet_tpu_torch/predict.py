@@ -24,11 +24,13 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import symbol as sym_mod
+from . import telemetry as _tm
 from .base import MXNetError, torch_dtype
 from .context import gpu, resolve_device
 
@@ -267,7 +269,9 @@ class Predictor:
     def forward(self, **inputs):
         """Set ``inputs`` and run the graph.  The outputs stay on the
         device: nothing here waits for the card; :meth:`get_output`
-        copies out."""
+        copies out.  With telemetry on, the graph's dispatch is an
+        ``executor_forward_seconds`` observation (the JAX Predictor's
+        one-program forward records none)."""
         for name, value in inputs.items():
             self.set_input(name, value)
         params = self._params
@@ -275,12 +279,17 @@ class Predictor:
             params = dict(params)
             params.update((k, qt.dequantize())
                           for k, qt in self._qparams.items())
+        t0 = time.perf_counter() if _tm.enabled() else None
         with torch.no_grad():
             outs, _ = self._exec._graph_fn(params, self._aux, None, False)
         if self._cast is not None:
             outs = [o.float() if o.dtype == self._cast else o for o in outs]
         self._outs = outs
         self._dirty = False
+        if t0 is not None:
+            from .executor import _TM_FWD_SEC
+
+            _TM_FWD_SEC.observe(time.perf_counter() - t0)
 
     def get_output(self, index=0) -> np.ndarray:
         """Output ``index`` as a host array (a blocking copy-out)."""

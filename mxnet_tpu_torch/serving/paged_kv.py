@@ -25,7 +25,10 @@ attention schedule at construction — the kernel's split on a card,
 gather or the pagewalk on the CPU — and never per tick.  Under
 ``MXTPU_PERF_ATTR`` the first step and each prefill bucket's first
 admission count their FLOPs into the perf plane's cost rows
-(``decode_step_paged``, ``decode_prefill_paged[b<bucket>]``).
+(``decode_step_paged``, ``decode_prefill_paged[b<bucket>]``).  The
+first step and each bucket's first prefill are also what
+``executor_compile_total{kind=decode_step_paged|decode_prefill_paged}``
+counts: the JAX package's traces, which the port does not make.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 from .. import autotune as _autotune
 from .. import telemetry as _tm
 from ..base import MXNetError
+from ..executor import _compile_done, _compile_start
 from ..models.decode import _ln, _snap
 from ..ops import paged_attention as _pa
 from ..telemetry import tracing as _tracing
@@ -389,6 +393,12 @@ class PagedSlots:
             self._ref[pg] = 1           # owned by the requesting slot
         return got
 
+    @property
+    def max_prompt(self):
+        """The longest prompt an admission takes: the decoder's
+        ``max_len``."""
+        return self.decoder.max_len
+
     def _block_hashes(self, prompt, n_blocks):
         """Chain hashes of the prompt's full blocks: ``d_i = H(d_{i-1}
         || tokens_i)`` — a block's hash commits to its whole prefix, so
@@ -455,12 +465,14 @@ class PagedSlots:
         # _snap: self.bt is mutated in place by later admits/steps
         args = (self.pool[0], self.pool[1], _snap(self.bt[slot], dev),
                 _snap(padded, dev, np.int64), hist, t)
+        tc = _compile_start(self.programs, "decode_prefill_paged", bucket)
         if bucket not in self._cost_prefill_done and _tm.perf.enabled():
             self._cost_prefill_done.add(bucket)
             logits = _tm.perf.count_cost(f"decode_prefill_paged[b{bucket}]",
                                          self.programs.prefill, *args)
         else:
             logits = self.programs.prefill(*args)
+        _compile_done(tc, "decode_prefill_paged")
         self.cursor[slot] = p_len
         # promote this prompt's full blocks: they are never written
         # again (writes happen at cursor >= p_len), so they are safe to
@@ -514,6 +526,7 @@ class PagedSlots:
         n_live = int(self.cursor.max()) // self.block + 1
         args = (self.pool[0], self.pool[1], _snap(self.bt, dev),
                 _snap(tokens, dev), _snap(self.cursor, dev), n_live)
+        tc = _compile_start(self.programs, "decode_step_paged")
         if not self._cost_step_done and _tm.perf.enabled():
             self._cost_step_done = True
             # the kernel's live K/V rows, for its analytic FLOPs
@@ -524,6 +537,7 @@ class PagedSlots:
                                          live_rows)
         else:
             logits = self.programs.step(*args)
+        _compile_done(tc, "decode_step_paged")
         adv = occupied.copy()
         adv[starved] = False
         self.cursor[adv] += 1

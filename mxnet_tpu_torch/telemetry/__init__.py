@@ -3,11 +3,12 @@ and the health and perf-attribution planes.
 
 Copies of ``mxnet_tpu/telemetry``'s registry, exporters (the
 ``/metrics``, ``/metrics.json``, ``/profile``, ``/spans.json`` and
-``/healthz`` server included), tracing (with the SLO plane), fleet,
-health (memory accounting, the numerics sentinel ``MXTPU_SENTINEL``, the
-flight recorder ``MXTPU_FLIGHT_RECORD``) and perf (``MXTPU_PERF_ATTR``)
-modules, with the profiler-backed ``span``/``timed``.  Fault injection
-is :mod:`mxnet_tpu_torch.faults`.  ``MXTPU_TELEMETRY=1`` enables
+``/healthz`` server, ``dump_json`` and ``LoggingReporter`` included),
+tracing (with the SLO plane), fleet, health (memory accounting, the
+numerics sentinel ``MXTPU_SENTINEL``, the flight recorder
+``MXTPU_FLIGHT_RECORD``) and perf (``MXTPU_PERF_ATTR``) modules, with
+the profiler-backed ``span``/``timed``.  Fault injection is
+:mod:`mxnet_tpu_torch.faults`.  ``MXTPU_TELEMETRY=1`` enables
 recording at import; ``MXTPU_TELEMETRY_HTTP_PORT=<port>`` also serves
 ``/metrics`` from import on (0 binds an ephemeral port, a taken one
 moves on to the next free port), and :func:`http_address` reports where:
@@ -17,7 +18,8 @@ from __future__ import annotations
 
 from . import fleet, tracing  # noqa: F401
 from .exporters import (  # noqa: F401
-    generate_text, json_snapshot, start_http_server,
+    LoggingReporter, dump_json, generate_text, json_snapshot,
+    start_http_server,
 )
 from .registry import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry, counter,

@@ -1,17 +1,21 @@
-"""Exporters of the port: Prometheus text exposition, JSON snapshot and
-the telemetry HTTP server.
+"""Exporters of the port: Prometheus text exposition, JSON snapshot (and
+its file dump), the telemetry HTTP server and a periodic logging
+reporter.
 
-A copy of ``mxnet_tpu/telemetry/exporters.py`` less its logging reporter
-and JSON dump: the two renderers the serving front-end's ``/metrics``
-and ``/metrics.json`` endpoints call, and :func:`start_http_server`
-(``/metrics``, ``/metrics.json``, ``/profile``, ``/spans.json``,
-``/healthz``).  The text format follows the Prometheus exposition
+A copy of ``mxnet_tpu/telemetry/exporters.py``: the two renderers the
+serving front-end's ``/metrics`` and ``/metrics.json`` endpoints call,
+:func:`dump_json`, :func:`start_http_server` (``/metrics``,
+``/metrics.json``, ``/profile``, ``/spans.json``, ``/healthz``) and
+:class:`LoggingReporter`, whose lines carry the
+``[rank/size@g<generation>]`` prefix of ``parallel.dist.log_prefix``
+while a process group spans several processes.  The text format follows the Prometheus exposition
 format v0.0.4 (``# HELP`` / ``# TYPE`` headers, escaped label values,
 cumulative histogram buckets with an explicit ``+Inf``).
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import threading
 import time
@@ -19,7 +23,8 @@ from typing import Optional
 
 from .registry import Histogram, Registry, get_registry
 
-__all__ = ["generate_text", "json_snapshot", "start_http_server"]
+__all__ = ["generate_text", "json_snapshot", "dump_json",
+           "start_http_server", "LoggingReporter"]
 
 
 def _escape_help(s: str) -> str:
@@ -100,6 +105,13 @@ def json_snapshot(registry: Optional[Registry] = None) -> dict:
                     "labels": dict(zip(fam.labelnames, key)), "value": v})
         snap["metrics"][fam.name] = entry
     return snap
+
+
+def dump_json(filename: str, registry: Optional[Registry] = None) -> str:
+    """Write :func:`json_snapshot` to ``filename``; returns the path."""
+    with open(filename, "w") as f:
+        json.dump(json_snapshot(registry), f, indent=1)
+    return filename
 
 
 def start_http_server(port: int = 0, addr: str = "127.0.0.1",
@@ -217,3 +229,74 @@ def start_http_server(port: int = 0, addr: str = "127.0.0.1",
                               name="mxtt-telemetry-http")
     thread.start()
     return srv
+
+
+def _dist_log_prefix() -> str:
+    """``[rank/size@g<generation>] `` in multi-process runs (the import
+    is lazy: ``parallel.dist`` imports this package)."""
+    try:
+        from ..parallel import dist as _dist
+
+        return _dist.log_prefix()
+    except Exception:  # noqa: BLE001 — logging must never require dist
+        return ""
+
+
+class LoggingReporter:
+    """Periodically log a compact snapshot (counters and gauges, each
+    histogram's count and mean): the Speedometer generalised to every
+    registered family.  Lines carry the ``[rank/size@g<generation>]``
+    prefix in multi-process runs, so interleaved launcher logs stay
+    attributable.  :meth:`start` runs :meth:`report_once` every
+    ``interval`` seconds on a daemon thread until :meth:`stop`."""
+
+    def __init__(self, interval: float = 60.0, logger=None,
+                 registry: Optional[Registry] = None, level=logging.INFO):
+        self.interval = float(interval)
+        self.logger = logger or logging.getLogger(
+            "mxnet_tpu_torch.telemetry")
+        self.level = level
+        self.registry = registry or get_registry()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def report_once(self):
+        parts = []
+        for fam in self.registry.collect():
+            for key, s in fam.samples():
+                tag = fam.name
+                if key:
+                    tag += "{" + ",".join(
+                        f"{n}={v}" for n, v in zip(fam.labelnames, key)) + "}"
+                if isinstance(fam, Histogram):
+                    mean = s.sum / s.count if s.count else 0.0
+                    parts.append(f"{tag} n={s.count} mean={mean:.6g}s")
+                else:
+                    parts.append(f"{tag}={s:.6g}" if isinstance(s, float)
+                                 else f"{tag}={s}")
+        if parts:
+            self.logger.log(self.level, "%stelemetry: %s",
+                            _dist_log_prefix(), "  ".join(parts))
+
+    def start(self):
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.wait(self.interval):
+                try:
+                    self.report_once()
+                except Exception:  # noqa: BLE001 — reporting must not kill
+                    self.logger.exception("telemetry reporter failed")
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="mxtt-telemetry-report")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

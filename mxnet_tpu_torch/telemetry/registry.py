@@ -1,10 +1,10 @@
 """Metrics core of the port: labeled Counter / Gauge / Histogram families.
 
-A trimmed copy of ``mxnet_tpu/telemetry/registry.py`` holding what the
-serving path emits through: one process-wide registry of named metric
-families, one switch (``MXTPU_TELEMETRY`` / :func:`enable`) governing
-all of it, and a single flag check on every record path while it is
-off.  :func:`span` (and its decorator form :func:`timed`) times a
+A copy of ``mxnet_tpu/telemetry/registry.py``: one process-wide
+registry of named metric families (a ``Gauge`` also moves by
+``inc``/``dec``), one switch (``MXTPU_TELEMETRY`` / :func:`enable`)
+governing all of it, and a single flag check on every record path
+while it is off.  :func:`span` (and its decorator form :func:`timed`) times a
 region into two sinks: a latency histogram here while telemetry is on,
 and a chrome-trace event through ``profiler.record`` while the profiler
 runs, on the profiler's timeline.
@@ -141,6 +141,16 @@ class Gauge(MetricFamily):
         key = self._key(labels)
         with self._lock:
             self._samples[key] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels):
+        if not _state.enabled:
+            return
+        key = self._key(labels)
+        with self._lock:
+            self._samples[key] = self._samples.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels):
+        self.inc(-amount, **labels)
 
     def value(self, **labels) -> float:
         key = self._key(labels)

@@ -67,6 +67,12 @@ checkpoint and raises ``checkpoint.Preempted`` on SIGTERM, saves a
 terminal checkpoint at the end, and resumes mid-epoch from the batch
 cursor.
 
+Telemetry (``MXTPU_TELEMETRY``): each ``step`` and each ``step_multi``
+call is one ``trainer_step_seconds{loop="fused"}`` observation of its
+dispatch (device completion not included) and adds its samples to
+``trainer_samples_total{loop="fused"}``; each CUDA-graph capture counts
+in ``executor_compile_total{kind="fwdbwd"}``.
+
 Health and perf planes (:mod:`mxnet_tpu_torch.telemetry`): under
 ``MXTPU_SENTINEL`` each step also computes, from the raw (pre-clip)
 fp32 gradients, a per-parameter ``isfinite`` flag and the global
@@ -117,7 +123,7 @@ from . import random as _random
 from . import telemetry as _tm
 from .base import MXNetError, torch_dtype
 from .context import resolve_device
-from .executor import _build_graph_fn, channels_last_default
+from .executor import _build_graph_fn, _compile_done, channels_last_default
 from .initializer import Uniform
 from .ndarray import NDArray
 from .ops import residual_epilogue as _epilogue
@@ -125,6 +131,16 @@ from .optim_rules import _RULES
 from .passes import apply_graph_passes
 
 __all__ = ["FusedTrainer"]
+
+# --- telemetry families (the JAX package's; the ``loop`` label separates
+# the fused whole-step path from the Module fit loop) -----------------------
+_TM_SAMPLES = _tm.counter(
+    "trainer_samples_total", "training samples dispatched",
+    labels=("loop",))
+_TM_STEP_SEC = _tm.histogram(
+    "trainer_step_seconds",
+    "train-step dispatch wall time (async: device completion not "
+    "included)", labels=("loop",))
 
 # the reference's ops that draw random numbers (``needs_rng``): a
 # captured step registers the trainer's generator with its graph, so
@@ -498,9 +514,10 @@ class FusedTrainer:
         self._require_init("step")
         return self._eager_step(batch, "fused_step")
 
-    def _eager_step(self, batch, site):
+    def _eager_step(self, batch, site, record=True):
         """:meth:`step`'s body; the sentinel parks its flags under
-        ``site``."""
+        ``site``; ``record``: the step is a ``trainer_step_seconds``
+        observation of its own (not one of a ``step_multi`` call's)."""
         # the JAX step receives lr as an fp32 scalar
         lr = float(np.float32(self.current_lr()))
         self._step += 1
@@ -522,6 +539,10 @@ class FusedTrainer:
                                        names=self._sent_names, finite=sent,
                                        packed_norm=True)
         if t0 is not None:
+            if record and _tm.enabled():
+                _TM_STEP_SEC.observe(time.perf_counter() - t0, loop="fused")
+                _TM_SAMPLES.inc(next(iter(sb.values())).shape[0],
+                                loop="fused")
             _tm.health.donation_saved(self._donated_bytes,
                                       site="trainer_step")
             if perf_on:
@@ -610,10 +631,17 @@ class FusedTrainer:
                    for x in r):
                 raise MXNetError(f"FusedTrainer.step_multi: the steps of "
                                  f"{name!r} differ in shape or dtype")
+        # one trainer_step_seconds observation a call, as the JAX
+        # package's one program a call
+        samples = k * next(iter(rows.values()))[0].shape[0]
         if self.device.type != "cuda":
+            t0 = time.perf_counter() if _tm.enabled() else None
             outs = [self._eager_step({n: r[i] for n, r in rows.items()},
-                                     "fused_step_multi")
+                                     "fused_step_multi", record=False)
                     for i in range(k)]
+            if t0 is not None:
+                _TM_STEP_SEC.observe(time.perf_counter() - t0, loop="fused")
+                _TM_SAMPLES.inc(samples, loop="fused")
             return [torch.stack(o) for o in zip(*outs)]
         perf_on = _tm.perf.enabled()
         t0 = time.perf_counter() if (perf_on or _tm.enabled()) else None
@@ -650,6 +678,9 @@ class FusedTrainer:
                                        names=self._sent_names, finite=sents,
                                        packed_norm=True)
         if t0 is not None:
+            if _tm.enabled():
+                _TM_STEP_SEC.observe(time.perf_counter() - t0, loop="fused")
+                _TM_SAMPLES.inc(samples, loop="fused")
             _tm.health.donation_saved(self._donated_bytes * k,
                                       site="trainer_step_multi")
             if perf_on:
@@ -686,6 +717,8 @@ class FusedTrainer:
                 f"({', '.join(random_ops)}); a captured step would replay "
                 f"one draw, so it is not captured (use step()): this torch "
                 f"has no CUDAGraph.register_generator_state")
+        # a capture is what takes the XLA compile's place here
+        tc = time.perf_counter() if _tm.enabled() else None
         inputs = self._stage(example)
         self._record_step_memory(inputs)
         dev = self.device
@@ -736,6 +769,7 @@ class FusedTrainer:
                 f"FusedTrainer.step_multi: the training step could not be "
                 f"captured as a CUDA graph ({first}); an op on its path "
                 f"synchronises with the host or is not capturable") from exc
+        _compile_done(tc, "fwdbwd")
         return _Captured(graph, inputs, outputs, sent,
                          _epilogue.launch_count() != n_epi)
 

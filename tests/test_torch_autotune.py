@@ -454,20 +454,35 @@ def _greedy(outs):
 
 
 def test_paged_slots_search_on_the_cpu_matches_the_reference(
-        lm_params, tdec, sched_cache, metrics):
+        lm_params, tdec, sched_cache, metrics, monkeypatch):
     """Search mode on the CPU measures gather and pagewalk, persists the
     winner, and the port's greedy tokens equal the JAX gather backend's
     on the same seeded decoder; a second construction hits the cache
     with zero trials."""
     trials = metrics.get("autotune_trials_total")
     t0 = trials.total()
+    timed = []
+    timings = search._timings
+
+    def spy(fn, warmup, best_of):
+        timed.append(fn)
+        return timings(fn, warmup=warmup, best_of=best_of)
+
+    monkeypatch.setattr(search, "_timings", spy)
     buckets = (8, 16, 32)
     pg = PagedSlots(tdec, 3, block=8, prefill_buckets=buckets)
     assert pg.schedule["impl"] in ("gather", "pagewalk")
     assert pg.stats()["schedule"] == pg.schedule
-    # gather + the pagewalk granules 1, 2 and 4 (8 does not divide M 4)
-    assert trials.total() - t0 == 4
+    # gather + the pagewalk granules 1, 2 and 4 (8 does not divide M 4),
+    # and the four re-timings (winner, gather, winner, gather) when a
+    # pagewalk winner is confirmed against the default
     ent = json.load(open(sched_cache))["entries"]["cpu"]
+    assert ent["paged_attention|b3h2m4k8d16_float32"]["trials"] == 4
+    assert len(set(timed[:4])) == 4 and len(timed) in (4, 8)
+    if len(timed) == 8:
+        assert timed[4] is timed[6] and timed[5] is timed[7] is timed[0]
+    assert trials.total() - t0 == len(timed)
+    n_timed = len(timed)
     assert ent["paged_attention|b3h2m4k8d16_float32"]["schedule"] == \
         pg.schedule
     outs = _drive(pg)
@@ -483,7 +498,7 @@ def test_paged_slots_search_on_the_cpu_matches_the_reference(
     at.reset()
     again = PagedSlots(tdec, 3, block=8, prefill_buckets=buckets)
     assert again.schedule == pg.schedule
-    assert trials.total() - t0 == 4
+    assert trials.total() - t0 == n_timed
 
 
 def test_paged_forced_modes_skip_the_search(tdec, sched_cache, metrics,
