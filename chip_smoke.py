@@ -14,7 +14,9 @@ the detection zoo (SSD-VGG16-300 training and detection, Faster
 R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), MXNet from
 C (the predict ABI, the general C API from C++, the native runtime),
 MXNet's parameter-server training (``dist_sync``/``dist_async``
-under the port's launcher) and its core telemetry — and holds each
+under the port's launcher), its core telemetry, and training from and
+checkpointing to an object store with a PyTorch layer in the graph —
+and holds each
 hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
 
@@ -393,7 +395,32 @@ hand-written CUDA kernel
    held against the plain version; ``dump_json`` and one
    ``LoggingReporter.report_once`` checked for those families; the step
    ms on and off, their ratio, tokens/s and images/s
-   (``launches_core_telemetry``).
+   (``launches_core_telemetry``);
+43. remote I/O and the plugins (``phase_remote_plugins``, run before
+   phase 42 while phase 14's records exist): a loopback S3 double
+   (``S3Double``: path-style, Range, HEAD, PUT, each request's SigV4
+   signature recomputed with the port's signer) takes the 2,560
+   records through ``open_uri("s3://...", "wb")``; ResNet-50 b32 fp32
+   trains one epoch through ``Module.fit`` (phase 17's settings) over
+   ``ImageRecordIter(path_imgrec="s3://...")`` with
+   ``do_checkpoint("s3://...")`` and over the local file from the same
+   weights, every batch's digest on the card bit-equal between the two
+   (images/s, range GETs and bytes against the object's size, the
+   iterator's construction s, PUTs and bytes of the checkpoint, the idle
+   share of 4 more batches profiled); ``model.load_checkpoint`` from the store bit-equal to the
+   Module's params; ``predict.create`` from the store, 5 forwards, 4
+   epilogue launches each held against the plain version, logits
+   bit-equal to an in-memory Predictor's; ``interop.save_params`` of the
+   params at the size the shapes predict, read back bit-equal; the net
+   with fc1 as ``TorchModule(nn.Linear(2048, 1000))`` through
+   ``Module.fit`` against the native net (parameters within
+   ``PLUGIN_TOL`` after step 1, then within ``PLUGIN_SPREAD`` times what
+   a 1-ulp move of the native net's fc1 weights gives, step ms, 0 host
+   syncs a batch), ``TorchCriterion(
+   CrossEntropyLoss(), grad_scale=32)``'s fc1 gradient against
+   ``SoftmaxOutput``'s, ``opencv_plugin.imdecode`` of 32 records
+   bit-equal to ``image.imdecode_np`` through cv2 or the port's own
+   decode, whichever the machine has (``launches_remote_io``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -9782,6 +9809,604 @@ def phase_core_telemetry(smi, cfg, module):
             "exports": exports}, counts
 
 
+# ---------------------------------------------------------------- phase 43
+REMOTE_CREDENTIALS = ("AKIDCHIPSMOKE43", "chip/smoke+secret43", "eu-west-1",
+                      "session-token-43")   # access key, secret, region, token
+REMOTE_RECORDS = "s3://records/train.rec"
+REMOTE_CKPT = "s3://checkpoints/resnet-50"
+REMOTE_PREDICT_CALLS = 5
+REMOTE_IDLE_BATCHES = 4          # batches of the profiled window
+PLUGIN_BATCHES = 8               # Module.fit batches of each plugin net
+# The TorchModule net against the native one, and TorchCriterion's fc1
+# gradient against SoftmaxOutput's: fp32, TF32 off and cuDNN
+# deterministic (the native net twice gives the same bits), so the nets
+# part only by rounding: nn.Linear adds fc1's bias inside the GEMM,
+# FullyConnected after it, and the criterion's log-softmax rounds
+# otherwise than SoftmaxOutput's softmax.  One step leaves that at a few
+# ulps (1e-5 is ~80 ulps of an O(1) value: a wrong transpose, a missed
+# grad_scale or a second BatchNorm update moves it by 1e-3 or more).
+# Later SGD steps at lr 0.1 amplify any rounding: on an H100, moving the
+# native net's own fc1 weights by one ulp parts it from itself by 1.7e-6
+# after 2 steps and 6.9e-5 after 8 on these records.  So step 1 is held
+# to PLUGIN_TOL, every later
+# step to PLUGIN_SPREAD times the 1-ulp spread of the same step, which
+# the phase measures beside it
+PLUGIN_TOL = 1e-5
+PLUGIN_SPREAD = 4.0
+OPENCV_RECORDS = 32
+
+
+class S3Double:
+    """A loopback S3 double in a thread: path-style ``/bucket/key``
+    objects in memory, GET with ``Range``, HEAD and PUT.  Given
+    ``credentials`` (access key, secret key, region, session token),
+    every request's SigV4 signature is recomputed with the port's
+    ``filesystem._sigv4_headers`` over the headers the request says it
+    signed, a PUT's body hash is checked, and a request that differs is
+    refused (403) and kept in ``bad``.  ``ranges=False`` answers a Range
+    GET with the whole body (200), ``head=False`` refuses HEAD (405).
+    ``log`` keeps ``(method, key, status, bytes in, bytes out, headers)``
+    of every request."""
+
+    _AUTH = re.compile(r"AWS4-HMAC-SHA256 Credential=([^/]+)/(\d{8})/"
+                       r"([^/]+)/s3/aws4_request, SignedHeaders=([^,]+), "
+                       r"Signature=([0-9a-f]{64})$")
+
+    def __init__(self, credentials=None, ranges=True, head=True):
+        import http.server
+
+        self.credentials, self.ranges, self.head = credentials, ranges, head
+        self.objects, self.log, self.bad = {}, [], []
+        self.lock = threading.Lock()
+        double = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_HEAD(self):
+                double._serve(self, "HEAD")
+
+            def do_GET(self):
+                double._serve(self, "GET")
+
+            def do_PUT(self):
+                double._serve(self, "PUT")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @property
+    def endpoint(self):
+        return "http://127.0.0.1:%d" % self.server.server_address[1]
+
+    def env(self):
+        """The environment that sends ``s3://`` here, signed when the
+        double has credentials."""
+        env = {"S3_ENDPOINT": self.endpoint}
+        if self.credentials:
+            ak, sk, region, token = self.credentials
+            env.update(AWS_ACCESS_KEY_ID=ak, AWS_SECRET_ACCESS_KEY=sk,
+                       AWS_REGION=region)
+            if token:
+                env["AWS_SESSION_TOKEN"] = token
+        return env
+
+    def requests(self, method=None):
+        with self.lock:
+            return [r for r in self.log if method in (None, r[0])]
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def _signed(self, h, method, body):
+        """Is the request signed as the port's signer signs it?"""
+        import hashlib
+        from urllib.parse import unquote
+
+        from mxnet_tpu_torch.filesystem import _sigv4_headers
+
+        ak, sk, region, token = self.credentials
+        auth = h.headers.get("Authorization", "")
+        m = self._AUTH.match(auth)
+        amzdate = h.headers.get("x-amz-date", "")
+        payload = h.headers.get("x-amz-content-sha256", "")
+        if (not m or m.group(1) != ak or m.group(3) != region
+                or m.group(2) != amzdate[:8]
+                or h.headers.get("x-amz-security-token") != token):
+            return False
+        if method == "PUT" and payload != hashlib.sha256(body).hexdigest():
+            return False
+        own = ("host", "x-amz-date", "x-amz-content-sha256",
+               "x-amz-security-token")
+        names = [n for n in m.group(4).split(";") if n not in own]
+        if any(h.headers.get(n) is None for n in names):
+            return False
+        want = _sigv4_headers(method, h.headers.get("Host", ""),
+                              unquote(h.path.split("?", 1)[0]),
+                              {n: h.headers[n] for n in names}, ak, sk,
+                              region, amzdate, token, payload_hash=payload)
+        return want["Authorization"] == auth
+
+    def _serve(self, h, method):
+        from urllib.parse import unquote
+
+        key = unquote(h.path.split("?", 1)[0])
+        n_in = int(h.headers.get("Content-Length") or 0)
+        body = h.rfile.read(n_in) if n_in else b""
+        out, status, extra = b"", 200, {}
+        if self.credentials and not self._signed(h, method, body):
+            status = 403
+        elif method == "HEAD" and not self.head:
+            status = 405
+        elif method == "PUT":
+            with self.lock:
+                self.objects[key] = body
+        else:
+            with self.lock:
+                data = self.objects.get(key)
+            if data is None:
+                status = 404
+            else:
+                out = data
+                rng = h.headers.get("Range")
+                if rng and self.ranges:
+                    lo, hi = rng.split("=", 1)[1].split("-")
+                    lo, hi = int(lo), min(int(hi), len(data) - 1)
+                    out, status = data[lo:hi + 1], 206
+                    extra["Content-Range"] = f"bytes {lo}-{hi}/{len(data)}"
+        with self.lock:
+            self.log.append((method, key, status, len(body),
+                             len(out) if method == "GET" else 0,
+                             dict(h.headers)))
+            if status == 403:
+                self.bad.append((method, key))
+        if status >= 400:
+            h.send_error(status)
+            return
+        h.send_response(status)
+        for k, v in extra.items():
+            h.send_header(k, v)
+        h.send_header("Content-Length", str(len(out)))
+        h.end_headers()
+        if method == "GET":
+            h.wfile.write(out)
+
+
+def _batch_digest(batch, weights):
+    """A batch's data and labels as three int64 sums on the card: the
+    float32 bits, the bits weighted by position, the label bits (two's
+    complement wraps, so any summation order gives the same value)."""
+    x = batch.data[0].tensor.contiguous().view(torch.int32).reshape(-1)
+    y = batch.label[0].tensor.contiguous().view(torch.int32).reshape(-1)
+    x = x.to(torch.int64)
+    return torch.stack([x.sum(), (x * weights[:x.numel()]).sum(),
+                        y.to(torch.int64).sum()])
+
+
+def _plain_iter(path):
+    """ImageRecordIter over ``path`` without shuffle or random
+    augmentation (center crops), so two runs give the same batches."""
+    from mxnet_tpu_torch import image
+
+    return image.ImageRecordIter(path, REC_SHAPE, REC_BATCH,
+                                 preprocess_threads=os.cpu_count() or 1)
+
+
+def _remote_fit(net, it, params, tag, smi, epoch_end=None):
+    """One epoch of ``Module.fit`` (phase 17's settings) from ``params``
+    over ``it`` stacked as ``PrefetchingIter -> DevicePrefetchIter``;
+    each batch's digest kept on the card.  Returns (the module, row,
+    digests)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import metric
+
+    arg, aux = params
+    weights = (torch.arange(REC_BATCH * int(np.prod(REC_SHAPE)),
+                            device=CARD, dtype=torch.int64) % 65521) + 1
+    digests = []
+
+    def digest(param):
+        digests.append(_batch_digest(param.locals["data_batch"], weights))
+
+    mod = mx.mod.Module(net)
+    acc = metric.Accuracy()
+    pipe = _stacked(it)
+    with _ConsumerSyncs() as sync:
+        t0 = time.perf_counter()
+        mod.fit(pipe, num_epoch=1, kvstore="device", optimizer="sgd",
+                optimizer_params=dict(REC_MODULE_OPT),
+                arg_params={k: v.copy() for k, v in arg.items()},
+                aux_params={k: v.copy() for k, v in aux.items()},
+                eval_metric=acc, batch_end_callback=[digest, sync.mark],
+                epoch_end_callback=epoch_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_batch, _ = _per_batch(sync.marks)
+    row = {"img_s": len(digests) * REC_BATCH / wall, "wall_s": wall,
+           "batches": len(digests),
+           "syncs_per_batch": sum(per_batch) / max(len(per_batch), 1),
+           "accuracy": acc.get()[1]}
+    log(f"[remote_io] Module.fit ResNet-50 b{REC_BATCH} fp32 over {tag}: "
+        f"{row['batches']} batches, {row['img_s']:.1f} img/s, host syncs "
+        f"a batch {row['syncs_per_batch']:.1f}, train accuracy "
+        f"{row['accuracy']:.4f}; {smi}")
+    if any(per_batch):
+        raise AssertionError(f"{tag}: host syncs between batches "
+                             f"{per_batch}")
+    return mod, row, torch.stack(digests)
+
+
+def _fit_idle(mod, it, n, tag, smi):
+    """The idle share of ``n`` more ``Module.fit`` batches of ``mod`` over
+    ``it`` (a CUDA-only profile of a short window: the profiler's events
+    of a whole epoch take minutes to read back)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = _Limited(_stacked(it), n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.fit(pipe, num_epoch=1, kvstore="device", optimizer="sgd",
+                optimizer_params=dict(REC_MODULE_OPT))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, busy = _kernel_busy(prof, 1)
+    idle = 1 - busy / wall_ms
+    log(f"[remote_io] Module.fit over {tag}, {n} batches profiled: device "
+        f"busy {busy:.1f} ms in {wall_ms:.1f}, idle share {idle:.4f}; {smi}")
+    return idle
+
+
+def _remote_io(smi, recs, s3, workdir):
+    """Phase 43's store half; returns its numbers."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import (callback, filesystem, interop, model,
+                                 models, predict)
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.ops import residual_epilogue as tre
+
+    out = {}
+    # 1. the records into the store through open_uri
+    local = recs["train"]
+    with open(local, "rb") as f:
+        blob = f.read()
+    t0 = time.perf_counter()
+    with filesystem.open_uri(REMOTE_RECORDS, "wb") as f:
+        f.write(blob)
+    out["upload_s"] = time.perf_counter() - t0
+    key = REMOTE_RECORDS[len("s3:/"):]
+    if s3.objects.get(key) != blob:
+        raise AssertionError("the uploaded records differ from the file")
+    # 2. the iterators: the store's object read once at construction
+    n0 = len(s3.log)
+    t0 = time.perf_counter()
+    it_s3 = _plain_iter(REMOTE_RECORDS)
+    out["ctor_s3_s"] = time.perf_counter() - t0
+    reads = s3.log[n0:]
+    gets = [r for r in reads if r[0] == "GET"]
+    out["gets"], out["heads"] = len(gets), len(reads) - len(gets)
+    out["bytes_read"] = sum(r[4] for r in gets)
+    t0 = time.perf_counter()
+    it_local = _plain_iter(local)
+    out["ctor_local_s"] = time.perf_counter() - t0
+    if not len(it_s3.records) == len(it_local.records) == REC_TRAIN:
+        raise AssertionError(f"{len(it_s3.records)} records over s3, "
+                             f"{len(it_local.records)} local")
+    log(f"[remote_io] {REC_TRAIN} records ({len(blob)} bytes) uploaded "
+        f"through open_uri in {out['upload_s']:.3f} s; ImageRecordIter "
+        f"over s3:// built in {out['ctor_s3_s']:.3f} s ({out['heads']} "
+        f"HEAD, {out['gets']} range GETs, {out['bytes_read']} bytes read "
+        f"of the object's {len(blob)}), over the local file in "
+        f"{out['ctor_local_s']:.3f} s; {smi}")
+    if out["bytes_read"] != len(blob):
+        raise AssertionError(f"read {out['bytes_read']} bytes of "
+                             f"{len(blob)}")
+    # 3. Module.fit over each, from one set of weights; the store's run
+    # checkpoints into the store at the epoch's end
+    mx.random.seed(0)
+    net = models.get_symbol("resnet-50", num_classes=1000)
+    init_mod = mx.mod.Module(net)
+    init_mod.bind(data_shapes=it_local.provide_data,
+                  label_shapes=it_local.provide_label)
+    init_mod.init_params(mx.init.Xavier(rnd_type="gaussian",
+                                        factor_type="in", magnitude=2))
+    arg0, aux0 = init_mod.get_params()
+    params = ({k: v.copy() for k, v in arg0.items()},
+              {k: v.copy() for k, v in aux0.items()})
+    # a short fit first, so that neither timed route pays the card's
+    # first convolutions (cuDNN's algorithm choice, the allocator)
+    init_mod.fit(_Limited(_stacked(_plain_iter(local)), 3), num_epoch=1,
+                 kvstore="device", optimizer="sgd",
+                 optimizer_params=dict(REC_MODULE_OPT))
+    del init_mod
+    ckpt = {}
+    save = callback.do_checkpoint(REMOTE_CKPT)
+
+    def checkpoint(epoch, symbol, arg, aux):
+        n0 = len(s3.log)
+        t0 = time.perf_counter()
+        save(epoch, symbol, arg, aux)
+        ckpt["put_s"] = time.perf_counter() - t0
+        puts = [r for r in s3.log[n0:] if r[0] == "PUT"]
+        ckpt["puts"], ckpt["put_bytes"] = len(puts), sum(r[3] for r in puts)
+
+    mod, out["fit_s3"], dig_s3 = _remote_fit(
+        net, it_s3, params, REMOTE_RECORDS, smi, epoch_end=checkpoint)
+    local_mod, out["fit_local"], dig_local = _remote_fit(
+        net, it_local, params, "the local file", smi)
+    out["idle_share"] = _fit_idle(local_mod, _plain_iter(REMOTE_RECORDS),
+                                  REMOTE_IDLE_BATCHES, REMOTE_RECORDS, smi)
+    del local_mod
+    equal = dig_s3.shape == dig_local.shape and torch.equal(dig_s3,
+                                                            dig_local)
+    # the s3 fit's wall holds the epoch-end checkpoint's upload
+    bare = out["fit_s3"]["batches"] * REC_BATCH / (
+        out["fit_s3"]["wall_s"] - ckpt["put_s"])
+    log(f"[remote_io] the {dig_s3.shape[0]} batches over s3:// bit-equal "
+        f"to the local file's: {equal}; images/s s3 / local "
+        f"{out['fit_s3']['img_s'] / out['fit_local']['img_s']:.4f} "
+        f"({bare / out['fit_local']['img_s']:.4f} less the checkpoint's "
+        f"upload); the checkpoint: {ckpt['puts']} PUTs, "
+        f"{ckpt['put_bytes']} bytes in {ckpt['put_s']:.3f} s; {smi}")
+    if not equal or dig_s3.shape[0] != REC_TRAIN // REC_BATCH:
+        raise AssertionError("the batches over s3:// differ from the "
+                             "local file's")
+    if ckpt["puts"] != 2:
+        raise AssertionError(f"the checkpoint took {ckpt['puts']} PUTs")
+    out["ckpt"] = ckpt
+    # 4. back from the store
+    arg_m, aux_m = mod.get_params()
+    n0 = len(s3.log)
+    t0 = time.perf_counter()
+    sym2, arg2, aux2 = model.load_checkpoint(REMOTE_CKPT, 1)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    got = [r for r in s3.log[n0:] if r[0] == "GET"]
+    out["load_gets"], out["load_bytes"] = len(got), sum(r[4] for r in got)
+    same_sym = sym2.tojson() == mod.symbol.tojson()
+    differ = sorted(k for a, b in ((arg2, arg_m), (aux2, aux_m))
+                    for k in set(a) | set(b)
+                    if k not in a or k not in b or not torch.equal(
+                        a[k].tensor, b[k].tensor.to(a[k].tensor.device)))
+    if not same_sym or differ:
+        raise AssertionError(f"the checkpoint read back from s3:// differs "
+                             f"from the Module's: symbol equal {same_sym}, "
+                             f"params that differ {differ[:8]}")
+    x = np.random.default_rng(43).normal(
+        size=(REC_BATCH,) + REC_SHAPE).astype(np.float32)
+    shapes = {"data": (REC_BATCH,) + REC_SHAPE}
+    remote = predict.create(REMOTE_CKPT, 1, shapes)
+    mem = predict.Predictor(symbol=mod.symbol, arg_params=arg_m,
+                            aux_params=aux_m, input_shapes=shapes)
+    n0, checked = tre.launch_count(), 0
+    with _EpilogueRecorder() as rec:
+        for _ in range(REMOTE_PREDICT_CALLS):
+            remote.forward(data=x)
+            logits = remote.get_output(0)
+            checked += rec.check("predict.create from s3://")
+    launches = tre.launch_count() - n0
+    mem.forward(data=x)
+    same = np.array_equal(logits, mem.get_output(0))
+    out["predict_launches"] = launches
+    log(f"[remote_io] load_checkpoint from s3:// in {out['load_s']:.3f} s "
+        f"({out['load_gets']} GETs, {out['load_bytes']} bytes), params "
+        f"bit-equal to the Module's; predict.create from s3:// b{REC_BATCH}"
+        f" fp32: {REMOTE_PREDICT_CALLS} forwards, {launches} epilogue "
+        f"launches each within its bound of the plain version, logits "
+        f"bit-equal to the in-memory Predictor's: {same}; {smi}")
+    if launches != 4 * REMOTE_PREDICT_CALLS or checked != launches \
+            or not same or logits.shape != (REC_BATCH, 1000):
+        raise AssertionError(f"predict.create: {launches} launches, "
+                             f"{checked} checked, logits equal {same}")
+    del remote, mem
+    # 5. the reference's binary format, written locally
+    path = os.path.join(workdir, "resnet-50-0001.params")
+    interop.save_params(path, arg_m, aux_m)
+    items = [("arg:" + k, v) for k, v in arg_m.items()] + \
+        [("aux:" + k, v) for k, v in aux_m.items()]
+    want = 24 + 8 + sum(4 + 4 * v.ndim + 12 + v.size * 4 + 8 + len(n)
+                        for n, v in items)
+    size = os.path.getsize(path)
+    back = nd.load(path)
+    equal = size == want and sorted(back) == sorted(n for n, _ in items) \
+        and all(torch.equal(back[n].tensor, v.tensor.to(back[n].tensor.device))
+                for n, v in items)
+    out["params_bytes"] = size
+    log(f"[remote_io] interop.save_params: {size} bytes (predicted from "
+        f"the shapes {want}), nd.load bit-equal: {equal}; {smi}")
+    if not equal:
+        raise AssertionError("save_params: size or values differ")
+    return out, mod
+
+
+def _plugin_fits(smi, mod, local):
+    """ResNet-50 b32 fp32 with fc1 as ``TorchModule(nn.Linear(2048,
+    1000))`` against the native net through ``Module.fit`` from the same
+    weights on the same resident batches (cuDNN deterministic); the
+    native net again (for its own determinism and a warm step time) and
+    with fc1's weights moved by one ulp (how far fp32 rounding alone
+    carries these steps); the same net's fc1 gradient under
+    ``TorchCriterion(CrossEntropyLoss(), grad_scale=32)`` against
+    ``SoftmaxOutput``'s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.plugins import torch_plugin as tp
+
+    net = mod.symbol
+    arg, aux = mod.get_params()
+    fc = net.get_internals()["fc1_output"]
+    flat = fc.get_children()[0]
+    n_out, n_in = arg["fc1_weight"].shape
+    linear = torch.nn.Linear(n_in, n_out)
+    mid = tp.register_module(linear)
+    tnet = sym.SoftmaxOutput(sym.TorchModule(
+        flat, sym.Variable("fc1_weight", shape=(n_out, n_in)),
+        sym.Variable("fc1_bias", shape=(n_out,)), module_id=mid,
+        name="fc1_torch"), name="softmax")
+    batches = []
+    for b in _stacked(_plain_iter(local)):
+        batches.append((b.data[0].tensor.clone(), b.label[0].tensor.clone()))
+        if len(batches) == PLUGIN_BATCHES:
+            break
+    w = arg["fc1_weight"].tensor
+    ulp = dict(arg, fc1_weight=nd.NDArray(
+        torch.nextafter(w, torch.full_like(w, math.inf))))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rows, ref = {}, []
+
+    def fit(tag, graph, start):
+        m = mx.mod.Module(graph)
+        diffs = []
+
+        def step(param):
+            now = m.get_params()[0]
+            if tag == "native":
+                ref.append({k: v.tensor.clone() for k, v in now.items()})
+            else:
+                diffs.append(torch.stack([
+                    (v.tensor - ref[len(diffs)][k]).abs().max()
+                    for k, v in now.items()]).max())
+
+        with _ConsumerSyncs() as sync:
+            m.fit(_resident_iter(batches, PLUGIN_BATCHES), num_epoch=1,
+                  kvstore="device", optimizer="sgd",
+                  optimizer_params=dict(REC_MODULE_OPT),
+                  arg_params={k: v.copy() for k, v in start.items()},
+                  aux_params={k: v.copy() for k, v in aux.items()},
+                  batch_end_callback=[step, sync.mark])
+            torch.cuda.synchronize()
+        per_batch, _ = _per_batch(sync.marks)
+        if any(per_batch):
+            raise AssertionError(f"{tag}: host syncs between batches "
+                                 f"{per_batch}")
+        rows[tag] = {"step_ms": float(np.median(np.diff(sync.stamps)[1:])
+                                      * 1e3),
+                     "syncs_per_batch": sum(per_batch) / len(per_batch),
+                     "diff": (torch.stack(diffs).tolist() if diffs
+                              else None)}
+
+    try:
+        # the step ms compared are those of the two nets' second fits,
+        # back to back: a first fit pays for what the first runs set up
+        fit("native", net, arg)
+        fit("TorchModule", tnet, arg)
+        fit("native again", net, arg)
+        fit("TorchModule again", tnet, arg)
+        fit("native, fc1 + 1 ulp", net, ulp)
+        torch_d = rows["TorchModule"]["diff"]
+        ulp_d = rows["native, fc1 + 1 ulp"]["diff"]
+        on_card = all(t.device.type == CARD for t in
+                      list(linear.parameters()) + list(linear.buffers()))
+        ratio = rows["TorchModule again"]["step_ms"] / \
+            rows["native again"]["step_ms"]
+        log(f"[plugins] ResNet-50 b{REC_BATCH} fp32 with fc1 as "
+            f"TorchModule(nn.Linear({n_in}, {n_out})) against the native "
+            f"net, {PLUGIN_BATCHES} Module.fit batches from the same "
+            f"weights (cuDNN deterministic), largest parameter difference "
+            f"by step: " + " ".join(f"{d:.3e}" for d in torch_d)
+            + f" (step 1 tolerance {PLUGIN_TOL}); the native net with "
+            f"fc1's weights 1 ulp up: " + " ".join(f"{d:.3e}" for d in ulp_d)
+            + f"; the native net again: {max(rows['native again']['diff'])}"
+            f"; step ms, second fits: {rows['TorchModule again']['step_ms']:.3f}"
+            f" against {rows['native again']['step_ms']:.3f} (ratio "
+            f"{ratio:.4f}; first fits {rows['TorchModule']['step_ms']:.3f} "
+            f"and {rows['native']['step_ms']:.3f}); "
+            f"host syncs a batch {rows['TorchModule']['syncs_per_batch']:.1f}"
+            f" (the Custom op's: 2); the torch layer on the card: "
+            f"{on_card}; {smi}")
+        if (torch_d[0] > PLUGIN_TOL or not on_card
+                or max(rows["native again"]["diff"]) != 0
+                or rows["TorchModule again"]["diff"] != torch_d
+                or any(t > PLUGIN_SPREAD * u
+                       for t, u in zip(torch_d[1:], ulp_d[1:]))):
+            raise AssertionError(f"TorchModule: differences {torch_d}, "
+                                 f"1 ulp {ulp_d}, on the card {on_card}")
+        # TorchCriterion's gradient into fc1 against SoftmaxOutput's
+        cid = tp.register_criterion(torch.nn.CrossEntropyLoss())
+        cnet = sym.TorchCriterion(fc, sym.Variable("softmax_label"),
+                                  criterion_id=cid, grad_scale=REC_BATCH)
+        grads = {}
+        x, y = batches[0]
+        for tag, graph in (("SoftmaxOutput", net), ("TorchCriterion", cnet)):
+            ex = graph.simple_bind(ctx=mx.gpu(0), data=tuple(x.shape),
+                                   softmax_label=tuple(y.shape))
+            ex.copy_params_from(arg, aux)
+            ex.forward(is_train=True, data=x, softmax_label=y)
+            ex.backward()
+            grads[tag] = ex.grad_dict["fc1_weight"].clone()
+        g, want = grads["TorchCriterion"], grads["SoftmaxOutput"]
+        err = float((g - want).abs().max() / want.abs().max())
+        log(f"[plugins] TorchCriterion(CrossEntropyLoss(), grad_scale="
+            f"{REC_BATCH}) against SoftmaxOutput: fc1 gradient relative "
+            f"difference {err:.3e} (tolerance {PLUGIN_TOL}), on "
+            f"{g.device}; {smi}")
+        if err > PLUGIN_TOL or g.device.type != CARD:
+            raise AssertionError(f"TorchCriterion: fc1 gradient {err}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rows["ratio"], rows["crit_err"] = ratio, err
+    return rows
+
+
+def _opencv_check(smi, local):
+    """plugins.opencv_plugin.imdecode of OPENCV_RECORDS records against
+    image.imdecode_np, bit for bit, through whichever route the machine
+    has (cv2, else the port's own decode); the route is printed."""
+    from mxnet_tpu_torch import image, recordio
+    from mxnet_tpu_torch.plugins import opencv_plugin as cv
+
+    rd = recordio.MXRecordIO(local, "r")
+    payloads = [recordio.unpack(rd.read())[1] for _ in range(OPENCV_RECORDS)]
+    rd.close()
+    t0 = time.perf_counter()
+    got = [cv.imdecode(p) for p in payloads]
+    secs = time.perf_counter() - t0
+    equal = all(np.array_equal(a.asnumpy(), image.imdecode_np(p).astype(
+        np.float32)) for a, p in zip(got, payloads))
+    route = "cv2" if cv._cv2 is not None else "the port's decode (no cv2)"
+    log(f"[plugins] opencv_plugin.imdecode of {OPENCV_RECORDS} records "
+        f"through {route}: {secs * 1e3 / OPENCV_RECORDS:.3f} ms an image, "
+        f"on {got[0].context}, bit-equal to image.imdecode_np: {equal}; "
+        f"{smi}")
+    if not equal:
+        raise AssertionError("opencv_plugin.imdecode differs from "
+                             "image.imdecode_np")
+    return {"route": route, "ms_per_image": secs * 1e3 / OPENCV_RECORDS}
+
+
+def phase_remote_plugins(smi, recs):
+    """Phase 43 (see the module docstring): remote I/O through a loopback
+    S3 double and the plugins.  Returns its numbers."""
+    with tempfile.TemporaryDirectory() as workdir, \
+            S3Double(REMOTE_CREDENTIALS) as s3:
+        out, mod = _with_env(s3.env(),
+                             lambda: _remote_io(smi, recs, s3, workdir))
+        bad = list(s3.bad)
+    if bad:
+        raise AssertionError(f"requests with a bad signature: {bad}")
+    out["plugins"] = _plugin_fits(smi, mod, recs["train"])
+    out["opencv"] = _opencv_check(smi, recs["train"])
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_launches(reset=False):
     """Each hand-written kernel's launch count (zeroed first when
     ``reset``), by its record's name."""
@@ -10010,7 +10635,19 @@ def main():
     # (phases 37-38 ran after phase 2)
     _, slice16["native"] = phase_native(smi, recs, iters["img_s"])
     _elapsed("phase_native")
+    # slice 19: the records into a loopback S3 double, ResNet-50 trained
+    # from it and checkpointed into it, the plugins (phase 43)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remote_launches = _kernel_launches(reset=True)
+    phase_remote_plugins(smi, recs)
+    remote_launches = _kernel_launches()
+    _elapsed("phase_remote_plugins")
     rec_dir.cleanup()
+    log(f"[slice19] hand-written kernel launches in phase 43: "
+        f"{json.dumps(remote_launches)}")
+    if not remote_launches["residual_epilogue"]:
+        raise AssertionError("phase 43: the epilogue never launched")
     if not slice16["c_predict"]["residual_epilogue"]:
         raise AssertionError("c_predict: the epilogue never launched")
     log(f"[slice16] hand-written kernel launches by phase: "
@@ -10084,6 +10721,7 @@ def main():
         rec["launches_autotune"] = tune_launches[rec["name"]]
         rec["launches_planes"] = plane_launches[rec["name"]]
         rec["launches_core_telemetry"] = core_launches[rec["name"]]
+        rec["launches_remote_io"] = remote_launches[rec["name"]]
     for rec in records[1:4]:
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()

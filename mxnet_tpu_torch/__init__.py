@@ -55,7 +55,15 @@ training — ``kvstore_server`` and the ``dist_sync``/``dist_device_sync``/
 ``dist_async`` stores of ``kvstore`` through ``Module.fit``, the launcher
 ``python -m mxnet_tpu_torch.launch``, ``parallel.dist`` (ranks, the
 barrier watchdog, generations) and ``parallel.coordinator`` (leases,
-``/cluster``, ``/fleet``) with the fit loops' and the router's hooks.
+``/cluster``, ``/fleet``) with the fit loops' and the router's hooks;
+and MXNet's remote stores — ``filesystem``'s ``http(s)://``, ``s3://``,
+``gs://`` and ``hdfs://`` adapters under ``nd.save``/``load``,
+``Symbol.save``/``load``, checkpoints, ``predict.create`` and
+``ImageRecordIter`` — ``interop`` (the reference's binary ``.params``,
+read and written) and ``plugins`` (``TorchModule``/``TorchCriterion`` on
+the op's device, the opencv surface), which ``import
+mxnet_tpu_torch.plugins`` loads (this package does not import it, as in
+the reference).
 A process launched with ``MXTPU_ROLE=server`` serves the parameter store
 inside ``import mxnet_tpu_torch`` and exits there (the import's last
 statement), before user code could touch the card.

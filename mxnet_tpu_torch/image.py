@@ -477,10 +477,12 @@ class ImageIter(DataIter, _OnDevice):
 class ImageRecordIter(DataIter, _OnDevice):
     """Threaded RecordIO image pipeline (parity: ImageRecordIter,
     src/io/iter_image_recordio.cc:459): the shard's records are read
-    once (the native reader, else :class:`~.filesystem.InputSplit`),
-    then each batch is decoded and augmented on ``preprocess_threads``
-    threads (default ``MXNET_CPU_WORKER_NTHREADS``, 4) straight into a
-    pooled staging buffer.  Wrap with ``io.PrefetchingIter`` for the
+    once (the native reader for a local file, else
+    :class:`~.filesystem.InputSplit`, which reads every remote scheme:
+    ``s3://``, ``hdfs://``, ``http(s)://``, ...), then each batch is
+    decoded and augmented on ``preprocess_threads`` threads (default
+    ``MXNET_CPU_WORKER_NTHREADS``, 4) straight into a pooled staging
+    buffer.  Wrap with ``io.PrefetchingIter`` for the
     PrefetcherIter stage."""
 
     def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
@@ -506,28 +508,31 @@ class ImageRecordIter(DataIter, _OnDevice):
                                     else (3,) + self.data_shape),
                                    resize=resize, rand_crop=rand_crop,
                                    rand_mirror=rand_mirror)
+        from .filesystem import InputSplit, is_remote
+
         self.records = []
         native_ok = False
-        try:
-            from . import _native
+        if not is_remote(path_imgrec):
+            try:
+                from . import _native
 
-            if _native.available():
-                rd = _native.NativeRecordReader(path_imgrec, part_index,
-                                                num_parts)
-                while True:
-                    batch = rd.read_batch()  # one crossing per 1024 records
-                    if not batch:
-                        break
-                    self.records.extend(batch)
-                rd.close()
-                native_ok = True
-        except Exception:  # noqa: BLE001 — fall back to InputSplit
-            self.records = []
+                if _native.available():
+                    rd = _native.NativeRecordReader(path_imgrec, part_index,
+                                                    num_parts)
+                    while True:
+                        batch = rd.read_batch()  # a crossing per 1024
+                        if not batch:
+                            break
+                        self.records.extend(batch)
+                    rd.close()
+                    native_ok = True
+            except Exception:  # noqa: BLE001 — fall back to InputSplit
+                self.records = []
         if not native_ok:
             # byte-range sharding with record alignment over any
-            # registered filesystem (mem://), unlike the native scanner
-            from .filesystem import InputSplit
-
+            # registered filesystem (s3://, hdfs://, http(s)://, mem://):
+            # a remote scheme comes here directly, never through the
+            # local-only native scanner
             self.records = list(InputSplit(path_imgrec, part_index,
                                            num_parts))
         self.shuffle = shuffle

@@ -1,27 +1,37 @@
-"""Reader of the reference's NDArray-list binary (mirrors the reading
-half of ``mxnet_tpu/interop.py``, copied rather than imported).
+"""Reference-checkpoint interoperability (mirrors
+``mxnet_tpu/interop.py``, copied rather than imported): the
+reference's on-disk formats, read and written.
 
-The format behind ``prefix-0001.params`` (src/ndarray/ndarray.cc:593-694
-of the reference): uint64 magic ``0x112`` + reserved, then a dmlc
-vector of arrays — each a TShape (uint32 ndim + uint32 dims), a Context
-(int32 dev_type + int32 dev_id), an int32 mshadow type flag and the raw
-row-major bytes — then a dmlc vector of name strings (``arg:``/``aux:``
-prefixed by ``model.save_checkpoint``).  :func:`mxnet_tpu_torch.ndarray.
-load` routes such files here.
+- :func:`load_params` / :func:`save_params` — the NDArray-list binary
+  behind ``prefix-0001.params`` (src/ndarray/ndarray.cc:593-694 of the
+  reference): uint64 magic ``0x112`` + reserved, then a dmlc vector of
+  arrays — each a TShape (uint32 ndim + uint32 dims), a Context (int32
+  dev_type + int32 dev_id), an int32 mshadow type flag and the raw
+  row-major bytes — then a dmlc vector of name strings (``arg:``/
+  ``aux:`` prefixed by ``model.save_checkpoint``).  The writer is the
+  JAX package's byte for byte: a cpu context, scalars stored as
+  ``(1,)`` (ndim 0 means "none" in the format), and every dtype the
+  format lacks (bfloat16, int64, bool, ...) cast to float32.
+  :func:`mxnet_tpu_torch.ndarray.load` routes such files here.
+- :func:`load_symbol_json` reads the reference's nnvm symbol JSON
+  (every vintage the JAX package reads: op params under ``param``,
+  ``attr`` or ``attrs``, 2- or 3-element input references, the pre-0.9
+  op names and their missing aux inputs);
+  :func:`mxnet_tpu_torch.symbol.load_json` routes such files here.
+- :func:`load_checkpoint` — the pair, as ``model.load_checkpoint``.
 
-:func:`load_symbol_json` reads the reference's nnvm symbol JSON (every
-vintage the JAX package reads: op params under ``param``, ``attr`` or
-``attrs``, 2- or 3-element input references, the pre-0.9 op names and
-their missing aux inputs); :func:`mxnet_tpu_torch.symbol.load_json`
-routes such files here.  Writing the binary format is not ported.
+Local files only, like the JAX package's: ``nd.load`` of a remote URI
+reads the object and sniffs the magic itself.  The arrays land on the
+current context (the card, or the innermost ``with mx.Context(...)``).
 """
 from __future__ import annotations
 
 import json
 import struct
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 
@@ -29,6 +39,7 @@ _MAGIC = 0x112
 # mshadow type flags (mshadow/base.h TypeFlag)
 _DTYPES = {0: np.float32, 1: np.float64, 2: np.float16, 3: np.uint8,
            4: np.int32}
+_FLAGS = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 
 class _Reader:
@@ -74,25 +85,95 @@ def _read_names(r: _Reader):
     return [r.take(r.u64()).decode() for _ in range(n)]
 
 
-def load_params_raw(blob: bytes, ctx=None) -> Dict:
+def _load_blob(blob: bytes, ctx=None, what="") -> Dict:
     """The contents of a reference NDArray-list file -> ``{name:
     NDArray}`` on ``ctx`` (names exactly as stored, ``arg:``/``aux:``
     prefixes included; unnamed arrays are keyed ``"0"``, ``"1"``, ...)."""
     from .ndarray import NDArray
 
+    pre = f"{what}: " if what else ""
     r = _Reader(blob)
     if r.u64() != _MAGIC:
-        raise MXNetError("not a reference NDArray file (bad magic)")
+        raise MXNetError(f"{pre}not a reference NDArray file (bad magic)")
     r.u64()  # reserved
     n = r.u64()
     arrays = [_read_ndarray(r) for _ in range(n)]
     names = _read_names(r)
     if names and len(names) != len(arrays):
-        raise MXNetError(f"{len(arrays)} arrays but {len(names)} names")
+        raise MXNetError(f"{pre}{len(arrays)} arrays but {len(names)} "
+                         "names")
     if not names:
         names = [str(i) for i in range(len(arrays))]
     return {name: NDArray(a, ctx=ctx) for name, a in zip(names, arrays)
             if a is not None}
+
+
+def load_params_raw(fname: str) -> Dict:
+    """Read a reference NDArray-list file -> ``{original_name: NDArray}``
+    (names exactly as stored, including any ``arg:``/``aux:``
+    prefixes)."""
+    with open(fname, "rb") as f:
+        return _load_blob(f.read(), what=fname)
+
+
+def load_params(fname: str) -> Tuple[Dict, Dict]:
+    """Read a reference ``.params`` file -> ``(arg_params, aux_params)``,
+    splitting the ``arg:``/``aux:`` name prefixes the reference's
+    ``save_checkpoint`` writes (unprefixed names land in arg_params)."""
+    arg, aux = {}, {}
+    for name, v in load_params_raw(fname).items():
+        if name.startswith("aux:"):
+            aux[name[4:]] = v
+        elif name.startswith("arg:"):
+            arg[name[4:]] = v
+        else:
+            arg[name] = v
+    return arg, aux
+
+
+def _host(v) -> np.ndarray:
+    """``v`` (a port NDArray or tensor, a JAX package NDArray, anything
+    numpy takes) as a contiguous host array in a dtype the format has:
+    others, bfloat16 among them, become float32."""
+    t = getattr(v, "tensor", v)
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        a = t.cpu().numpy()
+    else:
+        a = np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+    if a.dtype not in _FLAGS:
+        a = a.astype(np.float32)
+    return np.ascontiguousarray(a)
+
+
+def save_params(fname: str, arg_params: Dict, aux_params: Dict = None):
+    """Write arg/aux dicts in the reference's binary format (the inverse
+    of :func:`load_params`; lets checkpoints flow back to the
+    reference)."""
+    chunks = [struct.pack("<QQ", _MAGIC, 0)]
+    items = [("arg:" + k, v) for k, v in (arg_params or {}).items()]
+    items += [("aux:" + k, v) for k, v in (aux_params or {}).items()]
+    chunks.append(struct.pack("<Q", len(items)))
+    for _, v in items:
+        a = _host(v)
+        if a.ndim == 0:
+            # ndim 0 is a "none" array in the format (the reader stops
+            # after the shape): a scalar is stored as (1,)
+            a = a.reshape(1)
+        chunks.append(struct.pack("<I", a.ndim))
+        chunks.append(struct.pack("<%dI" % a.ndim, *a.shape))
+        chunks.append(struct.pack("<ii", 1, 0))     # cpu context
+        chunks.append(struct.pack("<i", _FLAGS[a.dtype]))
+        chunks.append(a.tobytes())
+    chunks.append(struct.pack("<Q", len(items)))
+    for name, _ in items:
+        b = name.encode()
+        chunks.append(struct.pack("<Q", len(b)))
+        chunks.append(b)
+    with open(fname, "wb") as f:
+        f.write(b"".join(chunks))
 
 
 _OP_RENAMES = {
@@ -167,3 +248,17 @@ def load_symbol_json(text: str):
         nodes.append(node)
     heads = data.get("heads") or [[len(nodes) - 1, 0, 0]]
     return Symbol([(nodes[h[0]], h[1] if len(h) > 1 else 0) for h in heads])
+
+
+def load_symbol(fname: str):
+    """The Symbol in the reference/nnvm JSON file ``fname``."""
+    with open(fname) as f:
+        return load_symbol_json(f.read())
+
+
+def load_checkpoint(prefix: str, epoch: int):
+    """Parity: ``model.load_checkpoint`` over reference-format files:
+    ``prefix-symbol.json`` + ``prefix-%04d.params``."""
+    sym = load_symbol(f"{prefix}-symbol.json")
+    arg, aux = load_params("%s-%04d.params" % (prefix, epoch))
+    return sym, arg, aux

@@ -25,9 +25,10 @@ array in pinned host memory from the ``storage`` pool.
 key — a row-sparse array (:mod:`mxnet_tpu_torch.sparse`, also reachable
 as ``nd.sparse``) as its ``ri:``/``rv:``/``rs:`` (indices, values,
 shape) triple — and ``load`` also reads the reference's ``.params``
-binary (magic ``0x112``, :mod:`mxnet_tpu_torch.interop`).  Not ported
-yet, each raising "not ported yet": remote URIs in save/load,
-``imdecode``, and bfloat16 in files (below).
+binary (magic ``0x112``, :mod:`mxnet_tpu_torch.interop`), over every
+scheme :mod:`mxnet_tpu_torch.filesystem` registers (local, ``mem://``,
+``http(s)://``, ``s3://``, ``gs://``, ``hdfs://``).  bfloat16 in files
+is refused (below).
 
 bfloat16: numpy has no bfloat16 type, so the JAX package's ``nd.save``
 writes a bfloat16 array as untyped 2-byte records (``|V2``) that its own
@@ -518,19 +519,6 @@ def waitall():
 
 
 # ---------------------------------------------------------- save / load
-def _local_path(fname: str) -> str:
-    """``fname`` without a ``file://`` scheme; other schemes raise."""
-    fname = str(fname)
-    if "://" in fname:
-        scheme, rest = fname.split("://", 1)
-        if scheme != "file":
-            raise MXNetError(f"{scheme}:// URIs in nd.save/nd.load are not "
-                             "ported yet (filesystem.py, ROADMAP Queue 1 "
-                             "item 11)")
-        return rest
-    return fname
-
-
 def _entries(key, v) -> dict:
     """The npz entries of one value: itself, or a row-sparse array's
     ``(indices, values, shape)`` triple (densifying would lose the
@@ -564,8 +552,13 @@ def _host_array(key, v) -> np.ndarray:
 def save(fname: str, data):
     """Write an NDArray, a list or a dict of them in the JAX package's
     layout: an npz archive with keys ``l:%08d`` (list) or ``d:<name>``
-    (dict), at exactly ``fname`` (numpy's ``.npz`` suffix is undone)."""
-    path = _local_path(fname)
+    (dict), at exactly ``fname`` (numpy's ``.npz`` suffix is undone).
+    ``fname`` may be a URI of any registered filesystem: a remote one
+    (``s3://``, ``hdfs://``, ``mem://``, ...) receives the archive in one
+    whole-object upload when the writer closes."""
+    from .filesystem import _strip_local, is_remote, open_uri
+
+    fname = str(fname)
     if isinstance(data, (NDArray, torch.Tensor)):
         data = [data]
     payload = {}
@@ -577,6 +570,11 @@ def save(fname: str, data):
             payload.update(_entries(f"l:{i:08d}", v))
     else:
         raise TypeError("save expects NDArray, list or dict")
+    if is_remote(fname):
+        with open_uri(fname, "wb") as f:
+            np.savez(f, **payload)
+        return
+    path = _strip_local(fname)
     np.savez(path, **payload)
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         os.replace(path + ".npz", path)
@@ -589,9 +587,9 @@ def load_frombuffer(blob: bytes, ctx=None):
     """What :func:`load` returns for a file holding ``blob``."""
     dev = _device(ctx)
     if len(blob) >= 8 and int.from_bytes(blob[:8], "little") == 0x112:
-        from .interop import load_params_raw
+        from .interop import _load_blob
 
-        return load_params_raw(blob, dev)
+        return _load_blob(blob, dev)
     with np.load(io.BytesIO(blob), allow_pickle=False) as f:
         keys = list(f.keys())
 
@@ -631,9 +629,12 @@ def load_frombuffer(blob: bytes, ctx=None):
 def load(fname: str, ctx=None):
     """Read a file that :func:`save` (of either package) or the
     reference's ``NDArray::Save`` wrote: a list or a dict of NDArrays on
-    ``ctx`` (default: the card)."""
+    ``ctx`` (default: the card).  ``fname`` may be a URI of any
+    registered filesystem: the object is read once, whole."""
+    from .filesystem import open_uri
+
     dev = _device(ctx)
-    with open(_local_path(fname), "rb") as fh:
+    with open_uri(str(fname), "rb") as fh:
         return load_frombuffer(fh.read(), dev)
 
 

@@ -399,7 +399,14 @@ class Symbol:
              "attrs": {"mxnet_tpu_version": 1}}, indent=2)
 
     def save(self, fname: str):
-        """Write :meth:`tojson` to the local file ``fname``."""
+        """Write :meth:`tojson` to ``fname``, a path or a URI of any
+        registered filesystem (a remote one in one upload on close)."""
+        from .filesystem import is_remote, open_uri
+
+        if is_remote(fname):
+            with open_uri(fname, "wb") as f:
+                f.write(self.tojson().encode())
+            return
         with open(fname, "w") as f:
             f.write(self.tojson())
 
@@ -440,10 +447,12 @@ class _InferIncomplete(Exception):
 
 def load(fname: str) -> Symbol:
     """The Symbol in the JSON file ``fname`` (the file form of
-    :func:`load_json`; remote URIs are not ported yet)."""
-    if "://" in str(fname):
-        raise MXNetError("symbol.load of a URI is not ported yet "
-                         "(filesystem.py, ROADMAP Queue 1 item 11)")
+    :func:`load_json`), a path or a URI of any registered filesystem."""
+    from .filesystem import is_remote, open_uri
+
+    if is_remote(fname):
+        with open_uri(fname, "rb") as f:
+            return load_json(f.read().decode())
     with open(fname) as f:
         return load_json(f.read())
 

@@ -30,7 +30,9 @@ sync each way, ``cpu_pinned`` arrays in pinned memory, the profiler's
 device trace naming the flash kernels), and the rest of decode serving
 (an int8 decoder's paged step through the kernel against the gather
 path; ``generate_scan`` on the card equal to ``generate`` with one read
-of the device).
+of the device), and the plugins (a ``TorchModule`` and a
+``TorchCriterion`` on card tensors with no host sync, the fused CUDA
+dropout inside a module drawn from the op's card generator).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -2066,3 +2068,100 @@ def test_server_optimizer_pickle_moves_card_tensors_to_the_host(card):
     back = tserver._loads_no_import(tserver.dumps_host(opt))
     assert back.scale.device.type == "cpu"
     torch.testing.assert_close(back.scale, torch.ones(3))
+
+
+# ------------------------------------------------------------ plugins
+def test_torch_module_runs_on_the_card_without_a_host_sync(card, no_tf32):
+    """``TorchModule`` over a Conv+BatchNorm+Dropout module and
+    ``TorchCriterion`` (cross-entropy on class indices) on card tensors:
+    the module moves to the card at its first call, its output, the loss
+    and every gradient stay there, nothing reads the device in a later
+    forward or backward (``set_sync_debug_mode("error")``), the
+    BatchNorm statistics advance once a forward, and the values match
+    the same graph on the CPU (Dropout off)."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.plugins import torch_plugin as tp
+
+    torch.manual_seed(0)
+    body = torch.nn.Sequential(torch.nn.Conv2d(3, 8, 3, padding=1),
+                               torch.nn.BatchNorm2d(8), torch.nn.ReLU(),
+                               torch.nn.Flatten(), torch.nn.Linear(8 * 36, 5))
+    names = [n.replace(".", "_") for n, _ in body.named_parameters()]
+    params = {n: p.detach().clone() for n, (_, p) in
+              zip(names, body.named_parameters())}
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.normal(size=(16, 3, 6, 6)).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 5, 16).astype(np.float32))
+    grads = {}
+    for dev in (torch.device("cpu"), card):
+        module = copy.deepcopy(body)
+        mid = tp.register_module(module)
+        cid = tp.register_criterion(torch.nn.CrossEntropyLoss())
+        net = mx.sym.TorchCriterion(
+            mx.sym.TorchModule(mx.sym.Variable("data"),
+                               *[mx.sym.Variable(n) for n in names],
+                               module_id=mid),
+            mx.sym.Variable("label"), criterion_id=cid, grad_scale=16)
+        ex = net.simple_bind(ctx=dev, data=tuple(x.shape),
+                             label=tuple(y.shape),
+                             **{n: tuple(p.shape) for n, p in params.items()})
+        ex.copy_params_from(params)
+        xd, yd = x.to(dev), y.to(dev)
+        # the first call moves the module to the card; the second runs
+        # under the sync check
+        ex.forward(is_train=True, data=xd, label=yd)
+        ex.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.forward(is_train=True, data=xd, label=yd)
+            ex.backward()
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        assert ex.outputs[0].device.type == dev.type
+        assert all(t.device.type == dev.type
+                   for t in list(module.parameters())
+                   + list(module.buffers()))
+        assert int(module[1].num_batches_tracked) == 2
+        grads[dev.type] = {k: g.detach().cpu() for k, g in
+                           ex.grad_dict.items() if g is not None}
+        assert all(g.device.type == dev.type
+                   for g in ex.grad_dict.values() if g is not None)
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+
+
+def test_torch_module_dropout_draws_from_the_card_generator(card):
+    """The fused CUDA dropout (``native_dropout``) inside a TorchModule
+    is drawn from the op's card generator: the same seed gives the same
+    mask, torch's own card generator is left as it was, and the
+    backward applies the forward's mask."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.plugins import torch_plugin as tp
+
+    drop = torch.nn.Sequential(torch.nn.Dropout(0.3), torch.nn.Linear(64, 64))
+    mid = tp.register_module(drop)
+    net = mx.sym.MakeLoss(mx.sym.sum(mx.sym.TorchModule(
+        mx.sym.Variable("x"), mx.sym.Variable("w"), mx.sym.Variable("b"),
+        module_id=mid)))
+    ex = net.simple_bind(ctx=card, x=(512, 64), w=(64, 64), b=(64,))
+    ex.copy_params_from({"w": drop[1].weight.detach(),
+                         "b": drop[1].bias.detach()})
+    x = torch.randn(512, 64, device=card)
+    masks = []
+    before = torch.cuda.get_rng_state()
+    for seed in (5, 5, 6):
+        mx.random.seed(seed)
+        ex.forward(is_train=True, x=x)
+        ex.backward()
+        masks.append(ex.grad_dict["x"] != 0)
+    assert torch.equal(torch.cuda.get_rng_state(), before)
+    assert torch.equal(masks[0], masks[1])
+    assert not torch.equal(masks[0], masks[2])
+    kept = masks[0].float().mean().item()
+    assert 0.65 < kept < 0.75, kept

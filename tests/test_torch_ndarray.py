@@ -439,9 +439,12 @@ def test_reference_binary_params_load(tmp_path):
 
 
 def test_row_sparse_and_remote_uris_are_not_ported(tmp_path):
-    """Remote URIs still raise; row-sparse entries are ported: the JAX
-    package's file loads as a port RowSparseNDArray, and the port's
-    file of it loads back in the JAX package."""
+    """Row-sparse entries are ported: the JAX package's file loads as a
+    port RowSparseNDArray, and the port's file of it loads back in the
+    JAX package.  Remote URIs are ported too (the stores against loopback
+    doubles are in ``test_torch_filesystem_remote.py``): a ``mem://``
+    object round-trips, row-sparse triple included, and a missing one
+    raises."""
     from mxnet_tpu.sparse import RowSparseNDArray as JRS
 
     from mxnet_tpu_torch.sparse import RowSparseNDArray as TRS
@@ -460,11 +463,14 @@ def test_row_sparse_and_remote_uris_are_not_ported(tmp_path):
     assert isinstance(back, JRS)
     np.testing.assert_array_equal(back.todense().asnumpy(),
                                   rs.todense().asnumpy())
-    for uri in ("s3://bucket/x.params", "mem://x.params"):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            tnd.save(uri, [tnd.zeros((2,), ctx=CPU)])
-        with pytest.raises(MXNetError, match="not ported yet"):
-            tnd.load(uri, ctx=CPU)
+    tnd.save("mem://nd/x.params", {"emb": got, "z": tnd.zeros((2,), ctx=CPU)})
+    back = tnd.load("mem://nd/x.params", ctx=CPU)
+    assert isinstance(back["emb"], TRS)
+    np.testing.assert_array_equal(back["emb"].todense().asnumpy(),
+                                  rs.todense().asnumpy())
+    np.testing.assert_array_equal(back["z"].asnumpy(), [0, 0])
+    with pytest.raises(FileNotFoundError):
+        tnd.load("mem://nd/missing.params", ctx=CPU)
     local = tmp_path / "f.nd"
     tnd.save("file://" + str(local), [tnd.ones((2,), ctx=CPU)])
     np.testing.assert_array_equal(

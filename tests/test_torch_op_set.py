@@ -322,18 +322,41 @@ def test_op_matches_jax_bf16(case):
 
 def test_registry_holds_all_227_reference_names():
     # the reference's own names: a plugin that another test imports
-    # (mxnet_tpu/plugins/) registers more into the JAX registry.  Every
-    # one is ported, Custom, vision and ctc included
+    # (mxnet_tpu/plugins/, mxnet_tpu_torch/plugins/) registers more into
+    # its package's registry.  Every one is ported, Custom, vision and
+    # ctc included
     jnames = {n for n in jops.list_ops()
               if not jops.get(n).fn.__module__.startswith(
                   "mxnet_tpu.plugins.")}
+    tnames = {n for n in treg.list_ops()
+              if not treg.get(n).fn.__module__.startswith(
+                  "mxnet_tpu_torch.plugins.")}
     assert len(jnames) == 227
     unported = {n for n in jnames
                 if jops.get(n).fn.__module__ in UNPORTED_MODULES}
     assert not unported
-    assert set(treg.list_ops()) == jnames
-    assert len(treg.list_ops()) == 227
+    assert tnames == jnames
+    assert len(tnames) == 227
     assert "Custom" in treg.list_ops()
+
+
+def test_plugins_register_the_same_names_in_both_packages():
+    """Once imported, each package's torch plugin adds the same two op
+    names to its registry, with the same inputs."""
+    import mxnet_tpu.plugins.torch_plugin  # noqa: F401
+    import mxnet_tpu_torch.plugins.torch_plugin  # noqa: F401
+
+    def plugin_ops(reg, prefix):
+        return {n for n in reg.list_ops()
+                if reg.get(n).fn.__module__.startswith(prefix)}
+
+    jplug = plugin_ops(jops, "mxnet_tpu.plugins.")
+    tplug = plugin_ops(treg, "mxnet_tpu_torch.plugins.")
+    assert jplug == tplug == {"TorchModule", "TorchCriterion"}
+    for n in jplug:
+        j, t = jops.get(n), treg.get(n)
+        assert (list(j.arg_names), j.varargs) == (list(t.arg_names),
+                                                   t.varargs)
 
 
 def test_vision_and_ctc_names_have_parity_cases():

@@ -4,7 +4,7 @@ in the other, plain and indexed; ``pack``/``unpack`` and
 ``pack_img``/``unpack_img``), the native reader and writer of
 ``_native`` (built from ``src/recordio.cc`` into the port's ``build/``)
 against the Python reader, and ``filesystem`` (``InputSplit`` shards,
-``mem://``, the remote schemes that wait).
+``mem://``, the remote schemes against loopback doubles).
 
 Records come from numpy seeds; every comparison here is exact.
 """
@@ -235,9 +235,38 @@ def test_mem_filesystem_round_trip_and_split():
 
 @pytest.mark.parametrize("uri", ["s3://b/x.rec", "gs://b/x.rec",
                                  "http://h/x.rec", "hdfs://h/x.rec"])
-def test_remote_filesystems_wait_for_their_item(uri):
-    with pytest.raises(MXNetError, match="item 11"):
-        tfs.open_uri(uri, "rb")
+def test_remote_filesystems_wait_for_their_item(uri, monkeypatch):
+    """The remote schemes no longer wait: each has the reference's
+    adapter.  Records go to a loopback double of the store and come back
+    (``S3_ENDPOINT``, ``GS_ENDPOINT``, ``WEBHDFS_ENDPOINT``; no request
+    leaves 127.0.0.1); plain HTTP is read-only and refuses a writer
+    before any request."""
+    import chip_smoke
+    from test_torch_filesystem_remote import _WebHdfs
+
+    scheme = uri.split("://", 1)[0]
+    fs = tfs.get_filesystem(uri)
+    assert type(fs).__name__ == {"s3": "S3FileSystem", "gs": "GSFileSystem",
+                                 "http": "HttpFileSystem",
+                                 "hdfs": "WebHdfsFileSystem"}[scheme]
+    if scheme == "http":
+        with pytest.raises(MXNetError, match="read-only"):
+            tfs.open_uri(uri, "wb")
+        return
+    for k in ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY",
+              "AWS_SESSION_TOKEN", "GS_OAUTH2_TOKEN",
+              "GOOGLE_OAUTH_ACCESS_TOKEN"):
+        monkeypatch.delenv(k, raising=False)
+    double = _WebHdfs(redirect=True) if scheme == "hdfs" \
+        else chip_smoke.S3Double()
+    monkeypatch.setenv({"s3": "S3_ENDPOINT", "gs": "GS_ENDPOINT",
+                        "hdfs": "WEBHDFS_ENDPOINT"}[scheme], double.endpoint)
+    fs._size_cache.clear()
+    try:
+        _write(trec, uri, _payloads(9))
+        assert _read_all(trec, uri) == _payloads(9)
+    finally:
+        double.close()
 
 
 def test_unknown_scheme_and_a_registered_adapter():

@@ -318,11 +318,33 @@ def test_remat_env_knob(monkeypatch):
     assert not TTrainer(ttrm.transformer_lm(**SMALL), device=CPU).remat
 
 
-def test_remat_matches_the_jax_trainer(monkeypatch):
+@pytest.fixture()
+def jax_seed():
+    """``seed(s)`` seeds the JAX package's key and numpy's global
+    generator, which its initializers draw from; both are put back after
+    the test, so neither this test's weights nor the next test's draws
+    depend on what else ran in the process."""
+    from mxnet_tpu import random as jrandom
+
+    state, key = np.random.get_state(), jrandom._state["key"]
+    yield jmx.random.seed
+    np.random.set_state(state)
+    jrandom._state["key"] = key
+
+
+def test_remat_matches_the_jax_trainer(monkeypatch, jax_seed):
     """The port's recomputed LM step against the JAX trainer's
     ``remat=True`` (``jax.checkpoint`` of the forward) from the same
-    weights, three SGD steps."""
+    weights, three SGD steps.
+
+    The weights are drawn under a fixed seed: the JAX initializers draw
+    from numpy's global generator, so unseeded they depend on the tests
+    that ran before in the process.  Three SGD steps at lr 0.1 amplify
+    fp32 rounding more for some draws than for others (see
+    ``test_remat_parity_is_bound_by_rounding_on_an_ill_conditioned_draw``).
+    """
     monkeypatch.setenv("MXTPU_CONV_PRECISION", "float32")
+    jax_seed(0)
     shapes = {"data": (2, SMALL["seq_len"]),
               "softmax_label": (2, SMALL["seq_len"])}
     jt = JTrainer(jtrm.transformer_lm(**SMALL), optimizer="sgd",
@@ -343,3 +365,65 @@ def test_remat_matches_the_jax_trainer(monkeypatch):
     for k, v in tt.get_params()[0].items():
         np.testing.assert_allclose(v.numpy(), jarg[k].asnumpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=k)
+
+
+def test_remat_parity_weights_do_not_depend_on_earlier_draws(jax_seed):
+    """The parity test's weights are the same whatever numpy's global
+    generator held before (152 is a draw whose 3-step divergence exceeds
+    1e-5; 3 is one that does not)."""
+    shapes = {"data": (2, SMALL["seq_len"]),
+              "softmax_label": (2, SMALL["seq_len"])}
+    weights = []
+    for before in (152, 3):
+        np.random.seed(before)
+        jax_seed(0)
+        jt = JTrainer(jtrm.transformer_lm(**SMALL), optimizer="sgd",
+                      optimizer_params={"lr": 0.1}, remat=True)
+        jt.init(**shapes)
+        weights.append({k: v.asnumpy() for k, v in
+                        jt.get_params()[0].items()})
+    for k in weights[0]:
+        np.testing.assert_array_equal(weights[0][k], weights[1][k])
+
+
+def _remat_lm_steps(weights):
+    """The port's recomputed LM step, three SGD steps from ``weights``:
+    the parameters after them."""
+    shapes = {"data": (2, SMALL["seq_len"]),
+              "softmax_label": (2, SMALL["seq_len"])}
+    tt = TTrainer(ttrm.transformer_lm(**SMALL), optimizer="sgd",
+                  optimizer_params={"lr": 0.1}, device=CPU,
+                  remat=True).init(**shapes)
+    convert.load_trainer_params(tt, weights, {})
+    d = _batch()
+    for _ in range(3):
+        tt.step(data=d, softmax_label=d)
+    return {k: v.numpy() for k, v in tt.get_params()[0].items()}
+
+
+def test_remat_parity_is_bound_by_rounding_on_an_ill_conditioned_draw(
+        monkeypatch, jax_seed):
+    """Why the parity test fixes its seed: from seed 152's weights the
+    packages part beyond the 1e-5 tolerance in three steps, and moving
+    the port's own starting weights by one ulp parts the port from
+    itself by as much (at least half as far), so the gap is the step's
+    conditioning, not a difference between the packages."""
+    monkeypatch.setenv("MXTPU_CONV_PRECISION", "float32")
+    jax_seed(152)
+    shapes = {"data": (2, SMALL["seq_len"]),
+              "softmax_label": (2, SMALL["seq_len"])}
+    jt = JTrainer(jtrm.transformer_lm(**SMALL), optimizer="sgd",
+                  optimizer_params={"lr": 0.1}, remat=True)
+    jt.init(**shapes)
+    w0 = {k: v.asnumpy() for k, v in jt.get_params()[0].items()}
+    d = _batch()
+    for _ in range(3):
+        jt.step(data=d, softmax_label=d)
+    jax_after = {k: v.asnumpy() for k, v in jt.get_params()[0].items()}
+    port = _remat_lm_steps(w0)
+    ulp = _remat_lm_steps({k: np.nextafter(v, np.float32(np.inf))
+                           for k, v in w0.items()})
+    gap = max(float(np.abs(port[k] - jax_after[k]).max()) for k in port)
+    spread = max(float(np.abs(port[k] - ulp[k]).max()) for k in port)
+    assert gap > 1e-5
+    assert spread > 0.5 * gap, (gap, spread)
