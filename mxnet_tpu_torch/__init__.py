@@ -75,50 +75,77 @@ raise :class:`MXNetError`.
     import mxnet_tpu_torch as mx
     x = mx.nd.zeros((2, 3))          # on the card
 """
-from . import amp, context, passes, telemetry  # noqa: F401
-from . import ndarray as nd  # noqa: F401
-from . import model, predict, rtc  # noqa: F401
-from . import callback, engine, io, lr_scheduler, metric, models  # noqa: F401
-from . import initializer  # noqa: F401
-from . import initializer as init  # noqa: F401
-from .initializer import (Initializer, Load, Mixed, MSRAPrelu,  # noqa: F401
-                          Normal, Orthogonal, Uniform, Xavier)
-from .base import MXNetError, __version__  # noqa: F401
-from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
-                      gpu, num_devices, resolve_device, tpu)
-from .base import AttrScope, NameManager  # noqa: F401
-from . import engine, ops, random  # noqa: F401
-from .ndarray import NDArray  # noqa: F401
-from . import sparse  # noqa: F401
-from .sparse import RowSparseNDArray  # noqa: F401
-nd.sparse = sparse  # the reference surface: mx.nd.sparse.row_sparse_array
-from . import checkpoint  # noqa: F401
-from .model import FeedForward, load_checkpoint, save_checkpoint  # noqa: F401
-from . import symbol  # noqa: F401
-from . import symbol as sym  # noqa: F401
-from .symbol import Group, Symbol, Variable  # noqa: F401
-from . import executor  # noqa: F401
-from .executor import Executor  # noqa: F401
-from . import optimizer  # noqa: F401
-from .optimizer import Optimizer  # noqa: F401
-from . import kvstore  # noqa: F401
-from . import kvstore as kv  # noqa: F401
-from . import module  # noqa: F401
-from . import module as mod  # noqa: F401
-from .module import (BucketingModule, Module, PythonModule,  # noqa: F401
-                     SequentialModule)
-from . import rnn  # noqa: F401
-from . import filesystem, image, recordio, storage  # noqa: F401
-from . import monitor  # noqa: F401
-from . import monitor as mon  # noqa: F401
-from .monitor import Monitor  # noqa: F401
-from . import executor_manager, faults, operator, profiler  # noqa: F401
-from . import parallel, resource, test_utils, visualization  # noqa: F401
-from . import visualization as viz  # noqa: F401
-from .resource import ResourceManager, ResourceRequest  # noqa: F401
-from . import kvstore_server  # noqa: F401
+import sys as _sys
 
-# Must be the last statement: a server-role process serves the parameter
-# store here and exits without reaching user code (parity: MXNet's
-# __init__.py importing kvstore_server at the bottom).
-kvstore_server._init_kvstore_server_module()
+# the command-line tools that need the standard library alone
+_STDLIB_CLIS = ("mxnet_tpu_torch.analysis", "mxnet_tpu_torch.amalgamate")
+
+
+def _stdlib_cli() -> bool:
+    """True while ``python -m`` locates one of ``_STDLIB_CLIS`` (the lint,
+    the amalgamation): they run without torch, so the package then
+    imports nothing (``sys.argv[0]`` is ``"-m"`` only during that
+    search)."""
+    if _sys.argv[:1] != ["-m"]:
+        return False
+    argv = list(getattr(_sys, "orig_argv", ()))
+    for i, a in enumerate(argv[1:], 1):
+        if a == "-m":
+            return "".join(argv[i + 1:i + 2]) in _STDLIB_CLIS
+        if a.startswith("-m"):
+            return a[2:] in _STDLIB_CLIS
+    return False
+
+
+if not _stdlib_cli():
+    from . import amp, context, passes, telemetry  # noqa: F401
+    from . import ndarray as nd  # noqa: F401
+    from . import model, predict, rtc  # noqa: F401
+    from . import callback, engine, io, lr_scheduler  # noqa: F401
+    from . import metric, models  # noqa: F401
+    from . import initializer  # noqa: F401
+    from . import initializer as init  # noqa: F401
+    from .initializer import (  # noqa: F401
+        Initializer, Load, Mixed, MSRAPrelu, Normal, Orthogonal, Uniform,
+        Xavier)
+    from .base import MXNetError, __version__  # noqa: F401
+    from .context import (  # noqa: F401
+        Context, cpu, cpu_pinned, current_context, gpu, num_devices,
+        resolve_device, tpu)
+    from .base import AttrScope, NameManager  # noqa: F401
+    from . import engine, ops, random  # noqa: F401
+    from .ndarray import NDArray  # noqa: F401
+    from . import sparse  # noqa: F401
+    from .sparse import RowSparseNDArray  # noqa: F401
+    nd.sparse = sparse  # the reference surface: mx.nd.sparse.row_sparse_array
+    from . import checkpoint  # noqa: F401
+    from .model import (  # noqa: F401
+        FeedForward, load_checkpoint, save_checkpoint)
+    from . import symbol  # noqa: F401
+    from . import symbol as sym  # noqa: F401
+    from .symbol import Group, Symbol, Variable  # noqa: F401
+    from . import executor  # noqa: F401
+    from .executor import Executor  # noqa: F401
+    from . import optimizer  # noqa: F401
+    from .optimizer import Optimizer  # noqa: F401
+    from . import kvstore  # noqa: F401
+    from . import kvstore as kv  # noqa: F401
+    from . import module  # noqa: F401
+    from . import module as mod  # noqa: F401
+    from .module import (BucketingModule, Module, PythonModule,  # noqa: F401
+                         SequentialModule)
+    from . import rnn  # noqa: F401
+    from . import filesystem, image, recordio, storage  # noqa: F401
+    from . import monitor  # noqa: F401
+    from . import monitor as mon  # noqa: F401
+    from .monitor import Monitor  # noqa: F401
+    from . import executor_manager, faults, operator, profiler  # noqa: F401
+    from . import parallel, resource, test_utils, visualization  # noqa: F401
+    from . import visualization as viz  # noqa: F401
+    from .resource import ResourceManager, ResourceRequest  # noqa: F401
+    from . import kvstore_server  # noqa: F401
+
+    # Must be the last statement: a server-role process serves the parameter
+    # store here and exits without reaching user code (parity: MXNet's
+    # __init__.py importing kvstore_server at the bottom).
+    kvstore_server._init_kvstore_server_module()

@@ -657,8 +657,11 @@ class _PSClient:
 def _host_dtype(t: torch.Tensor):
     """The numpy dtype a tensor travels as (bf16, which numpy lacks, as
     fp32)."""
-    return np.float32 if t.dtype == torch.bfloat16 else \
-        torch.empty((), dtype=t.dtype).numpy().dtype
+    if t.dtype == torch.bfloat16:
+        return np.float32
+    # sync-ok: a 0-d tensor made on the host here, only for numpy's name
+    # of the dtype
+    return torch.empty((), dtype=t.dtype).numpy().dtype
 
 
 class KVStoreDist(KVStore):
@@ -762,6 +765,9 @@ class KVStoreDist(KVStore):
     def _pvar(self, key):
         v = self._pull_vars.get(key)
         if v is None:
+            # race-ok: made on the calling thread only; the other writer
+            # the lint sees is _send_stop, an atexit handler, which runs
+            # on the main thread after user code has ended
             v = self._pull_vars[key] = self._pull_engine.new_var()
         return v
 
@@ -802,6 +808,9 @@ class KVStoreDist(KVStore):
         t = t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        # sync-ok: init's one-off copy, and _snapshot's for a tensor already
+        # on the host (a card tensor leaves through the pinned side-stream
+        # copy, waited for on the engine's thread)
         return t.to("cpu", copy=True).contiguous().numpy()
 
     def _snapshot(self, k, merged: torch.Tensor):
@@ -928,22 +937,27 @@ class KVStoreDist(KVStore):
                 continue
             holder = {}
             pvar = self._pvar(k)
+            # the key's push var is looked up (or made) here, on the
+            # calling thread: made on the pull engine's thread it could
+            # race the loop's first push of the key into a second var,
+            # and later pulls would no longer wait for that push
+            push_var = self._var(k)
             self._pull_engine.push(
                 lambda k=k, shape=shape, dtype=dtype, holder=holder,
-                n=len(targets): self._do_pull(k, shape, dtype, holder, n,
-                                              wait_push=True),
+                n=len(targets), push_var=push_var: self._do_pull(
+                    k, shape, dtype, holder, n, push_var=push_var),
                 mutable_vars=[pvar], priority=priority)
             self._pending.setdefault(k, []).append((targets, holder))
             for t in targets:
                 _nd_mod.set_pending_write(_tensor(t), self.wait_pulls)
 
-    def _do_pull(self, k, shape, dtype, holder, ntargets, wait_push=False):
+    def _do_pull(self, k, shape, dtype, holder, ntargets, push_var=None):
         from . import profiler as _prof
 
-        if wait_push:
+        if push_var is not None:
             # ordered after this key's pushes (they run on the other
             # engine, whose threads never park on a pull)
-            self._engine.wait_for_var(self._var(k))
+            self._engine.wait_for_var(push_var)
         t0 = time.perf_counter()
         with _prof.span(f"kvstore_pull[{k}]", category="kvstore"):
             try:
@@ -977,6 +991,10 @@ class KVStoreDist(KVStore):
             entries = self._pending.pop(k, None)
             if entries is None:
                 continue
+            # race-ok: the loop's thread (or a reader resolving a pending
+            # write) counts here; the other writer the lint sees is
+            # _send_stop, an atexit handler run on the main thread after
+            # user code has ended
             self._stats["loop_waits"] += 1
             self._pull_engine.wait_for_var(self._pvar(k))
             for targets, holder in entries:

@@ -28,7 +28,9 @@ import os
 import site
 import sysconfig
 
-from .base import MXNetError
+# MXNetError is imported where it is raised: the rest needs the standard
+# library alone (python -m mxnet_tpu_torch.amalgamate prints
+# embed_flags() without importing torch)
 
 __all__ = ["find_lib_path", "include_dirs", "embed_flags", "client_env"]
 
@@ -57,6 +59,8 @@ def embed_flags():
     libdir, ldlib = var("LIBDIR"), var("LDLIBRARY")
     if not var("Py_ENABLE_SHARED") or not ldlib or not libdir or \
             not os.path.exists(os.path.join(libdir, ldlib)):
+        from .base import MXNetError
+
         raise MXNetError(
             f"this Python ({var('LDVERSION')}) has no shared library "
             f"({ldlib!r} in {libdir!r}; Py_ENABLE_SHARED="
@@ -75,6 +79,8 @@ def find_lib_path(kind="capi") -> str:
     from .ops import _build
 
     if kind not in _LIBS:
+        from .base import MXNetError
+
         raise MXNetError(f"unknown library {kind!r}; have {sorted(_LIBS)}")
     name, sources, headers = _LIBS[kind]
     cflags, ldflags = embed_flags()

@@ -177,6 +177,10 @@ class EvalMetric:
         device-to-host sync of the fused path."""
         if self._dev_sum is None:
             return
+        # sync-ok: the fused path's one fold, at reporting points only
+        # (get/get_global/reset_local, after the loop's window drained);
+        # _fused_accumulate calls it only with no window open, and returns
+        # above
         pair = torch.stack([self._dev_sum, self._dev_num]).cpu().tolist()
         self._dev_sum = None
         self._dev_num = None

@@ -61,10 +61,16 @@ def _snap(x, device, dtype=np.int32):
     copied first, and the tensor is made from that private copy.  The
     scheduler mutates ``cursor``/``bt`` in place right after a dispatch
     (``cursor[b] += 1``, ``bt[b, idx] = page``); on the CPU
-    ``torch.from_numpy`` would otherwise share their memory, and no
-    upload ever goes through pinned memory that a later host write could
-    reach before the copy ran."""
-    return torch.from_numpy(np.array(x, dtype, copy=True)).to(device)
+    ``torch.from_numpy`` would otherwise share their memory.  On a card
+    the private copy is pinned and uploaded without a host wait (a copy
+    from pageable memory waits for the stream, and the serving tick's one
+    sync is its sampled tokens); no later host write can reach the pinned
+    copy, and the caching host allocator keeps it until the upload has
+    run."""
+    host = torch.from_numpy(np.array(x, dtype, copy=True))
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _ln(x, g, b, eps=1e-5):

@@ -105,6 +105,8 @@ def _from_numpy(a, device) -> torch.Tensor:
     t = torch.from_numpy(a)
     if device.type == "cpu":
         return t if owned else t.clone()
+    # sync-ok: nd.array's upload of a host array, a creator the user calls
+    # (the loops hand NDArray tensors, which never come here)
     return t.to(device)
 
 

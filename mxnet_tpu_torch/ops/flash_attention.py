@@ -191,6 +191,8 @@ def _kernel_flops(products, q, causal):
     dK/dV)."""
     B, H, T, D = q.shape
     pairs = T * (T + 1) // 2 if causal else T * T
+    # trace-ok: a capture opens no counting region (perf.counting runs at
+    # a program's first eager dispatch only), so this is an attribute read
     _perf.kernel_flops(2 * products * B * H * pairs * D)
 
 
@@ -203,6 +205,8 @@ def _launch(name, q, args):
                          f"returned CUresult {-err}")
     if err != 0:
         raise MXNetError(f"{name} CUDA launch failed: cuda error {err}")
+    # trace-ok: counts the wrapper's launches; under capture that is the
+    # one launch recorded into the graph, and a replay is not counted
     _launches[name[len("mxtt_"):]] += 1
 
 
@@ -291,12 +295,16 @@ class _FlashAttention(torch.autograd.Function):
         ctx.causal, ctx.scale = causal, scale
         # the perf plane's regions counting this forward count its
         # backward too, on whichever thread autograd runs it
+        # trace-ok: reads which host-side counting regions are open (none
+        # under capture); no device value, nothing a replay needs
         ctx.perf_regions = _perf.open_regions()
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        # trace-ok: thread-local routing of the perf plane's FLOP reports
+        # (empty under capture); no device value, nothing a replay needs
         with _perf.reporting_to(ctx.perf_regions):
             dq, dk, dv = _bwd_impl(q, k, v, o, lse, do.contiguous(),
                                    ctx.scale, ctx.causal)

@@ -498,15 +498,17 @@ def _pooling(ctx, data, **attrs):
 # ---------------------------------------------------------------------------
 # Pad / UpSampling / Crop
 # ---------------------------------------------------------------------------
-def _pad_index(n, lo, hi, mode):
+def _pad_index(n, lo, hi, mode, device):
     """Source positions of a padded axis of length ``n`` (numpy's edge
-    and reflect modes, any pad width)."""
-    i = np.arange(-lo, n + hi)
+    and reflect modes, any pad width), made on ``device``: an upload of
+    host positions would wait for the stream, which a CUDA-graph capture
+    (``step_multi``) refuses."""
+    i = torch.arange(-lo, n + hi, device=device)
     if mode == "edge" or n == 1:
-        return np.clip(i, 0, n - 1)
+        return i.clamp(0, n - 1)
     period = 2 * (n - 1)
-    i = np.abs(i) % period
-    return np.where(i >= n, period - i, i)
+    i = i.abs() % period
+    return torch.where(i >= n, period - i, i)
 
 
 @register("Pad", aliases=("pad",))
@@ -530,9 +532,8 @@ def _pad(ctx, data, **attrs):
     out = data.float() if half else data
     for axis, (lo, hi) in enumerate(pads):
         if lo or hi:
-            idx = _pad_index(data.shape[axis], lo, hi, mode)
-            out = out.index_select(
-                axis, torch.as_tensor(idx, device=data.device))
+            out = out.index_select(axis, _pad_index(
+                data.shape[axis], lo, hi, mode, data.device))
     return out.to(data.dtype)
 
 

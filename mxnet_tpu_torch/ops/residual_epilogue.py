@@ -273,6 +273,8 @@ def _cuda_fwd(x, s, scale, bias, channel_axis, schedule=None):
     dtypes, a shape :func:`supports` refuses, a dtype other than
     fp32/bf16, a pointer not 16-byte aligned, a schedule outside the
     kernel's)."""
+    # trace-ok: counts the wrapper's launches; under capture that is the
+    # one launch recorded into the graph, and a replay is not counted
     global _launches
     if x.device.type != "cuda":
         raise MXNetError(f"residual_epilogue CUDA kernel: x lies on "

@@ -509,9 +509,12 @@ def _device_constant(a, device):
     """A small float32 host array on ``device``, one fill a value (the
     value travels as a kernel argument): an upload, or a ``t[i] = v``,
     would sync the host, and cannot be captured."""
+    # trace-ok: a is a host numpy array (the anchors): tolist reads no
+    # value of the card
+    values = a.ravel().tolist()
     return torch.stack([torch.full((), v, dtype=torch.float32,
                                    device=device)
-                        for v in a.ravel().tolist()]).reshape(a.shape)
+                        for v in values]).reshape(a.shape)
 
 
 def _bbox_transform_inv(boxes, deltas):

@@ -151,4 +151,8 @@ class ResourceManager:
         seeding)."""
         with self._lock:
             for r in self._rand.values():
+                # lock-ok: r is a Resource kRandom stream whose seed() is
+                # a plain generator reseed; the lint's virtual dispatch also
+                # matches random.seed (which re-enters this manager), but
+                # that callee cannot be reached from a Resource value
                 r.seed(seed)

@@ -71,10 +71,10 @@ class PoolExhausted(MXNetError):
 
 
 # The port reads the JAX package's knob names (MXTPU_KV_BLOCK,
-# MXTPU_PAGED_KERNEL, MXTPU_PREFIX_CACHE, MXTPU_SERVE_*) and adds none of
-# its own: the env-docs lint scans only mxnet_tpu/, bench.py and tools/,
-# so a port-only knob documented in docs/how_to/env_var.md would be
-# flagged as stale.
+# MXTPU_PAGED_KERNEL, MXTPU_PREFIX_CACHE, MXTPU_SERVE_SLOTS,
+# MXTPU_SERVE_QUEUE, MXTPU_SERVE_DEADLINE_MS, MXTPU_SERVE_REPLICAS) and
+# adds none of its own: docs/how_to/env_var.md documents them all, and
+# the port lint (python -m mxnet_tpu_torch.analysis) checks it.
 def kv_block() -> int:
     """``MXTPU_KV_BLOCK`` — tokens per KV page; 0/unset keeps the
     contiguous slot cache."""

@@ -461,6 +461,9 @@ class FusedTrainer:
                    for k, g in zip(trainable, grads)}
             # raw (pre-clip) gradients: a finite clip rescale cannot mask
             # an inf/nan, and the norm is the divergence signal
+            # trace-ok: sentinel_vector is device math only (one fused
+            # norm), replayed with the step; the host record comes after
+            # each replay (step_multi's sentinel_record)
             sent = (_tm.health.sentinel_vector(
                 f32[k] for k in self._sent_names)
                 if self._sentinel else None)
@@ -491,6 +494,9 @@ class FusedTrainer:
 
         def run():
             g = gen if calls[0] == 0 else self._remat_gen
+            # trace-ok: picks the first run's generator and the
+            # recompute's, at capture as in an eager step; the graph keeps
+            # that choice in every replay
             calls[0] += 1
             outs, new_aux = self._graph_fn(args, aux, g, True)
             return tuple(outs), new_aux

@@ -73,10 +73,16 @@ setup(
     packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
                                     "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
     # the PyTorch port's CUDA kernels and C ABIs ship as sources: nvcc and
-    # g++ build them at first use (mxnet_tpu_torch/ops/_build.py)
+    # g++ build them at first use (mxnet_tpu_torch/ops/_build.py); its
+    # Perl binding builds with perl Makefile.PL; the port lint reads its
+    # allowlist
     package_data={"mxnet_tpu": ["lib/*.so"],
                   "mxnet_tpu_torch": ["ops/csrc/*.cu", "csrc/*.cc",
-                                      "csrc/*.h", "csrc/clients/*"]},
+                                      "csrc/*.h", "csrc/clients/*",
+                                      "bindings/perl/Makefile.PL",
+                                      "bindings/perl/*.xs",
+                                      "bindings/perl/lib/*.pm",
+                                      "analysis/allowlist.json"]},
     include_package_data=True,
     distclass=_BinaryDistribution,
     python_requires=">=3.10",

@@ -32,7 +32,9 @@ device trace naming the flash kernels), and the rest of decode serving
 path; ``generate_scan`` on the card equal to ``generate`` with one read
 of the device), and the plugins (a ``TorchModule`` and a
 ``TorchCriterion`` on card tensors with no host sync, the fused CUDA
-dropout inside a module drawn from the op's card generator).
+dropout inside a module drawn from the op's card generator), and two
+faults the port lint found (the paged decode step's uploads with no
+host wait; ``step_multi`` over a ``Pad`` of edge or reflect mode).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -2165,3 +2167,78 @@ def test_torch_module_dropout_draws_from_the_card_generator(card):
     assert not torch.equal(masks[0], masks[2])
     kept = masks[0].float().mean().item()
     assert 0.65 < kept < 0.75, kept
+
+
+# ------------------------------------------------ the port lint's findings
+def test_paged_step_uploads_without_a_host_wait(card):
+    """The paged decode step uploads its block tables, tokens and
+    cursors from pinned copies without a host wait: under the sync
+    debug mode the step itself makes no synchronizing call (three
+    pageable uploads made the serving tick sync four times, where its
+    one sync is the sampled tokens), and its logits equal those of a
+    step through the gather path."""
+    import warnings
+
+    from mxnet_tpu_torch.models.decode import KVDecoder
+    from mxnet_tpu_torch.serving.paged_kv import PagedSlots
+
+    dec = KVDecoder(_lm_params(), num_layers=2, num_heads=2, max_len=128,
+                    device=card)
+    outs = {}
+    for kernel in ("gather", "auto"):
+        pg = PagedSlots(dec, 3, block=16, prefill_buckets=(16, 32, 64),
+                        kernel=kernel)
+        rng = np.random.default_rng(3)
+        tok = np.array([int(pg.admit(b, rng.integers(0, 256, n))
+                            .float().argmax()) for b, n in
+                        enumerate((5, 17, 40))])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                lg, _ = pg.step(tok, np.ones(3, bool))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        assert syncs == [], [str(w.message)[:200] for w in syncs]
+        outs[kernel] = lg.float().cpu()
+    torch.testing.assert_close(outs["auto"], outs["gather"], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["edge", "reflect"])
+def test_step_multi_captures_a_pad_of_edge_or_reflect(card, no_tf32, mode):
+    """Pad's edge and reflect gather positions are made on the card: an
+    upload of host positions waits for the stream, which a capture
+    refuses, so ``step_multi`` of such a net raised.  Captured steps
+    against eager ones from the same weights."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    def trainer():
+        net = tsym.Pad(tsym.Variable("data"), mode=mode,
+                       pad_width=(0, 0, 0, 0, 2, 1, 1, 2))
+        net = tsym.Convolution(net, name="conv", kernel=(3, 3),
+                               num_filter=8)
+        net = tsym.FullyConnected(tsym.Flatten(net), name="fc",
+                                  num_hidden=10)
+        net = tsym.SoftmaxOutput(net, name="softmax")
+        trandom.seed(0)
+        return FusedTrainer(net, optimizer="sgd",
+                            optimizer_params={"lr": 0.1},
+                            device=card).init(data=(8, 3, 16, 16))
+
+    eager, graph = trainer(), trainer()
+    convert.load_trainer_params(graph, eager.params, eager.aux)
+    batches = _train_batches(3, 8)
+    want = [eager.step(data=x, softmax_label=y)[0] for x, y in batches]
+    outs = graph.step_multi(data=torch.stack([x for x, _ in batches]),
+                            softmax_label=torch.stack([y for _, y in batches]))
+    assert len(graph._graphs) == 1
+    torch.testing.assert_close(outs[0].float(), torch.stack(want).float(),
+                               rtol=1e-5, atol=1e-5)
+    assert _max_param_err(graph, eager) <= 1e-5

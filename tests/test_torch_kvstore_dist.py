@@ -245,6 +245,39 @@ def test_async_apply_matches_jax(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+def test_pull_takes_the_push_var_on_the_calling_thread(monkeypatch):
+    """A lazy pull waits for its key's pushes on the push var, which the
+    pull looks up (or makes) on the calling thread: made on the pull
+    engine's thread, it could race the loop's first push of the key into
+    a second var, and later pulls would not wait for that push."""
+    cl = _Cluster(PORT, monkeypatch, "dist_async", workers=1, servers=1)
+    kv = cl.stores[0]
+    assert kv._pull_engine is not None, "the native engine did not build"
+    callers = []
+    var = tkv.KVStoreDist._var
+
+    def spy(self, key):
+        callers.append(threading.get_ident())
+        return var(self, key)
+
+    monkeypatch.setattr(tkv.KVStoreDist, "_var", spy)
+    try:
+        kv.init("w", PORT.arr(np.ones((3, 4), F32)))
+        outs = [PORT.zeros((3, 4)) for _ in range(3)]
+        kv.pull("w", out=outs[0])             # before any push of "w"
+        kv.push("w", PORT.arr(np.full((3, 4), 2.0, F32)))
+        kv.pull("w", out=outs[1])
+        kv.pull("w", out=outs[2])
+        kv.wait_pulls()
+        got = [o.asnumpy() for o in outs]
+    finally:
+        cl.stop()
+    assert callers and set(callers) == {threading.get_ident()}
+    # the two pulls after the push read the pushed value
+    np.testing.assert_array_equal(got[1], np.full((3, 4), 2.0, F32))
+    np.testing.assert_array_equal(got[2], got[1])
+
+
 def _run_dead(P, monkeypatch):
     monkeypatch.setenv("MXTPU_PS_HEARTBEAT_S", "0.1")
     monkeypatch.setenv("MXTPU_PS_DEAD_TIMEOUT_S", "0.5")
