@@ -14,8 +14,10 @@ the detection zoo (SSD-VGG16-300 training and detection, Faster
 R-CNN's Proposal -> ROIPooling, LSTM-OCR over WarpCTC), MXNet from
 C (the predict ABI, the general C API from C++, the native runtime),
 MXNet's parameter-server training (``dist_sync``/``dist_async``
-under the port's launcher), its core telemetry, and training from and
-checkpointing to an object store with a PyTorch layer in the graph —
+under the port's launcher), its core telemetry, training from and
+checkpointing to an object store with a PyTorch layer in the graph, and
+the device mesh (data and tensor parallel training, a tensor-parallel
+decoder, sequence-parallel attention) —
 and holds each
 hand-written CUDA kernel
 (and each user kernel pushed) against its plain PyTorch version:
@@ -54,7 +56,7 @@ hand-written CUDA kernel
    in bf16 with fp32 masters at batch 32 x 3 x 224 x 224: ``step_multi``
    (one captured CUDA graph a step) against ``step()`` from the same
    state in fp32 and bf16, one fp32 step channels-last against
-   ``MXTPU_CONV_LAYOUT=NCHW``, 60 timed steps through ``step()`` and 56
+   ``MXTPU_CONV_LAYOUT=NCHW``, 24 timed steps through ``step()`` and 24
    through ``step_multi(k=8)`` (images/s, MFU, a profile of each route:
    device time by kind, idle share, host launch calls per step), a
    falling cross-entropy over one repeated batch, and one epoch of
@@ -66,7 +68,7 @@ hand-written CUDA kernel
    weights and SGD (lr 0.05, momentum 0.9): at batch 32 one Module step
    against ``FusedTrainer.step`` and the bucketed kvstore update
    (``kvstore=mx.kv.create("local")``) against the eager ``Updater``;
-   at batch 256 (TF32 off) 12 timed steps of each route (images/s, step
+   at batch 256 (TF32 off) 6 timed steps of each route (images/s, step
    ms, peak memory, a profile with the update's own launch calls); one
    epoch of ``Module.fit`` over 8 host batches with ``do_checkpoint``
    (0 host syncs per batch); ``Module.score`` with 4 epilogue launches a
@@ -79,7 +81,7 @@ hand-written CUDA kernel
    backward): at batch 32 the bucketed update against the eager
    ``Updater`` identical to the bit, then an ``inf`` in one gradient
    that its bucket's weights and momenta survive to the bit, with the
-   scale halved and one overflow and one skip reported; at batch 256 12
+   scale halved and one overflow and one skip reported; at batch 256 6
    timed steps of each route under ``set_sync_debug_mode("error")`` with
    no read of the scaler (images/s, MFU against the bf16 peak, a
    profile beside the fp32 phase's); ``Module.score`` with 4 epilogue
@@ -111,7 +113,7 @@ hand-written CUDA kernel
    tools/bench_models.py:46-67): ``models.get_symbol("inception-v3")``
    through ``FusedTrainer`` (SGD lr 0.1, momentum 0.9, bf16 with fp32
    masters) at batch 32 x 3 x 299 x 299: ``step_multi(8)`` against 8
-   ``step()`` calls in fp32 and bf16, 24 timed steps through each route
+   ``step()`` calls in fp32 and bf16, 16 timed steps through each route
    (images/s, MFU from the graph's conv and FC shapes, a profile with
    device ms by kind, ``cat`` copies and layout converters among them),
    a falling cross-entropy over one repeated batch;
@@ -123,7 +125,7 @@ hand-written CUDA kernel
    draw on the card after a deliberately failed capture;
 11. the inference sweep of tools/benchmark_score.py (``phase_zoo_score``):
    nine models through the ``Predictor`` at batch 32, fp32 and bf16,
-   images/s over 20 calls with busy time and idle share, batch-2 fp32
+   images/s over 6 calls with busy time and idle share, batch-1 fp32
    logits against the port on the CPU, and every epilogue launch of the
    timed calls (resnet-50, resnet-152, resnext-50: 4 a forward) held
    against its plain version;
@@ -134,7 +136,7 @@ hand-written CUDA kernel
    against 8 ``step()`` calls from one generator state on the dropout=0
    graph (fp32, bf16) and the dropout graph, the dropout graph captured
    with its masks fresh a replay and a keep rate within 4 sigma of 0.8,
-   24 timed steps through each route with a profile (tokens/s, launch
+   16 timed steps through each route with a profile (tokens/s, launch
    calls, device ms by kind, idle share), a falling cross-entropy, and a
    ``FusedRNNCell`` 2 x 200 against the unrolled ``LSTMCell`` stack it
    unpacks into;
@@ -146,7 +148,7 @@ hand-written CUDA kernel
    falling perplexity, a profile.  Neither phase launches a hand-written
    kernel (their counts are read around them and stay 0);
 14. RecordIO (``phase_records``): the host's cores, Pillow and libjpeg,
-   then 2,560 training and 640 val records (256 x 341 JPEG q90, label
+   then 2,560 training and 256 val records (256 x 341 JPEG q90, label
    ``i % 1000``, a pattern a class plus noise) through
    ``recordio.MXIndexedRecordIO`` and ``pack_img``;
 15. the iterators alone (``phase_record_iter``): ``ImageRecordIter`` at
@@ -188,8 +190,8 @@ hand-written CUDA kernel
    the same pushes on the CPU.  Phases 19-20 launch no hand-written
    kernel;
 21. the survival layer (``phase_survival``): ResNet-50 bf16 batch 32
-   through ``FusedTrainer``, ``_survival_micro``'s keys (40 plain steps,
-   40 with ``save_state(background=True)`` every 10, a synchronous
+   through ``FusedTrainer``, ``_survival_micro``'s keys (10 plain steps,
+   10 with ``save_state(background=True)`` every 10, a synchronous
    write, a restore into a fresh trainer, the state's bytes), the next
    step from the restored state equal to the saving trainer's under
    ``torch.use_deterministic_algorithms``, and ``predict.create`` from
@@ -210,7 +212,7 @@ hand-written CUDA kernel
 24. ``mx.model.FeedForward`` (``phase_feedforward``, run right after
    phase 5d, with phase 25) over ResNet-50 at ``phase_module_resnet``'s
    cell (batch 256, fp32 with TF32 off, SGD lr 0.05 momentum 0.9,
-   seeded He-normal weights): ``fit`` over 2 + 10
+   seeded He-normal weights): ``fit`` over 2 + 5
    device-resident batches (images/s, 0 host syncs a batch), one epoch
    from numpy arrays (``numpy_batch_size`` 256, the last partial batch
    discarded), ``score`` and ``predict`` over 2 batches with 4 epilogue
@@ -233,7 +235,8 @@ hand-written CUDA kernel
    version) and the step's elementwise device time by kernel, the ten
    largest; then ``nd`` ops under ``mode="all"`` and their
    ``imperative`` spans;
-27. int8 serving (``phase_serve_int8``): the served LM with int8 weights
+27. int8 serving (``phase_serve_int8``; phases 27-29 run the LM's widths
+   at ``LATE_LM_LAYERS`` layers): the served LM with int8 weights
    (``KVDecoder(quantize="int8")``, bf16 compute) behind
    ``serve_decoder(paged=True)``: weight bytes on the card against the
    bf16 decoder's, 16 requests (tokens/s, TTFT, tick ms, idle share),
@@ -282,13 +285,14 @@ hand-written CUDA kernel
 34. LSTM-OCR (``phase_ocr``, examples/warpctc/lstm_ocr.py at its
    defaults: batch 32 of 16 x 48 captchas, ``LSTMCell(48)`` over 48
    columns, ``WarpCTC``, Adam lr 4e-3): the first step's loss and
-   gradients against the CPU, 100 steps (steps/s, the CTC loss first and
+   gradients against the CPU, 40 steps (steps/s, the CTC loss first and
    last, the CTC backward's device ms and launch calls), the greedy
    decode's sequence accuracy on a held-out batch.  Phases 31-34 launch
    none of the six hand-written kernels (their counts are read around
    them: ``launches_detection``);
-35. the autotuner (``phase_autotune``): serving ``MFU_HEADLINE_CONFIG``
-   in bf16 (8 slots, 16-token pages, ``max_len`` 1024) under
+35. the autotuner (``phase_autotune``; phases 35-36 and phase 42's LM
+   half run the LM's widths at ``LATE_LM_LAYERS`` layers): serving
+   ``MFU_HEADLINE_CONFIG`` in bf16 (8 slots, 16-token pages, ``max_len`` 1024) under
    ``MXTPU_SCHEDULE_CACHE=search:<tmp>``: every paged candidate's µs per
    tick (all layers; the kernel's splits), the search's trials, its
    winner (a split of the kernel) and seconds, a second ``PagedSlots``
@@ -314,9 +318,11 @@ hand-written CUDA kernel
    one oversized ``torch.empty`` (``DeviceOOMError`` with the ranked
    report) and 20 decode ticks with the perf plane on (the decode cost
    rows and step buckets; ``launches_planes``);
-37. the predict ABI (``phase_c_predict``, run with phase 38 right after
-   phase 2, while this process holds little of the card, since each
-   starts a C program that needs its own memory): a C program
+37. the predict ABI (``phase_c_predict``, run with phase 38 and phase
+   44's ``phase_amalgamation`` right after phase 2, while this process
+   holds little of the card, since each starts a C program that needs
+   its own memory; their clients run side by side, then each phase's
+   work in this process, ``_side_by_side``): a C program
    (``mxnet_tpu_torch/csrc/clients/predict.c``) built with ``gcc``
    against the port's predict library runs ResNet-50 at batch 32 in fp32
    on the card (``dev_type`` 2) from the symbol's JSON and the bytes of
@@ -352,16 +358,16 @@ hand-written CUDA kernel
    this file writes (``DIST_WORKER``); each worker trains ResNet-50 at
    full width (3 x 224 x 224, 1000 classes, fp32, cuDNN deterministic,
    TF32 off) at batch 32 through ``Module.fit(kvstore="dist_sync")`` for
-   12 steps over its own seeded shard on the card, with SGD (momentum)
+   6 steps over its own seeded shard on the card, with SGD (momentum)
    on the two CPU-only servers, and joins a coordinator this process
    runs (``MXTPU_COORD_ADDR``; its ``/cluster`` and ``/fleet``, with
    both workers' metric families merged, and the step-time skew are
    printed).  Checked: the two workers' weights bit-equal after every
    step (a 64-bit digest of their bits taken on the card each step, and
-   the weights themselves after steps 1 and 12); after step 1 the pulled
+   the weights themselves after steps 1 and 6); after step 1 the pulled
    weights bit-equal to the servers' update applied here on the host
    (the port's updater, each server's share of each key) to the two
-   workers' own saved step-1 gradients; after 12 steps the weights
+   workers' own saved step-1 gradients; after 6 steps the weights
    within ``DIST_TOL`` of a one-process run here that sums the two
    shards' gradients each step; the servers never initialised CUDA; the
    six kernels' counts in each worker 0 (``launches_dist_sync``).
@@ -381,7 +387,7 @@ hand-written CUDA kernel
    ``_core_module``, runs right after phase 25, beside
    ``phase_module_resnet``'s cell): ResNet-50 through ``Module.fit`` at
    b256 fp32 with the bucketed kvstore, ``Accuracy`` and a
-   ``Speedometer``, 2 rounds of a 6-batch epoch with the families off
+   ``Speedometer``, 2 rounds of a 4-batch epoch with the families off
    then on after a warm-up epoch — the families' values as
    ``core_loop_counts`` predicts (the CPU tests hold both packages to
    it), the bucket families equal to a new store's plan, both stall
@@ -422,8 +428,8 @@ hand-written CUDA kernel
    bit-equal to ``image.imdecode_np`` through cv2 or the port's own
    decode, whichever the machine has (``launches_remote_io``).
 44. the port lint, the amalgamation and the Perl binding, in two parts:
-   ``phase_amalgamation`` after phase 38 (its Perl child needs its own
-   few GB of the card) builds the predict library from ``python -m
+   ``phase_amalgamation`` with phases 37-38 (its Perl child needs its
+   own few GB of the card) builds the predict library from ``python -m
    mxnet_tpu_torch.amalgamate --predict`` with one ``g++`` line, loads
    it by ``ctypes`` and runs ResNet-50 b32 fp32 224² on ``dev_type`` 2,
    5 counted forwards, 4 epilogue launches each held against the plain
@@ -441,6 +447,23 @@ hand-written CUDA kernel
    point's witness: the earlier phase that shows its syncs, or a count
    here (the serving tick at 2 layers: 1 a tick; the checkpoint's
    capture and save, the host-only calls: 0) (``launches_port_lint``).
+45. the device mesh (``phase_mesh``, run right after phases 40-41): (a)
+   ``transformer_lm(**MFU_HEADLINE_CONFIG)`` at b8 x 1024, bf16 Adam,
+   through ``FusedTrainer(mesh=create_mesh((1, 1), ("data", "model")),
+   sharding_rules=megatron_rules())`` over a world-1 NCCL group: 3
+   eager steps and a captured ``step_multi(3)`` held to the same trainer
+   without a mesh from the same weights, the flash kernels' launches on
+   the rank's heads counted against it and the first step's held
+   against their plain versions, the step's wall as a ratio to the
+   step without a mesh, its idle share and NCCL kernels; (b) two ranks
+   sharing the card over gloo (``MESH_WORKER`` children) at the LM's
+   widths cut to 2 layers: the (2, 1) and (1, 2) meshes for 3 steps
+   against one process, ``KVDecoder`` 2-way over ``model`` against one
+   process (fp32 greedy tokens equal over the prefill and 32 ticks; bf16
+   logits along the dense greedy path), Ulysses and the ring against
+   ``full_attention``, each collective gloo refuses on CUDA tensors
+   recorded by name; (c) NCCL's refusal of two ranks on one card,
+   quoted (``launches_mesh``, ``launches_mesh_gloo``, ``mesh_world1``).
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -450,6 +473,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import json
@@ -493,6 +517,10 @@ PAGED_ENTRIES = {
 # the training slice: MFU_HEADLINE_CONFIG at batch 8; attention shape
 # (B, H, T, D) = (8, 16, 1024, 128)
 TRAIN_BATCH, TRAIN_STEPS = 8, 6
+# the LM's depth in phases 27-29, 35-36 and 42 (their widths are
+# MFU_HEADLINE_CONFIG's): cut from 8 for the script's time limit; the
+# main path's phases (3-5, 23, 26) and phase 45 (a) keep all 8
+LATE_LM_LAYERS = 4
 FLASH_SRC = "mxnet_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = {  # the Pallas kernels in mxnet_tpu/ops/flash_attention.py
     "flash_fwd": "mxnet_tpu/ops/flash_attention.py:41",       # _fwd_kernel
@@ -523,9 +551,10 @@ EPI_TAILS = (("stage2_unit1_relu1", 56 * 56, 256),
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "residual_epilogue")
 # the training slice of bench.py:1985-2077: ResNet-50, 1000 classes, SGD
 # lr 0.1 momentum 0.9 rescale_grad 1/32, bf16, batch 32 x 3 x 224 x 224;
-# 8 warm-up steps, 60 timed steps through step(), step_multi at k 8 (7
-# calls, as bench.py runs 60 // 8 of them), 8 batches through fit
-RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS, RESNET_K = 32, 8, 60, 8
+# 8 warm-up steps, 24 timed steps through step() (bench.py times 60; cut
+# for the script's time limit), step_multi at k 8 (3 calls), 8 batches
+# through fit
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS, RESNET_K = 32, 8, 24, 8
 RESNET_FIT_BATCHES = 8
 RESNET_FLOPS_PER_IMG = 3 * 4.089e9          # bench.py:34
 # device time by kind of kernel, the first matching pattern winning
@@ -545,9 +574,10 @@ RESNET_KINDS = (
 )
 # the Module path of bench.py:1692-1776 (_amp_micro's fp32 half):
 # ResNet-50 at batch 256 fp32 (TF32 off), Xavier, SGD lr 0.05 momentum
-# 0.9, kvstore "local"; 2 warm-up and 12 timed steps through the eager
+# 0.9, kvstore "local"; 2 warm-up and 6 timed steps (bench.py: 12; cut
+# for the script's time limit) through the eager
 # Updater and through the bucketed update; parity at batch 32
-MODULE_BATCH, MODULE_WARMUP, MODULE_STEPS = 256, 2, 12
+MODULE_BATCH, MODULE_WARMUP, MODULE_STEPS = 256, 2, 6
 MODULE_PARITY_BATCH = RESNET_BATCH
 MODULE_OPT = {"learning_rate": 0.05, "momentum": 0.9}
 MODULE_SCORE_BATCHES = 2
@@ -576,20 +606,21 @@ SYNC_METHODS = ("item", "cpu", "tolist", "numpy", "__bool__", "__float__",
 SYNC_WARNING = "called a synchronizing CUDA operation"
 # the zoo slice.  Inception-v3 training as tools/bench_models.py:46-67
 # runs it: batch 32 x 3 x 299 x 299, SGD lr 0.1 momentum 0.9, bf16;
-# step_multi at k 8 against 8 step() calls, 24 timed steps a route
+# step_multi at k 8 against 8 step() calls, 16 timed steps a route
 INCEPTION_BATCH, INCEPTION_K, INCEPTION_WARMUP = 32, 8, 3
-INCEPTION_STEPS = 24
+INCEPTION_STEPS = 16
 # AlexNet through Module (BASELINE.md:44-55): batch 256, fp32, 10 timed
 # steps a route over one repeated batch
 ALEXNET_BATCH, ALEXNET_WARMUP, ALEXNET_STEPS = 256, 2, 10
 # the inference sweep of tools/benchmark_score.py:23-56, models at
-# :62-63 (native image side each), batch 32, 20 timed calls
+# :62-63 (native image side each), batch 32, 6 timed calls
 ZOO_MODELS = (("alexnet", 224), ("vgg", 224), ("googlenet", 224),
               ("inception-bn", 224), ("inception-v3", 299),
               ("inception-resnet-v2", 299), ("resnext-50", 224),
               ("resnet-50", 224), ("resnet-152", 224))
-ZOO_BATCH, ZOO_CALLS = 32, 20
-# card fp32 (TF32 off) logits against torch's CPU kernels, batch 2: the
+ZOO_BATCH, ZOO_CALLS = 32, 6
+# card fp32 (TF32 off) logits against torch's CPU kernels, batch 1 (2
+# before; cut for the script's time limit): the
 # same fp32 arithmetic in other algorithms (cuDNN's implicit GEMMs and
 # FFTs against the CPU's), a few fp32 ulps a layer over up to ~250
 # layers (measured 3.4e-7 to 3.5e-6 relative on an H100)
@@ -600,7 +631,7 @@ ZOO_TOL = 1e-4
 # masters, the l{i}_init_{c,h} states fed as zeros; step_multi at k 8
 LSTM_BATCH, LSTM_SEQ, LSTM_HIDDEN, LSTM_LAYERS = 32, 35, 200, 2
 LSTM_VOCAB, LSTM_DROPOUT, LSTM_K = 10000, 0.2, 8
-LSTM_WARMUP, LSTM_STEPS = 3, 24
+LSTM_WARMUP, LSTM_STEPS = 3, 16
 # FLOPs a step: 3 x (the 2 layers' i2h and h2h products, 2 x 4H x (E+H)
 # a token each, and the 4.0 M multiply-adds of the logits) x 2 a token
 LSTM_FLOPS_PER_TOKEN = 3 * 2 * (LSTM_LAYERS * 4 * LSTM_HIDDEN
@@ -640,7 +671,7 @@ LSTM_CELL_TOL = 1e-5
 # example's Zipf corpus (synthetic_corpus, seed 3) at vocab 10000,
 # buckets 8/16/24/32, batch 32, 2 x 200, dropout 0.2, ignore_label 0,
 # SGD lr 0.1 momentum 0.9 wd 1e-5, Xavier(in, 2.34), fp32 (TF32 off)
-BUCKET_SENTENCES, BUCKETS = 2000, (8, 16, 24, 32)
+BUCKET_SENTENCES, BUCKETS = 800, (8, 16, 24, 32)
 BUCKET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-5}
 # the runtime-compiled kernels: rtc.Rtc replaces the JAX Rtc._compiled
 RTC_SRC = "mxnet_tpu_torch/rtc.py"
@@ -678,7 +709,44 @@ def phase_device():
         for entry, r in entries.items():
             log(f"[ptxas] {name}: {entry}: {r.get('registers')} registers, "
                 f"{r.get('spills')} bytes spilled")
+    _profile_events_check()
     return smi, ptxas
+
+
+def _profile_events_check():
+    """``_profile_events`` against ``prof.events()`` on a small profile of
+    the card: the kernels, the host launch calls and a named range (what
+    the phases read) must be the same events at the same times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn(256, 256, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            with record_function("chip_smoke.range"):
+                x = torch.relu(x @ x.t() * 1e-3) + 1
+        torch.cuda.synchronize()
+
+    def read(events):
+        return sorted(
+            (e.name, str(e.device_type), e.time_range.start,
+             e.time_range.end) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            or e.name in LAUNCH_CALLS or e.name == "chip_smoke.range")
+
+    t0 = time.perf_counter()
+    mine = read(_profile_events(prof))
+    t1 = time.perf_counter()
+    ref = read(prof.events())
+    t2 = time.perf_counter()
+    kernels = sum(e[1] == str(torch.autograd.DeviceType.CUDA) for e in ref)
+    log(f"[device] profile reading: {len(ref)} events read ({kernels} on the "
+        f"card) equal to prof.events()'s: {mine == ref}; "
+        f"{(t1 - t0) * 1e3:.1f} ms against {(t2 - t1) * 1e3:.1f} ms")
+    if mine != ref or not kernels:
+        raise AssertionError(f"_profile_events: {len(mine)} events, "
+                             f"prof.events() {len(ref)}")
 
 
 def ptxas_report(log):
@@ -1098,10 +1166,14 @@ def phase_flash_kernels(ptxas):
 
 
 # ----------------------------------------------------------------- phase 3
-def _params(seed=0):
+def _params(seed=0, layers=None):
+    """``MFU_HEADLINE_CONFIG`` (at ``layers`` layers, if given: its widths
+    kept) and seeded random weights for it."""
     from mxnet_tpu_torch.models import transformer as tr
 
     cfg = tr.MFU_HEADLINE_CONFIG
+    if layers is not None:
+        cfg = dict(cfg, num_layers=layers)
     shapes = tr.lm_param_shapes(cfg["num_layers"], cfg["num_heads"],
                                 cfg["d_model"], cfg["d_ff"],
                                 cfg["vocab_size"], MAX_LEN)
@@ -1212,6 +1284,36 @@ def phase_serve(cfg, params):
         server.shutdown()
         server.server_close()
         sched.close()
+
+
+_ProfRange = collections.namedtuple("_ProfRange", "start end")
+_ProfEvent = collections.namedtuple("_ProfEvent",
+                                    "name device_type time_range")
+
+
+def _profile_events(prof):
+    """``prof.events()``'s name, device type and time range (µs from the
+    trace's start) of every event, read from the profiler's raw results:
+    the same events, filtered and named as ``prof.events()`` names them,
+    without building its ``FunctionEvent`` tree (which takes seconds of
+    host time for each 10^4 events of an eager step's profile)."""
+    from torch.autograd import profiler_util
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names, out = {}, []
+    for e in res.events():
+        raw = e.name()
+        if profiler_util._filter_name(raw) or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        out.append(_ProfEvent(name, e.device_type(), _ProfRange(
+            (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000)))
+    return out
 
 
 def _device_ms(prof, steps):
@@ -1680,7 +1782,7 @@ def _train_profile(run, steps, step_ms, tag, update="FusedTrainer.update",
     by_kind = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
     top, other, calls, graphs = {}, {}, 0, 0
     device, spans, host_spans, launches = [], [], [], []
-    for ev in prof.events():
+    for ev in _profile_events(prof):
         r = (ev.time_range.start, ev.time_range.end)
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             # the update range's span on the device, not a kernel
@@ -2078,7 +2180,7 @@ def _allocator_counts():
 
 
 def _module_route(net, batches, kvstore, tag, smi, amp=False):
-    """The timed route at batch 256: warm-up, 12 timed steps (host wall
+    """The timed route at batch 256: warm-up, 6 timed steps (host wall
     ending in a sync), peak memory, a profile of 2 more steps.  With
     ``amp`` (the caller set ``MODULE_AMP_ENV``) the timed steps run
     under ``torch.cuda.set_sync_debug_mode("error")`` and must leave the
@@ -3541,7 +3643,7 @@ def _kernel_busy(prof, steps):
     sum of the kernels' durations, and the time at least one kernel ran
     (their union: cuDNN may run kernels of one call side by side)."""
     spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
+                   for ev in _profile_events(prof)
                    if ev.device_type == torch.autograd.DeviceType.CUDA)
     total = sum(b - a for a, b in spans)
     union, end = 0.0, -math.inf
@@ -3555,8 +3657,8 @@ def _kernel_busy(prof, steps):
 def phase_zoo_score(smi):
     """The inference sweep of tools/benchmark_score.py:23-56 (models at
     :62-63): each model through ``predict.Predictor`` with the passes on
-    at batch 32, fp32 (TF32 off) and bf16, 20 timed forward + get_output
-    calls, busy ms and idle share; fp32 logits at batch 2 against the
+    at batch 32, fp32 (TF32 off) and bf16, 6 timed forward + get_output
+    calls, busy ms and idle share; fp32 logits at batch 1 against the
     port on the CPU from the same weights; every epilogue launch of the
     timed calls held against its plain version.  The epilogue launches of
     the timed calls are counted with the count reset just before them."""
@@ -3573,13 +3675,13 @@ def phase_zoo_score(smi):
         arg, aux = resnet.random_params(net, seed=0, data=shape)
         x = np.random.RandomState(14).uniform(-1, 1, shape).astype(
             np.float32)
-        small = {"data": (2, 3, side, side)}
+        small = {"data": (1, 3, side, side)}
         cpu = Predictor(symbol=net, arg_params=arg, aux_params=aux,
                         input_shapes=small, dev_type="cpu")
         card = Predictor(symbol=net, arg_params=arg, aux_params=aux,
                          input_shapes=small)
-        cpu.forward(data=x[:2])
-        card.forward(data=x[:2])
+        cpu.forward(data=x[:1])
+        card.forward(data=x[:1])
         want, got = cpu.get_output(1), card.get_output(1)
         err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
         del cpu, card
@@ -3655,7 +3757,7 @@ def phase_zoo_score(smi):
                 f"a forward, device busy {row[t]['busy_ms']:.3f}, kernel "
                 f"time {row[t]['kernel_ms']:.3f}, idle "
                 f"{row[t]['idle_share']:.4f})" for t in ("fp32", "bf16"))
-            + f"; batch-2 fp32 logits vs the CPU rel err {err:.3g} (tol {ZOO_TOL}); epilogue launches a "
+            + f"; batch-1 fp32 logits vs the CPU rel err {err:.3g} (tol {ZOO_TOL}); epilogue launches a "
             f"forward {row['fp32']['epilogue_per_forward']} (fp32) "
             f"{row['bf16']['epilogue_per_forward']} (bf16){gate}; {smi}")
     for name in ("resnet-50", "resnet-152", "resnext-50"):
@@ -4112,22 +4214,22 @@ def phase_bucketing_lstm(smi):
 # ------------------------------------------------------------ phases 14-18
 # ImageNet-style training from RecordIO (train_imagenet.py, score.py) and
 # the Module path's rest (sequential_module.py, train_mnist.py)
-REC_TRAIN, REC_VAL = 2560, 640
+REC_TRAIN, REC_VAL = 2560, 256
 REC_SIDE = (256, 341)            # shorter side 256, 4:3
 REC_QUALITY = 90
 REC_BATCH = RESNET_BATCH
 REC_SHAPE = (3, 224, 224)
-REC_WARMUP, REC_TIMED = 2, 30    # batches of each iterator route
+REC_WARMUP, REC_TIMED = 2, 8    # batches of each iterator route
 REC_CHECK_EVERY = 5              # the staging check's sampling
 REC_MP_WORKERS = 4
 REC_FIT_EPOCHS = 2
 REC_K = 8                        # step_multi's steps a call
 REC_RESIDENT_BATCHES = 24
 REC_MODULE_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
-REC_MONITOR_BATCHES, REC_MONITOR_EVERY = 41, 20
+REC_MONITOR_BATCHES, REC_MONITOR_EVERY = 21, 20
 REC_STAGE_BATCHES = 4            # batches of the by-stage breakdown
 SEQ_BATCH, SEQ_SAMPLES, SEQ_EPOCHS = 50, 2000, 2
-MNIST_TRAIN, MNIST_TEST, MNIST_BATCH = 60000, 10000, 64
+MNIST_TRAIN, MNIST_TEST, MNIST_BATCH = 20000, 10000, 64   # 60000: cut
 CARD = "cuda"                    # where phases 14-18 expect their batches
 
 
@@ -4795,7 +4897,8 @@ def _score_records(mod, val, smi):
 
 def _mnist_files(workdir):
     """Seeded idx files of MNIST's shape: class templates plus noise,
-    60,000 train and 10,000 test images of 28 x 28."""
+    ``MNIST_TRAIN`` train (MNIST's 60,000 cut for the script's time
+    limit) and 10,000 test images of 28 x 28."""
     import struct
 
     rs = np.random.RandomState(11)
@@ -4908,8 +5011,9 @@ MF_BATCH, MF_SAMPLES, MF_EPOCHS, MF_LR = 256, 40000, 2, 0.05
 SPARSE_SIZES = ((300000, 64, 4096), (10_000_000, 64, 4096))
 SPARSE_STEPS, SPARSE_WARMUP = 20, 3
 SPARSE_TOL = 1e-6                # the card's row update vs the CPU's
-SURV_STEPS, SURV_EVERY = 40, 10  # bench.py:577-642 (_survival_micro)
-KILL_SAMPLES, KILL_BATCH, KILL_EPOCHS, KILL_EVERY = 4096, 64, 2, 10
+# bench.py:577-642 (_survival_micro) runs 40 steps; cut for the time limit
+SURV_STEPS, SURV_EVERY = 10, 10
+KILL_SAMPLES, KILL_BATCH, KILL_EPOCHS, KILL_EVERY = 2048, 64, 2, 10
 REMAT_K = 8
 REMAT_DROPOUT = 0.1
 
@@ -5345,6 +5449,10 @@ elif mode == "preempt":
             print("TERMME", flush=True)
             while not term:
                 time.sleep(0.01)
+# started ahead of its turn: it trains once the go file exists
+go = os.environ.get("KILL_GO")
+while go and not os.path.exists(go):
+    time.sleep(0.01)
 try:
     mod.fit(it, num_epoch=int(sys.argv[5]), optimizer="sgd",
             optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
@@ -5379,10 +5487,14 @@ def phase_kill_resume(smi):
     repo = os.path.dirname(os.path.abspath(__file__))
     args = [str(KILL_SAMPLES), str(KILL_BATCH), str(KILL_EPOCHS)]
 
+    go = os.path.join(tmp, "go")
+
     def start(mode, ckdir, out):
         env = dict(os.environ, CHIP_SMOKE_REPO=repo, MXTPU_CKPT_DIR=ckdir,
                    MXTPU_CKPT_EVERY=str(KILL_EVERY),
                    CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        if mode == "resume":
+            env["KILL_GO"] = go
         return subprocess.Popen(
             [sys.executable, script, mode, out] + args,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -5406,23 +5518,27 @@ def phase_kill_resume(smi):
         return out
 
     t0 = time.perf_counter()
+    procs = {}
     try:
         d = {m: os.path.join(tmp, m) for m in ("straight", "victim",
                                                "preempt")}
-        procs = {m: start(m, d[m], os.path.join(tmp, m + ".npz"))
-                 for m in d}
+        procs.update((m, start(m, d[m], os.path.join(tmp, m + ".npz")))
+                     for m in d)
+        # the resumed child needs only the victim's checkpoints: it starts
+        # with the others and trains, beside them, once the victim is dead
+        procs["resume"] = start("resume", d["victim"],
+                                os.path.join(tmp, "resume.npz"))
         until(procs["victim"], "KILLME", "victim")
         procs["victim"].send_signal(_signal.SIGKILL)
         procs["victim"].wait(timeout=60)
         killed = procs["victim"].returncode
         published = ck.list_checkpoints(d["victim"])
+        open(go, "w").close()
         until(procs["preempt"], "TERMME", "preempt")
         procs["preempt"].send_signal(_signal.SIGTERM)
         pout = finish(procs["preempt"], "preempt", rc=3)
         finish(procs["straight"], "straight")
-        resumed = start("resume", d["victim"], os.path.join(tmp,
-                                                            "resume.npz"))
-        rout = finish(resumed, "resume")
+        rout = finish(procs["resume"], "resume")
         straight = np.load(os.path.join(tmp, "straight.npz"))
         again = np.load(os.path.join(tmp, "resume.npz"))
         diffs = {k: float(np.abs(straight[k] - again[k]).max())
@@ -5453,6 +5569,10 @@ def phase_kill_resume(smi):
                 "max_diff": max(diffs.values()), "preempt_cursor": cursor,
                 "wall_s": wall}
     finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -5602,10 +5722,10 @@ def phase_remat(smi):
 # ----------------------------------------------------- phases 24-26
 # (a) ResNet-50 through mx.model.FeedForward at phase_module_resnet's
 # cell (batch 256, fp32 with TF32 off, SGD lr 0.05 momentum 0.9, seeded
-# He-normal weights): 2 warm-up and 10 timed batches of fit over a
+# He-normal weights): 2 warm-up and 5 timed batches of fit over a
 # DataIter of device-resident batches, one epoch of 4 batches from
 # numpy arrays, score and predict over 2 batches
-FF_BATCH, FF_WARMUP, FF_STEPS = MODULE_BATCH, 2, 10
+FF_BATCH, FF_WARMUP, FF_STEPS = MODULE_BATCH, 2, 5
 FF_NUMPY_BATCHES, FF_SCORE_BATCHES = 4, 2
 FF_OPT = {"learning_rate": 0.05, "momentum": 0.9}
 # the executor manager's step against Module's, from the same weights and
@@ -5930,7 +6050,7 @@ def _grads(net, arg, aux, x, y):
 
 def phase_custom_op(smi, ff, fit_ref):
     """(b) The same net and batch with custom_softmax.py's numpy softmax
-    as the head through ``FeedForward.fit`` (10 timed batches): step ms
+    as the head through ``FeedForward.fit`` (5 timed batches): step ms
     against the SoftmaxOutput head of phase 24, the op's host ms and
     host syncs a batch, one step's parameter gradients against the
     SoftmaxOutput head's, and ``step_multi``'s refusal.  Returns the
@@ -6814,9 +6934,9 @@ OCR_BATCH = 32
 OCR_HIDDEN = 48
 OCR_CLASSES = 11                 # blank + 10 digits
 OCR_LR = 4e-3
-# 100 steps, cut from 200 for the script's time limit: the CTC loss
-# falls from ~95.6 by step 100 as well
-OCR_STEPS = 100
+# 40 steps, cut from 200 for the script's time limit: the CTC loss
+# falls from ~95.6 within its first 40 steps as well
+OCR_STEPS = 40
 # the first step, card vs CPU: relative, and absolute as a share of
 # each tensor's largest entry (a gradient sums 48 steps x 32 sequences)
 OCR_TOL = (1e-4, 1e-6)
@@ -7152,7 +7272,7 @@ def _range_profile(run, steps, ranges, kinds):
     dev = {r: [] for r in ranges}
     host = {r: [] for r in ranges}
     kernels, launches = [], []
-    for ev in prof.events():
+    for ev in _profile_events(prof):
         span = (ev.time_range.start, ev.time_range.end)
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.name in dev:
@@ -7670,7 +7790,7 @@ def phase_ocr(smi):
     seven-segment captchas, ``LSTMCell(48)`` unrolled over the 48
     columns, ``WarpCTC`` (label_length 5), Adam lr 4e-3 through
     ``optimizer.get_updater``: the first step against the port on the CPU
-    from the same weights, then 100 steps (steps/s, the CTC loss at the
+    from the same weights, then 40 steps (steps/s, the CTC loss at the
     first and last step, a profile of the CTC backward) and the greedy
     decode's sequence accuracy on a held-out batch."""
     from mxnet_tpu_torch import optimizer
@@ -8321,6 +8441,76 @@ def _client_run(cmd, env, what, timeout=600):
     return r.stdout, time.perf_counter() - t0
 
 
+class _Child:
+    """A client started now and read later (``_client_run`` split in
+    two), so that the C, C++ and Perl clients of phases 37, 38 and 44
+    run side by side: ``result()`` is ``_client_run``'s (stdout,
+    seconds), or its error.  Its output goes to files, and a thread
+    notes when it exits."""
+
+    def __init__(self, cmd, env, what, timeout=600):
+        self.what, self.timeout = what, timeout
+        self.free, self.total = torch.cuda.mem_get_info()
+        self.out, self.err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, env=env, stdout=self.out,
+                                     stderr=self.err)
+        self.t1 = None
+        self.watch = threading.Thread(target=self._watch, daemon=True)
+        self.watch.start()
+
+    def _watch(self):
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def wait(self):
+        self.watch.join(max(self.t0 + self.timeout - time.perf_counter(), 0))
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.watch.join()
+
+    def result(self):
+        self.wait()
+
+        def read(f):
+            f.seek(0)
+            return f.read().decode(errors="replace")
+        stdout, stderr = read(self.out), read(self.err)
+        if self.proc.returncode != 0:
+            raise AssertionError(
+                f"{self.what} exited {self.proc.returncode} (the card had "
+                f"{self.free / 2**30:.1f} of {self.total / 2**30:.1f} GiB "
+                f"free at its start):\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        return stdout, self.t1 - self.t0
+
+
+def _side_by_side(phases):
+    """Runs generator phases whose first part builds and starts clients
+    (yielding the ``_Child`` list) and whose second part reads them: every
+    first part, then a wait for every client, then each second part in
+    turn, so that no client runs beside this process's own timed work.
+    Returns each phase's value in order."""
+    children = []
+    try:
+        for gen in phases:
+            children += next(gen)
+    except BaseException:
+        for child in children:
+            child.proc.kill()
+        raise
+    for child in children:
+        child.wait()
+    out = []
+    for gen in phases:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            out.append(stop.value)
+        else:
+            raise AssertionError("a side-by-side phase yielded twice")
+    return out
+
+
 def _link_cmd(src, lib, exe):
     from mxnet_tpu_torch import libinfo
 
@@ -8365,7 +8555,8 @@ def phase_c_predict(smi):
     same library loaded here through ctypes, whose forwards launch the
     epilogue 4 times each, every launch held against the plain version,
     and ``MXPredForwardAsync``/``GetOutputAsync`` over the same input.
-    Returns (record, launches)."""
+    A phase of ``_side_by_side``: its clients run beside phase 38's and
+    phase 44's.  Returns (record, launches)."""
     from mxnet_tpu_torch import libinfo
     from mxnet_tpu_torch import ndarray as tnd
     from mxnet_tpu_torch.ops import residual_epilogue as tre
@@ -8392,16 +8583,18 @@ def phase_c_predict(smi):
         exe = os.path.join(wd, "predict")
         cc_s = _client_build(_link_cmd(CPRED_CLIENT, lib, exe), CPRED_CLIENT)
         probs_path = os.path.join(wd, "probs.f32")
-        stdout, run_s = _client_run(
+        client = _Child(
             [exe, sym_path, params, os.path.join(wd, "x.f32"), probs_path,
              "2", str(CPRED_CALLS), str(n), "3", "224", "224"],
             libinfo.client_env({**os.environ, **TF32_OFF}), CPRED_CLIENT)
+        # what a fresh interpreter spends before MXPredCreate's own work
+        probe = _Child([sys.executable, "-c", IMPORT_PROBE],
+                       libinfo.client_env(), "import probe")
+        yield [client, probe]
+        stdout, run_s = client.result()
         if "PREDICT OK" not in stdout:
             raise AssertionError(f"C predict client: {stdout[-2000:]}")
-        # what a fresh interpreter spends before MXPredCreate's own work
-        probe, _ = _client_run([sys.executable, "-c", IMPORT_PROBE],
-                               libinfo.client_env(), "import probe")
-        import_s = float(probe.strip().splitlines()[-1])
+        import_s = float(probe.result()[0].strip().splitlines()[-1])
         c_probs = np.fromfile(probs_path, np.float32).reshape(n, 1000)
         c_rate = float(re.search(r"images/s ([\d.]+)", stdout).group(1))
         calls_ms = [float(v) for v in re.findall(r"call \d+ ms ([\d.]+)",
@@ -8418,7 +8611,7 @@ def phase_c_predict(smi):
         f"Forward + GetOutput after 3 (median call "
         f"{np.median(calls_ms):.3f} ms), "
         f"the async tickets equal to the synchronous output; "
-        f"NVIDIA_TF32_OVERRIDE=0; {smi}")
+        f"NVIDIA_TF32_OVERRIDE=0; beside the other C clients; {smi}")
     if c_probs.shape != (n, 1000) or not np.isfinite(c_probs).all() or \
             not np.allclose(c_probs.sum(1), 1.0, atol=1e-3):
         raise AssertionError("C predict: probabilities not finite rows of 1")
@@ -8555,10 +8748,11 @@ def phase_c_api(smi):
     client's path sets it in its embedded interpreter).  The gammas whose
     exact gradient is zero (``_scale_invariant_gammas``: ``bn0_gamma``)
     are held instead to vanish on both sides, each gradient's norm under
-    ``CAPI_ZERO_GRAD`` of the median gamma gradient's; then
+    ``CAPI_ZERO_GRAD`` of the median gamma gradient's; and
     ``bindings/cpp/example_train.cc``, unchanged, against the same
-    library (it binds the CPU: the binding's own check).  Returns
-    (record, launches)."""
+    library (it binds the CPU: the binding's own check).  A phase of
+    ``_side_by_side``: both clients run beside phase 37's and phase
+    44's.  Returns (record, launches)."""
     from mxnet_tpu_torch import libinfo
     from mxnet_tpu_torch import ndarray as tnd
     from mxnet_tpu_torch.executor import simple_bind
@@ -8591,17 +8785,19 @@ def phase_c_api(smi):
             f.write(DETERMINISTIC_SITE)
         env = libinfo.client_env({**os.environ, **TF32_OFF})
         env["PYTHONPATH"] = site_dir + os.pathsep + env["PYTHONPATH"]
-        _kernel_launches(reset=True)
-        stdout, run_s = _client_run(
+        client = _Child(
             [exe, paths["net.json"], paths["w.f32"], paths["x.f32"],
              paths["y.f32"], paths["g.f32"], "2", str(CAPI_STEPS),
              str(CAPI_LR), repr(rescale), str(n), "3", "224", "224"],
             env, CAPI_CLIENT)
-        flat = np.fromfile(paths["g.f32"], np.float32)
         example = os.path.join(wd, "example_train")
         _client_build(_link_cmd(CPP_EXAMPLE, lib, example), CPP_EXAMPLE)
-        ex_out, ex_s = _client_run([example], libinfo.client_env(),
-                                   CPP_EXAMPLE)
+        ex_child = _Child([example], libinfo.client_env(), CPP_EXAMPLE)
+        yield [client, ex_child]
+        _kernel_launches(reset=True)
+        stdout, run_s = client.result()
+        flat = np.fromfile(paths["g.f32"], np.float32)
+        ex_out, ex_s = ex_child.result()
     if "TRAIN STEP OK" not in stdout:
         raise AssertionError(f"C++ train_step: {stdout[-2000:]}")
     if "CPP TRAIN OK" not in ex_out:
@@ -8683,7 +8879,7 @@ def phase_c_api(smi):
         + f"; a second Python run: max {again[0]:.3g} ({again[1]}); one "
         f"without the deterministic algorithms: max {free[0]:.3g} "
         f"({free[1]}), median {free[2]:.3g}; NVIDIA_TF32_OVERRIDE=0; "
-        f"{smi}")
+        f"the client ran beside the other C clients; {smi}")
     log(f"[c_api-example] bindings/cpp/example_train.cc unchanged against "
         f"the port's library ({ex_s:.1f} s): "
         + " | ".join(ex_out.strip().splitlines()[-2:]))
@@ -8885,8 +9081,8 @@ def phase_native(smi, recs, img_s):
 # ResNet-50 cell of bench.py:1985-2077): 2 workers on the card, CPU-only
 # servers, a worker's batch 32 x 3 x 224 x 224 in fp32
 DIST_BATCH = 32
-DIST_STEPS = 12                  # phase 40's synchronous steps
-DIST_TIMED_FROM = 2              # steps 1-2 save state: time steps 3-12
+DIST_STEPS = 6                   # phase 40's synchronous steps
+DIST_TIMED_FROM = 2              # steps 1-2 save state: time steps 3-6
 DIST_ASYNC_STEPS, DIST_ASYNC_BATCHES = 6, 2
 DIST_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
 DIST_SEED = 1000                 # worker r's shard: a CUDA generator at 1000+r
@@ -9280,7 +9476,7 @@ def phase_dist_sync(smi):
             >= set(members)]
     if "kvstore_push_total" not in fams:
         raise AssertionError(f"dist_sync: /fleet merged families {fams}")
-    # timed steps 3-12: callback to callback, less each callback's own time
+    # timed steps 3-6: callback to callback, less each callback's own time
     lo = DIST_TIMED_FROM
     per = []
     for r in res:
@@ -9429,7 +9625,7 @@ def phase_dist_async(smi):
 # dump_json and one LoggingReporter line
 CORE_STEPS = 10                  # LM steps an epoch (one epoch a setting)
 CORE_ROUNDS = 2                  # off/on epochs alternated, each model
-CORE_MODULE_BATCHES = 6          # Module.fit batches of MODULE_BATCH
+CORE_MODULE_BATCHES = 4          # Module.fit batches of MODULE_BATCH
 CORE_FREQUENT = 2                # the Speedometer's reporting period
 CORE_PREDICT_CALLS = 20
 
@@ -9838,7 +10034,7 @@ REMOTE_RECORDS = "s3://records/train.rec"
 REMOTE_CKPT = "s3://checkpoints/resnet-50"
 REMOTE_PREDICT_CALLS = 5
 REMOTE_IDLE_BATCHES = 4          # batches of the profiled window
-PLUGIN_BATCHES = 8               # Module.fit batches of each plugin net
+PLUGIN_BATCHES = 4               # Module.fit batches of each plugin net
 # The TorchModule net against the native one, and TorchCriterion's fc1
 # gradient against SoftmaxOutput's: fp32, TF32 off and cuDNN
 # deterministic (the native net twice gives the same bits), so the nets
@@ -10835,7 +11031,9 @@ def phase_amalgamation(smi):
     ``mxnet_tpu_torch/bindings/perl`` built against the port's predict
     library and run once as a child on the same batch, bit-equal too
     (where ``perl`` or ``ExtUtils::MakeMaker`` is missing, one line says
-    so and the phase goes on).  Returns (record, launches)."""
+    so and the phase goes on).  A phase of ``_side_by_side``: the Perl
+    child runs beside phase 37's and 38's clients.  Returns (record,
+    launches)."""
     from mxnet_tpu_torch import amalgamate, libinfo
     from mxnet_tpu_torch import ndarray as tnd
     from mxnet_tpu_torch.predict import Predictor
@@ -10871,6 +11069,39 @@ def phase_amalgamation(smi):
             blob = f.read()
         x_path = os.path.join(wd, "x.f32")
         x.tofile(x_path)
+
+        have = shutil.which("perl") and shutil.which("make") and \
+            subprocess.run(["perl", "-MExtUtils::MakeMaker", "-e", "1"],
+                           capture_output=True).returncode == 0
+        perl_child = None
+        if have:
+            build = os.path.join(wd, "perl")
+            shutil.copytree(os.path.join(here, "mxnet_tpu_torch", "bindings",
+                                         "perl"), build)
+            t0 = time.perf_counter()
+            env = dict(os.environ, PYTHON=sys.executable)
+            pred_lib = libinfo.find_lib_path("predict")
+            for cmd in (["perl", "Makefile.PL", here, pred_lib], ["make"]):
+                r = subprocess.run(cmd, cwd=build, env=env,
+                                   capture_output=True, text=True,
+                                   timeout=600)
+                if r.returncode != 0:
+                    raise AssertionError(f"{' '.join(cmd)} in the Perl "
+                                         f"binding:\n{r.stdout[-3000:]}\n"
+                                         f"{r.stderr[-3000:]}")
+            perl_build_s = time.perf_counter() - t0
+            script = os.path.join(wd, "client.pl")
+            res = os.path.join(wd, "perl_out.f32")
+            with open(script, "w") as f:
+                f.write(PERL_CLIENT % {
+                    "blib": os.path.join(build, "blib"), "sym": sym_path,
+                    "params": params, "shape": f"{n}, 3, 224, 224",
+                    "x": x_path, "out": res})
+            perl_child = _Child(
+                ["perl", script],
+                libinfo.client_env({**os.environ, **TF32_OFF}),
+                "the Perl client")
+        yield [perl_child] if perl_child else []
 
         # the oracle: the Python Predictor on the same JSON and bytes
         p = Predictor(symbol_json_str=net.tojson(), param_bytes=blob,
@@ -10937,40 +11168,12 @@ def phase_amalgamation(smi):
                     "create_s": create_s, "forward_ms": fwd_ms,
                     "epilogue_launches": launches["residual_epilogue"]})
 
-        have = shutil.which("perl") and shutil.which("make") and \
-            subprocess.run(["perl", "-MExtUtils::MakeMaker", "-e", "1"],
-                           capture_output=True).returncode == 0
-        if not have:
+        if perl_child is None:
             log("[amalgamation-perl] perl, make or ExtUtils::MakeMaker is "
                 "missing on this machine: the Perl client is not built")
             out["perl"] = None
         else:
-            build = os.path.join(wd, "perl")
-            shutil.copytree(os.path.join(here, "mxnet_tpu_torch", "bindings",
-                                         "perl"), build)
-            t0 = time.perf_counter()
-            env = dict(os.environ, PYTHON=sys.executable)
-            pred_lib = libinfo.find_lib_path("predict")
-            for cmd in (["perl", "Makefile.PL", here, pred_lib], ["make"]):
-                r = subprocess.run(cmd, cwd=build, env=env,
-                                   capture_output=True, text=True,
-                                   timeout=600)
-                if r.returncode != 0:
-                    raise AssertionError(f"{' '.join(cmd)} in the Perl "
-                                         f"binding:\n{r.stdout[-3000:]}\n"
-                                         f"{r.stderr[-3000:]}")
-            perl_build_s = time.perf_counter() - t0
-            script = os.path.join(wd, "client.pl")
-            res = os.path.join(wd, "perl_out.f32")
-            with open(script, "w") as f:
-                f.write(PERL_CLIENT % {
-                    "blib": os.path.join(build, "blib"), "sym": sym_path,
-                    "params": params, "shape": f"{n}, 3, 224, 224",
-                    "x": x_path, "out": res})
-            stdout, run_s = _client_run(
-                ["perl", script],
-                libinfo.client_env({**os.environ, **TF32_OFF}),
-                "the Perl client")
+            stdout, run_s = perl_child.result()
             m = re.search(r"PERL OK create_s ([\d.]+) forward_s ([\d.]+) "
                           r"shape (.*)", stdout)
             if not m or m.group(3).strip() != f"{n} 1000":
@@ -10986,7 +11189,7 @@ def phase_amalgamation(smi):
                 f"{'bit-equal' if equal else 'NOT equal'} to the Python "
                 f"Predictor's (max |diff| "
                 f"{float(np.abs(perl_out - want).max()):.3g}); "
-                f"NVIDIA_TF32_OVERRIDE=0; {smi}")
+                f"NVIDIA_TF32_OVERRIDE=0; beside the other C clients; {smi}")
             if not equal:
                 raise AssertionError("Perl client: outputs differ from the "
                                      "Predictor's")
@@ -10996,6 +11199,684 @@ def phase_amalgamation(smi):
     log(f"[amalgamation] {json.dumps(out)}")
     torch.cuda.empty_cache()
     return out, launches
+
+
+# --------------------------------------------- phase 45: the device mesh
+MESH_STEPS = 3                   # (a): eager steps of each trainer
+MESH_MULTI_K = 3                 # (a): step_multi's steps
+MESH_LAYERS = 2                  # (b): the LM's depth at its full widths
+MESH_GLOO_BATCH = 4              # (b): the global batch (x 1024 tokens)
+MESH_DECODE_BATCH = 4            # (b): prompts decoded together
+MESH_DECODE_PROMPT = 16          # (b): prompt tokens
+MESH_DECODE_TICKS = 32           # (b): greedy ticks after the prefill
+MESH_ATTN = (2, 16, 1024, 128)   # (b): B, H, T, D of the Ulysses check
+MESH_TIMEOUT_S = 300
+# (a) world 1 over NCCL against the same trainer without a mesh, bf16:
+# the one rank runs the same kernels on the same operands, except the
+# vocab-parallel softmax (fp32 exp and sums by hand where torch.softmax
+# has its own) and the all-reduces over one rank.  The outputs are held
+# to 1e-2 of their norm each step and the Adam first moments after the
+# steps to 5e-2 of each one's norm (phase 5's tolerances); the masters
+# elementwise to two Adam bounds (an Adam step without bias correction
+# moves an entry by at most (1 - b1^t) / sqrt(1 - b2^t) lr: 12.4 lr over
+# 3 steps), since Adam turns a gradient of rounding noise into whole
+# steps.  The key biases are left out of the moments: their gradient is
+# 0 in exact arithmetic (softmax ignores a shift common to a row)
+MESH_TOL = {"out": 1e-2, "moment": 5e-2, "param": 2 * 12.4e-4}
+# (b) two ranks over gloo against one process, bf16 at 2 layers: the
+# mean cross-entropy of each step to 5e-3 relative (the split products
+# round their bf16 partial sums, a few bf16 ulps through 2 layers);
+# Ulysses in fp32 against full_attention at the reference's 1e-4/1e-5;
+# the bf16 decoder's logits along one token path to 5e-2 of their largest
+# magnitude (8 layers of bf16 roundings, 2^-8 each), and every pick whose
+# top-2 margin exceeds twice the logits' error equal
+MESH_GLOO_TOL = {"loss": 5e-3, "attn": (1e-4, 1e-5), "bf16_logits": 5e-2}
+
+MESH_WORKER = r"""
+import faulthandler, json, os, sys, time, traceback
+faulthandler.enable()
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import mxnet_tpu_torch  # noqa: F401
+import torch.distributed as td
+from mxnet_tpu_torch import convert
+from mxnet_tpu_torch.models import transformer as tr
+from mxnet_tpu_torch.models.decode import KVDecoder
+from mxnet_tpu_torch.ops import flash_attention as fa
+from mxnet_tpu_torch.parallel import mesh as tmesh
+from mxnet_tpu_torch.parallel import ring_attention as ra
+from mxnet_tpu_torch.trainer import FusedTrainer
+
+MODE = os.environ["MESH_MODE"]
+OUT = os.environ["MESH_OUT"]
+RANK = int(os.environ["MXTPU_RANK"])
+res = {"rank": RANK}
+# started ahead of its turn: the card is touched once the go file exists
+GO = os.environ.get("MESH_GO")
+while GO and not os.path.exists(GO):
+    time.sleep(0.05)
+
+
+def dump():
+    with open(os.path.join(OUT, "mesh_%s%d.json" % (MODE, RANK)), "w") as f:
+        json.dump(res, f)
+
+
+if MODE == "nccl":
+    # two ranks on the one card over NCCL, as a launcher that gave each
+    # rank a card of its own would set them up
+    torch.cuda.set_device(0)
+    td.init_process_group(
+        "nccl", init_method="tcp://" + os.environ["MXTPU_COORDINATOR"],
+        world_size=2, rank=RANK)
+    try:
+        x = torch.ones(4, device="cuda")
+        td.all_reduce(x)
+        torch.cuda.synchronize()
+        res["error"] = None
+    except Exception as exc:  # the refusal is what this mode records
+        res["error"] = "%s: %s" % (type(exc).__name__, exc)
+    dump()
+    os._exit(0)
+
+cfg = dict(tr.MFU_HEADLINE_CONFIG, num_layers=int(os.environ["MESH_LAYERS"]))
+B, T, V = int(os.environ["MESH_BATCH"]), cfg["seq_len"], cfg["vocab_size"]
+shapes = tr.lm_param_shapes(cfg["num_layers"], cfg["num_heads"],
+                            cfg["d_model"], cfg["d_ff"], V, T)
+weights = tr.lm_random_params(shapes, seed=0, std=0.02)
+rng = np.random.default_rng(0)
+data = rng.integers(0, V, (B, T)).astype(np.float32)
+label = rng.integers(0, V, (B, T)).astype(np.float32)
+STEPS = int(os.environ["MESH_STEPS"])
+
+
+def local_nll(out, mesh):
+    # the mean cross-entropy from this rank's block of the probabilities
+    # (rows over 'data', classes over 'model'), summed over the world on
+    # the host (gloo carries CPU tensors); each (row, class) block lies
+    # on one rank of a (data, model) mesh
+    p = out.to_local().float()
+    rows, cols = p.shape
+    r0 = mesh.coordinate("data") * rows
+    c0 = mesh.coordinate("model") * cols
+    lab = torch.from_numpy(label.reshape(-1)[r0:r0 + rows]).long() - c0
+    idx = torch.nonzero((lab >= 0) & (lab < cols)).flatten()
+    got = p[idx.to(p.device), lab[idx].to(p.device)]
+    tot = torch.tensor([-torch.log(got.double() + 1e-30).sum().item()])
+    td.all_reduce(tot)
+    return float(tot.item()) / (B * T)
+
+
+def trainer(mesh):
+    t = FusedTrainer(tr.transformer_lm(**cfg), optimizer="adam",
+                     optimizer_params={"lr": 1e-4}, dtype="bfloat16",
+                     mesh=mesh,
+                     sharding_rules=tmesh.megatron_rules() if mesh else ())
+    t.init(data=(B, T), softmax_label=(B, T))
+    convert.load_trainer_params(t, weights)
+    return t
+
+
+def run_train():
+    # the no-mesh reference in rank 0, then the mesh; the results are
+    # written after each part, so a rank that dies leaves what it did
+    res["mesh_runs"] = {}
+    if RANK == 0 and os.environ.get("MESH_PLAIN") == "1":
+        plain = trainer(None)
+        lab = torch.from_numpy(label.reshape(-1)).long().cuda()
+        losses = []
+        for _ in range(STEPS):
+            o = plain.step(data=data, softmax_label=label)[0].float()
+            losses.append(float(-torch.log(
+                o[torch.arange(B * T, device="cuda"), lab].double()
+                + 1e-30).mean()))
+        res["plain_losses"] = losses
+        del plain, o
+        torch.cuda.empty_cache()
+    dump()
+    for shape in [tuple(json.loads(os.environ["MESH_SHAPE"]))]:
+        name = "%dx%d" % shape
+        res["running"] = name
+        mesh = tmesh.create_mesh(shape, ("data", "model"))
+        res["backend"] = td.get_backend()
+        dump()
+        t = trainer(mesh)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [local_nll(t.step(data=data, softmax_label=label)[0], mesh)
+                  for _ in range(STEPS)]
+        torch.cuda.synchronize()
+        res["mesh_runs"][name] = {
+            "losses": losses, "s": time.perf_counter() - t0,
+            "launches": fa.launch_counts()}
+        res["running"] = None
+        dump()
+        del t
+        torch.cuda.empty_cache()
+
+
+def run_serve():
+    # KVDecoder at the served widths, 2-way 'model', against one process:
+    # in fp32, greedy tokens over the prefill and the ticks; in bf16 the
+    # logits along the dense decoder's greedy path (teacher-forced: bf16
+    # logits tie, the dense decoder's own top-2 margin is 0 at some
+    # picks, so a free-running greedy comparison is not defined there)
+    dcfg = cfg
+    dshapes = tr.lm_param_shapes(dcfg["num_layers"], dcfg["num_heads"],
+                                 dcfg["d_model"], dcfg["d_ff"],
+                                 dcfg["vocab_size"], dcfg["seq_len"])
+    dweights = weights
+    prompt = np.random.default_rng(1).integers(
+        0, dcfg["vocab_size"], (int(os.environ["MESH_DB"]),
+                                int(os.environ["MESH_DP"])))
+    n_tok = int(os.environ["MESH_TICKS"]) + 1
+    mesh = tmesh.create_mesh((2,), ("model",))
+    res["backend"] = td.get_backend()
+
+    def decoder(dtype, m):
+        return KVDecoder(dweights, num_layers=dcfg["num_layers"],
+                         num_heads=dcfg["num_heads"],
+                         max_len=dcfg["seq_len"], dtype=dtype, mesh=m)
+
+    def forced(dec, toks):
+        st, lg = dec.prefill(prompt)
+        out = [lg[:, -1].float()]
+        for i in range(n_tok - 1):
+            st, lg = dec.step(st, toks[:, i])
+            out.append(lg.float())
+        return torch.stack(out)                    # (ticks, B, V)
+
+    tp = decoder("float32", mesh)
+    t0 = time.perf_counter()
+    res["tp_tokens"] = tp.generate(prompt, n_tok, temperature=0).tolist()
+    res["tp_decode_s"] = time.perf_counter() - t0
+    res["tp_cache"] = [str(tuple(tp.init_state(1)[0].placements))]
+    del tp
+    if RANK == 0:
+        dense = decoder("float32", None)
+        res["dense_tokens"] = dense.generate(prompt, n_tok,
+                                             temperature=0).tolist()
+        del dense
+        dense = decoder("bfloat16", None)
+        toks = dense.generate(prompt, n_tok, temperature=0)
+        ref = forced(dense, toks)
+        del dense
+    else:
+        toks = None
+    box = [toks]
+    td.broadcast_object_list(box, src=0)
+    toks = box[0]
+    got = forced(decoder("bfloat16", mesh), toks)
+    if RANK == 0:
+        top = torch.topk(ref, 2, dim=-1).values
+        margin = top[..., 0] - top[..., 1]             # (ticks, B)
+        err = (got - ref).abs().amax(-1)               # (ticks, B)
+        clear = margin > 2 * err
+        same = got.argmax(-1) == ref.argmax(-1)
+        res["bf16_logit_err"] = float(err.max())
+        res["bf16_logit_scale"] = float(ref.abs().max())
+        res["bf16_picks"] = int(same.numel())
+        res["bf16_clear_picks"] = int(clear.sum())
+        res["bf16_clear_mismatch"] = int((clear & ~same).sum())
+        res["bf16_ties"] = int((margin == 0).sum())
+        res["dense_min_margin"] = float(margin.min())
+    torch.cuda.empty_cache()
+
+    # Ulysses over the two ranks in fp32 against full_attention
+    b, h, t_, d = json.loads(os.environ["MESH_ATTN"])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(b, h, t_, d, device="cuda", generator=g)
+               for _ in range(3))
+    mesh = tmesh.create_mesh((2,), ("seq",))
+    ref = ra.full_attention(q, k, v, causal=True)
+    out = ra.ulysses_attention(q, k, v, mesh, causal=True)
+    blk = t_ // 2
+    mine = ref[:, :, mesh.coordinate("seq") * blk:][:, :, :blk]
+    res["ulysses_err"] = float((out.to_local() - mine).abs().max())
+    dump()
+    # the ring rotates K/V by P2P, which gloo carries only for CPU
+    # tensors: its refusal is recorded, not worked round (last: a failed
+    # exchange may leave the group unusable)
+    try:
+        out = ra.ring_attention(q, k, v, mesh, causal=True)
+        res["ring_err"] = float((out.to_local() - mine).abs().max())
+        res["ring_refused"] = None
+    except RuntimeError as exc:
+        res["ring_refused"] = str(exc).splitlines()[0][:300]
+
+
+try:
+    run_train()
+    if os.environ.get("MESH_SERVE") == "1":
+        run_serve()
+    dump()
+except Exception:
+    res["traceback"] = traceback.format_exc()
+    dump()
+    sys.stdout.flush()
+    os._exit(1)
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def _free_ports(n):
+    """``n`` distinct free loopback ports: each socket stays bound until
+    all are picked (a port freed at once may be handed out again)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _mesh_start(mode, out, extra_env, port):
+    """Starts two ranks of ``MESH_WORKER`` sharing the card (``mode`` is
+    ``MESH_MODE``) with their rendezvous on ``port``; returns the
+    processes."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(out, "mesh_worker.py")
+    if not os.path.exists(script):
+        with open(script, "w") as f:
+            f.write(MESH_WORKER)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("MXTPU_", "DMLC_"))}
+    base.update(PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p),
+        MESH_MODE=mode, MESH_OUT=out, NVIDIA_TF32_OVERRIDE="0",
+        MXTPU_COORDINATOR=f"127.0.0.1:{port}", MXTPU_NUM_WORKERS="2",
+        **extra_env)
+    procs = []
+    for r in range(2):
+        env = dict(base, MXTPU_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, script], env=env, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True))
+    return procs
+
+
+def _mesh_kill(procs):
+    import signal
+
+    for q in procs:
+        if q.poll() is None:
+            os.killpg(q.pid, signal.SIGKILL)
+
+
+def _mesh_children(mode, out, extra_env, crash_ok=False, procs=None):
+    """Two ranks of ``MESH_WORKER`` sharing the card (``procs`` if
+    ``_mesh_start`` started them already): ``[(result, output, exit
+    code)]``.  A rank that fails fails the phase, unless ``crash_ok`` and
+    it died of a signal (the caller reads what it wrote before); every
+    child is killed on a timeout."""
+    if procs is None:
+        procs = _mesh_start(mode, out, extra_env, _free_ports(1)[0])
+    texts = []
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    for p in procs:
+        try:
+            text, _ = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            _mesh_kill(procs)
+            text, _ = p.communicate()
+            raise AssertionError(f"mesh {mode}: no end in {MESH_TIMEOUT_S} "
+                                 f"s:\n{text[-4000:]}")
+        texts.append(text)
+    crashed = crash_ok and any(p.returncode < 0 for p in procs)
+    results = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        path = os.path.join(out, f"mesh_{mode}{r}.json")
+        res = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        if not crashed and (p.returncode != 0 or "traceback" in res
+                            or not res):
+            raise AssertionError(f"mesh {mode}: rank {r} exited "
+                                 f"{p.returncode}:\n{res.get('traceback')}"
+                                 f"\n{text[-6000:]}")
+        results.append((res, text, p.returncode))
+    return results
+
+
+def _crash_site(text):
+    """The collective a rank died in, from its faulthandler stack: the
+    innermost ``torch.distributed`` call that is not a wait, and the
+    DTensor step that made it."""
+    m = re.search(r"Fatal Python error: (\w[^\n]*)", text)
+    frames = re.findall(r'torch/distributed/([\w/]+)\.py", line \d+ in '
+                        r'(\w+)', text[m.start():] if m else "")
+    calls = [f"{mod.split('/')[-1]}.{fn}" for mod, fn in frames
+             if fn not in ("wait_tensor", "wait", "__call__")]
+    if not m or not calls:
+        return None
+    return f"{m.group(1).strip()} in {' <- '.join(calls[:2])}"
+
+
+def _mesh_profile(run):
+    """Device busy ms, idle share and the NCCL kernels of one ``run()``
+    (a step), from torch.profiler; the idle share is against the
+    profiled step's own wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, nccl, n_nccl = 0.0, 0.0, 0
+    for ev in _profile_events(prof):
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        busy += ms
+        if "nccl" in ev.name.lower():
+            nccl += ms
+            n_nccl += 1
+    return {"busy_ms": busy, "profiled_wall_ms": wall_ms,
+            "idle_share": 1 - busy / wall_ms, "nccl_kernels": n_nccl,
+            "nccl_ms": nccl}
+
+
+def _mesh_world1(smi):
+    """(a): world 1 over NCCL at full width against the trainer without
+    a mesh; returns the record and the kernels' launches on its main
+    path (the mesh trainer's eager steps)."""
+    import torch.distributed as td
+
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.convert import load_trainer_params
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = tr.MFU_HEADLINE_CONFIG
+    B, T, V = TRAIN_BATCH, cfg["seq_len"], cfg["vocab_size"]
+    mesh = tmesh.create_mesh((1, 1), ("data", "model"))
+    backend = td.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"mesh (a): the world-1 group is {backend}")
+
+    def trainer(m):
+        return FusedTrainer(
+            tr.transformer_lm(**cfg), optimizer="adam",
+            optimizer_params={"lr": 1e-4}, dtype="bfloat16", mesh=m,
+            sharding_rules=tmesh.megatron_rules() if m else ()).init(
+            data=(B, T), softmax_label=(B, T))
+
+    mxrandom.seed(0)
+    plain = trainer(None)
+    tm = trainer(mesh)
+    load_trainer_params(tm, plain.params)
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.float32))
+
+    def timed(t, n):
+        outs, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(t.step(data=data, softmax_label=label)[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return outs, ms
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    plain_outs, plain_ms = timed(plain, MESH_STEPS)
+    plain_launches = fa.launch_counts()
+    # the main path's run: every kernel count starts at 0 here; the
+    # first step's flash launches are held against the plain version
+    _kernel_launches(reset=True)
+    rec = _FlashRecorder()
+    with rec:
+        mesh_outs, mesh_ms = timed(tm, 1)
+    checked = rec.check("mesh (a) step 1")
+    more, ms2 = timed(tm, MESH_STEPS - 1)
+    mesh_outs += more
+    mesh_ms += ms2
+    launches = _kernel_launches()
+    if {k: launches[k] for k in plain_launches} != plain_launches:
+        raise AssertionError(f"mesh (a): launches {launches} against the "
+                             f"plain trainer's {plain_launches}")
+    if any(v != 8 * MESH_STEPS for v in plain_launches.values()):
+        raise AssertionError(f"mesh (a): {plain_launches} launches, want "
+                             f"8 a step of each flash kernel")
+    out_errs = [_rel_err(tmesh.full_value(a), b)
+                for a, b in zip(mesh_outs, plain_outs)]
+    p_err, p_name = max(
+        (float((tmesh.full_value(tm.params[k]) - v).abs().max()), k)
+        for k, v in plain.params.items())
+    m_err, m_name = max(
+        (_rel_err(tmesh.full_value(tm.opt_state[k][0]), st[0]), k)
+        for k, st in plain.opt_state.items() if not k.endswith("_k_bias"))
+    if max(out_errs) > MESH_TOL["out"] or p_err > MESH_TOL["param"] or \
+            m_err > MESH_TOL["moment"]:
+        raise AssertionError(f"mesh (a): outputs rel err {out_errs}, "
+                             f"masters max |diff| {p_err} ({p_name}), "
+                             f"first moments rel err {m_err} ({m_name}); "
+                             f"tolerance {MESH_TOL}")
+    if any(str(tm.params[k].placements) != want for k, want in (
+            ("layer0_q_weight", "(Replicate(), Shard(dim=0))"),
+            ("layer0_proj_weight", "(Replicate(), Shard(dim=1))"),
+            ("lm_head_weight", "(Replicate(), Shard(dim=0))"))):
+        raise AssertionError("mesh (a): the megatron placements")
+    prof = _mesh_profile(lambda: tm.step(data=data, softmax_label=label))
+    plain.step(data=data, softmax_label=label)    # the same step count
+    # step_multi: a captured CUDA graph over NCCL, against the plain
+    # trainer's captured steps from their (close) states
+    stacked = {"data": torch.stack([data] * MESH_MULTI_K),
+               "softmax_label": torch.stack([label] * MESH_MULTI_K)}
+    pm = plain.step_multi(**stacked)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm = tm.step_multi(**stacked)[0]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    if len(tm._graphs) != 1:
+        raise AssertionError("mesh (a): step_multi captured no graph")
+    multi_err = max(_rel_err(tmesh.full_value(mm)[i], pm[i])
+                    for i in range(MESH_MULTI_K))
+    del pm, mm
+    t0 = time.perf_counter()
+    mm = tm.step_multi(**stacked)[0]
+    torch.cuda.synchronize()
+    multi_ms = (time.perf_counter() - t0) * 1e3 / MESH_MULTI_K
+    if multi_err > MESH_TOL["out"]:
+        raise AssertionError(f"mesh (a): step_multi outputs rel err "
+                             f"{multi_err}")
+    ratio = float(np.median(mesh_ms[1:]) / np.median(plain_ms[1:]))
+    out = {"backend": backend, "steps": MESH_STEPS,
+           "out_rel_err": out_errs, "param_max_abs": p_err,
+           "param_worst": p_name, "moment_rel_err": m_err,
+           "moment_worst": m_name, "step_ms": mesh_ms,
+           "plain_step_ms": plain_ms, "ratio_to_plain": ratio,
+           "flash_checked": checked, "flash_tiles": rec.tiles,
+           "step_multi_rel_err": multi_err, "capture_s": capture_s,
+           "step_multi_ms": multi_ms, **prof}
+    log(f"[mesh] (a) world 1 over {backend}, MFU_HEADLINE_CONFIG bf16 Adam "
+        f"batch {B} x {T}: mesh step {np.median(mesh_ms[1:]):.3f} ms vs "
+        f"{np.median(plain_ms[1:]):.3f} ms without a mesh (ratio "
+        f"{ratio:.4f}; a finding, not a claim); outputs rel err "
+        f"{max(out_errs):.3g}, masters max |diff| {p_err:.3g} ({p_name}), "
+        f"first moments {m_err:.3g} ({m_name}); flash "
+        f"launches {launches} = the plain trainer's, first step's held "
+        f"against the plain versions {checked} (worst tiles {rec.tiles}); "
+        f"device busy {prof['busy_ms']:.3f} ms of a profiled step of "
+        f"{prof['profiled_wall_ms']:.3f} ms, idle share "
+        f"{prof['idle_share']:.4f}, {prof['nccl_kernels']} NCCL kernels "
+        f"{prof['nccl_ms']:.3f} ms; step_multi captured in {capture_s:.2f} "
+        f"s, {multi_ms:.3f} ms a step, rel err {multi_err:.3g}; {smi}")
+    del plain, tm, mm
+    gc.collect()
+    torch.cuda.empty_cache()
+    td.destroy_process_group()
+    return out, launches
+
+
+def phase_mesh(smi):
+    """Phase 45: the device mesh.  (a) world 1 over NCCL at full width;
+    (b) two ranks sharing the card over gloo; (c) NCCL's refusal of two
+    ranks on one card.  Returns ``(record, launches of (a)'s main
+    path)``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    dirs = {k: os.path.join(tmp.name, k) for k in ("2x1", "1x2", "nccl")}
+    go = {k: os.path.join(tmp.name, "go_" + k) for k in ("2x1", "rest")}
+    procs = {}
+    try:
+        env = {"MESH_LAYERS": str(MESH_LAYERS),
+               "MESH_BATCH": str(MESH_GLOO_BATCH),
+               "MESH_STEPS": str(MESH_STEPS),
+               "MESH_DB": str(MESH_DECODE_BATCH),
+               "MESH_DP": str(MESH_DECODE_PROMPT),
+               "MESH_TICKS": str(MESH_DECODE_TICKS),
+               "MESH_ATTN": json.dumps(MESH_ATTN)}
+        # the three pairs of ranks start now and import beside (a); each
+        # waits for its go file before it touches the card.  The first
+        # pair trains (2, 1) against one process, then serves; the second
+        # trains (1, 2); (c)'s pair, which only brings up NCCL and is
+        # refused, runs beside the second (whose time is not read)
+        for d in dirs.values():
+            os.makedirs(d)
+        ports = _free_ports(3)
+        procs["2x1"] = _mesh_start("gloo_train", dirs["2x1"], dict(
+            env, MESH_SHAPE="[2, 1]", MESH_PLAIN="1", MESH_SERVE="1",
+            MESH_GO=go["2x1"]), ports[0])
+        procs["1x2"] = _mesh_start("gloo_train", dirs["1x2"], dict(
+            env, MESH_SHAPE="[1, 2]", MESH_GO=go["rest"]), ports[1])
+        procs["nccl"] = _mesh_start("nccl", dirs["nccl"], {
+            "NCCL_DEBUG": "WARN", "MESH_GO": go["rest"]}, ports[2])
+        world1, launches = _mesh_world1(smi)
+        t0 = time.perf_counter()
+        # training, one pair of ranks a mesh: a rank that dies in a
+        # collective gloo cannot carry on CUDA tensors is recorded by the
+        # collective's name
+        refused, worst, runs, tr_ = {}, {}, {}, []
+        plain = None
+        for name, gate in (("2x1", "2x1"), ("1x2", "rest")):
+            open(go[gate], "w").close()
+            if gate == "rest":
+                t_nc = time.perf_counter()
+            pair = _mesh_children("gloo_train", dirs[name], None,
+                                  crash_ok=True, procs=procs[name])
+            tr_.append(pair)
+            r0 = pair[0][0]
+            plain = r0.get("plain_losses", plain)
+            if plain is None or r0.get("backend") != "gloo" or \
+                    "share" not in pair[0][1]:
+                raise AssertionError(
+                    f"mesh (b) {name}: backend {r0.get('backend')}, "
+                    f"reference {plain}:\n{pair[0][1][-3000:]}")
+            run = r0["mesh_runs"].get(name)
+            if run is None:
+                site = next((_crash_site(t) for _, t, rc in pair if rc < 0
+                             and _crash_site(t)), None)
+                if site is None:
+                    raise AssertionError(
+                        f"mesh (b) {name}: no result and no collective "
+                        f"named:\n" + "\n".join(t[-3000:]
+                                                 for _, t, _ in pair))
+                refused[f"training {name}"] = site
+                continue
+            runs[name] = run
+            err = max(abs(a - b) / b for a, b in zip(run["losses"], plain))
+            worst[name] = err
+            if err > MESH_GLOO_TOL["loss"]:
+                raise AssertionError(f"mesh (b) {name}: losses "
+                                     f"{run['losses']} vs {plain}")
+            if any(v != MESH_LAYERS * MESH_STEPS
+                   for v in run["launches"].values()):
+                raise AssertionError(f"mesh (b) {name}: flash launches "
+                                     f"{run['launches']}")
+        gl = tr_[0]
+        gloo_s = time.perf_counter() - t0
+        s0 = gl[0][0]
+        if "ulysses_err" not in s0:
+            raise AssertionError("mesh (b): the serving part did not run")
+        if s0["tp_tokens"] != s0["dense_tokens"] or \
+                gl[1][0]["tp_tokens"] != s0["dense_tokens"]:
+            raise AssertionError(f"mesh (b): 2-way fp32 decode tokens "
+                                 f"{s0['tp_tokens']} vs {s0['dense_tokens']}")
+        if s0["bf16_logit_err"] > MESH_GLOO_TOL["bf16_logits"] * \
+                s0["bf16_logit_scale"] or s0["bf16_clear_mismatch"]:
+            raise AssertionError(f"mesh (b): bf16 2-way decode: logits err "
+                                 f"{s0['bf16_logit_err']} (scale "
+                                 f"{s0['bf16_logit_scale']}), "
+                                 f"{s0['bf16_clear_mismatch']} of "
+                                 f"{s0['bf16_clear_picks']} clear picks "
+                                 f"differ")
+        if s0["tp_cache"] != ["(Shard(dim=2),)"]:
+            raise AssertionError(f"mesh (b): cache {s0['tp_cache']}")
+        rtol, atol = MESH_GLOO_TOL["attn"]
+        for r, _, _ in gl:
+            if r["ulysses_err"] > atol + rtol * 10:
+                raise AssertionError(f"mesh (b): Ulysses err "
+                                     f"{r['ulysses_err']}")
+        if s0["ring_refused"] is not None:
+            refused["ring_attention (P2P batch_isend_irecv)"] = \
+                s0["ring_refused"]
+        elif s0["ring_err"] > atol + rtol * 10:
+            raise AssertionError(f"mesh (b): ring err {s0['ring_err']}")
+        log(f"[mesh] (b) 2 ranks sharing the card over gloo, "
+            f"{MESH_LAYERS}-layer LM at full widths (the decoder too), batch "
+            f"{MESH_GLOO_BATCH} x 1024, bf16 Adam, {MESH_STEPS} steps: "
+            f"losses without a mesh {plain}, "
+            + "; ".join(f"{k} {v['losses']} (worst rel {worst[k]:.3g}, "
+                        f"{v['s']:.2f} s, flash {v['launches']})"
+                        for k, v in runs.items())
+            + f"; KVDecoder 2-way model, {MESH_DECODE_BATCH} prompts x "
+            f"{MESH_DECODE_PROMPT}: fp32 greedy tokens equal over the prefill "
+            f"and {MESH_DECODE_TICKS} ticks ({s0['tp_decode_s']:.2f} s); "
+            f"bf16 along the dense greedy path: logits max err "
+            f"{s0['bf16_logit_err']:.4g} of scale "
+            f"{s0['bf16_logit_scale']:.4g}, picks equal at all "
+            f"{s0['bf16_clear_picks']} of {s0['bf16_picks']} whose dense "
+            f"top-2 margin exceeds twice the error ({s0['bf16_ties']} exact "
+            f"ties); Ulysses fp32 "
+            f"{MESH_ATTN} max err {s0['ulysses_err']:.3g}; gloo refused on "
+            f"CUDA tensors: {refused or 'nothing'}; {gloo_s:.1f} s; {smi}")
+        nc = _mesh_children("nccl", dirs["nccl"], None, procs=procs["nccl"])
+        errors = [r["error"] for r, _, _ in nc]
+        dup = [line.strip() for _, text, _ in nc
+               for line in text.splitlines() if "Duplicate GPU" in line]
+        if not any(errors):
+            raise AssertionError("mesh (c): NCCL took two ranks on one card")
+        log(f"[mesh] (c) NCCL, two ranks on one card: "
+            f"{errors[0]!r}; NCCL_DEBUG=WARN: {dup[:1]}; "
+            f"{time.perf_counter() - t_nc:.1f} s, beside the 1x2 pair")
+    finally:
+        for pair in procs.values():
+            _mesh_kill(pair)
+        tmp.cleanup()
+    record = {"world1": world1,
+              "gloo": {"losses_plain": plain,
+                       "runs": runs, "loss_rel_err": worst,
+                       "decode_tokens_equal_fp32": True,
+                       "bf16_logit_err": s0["bf16_logit_err"],
+                       "bf16_clear_picks": s0["bf16_clear_picks"],
+                       "bf16_ties": s0["bf16_ties"],
+                       "ulysses_err": s0["ulysses_err"],
+                       "refused": refused, "s": gloo_s},
+              "nccl_refusal": {"error": errors[0], "warn": dup[:1]}}
+    gl_launches = {k: sum(run["launches"].get(k, 0) for run in runs.values())
+                   for k in launches}
+    record["gloo_launches"] = gl_launches
+    return record, launches
 
 
 def _kernel_launches(reset=False):
@@ -11053,17 +11934,15 @@ def main():
     # holds little of the card: each child needs its own ~5 and ~20 GB,
     # which the cache of the later phases, fragmented by their live
     # tensors, would not leave free.  Each phase reads its own main
-    # path's counts
-    slice16 = {}
-    _, slice16["c_predict"] = phase_c_predict(smi)
-    _elapsed("phase_c_predict")
-    _, slice16["c_api"] = phase_c_api(smi)
-    _elapsed("phase_c_api")
-    # slice 20's C and Perl clients (phase 44 (d)-(e)) next to them, for
-    # the same reason: the Perl child needs its own few GB
-    slice20 = {}
-    _, slice20["amalgamation"] = phase_amalgamation(smi)
-    _elapsed("phase_amalgamation")
+    # path's counts.  Slice 20's C and Perl clients (phase 44 (d)-(e)) go
+    # with them, for the same reason (the Perl child needs its own few
+    # GB): the four clients and the import probe run side by side, each
+    # phase's work in this process after they all ended
+    slice16, slice20 = {}, {}
+    (_, slice16["c_predict"]), (_, slice16["c_api"]), \
+        (_, slice20["amalgamation"]) = _side_by_side([
+            phase_c_predict(smi), phase_c_api(smi), phase_amalgamation(smi)])
+    _elapsed("phases c_predict, c_api, amalgamation")
     # slice 17's workers (phases 40-41) each need ~7 GiB of their own:
     # next to 37-38, for the same reason
     slice17 = {}
@@ -11073,6 +11952,16 @@ def main():
     _elapsed("phase_dist_async")
     log(f"[slice17] hand-written kernel launches by phase: "
         f"{json.dumps(slice17)}")
+    # slice 21's mesh (phase 45) next to them: its two-rank children need
+    # card memory of their own too; each part reads its own counts
+    mesh_rec, mesh_launches = phase_mesh(smi)
+    _elapsed("phase_mesh")
+    log(f"[slice21] hand-written kernel launches in phase 45 (a): "
+        f"{json.dumps(mesh_launches)}; (b) in the gloo ranks: "
+        f"{json.dumps(mesh_rec['gloo_launches'])}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if not mesh_launches[name]:
+            raise AssertionError(f"phase 45: {name} never launched")
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
     _elapsed("phase_serve")
@@ -11173,8 +12062,10 @@ def main():
     _elapsed("phase_kill_resume")
     # slice 13: int8 serving, the generation loops, the router, int8
     # inference; each phase reads its own main path's counts
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+    cfg, params = _params(seed=0, layers=LATE_LM_LAYERS)
     slice13 = {}
     slice13["serve_int8"], dec16 = phase_serve_int8(cfg, params, smi)
     _elapsed("phase_serve_int8")
@@ -11217,7 +12108,7 @@ def main():
     # LM's weights again
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, params = _params(seed=0)
+    cfg, params = _params(seed=0, layers=LATE_LM_LAYERS)
     _, tune_launches = phase_autotune(smi, cfg, params)
     _elapsed("phase_autotune")
     gc.collect()
@@ -11330,7 +12221,15 @@ def main():
         rec["launches_planes"] = plane_launches[rec["name"]]
         rec["launches_core_telemetry"] = core_launches[rec["name"]]
         rec["launches_remote_io"] = remote_launches[rec["name"]]
+        rec["launches_mesh"] = mesh_launches[rec["name"]]
+        rec["launches_mesh_gloo"] = mesh_rec["gloo_launches"].get(
+            rec["name"], 0)
     for rec in records[1:4]:
+        rec["mesh_world1"] = {
+            "tile_err": mesh_rec["world1"]["flash_tiles"].get(rec["name"]),
+            "checked": mesh_rec["world1"]["flash_checked"].get(rec["name"]),
+            "step_ms": mesh_rec["world1"]["step_ms"],
+            "ratio_to_plain": mesh_rec["world1"]["ratio_to_plain"]}
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()
             if rec["name"].replace("bwd_", "") in k)

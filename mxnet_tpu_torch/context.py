@@ -19,7 +19,10 @@ Every entry point of the port resolves its ``device`` argument through
 :func:`resolve_device`, which takes a Context, a ``torch.device``, a
 string or an index: the default is the card, and without one it raises
 instead of quietly running on the CPU.  Tests pass ``device="cpu"``.
-``process_mesh``/``mesh_sharding`` wait for ROADMAP Queue 1 item 10b.
+
+:func:`process_mesh` is the process-level ``("batch", "model")`` mesh
+over the world's ranks (``MXTPU_MESH_SHAPE``), and :func:`mesh_sharding`
+a sharding on it.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "num_devices",
-           "current_context", "resolve_device", "is_pinned"]
+           "current_context", "resolve_device", "is_pinned", "process_mesh",
+           "mesh_sharding"]
 
 _scope = threading.local()
 
@@ -163,6 +167,30 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "host explicitly")
     return device
+
+
+def process_mesh(device=None):
+    """The process-level ("batch", "model") mesh
+    (:func:`~mxnet_tpu_torch.parallel.mesh.global_mesh` over the world's
+    ranks; ``MXTPU_MESH_SHAPE`` picks the factorization, default pure
+    data parallel).  ``device`` (default: the card) is where its tensors
+    live."""
+    from .parallel.mesh import global_mesh
+
+    return global_mesh(device=device)
+
+
+def mesh_sharding(spec=None, device=None):
+    """A :class:`~mxnet_tpu_torch.parallel.mesh.NamedSharding` on the
+    process mesh for a spec (a tuple of axis names / None spelled the
+    PartitionSpec way, or one axis name).  ``None`` means replicated."""
+    from .parallel.mesh import NamedSharding
+
+    if spec is None:
+        spec = ()
+    elif not isinstance(spec, (tuple, list)):
+        spec = (spec,)
+    return NamedSharding(process_mesh(device), tuple(spec))
 
 
 def current_context() -> torch.device:

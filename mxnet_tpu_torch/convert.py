@@ -71,6 +71,8 @@ def load_trainer_params(trainer, arg_params, aux_params=None):
     fp32 masters, in place, and rebuild its compute-dtype copy.  Every
     parameter of the trainer must be given, with its shape; the
     optimizer state is left as it is."""
+    from .parallel import mesh as _mesh
+
     for kind, have, given in (("param", trainer.params, arg_params),
                               ("aux state", trainer.aux, aux_params or {})):
         missing = sorted(set(have) - set(given))
@@ -83,6 +85,7 @@ def load_trainer_params(trainer, arg_params, aux_params=None):
                 raise MXNetError(f"load_trainer_params: {name} has shape "
                                  f"{tuple(src.shape)}, the trainer "
                                  f"{tuple(dst.shape)}")
-            dst.copy_(src)
+            # a DTensor (a trainer on a mesh) takes its own block
+            _mesh.copy_full_into(dst, src)
     trainer._refresh_compute_cache()
     return trainer

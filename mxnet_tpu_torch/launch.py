@@ -9,7 +9,10 @@ spawns ``-n`` worker and ``-s`` server processes that run the same
 command, their roles given by the environment (``_role_env``): every
 process gets ``MXTPU_ROLE``, ``MXTPU_NUM_WORKERS``, ``MXTPU_NUM_SERVERS``
 and ``MXTPU_PS_SERVERS`` (with the ``DMLC_*`` aliases); servers
-``MXTPU_SERVER_RANK``, workers ``MXTPU_RANK``.  A server detects its
+``MXTPU_SERVER_RANK``, workers ``MXTPU_RANK``.  Without servers (``-s
+0``) the local launcher also gives the workers ``MXTPU_COORDINATOR``, a
+free loopback port where rank 0 hosts the process group a mesh
+(:mod:`~mxnet_tpu_torch.parallel.mesh`) runs on.  A server detects its
 role inside ``import mxnet_tpu_torch`` and serves
 (:mod:`~mxnet_tpu_torch.kvstore_server`); it never touches the card.
 The contract is the JAX launcher's, so either launcher drives either
@@ -104,17 +107,19 @@ def _role_env(base, role, rank, args, servers):
 
 def launch_local(args, command):
     servers = [f"127.0.0.1:{p}" for p in _free_ports(args.num_servers)]
+    base = dict(os.environ)
+    if not servers and args.num_workers > 1:
+        # a collective world: the mesh's process group meets here
+        base["MXTPU_COORDINATOR"] = f"127.0.0.1:{_free_ports(1)[0]}"
     procs, workers = [], {}
     try:
         for i in range(args.num_servers):
             procs.append(subprocess.Popen(
-                command, env=_role_env(os.environ, "server", i, args,
-                                       servers)))
+                command, env=_role_env(base, "server", i, args, servers)))
         restarts = {i: args.max_restarts for i in range(args.num_workers)}
         for i in range(args.num_workers):
             workers[i] = subprocess.Popen(
-                command, env=_role_env(os.environ, "worker", i, args,
-                                       servers))
+                command, env=_role_env(base, "worker", i, args, servers))
         rc = 0
         pending = set(workers)
         while pending:
@@ -140,8 +145,7 @@ def launch_local(args, command):
                         "worker %d exited with code %d; restarting with "
                         "MXTPU_KV_RECOVERY=1 (%d restart(s) left)",
                         rank, wrc, restarts[rank])
-                    env = _role_env(os.environ, "worker", rank, args,
-                                    servers)
+                    env = _role_env(base, "worker", rank, args, servers)
                     # the servers still hold the model: the restarted
                     # worker must not re-init keys or wait on barriers
                     # the others passed long ago

@@ -29,8 +29,17 @@ where it is consumed, inside each step; the embedding table is read
 row by row (:meth:`KVDecoder._embed`), so a step never dequantizes the
 whole table.  ``generate_scan`` runs its token loop on the device with
 no host sync per token; ``beam_search`` keeps the reference's host
-bookkeeping.  Not ported yet: ``mesh=`` tensor parallelism (ROADMAP
-Queue 1 item 10b).
+bookkeeping.
+
+``mesh=`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh`, one process
+per rank) serves Megatron-style over its ``model`` axis: each rank keeps
+its block of the q/k/v and ``ffn_in`` weights (column-parallel) and of
+``proj`` and ``ffn_out`` (row-parallel), the K/V cache is split on its
+head axis and allocated split (a DTensor over each rank's block: no rank
+ever holds the whole cache), and one all-reduce over ``model`` follows
+each row-parallel product, before its bias.  The embedding and the head
+stay replicated, so every rank computes the same logits, which the
+sampler reads.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch.nn.functional as F
 
 from .. import telemetry as _tm
 from ..base import MXNetError, torch_dtype
+from ..parallel import mesh as _mesh
 from ..context import resolve_device
 from ..convert import from_jax_params
 from ..executor import _compile_done, _compile_start
@@ -106,6 +116,11 @@ def _fc(x, w, b=None):
     return y if b is None else y + b
 
 
+def _local(t):
+    """A DTensor cache's block on this rank; a plain tensor as it is."""
+    return t.to_local() if _mesh.is_dtensor(t) else t
+
+
 def _gelu(x):
     # jax.nn.gelu defaults to approximate=True (the tanh form) and the JAX
     # decoder calls it with the default; torch's default is the exact erf
@@ -129,18 +144,33 @@ class KVDecoder:
             raise ValueError(
                 "quantize='int8' is not supported together with a "
                 "tensor-parallel mesh (shard the fp weights instead)")
+        self._tp, self._tp_group = 1, None
         if mesh is not None:
-            raise MXNetError(
-                "KVDecoder(mesh=...) tensor-parallel serving is not ported "
-                "yet (ROADMAP Queue 1 item 10b)")
-        self.device = resolve_device(device)
+            self._tp = self._check_mesh(mesh, model_axis, num_heads,
+                                        arg_params)
+            if self._tp > 1:
+                self._tp_group = mesh.get_group(model_axis)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.dtype = torch_dtype(dtype)
         # every param in the compute dtype first: int8 scales are taken
         # from the rounded weights, as in the JAX decoder
         p = from_jax_params(arg_params, self.dtype, self.device)
-        self.mesh = None
+        if mesh is not None:
+            # the training layout, minus the vocab-split head and
+            # embedding (the logits stay replicated: the sampler reads
+            # them); each rank keeps its own block
+            rules = tuple(r for r in _mesh.megatron_rules(model_axis)
+                          if "lm_head" not in r.pattern
+                          and "tok_embed" not in r.pattern)
+            shard = _mesh.param_shardings(mesh, p, rules)
+            p = {k: _mesh.narrow_local(v, shard[k]).contiguous()
+                 for k, v in p.items()}
+        self.mesh = mesh
         self.model_axis = model_axis
         self.L, self.H = int(num_layers), int(num_heads)
+        # the heads this rank computes
+        self._h_local = self.H // self._tp
         self.max_len = int(max_len)
         self.d_model = p["tok_embed_weight"].shape[1]
         self.dh = self.d_model // self.H
@@ -164,9 +194,62 @@ class KVDecoder:
         self._cost_step_done = False
         self._cost_prefill_done = set()
 
+    @staticmethod
+    def _check_mesh(mesh, model_axis, num_heads, arg_params):
+        """The tensor-parallel degree of ``mesh``, after the reference's
+        refusals of a head count or an FFN width it does not divide."""
+        if not isinstance(mesh, _mesh.Mesh):
+            raise MXNetError(
+                f"KVDecoder: mesh must be a parallel.mesh.Mesh (from "
+                f"create_mesh), got {type(mesh).__name__}")
+        tp = mesh.shape[model_axis]
+        if num_heads % tp:
+            raise ValueError(
+                f"num_heads {num_heads} must divide by the "
+                f"{model_axis!r} mesh axis ({tp})")
+        for k, v in arg_params.items():
+            if k.endswith("_ffn_in_weight") and v.shape[0] % tp:
+                raise ValueError(
+                    f"{k}: d_ff {v.shape[0]} must divide by the "
+                    f"{model_axis!r} mesh axis ({tp})")
+        return tp
+
+    def _row_fc(self, x, w, b):
+        """A row-parallel product: each rank's partial sum, all-reduced
+        over ``model``, then the bias (``_fc`` without a mesh).  The
+        partial sums are kept in fp32 (a bf16 product with an fp32
+        output on the card) and rounded once after the all-reduce, as
+        the product without a mesh rounds its fp32 accumulator once; the
+        reference rounds each partial sum to bf16 first."""
+        if self._tp_group is None:
+            return _fc(x, w, b)
+        import torch.distributed as td
+
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            y = x2 @ w.T
+        elif x.is_cuda:
+            y = torch.mm(x2, w.T, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ w.float().T
+        td.all_reduce(y, group=self._tp_group)
+        return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[0]) + b
+
+    def _wrap(self, local):
+        """A cache block as the mesh's DTensor, split on its head axis
+        (the block itself without a mesh)."""
+        if self.mesh is None:
+            return local
+        sh = _mesh.NamedSharding(self.mesh, (None, None, self.model_axis))
+        shape = list(local.shape)
+        shape[2] *= self._tp
+        return _mesh.from_block(local, self.mesh.device_mesh, sh.placements,
+                                shape)
+
     def weight_bytes(self) -> int:
         """Bytes the parameters hold on the device (int8 payloads and
-        their fp32 scales for quantized weights)."""
+        their fp32 scales for quantized weights; this rank's blocks under
+        a mesh)."""
         total = 0
         for v in dict.values(self.p):
             if _quantized(v):
@@ -190,11 +273,13 @@ class KVDecoder:
         ``ctx`` ``(B, n, D)`` is the attention output."""
         p = self.p
         name = f"layer{i}"
-        h = h + _fc(ctx, p[f"{name}_proj_weight"], p[f"{name}_proj_bias"])
+        h = h + self._row_fc(ctx, p[f"{name}_proj_weight"],
+                             p[f"{name}_proj_bias"])
         h2 = _ln(h, p[f"{name}_ln2_gamma"], p[f"{name}_ln2_beta"])
         f = _fc(h2, p[f"{name}_ffn_in_weight"], p[f"{name}_ffn_in_bias"])
         f = _gelu(f)
-        f = _fc(f, p[f"{name}_ffn_out_weight"], p[f"{name}_ffn_out_bias"])
+        f = self._row_fc(f, p[f"{name}_ffn_out_weight"],
+                         p[f"{name}_ffn_out_bias"])
         return h + f
 
     def _head(self, h):
@@ -210,8 +295,9 @@ class KVDecoder:
         return w.rows(idx) if _quantized(w) else w[idx]
 
     def _heads(self, a, B, n):
-        """``(B, n, D) -> (B, H, n, dh)``."""
-        return a.reshape(B, n, self.H, self.dh).transpose(1, 2)
+        """``(B, n, D) -> (B, H, n, dh)`` (this rank's heads under a
+        mesh)."""
+        return a.reshape(B, n, self._h_local, self.dh).transpose(1, 2)
 
     def _attend(self, qh, kc, vc, valid):
         """Masked attention through the port's one plain attention
@@ -219,14 +305,15 @@ class KVDecoder:
         the scale rounded to the cache dtype), merged back to ``(B, n,
         D)``."""
         ctx = _pa._attend(qh, kc, vc, valid)
-        B, _H, n, _dh = ctx.shape
-        return ctx.transpose(1, 2).reshape(B, n, self.d_model)
+        B, H, n, dh = ctx.shape
+        return ctx.transpose(1, 2).reshape(B, n, H * dh)
 
     @torch.inference_mode()
     def _forward_positions(self, kc, vc, pos, tokens, n):
         """Run ``n`` new positions (tokens (B, n)) against the cache,
         writing their K/V at ``pos .. pos+n-1`` in place."""
         p = self.p
+        kcl, vcl = _local(kc), _local(vc)
         B = tokens.shape[0]
         tok = self._embed(tokens)                               # (B, n, D)
         h = tok + p["pos_embed"][:, pos:pos + n]
@@ -237,9 +324,9 @@ class KVDecoder:
             name = f"layer{i}"
             h2 = _ln(h, p[f"{name}_ln1_gamma"], p[f"{name}_ln1_beta"])
             q, k, v = self._block_qkv(i, h2)
-            kc[i, :, :, pos:pos + n] = self._heads(k, B, n)
-            vc[i, :, :, pos:pos + n] = self._heads(v, B, n)
-            ctx = self._attend(self._heads(q, B, n), kc[i], vc[i],
+            kcl[i, :, :, pos:pos + n] = self._heads(k, B, n)
+            vcl[i, :, :, pos:pos + n] = self._heads(v, B, n)
+            ctx = self._attend(self._heads(q, B, n), kcl[i], vcl[i],
                                mask[None, None])
             h = self._block_tail(i, h, ctx)
         return (kc, vc), self._head(h)                          # (B, n, V)
@@ -247,13 +334,14 @@ class KVDecoder:
     # ----------------------------------------------------------------- API
     def init_state(self, batch):
         """state = (k_cache, v_cache, pos) — pos is a HOST int."""
-        shape = (self.L, batch, self.H, self.max_len, self.dh)
+        # under a mesh each rank allocates its own heads' block only
+        shape = (self.L, batch, self._h_local, self.max_len, self.dh)
         with torch.inference_mode():
             kc = torch.zeros(shape, dtype=self._cache_dtype,
                              device=self.device)
             vc = torch.zeros(shape, dtype=self._cache_dtype,
                              device=self.device)
-        return (kc, vc, 0)
+        return (self._wrap(kc), self._wrap(vc), 0)
 
     def _tokens(self, tokens):
         return torch.as_tensor(np.asarray(tokens, np.int64),
@@ -294,6 +382,7 @@ class KVDecoder:
         position embedding ``cursor[b] - start[b]``.  Free rows ride
         along; their writes land where :meth:`adopt_row` overwrites."""
         p = self.p
+        kcl, vcl = _local(kc), _local(vc)
         B = tokens.shape[0]
         tok = self._embed(tokens)                               # (B, D)
         pos_ids = (cursor - start).clamp(0, self.max_len - 1).long()
@@ -307,9 +396,9 @@ class KVDecoder:
             name = f"layer{i}"
             h2 = _ln(h, p[f"{name}_ln1_gamma"], p[f"{name}_ln1_beta"])
             q, k, v = self._block_qkv(i, h2)
-            kc[i, rows, :, cur] = self._heads(k, B, 1)[:, :, 0]
-            vc[i, rows, :, cur] = self._heads(v, B, 1)[:, :, 0]
-            ctx = self._attend(self._heads(q, B, 1), kc[i], vc[i],
+            kcl[i, rows, :, cur] = self._heads(k, B, 1)[:, :, 0]
+            vcl[i, rows, :, cur] = self._heads(v, B, 1)[:, :, 0]
+            ctx = self._attend(self._heads(q, B, 1), kcl[i], vcl[i],
                                valid[:, None, None, :])
             h = self._block_tail(i, h, ctx)
         return (kc, vc), self._head(h)[:, 0]                    # (B, V)
@@ -321,6 +410,7 @@ class KVDecoder:
         Real tokens write K/V at their padded index and attend over
         ``[start[b], n]``; pad queries attend to themselves only."""
         p = self.p
+        kcl, vcl = _local(kc), _local(vc)
         B, T = tokens.shape
         tok = self._embed(tokens)                               # (B, T, D)
         n_idx = torch.arange(T, device=self.device)
@@ -335,9 +425,9 @@ class KVDecoder:
             name = f"layer{i}"
             h2 = _ln(h, p[f"{name}_ln1_gamma"], p[f"{name}_ln1_beta"])
             q, k, v = self._block_qkv(i, h2)
-            kc[i, :, :, :T] = self._heads(k, B, T)
-            vc[i, :, :, :T] = self._heads(v, B, T)
-            ctx = self._attend(self._heads(q, B, T), kc[i], vc[i],
+            kcl[i, :, :, :T] = self._heads(k, B, T)
+            vcl[i, :, :, :T] = self._heads(v, B, T)
+            ctx = self._attend(self._heads(q, B, T), kcl[i], vcl[i],
                                valid[:, None])
             h = self._block_tail(i, h, ctx)
         return (kc, vc), self._head(h)                          # (B, T, V)
@@ -414,8 +504,8 @@ class KVDecoder:
         tc = _compile_start(self, "decode_adopt",
                             (tuple(kc.shape), tuple(kr.shape)))
         with torch.inference_mode():
-            kc[:, slot:slot + 1] = kr
-            vc[:, slot:slot + 1] = vr
+            _local(kc)[:, slot:slot + 1] = _local(kr)
+            _local(vc)[:, slot:slot + 1] = _local(vr)
         _compile_done(tc, "decode_adopt")
         return kc, vc
 
@@ -609,7 +699,8 @@ class KVDecoder:
                     device=self.device)
                 kc, vc, pos = state
                 with torch.inference_mode():
-                    state = (kc[:, rows], vc[:, rows], pos)
+                    state = (self._wrap(_local(kc)[:, rows]),
+                             self._wrap(_local(vc)[:, rows]), pos)
         if length_penalty:
             scores = scores / (lengths.astype(np.float32)
                                ** length_penalty)

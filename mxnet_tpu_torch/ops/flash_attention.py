@@ -343,5 +343,38 @@ def _flash_attention_op(ctx, query, key, value, **attrs):
     impl = str(attrs.get("impl", "auto"))
     from ..parallel.ring_attention import attention
 
-    return attention(query, key, value, causal=causal, scale=scale,
-                     impl=impl)
+    def run(q, k, v):
+        return attention(q, k, v, causal=causal, scale=scale, impl=impl)
+
+    from ..parallel import mesh as _mesh
+
+    if _mesh.is_dtensor(query):
+        return _on_local_heads(run, query, key, value)
+    return run(query, key, value)
+
+
+def _on_local_heads(run, q, k, v):
+    """The op under a mesh: each rank runs ``run`` (the kernels on the
+    card) on its own block of batch rows and heads, and the result is
+    placed as q is.  A sequence split on T (or D) is refused by name:
+    attention over a split sequence is the ring's or Ulysses' work
+    (``parallel/ring_attention.py``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel import mesh as _mesh
+
+    place = tuple(q.placements)
+    for p in place:
+        if not (isinstance(p, Replicate)
+                or (isinstance(p, Shard) and p.dim in (0, 1))):
+            raise MXNetError(
+                f"FlashAttention under a mesh runs on each rank's batch "
+                f"rows and heads; the query is placed {place}, split on "
+                f"its sequence or head width (use ring_attention or "
+                f"ulysses_attention for a split sequence)")
+    if tuple(k.placements) != place or tuple(v.placements) != place:
+        k = k.redistribute(q.device_mesh, place)
+        v = v.redistribute(q.device_mesh, place)
+    return _mesh.local_map(run, out_placements=(place,),
+                           in_placements=(place, place, place),
+                           device_mesh=q.device_mesh)(q, k, v)

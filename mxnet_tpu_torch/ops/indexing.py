@@ -30,7 +30,75 @@ def _embedding(ctx, data, weight, **attrs):
     integers and clipped to the table; output ``data.shape +
     (output_dim,)``."""
     idx = data.long().clamp(0, weight.shape[0] - 1)
+    from ..parallel import mesh as _mesh
+
+    if _mesh.is_dtensor(weight):
+        return _embedding_placed(idx, weight)
     return F.embedding(idx, weight)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's reduce from a tensor-parallel region: the forward sums
+    the ranks' partial values over ``group``, the backward passes the
+    (replicated) gradient through as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as td
+
+        out = x.clone()
+        td.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _embedding_placed(idx, weight):
+    """Embedding over DTensors (a mesh).  A table split on its rows (the
+    vocab, ``megatron_rules``' ``tok_embed``) over one mesh axis is
+    Megatron's vocab-parallel embedding: each rank gathers the ids in its
+    block of rows (zeros for the others) and the partial rows are summed
+    over that axis; the gradient of each block stays local.  Any other
+    placement takes DTensor's own gather."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..parallel import mesh as _mesh
+
+    mesh = weight.device_mesh
+    split = [i for i, p in enumerate(weight.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    rows = weight.shape[0]
+    if len(split) != 1 or rows % mesh.size(split[0]):
+        return F.embedding(idx, weight)
+    axis = split[0]
+    block = rows // mesh.size(axis)
+    lo = mesh.get_local_rank(axis) * block
+    group = mesh.get_group(axis)
+    # the ids keep their batch split; every rank of the vocab axis sees
+    # all of them
+    id_place = tuple(p if i != axis and isinstance(p, Shard) else Replicate()
+                     for i, p in enumerate(idx.placements))
+    idx = idx.redistribute(mesh, id_place)
+    out_place = tuple(Replicate() if i == axis else p
+                      for i, p in enumerate(id_place))
+
+    def run(ids, w):
+        local = ids - lo
+        mine = (local >= 0) & (local < block)
+        rows_ = F.embedding(local.clamp(0, block - 1), w)
+        return _ReduceFromGroup.apply(
+            rows_ * mine.unsqueeze(-1).to(rows_.dtype), group)
+
+    # each rank's gradient of its block covers only its own rows of the
+    # batch: partial over the axes that split the ids
+    w_grad = tuple(Partial() if isinstance(p, Shard) else w
+                   for p, w in zip(id_place, weight.placements))
+    return _mesh.local_map(run, out_placements=(out_place,),
+                           in_placements=(id_place, weight.placements),
+                           in_grad_placements=(id_place, w_grad),
+                           device_mesh=mesh)(idx, weight)
 
 
 @register("one_hot", aliases=("_onehot_encode",))

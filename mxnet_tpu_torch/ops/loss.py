@@ -68,6 +68,43 @@ def _onehot(lab, classes, like, dim):
     return (lab.unsqueeze(dim) == ids).to(like.dtype)
 
 
+def _softmax_output_grad(out, label, cfg, offset=0):
+    """SoftmaxOutput's gradient ``(p - onehot(label)) * grad_scale`` with
+    its normalizations; ``offset`` is the first class of ``out``'s
+    columns (a vocab-split block: labels outside it hit no column)."""
+    (grad_scale, ignore_label, use_ignore, normalization, multi,
+     rows, valid) = cfg
+    mask = None
+    if multi and out.ndim > 2:
+        # label (N, d...) indexes the channel axis 1
+        grad = out - _onehot(label.long() - offset, out.shape[1], out, 1)
+        if use_ignore:
+            mask = label != ignore_label
+            grad = grad * mask.unsqueeze(1).to(grad.dtype)
+    else:
+        lab = label.reshape(-1).long() - offset
+        grad = out.reshape(lab.shape[0], -1) \
+            - _onehot(lab, out.shape[-1], out, 1)
+        if use_ignore:
+            mask = label.reshape(-1) != ignore_label
+            grad = grad * mask[:, None].to(grad.dtype)
+        grad = grad.reshape(out.shape)
+    # ``rows``/``valid``: the global batch and valid-label count when
+    # this runs on one rank's rows of a mesh (None: these rows are all)
+    if normalization == "batch":
+        grad = grad / (out.shape[0] if rows is None else rows)
+    elif normalization == "valid" and mask is not None:
+        grad = grad / (mask.to(grad.dtype).sum() if valid is None
+                       else valid.to(grad.dtype)).clamp_min(1.0)
+    elif normalization == "valid":
+        # every label is valid: divide by the label count (N * d...
+        # under multi_output)
+        grad = grad / float(label.numel() if rows is None
+                            else rows * (label.numel()
+                                         // max(label.shape[0], 1)))
+    return grad_scale * grad
+
+
 class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, cfg):
@@ -79,38 +116,44 @@ class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _head):
         out, label = ctx.saved_tensors
-        grad_scale, ignore_label, use_ignore, normalization, multi = ctx.cfg
-        mask = None
-        if multi and out.ndim > 2:
-            # label (N, d...) indexes the channel axis 1
-            grad = out - _onehot(label.long(), out.shape[1], out, 1)
-            if use_ignore:
-                mask = label != ignore_label
-                grad = grad * mask.unsqueeze(1).to(grad.dtype)
-        else:
-            lab = label.reshape(-1).long()
-            grad = out.reshape(lab.shape[0], -1) \
-                - _onehot(lab, out.shape[-1], out, 1)
-            if use_ignore:
-                mask = label.reshape(-1) != ignore_label
-                grad = grad * mask[:, None].to(grad.dtype)
-            grad = grad.reshape(out.shape)
-        if normalization == "batch":
-            grad = grad / out.shape[0]
-        elif normalization == "valid" and mask is not None:
-            grad = grad / mask.to(grad.dtype).sum().clamp_min(1.0)
-        elif normalization == "valid":
-            # every label is valid: divide by the label count (N * d...
-            # under multi_output)
-            grad = grad / float(label.numel())
-        return grad_scale * grad, None, None
+        return _softmax_output_grad(out, label, ctx.cfg), None, None
+
+
+class _VocabParallelSoftmaxOutput(torch.autograd.Function):
+    """SoftmaxOutput on one rank's block of the classes (Megatron's
+    vocab-parallel softmax): the row maxima and sums are all-reduced
+    over ``group`` (MAX, then SUM), so each rank gets its block of the
+    global softmax without gathering the logits; the gradient is local."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg, group, offset):
+        import torch.distributed as td
+
+        x = data.float()
+        m = x.amax(1, keepdim=True)
+        td.all_reduce(m, op=td.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m)
+        total = e.sum(1, keepdim=True)
+        td.all_reduce(total, group=group)
+        out = (e / total).to(data.dtype)
+        ctx.save_for_backward(out, label)
+        ctx.cfg, ctx.offset = cfg, offset
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        return (_softmax_output_grad(out, label, ctx.cfg, ctx.offset),
+                None, None, None, None)
 
 
 @register("SoftmaxOutput", arg_names=("data", "label"), aliases=("Softmax",),
           infer_params=_softmax_label_shape)
 def _softmax_output(ctx, data, label, **attrs):
     """Forward: softmax over axis 1 (of ``(N, C)`` data, or of ``(N, C,
-    d...)`` under ``multi_output``, with ``(N, d...)`` labels).
+    d...)`` under ``multi_output``, with ``(N, d...)`` labels).  Over
+    DTensors (a mesh) each rank runs its rows, and a class axis split
+    over one mesh axis stays split (the vocab-parallel softmax).
     Backward: ``(p - onehot(label)) * grad_scale`` with null / batch /
     valid normalization and use_ignore masking; the head gradient is
     ignored.  ``preserve_shape`` changes nothing for data of up to 2
@@ -125,7 +168,56 @@ def _softmax_output(ctx, data, label, **attrs):
            float(parse_attr(attrs.get("ignore_label", -1.0))),
            parse_bool(attrs.get("use_ignore", False)),
            _norm_enum(attrs), multi)
-    return _SoftmaxOutput.apply(data, label, cfg)
+    from ..parallel import mesh as _mesh
+
+    if _mesh.is_dtensor(data):
+        return _softmax_output_placed(data, label, cfg)
+    return _SoftmaxOutput.apply(data, label, cfg + (None, None))
+
+
+def _softmax_output_placed(data, label, cfg):
+    """SoftmaxOutput over DTensors (a mesh): each rank runs the op on its
+    own rows; a class axis split evenly over one mesh axis (the LM head
+    under ``megatron_rules``) stays split and takes the vocab-parallel
+    softmax, any other split of it is gathered first; the
+    normalizations use the global batch and valid-label counts."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel import mesh as _mesh
+
+    mesh = data.device_mesh
+    lab_place = tuple(p if isinstance(p, Shard) and p.dim == 0
+                      else Replicate() for p in data.placements)
+    split = [i for i, p in enumerate(data.placements)
+             if isinstance(p, Shard) and p.dim == 1]
+    vocab = data.shape[1] if data.ndim > 1 else 0
+    if len(split) == 1 and vocab % mesh.size(split[0]) == 0:
+        place = tuple(Shard(1) if i == split[0] else p
+                      for i, p in enumerate(lab_place))
+    else:
+        split, place = [], lab_place
+    data = data.redistribute(mesh, place)
+    label = label.redistribute(mesh, lab_place)
+    _, ignore_label, use_ignore, normalization, _multi = cfg
+    valid = None
+    if normalization == "valid" and use_ignore:
+        valid = _mesh.full_value((label != ignore_label).float().sum())
+    cfg = cfg + (int(data.shape[0]), valid)
+    if split:
+        group = mesh.get_group(split[0])
+        offset = (mesh.get_local_rank(split[0])
+                  * (vocab // mesh.size(split[0])))
+
+        def run(d, lab):
+            return _VocabParallelSoftmaxOutput.apply(d, lab, cfg, group,
+                                                     offset)
+    else:
+        def run(d, lab):
+            return _SoftmaxOutput.apply(d, lab, cfg)
+
+    return _mesh.local_map(run, out_placements=(place,),
+                           in_placements=(place, lab_place),
+                           device_mesh=mesh)(data, label)
 
 
 # --- regression heads -------------------------------------------------

@@ -97,7 +97,30 @@ def _reshape(ctx, data, **attrs):
     """0 / -1 shape codes; a view where torch can make one.  ``shape``,
     or ``target_shape`` (the v0.9.4 spelling older symbol JSON carries)."""
     shape = parse_attr(attrs.get("shape", attrs.get("target_shape")))
-    return data.reshape(_infer_reshape(tuple(data.shape), tuple(shape)))
+    target = _infer_reshape(tuple(data.shape), tuple(shape))
+    from ..parallel import mesh as _mesh
+
+    if _mesh.is_dtensor(data):
+        return _reshape_placed(data, target)
+    return data.reshape(target)
+
+
+def _reshape_placed(data, target):
+    """Reshape of a DTensor (a mesh).  DTensor keeps a split through a
+    reshape where the split dimension's blocks stay whole (d_model into
+    heads over a ``model`` axis that divides the heads); where they would
+    not (2 heads over 4 ranks), the tensor keeps only its split of the
+    rows and is gathered on the rest first, as GSPMD re-shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    try:
+        return data.reshape(target)
+    except RuntimeError:
+        place = tuple(p if isinstance(p, Shard) and p.dim == 0
+                      else Replicate() for p in data.placements)
+        if place == tuple(data.placements):
+            raise
+    return data.redistribute(data.device_mesh, place).reshape(target)
 
 
 @register("Flatten", aliases=("flatten",))

@@ -2,7 +2,7 @@
 ``mxnet_tpu/parallel/dist.py``; parity: the ps-lite ``Postoffice`` role
 of include/mxnet/kvstore.h:158-242: ranks, barriers, dead peers).
 
-- :func:`init_from_env` brings up a gloo process group from the
+- :func:`init_from_env` brings up a process group from the
   launcher's environment (``MXTPU_COORDINATOR`` host:port, ``MXTPU_RANK``,
   ``MXTPU_NUM_WORKERS``), validated first: a bad rank or address is a
   named :class:`MXNetError`, not a rendezvous that hangs.
@@ -18,8 +18,9 @@ of include/mxnet/kvstore.h:158-242: ranks, barriers, dead peers).
   (:func:`elastic_main`).
 
 The parameter-server stores (``kvstore_server.py``) need none of this to
-train; NCCL and the collectives come with the mesh (ROADMAP Queue 1
-item 10b).
+train.  A mesh (:mod:`.mesh`) brings its group up through
+:func:`init_from_env` with its device: NCCL when each rank has a card of
+its own, gloo on the CPU and when ranks share a card.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from .. import telemetry as _tm
 from ..base import MXNetError
 
 __all__ = ["EXIT_HOST_LOST", "HostLostError", "GenerationChanged",
-           "generation", "barrier_timeout_s", "init_from_env", "rank",
+           "generation", "barrier_timeout_s", "init_from_env",
+           "mesh_backend", "rank",
            "num_workers", "log_prefix", "is_multi_host", "barrier",
            "elastic_main"]
 
@@ -138,12 +140,48 @@ def _initialized() -> bool:
     return td.is_available() and td.is_initialized()
 
 
-def init_from_env():
-    """Bring up the gloo process group from the launcher's environment
-    (parity: InitPSEnv, include/mxnet/kvstore.h:158-208).  A no-op for
-    one process, or when a group is already up.  ``MXTPU_RANK`` must be
-    an integer in ``[0, MXTPU_NUM_WORKERS)`` and ``MXTPU_COORDINATOR`` a
-    ``host:port`` (rank 0 listens there), else a named error."""
+def _local_layout(rank_, nproc):
+    """(local rank, ranks on this host): torchrun's ``LOCAL_RANK`` /
+    ``LOCAL_WORLD_SIZE`` when set, else every rank on this host (the
+    port's launcher starts them all here)."""
+    try:
+        local = int(os.environ.get("LOCAL_RANK", rank_))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", nproc))
+    except ValueError:
+        local, local_world = rank_, nproc
+    return local, local_world
+
+
+def mesh_backend(device_type, local_world):
+    """The backend a mesh's process group takes: NCCL when each rank of
+    this host has a card of its own, gloo on the CPU, and gloo (logged)
+    when ranks must share a card, which NCCL refuses."""
+    if device_type != "cuda":
+        return "gloo"
+    import torch
+
+    n = torch.cuda.device_count()
+    if local_world <= n:
+        return "nccl"
+    _logger.warning(
+        "%d ranks share %d card(s) on this host: the mesh runs over gloo "
+        "(NCCL refuses two ranks on one GPU)", local_world, n)
+    return "gloo"
+
+
+def init_from_env(device=None):
+    """Bring up the process group from the launcher's environment
+    (parity: InitPSEnv, include/mxnet/kvstore.h:158-208).  A no-op when a
+    group is already up.  ``MXTPU_RANK`` must be an integer in ``[0,
+    MXTPU_NUM_WORKERS)`` and ``MXTPU_COORDINATOR`` a ``host:port`` (rank
+    0 listens there), else a named error.
+
+    ``device=None`` (the parameter-server stores) brings up gloo, and
+    nothing for one process.  ``device="cuda"``/``"cpu"`` brings up the
+    group a mesh runs on (:func:`mesh_backend`): on the card each rank
+    takes ``cuda:<local rank>`` where it has a card of its own; a world
+    of one process gets a group of its own (an in-process store, no
+    launcher)."""
     if _initialized():
         return
     coord = os.environ.get("MXTPU_COORDINATOR")
@@ -155,7 +193,16 @@ def init_from_env():
             f"MXTPU_RANK={os.environ.get('MXTPU_RANK')!r} / "
             f"MXTPU_NUM_WORKERS={os.environ.get('MXTPU_NUM_WORKERS')!r}: "
             "both must be integers") from exc
+    import datetime
+
+    timeout = barrier_timeout_s()
+    timeout = datetime.timedelta(seconds=timeout if timeout > 0 else 1800)
     if not coord or nproc <= 1:
+        if device is None:
+            return
+        td = _dist()
+        td.init_process_group(mesh_backend(device, 1), store=td.HashStore(),
+                              rank=0, world_size=1, timeout=timeout)
         return
     if not 0 <= rank_ < nproc:
         raise MXNetError(
@@ -163,13 +210,18 @@ def init_from_env():
             f"MXTPU_NUM_WORKERS={nproc} (need 0 <= rank < num_workers); "
             "check the launcher env")
     _validate_coordinator(coord)
-    import datetime
+    backend = "gloo"
+    if device is not None:
+        local, local_world = _local_layout(rank_, nproc)
+        backend = mesh_backend(device, local_world)
+        if device == "cuda":
+            import torch
 
-    timeout = barrier_timeout_s()
+            torch.cuda.set_device(local if backend == "nccl" else
+                                  local % max(torch.cuda.device_count(), 1))
     _dist().init_process_group(
-        "gloo", init_method=f"tcp://{coord}", world_size=nproc, rank=rank_,
-        timeout=datetime.timedelta(seconds=timeout if timeout > 0
-                                   else 1800))
+        backend, init_method=f"tcp://{coord}", world_size=nproc, rank=rank_,
+        timeout=timeout)
 
 
 def rank() -> int:

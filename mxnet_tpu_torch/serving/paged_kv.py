@@ -250,7 +250,7 @@ class PagedSlots:
         if decoder.mesh is not None:
             raise MXNetError(
                 "paged KV is not supported together with a tensor-"
-                "parallel mesh yet")
+                "parallel mesh yet (serve the paged fleet data-parallel)")
         self.decoder = decoder
         self.num_slots = int(num_slots)
         self.block = int(block if block is not None else (kv_block() or 16))

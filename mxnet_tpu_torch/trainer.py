@@ -103,9 +103,26 @@ needs them.  With ``MXTPU_COORD_ADDR`` set, ``fit`` joins the
 coordinator (:mod:`mxnet_tpu_torch.parallel.coordinator`), polls it once
 a step on the host and, when the cluster's generation moves, writes a
 boundary checkpoint (when armed) and raises
-:class:`~mxnet_tpu_torch.parallel.dist.GenerationChanged`.  Not ported
-yet, and raising when asked for: ``mesh`` / ``sharding_rules``
-(ROADMAP Queue 1 item 10b).
+:class:`~mxnet_tpu_torch.parallel.dist.GenerationChanged`.
+
+A mesh (``mesh=parallel.mesh.create_mesh(...)``, one process per rank,
+every rank running the same program on the same global batch): the
+parameters are ``DTensor``s placed by ``shard_params`` with
+``sharding_rules`` (``megatron_rules()``: column-parallel q/k/v and
+``ffn_in``, row-parallel ``proj`` and ``ffn_out``, ``lm_head`` and
+``tok_embed`` split on the vocab), the optimizer state takes its
+parameter's placement, the aux states are replicated and each rank keeps
+its own rows of the batch (split over ``data``).  DTensor inserts the
+gradient all-reduce over ``data`` and one all-reduce per row-parallel
+product, and the update runs the same rule on each rank's blocks.  The
+step returns DTensors whose global value (``full_tensor()``) is the
+reference's output.  ``step_multi`` captures the step where the group is
+NCCL and runs eager steps over gloo; checkpoints gather full tensors
+(a collective every rank calls) and rank 0 writes them, so a trainer
+without a mesh loads them.  Without a mesh, ``sharding_rules`` places
+nothing, as in the reference.  Not ported yet, and raising when asked
+for: ``rebind_mesh`` (ROADMAP Queue 1 item 10b, slice 4), the sentinel
+under a mesh.
 """
 from __future__ import annotations
 
@@ -128,6 +145,7 @@ from .initializer import Uniform
 from .ndarray import NDArray
 from .ops import residual_epilogue as _epilogue
 from .optim_rules import _RULES
+from .parallel import mesh as _mesh
 from .passes import apply_graph_passes
 
 __all__ = ["FusedTrainer"]
@@ -158,6 +176,12 @@ def _not_ported(what, item):
                       f"Queue 1 item {item})")
 
 
+def _local(t):
+    """A DTensor's block on this rank (the storage an in-place update
+    writes); a plain tensor as it is."""
+    return t.to_local() if _mesh.is_dtensor(t) else t
+
+
 def _as_tensor(value) -> torch.Tensor:
     """A batch input (NDArray, tensor, numpy array or list) as a tensor,
     where it lies."""
@@ -182,10 +206,10 @@ class _Captured(NamedTuple):
 
 
 class FusedTrainer:
-    """Training-step runner over a Symbol, on one device.
+    """Training-step runner over a Symbol, on one device or over a mesh.
 
-    ``device`` (default: the card) is where parameters, state and the
-    step live; tests pass ``device="cpu"``."""
+    ``device`` (default: the card, or the mesh's device) is where
+    parameters, state and the step live; tests pass ``device="cpu"``."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), optimizer="sgd",
@@ -193,15 +217,23 @@ class FusedTrainer:
                  dtype=None, sharding_rules=(), remat=None,
                  fixed_param_names=(), clip_global_norm=None,
                  lr_scheduler=None, device=None):
-        if mesh is not None or sharding_rules:
-            raise _not_ported("mesh / sharding_rules", "10b")
+        if mesh is not None and not isinstance(mesh, _mesh.Mesh):
+            raise MXNetError(
+                f"FusedTrainer: mesh must be a parallel.mesh.Mesh (from "
+                f"create_mesh), got {type(mesh).__name__}")
+        self.mesh = mesh
+        self._sharding_rules = tuple(sharding_rules)
         if remat is None:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
         self.remat = bool(remat)
         self.symbol = symbol
         self.data_names = list(data_names)
         self.label_names = list(label_names)
-        self.device = resolve_device(device)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
+        if mesh is not None and self.device.type != mesh.device.type:
+            raise MXNetError(f"FusedTrainer: device {self.device} is not "
+                             f"the mesh's {mesh.device}")
         if dtype is None:
             from . import amp as _amp
 
@@ -285,8 +317,11 @@ class FusedTrainer:
                              f"parameter shapes from {input_shapes}")
         arg_names = self.symbol.list_arguments()
         self._channels_last = channels_last_default()
-        self._cl_params = self._discover_channels_last(
-            dict(zip(arg_names, arg_shapes)))
+        # a mesh keeps every weight in its logical layout (the reference
+        # keeps rule-matched weights OIHW: the rules name that layout)
+        self._cl_params = (frozenset() if self.mesh is not None else
+                           self._discover_channels_last(
+                               dict(zip(arg_names, arg_shapes))))
         inputs = set(self.data_names + self.label_names)
         self.params, self.aux, self.opt_state = {}, {}, {}
         for name, shape in zip(arg_names, arg_shapes):
@@ -299,6 +334,10 @@ class FusedTrainer:
             if name in self._cl_params:
                 arr = arr.contiguous(memory_format=torch.channels_last)
             self.params[name] = arr
+        if self.mesh is not None:
+            # the rules split matching params; the rest replicate
+            self.params = _mesh.shard_params(self.mesh, self.params,
+                                             self._sharding_rules)
         unknown = self._fixed - set(self.params)
         if unknown:
             raise MXNetError(f"fixed_param_names not in the model: "
@@ -312,6 +351,8 @@ class FusedTrainer:
             arr = torch.zeros(shape, dtype=torch.float32, device=self.device)
             self._initializer(name, arr)
             self.aux[name] = arr
+        if self.mesh is not None:
+            self.aux = _mesh.shard_params(self.mesh, self.aux)
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._cparams = {}
         self._bufs = {}
@@ -319,6 +360,8 @@ class FusedTrainer:
         # the numerics sentinel is sampled here, as the JAX trainer samples
         # it when it builds its step program
         self._sentinel = _tm.health.sentinel_mode() is not None
+        if self._sentinel and self.mesh is not None:
+            raise _not_ported("MXTPU_SENTINEL under a mesh", "10b")
         self._sent_names = tuple(k for k in self.params
                                  if k not in self._fixed)
         self._mem_recorded = False
@@ -362,7 +405,7 @@ class FusedTrainer:
             if c is None:
                 self._cparams[k] = v.to(self.dtype)
             else:
-                c.copy_(v)
+                _local(c).copy_(_local(v))
 
     def _state(self):
         """Every tensor a step overwrites, in a fixed order."""
@@ -401,14 +444,43 @@ class FusedTrainer:
 
     def _stage(self, batch):
         """Copy each input into its buffer (no host sync); returns
-        ``{name: buffer}``."""
+        ``{name: buffer}`` (under a mesh, each buffer holds this rank's
+        rows and is wrapped as a DTensor of the global batch)."""
         staged = {}
         for name, value in batch.items():
-            src = self._pinned(_as_tensor(value))
+            src = _as_tensor(value)
+            global_shape = tuple(src.shape)
+            if self.mesh is not None:
+                src = self._rows(src)
+            src = self._pinned(src)
             buf = self._buffer(name, src)
             buf.copy_(src, non_blocking=True)
-            staged[name] = buf
+            staged[name] = (buf if self.mesh is None
+                            else self._batch_dtensor(buf, global_shape))
         return staged
+
+    def _batch_axis(self):
+        return "data" if "data" in self.mesh.axis_names else None
+
+    def _rows(self, src):
+        """This rank's rows of a global batch input (split over the
+        mesh's ``data`` axis; all of them without one)."""
+        axis = self._batch_axis()
+        if axis is None:
+            return src
+        n, dp = src.shape[0], self.mesh.shape[axis]
+        if n % dp:
+            raise MXNetError(f"FusedTrainer: batch {n} does not split over "
+                             f"the {dp} ranks of the mesh's 'data' axis")
+        i = self.mesh.coordinate(axis)
+        return src[i * (n // dp):(i + 1) * (n // dp)]
+
+    def _batch_dtensor(self, local, global_shape):
+        axis = self._batch_axis()
+        sh = (_mesh.data_sharding(self.mesh, local.dim(), axis) if axis
+              else _mesh.replicated(self.mesh))
+        return _mesh.from_block(local, self.mesh.device_mesh, sh.placements,
+                                global_shape)
 
     def _args(self, batch, compute_params):
         args = dict(compute_params)
@@ -457,7 +529,7 @@ class FusedTrainer:
         with torch.no_grad(), torch.profiler.record_function(
                 "FusedTrainer.update"):
             f32 = {k: (torch.zeros_like(self.params[k]) if g is None
-                       else g.float())
+                       else self._placed(g.float(), self.params[k]))
                    for k, g in zip(trainable, grads)}
             # raw (pre-clip) gradients: a finite clip rescale cannot mask
             # an inf/nan, and the norm is the divergence signal
@@ -473,18 +545,33 @@ class FusedTrainer:
                          / gnorm.clamp_min(1e-12)).clamp_max(1.0)
                 for g in f32.values():
                     g.mul_(scale)
+            # the rule runs on each rank's blocks (all of each tensor
+            # without a mesh)
             for k, w in self.params.items():
                 if k in self._fixed:
                     continue
                 mult = self._lr_mult.get(k, 1.0)
-                self._update(w, f32[k], self.opt_state[k],
+                w = _local(w)
+                self._update(w, _local(f32[k]),
+                             tuple(_local(s) for s in self.opt_state[k]),
                              self._lr if mult == 1.0 else self._lr * mult,
                              self._wd_mult.get(k, 1.0))
                 if self._use_ccache:
-                    self._cparams[k].copy_(w)
+                    _local(self._cparams[k]).copy_(w)
             for k, v in new_aux.items():
                 self.aux[k].copy_(v)
         return [o.detach() for o in outs], sent
+
+    @staticmethod
+    def _placed(g, w):
+        """A gradient in its parameter's placement: DTensor leaves the
+        gradient of a replicated parameter partial over ``data`` (and
+        over ``model`` behind a row-parallel product); this is where
+        those all-reduces run."""
+        if _mesh.is_dtensor(g) and tuple(g.placements) != tuple(
+                w.placements):
+            return g.redistribute(w.device_mesh, w.placements)
+        return g
 
     def _remat_forward(self, args, aux, gen):
         """The forward under ``torch.utils.checkpoint``: the first run
@@ -640,7 +727,7 @@ class FusedTrainer:
         # one trainer_step_seconds observation a call, as the JAX
         # package's one program a call
         samples = k * next(iter(rows.values()))[0].shape[0]
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self._capturable():
             t0 = time.perf_counter() if _tm.enabled() else None
             outs = [self._eager_step({n: r[i] for n, r in rows.items()},
                                      "fused_step_multi", record=False)
@@ -660,23 +747,29 @@ class FusedTrainer:
                for i in range(k)]
         step0 = self._step
         self._step += k
-        stacked_outs = [torch.empty((k,) + tuple(o.shape), dtype=o.dtype,
-                                    device=o.device) for o in cap.outputs]
+        # under a mesh: this rank's blocks, placed as the outputs are
+        stacked_outs = [torch.empty((k,) + tuple(_local(o).shape),
+                                    dtype=o.dtype, device=self.device)
+                        for o in cap.outputs]
         sents = (torch.empty((k,) + tuple(cap.sent.shape),
                              dtype=cap.sent.dtype, device=cap.sent.device)
                  if cap.sent is not None else None)
         for i in range(k):
             for name, r in rows.items():
-                cap.inputs[name].copy_(r[i], non_blocking=True)
+                src = r[i] if self.mesh is None else self._rows(r[i])
+                _local(cap.inputs[name]).copy_(src, non_blocking=True)
             self._lr.fill_(lrs[i])
             self._sync_remat_gen()
             cap.graph.replay()
             # the next replay overwrites the graph's outputs (and the
             # sentinel's row)
             for dst, out in zip(stacked_outs, cap.outputs):
-                dst[i].copy_(out)
+                dst[i].copy_(_local(out))
             if sents is not None:
                 sents[i].copy_(cap.sent)
+        if self.mesh is not None:
+            stacked_outs = [self._stacked_dtensor(dst, out)
+                            for dst, out in zip(stacked_outs, cap.outputs)]
         if sents is not None:
             # rows map to steps step0+1 .. step0+k
             _tm.health.sentinel_record(site="fused_step_multi",
@@ -693,6 +786,28 @@ class FusedTrainer:
                 _tm.perf.record_dispatch(self._label,
                                          time.perf_counter() - t0)
         return stacked_outs
+
+    @staticmethod
+    def _stacked_dtensor(local, like):
+        """``k`` steps' blocks of the DTensor output ``like``, stacked on
+        a new axis 0, as one DTensor of the stacked global outputs."""
+        from torch.distributed.tensor import Shard
+
+        place = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                 for p in like.placements]
+        return _mesh.from_block(local, like.device_mesh, place,
+                                (local.shape[0],) + tuple(like.shape))
+
+    def _capturable(self):
+        """Can the step be captured as a CUDA graph?  Without a mesh, and
+        under one whose group is NCCL (gloo's collectives run on the
+        host)."""
+        if self.mesh is None:
+            return True
+        import torch.distributed as td
+
+        return td.get_backend(self.mesh.get_group(
+            self.mesh.axis_names[0])) == "nccl"
 
     def _captured(self, example):
         """The captured step for the per-step batch shapes and dtypes of
@@ -787,8 +902,13 @@ class FusedTrainer:
             args = self._args(sb, self._compute_params())
             n = sb[self.data_names[0]].shape[0]
             for k in self.label_names:
-                args[k] = sb[k] if k in sb else torch.zeros(
-                    (n,), dtype=torch.float32, device=self.device)
+                if k in sb:
+                    args[k] = sb[k]
+                    continue
+                args[k] = torch.zeros((n,), dtype=torch.float32,
+                                      device=self.device)
+                if self.mesh is not None:
+                    args[k] = self._batch_dtensor(self._rows(args[k]), (n,))
             compute_aux = {k: v.to(self.dtype) for k, v in self.aux.items()}
             outs, _ = self._graph_fn(args, compute_aux,
                                      _random.generator(self.device), False)
@@ -797,9 +917,11 @@ class FusedTrainer:
     def get_params(self):
         """``(arg_params, aux_params)``: contiguous copies of the fp32
         masters (logical OIHW whatever their storage) and aux states, as
-        tensors on the trainer's device."""
+        tensors on the trainer's device (under a mesh their full values,
+        gathered: every rank calls it)."""
         def copy(v):
-            return v.clone(memory_format=torch.contiguous_format)
+            return _mesh.full_value(v).clone(
+                memory_format=torch.contiguous_format)
 
         return ({k: copy(v) for k, v in self.params.items()},
                 {k: copy(v) for k, v in self.aux.items()})
@@ -921,7 +1043,10 @@ class FusedTrainer:
                     self.init(**{k: tuple(v.shape) for k, v in feed.items()})
                 t0 = time.perf_counter() if rec else 0.0
                 outs = self.step(**feed)
-                eval_metric.update(batch.label, [NDArray(o) for o in outs])
+                # under a mesh the metric reads the full outputs (an
+                # all-gather on the device, no host sync)
+                eval_metric.update(batch.label, [
+                    NDArray(_mesh.full_value(o)) for o in outs])
                 tp = time.perf_counter() if perf_on else 0.0
                 window.push(outs)
                 if rec:
@@ -993,7 +1118,8 @@ class FusedTrainer:
                                     + (list(batch.label)
                                        if eval_label_names else [])))
                     outs = self.eval(**feed)
-                    vm.update(batch.label, [NDArray(o) for o in outs])
+                    vm.update(batch.label, [
+                        NDArray(_mesh.full_value(o)) for o in outs])
                     window.push(outs)
                 window.drain()
                 for name, val in vm.get_global_name_value():
@@ -1010,13 +1136,23 @@ class FusedTrainer:
     def _checkpoint_arrays(self):
         """The tensors a step owns: fp32 masters, aux states, every
         optimizer slot (the compute-dtype copy is derived, not saved).
-        The snapshot copies them to logical (contiguous) layout."""
+        The snapshot copies them to logical (contiguous) layout.  Under
+        a mesh they are gathered to full tensors (every rank calls)."""
         arrs = {"param/" + k: v for k, v in self.params.items()}
         arrs.update({"aux/" + k: v for k, v in self.aux.items()})
         for k, slots in self.opt_state.items():
             for i, sl in enumerate(slots):
                 arrs[f"opt/{k}/{i}"] = sl
+        if self.mesh is not None:
+            arrs = {k: _mesh.full_value(v) for k, v in arrs.items()}
         return arrs
+
+    def _writes(self):
+        """Does this rank write checkpoint files?  Every rank without a
+        mesh; rank 0 of the world under one."""
+        from .parallel import dist as _dist
+
+        return self.mesh is None or _dist.rank() == 0
 
     def _checkpoint_meta(self, epoch=None, nbatch=None):
         from . import checkpoint as _ckpt
@@ -1043,6 +1179,8 @@ class FusedTrainer:
         self._require_init("save_state")
         meta = self._checkpoint_meta(epoch=epoch, nbatch=nbatch)
         arrays = self._checkpoint_arrays()
+        if not self._writes():
+            return None
         if isinstance(target, _ckpt.CheckpointManager):
             return target.save(self._step, arrays, meta=meta,
                                background=background)
@@ -1092,7 +1230,7 @@ class FusedTrainer:
                 raise _ckpt.CheckpointError(
                     f"checkpoint {path!r}: {name} has shape {host.shape}, "
                     f"the trainer {tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+            _mesh.copy_full_into(dst, host)
 
         with torch.no_grad():
             for k, v in self.params.items():
@@ -1127,6 +1265,8 @@ class FusedTrainer:
         if not save_optimizer_states:
             arrays = {k: v for k, v in arrays.items()
                       if not k.startswith("opt/")}
+        if not self._writes():
+            return None
         step = self._step
         snap = _ckpt.snapshot(arrays)
 
@@ -1188,9 +1328,9 @@ class FusedTrainer:
                                  f"{sorted(missing)[:5]}...")
         with torch.no_grad():
             for k, v in self.params.items():
-                v.copy_(arg[k].tensor)
+                _mesh.copy_full_into(v, arg[k].tensor)
             for k, v in self.aux.items():
-                v.copy_(aux[k].tensor)
+                _mesh.copy_full_into(v, aux[k].tensor)
             if load_optimizer_states:
                 spath = "%s-%04d.states" % (prefix, epoch)
                 flat = nd_mod.load(spath, ctx="cpu")
@@ -1205,7 +1345,8 @@ class FusedTrainer:
                                 f"optimizer state {k}:{i} missing from "
                                 f"{spath!r} (different optimizer, or a "
                                 "truncated save?)")
-                        sl.copy_(got.tensor.reshape(sl.shape))
+                        _mesh.copy_full_into(sl,
+                                             got.tensor.reshape(sl.shape))
         self._refresh_compute_cache()
 
     # ------------------------------------------------------- not ported

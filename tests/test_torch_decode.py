@@ -199,10 +199,11 @@ def test_snap_never_aliases_host_state():
     {"mesh": object()}, {"quantize": "int8", "mesh": object()},
 ])
 def test_unported_decoder_options_raise(lm_params, kwargs):
-    """``mesh=`` waits for ROADMAP Queue 1 item 10; int8 with a mesh is
-    the reference's own ``ValueError``."""
+    """``mesh=`` takes a ``parallel.mesh.Mesh`` and refuses anything else
+    by name; int8 with a mesh is the reference's own ``ValueError``."""
     exc, match = ((ValueError, "tensor-parallel mesh")
-                  if "quantize" in kwargs else (MXNetError, "not ported"))
+                  if "quantize" in kwargs else
+                  (MXNetError, "mesh must be a parallel.mesh.Mesh"))
     with pytest.raises(exc, match=match):
         KVDecoder(lm_params, num_layers=L, num_heads=H, max_len=T,
                   device="cpu", **kwargs)

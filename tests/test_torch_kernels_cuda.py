@@ -34,7 +34,10 @@ of the device), and the plugins (a ``TorchModule`` and a
 ``TorchCriterion`` on card tensors with no host sync, the fused CUDA
 dropout inside a module drawn from the op's card generator), and two
 faults the port lint found (the paged decode step's uploads with no
-host wait; ``step_multi`` over a ``Pad`` of edge or reflect mode).
+host wait; ``step_multi`` over a ``Pad`` of edge or reflect mode), and
+the device mesh (the LM step on a world-1 NCCL mesh through the flash
+kernels on the rank's heads, equal to the step without a mesh, and with
+no host sync, eager or captured).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CPU tier has no card and no ``nvcc``).  The file imports
@@ -2242,3 +2245,90 @@ def test_step_multi_captures_a_pad_of_edge_or_reflect(card, no_tf32, mode):
     torch.testing.assert_close(outs[0].float(), torch.stack(want).float(),
                                rtol=1e-5, atol=1e-5)
     assert _max_param_err(graph, eager) <= 1e-5
+
+
+# ----------------------------------------------------------- the mesh
+@pytest.fixture()
+def nccl_mesh(card, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a world-1 NCCL group brought
+    up in this process on a ``FileStore``."""
+    import torch.distributed as td
+
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+
+    owned = not td.is_initialized()
+    if owned:
+        td.init_process_group("nccl", store=td.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield tmesh.create_mesh((1, 1), ("data", "model"))
+    if owned:
+        td.destroy_process_group()
+
+
+def _mesh_pair(card, mesh):
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.models import transformer as ttrm
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.trainer import FusedTrainer
+
+    cfg = dict(num_layers=2, num_heads=4, d_model=256, seq_len=256,
+               vocab_size=512)
+    shapes = {"data": (2, 256), "softmax_label": (2, 256)}
+    trandom.seed(0)
+    plain = FusedTrainer(ttrm.transformer_lm(**cfg), optimizer="adam",
+                         optimizer_params={"lr": 1e-3}, dtype="bfloat16",
+                         device=card).init(**shapes)
+    tm = FusedTrainer(ttrm.transformer_lm(**cfg), optimizer="adam",
+                      optimizer_params={"lr": 1e-3}, dtype="bfloat16",
+                      mesh=mesh,
+                      sharding_rules=tmesh.megatron_rules()).init(**shapes)
+    convert.load_trainer_params(tm, plain.params)
+    g = torch.Generator().manual_seed(1)
+    d = torch.randint(0, 512, (2, 256), generator=g).float()
+    return plain, tm, d
+
+
+def test_mesh_step_runs_the_flash_kernels_on_local_heads(card, nccl_mesh):
+    """The LM step on a world-1 NCCL mesh launches each flash kernel once
+    a layer on the rank's heads (2 layers: 2 of each, as without a mesh)
+    and gives the step without a mesh (bf16; the same kernels on the same
+    operands, the softmax's sums by hand: 1e-2)."""
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+
+    plain, tm, d = _mesh_pair(card, nccl_mesh)
+    launches, outs = [], []
+    for t in (plain, tm):
+        before = tfa.launch_counts()
+        outs.append(tmesh.full_value(t.step(data=d, softmax_label=d)[0]))
+        torch.cuda.synchronize()
+        after = tfa.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+    assert launches[0] == launches[1] == {
+        "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    torch.testing.assert_close(outs[1].float(), outs[0].float(), rtol=1e-2,
+                               atol=1e-4)
+    for k, w in plain.params.items():
+        got = tmesh.full_value(tm.params[k])
+        assert float((got - w).norm() / w.norm().clamp_min(1e-30)) <= 1e-2, k
+
+
+def test_mesh_step_makes_no_host_sync(card, nccl_mesh):
+    """After a first step, the mesh step and a captured ``step_multi``
+    run under ``set_sync_debug_mode("error")``: no host sync on the
+    mesh's path (DTensor's dispatch, the NCCL collectives, the
+    vocab-parallel softmax, the update on the rank's blocks)."""
+    _, tm, d = _mesh_pair(card, nccl_mesh)
+    tm.step(data=d, softmax_label=d)
+    tm.step_multi(data=torch.stack([d, d]), softmax_label=torch.stack([d, d]))
+    dd = d.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm.step(data=dd, softmax_label=dd)
+        tm.step_multi(data=torch.stack([dd, dd]),
+                      softmax_label=torch.stack([dd, dd]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(tm._graphs) == 1

@@ -398,15 +398,27 @@ def test_trainer_eval_matches_step_forward():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "item 10"), ({"remat": True}, "item 4"),
-    ({"sharding_rules": ("x",)}, "item 10")])
+    ({"mesh": object()}, "mesh must be a parallel.mesh.Mesh"),
+    ({"remat": True}, "item 4"),
+    ({"sharding_rules": ("x",)}, "places nothing")],
+    ids=["kw0-item 10", "kw1-item 4", "kw2-item 10"])
 def test_trainer_refuses_what_is_not_ported(kw, match):
-    """``mesh``/``sharding_rules`` still raise; ``remat=True`` is ported
-    (item 4): a recomputed step equals the plain one from the same
-    weights."""
-    if match != "item 4":
+    """``mesh`` takes a ``parallel.mesh.Mesh`` and refuses anything else
+    by name; ``sharding_rules`` without a mesh is kept and places
+    nothing, as in the JAX trainer (whose step from the same weights the
+    port's equals); ``remat=True`` is ported (item 4): a recomputed step
+    equals the plain one from the same weights."""
+    if "mesh" in kw:
         with pytest.raises(MXNetError, match=match):
             TTrainer(ttrm.transformer_lm(**SMALL), device="cpu", **kw)
+        return
+    if "sharding_rules" in kw:
+        jt, tt = _trainers("float32", "sgd", {"lr": 0.1}, **kw)
+        assert tt._sharding_rules == jt._sharding_rules == ("x",)
+        assert tt.mesh is None and jt.mesh is None
+        assert all(type(v) is torch.Tensor for v in tt.params.values())
+        for jo, to in _run(jt, tt, _batches(1, seed=24)):
+            _cmp(to, jo, 1e-5, 1e-8, "softmax output")
         return
     shapes = {"data": (2, 32), "softmax_label": (2, 32)}
     tts = [TTrainer(ttrm.transformer_lm(**SMALL), device="cpu",
