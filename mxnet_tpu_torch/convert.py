@@ -1,6 +1,8 @@
 """The weight carry: the JAX package's ``arg_params`` -> the port's tensors
 (:func:`from_jax_params`), and into a port ``FusedTrainer``
-(:func:`load_trainer_params`).
+(:func:`load_trainer_params`); the pytrees of the functional parallel
+code (the pipeline's per-stage trees and stacked unions, the MoE
+parameter dicts) -> the same trees of tensors (:func:`from_jax_tree`).
 
 Duck-typed on purpose, so the port never imports ``mxnet_tpu``: a value
 may be anything with ``.asnumpy()`` (an ``mxnet_tpu`` NDArray), anything
@@ -15,7 +17,7 @@ import torch
 from .base import MXNetError, torch_dtype
 from .context import resolve_device
 
-__all__ = ["from_jax_params", "load_trainer_params"]
+__all__ = ["from_jax_params", "load_trainer_params", "from_jax_tree"]
 
 
 def _to_tensor(value, dtype, device) -> torch.Tensor:
@@ -89,3 +91,37 @@ def load_trainer_params(trainer, arg_params, aux_params=None):
             _mesh.copy_full_into(dst, src)
     trainer._refresh_compute_cache()
     return trainer
+
+
+def _leaf_dtype(value):
+    """The torch dtype of a leaf's values: its own (bfloat16 for
+    ml_dtypes' bfloat16, which numpy reports as kind "V")."""
+    if isinstance(value, torch.Tensor):
+        return value.dtype
+    a = np.asarray(value)
+    if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, a.dtype)).dtype
+
+
+def from_jax_tree(tree, dtype=None, device=None):
+    """A pytree of the JAX package (nested dicts, lists and tuples of JAX
+    or numpy arrays) -> the same tree of tensors on ``device`` (default:
+    the card), in ``dtype`` (default: each leaf's own).  Dict keys, and
+    with them a stacked union's ``keystr`` path strings
+    (``"['blocks']['q_w']"``), stay as they are, so results compare by
+    key; a dict keeps its order (JAX sorts keys when it flattens: compare
+    by path, never by position)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: from_jax_tree(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_tree(v, dtype, device) for v in tree)
+    want = torch_dtype(dtype) if dtype is not None else _leaf_dtype(tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device=device, dtype=want).contiguous()
+    a = np.asarray(tree)
+    if want.is_floating_point:
+        return _to_tensor(a, want, device)
+    return torch.from_numpy(np.array(a, order="C")).to(device=device,
+                                                       dtype=want)

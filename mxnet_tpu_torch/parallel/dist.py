@@ -17,6 +17,12 @@ of include/mxnet/kvstore.h:158-242: ranks, barriers, dead peers).
   a checkpoint boundary with :data:`EXIT_HOST_LOST`
   (:func:`elastic_main`).
 
+- :func:`ppermute` is the reference's ``jax.lax.ppermute`` over a mesh
+  axis's group (the pipeline's stage hops, the ring's rotation), and
+  :func:`exchange` the one collective under it: ``all_to_all_single``
+  with uneven splits, which NCCL and gloo both carry (gloo refuses P2P
+  on CUDA tensors).
+
 The parameter-server stores (``kvstore_server.py``) need none of this to
 train.  A mesh (:mod:`.mesh`) brings its group up through
 :func:`init_from_env` with its device: NCCL when each rank has a card of
@@ -25,15 +31,19 @@ its own, gloo on the CPU and when ranks share a card.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
+
+import torch
 
 from .. import telemetry as _tm
 from ..base import MXNetError
 
 __all__ = ["EXIT_HOST_LOST", "HostLostError", "GenerationChanged",
            "generation", "barrier_timeout_s", "init_from_env",
-           "mesh_backend", "rank",
+           "mesh_backend", "rank", "exchange",
+           "ppermute",
            "num_workers", "log_prefix", "is_multi_host", "barrier",
            "elastic_main"]
 
@@ -226,6 +236,79 @@ def init_from_env(device=None):
 
 def rank() -> int:
     return _dist().get_rank() if _initialized() else 0
+
+
+# ------------------------------------------------------------ exchanges
+def exchange(group, sends, recvs, like):
+    """One exchange among the ranks of ``group`` (keys are ranks within
+    the group): this rank sends ``sends[j]`` to rank ``j`` and receives a
+    tensor of shape ``recvs[j]`` from rank ``j``, in ``like``'s dtype and
+    on its device.  Returns ``{j: tensor}`` for the keys of ``recvs``.
+    Every rank of the group calls it, in the same order, also one with
+    nothing to send or receive: it is one ``all_to_all_single`` with
+    uneven splits.  A rank's own index is a local copy."""
+    td = _dist()
+    me = td.get_group_rank(group, td.get_rank())
+    out = {}
+    if me in recvs:
+        out[me] = sends[me].to(like.dtype).reshape(recvs[me]).clone()
+    sends = {j: t.to(like.dtype) for j, t in sends.items() if j != me}
+    recvs = {j: tuple(s) for j, s in recvs.items() if j != me}
+    n = td.get_world_size(group)
+    in_sizes = [sends[j].numel() if j in sends else 0 for j in range(n)]
+    out_sizes = [math.prod(recvs[j]) if j in recvs else 0
+                 for j in range(n)]
+    flat = (torch.cat([sends[j].reshape(-1) for j in sorted(sends)])
+            if sends else like.new_empty(0))
+    buf = like.new_empty(sum(out_sizes))
+    td.all_to_all_single(buf, flat, out_sizes, in_sizes, group=group)
+    for j, piece in zip(range(n), buf.split(out_sizes)):
+        if j in recvs:
+            out[j] = piece.view(recvs[j])
+    return out
+
+
+def _permute(x, group, perm):
+    td = _dist()
+    me = td.get_group_rank(group, td.get_rank())
+    src = [s for s, d in perm if d == me]
+    got = exchange(group, {d: x for s, d in perm if s == me},
+                   {src[0]: x.shape} if src else {}, x)
+    return got[src[0]] if src else torch.zeros_like(x)
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`ppermute` with its transpose as the gradient: the
+    cotangents travel the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _permute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _permute(grad, ctx.group, inverse), None, None
+
+
+def ppermute(x, group, perm):
+    """The reference's ``jax.lax.ppermute(x, axis, perm)`` over the
+    process group of a mesh axis: ``perm`` lists ``(source, destination)``
+    pairs of ranks within ``group``; a rank that is no destination
+    receives zeros.  Differentiable: the gradient goes back along the
+    inverse permutation.  One collective (:func:`exchange`), which
+    every rank of the group calls; a world of 1 returns ``x``."""
+    n = _dist().get_world_size(group)
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or any(
+            not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} is not a permutation of a "
+                         f"subset of range({n})")
+    if n == 1 and perm == [(0, 0)]:
+        return x
+    return _PPermute.apply(x, group, perm)
 
 
 def num_workers() -> int:

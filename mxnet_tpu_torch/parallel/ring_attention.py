@@ -4,18 +4,19 @@
 Sequences shard over a mesh axis (``seq``; ``batch_axis`` adds a
 data-parallel split of the batch, dp x sp) and attention runs either as
 
-- :func:`ring_attention`: K/V blocks rotate around the axis's ring (a
-  P2P exchange with the next and previous ranks, ``batch_isend_irecv``)
-  while each rank streams an online-softmax accumulation over them, or
+- :func:`ring_attention`: K/V blocks rotate around the axis's ring
+  (:func:`~.dist.ppermute`: one ``all_to_all_single`` with uneven
+  splits) while each rank streams an online-softmax accumulation
+  over them, or
 - :func:`ulysses_attention`: an all-to-all re-shards seq -> heads, each
   rank runs full-sequence attention on its heads, and a second
   all-to-all shards back.
 
-Both are exact and differentiable: the rotation is an autograd function
-whose backward rotates the other way (the transpose of the reference's
-``ppermute``), and the all-to-all is ``torch.distributed.nn``'s, whose
-backward is the inverse exchange.  They are plain PyTorch math, as the
-reference's are plain ``jnp``: no kernel of the port runs in them.
+Both are exact and differentiable: the rotation is the reference's
+``ppermute``, whose backward rotates the other way, and the all-to-all
+is ``torch.distributed.nn``'s, whose backward is the inverse exchange.
+They are plain PyTorch math, as the reference's are plain ``jnp``: no
+kernel of the port runs in them.
 Their inputs are DTensors (placed as the spec says, or redistributed
 to it) or full tensors every rank holds (each rank keeps its block);
 the result is a DTensor placed on ``(batch_axis, None, axis_name,
@@ -31,6 +32,8 @@ import os
 import warnings
 
 import torch
+
+from . import dist as _dist
 
 __all__ = ["full_attention", "attention", "ring_attention",
            "ulysses_attention"]
@@ -63,38 +66,6 @@ def _group_layout(group):
 
     ranks = td.get_process_group_ranks(group)
     return ranks.index(td.get_rank()), ranks
-
-
-def _send_recv(x, group, shift):
-    """Send ``x`` to the rank ``shift`` places on in ``group``'s ring and
-    receive the block of the rank ``shift`` places back."""
-    import torch.distributed as td
-
-    me, ranks = _group_layout(group)
-    n = len(ranks)
-    if n == 1:
-        return x.clone()
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [td.P2POp(td.isend, x, ranks[(me + shift) % n], group),
-           td.P2POp(td.irecv, out, ranks[(me - shift) % n], group)]
-    for work in td.batch_isend_irecv(ops):
-        work.wait()
-    return out
-
-
-class _Rotate(torch.autograd.Function):
-    """The ring step: a block moves one rank on; its gradient moves one
-    rank back (the reference's ``ppermute`` and its transpose)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _send_recv(x, group, 1)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _send_recv(grad, ctx.group, -1), None
 
 
 def _placed(x, sharding):
@@ -154,7 +125,8 @@ def ring_attention(q, k, v, mesh, axis_name: str = "seq",
                     if causal else None)
             m, l, o = _stream_block(q, kv[0], kv[1], m, l, o, scale, mask)
             if step + 1 < n:              # pass K/V to the next rank
-                kv = _Rotate.apply(kv, group)
+                kv = _dist.ppermute(kv, group,
+                                    [(i, (i + 1) % n) for i in range(n)])
         return o / l.clamp_min(1e-20)[..., None]
 
     return _seq_parallel(local_fn, q, k, v, mesh, axis_name, batch_axis)

@@ -249,3 +249,408 @@ def seq_scenarios(rank, cases):
         out[case["name"]] = {"out": _np(o.detach()),
                              "grads": [_np(x.grad) for x in leaves]}
     return out
+
+
+# ------------------------------------------ pipeline and expert parallel
+def _stage_fn(params, x, stage):
+    """``tests/test_pipeline_moe.py:_stage_fn``."""
+    import torch
+
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def _tblock(p, h):
+    """``tests/test_pipeline_moe.py:_tblock``: the pre-LN block with a
+    packed q|k|v (``x @ W.T``), 2 heads, a -1e9 causal mask."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+
+    mb, T, D = h.shape
+    H, dh = 2, D // 2
+    x = cs.lm_layer_norm(h, p["ln1_g"], p["ln1_b"])
+    q, k, v = (x @ p["qkv_w"].T + p["qkv_b"]).chunk(3, dim=-1)
+
+    def sh(a):
+        return a.reshape(mb, T, H, dh).transpose(1, 2)
+
+    q, k, v = sh(q), sh(k), sh(v)
+    scores = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+    mask = torch.ones((T, T), dtype=torch.bool, device=h.device).tril()
+    scores = torch.where(mask, scores, -1e9)
+    att = (torch.softmax(scores, -1) @ v).transpose(1, 2).reshape(mb, T, D)
+    h = h + att @ p["proj_w"].T + p["proj_b"]
+    x = cs.lm_layer_norm(h, p["ln2_g"], p["ln2_b"])
+    f = torch.nn.functional.gelu(x @ p["fi_w"].T + p["fi_b"],
+                                 approximate="tanh")
+    return h + f @ p["fo_w"].T + p["fo_b"]
+
+
+def _lm_stage_fns(S):
+    """The stage functions of ``tests/test_pipeline_moe.py:_lm_stages``."""
+    import chip_smoke as cs
+
+    def trunk(p, h):
+        for i in range(next(iter(p.values())).shape[0]):
+            h = _tblock({k: v[i] for k, v in p.items()}, h)
+        return h
+
+    fns = []
+    for s in range(S):
+        if s == 0:
+            fns.append(lambda p, ids: trunk(p["blocks"],
+                                            p["embed"][ids.long()]))
+        elif s == S - 1:
+            fns.append(lambda p, h: cs.lm_layer_norm(
+                trunk(p["blocks"], h), p["lnf_g"], p["lnf_b"]) @ p["head"])
+        else:
+            fns.append(lambda p, h: trunk(p["blocks"], h))
+    return fns
+
+
+def _stage_fns(case):
+    import torch
+
+    import chip_smoke as cs
+
+    kind = case["fns"]
+    if kind == "lm":
+        return _lm_stage_fns(case["S"])
+    if kind == "funnel":
+        return [lambda p, x, i=i: torch.tanh(x @ p[f"w{i}"])
+                for i in range(case["S"])]
+    if kind == "free_first":
+        return [lambda p, x: torch.tanh(x)] + [
+            lambda p, x, i=i: torch.tanh(x @ p[f"w{i}"])
+            for i in range(1, case["S"])]
+    # train_pp's own stages: the structure from a throwaway generator
+    gen = torch.Generator().manual_seed(0)
+    return cs.pp_make_stages(gen, case["S"], 1, case["D"], case["vocab"],
+                             case["heads"])[0]
+
+
+def _loss_fn(name):
+    import torch
+
+    from mxnet_tpu_torch.ops.loss import token_nll
+
+    if name == "mse":
+        return lambda y, t: torch.mean((y - t) ** 2)
+    return token_nll
+
+
+def _paths_np(tree):
+    """{keystr path: numpy} of a tree of tensors."""
+    from torch.utils import _pytree as pytree
+
+    return {pytree.keystr(p): _np(v)
+            for p, v in pytree.tree_flatten_with_path(tree)[0]}
+
+
+def pipe_scenarios(rank, cases):
+    """The cases of ``tests/test_torch_pipeline.py`` over the meshes they
+    name; each result holds full values (gathered: gloo on the CPU)."""
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.parallel import dist as tdist
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.parallel import pipeline as tpp
+
+    def t(a):
+        return convert.from_jax_tree(a, device="cpu")
+
+    out = {}
+    meshes = {}
+    for case in cases:
+        key = (tuple(case["mesh"]), tuple(case["axes"]))
+        if key not in meshes:
+            meshes[key] = tmesh.create_mesh(case["mesh"], case["axes"],
+                                            device="cpu")
+        mesh = meshes[key]
+        kind = case["kind"]
+        res = {}
+        if kind == "ppermute_world1":
+            x = torch.ones(3)
+            res["identity"] = tdist.ppermute(
+                x, mesh.get_group("pipe"), [(0, 0)]) is x
+        elif kind == "ppermute":
+            group = mesh.get_group("pipe")
+            me = mesh.coordinate("pipe")
+            x = torch.from_numpy(case["x"][me]).requires_grad_(True)
+            y = tdist.ppermute(x, group, case["perm"])
+            (y * torch.from_numpy(case["w"][me])).sum().backward()
+            res = {"y": _gather_rows(y.detach(), mesh),
+                   "grad": _gather_rows(x.grad, mesh)}
+            try:
+                tdist.ppermute(x, group, [(0, 1), (1, 1)])
+            except ValueError as exc:
+                res["refusal"] = str(exc)
+        elif kind in ("apply", "apply_grads"):
+            stacked = tpp.shard_stacked(mesh, t(case["stacked"]))
+            for v in stacked.values():
+                v.requires_grad_(True)
+            xs = tpp.microbatch(t(case["x"]), case["n_micro"])
+            outs = tpp.pipeline_apply(_stage_fn, stacked, xs, mesh, "pipe")
+            res["out"] = _np(outs.detach())
+            if kind == "apply_grads":
+                w = case["x"].shape[1]
+                loss = torch.mean((outs.reshape(-1, w) - t(case["y"])) ** 2)
+                loss.backward()
+                res["loss"] = float(loss)
+                res["grads"] = {k: _np(v.grad) for k, v in stacked.items()}
+        elif kind == "tlm":
+            res = _tlm_case(case, mesh, t)
+        elif kind == "lstm":
+            params = t(case["params"])
+            params["trunk"] = tpp.shard_stacked(mesh, params["trunk"])
+            X, Y = t(case["X"]), t(case["Y"])
+            pipe_loss, seq_loss = cs.lstm_pp_make_losses(
+                mesh, case["n_micro"], X, Y, case["vocab"])
+            for name, fn in (("pipe", pipe_loss), ("seq", seq_loss)):
+                leaves = _grad_leaves(params)
+                loss = fn(params)
+                loss.backward()
+                res[name] = {"loss": float(loss),
+                             "grads": {k: _np(v.grad) for k, v in
+                                       leaves.items()}}
+                for v in leaves.values():
+                    v.grad = None
+        elif kind in ("1f1b", "apply_tree", "gpipe_vs_1f1b"):
+            fns = _stage_fns(case)
+            stacked, meta = tpp.union_stack(t(case["trees"]), mesh)
+            xs = t(case["xs"])
+            if kind == "apply_tree":
+                outs = tpp.pipeline_apply_tree(fns, stacked, meta, xs, mesh,
+                                               data_axis=case.get("data"))
+                res["outs"] = _np(outs)
+            else:
+                step = tpp.make_pipeline_train_step(
+                    fns, _loss_fn(case["loss"]), meta, mesh,
+                    data_axis=case.get("data"))
+                loss, grads = step(stacked, xs, t(case["ys"]))
+                res["loss"] = float(loss)
+                res["grads"] = [_paths_np(tree) for tree in
+                                tpp.union_unstack(grads, meta)]
+                res["placements"] = str(tuple(
+                    next(iter(grads.values())).placements))
+                if case["fns"] == "lm":
+                    trees = t(case["trees"])
+                    leaves = [_grad_leaves(tree) for tree in trees]
+                    dense = cs.pp_dense_loss(fns, trees, xs, t(case["ys"]))
+                    dense.backward()
+                    res["dense_loss"] = float(dense)
+                    res["dense_grads"] = [{k: _np(v.grad) for k, v in
+                                           lv.items()} for lv in leaves]
+                if kind == "gpipe_vs_1f1b":
+                    res["gpipe_loss"] = float(cs.pp_gpipe_loss(
+                        fns, stacked, meta, xs, t(case["ys"]), mesh))
+        elif kind == "free_first":
+            fns = _stage_fns(case)
+            stacked, meta = tpp.union_stack(t(case["trees"]), mesh)
+            xs, ys = t(case["xs"]), t(case["ys"])
+            for v in stacked.values():
+                v.requires_grad_(True)
+            outs = tpp.pipeline_apply_tree(fns, stacked, meta, xs, mesh)
+            torch.mean((outs - ys) ** 2).backward()
+            res["gpipe_grads"] = [_paths_np(tree) for tree in
+                                  tpp.union_unstack(
+                                      {k: v.grad for k, v in stacked.items()},
+                                      meta)]
+            loss, grads = tpp.make_pipeline_train_step(
+                fns, _loss_fn("mse"), meta, mesh)(stacked, xs, ys)
+            res["loss"] = float(loss)
+            res["grads"] = [_paths_np(tree) for tree in
+                            tpp.union_unstack(grads, meta)]
+        elif kind == "pp_example":
+            res = _pp_example(case, mesh, t)
+        out[case["name"]] = res
+    return out
+
+
+def _gather_rows(x, mesh):
+    """Every rank's ``x`` stacked in rank order (an all-gather on the
+    CPU)."""
+    import torch
+    import torch.distributed as td
+
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    td.all_gather(parts, x.contiguous())
+    return torch.stack(parts).numpy()
+
+
+def _grad_leaves(params):
+    """The floating leaves of a dict tree, made to require grad."""
+    from torch.utils import _pytree as pytree
+
+    leaves = {pytree.keystr(p): v for p, v in
+              pytree.tree_flatten_with_path(params)[0]}
+    for v in leaves.values():
+        v.requires_grad_(True)
+    return leaves
+
+
+def _tlm_case(case, mesh, t):
+    """``_pipelined_lm``: embed and head outside the pipeline, the 4-block
+    trunk through ``pipeline_apply``; the loss and gradients, or the
+    losses of ``steps`` SGD steps."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import pipeline as tpp
+
+    params = t(case["params"])
+    params["trunk"] = tpp.shard_stacked(mesh, params["trunk"])
+    X, Y = t(case["X"]), t(case["Y"])
+    T, D = X.shape[1], params["embed"].shape[1]
+    stage_fn = tpp.stacked_blocks_stage(_tblock)
+
+    def nll(logits):
+        lp = torch.log_softmax(logits, dim=-1)
+        return -lp.gather(-1, Y.reshape(-1, T).long()[..., None]).mean()
+
+    def pipe_loss(p):
+        h = p["embed"][X.long()]
+        out = tpp.pipeline_apply(stage_fn, p["trunk"],
+                                 tpp.microbatch(h, case["n_micro"]), mesh,
+                                 "pipe", remat=case["remat"])
+        return nll(out.reshape(-1, T, D) @ p["head"])
+
+    leaves = _grad_leaves(params)
+    if not case["steps"]:
+        loss = pipe_loss(params)
+        loss.backward()
+        return {"loss": float(loss),
+                "grads": {k: _np(v.grad) for k, v in leaves.items()}}
+    losses = []
+    for _ in range(case["steps"]):
+        loss = pipe_loss(params)
+        loss.backward()
+        losses.append(float(loss))
+        with torch.no_grad():
+            for v in leaves.values():
+                v.sub_(0.2 * v.grad)
+                v.grad = None
+    return {"losses": losses}
+
+
+def _pp_example(case, mesh, t):
+    """train_pp.py's loop through the port: its stages with the given
+    trees, the 1F1B step over the case's mesh, SGD on the sharded
+    parameters; the losses."""
+    import torch
+
+    from mxnet_tpu_torch.ops.loss import token_nll
+    from mxnet_tpu_torch.parallel import pipeline as tpp
+
+    fns = _stage_fns(case)
+    stacked, meta = tpp.union_stack(t(case["trees"]), mesh)
+    step = tpp.make_pipeline_train_step(fns, token_nll, meta, mesh,
+                                        data_axis=case.get("data"))
+    xs, ys = t(case["xs"]), t(case["ys"])
+    losses = []
+    for _ in range(case["steps"]):
+        loss, grads = step(stacked, xs, ys)
+        with torch.no_grad():
+            stacked = {k: w - case["lr"] * grads[k]
+                       for k, w in stacked.items()}
+        losses.append(float(loss))
+    return {"losses": losses}
+
+
+def moe_scenarios(rank, cases):
+    """The cases of ``tests/test_torch_moe.py`` on an ``expert`` mesh of
+    the world's ranks; outputs gathered to full values."""
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.parallel import moe as tmoe
+
+    def t(a):
+        return convert.from_jax_tree(a, device="cpu")
+
+    mesh = tmesh.create_mesh((4,), ("expert",), device="cpu")
+    n = mesh.shape["expert"]
+    out = {}
+    for case in cases:
+        kind = case["kind"]
+        res = {}
+        if kind == "ffn":
+            x = t(case["x"])
+            y, aux = tmoe.moe_ffn(t(case["params"]), x, mesh, "expert",
+                                  capacity_factor=case["cf"],
+                                  top_k=case["top_k"])
+            res = {"y": _np(y), "aux": float(aux)}
+            if case.get("routing"):
+                xs = tmoe._local(x, tmesh.NamedSharding(mesh, ("expert",
+                                                              None)))
+                p = t(case["params"])
+                probs = torch.softmax(
+                    torch.matmul(*tmoe._promoted(xs, p["gate_w"])), -1)
+                nt = xs.shape[0]
+                cap = max(1, int(case["cf"] * case["top_k"] * nt / n))
+                _, pos, keep, _, _ = tmoe.route(probs, case["top_k"], cap,
+                                                xs.dtype)
+                res["slots"] = _gather_rows(pos, mesh)
+                res["keep"] = _gather_rows(keep, mesh)
+        elif kind == "train":
+            res = _moe_train(case, mesh, t)
+        elif kind == "lm":
+            params = cs.moe_place(t(case["params"]), mesh)
+            X, Y = t(case["X"]), t(case["Y"])
+            nlls, auxes = [], []
+            for _ in range(case["steps"]):
+                nll, aux = cs.moe_sgd_step(params, X, Y, case["heads"], mesh,
+                                           case["top_k"], case["lr"],
+                                           case["aux_weight"])
+                nlls.append(float(nll))
+                auxes.append(float(aux))
+            res = {"nll": nlls, "aux": auxes}
+        out[case["name"]] = res
+    return out
+
+
+def _moe_train(case, mesh, t):
+    """``test_moe_trains``: mean((y - tgt)^2) + 0.01 aux over all tokens,
+    each rank backpropagating its share (its mean over the ranks' count)
+    and the replicated gate's gradient summed over the axis; ``steps``
+    SGD steps at lr 0.3; the losses and the first step's gradients."""
+    import torch
+    import torch.distributed as td
+
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.parallel import moe as tmoe
+
+    n = mesh.shape["expert"]
+    sh = tmesh.NamedSharding(mesh, ("expert", None, None))
+    p = t(case["params"])
+    params = {"gate_w": p["gate_w"].requires_grad_(True)}
+    for k in ("w_in", "w_out"):
+        params[k] = tmesh.from_block(tmesh.narrow_local(p[k], sh).clone(),
+                                     mesh.device_mesh, sh.placements,
+                                     p[k].shape).requires_grad_(True)
+    x = t(case["x"])
+    tgt = tmoe._local(t(case["tgt"]), tmesh.NamedSharding(mesh, ("expert",
+                                                                 None)))
+    losses, first = [], None
+    for i in range(case["steps"]):
+        y, aux = tmoe.moe_ffn(params, x, mesh, "expert",
+                              top_k=case["top_k"])
+        mse = torch.mean((y.to_local() - tgt) ** 2)
+        ((mse + 0.01 * aux) / n).backward()
+        td.all_reduce(params["gate_w"].grad, group=mesh.get_group("expert"))
+        tot = mse.detach().clone()
+        td.all_reduce(tot, group=mesh.get_group("expert"))
+        losses.append(float(tot / n + 0.01 * aux))
+        if i == 0:
+            first = {k: _np(v.grad) for k, v in params.items()}
+        with torch.no_grad():
+            for v in params.values():
+                assert torch.isfinite(tmesh.full_value(v.grad)).all()
+                v.sub_(0.3 * v.grad)
+                v.grad = None
+    return {"losses": losses, "grads": first}
