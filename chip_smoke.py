@@ -485,6 +485,31 @@ hand-written CUDA kernel
    kernels on step 1's q, k, v against fp64 attention; (d) bf16
    routing, kept tokens back
    and dropped ones 0 (``launches_pipeline_moe``).
+47. ``Module`` and ``KVStore`` across ranks (``phase_collective``, right
+   after phase 46; (a)'s ranks import beside phase 45): (a) phase 40's
+   workers, seeds, batches and SGD (``DIST_WORKER``, ResNet-50 b32 a rank,
+   fp32) launched ``-n 2 -s 0``, so ``kv.create("dist_sync")`` is the
+   collective store over two ranks sharing the card (gloo), in one world
+   that trains with ``MXTPU_SHARD_UPDATE=0`` then ``=1`` from the same
+   seeds, ``DIST_STEPS`` steps each: both ranks' weights equal after every
+   step, the two runs equal to the
+   bit, the weights after steps 1 and ``DIST_STEPS`` held to phase 40's
+   parameter-server weights (bit-equal, or within ``COLL_SPREAD`` times
+   the fp32 oracle's distance from an fp64 oracle), host syncs a batch 0,
+   optimizer state a rank half the replicated run's; step ms, the
+   collectives' MB a step, rank 0's idle share, peak memory; (b) one
+   process, ``Module`` over ``[gpu(0)]`` through ``dist_sync`` (the
+   collective store at world 1) against ``device``, 3 steps bit-equal;
+   (c) phase 45 (b)'s (2, 1) pair trains again under ``MXTPU_SENTINEL``
+   with a fused CrossEntropy (after its run with the sentinel off): the
+   metric's count over the global batch exactly, its value against the
+   run's own per-step losses and one process's, each step's sentinel
+   norm against one process, the flash kernels' launches a rank; (d)
+   ``group2ctx`` on ``lstm_ptb.py``'s graph with every group on
+   ``gpu(0)`` against the graph without groups, bit-equal, and a graph
+   split between ``gpu(0)`` and ``cpu()`` against it unsplit, bit-equal
+   (``launches_dp``).  Before the kernels line, a table of every phase's
+   wall.
 
 Any failure raises and exits nonzero.  The second-to-last lines are the
 ``{"kernels": [...]}`` record and the ``nvidia-smi`` name/power line;
@@ -9135,7 +9160,12 @@ DIST_TIMEOUT_S = 600
 DIST_WORKER = r"""
 # A worker of chip_smoke.py's phases 40-41, or, under MXTPU_ROLE=server,
 # a parameter server: the server serves inside `import mxnet_tpu_torch`
-# and exits there, before this script could touch the card.
+# and exits there, before this script could touch the card.  Launched
+# without servers (-s 0, phase 47 (a)) it trains through the collective
+# dist_sync once for each MXTPU_SHARD_UPDATE of DIST_SHARDS, and also
+# counts its host syncs a batch, its optimizer state bytes, its peak
+# memory, the collectives' bytes and its device busy time over the
+# timed steps.
 import json, os, sys, time
 T_START = time.time()
 RANK = int(os.environ.get("MXTPU_RANK", "-1"))         # servers have none
@@ -9152,132 +9182,208 @@ from mxnet_tpu_torch import kvstore_server
 from mxnet_tpu_torch.models import resnet
 
 OUT = os.environ["DIST_OUT"]
-TAG = "%s%d%s" % (MODE, RANK, "r" if RECOVERED else "")
+COLLECTIVE = not os.environ.get("MXTPU_PS_SERVERS")
+# phase 47 starts its world ahead of its turn: the ranks bind, initialise
+# and meet, then train once the go file exists
+GO = os.environ.get("DIST_GO")
 torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.benchmark = False
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-mx.random.seed(RANK)              # each worker initialises differently
-
-
-def save(name, tensors):
-    np.savez(os.path.join(OUT, name + "_" + TAG + ".npz"),
-             **{k: v.detach().contiguous().cpu().numpy()
-                for k, v in tensors.items()})
-
-
 steps = cs.DIST_STEPS if MODE == "sync" else cs.DIST_ASYNC_STEPS
 batches = cs._dist_shard(RANK, steps if MODE == "sync"
                          else cs.DIST_ASYNC_BATCHES)
-it = cs._resident_iter(batches, steps)
 net = resnet.get_symbol(num_classes=1000, num_layers=50,
                         image_shape=(3, 224, 224))
-mod = mx.mod.Module(net, context=mx.gpu(0))
-mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
-mod.init_params(initializer=mx.init.Xavier())
-ex = mod._exec_group.execs[0]
-names = list(mod._param_names)
-weights = [ex.arg_dict[n] for n in names]
-local = cs._bits_digest(weights)
-cs._kernel_launches(reset=True)
-mod.init_optimizer(kvstore="dist_" + MODE, optimizer="sgd",
-                   optimizer_params=cs.DIST_OPT)
-kv = mod._kvstore
-res = {"rank": RANK, "recovered": RECOVERED, "t_start": T_START,
-       "t_ready": time.time(), "num_workers": kv.num_workers,
-       "rescale_grad": mod._optimizer.rescale_grad}
-if MODE == "sync" and RANK == 0:
-    with open(os.path.join(OUT, "optimizer.bin"), "wb") as f:
-        f.write(kvstore_server.dumps_host(mod._optimizer))
-digests, losses, comm, t_in, t_out, walls = [], [], [], [], [], []
-dead = {"max": 0, "t": None}
-if MODE == "async" and RANK == 0:
-    import threading
-
-    def watch():
-        # worker 1 dies mid-run: its heartbeats stop and the servers say
-        # so until its restart beats again
-        while dead["max"] < 1:
-            n = kv.get_num_dead_node(0, timeout=cs.DIST_DEAD_TIMEOUT_S)
-            if n > dead["max"]:
-                dead["max"], dead["t"] = n, time.time()
-            time.sleep(0.25)
-
-    threading.Thread(target=watch, daemon=True).start()
 
 
-def cb(param):
-    t_in.append(time.perf_counter())
-    walls.append(time.time())
-    n = param.nbatch
-    # the weights here are those after step n: a step's pulls land at
-    # the next forward (or the next parameter read)
+def run(TAG):
+    def save(name, tensors):
+        np.savez(os.path.join(OUT, name + "_" + TAG + ".npz"),
+                 **{k: v.detach().contiguous().cpu().numpy()
+                    for k, v in tensors.items()})
+
+    mx.random.seed(RANK)          # each worker initialises differently
+    it = cs._resident_iter(batches, steps)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    ex = mod._exec_group.execs[0]
+    names = list(mod._param_names)
+    weights = [ex.arg_dict[n] for n in names]
+    local = cs._bits_digest(weights)
+    cs._kernel_launches(reset=True)
+    mod.init_optimizer(kvstore="dist_" + MODE, optimizer="sgd",
+                       optimizer_params=cs.DIST_OPT)
+    kv = mod._kvstore
+    t_ready = time.time()
+    while GO and not os.path.exists(GO):
+        time.sleep(0.05)
+    res = {"rank": RANK, "recovered": RECOVERED, "t_start": T_START,
+           "t_ready": t_ready, "t_go": time.time(),
+           "num_workers": kv.num_workers,
+           "rescale_grad": mod._optimizer.rescale_grad,
+           "collective": kv.collective}
+    sync, step_syncs, base, prof = None, [], [0], {}
+    if COLLECTIVE:
+        from mxnet_tpu_torch import telemetry
+        telemetry.reset()
+        telemetry.enable()
+        sync = cs._SyncCounter()
+    if MODE == "sync" and RANK == 0:
+        with open(os.path.join(OUT, "optimizer.bin"), "wb") as f:
+            f.write(kvstore_server.dumps_host(mod._optimizer))
+    digests, losses, comm, t_in, t_out, walls = [], [], [], [], [], []
+    dead = {"max": 0, "t": None}
+    if MODE == "async" and RANK == 0:
+        import threading
+
+        def watch():
+            # worker 1 dies mid-run: its heartbeats stop and the servers
+            # say so until its restart beats again
+            while dead["max"] < 1:
+                n = kv.get_num_dead_node(0, timeout=cs.DIST_DEAD_TIMEOUT_S)
+                if n > dead["max"]:
+                    dead["max"], dead["t"] = n, time.time()
+                time.sleep(0.25)
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    def cb(param):
+        t_in.append(time.perf_counter())
+        walls.append(time.time())
+        n = param.nbatch
+        if sync is not None:
+            # the step's own syncs (this callback's reads come after)
+            step_syncs.append(sync.total() - base[0])
+            if RANK == 0 and n == steps - 1 and "p" in prof:
+                torch.cuda.synchronize()
+                prof["wall"] = time.perf_counter() - prof["t0"]
+                prof["p"].__exit__(None, None, None)
+        # the weights here are those after step n: a step's pulls land at
+        # the next forward (or the next parameter read)
+        digests.append(cs._bits_digest(weights))
+        p = ex.outputs[0]
+        y = batches[n % len(batches)][1].long()
+        losses.append(-p[torch.arange(len(y), device=p.device), y]
+                      .clamp_min(1e-30).log().mean())
+        # a parameter server's pulls land at the next forward: here the
+        # weights lag one step; the collective store's are this step's
+        lag = 0 if COLLECTIVE else 1
+        if MODE == "sync" and n == 0:
+            if not COLLECTIVE:
+                save("w0", dict(zip(names, weights)))
+            save("g1", {k: ex.grad_dict[k] for k in names})
+        if MODE == "sync" and n == lag:
+            save("w1", dict(zip(names, weights)))
+        comm.append(kv.comm_stats())
+        with open(os.path.join(OUT, "steps_" + TAG + ".jsonl"), "a") as f:
+            f.write(json.dumps({"step": n + 1, "t": walls[-1]}) + "\n")
+        if sync is not None:
+            if RANK == 0 and n == cs.DIST_TIMED_FROM - 1:
+                # rank 0's kernels over the timed steps: its busy time
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+                prof["t0"] = time.perf_counter()
+            base[0] = sync.total()
+        t_out.append(time.perf_counter())
+
+    if sync is None:
+        mod.fit(it, num_epoch=1, batch_end_callback=cb)
+    else:
+        save("w0", dict(zip(names, weights)))     # worker 0's, broadcast
+        torch.cuda.reset_peak_memory_stats()
+        with sync:
+            mod.fit(it, num_epoch=1, batch_end_callback=cb)
+        eng = kv._fused
+        reg = telemetry.get_registry()
+        res.update({
+            "step_syncs": step_syncs, "window_waits": len(sync.waits),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "state_bytes": eng.optimizer_state_bytes(),
+            "shard_n": sorted({b.shard_n for b in eng._buckets}),
+            "buckets": len(eng._buckets),
+            "allreduce_bytes": reg.get("dist_allreduce_bytes_total").value(),
+            "collective_bytes": {
+                op: reg.get("executor_collective_bytes_total").value(op=op)
+                for op in ("grad_allreduce", "kv_grad_shard",
+                           "kv_param_allgather")}})
+        if "wall" in prof:
+            n_timed = steps - cs.DIST_TIMED_FROM
+            kernel_ms, busy_ms = cs._kernel_busy(prof["p"], n_timed)
+            res["profile"] = {"kernel_ms": kernel_ms, "busy_ms": busy_ms,
+                              "wall_ms": prof["wall"] * 1e3 / n_timed}
+    mod.get_params()                   # lands the last step's pulls
     digests.append(cs._bits_digest(weights))
-    p = ex.outputs[0]
-    y = batches[n % len(batches)][1].long()
-    losses.append(-p[torch.arange(len(y), device=p.device), y]
-                  .clamp_min(1e-30).log().mean())
-    if MODE == "sync" and n == 0:
-        save("w0", dict(zip(names, weights)))
-        save("g1", {k: ex.grad_dict[k] for k in names})
-    if MODE == "sync" and n == 1:
-        save("w1", dict(zip(names, weights)))
-    comm.append(kv.comm_stats())
-    with open(os.path.join(OUT, "steps_" + TAG + ".jsonl"), "a") as f:
-        f.write(json.dumps({"step": n + 1, "t": walls[-1]}) + "\n")
-    t_out.append(time.perf_counter())
-
-
-mod.fit(it, num_epoch=1, batch_end_callback=cb)
-mod.get_params()                   # lands the last step's pulls
-digests.append(cs._bits_digest(weights))
-res["launches"] = cs._kernel_launches()
-res["digests"] = [str(int(d)) for d in digests]
-res["local_digest"] = str(int(local))
-res["losses"] = [float(v) for v in losses]
-res["comm"] = comm
-res["t_in"], res["t_out"], res["walls"] = t_in, t_out, walls
-if MODE == "sync":
-    save("w%d" % steps, dict(zip(names, weights)))
-if MODE == "async" and RANK == 0:
-    deadline = time.monotonic() + 180
-    while time.monotonic() < deadline and dead["max"] < 1:
-        time.sleep(0.25)
-    res["dead_seen"], res["t_dead_seen"] = dead["max"], dead["t"]
-kv.barrier()                       # both workers are members here
-if RANK == 0:
-    import urllib.request
-    addr = os.environ["MXTPU_COORD_ADDR"]
-    for path in ("cluster", "fleet"):
-        with urllib.request.urlopen("http://%s/%s" % (addr, path),
-                                    timeout=30) as r:
-            with open(os.path.join(OUT, path + "_" + TAG + ".json"),
-                      "wb") as f:
-                f.write(r.read())
-if MODE == "sync":
-    # bench.py's PS micro shape on the same store and servers
-    shape, ctx = cs.DIST_MICRO_SHAPE, mx.gpu(0)
-    keys = list(range(1000, 1000 + cs.DIST_MICRO_KEYS))
-    kv.init(keys, [mx.nd.ones(shape, ctx=ctx) for _ in keys])
-    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.01,
-                                         rescale_grad=1.0))
-    grads = [[mx.nd.ones(shape, ctx=ctx)] for _ in keys]
-    outs = [mx.nd.zeros(shape, ctx=ctx) for _ in keys]
-    kv.push(keys, grads)
-    kv.pull(keys, outs)
-    kv.barrier()
-    tic = time.perf_counter()
-    for _ in range(cs.DIST_MICRO_ROUNDS):
+    res["launches"] = cs._kernel_launches()
+    res["digests"] = [str(int(d)) for d in digests]
+    res["local_digest"] = str(int(local))
+    res["losses"] = [float(v) for v in losses]
+    res["comm"] = comm
+    res["t_in"], res["t_out"], res["walls"] = t_in, t_out, walls
+    if MODE == "sync":
+        save("w%d" % steps, dict(zip(names, weights)))
+    if MODE == "async" and RANK == 0:
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline and dead["max"] < 1:
+            time.sleep(0.25)
+        res["dead_seen"], res["t_dead_seen"] = dead["max"], dead["t"]
+    kv.barrier()                       # both workers are members here
+    if RANK == 0 and os.environ.get("MXTPU_COORD_ADDR"):
+        import urllib.request
+        addr = os.environ["MXTPU_COORD_ADDR"]
+        for path in ("cluster", "fleet"):
+            with urllib.request.urlopen("http://%s/%s" % (addr, path),
+                                        timeout=30) as r:
+                with open(os.path.join(OUT, path + "_" + TAG + ".json"),
+                          "wb") as f:
+                    f.write(r.read())
+    if MODE == "sync" and not COLLECTIVE:
+        # bench.py's PS micro shape on the same store and servers
+        shape, ctx = cs.DIST_MICRO_SHAPE, mx.gpu(0)
+        keys = list(range(1000, 1000 + cs.DIST_MICRO_KEYS))
+        kv.init(keys, [mx.nd.ones(shape, ctx=ctx) for _ in keys])
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.01,
+                                             rescale_grad=1.0))
+        grads = [[mx.nd.ones(shape, ctx=ctx)] for _ in keys]
+        outs = [mx.nd.zeros(shape, ctx=ctx) for _ in keys]
         kv.push(keys, grads)
         kv.pull(keys, outs)
-    kv.wait_pulls()
-    torch.cuda.synchronize()
-    res["ps_micro_us"] = ((time.perf_counter() - tic)
-                          / cs.DIST_MICRO_ROUNDS * 1e6)
-    kv.barrier()
-res["comm_end"] = kv.comm_stats()
-with open(os.path.join(OUT, "result_" + TAG + ".json"), "w") as f:
-    json.dump(res, f)
+        kv.barrier()
+        tic = time.perf_counter()
+        for _ in range(cs.DIST_MICRO_ROUNDS):
+            kv.push(keys, grads)
+            kv.pull(keys, outs)
+        kv.wait_pulls()
+        torch.cuda.synchronize()
+        res["ps_micro_us"] = ((time.perf_counter() - tic)
+                              / cs.DIST_MICRO_ROUNDS * 1e6)
+        kv.barrier()
+    res["comm_end"] = kv.comm_stats()
+    res["t_end"] = time.time()
+    with open(os.path.join(OUT, "result_" + TAG + ".json"), "w") as f:
+        json.dump(res, f)
+
+
+TAG = "%s%d%s" % (MODE, RANK, "r" if RECOVERED else "")
+if COLLECTIVE and os.environ.get("DIST_SHARDS"):
+    # one world, each MXTPU_SHARD_UPDATE in turn from the same seeds;
+    # the store reads the knob at its plan
+    import gc
+    for shard in os.environ["DIST_SHARDS"].split(","):
+        os.environ["MXTPU_SHARD_UPDATE"] = shard
+        run(TAG + "s" + shard)
+        GO = None
+        gc.collect()                   # the run's module and store
+        torch.cuda.empty_cache()
+    # the collectives on CUDA tensors, alone on the card
+    with open(os.path.join(OUT, "probe_%d.json" % RANK), "w") as f:
+        json.dump(cs._gloo_probe(RANK), f)
+else:
+    run(TAG)
 """
 
 
@@ -9398,7 +9504,8 @@ def _host_update(out, names):
 def _dist_reference(names, w0):
     """One process summing both shards' gradients each step, from worker
     0's initial weights ``w0``, through the Module's own updater with the
-    same SGD (rescale 1 / 64): its weights after ``DIST_STEPS`` steps."""
+    same SGD (rescale 1 / 64): ``{step: weights}`` after steps 1 and
+    ``DIST_STEPS``."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import resnet
 
@@ -9420,6 +9527,7 @@ def _dist_reference(names, w0):
                            optimizer_params=dict(
                                DIST_OPT, rescale_grad=1.0 / (2 * DIST_BATCH)))
         ex = mod._exec_group.execs[0]
+        out = {}
         for k in range(DIST_STEPS):
             mod.forward_backward(_batch(*shards[0][k]))
             g0 = {n: ex.grad_dict[n].clone() for n in names}
@@ -9427,8 +9535,10 @@ def _dist_reference(names, w0):
             for n in names:
                 ex.grad_dict[n].add_(g0[n])
             mod.update()
-        return {n: ex.arg_dict[n].detach().contiguous().cpu()
-                for n in names}
+            if k + 1 in (1, DIST_STEPS):
+                out[k + 1] = {n: ex.arg_dict[n].detach().contiguous().cpu()
+                              for n in names}
+        return out
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
             = flags
@@ -9436,7 +9546,10 @@ def _dist_reference(names, w0):
 
 def phase_dist_sync(smi):
     """Phase 40: ``dist_sync`` under the launcher, 2 workers x 2 servers
-    (see the module docstring); returns ``(result, launches)``."""
+    (see the module docstring); returns ``(result, launches, weights)``:
+    ``weights`` holds worker 0's weights at the start and after steps 1
+    and ``DIST_STEPS`` and the one-process fp32 oracle's, which phase 47
+    holds the collective store to."""
     from mxnet_tpu_torch import _native
     from mxnet_tpu_torch.parallel.coordinator import CoordinatorService
 
@@ -9480,11 +9593,13 @@ def phase_dist_sync(smi):
             raise AssertionError(f"dist_sync: step 1 against the host "
                                  f"update: {equal} of {len(order)} "
                                  f"parameters bit-equal, worst {worst:g}")
-        ref = _dist_reference(order, _npz(out, "w0_sync0"))
-        final = {n: torch.from_numpy(v) for n, v in
-                 _npz(out, f"w{DIST_STEPS}_sync0").items()}
-        emax, ename, emed = _rel_errs(final, ref)
-        del ref
+        refs = _dist_reference(order, _npz(out, "w0_sync0"))
+        ps_weights = {"order": order, "oracle32": refs}
+        for step in (0, 1, DIST_STEPS):
+            ps_weights[step] = {n: torch.from_numpy(v) for n, v in
+                                _npz(out, f"w{step}_sync0").items()}
+        emax, ename, emed = _rel_errs(ps_weights[DIST_STEPS],
+                                      refs[DIST_STEPS])
         gc.collect()
         torch.cuda.empty_cache()
         if emax > DIST_TOL[0] or emed > DIST_TOL[1]:
@@ -9575,7 +9690,7 @@ def phase_dist_sync(smi):
         f"push+pull rounds, 2 workers x 2 servers): "
         f"dist_step_us_per_step_ps {res[0]['ps_micro_us']:.1f}; {smi}")
     log(f"[dist_sync] {json.dumps(result)}")
-    return result, launches
+    return result, launches, ps_weights
 
 
 def phase_dist_async(smi):
@@ -10739,6 +10854,28 @@ ENTRY_WITNESS = {
         "phase_dist_sync", "one wait a key a step on the loop's thread "
         "(KVStoreDist.wait_pulls, the sanctioned boundary: its "
         "loop_waits)"),
+    "kvstore_fused.FusedUpdateEngine._step_bucket": (
+        "phase_collective", "(a) MXTPU_SHARD_UPDATE=0: one all-reduce a "
+        "bucket, 0 host syncs a batch on the loop's thread (_SyncCounter)"),
+    "kvstore_fused.FusedUpdateEngine._step_sharded": (
+        "phase_collective", "(a) MXTPU_SHARD_UPDATE=1: reduce-scatter, "
+        "the bucket's rule on the slice, all-gather, 0 host syncs a batch "
+        "(_SyncCounter)"),
+    "parallel.pipeline.make_pipeline_train_step.<locals>.step": (
+        "phase_pipeline_moe", "(a) the 1F1B steps, host syncs a step "
+        "counted (_SyncCounter)"),
+    "parallel.pipeline._GPipe.forward": (
+        "phase_pipeline_moe", "(b) a GPipe step with its backward, host "
+        "syncs counted (_SyncCounter)"),
+    "parallel.pipeline._GPipe.backward": (
+        "phase_pipeline_moe", "(b) a GPipe step with its backward, host "
+        "syncs counted (_SyncCounter)"),
+    "parallel.moe.moe_ffn": (
+        "phase_pipeline_moe", "(c) the MoE SGD steps, host syncs a step "
+        "counted (_SyncCounter)"),
+    "parallel.dist.exchange": (
+        "phase_pipeline_moe", "every 1F1B tick's exchange, inside (a)'s "
+        "counted steps"),
 }
 # entry points counted here (phase_port_lint): the tick at a reduced
 # depth, the checkpoint's capture, and the host-only calls that need no
@@ -11297,8 +11434,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import mxnet_tpu_torch  # noqa: F401
 import torch.distributed as td
-from mxnet_tpu_torch import convert
+from mxnet_tpu_torch import convert, metric, telemetry
 from mxnet_tpu_torch.models import transformer as tr
+from mxnet_tpu_torch.ndarray import NDArray
 from mxnet_tpu_torch.models.decode import KVDecoder
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.parallel import mesh as tmesh
@@ -11346,6 +11484,19 @@ rng = np.random.default_rng(0)
 data = rng.integers(0, V, (B, T)).astype(np.float32)
 label = rng.integers(0, V, (B, T)).astype(np.float32)
 STEPS = int(os.environ["MESH_STEPS"])
+# phase 47 (c): the mesh trains again with a fused CrossEntropy over the
+# global batch and the sentinel's flags and norm of each step
+# (MXTPU_SENTINEL, which the launch sets: the one-process run and this
+# second run read it, the mesh's first run has it off), parked unread
+LABEL_ROWS = NDArray(torch.from_numpy(label.reshape(-1)))
+METRIC = os.environ.get("MESH_METRIC") == "1"
+
+
+def sentinel_rows():
+    rows = [r["finite"].float().cpu().tolist()
+            for r in telemetry.health._pending]
+    telemetry.health._pending.clear()
+    return rows
 
 
 def local_nll(out, mesh):
@@ -11383,30 +11534,63 @@ def run_train():
         plain = trainer(None)
         lab = torch.from_numpy(label.reshape(-1)).long().cuda()
         losses = []
+        ce = metric.CrossEntropy()
+        sentinel_rows()
         for _ in range(STEPS):
-            o = plain.step(data=data, softmax_label=label)[0].float()
+            o = plain.step(data=data, softmax_label=label)[0]
+            if METRIC:
+                ce.update([LABEL_ROWS], [NDArray(o)])
+            o = o.float()
             losses.append(float(-torch.log(
                 o[torch.arange(B * T, device="cuda"), lab].double()
                 + 1e-30).mean()))
         res["plain_losses"] = losses
+        if METRIC:
+            res["plain_metric"] = ce.get()[1]
+            res["plain_sentinel"] = sentinel_rows()
         del plain, o
         torch.cuda.empty_cache()
     dump()
-    for shape in [tuple(json.loads(os.environ["MESH_SHAPE"]))]:
-        name = "%dx%d" % shape
+    shape = tuple(json.loads(os.environ["MESH_SHAPE"]))
+    mesh = tmesh.create_mesh(shape, ("data", "model"))
+    res["backend"] = td.get_backend()
+    sentinel = os.environ.pop("MXTPU_SENTINEL", None)
+    # phase 45 (b): the mesh's default step; phase 47 (c): again with the
+    # fused metric and the sentinel on
+    runs = [("%dx%d" % shape, False)]
+    if METRIC:
+        runs.append(("%dx%d_sentinel" % shape, True))
+    for name, measure in runs:
         res["running"] = name
-        mesh = tmesh.create_mesh(shape, ("data", "model"))
-        res["backend"] = td.get_backend()
+        if measure:
+            os.environ["MXTPU_SENTINEL"] = sentinel
         dump()
         t = trainer(mesh)
         fa.reset_launch_counts()
+        ce = metric.CrossEntropy()
+        sentinel_rows()
         t0 = time.perf_counter()
-        losses = [local_nll(t.step(data=data, softmax_label=label)[0], mesh)
-                  for _ in range(STEPS)]
+        losses = []
+        for _ in range(STEPS):
+            out = t.step(data=data, softmax_label=label)[0]
+            if measure:
+                ce.update([LABEL_ROWS], [NDArray(out)])
+            losses.append(local_nll(out, mesh))
         torch.cuda.synchronize()
-        res["mesh_runs"][name] = {
+        run = res["mesh_runs"][name] = {
             "losses": losses, "s": time.perf_counter() - t0,
             "launches": fa.launch_counts()}
+        if measure:
+            # the window's one drain (its all-reduce over the world)
+            telemetry.enable()
+            drains = telemetry.get_registry().get("metric_host_sync_total")
+            before = drains.value(metric=ce.name)
+            run["metric"] = ce.get()[1]
+            run["metric_drains"] = drains.value(metric=ce.name) - before
+            run["metric_num_inst"] = ce.num_inst
+            run["tokens"] = B * T * STEPS
+            run["metric_placements"] = str(tuple(out.placements))
+            run["sentinel"] = sentinel_rows()
         res["running"] = None
         dump()
         del t
@@ -11780,6 +11964,63 @@ def _mesh_world1(smi):
     return out, launches
 
 
+# (c): the fused CrossEntropy against its own run's per-step losses (the
+# mean NLL from the same outputs, fp64 on the host): the window sums each
+# rank's step in the prediction's dtype (bf16, as the reference's fused
+# delta does), one rounding of at most 2^-9 relative, and each bf16 log
+# another (unbiased, averaging out), so 2^-8 relative
+COLL_METRIC_OWN_TOL = 2.0 ** -8
+
+
+def _mesh_metric_sentinel(pair):
+    """Phase 47 (c) from the (2, 1) pair of phase 45 (b), whose mesh
+    trains a second time with the sentinel and the metric on: the fused
+    CrossEntropy over the global batch of the 3 steps counts every token
+    of the global batch on each rank, exactly, and is held to the run's
+    own per-step losses (``COLL_METRIC_OWN_TOL``); the metric and the
+    sentinel's flags and norm of each step, each rank's against rank 0's
+    one-process run, are held to ``MESH_GLOO_TOL["loss"]`` relative (the
+    bf16 products' rounding, as the losses); the metric read once a
+    rank; the flash kernels' launches a rank."""
+    r0 = pair[0][0]
+    runs = [r["mesh_runs"]["2x1_sentinel"] for r, _, _ in pair]
+    plain_m, plain_s = r0["plain_metric"], r0["plain_sentinel"]
+    tol = MESH_GLOO_TOL["loss"]
+    out = {"metric_plain": plain_m, "metric_mesh": runs[0]["metric"],
+           "num_inst": [run["metric_num_inst"] for run in runs],
+           "tokens": runs[0]["tokens"],
+           "metric_own": [sum(run["losses"]) / len(run["losses"])
+                          for run in runs],
+           "norms_plain": [row[-1] for row in plain_s],
+           "norms_mesh": [row[-1] for row in runs[0]["sentinel"]],
+           "metric_drains": [run["metric_drains"] for run in runs],
+           "placements": runs[0]["metric_placements"],
+           "launches_by_rank": [run["launches"] for run in runs],
+           "launches": {k: sum(run["launches"][k] for run in runs)
+                        for k in runs[0]["launches"]}}
+    out["metric_rel"] = max(abs(run["metric"] - plain_m) / plain_m
+                            for run in runs)
+    out["metric_own_rel"] = max(abs(run["metric"] - own) / own for run, own
+                                in zip(runs, out["metric_own"]))
+    rel = [abs(a[-1] - b[-1]) / b[-1] for run in runs
+           for a, b in zip(run["sentinel"], plain_s)]
+    out["norm_rel"] = max(rel) if rel else math.inf
+    flags_equal = all(a[:-1] == b[:-1] and all(a[:-1]) for run in runs
+                      for a, b in zip(run["sentinel"], plain_s))
+    if (len(plain_s) != MESH_STEPS
+            or any(len(run["sentinel"]) != MESH_STEPS for run in runs)
+            or not flags_equal or out["norm_rel"] > tol
+            or out["metric_rel"] > tol
+            or out["metric_own_rel"] > COLL_METRIC_OWN_TOL
+            or any(n != out["tokens"] for n in out["num_inst"])
+            or any(d != 1 for d in out["metric_drains"])):
+        raise AssertionError(f"collective (c): the metric and the sentinel "
+                             f"over the (2, 1) mesh: {out}; the sentinel's "
+                             f"rows {[run['sentinel'] for run in runs]} vs "
+                             f"{plain_s}")
+    return out
+
+
 def phase_mesh(smi):
     """Phase 45: the device mesh.  (a) world 1 over NCCL at full width;
     (b) two ranks sharing the card over gloo; (c) NCCL's refusal of two
@@ -11808,9 +12049,13 @@ def phase_mesh(smi):
         for d in dirs.values():
             os.makedirs(d)
         ports = _free_ports(3)
+        # the (2, 1) pair is also phase 47 (c): its mesh trains a second
+        # time with the fused metric and the sentinel on, against one
+        # process
         procs["2x1"] = _mesh_start("gloo_train", dirs["2x1"], dict(
             env, MESH_SHAPE="[2, 1]", MESH_PLAIN="1", MESH_SERVE="1",
-            MESH_GO=go["2x1"]), ports[0])
+            MESH_METRIC="1", MXTPU_SENTINEL="warn", MESH_GO=go["2x1"]),
+            ports[0])
         procs["1x2"] = _mesh_start("gloo_train", dirs["1x2"], dict(
             env, MESH_SHAPE="[1, 2]", MESH_GO=go["rest"]), ports[1])
         procs["nccl"] = _mesh_start("nccl", dirs["nccl"], {
@@ -11859,6 +12104,7 @@ def phase_mesh(smi):
                                      f"{run['launches']}")
         gl = tr_[0]
         gloo_s = time.perf_counter() - t0
+        coll = _mesh_metric_sentinel(gl)
         s0 = gl[0][0]
         if "ulysses_err" not in s0:
             raise AssertionError("mesh (b): the serving part did not run")
@@ -11925,7 +12171,8 @@ def phase_mesh(smi):
                        "bf16_ties": s0["bf16_ties"],
                        "ulysses_err": s0["ulysses_err"],
                        "ring_err": s0["ring_err"],
-                       "refused": refused, "s": gloo_s},
+                       "refused": refused, "s": gloo_s,
+                       "collective": coll},
               "nccl_refusal": {"error": errors[0], "warn": dup[:1]}}
     gl_launches = {k: sum(run["launches"].get(k, 0) for run in runs.values())
                    for k in launches}
@@ -12532,10 +12779,14 @@ def pp_train(mesh):
     losses, ms = [], []
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    syncs = []
     for i in range(cs.PP_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, grads = step(stacked, xs, ys)
+        # the step's host syncs (a tensor read or a synchronising call)
+        with cs._SyncCounter() as sc:
+            loss, grads = step(stacked, xs, ys)
+        syncs.append(sc.total())
         if i == 0:
             g_err = {}
             for k in meta.stage_keys[stage]:
@@ -12553,7 +12804,8 @@ def pp_train(mesh):
         "losses": losses, "oracle_losses": o_losses,
         "loss_rel_err": max(rel(a, b) for a, b in zip(losses, o_losses)),
         "grad_err": g_err, "worst_grad": max(g_err.values()),
-        "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "step_ms": ms, "syncs": syncs,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
         "base_bytes": base, "stage": stage,
         "tick_bytes": cs.PP_MB * T * D * 4,
         "ticks": M + 2 * 2 - 1, "exchanges": M + 2 * 2 - 2,
@@ -12586,8 +12838,11 @@ def pp_memory(mesh):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             if route == "gpipe":
-                loss = cs.pp_gpipe_loss(fns, stacked, meta, xs, ys, mesh)
-                loss.backward()
+                with cs._SyncCounter() as sc:
+                    loss = cs.pp_gpipe_loss(fns, stacked, meta, xs, ys,
+                                            mesh)
+                    loss.backward()
+                row["gpipe_syncs"] = sc.total()
                 for v in stacked.values():
                     v.grad = None
             else:
@@ -12634,10 +12889,12 @@ def moe_run(mesh):
         fa.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nll, aux, grads = [], [], {}
+        nll, aux, grads, syncs = [], [], {}, []
         for i in range(cs.MOE_STEPS):
-            a, b = cs.moe_sgd_step(placed, X, Y, H, mesh, k, cs.MOE_LR,
-                                   cs.MOE_AUX, grads if i == 0 else None)
+            with cs._SyncCounter() as sc:
+                a, b = cs.moe_sgd_step(placed, X, Y, H, mesh, k, cs.MOE_LR,
+                                       cs.MOE_AUX, grads if i == 0 else None)
+            syncs.append(sc.total())
             nll.append(float(a))
             aux.append(float(b))
         torch.cuda.synchronize()
@@ -12668,6 +12925,7 @@ def moe_run(mesh):
             g_err32[n] = float((o32["grads"][n].double() - ref).abs().max()
                                / top)
         out[k] = {"nll": nll, "aux": aux, "s": s, "launches": launches,
+                  "syncs": syncs,
                   "routing": routing, "cap": cap,
                   "a2a_bytes": 2 * cap * D * 4, "a2a_ms": a2a[1:],
                   "grad_err": g_err, "grad_err32": g_err32,
@@ -12981,6 +13239,15 @@ def phase_pipeline_moe(smi, procs, out_dir):
             + f"; capacity {m['cap']}, all-to-all {m['a2a_bytes']} bytes, "
             f"{m['a2a_ms']} ms; flash launches in each rank "
             f"{m['launches']}; {m['s']} s; {smi}")
+    log(f"[pipeline] host syncs a step on each rank's loop thread "
+        f"(rank 0 / rank 1; tensor reads and synchronising calls under "
+        f"set_sync_debug_mode('warn')): 1F1B {r0['pp']['syncs']} / "
+        f"{r1['pp']['syncs']}; a GPipe step with its backward "
+        + ", ".join(f"M {a['M']} {a['gpipe_syncs']} / {b['gpipe_syncs']}"
+                    for a, b in zip(r0["memory"], r1["memory"]))
+        + "; a MoE SGD step "
+        + ", ".join(f"top-{k} {r0['moe'][k]['syncs']} / "
+                    f"{r1['moe'][k]['syncs']}" for k in r0["moe"]))
     log(f"[moe] (c) the flash kernels (fp32) on step 1's q, k, v of each "
         f"layer against fp64 attention, largest error over the largest "
         f"magnitude of output, dQ, dK, dV: "
@@ -13008,6 +13275,630 @@ def phase_pipeline_moe(smi, procs, out_dir):
     record = {"pp": pp, "apply_tree": at, "memory": mem, "moe": moe,
               "moe_flash": moe_flash, "bf16": bf, "s": wall, "rank_s": [r0["s"], r1["s"]]}
     return record, launches
+
+
+# ------------------------------------------------------------ phase 47
+# Module and KVStore across ranks (ROADMAP Queue 1 item 10b, slice 3):
+# (a) phase 40's workers (DIST_WORKER: its seeds, batches and SGD)
+# launched with -s 0, so kv.create("dist_sync") is the collective store
+# over the two ranks sharing the card (gloo), once replicated
+# (MXTPU_SHARD_UPDATE=0) and once sharded (=1); (b) one process at world
+# 1 against the device store; (c) rides phase 45 (b)'s (2, 1) pair (a
+# second run of its mesh with the fused metric window and MXTPU_SENTINEL
+# on); (d) group2ctx on examples/model-parallel-lstm/lstm_ptb.py's graph
+# at its default sizes, and a graph split between the card and the host.
+COLL_TIMEOUT_S = 600
+COLL_MODULE_STEPS = 3            # (b)
+# (a) against phase 40's parameter-server weights: equal to the bit, or
+# within COLL_SPREAD times the fp32 oracle's own distance from an fp64
+# oracle (the same SGD from worker 0's weights in fp64), the Rules' way
+# of bounding fp32 rounding carried by SGD; the state bytes a rank of
+# the sharded run within one padding element a slot of half the
+# replicated run's
+COLL_SPREAD = 4.0
+# (d): lstm_ptb.py's defaults (num_layers 2, seq 16, vocab 1000, hidden
+# and embedding 128, batch 16) and its lr, 3 steps
+MP_LSTM = dict(num_layers=2, seq_len=16, vocab_size=1000, num_hidden=128,
+               num_embed=128)
+MP_LSTM_BATCH, MP_LSTM_STEPS, MP_LSTM_LR = 16, 3, 0.1
+
+
+def mp_lstm_symbol(num_layers, seq_len, vocab_size, num_hidden, num_embed,
+                   group_per_layer):
+    """The port's copy of ``examples/model-parallel-lstm/lstm_ptb.py``'s
+    ``model_parallel_lstm``: each layer's nodes in its ``ctx_group``
+    (``tests/test_torch_collective.py`` holds its JSON to the
+    example's)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sym
+    from mxnet_tpu_torch.models.lstm import LSTMParam, LSTMState, lstm
+
+    with mx.AttrScope(ctx_group="embed"):
+        data = sym.Variable("data")
+        label = sym.Variable("softmax_label")
+        embed_weight = sym.Variable("embed_weight")
+        embed = sym.Embedding(data, weight=embed_weight,
+                              input_dim=vocab_size, output_dim=num_embed,
+                              name="embed")
+        slices = sym.SliceChannel(embed, num_outputs=seq_len, axis=1,
+                                  squeeze_axis=True)
+    params, states = [], []
+    for layer in range(num_layers):
+        with mx.AttrScope(ctx_group=group_per_layer[layer]):
+            params.append(LSTMParam(
+                i2h_weight=sym.Variable(f"l{layer}_i2h_weight"),
+                i2h_bias=sym.Variable(f"l{layer}_i2h_bias"),
+                h2h_weight=sym.Variable(f"l{layer}_h2h_weight"),
+                h2h_bias=sym.Variable(f"l{layer}_h2h_bias")))
+            states.append(LSTMState(c=sym.Variable(f"l{layer}_init_c"),
+                                    h=sym.Variable(f"l{layer}_init_h")))
+    outputs = []
+    for t in range(seq_len):
+        x = slices[t]
+        for layer in range(num_layers):
+            with mx.AttrScope(ctx_group=group_per_layer[layer]):
+                states[layer] = lstm(num_hidden, x, states[layer],
+                                     params[layer], t, layer)
+                x = states[layer].h
+        outputs.append(x)
+    with mx.AttrScope(ctx_group="out"):
+        concat = sym.Concat(*outputs, dim=0)
+        pred = sym.FullyConnected(concat, num_hidden=vocab_size, name="pred")
+        label_t = sym.transpose(label)
+        label_flat = sym.Reshape(label_t, shape=(-1,))
+        return sym.SoftmaxOutput(pred, label_flat, name="softmax")
+
+
+COLL_PROBE_ELEMS = 25_600_000   # ResNet-50's ~25.6 M fp32 gradients
+
+
+def _gloo_probe(rank):
+    """The collectives of the collective store on CUDA tensors between
+    the two ranks sharing the card (gloo): each one's result against the
+    expected value and its wall (ms, one call after a barrier, the card
+    synchronised around it) on ``COLL_PROBE_ELEMS`` fp32 elements (an
+    all-gather of half as many from each rank).  One more reduce-scatter
+    sums ``arange + 100 * rank``, whose exact reference is the two-term
+    sum as fp32 rounds it: its ``ref_mismatches`` counts the elements
+    where ``2 * arange + 100``, a reference that rounds differently above
+    2^24, would call the result wrong (all in rank 1's half).  Every
+    rank calls it."""
+    import torch.distributed as td
+
+    from mxnet_tpu_torch.parallel import dist as pdist
+
+    n = COLL_PROBE_ELEMS
+    base = (torch.arange(n, device="cuda") % 1024).float()
+    x = base + 1024 * rank               # exact in fp32
+    total = 2 * base + 1024              # rank 0's plus rank 1's
+    half = n // 2
+    mine = slice(rank * half, (rank + 1) * half)
+    ar = torch.arange(n, dtype=torch.float32, device="cuda")
+    pair_sum = ar + (ar + 100)           # rank 0's plus rank 1's
+    rounded_ref = (ar * 2 + 100)[mine]
+
+    def a2a():
+        out = torch.empty_like(x)
+        td.all_to_all_single(out, x)
+        return out
+
+    cases = {
+        "all_reduce": (lambda: pdist.all_reduce(x.clone()),
+                       lambda o: torch.equal(o, total)),
+        "reduce_scatter_tensor": (
+            lambda: pdist.reduce_scatter(x),
+            lambda o: torch.equal(o, total[rank * half:(rank + 1) * half])),
+        "all_gather_into_tensor": (
+            lambda: pdist.all_gather(x[:half]),
+            lambda o: torch.equal(o, torch.cat([base[:half],
+                                                base[:half] + 1024]))),
+        "reduce_scatter_arange": (
+            lambda: pdist.reduce_scatter(ar + 100 * rank),
+            lambda o: torch.equal(o, pair_sum[mine])),
+        "broadcast": (lambda: pdist.broadcast(x.clone(), 0),
+                      lambda o: torch.equal(o, base)),
+        "all_to_all_single": (
+            a2a, lambda o: torch.equal(o[:half], base[rank * half:(rank + 1)
+                                                      * half])
+            and torch.equal(o[half:], base[rank * half:(rank + 1) * half]
+                            + 1024)),
+    }
+    out = {}
+    for name, (run, check) in cases.items():
+        torch.cuda.synchronize()
+        td.barrier()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "equal": bool(check(got))}
+        if name == "reduce_scatter_arange":
+            out[name]["ref_mismatches"] = int((got != rounded_ref).sum())
+    return out
+
+
+def _coll_start(root):
+    """Starts (a)'s world now: ``python -m mxnet_tpu_torch.launch -n 2 -s
+    0`` on ``DIST_WORKER``, whose ranks import, bind, initialise and meet
+    beside earlier work, then train once the go file exists, with
+    ``MXTPU_SHARD_UPDATE`` 0 and then 1 from the same seeds.  Returns
+    ``(launcher, out dir, go file)``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "dist_worker.py")
+    with open(script, "w") as f:
+        f.write(DIST_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXTPU_", "DMLC_"))}
+    go = os.path.join(root, "go")
+    env.update(PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p),
+        DIST_MODE="sync", NVIDIA_TF32_OVERRIDE="0", DIST_OUT=root,
+        DIST_GO=go, DIST_SHARDS="0,1")
+    with open(os.path.join(root, "launch.log"), "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+             "-s", "0", "--launcher", "local", sys.executable, script],
+            env=env, cwd=repo, stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    return proc, root, go
+
+
+def _coll_kill(world):
+    import signal
+
+    if world[0].poll() is None:
+        os.killpg(world[0].pid, signal.SIGKILL)
+
+
+def _coll_run(world):
+    """Release :func:`_coll_start`'s world and wait for it; returns
+    ``({shard: the two ranks' results}, [each rank's gloo probe], wall
+    s)``."""
+    proc, out, go = world
+    t0 = time.perf_counter()
+    open(go, "w").close()
+    try:
+        proc.wait(timeout=COLL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _coll_kill(world)
+        proc.wait()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "launch.log")) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"collective (a): the launch exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    runs = {shard: [_dist_result(out, f"sync{r}s{shard}") for r in range(2)]
+            for shard in ("0", "1")}
+    probe = []
+    for r in range(2):
+        with open(os.path.join(out, f"probe_{r}.json")) as f:
+            probe.append(json.load(f))
+    return runs, probe, wall
+
+
+def _dist_oracle64(names, w0):
+    """Phase 40's one-process oracle in fp64: both shards' gradients
+    summed each step, the same SGD (the port's updater on fp64 tensors)
+    from worker 0's weights, NCHW (cuDNN's fp64 convolutions);
+    ``{step: weights}`` after steps 1 and ``DIST_STEPS``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import simple_bind
+    from mxnet_tpu_torch.models import resnet
+
+    net = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, 224, 224))
+    f64 = torch.float64
+    types = {n: f64 for n in net.list_arguments()
+             + net.list_auxiliary_states()}
+    req = {n: ("write" if n in names else "null")
+           for n in net.list_arguments()}
+    ex = _with_env({"MXTPU_CONV_LAYOUT": "NCHW"}, lambda: simple_bind(
+        net, mx.gpu(0), grad_req=req, type_dict=types,
+        data=(DIST_BATCH, 3, 224, 224), softmax_label=(DIST_BATCH,)))
+    for n in names:
+        ex.arg_dict[n].copy_(w0[n].to(f64))
+    # the Module's optimizer: its names give the biases and BN's gamma
+    # and beta no weight decay
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", sym=net, param_idx2name=dict(enumerate(names)),
+        rescale_grad=1.0 / (2 * DIST_BATCH), **DIST_OPT))
+    shards = [_dist_shard(r, DIST_STEPS) for r in range(2)]
+    out = {}
+    for k in range(DIST_STEPS):
+        acc = None
+        for r in range(2):
+            x, y = shards[r][k]
+            ex.forward(is_train=True, data=x.to(f64), softmax_label=y)
+            ex.backward()
+            g = {n: ex.grad_dict[n].clone() for n in names}
+            acc = g if acc is None else {n: acc[n] + g[n] for n in names}
+        for i, n in enumerate(names):
+            upd(i, mx.nd.NDArray(acc[n]), mx.nd.NDArray(ex.arg_dict[n]))
+        if k + 1 in (1, DIST_STEPS):
+            out[k + 1] = {n: ex.arg_dict[n].detach().cpu() for n in names}
+    del ex, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _coll_vs_ps(ws, ps, ora64):
+    """(a)'s weights against phase 40's at steps 1 and ``DIST_STEPS``:
+    bit-equal parameters, relative errors (max, median) against the PS
+    run and against the fp64 oracle beside the fp32 oracle's and the PS
+    run's own from fp64, and whether each lies within ``COLL_SPREAD``
+    times the fp32 oracle's distance."""
+    rows = {}
+    for step in (1, DIST_STEPS):
+        got = ws[step]
+        ref = {n: ora64[step][n].float() for n in got}
+        equal = sum(int(torch.equal(got[n], ps[step][n])) for n in got)
+        vs_ps = _rel_errs(got, ps[step])
+        o32 = _rel_errs(ps["oracle32"][step], ref)
+        rows[step] = {
+            "bit_equal_params": equal, "params": len(got),
+            "vs_ps": vs_ps, "vs_fp64": _rel_errs(got, ref),
+            "fp32_oracle_vs_fp64": o32,
+            "ps_vs_fp64": _rel_errs(ps[step], ref),
+            "within": equal == len(got) or (
+                vs_ps[0] <= COLL_SPREAD * o32[0]
+                and vs_ps[2] <= COLL_SPREAD * o32[2])}
+    return rows
+
+
+def _coll_world1(smi):
+    """(b): one process, ``Module`` over ``[gpu(0)]`` through
+    ``kv.create("dist_sync")`` (the collective store at world 1: no
+    servers, no launcher) against ``kv.create("device")``, from the same
+    seeded weights on worker 0's batches: the weights after each step
+    equal to the bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+
+    net = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, 224, 224))
+    shards = _dist_shard(0, COLL_MODULE_STEPS)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    runs = {}
+    try:
+        for name in ("dist_sync", "device"):
+            mx.random.seed(0)
+            mod = mx.mod.Module(net, context=[mx.gpu(0)])
+            mod.bind(data_shapes=[("data", (DIST_BATCH, 3, 224, 224))],
+                     label_shapes=[("softmax_label", (DIST_BATCH,))])
+            mod.init_params(initializer=mx.init.Xavier())
+            kv = mx.kv.create(name)
+            mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                               optimizer_params=DIST_OPT)
+            ex = mod._exec_group.execs[0]
+            weights = [ex.arg_dict[n] for n in mod._param_names]
+            digests = []
+            for x, y in shards:
+                mod.forward_backward(_batch(x, y))
+                mod.update()
+                digests.append(_bits_digest(weights))
+            runs[name] = {"digests": [str(int(d)) for d in digests],
+                          "collective": kv.collective,
+                          "workers": kv.num_workers,
+                          "bucketed": kv._fused is not None}
+            del mod, ex, weights
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    c = runs["dist_sync"]
+    if not (c["collective"] and c["workers"] == 1 and c["bucketed"]):
+        raise AssertionError(f"collective (b): the store {c}")
+    if c["digests"] != runs["device"]["digests"]:
+        raise AssertionError(f"collective (b): dist_sync at world 1 parts "
+                             f"from the device store: {runs}")
+    log(f"[collective] (b) Module over [gpu(0)], ResNet-50 b{DIST_BATCH} "
+        f"fp32 SGD, kv.create('dist_sync') with no servers and no launcher "
+        f"(collective={c['collective']}, {c['workers']} worker, bucketed "
+        f"engine) against kv.create('device'): the weights after each of "
+        f"{COLL_MODULE_STEPS} steps equal to the bit; {smi}")
+    return runs
+
+
+def _mp_lstm_run(net, group2ctx, data, label):
+    """``lstm_ptb.py``'s loop on ``net`` bound with ``group2ctx``: 3 SGD
+    steps from seeded weights; the outputs and gradients of each step
+    and the devices the arguments were bound on."""
+    import mxnet_tpu_torch as mx
+
+    shapes = {"data": data.shape, "softmax_label": label.shape}
+    for layer in range(MP_LSTM["num_layers"]):
+        for s in ("c", "h"):
+            shapes[f"l{layer}_init_{s}"] = (MP_LSTM_BATCH,
+                                             MP_LSTM["num_hidden"])
+    ex = net.simple_bind(mx.gpu(0), group2ctx=group2ctx, **shapes)
+    mx.random.seed(0)
+    init = mx.init.Xavier(magnitude=2.34)
+    for name in sorted(ex.arg_dict):
+        if name not in shapes:
+            init(name, ex.arg_dict[name])
+    outs, grads = [], []
+    for _ in range(MP_LSTM_STEPS):
+        ex.forward(is_train=True, data=data, softmax_label=label)
+        ex.backward()
+        outs.append(ex.outputs[0].clone())
+        grads.append({k: g.clone() for k, g in ex.grad_dict.items()})
+        for k, g in ex.grad_dict.items():
+            if k not in shapes:
+                ex.arg_dict[k].sub_(MP_LSTM_LR * g)
+    devices = sorted({str(t.device) for t in ex.arg_dict.values()})
+    return outs, grads, devices
+
+
+# (d)'s card/host split: rows, inputs and hidden units of a
+# FullyConnected on the card whose 64 MB output crosses to host ops
+G2C_SPLIT = (4096, 2048, 4096)
+
+
+def g2c_split_run(group2ctx):
+    """A FullyConnected in group ``card`` feeding ``relu(fc) * s + s`` in
+    group ``host``, bound on ``gpu(0)`` with ``group2ctx`` (or without
+    groups): one forward and backward from seeded values.  Returns the
+    output and the gradients on the host, and the devices of the output
+    and of ``s``.  The host's ops are exactly rounded, so any split
+    gives the unplaced graph's bits unless a crossing hands the host a
+    buffer the card has not filled yet."""
+    import mxnet_tpu_torch as mx
+
+    n, d, h = G2C_SPLIT
+    data = mx.sym.Variable("data")
+    with mx.AttrScope(ctx_group="card"):
+        fc = mx.sym.FullyConnected(data, num_hidden=h, name="fc")
+    with mx.AttrScope(ctx_group="host"):
+        s = mx.sym.Variable("s")
+        net = mx.sym.Activation(fc, act_type="relu") * s + s
+    ex = net.simple_bind(mx.gpu(0), group2ctx=group2ctx, data=(n, d),
+                         s=(n, h))
+    g = torch.Generator().manual_seed(0)
+    for k in sorted(ex.arg_dict):
+        ex.arg_dict[k].copy_(torch.randn(ex.arg_dict[k].shape, generator=g))
+    ex.forward(is_train=True)
+    out = ex.outputs[0]
+    ex.backward([torch.ones(out.shape, device=out.device)])
+    return (out.cpu(), {k: v.cpu() for k, v in ex.grad_dict.items()},
+            (str(out.device), str(ex.arg_dict["s"].device)))
+
+
+def _g2c_split(smi):
+    """(d)'s split across devices: ``{'card': gpu(0), 'host': cpu()}``
+    against the graph without groups, output and gradients equal to the
+    bit (the card-to-host crossing blocks until its values are there)."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    placed = g2c_split_run({"card": mx.gpu(0), "host": mx.cpu()})
+    plain = g2c_split_run(None)
+    bad = [] if torch.equal(placed[0], plain[0]) else ["output"]
+    bad += [k for k in plain[1] if not torch.equal(placed[1][k],
+                                                   plain[1][k])]
+    if bad or placed[2] != ("cpu", "cpu"):
+        raise AssertionError(f"collective (d): the card/host split parts "
+                             f"from the graph without groups at {bad}, "
+                             f"output and s on {placed[2]}")
+    log(f"[collective] (d) group2ctx {{'card': gpu(0), 'host': cpu()}}: "
+        f"FullyConnected {G2C_SPLIT[0]}x{G2C_SPLIT[1]} -> {G2C_SPLIT[2]} "
+        f"on the card, relu(fc) * s + s on the host, forward and backward "
+        f"equal to the bit to the graph on gpu(0) without groups (output "
+        f"and gradients of data, fc_weight, fc_bias, s); output and s on "
+        f"{placed[2]}; {time.perf_counter() - t0:.1f} s; {smi}")
+    return {"split": list(G2C_SPLIT), "devices": list(placed[2])}
+
+
+def _mp_lstm(smi):
+    """(d): ``group2ctx`` on the model-parallel LSTM's graph, every group
+    on ``gpu(0)`` (the one card), against the same graph bound without
+    groups: outputs and gradients equal to the bit at each step; then a
+    graph split between the card and the host (:func:`_g2c_split`)."""
+    import mxnet_tpu_torch as mx
+
+    groups = [f"layer{i}" for i in range(MP_LSTM["num_layers"])]
+    net = mp_lstm_symbol(group_per_layer=groups, **MP_LSTM)
+    g = torch.Generator().manual_seed(0)
+    data = torch.randint(0, MP_LSTM["vocab_size"],
+                         (MP_LSTM_BATCH, MP_LSTM["seq_len"]),
+                         generator=g).float().cuda()
+    label = torch.randint(0, MP_LSTM["vocab_size"],
+                          (MP_LSTM_BATCH, MP_LSTM["seq_len"]),
+                          generator=g).float().cuda()
+    g2c = {"embed": mx.gpu(0), "out": mx.gpu(0)}
+    g2c.update({grp: mx.gpu(0) for grp in groups})
+    t0 = time.perf_counter()
+    placed = _mp_lstm_run(net, g2c, data, label)
+    plain = _mp_lstm_run(net, None, data, label)
+    torch.cuda.synchronize()
+    bad = [i for i, (a, b) in enumerate(zip(placed[0], plain[0]))
+           if not torch.equal(a, b)]
+    bad += [f"{i}:{k}" for i, (ga, gb) in enumerate(zip(placed[1],
+                                                        plain[1]))
+            for k in gb if not torch.equal(ga[k], gb[k])]
+    if bad or placed[2] != [str(mx.gpu(0))]:
+        raise AssertionError(f"collective (d): group2ctx parts from the "
+                             f"graph without groups at {bad[:5]}, devices "
+                             f"{placed[2]}")
+    log(f"[collective] (d) group2ctx on lstm_ptb.py's graph "
+        f"({MP_LSTM['num_layers']} layers, seq {MP_LSTM['seq_len']}, vocab "
+        f"{MP_LSTM['vocab_size']}, hidden {MP_LSTM['num_hidden']}, batch "
+        f"{MP_LSTM_BATCH}), groups {sorted(g2c)} all on gpu(0): outputs and "
+        f"gradients of {MP_LSTM_STEPS} SGD steps equal to the bit to the "
+        f"graph bound without groups; arguments on {placed[2]}; "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return {"steps": MP_LSTM_STEPS, "devices": placed[2],
+            "host_split": _g2c_split(smi)}
+
+
+def _coll_a(smi, world, ps):
+    """(a): the world's two runs, then the checks."""
+    runs, probe, wall = _coll_run(world)
+    for shard, res in runs.items():
+        for r in res:
+            if not (r["collective"] and r["num_workers"] == 2):
+                raise AssertionError(f"collective (a) shard={shard}: rank "
+                                     f"{r['rank']}'s store {r}")
+        if res[0]["digests"] != res[1]["digests"] or \
+                len(res[0]["digests"]) != DIST_STEPS + 1:
+            raise AssertionError(f"collective (a) shard={shard}: the "
+                                 f"ranks' weights part: {res[0]['digests']}"
+                                 f" vs {res[1]['digests']}")
+        if res[0]["local_digest"] == res[1]["local_digest"]:
+            raise AssertionError("collective (a): both ranks initialised "
+                                 "alike; the broadcast is not tested")
+        want = {"0": [1], "1": [2]}[shard]
+        if any(r["shard_n"] != want for r in res):
+            raise AssertionError(f"collective (a) shard={shard}: buckets "
+                                 f"sharded {[r['shard_n'] for r in res]}")
+        syncs = [r["step_syncs"] for r in res]
+        if any(any(s) for s in syncs):
+            raise AssertionError(f"collective (a) shard={shard}: host syncs "
+                                 f"a batch {syncs}")
+    if runs["0"][0]["digests"] != runs["1"][0]["digests"]:
+        raise AssertionError("collective (a): the sharded update parts from "
+                             "the replicated one")
+    if not all(v["equal"] for p in probe for v in p.values()):
+        raise AssertionError(f"collective (a): gloo on CUDA tensors: {probe}")
+    log(f"[collective] (a) gloo on CUDA tensors, two ranks sharing the card, "
+        f"{COLL_PROBE_ELEMS * 4 / 1e6:.1f} MB fp32 (an all-gather of half "
+        f"from each rank), every result as expected, ms (rank 0, rank 1): "
+        + ", ".join(f"{k} {probe[0][k]['ms']:.1f} {probe[1][k]['ms']:.1f}"
+                    for k in probe[0])
+        + "; arange + 100 * rank reduce-scattered equals the two-term sum "
+        f"as fp32 rounds it, and differs from 2 * arange + 100 at "
+        f"{[p['reduce_scatter_arange']['ref_mismatches'] for p in probe]} "
+        f"elements (rank 0, rank 1); {smi}")
+    order = ps["order"]
+    ws = {step: {n: torch.from_numpy(v) for n, v in _npz(
+        world[1], f"w{step}_sync0s1").items()}
+        for step in (0, 1, DIST_STEPS)}
+    w0_equal = all(torch.equal(ws[0][n], ps[0][n]) for n in order)
+    if not w0_equal:
+        raise AssertionError("collective (a): worker 0's initial weights "
+                             "differ from phase 40's")
+    t64 = time.perf_counter()
+    ora64 = _dist_oracle64(order, ps[0])
+    t64 = time.perf_counter() - t64
+    rows = _coll_vs_ps(ws, ps, ora64)
+    del ora64
+    for step, row in rows.items():
+        if not row["within"]:
+            raise AssertionError(f"collective (a): step {step} against "
+                                 f"phase 40's weights {row}")
+    rep, shd = runs["0"][0], runs["1"][0]
+    half = rep["state_bytes"] / 2
+    slack = 4 * rep["buckets"] * 8   # a padding element a slot a bucket
+    if not half <= shd["state_bytes"] <= half + slack:
+        raise AssertionError(f"collective (a): optimizer state bytes a rank "
+                             f"{shd['state_bytes']} against the replicated "
+                             f"{rep['state_bytes']}")
+    lo = DIST_TIMED_FROM
+    per = {}
+    for shard, res in runs.items():
+        ms = []
+        for r in res:
+            span = r["t_in"][-1] - r["t_out"][lo - 1]
+            cbs = sum(o - i for i, o in zip(r["t_in"][lo:-1],
+                                            r["t_out"][lo:-1]))
+            ms.append((span - cbs) / (DIST_STEPS - lo) * 1e3)
+        p = res[0]["profile"]
+        per[shard] = {
+            "step_ms": max(ms), "img_s": 2 * DIST_BATCH / max(ms) * 1e3,
+            "allreduce_mb_step": res[0]["allreduce_bytes"] / DIST_STEPS / 1e6,
+            "collective_mb_step": {k: v / DIST_STEPS / 1e6 for k, v in
+                                   res[0]["collective_bytes"].items()},
+            "state_mb": res[0]["state_bytes"] / 1e6,
+            "peak_gib": max(r["peak_bytes"] for r in res) / 2 ** 30,
+            "busy_ms_rank0": p["busy_ms"], "wall_ms_rank0": p["wall_ms"],
+            "idle_share_rank0": 1 - p["busy_ms"] / p["wall_ms"],
+            "window_waits": res[0]["window_waits"],
+            # rank 0: its start to the store being ready (bind, init,
+            # the broadcasts; before the go file for the first run), the
+            # go to the last step, to the result
+            "start_to_ready_s": res[0]["t_ready"] - res[0]["t_start"],
+            "go_to_fit_end_s": res[0]["walls"][-1] - res[0]["t_go"],
+            "fit_end_to_result_s": res[0]["t_end"] - res[0]["walls"][-1],
+            "launches": {k: res[0]["launches"][k] + res[1]["launches"][k]
+                         for k in res[0]["launches"]}}
+    log(f"[collective] (a) ResNet-50 b{DIST_BATCH}/rank x 2 ranks sharing "
+        f"the card over gloo, fp32 SGD, Module.fit through the collective "
+        f"dist_sync (launch -s 0), {DIST_STEPS} steps, phase 40's seeds and "
+        f"batches: "
+        + "; ".join(
+            f"MXTPU_SHARD_UPDATE={s}: step {v['step_ms']:.1f} ms (steps "
+            f"{lo + 1}-{DIST_STEPS}; {v['img_s']:.2f} img/s across both), "
+            f"all-reduce/reduce-scatter {v['allreduce_mb_step']:.1f} MB a "
+            f"step, collectives {json.dumps(v['collective_mb_step'])} MB a "
+            f"step, optimizer state {v['state_mb']:.1f} MB a rank, peak "
+            f"{v['peak_gib']:.2f} GiB, rank 0 busy {v['busy_ms_rank0']:.1f} "
+            f"of {v['wall_ms_rank0']:.1f} ms (idle "
+            f"{v['idle_share_rank0']:.3f})" for s, v in per.items())
+        + f"; phase 40's PS step in its [dist_sync] line; walls (s): the "
+        f"launch {wall:.1f} from the go file; "
+        + "; ".join(f"shard={k}: to ready {v['start_to_ready_s']:.1f} "
+                    f"from the rank's start, the go (or the last run) to "
+                    f"the last step {v['go_to_fit_end_s']:.1f}, to the "
+                    f"result {v['fit_end_to_result_s']:.1f}"
+                    for k, v in per.items())
+        + f"; the fp64 oracle {t64:.1f}; {smi}")
+    log(f"[collective] (a) checks: both ranks' weights bit-equal after each "
+        f"step; sharded == replicated to the bit; host syncs a batch "
+        f"{runs['1'][0]['step_syncs']}; against phase 40's parameter-server "
+        f"weights: "
+        + "; ".join(f"step {k}: {v['bit_equal_params']}/{v['params']} "
+                    f"params bit-equal, rel err max {v['vs_ps'][0]:.3g} "
+                    f"({v['vs_ps'][1]}) median {v['vs_ps'][2]:.3g}; vs the "
+                    f"fp64 oracle max {v['vs_fp64'][0]:.3g}, the fp32 "
+                    f"oracle's {v['fp32_oracle_vs_fp64'][0]:.3g}, the PS "
+                    f"run's {v['ps_vs_fp64'][0]:.3g}"
+                    for k, v in rows.items()))
+    return {"runs": per, "vs_ps": rows, "gloo_probe": probe, "launches": {
+        k: sum(v["launches"][k] for v in per.values())
+        for k in per["0"]["launches"]}}
+
+
+def phase_collective(smi, ps, world, mesh_rec):
+    """Phase 47: Module and KVStore across ranks (see the module
+    docstring).  ``ps`` is phase 40's weights, ``world`` (a)'s started
+    world, ``mesh_rec`` phase 45's record, whose (2, 1) pair is (c).
+    Returns ``(record, launches of (a), (b) and (d) in this process and
+    the ranks, (c)'s in its ranks)``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = _kernel_launches(reset=True)
+    rec = {"a": _coll_a(smi, world, ps)}
+    rec["b"] = _coll_world1(smi)
+    rec["d"] = _mp_lstm(smi)
+    here = _kernel_launches()
+    c = mesh_rec["gloo"]["collective"]
+    log(f"[collective] (c) phase 45 (b)'s (2, 1) pair, the LM at "
+        f"{MESH_LAYERS} layers and full widths, bf16, {MESH_STEPS} steps "
+        f"again after its run with the sentinel off, now with "
+        f"MXTPU_SENTINEL=warn and a fused CrossEntropy over the global "
+        f"batch: num_inst {c['num_inst']} a rank (the global batch's "
+        f"{c['tokens']} tokens), metric {c['metric_mesh']:.6f} against the "
+        f"run's own mean loss {c['metric_own'][0]:.6f} (worst rel "
+        f"{c['metric_own_rel']:.3g}, limit {COLL_METRIC_OWN_TOL:.3g}) and "
+        f"one process's {c['metric_plain']:.6f} (rel "
+        f"{c['metric_rel']:.3g}), the "
+        f"sentinel's norms {c['norms_mesh']} against {c['norms_plain']} "
+        f"(worst rel {c['norm_rel']:.3g}), flags equal, the metric read "
+        f"once ({c['metric_drains']} drain a rank); flash launches a rank "
+        f"{c['launches_by_rank']}")
+    launches = {k: here[k] + rec["a"]["launches"][k]
+                + c["launches"].get(k, 0) for k in here}
+    log(f"[collective] phase 47 {time.perf_counter() - t0:.1f} s; "
+        f"hand-written kernel launches (a) {json.dumps(rec['a']['launches'])}"
+        f", (b) and (d) {json.dumps(here)}, (c) {json.dumps(c['launches'])}")
+    log(f"[collective] {json.dumps(rec)}")
+    return rec, launches
 
 
 def _pp_start(out_dir):
@@ -13039,12 +13930,30 @@ def _kernel_launches(reset=False):
 
 # -------------------------------------------------------------------- main
 _T0 = None                       # main's start, for the [timing] lines
+_WALLS = []                      # (tag, s since the previous, s so far)
 
 
 def _elapsed(tag):
     """Log the script's wall so far, after ``tag``: each phase's share of
     the time limit the whole script runs under."""
-    log(f"[timing] {tag} done at {time.perf_counter() - _T0:.1f} s")
+    now = time.perf_counter() - _T0
+    _WALLS.append((tag, now - (_WALLS[-1][2] if _WALLS else 0.0), now))
+    log(f"[timing] {tag} done at {now:.1f} s")
+
+
+def _wall_table():
+    """Every phase's wall and the script's so far, one row each, longest
+    first after the running order."""
+    lines = [f"[timing] table: {len(_WALLS)} phases, "
+             f"{_WALLS[-1][2]:.1f} s in all (against a 1200 s limit)",
+             f"[timing] {'phase':<44} {'s':>8} {'done at':>9}"]
+    lines += [f"[timing] {tag:<44} {s:8.1f} {at:9.1f}"
+              for tag, s, at in _WALLS]
+    top = sorted(_WALLS, key=lambda w: -w[1])[:8]
+    lines.append("[timing] longest: " + ", ".join(f"{t} {s:.1f} s"
+                                                  for t, s, _ in top))
+    for line in lines:
+        log(line)
 
 
 def main():
@@ -13085,7 +13994,7 @@ def main():
     # slice 17's workers (phases 40-41) each need ~7 GiB of their own:
     # next to 37-38, for the same reason
     slice17 = {}
-    _, slice17["dist_sync"] = phase_dist_sync(smi)
+    _, slice17["dist_sync"], ps_weights = phase_dist_sync(smi)
     _elapsed("phase_dist_sync")
     _, slice17["dist_async"] = phase_dist_async(smi)
     _elapsed("phase_dist_async")
@@ -13093,28 +14002,40 @@ def main():
         f"{json.dumps(slice17)}")
     # slice 21's mesh (phase 45) next to them: its two-rank children need
     # card memory of their own too; each part reads its own counts.
-    # Slice 22's pair (phase 46) starts now, imports beside phase 45 and
-    # runs after it
+    # Slice 22's pair (phase 46) and slice 23's world (phase 47 (a)) start
+    # now, import (and the world binds) beside phase 45 and run after it
     pp_dir = tempfile.TemporaryDirectory()
+    coll_dir = tempfile.TemporaryDirectory()
     pp_procs = _pp_start(pp_dir.name)
+    coll_world = _coll_start(coll_dir.name)
     try:
         mesh_rec, mesh_launches = phase_mesh(smi)
         _elapsed("phase_mesh")
         _, pp_launches = phase_pipeline_moe(smi, pp_procs, pp_dir.name)
         _elapsed("phase_pipeline_moe")
+        _, coll_launches = phase_collective(smi, ps_weights, coll_world,
+                                            mesh_rec)
+        _elapsed("phase_collective")
     finally:
         _mesh_kill(pp_procs)
+        _coll_kill(coll_world)
         pp_dir.cleanup()
+        coll_dir.cleanup()
+    del ps_weights
     log(f"[slice21] hand-written kernel launches in phase 45 (a): "
         f"{json.dumps(mesh_launches)}; (b) in the gloo ranks: "
         f"{json.dumps(mesh_rec['gloo_launches'])}")
     log(f"[slice22] hand-written kernel launches in phase 46 (c), summed "
         f"over the two ranks: {json.dumps(pp_launches)}")
+    log(f"[slice23] hand-written kernel launches in phase 47, (c)'s summed "
+        f"over its two ranks: {json.dumps(coll_launches)}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if not mesh_launches[name]:
             raise AssertionError(f"phase 45: {name} never launched")
         if not pp_launches.get(name):
             raise AssertionError(f"phase 46: {name} never launched")
+        if not coll_launches.get(name):
+            raise AssertionError(f"phase 47: {name} never launched")
     cfg, params = _params(seed=0)
     launches, tick = phase_serve(cfg, params)
     _elapsed("phase_serve")
@@ -13378,6 +14299,7 @@ def main():
         rec["launches_mesh_gloo"] = mesh_rec["gloo_launches"].get(
             rec["name"], 0)
         rec["launches_pipeline_moe"] = pp_launches.get(rec["name"], 0)
+        rec["launches_dp"] = coll_launches.get(rec["name"], 0)
     for rec in records[1:4]:
         rec["mesh_world1"] = {
             "tile_err": mesh_rec["world1"]["flash_tiles"].get(rec["name"]),
@@ -13387,6 +14309,7 @@ def main():
         rec["profiler_trace_device_ms"] = sum(
             t for k, t in prof["flash_ms"].items()
             if rec["name"].replace("bwd_", "") in k)
+    _wall_table()
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,19 @@ ENTRY_POINTS = tuple(_P + e for e in (
     "kvstore.KVStoreDist.push",
     "kvstore.KVStoreDist.pull",
     "engine.push",
+    # the collective dist_sync's bucket step (one all-reduce a bucket),
+    # the sharded update (reduce-scatter, the rule on the slice, all-gather)
+    # and the metric window's drain over a mesh
+    "kvstore_fused.FusedUpdateEngine._step_bucket",
+    "kvstore_fused.FusedUpdateEngine._step_sharded",
+    # the pipeline's 1F1B step (the closure make_pipeline_train_step
+    # returns), GPipe's autograd node, the MoE layer, and the one
+    # collective under the pipeline and the ring
+    "parallel.pipeline.make_pipeline_train_step.<locals>.step",
+    "parallel.pipeline._GPipe.forward",
+    "parallel.pipeline._GPipe.backward",
+    "parallel.moe.moe_ffn",
+    "parallel.dist.exchange",
 ))
 
 # Sanctioned sync boundaries: the analyzer does not descend into these.
@@ -87,6 +100,16 @@ BOUNDARIES = {_P + k: v for k, v in {
     "kvstore.KVStoreDist.wait_pulls":
         "the PS stores' one wait per key a step on the loop's thread "
         "(KVStoreDist.comm_stats()['loop_waits'])",
+    # the collectives: NCCL queues them on the stream; gloo on CUDA
+    # tensors stages them through the host and its call returns after
+    # the card produced the input (PERF.md section 7)
+    "parallel.dist.all_reduce_stats":
+        "a collective of the collective dist_sync, the metric window's "
+        "drain and the mesh sentinel: every rank meets in it",
+    "parallel.dist.reduce_scatter":
+        "the sharded update's gradient collective: every rank meets in it",
+    "parallel.dist.all_gather":
+        "the sharded update's parameter collective: every rank meets in it",
 }.items()}
 
 # Device-to-host sync primitives, matched as method names on any

@@ -159,8 +159,8 @@ class AttrScope:
     inside ``with AttrScope(ctx_group="dev1"):`` every new Variable and
     op node gets the scope's attrs (as strings), merged under the attrs
     the call itself passes; nested scopes merge outer then inner.
-    Placing nodes by ``ctx_group`` (``group2ctx``) needs several cards
-    (ROADMAP Queue 1 item 10b)."""
+    ``bind(group2ctx={group: device})`` places the nodes of each
+    ``ctx_group`` on its device (``executor.placement_plan``)."""
 
     _current = None
 

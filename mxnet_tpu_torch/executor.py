@@ -88,14 +88,25 @@ a shape (``decode_*``) count there too.
 Bound arrays are tensors: ``arg_dict``/``grad_dict``/``aux_dict`` map
 names to torch tensors on the bind device (``bind`` shares the storage
 of the tensors or NDArrays it is given), and ``outputs`` are tensors.
-Ctx-group placement (``group2ctx``) needs several cards and raises
-(ROADMAP Queue 1 item 10b).
+Ctx-group placement (``group2ctx``, parity: PlaceDevice,
+graph_executor.cc:225-314; the reference's ``placement_plan``,
+``mxnet_tpu/executor.py:484``): each node of a graph annotated with
+``AttrScope(ctx_group=...)`` runs on its group's torch device, a variable
+lives with its own group or its first consumer's (:func:`placement_plan`),
+and a value that crosses groups is copied there (:func:`_to_device`:
+without a host wait onto a card, where the card's stream orders the copy
+before its reader; a blocking copy onto the host, whose ops read it at
+once), and autograd carries the gradients back.  One process drives
+several cards for model parallelism natively.  Groups mapped to shardings
+(the reference's ``PartitionSpec`` values) are refused (ROADMAP Queue 1
+item 10b, slice 5).
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+import warnings
 import weakref
 from collections import OrderedDict
 from typing import Dict
@@ -148,6 +159,13 @@ _TM_FWD_SEC = _tm.histogram(
     "its executor's graph, counts here too")
 _TM_BWD_SEC = _tm.histogram(
     "executor_backward_seconds", "Executor.backward wall time (dispatch)")
+# in the port the gradient all-reduce and the sharded update's exchanges
+# run in the collective kvstore's bucketed update (kvstore_fused)
+_TM_COLLECTIVE = _tm.counter(
+    "executor_collective_bytes_total",
+    "logical payload bytes of mesh collectives the sharded paths "
+    "request per dispatch (grad all-reduce, sharded-update param "
+    "all-gather; estimate at dispatch, not wire bytes)", labels=("op",))
 
 # program -> the (kind, signature) pairs it has run: a pair's first run
 # is the port's "compile" (the JAX package's jit traces one per pair)
@@ -176,10 +194,24 @@ def _compile_done(t0, kind):
         _TM_COMPILE_SEC.observe(time.perf_counter() - t0, kind=kind)
 
 
-def _eval_node(node, env, ctx):
-    """Evaluate one op node into ``env``; returns ``{aux_name: value}``."""
+def _to_device(x, dev):
+    """``x`` on ``dev``: a copy onto a card does not wait for the host
+    (the card's stream runs it before the ops that read it); a copy onto
+    the host blocks until the values are there, since the host's ops
+    read the buffer as soon as they get it."""
+    return x.to(dev, non_blocking=dev.type == "cuda")
+
+
+def _eval_node(node, env, ctx, dev=None):
+    """Evaluate one op node into ``env``; returns ``{aux_name: value}``.
+    With ``dev`` (a placed graph), inputs from another device are copied
+    there first."""
     od = ops.get(node.op)
     ins = [env[id(src)][oidx] for src, oidx in node.inputs]
+    if dev is not None:
+        ins = [_to_device(x, dev)
+               if isinstance(x, torch.Tensor) and x.device != dev else x
+               for x in ins]
     res = od.fn(ctx, *ins, **node.attrs)
     aux_updates = {}
     if od.aux_names:
@@ -191,12 +223,15 @@ def _eval_node(node, env, ctx):
     return aux_updates
 
 
-def _build_graph_fn(symbol: Symbol, device=None):
+def _build_graph_fn(symbol: Symbol, device=None, node_devices=None):
     """``f(arg_vals, aux_vals, gen, is_train) -> (outputs, new_aux)``.
 
     ``arg_vals``/``aux_vals`` map variable names to tensors; ``gen`` is
     the ``torch.Generator`` random ops draw from (or None); ``device`` is
-    handed to the ops through their :class:`~.ops.registry.OpCtx`."""
+    handed to the ops through their :class:`~.ops.registry.OpCtx`.
+    ``node_devices`` (``{id(node): device}``, a ctx-group placement) runs
+    each op node on its device, its random ops drawing from that
+    device's generator."""
     out_entries = list(symbol._outputs)
     topo = _topo_order([n for n, _ in out_entries])
     # row-sparse Embedding nodes: with a probe among the arguments the
@@ -210,6 +245,18 @@ def _build_graph_fn(symbol: Symbol, device=None):
         env = {}
         new_aux = dict(aux_vals)
         ctx = ops.OpCtx(is_train=is_train, device=device, generator=gen)
+        ctxs = {}
+
+        def placed(node):
+            dev = node_devices.get(id(node), device)
+            c = ctxs.get(dev)
+            if c is None:
+                c = ctxs[dev] = ctx if dev == device else ops.OpCtx(
+                    is_train=is_train, device=dev,
+                    generator=None if gen is None
+                    else _random.generator(dev))
+            return c, dev
+
         for node in topo:
             if node.is_variable:
                 src = aux_vals if node.is_aux else arg_vals
@@ -229,10 +276,74 @@ def _build_graph_fn(symbol: Symbol, device=None):
                 env[id(node)] = (out,)
                 new_aux[_RS_IDX + wname] = idx.reshape(-1)
                 continue
-            new_aux.update(_eval_node(node, env, ctx))
+            if node_devices is None:
+                new_aux.update(_eval_node(node, env, ctx))
+            else:
+                new_aux.update(_eval_node(node, env, *placed(node)))
         return [env[id(n)][i] for n, i in out_entries], new_aux
 
     return fn
+
+
+# ------------------------------------------------------ ctx-group placement
+def _group_device(value):
+    """A ``group2ctx`` value as a torch device, or None for a sharding
+    (a ``parallel.mesh.NamedSharding``)."""
+    from .parallel import mesh as _mesh
+
+    if isinstance(value, _mesh.NamedSharding):
+        return None
+    return resolve_device(value)
+
+
+def placement_plan(symbol: Symbol, group2ctx, default_device):
+    """``(node_devices, var_devices, n_distinct)`` of a ctx-group
+    annotated graph (the reference's ``placement_plan``): every op node's
+    device by its ``ctx_group`` (the default device without one),
+    ``{variable name: device}`` (a variable's own group wins, else its
+    first consumer's) and the number of distinct devices in the plan.
+    Groups no node is annotated with are ignored."""
+    groups = {g: d for g, d in ((g, _group_device(v))
+                                for g, v in (group2ctx or {}).items())
+              if d is not None}
+    default_device = resolve_device(default_device)
+    topo = _topo_order([n for n, _ in symbol._outputs])
+    node_dev, var_dev = {}, {}
+    for node in topo:
+        grp = node.extra_attrs.get("ctx_group")
+        if node.is_variable and grp in groups:
+            var_dev[node.name] = groups[grp]
+    for node in topo:
+        if node.is_variable:
+            continue
+        dev = groups.get(node.extra_attrs.get("ctx_group"), default_device)
+        node_dev[id(node)] = dev
+        for src, _ in node.inputs:
+            if src.is_variable and src.name not in var_dev:
+                var_dev[src.name] = dev  # the first consumer's
+    distinct = set(node_dev.values()) | set(var_dev.values())
+    return node_dev, var_dev, len(distinct)
+
+
+_warned_unknown_groups = set()
+
+
+def _check_group2ctx(symbol: Symbol, group2ctx):
+    """Warn once per ``group2ctx`` entry that names a group no node is
+    annotated with (it is ignored); refuse groups mapped to shardings."""
+    annotated = {n.extra_attrs.get("ctx_group") for n in symbol.nodes
+                 if n.extra_attrs.get("ctx_group")}
+    for g, v in group2ctx.items():
+        if _group_device(v) is None:
+            raise _not_ported(f"group2ctx group {g!r} mapped to a sharding "
+                              "(bind a mesh through FusedTrainer(mesh=))",
+                              "10b, slice 5")
+        if g not in annotated and g not in _warned_unknown_groups:
+            _warned_unknown_groups.add(g)
+            warnings.warn(
+                f"group2ctx group {g!r} matches no ctx_group annotation "
+                f"in the symbol (annotated groups: {sorted(annotated)}); "
+                "the entry is ignored", stacklevel=3)
 
 
 def channels_last_default() -> bool:
@@ -353,9 +464,11 @@ class Executor:
     per ``grad_req``."""
 
     def __init__(self, symbol: Symbol, device, arg_dict, aux_dict,
-                 grad_dict=None, grad_req="null", shared_exec=None):
+                 grad_dict=None, grad_req="null", shared_exec=None,
+                 group2ctx=None):
         self._symbol = symbol
         self._device = device
+        self._group2ctx = dict(group2ctx or {})
         arg_names = symbol.list_arguments()
         missing = [k for k in arg_names if k not in arg_dict]
         if missing:
@@ -382,7 +495,19 @@ class Executor:
         # the graph passes run once, at bind (through the program cache);
         # they never rename or drop a variable, so the argument names
         # stay as bound
-        if shared_exec is not None and shared_exec._symbol is symbol:
+        if self._group2ctx:
+            # a placed graph is keyed by its devices, not its structure:
+            # no program cache (as the reference)
+            from .passes import apply_graph_passes
+
+            self._exec_symbol = apply_graph_passes(symbol)
+            node_dev, _, _ = placement_plan(self._exec_symbol,
+                                            self._group2ctx, device)
+            self._graph_fn = _build_graph_fn(self._exec_symbol, device,
+                                             node_dev)
+            if _tm.enabled():
+                _TM_GRAPH_CACHE.inc(result="miss")
+        elif shared_exec is not None and shared_exec._symbol is symbol:
             self._exec_symbol = shared_exec._exec_symbol
             self._graph_fn = shared_exec._graph_fn
             if _tm.enabled():
@@ -745,7 +870,8 @@ class Executor:
         types = {k: v.dtype for k, v in self.arg_dict.items()}
         types.update({k: v.dtype for k, v in self.aux_dict.items()})
         new = simple_bind(self._symbol, self._device, grad_req=self.grad_req,
-                          type_dict=types, shared_exec=self, **shapes)
+                          type_dict=types, shared_exec=self,
+                          group2ctx=self._group2ctx or None, **shapes)
         for mine, theirs in ((self.arg_dict, new.arg_dict),
                              (self.aux_dict, new.aux_dict),
                              (self.grad_dict, new.grad_dict)):
@@ -785,11 +911,14 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
     bind.  4-D arrays are channels-last unless
     ``MXTPU_CONV_LAYOUT=NCHW``.  A ``grad_stype="row_sparse"`` Embedding
     weight gets a row-sparse gradient holder.  ``shared_exec`` bound on
-    the same symbol object lends its post-pass graph function."""
-    if group2ctx:
-        raise _not_ported("ctx-group placement (group2ctx, several cards)",
-                          "10b")
+    the same symbol object lends its post-pass graph function.
+    ``group2ctx`` places each variable (and its gradient) on its group's
+    device (:func:`placement_plan`) and runs each node there."""
     device = resolve_device(device)
+    var_dev = {}
+    if group2ctx:
+        _check_group2ctx(symbol, group2ctx)
+        _, var_dev, _ = placement_plan(symbol, group2ctx, device)
     arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
     if arg_shapes is None:
         raise MXNetError(f"simple_bind: cannot infer shapes from {shapes}")
@@ -798,7 +927,7 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
 
     def alloc(name, shape):
         t = torch.zeros(shape, dtype=dtypes.get(name, torch.float32),
-                        device=device)
+                        device=var_dev.get(name, device))
         return t.contiguous(memory_format=torch.channels_last) \
             if cl and t.ndim == 4 else t
 
@@ -819,22 +948,23 @@ def simple_bind(symbol: Symbol, device=None, grad_req="write",
             continue
         if n in rs_names:
             grads[n] = _sparse.zeros("row_sparse", tuple(args[n].shape),
-                                     ctx=device, dtype=args[n].dtype)
+                                     ctx=args[n].device, dtype=args[n].dtype)
         else:
             grads[n] = torch.zeros_like(args[n])
     return Executor(symbol, device, args, aux, grads, req,
-                    shared_exec=shared_exec)
+                    shared_exec=shared_exec, group2ctx=group2ctx)
 
 
 def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
          aux_states=None, group2ctx=None, shared_exec=None) -> Executor:
     """Bind ``symbol`` to the given arrays (a dict, or a list in
     ``list_arguments()`` order; tensors and NDArrays are bound as they
-    are, sharing their storage; numpy data is copied to ``device``)."""
-    if group2ctx:
-        raise _not_ported("ctx-group placement (group2ctx, several cards)",
-                          "10b")
+    are, sharing their storage; numpy data is copied to ``device``).
+    With ``group2ctx`` each node runs on its group's device (the given
+    arrays stay where they are)."""
     device = resolve_device(device)
+    if group2ctx:
+        _check_group2ctx(symbol, group2ctx)
 
     def tensor(v):
         if getattr(v, "stype", "default") == "row_sparse":
@@ -854,4 +984,4 @@ def bind(symbol: Symbol, device, args, args_grad=None, grad_req="write",
     aux = {k: tensor(v) for k, v in _as_list(
         symbol.list_auxiliary_states(), aux_states, "aux_states").items()}
     return Executor(symbol, device, args, aux, grads, grad_req,
-                    shared_exec=shared_exec)
+                    shared_exec=shared_exec, group2ctx=group2ctx)

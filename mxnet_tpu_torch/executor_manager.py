@@ -5,9 +5,10 @@ executor_manager.py ``_split_input_slice``, ``_check_arguments``,
 
 ``FeedForward``'s engine room in the reference; here it keeps that API
 over the port's executor group (:class:`~.module.executor_group.
-DataParallelExecutorGroup`), which binds one executor on one device.
-Contexts that name more than one device (data parallelism over several
-cards) raise, naming ROADMAP Queue 1 item 10b.
+DataParallelExecutorGroup`), which binds one executor on one device:
+contexts that name one torch device (``cpu(0)``, ``cpu(1)``) bind one
+executor at the whole batch, and contexts that name several cards in one
+process raise, naming the launcher and ROADMAP Queue 1 item 10b, slice 5.
 """
 from __future__ import annotations
 

@@ -49,9 +49,25 @@ parameter reads do it, and so do ``asnumpy``/``wait_to_read`` of the out
 array).  Resolving is the PS path's host sync: one wait per key a step,
 counted in :meth:`KVStoreDist.comm_stats`.  ``MXTPU_PS_ASYNC=0`` (or
 ``MXNET_ENGINE_TYPE=NaiveEngine``) runs every RPC on the calling thread.
-Without ``MXTPU_PS_SERVERS`` a single process keeps the local semantics
-(rank 0 of 1); several workers without servers would need the collective
-``dist_sync``, which is not ported (ROADMAP Queue 1 item 10b), and raise.
+Without ``MXTPU_PS_SERVERS``, ``dist_sync`` and ``dist_device_sync`` are
+the **collective** store (mirrors ``mxnet_tpu/kvstore.py:828-846,
+920-930``): ``collective`` is true, the workers of ``python -m
+mxnet_tpu_torch.launch -n W -s 0`` form one process group
+(``parallel.dist.init_from_env``; NCCL when each rank has a card, gloo
+on the CPU and when ranks share a card) and take rank and size from it.
+``init`` gives every rank worker 0's value (a broadcast); each worker
+pushes its own gradients and a push sums them over the world, batched
+through the bucketed engine (one all-reduce a bucket, or the sharded
+update: reduce-scatter, the rule on 1/N of the state, all-gather; see
+:mod:`~mxnet_tpu_torch.kvstore_fused`), per key on the eager path (one
+all-reduce a key); a pull reads the local copy, the same on every rank.
+The Module then batches its push and pull as for a local store, and its
+effective batch is its batch times the workers (``rescale_grad``), as on
+the parameter-server ``dist_sync``.  A single process is the collective
+store at world 1, whose steps are the local store's.  ``dist_async``
+without servers keeps the local semantics, as the reference does.
+Row-sparse pushes over several workers are not ported (ROADMAP Queue 1
+item 10b, slice 5).
 """
 from __future__ import annotations
 
@@ -676,7 +692,9 @@ class KVStoreDist(KVStore):
     recovery contract ``MXTPU_KV_RECOVERY=1`` (kvstore_dist.h:35-39): a
     restarted worker neither re-initialises keys nor re-ships the
     optimizer nor waits on the startup barriers; the servers still hold
-    the model.  Without servers one process keeps the local semantics.
+    the model.  Without servers ``dist_sync``/``dist_device_sync`` are
+    the collective store over the launched world (one process: world 1)
+    and ``dist_async`` keeps the local semantics (the module docstring).
     """
 
     def __init__(self, kv_type):
@@ -701,17 +719,16 @@ class KVStoreDist(KVStore):
                        "pull_bytes": 0, "push_enqueue_s": 0.0,
                        "pull_wait_s": 0.0, "loop_waits": 0}
         servers = os.environ.get("MXTPU_PS_SERVERS", "")
+        # no servers: dist_sync is the collective store; dist_async keeps
+        # the local semantics (its no-barrier updates need the servers)
+        self._collective = not servers and "async" not in kv_type
         if not servers:
-            if self._size > 1:
-                raise MXNetError(
-                    f"kvstore {kv_type!r}: {self._size} workers were "
-                    "launched without parameter servers (MXTPU_PS_SERVERS "
-                    "is unset); the collective dist_sync over NCCL is not "
-                    "ported yet (ROADMAP Queue 1 item 10b).  Launch the "
-                    "parameter servers with -s <num_servers>.")
-            # one process: the local semantics (rank 0 of 1), as the
-            # reference launched without a tracker
-            self._rank, self._size = 0, 1
+            if self._collective and self._size > 1:
+                self._join_world(kv_type)
+            else:
+                # one process: the local semantics (rank 0 of 1), as the
+                # reference launched without a tracker
+                self._rank, self._size = 0, 1
             return
         self._client = _PSClient(servers.split(","), rank=self._rank)
         if (os.environ.get("MXTPU_PS_ASYNC", "1") == "1"
@@ -733,6 +750,27 @@ class KVStoreDist(KVStore):
 
         atexit.register(self._send_stop)
 
+    def _join_world(self, kv_type):
+        """Join the launched world's process group; rank and size come
+        from it."""
+        from .parallel import dist as _dist
+
+        if not _dist.is_multi_host():
+            raise MXNetError(
+                f"kvstore {kv_type!r}: {self._size} workers without "
+                "parameter servers (MXTPU_PS_SERVERS) and without a "
+                "rendezvous address (MXTPU_COORDINATOR): start them with "
+                f"python -m mxnet_tpu_torch.launch -n {self._size} -s 0 "
+                "(the collective dist_sync) or -s <servers> (the "
+                "parameter servers)")
+        _dist.init_from_env(device="cuda" if torch.cuda.is_available()
+                            else "cpu")
+        td = _dist._dist()
+        self._rank, self._size = td.get_rank(), td.get_world_size()
+
+    def _spans_world(self) -> bool:
+        return self._client is None and self._collective and self._size > 1
+
     # ------------------------------------------------------------ state
     @property
     def rank(self) -> int:
@@ -744,8 +782,10 @@ class KVStoreDist(KVStore):
 
     @property
     def collective(self) -> bool:
-        """True without servers: one process aggregates locally."""
-        return self._client is None
+        """True for ``dist_sync``/``dist_device_sync`` without servers:
+        pushes are summed by collectives over the launched world (at
+        world 1, locally)."""
+        return self._client is None and self._collective
 
     def comm_stats(self) -> dict:
         """This worker's counts so far: pushes and pulls (per key), their
@@ -785,7 +825,15 @@ class KVStoreDist(KVStore):
     # -------------------------------------------------------------- ops
     def init(self, key, value):
         if self._client is None:
-            return super().init(key, value)
+            super().init(key, value)
+            if self._spans_world():
+                # every rank starts from worker 0's value
+                from .kvstore_fused import _flat
+                from .parallel import dist as _dist
+
+                for k in _key_list(key)[0]:
+                    _dist.broadcast(_flat(self._store[k].tensor), 0)
+            return
         keys, _ = _key_list(key)
         values = value if isinstance(value, (list, tuple)) else [value]
         _check_pairs(keys, values, "init")
@@ -852,6 +900,28 @@ class KVStoreDist(KVStore):
             return buf.numpy()
 
         return read
+
+    def _merge(self, k, v) -> torch.Tensor:
+        """The local merge, then, over a collective world, the sum over
+        it (the eager path's one all-reduce a key)."""
+        merged = super()._merge(k, v)
+        if self._spans_world():
+            from .parallel import dist as _dist
+
+            merged = _dist.all_reduce(merged.clone())
+        return merged
+
+    def _check_push_stypes(self, keys, values):
+        super()._check_push_stypes(keys, values)
+        if self._spans_world() and any(
+                k in self._stypes and self._stypes[k] == "row_sparse"
+                for k in keys):
+            raise MXNetError(
+                f"kvstore {self.type!r}: a row_sparse push over "
+                f"{self._size} workers of the collective store is not "
+                "ported yet (ROADMAP Queue 1 item 10b, slice 5); launch "
+                "parameter servers (-s <servers>) or densify the "
+                "gradient with .todense()")
 
     def push(self, key, value, priority=0):
         if self._client is None:
@@ -1025,6 +1095,10 @@ class KVStoreDist(KVStore):
             self.wait_pulls()
             self._wait_outstanding()  # in-flight pushes precede it
             self._client.barrier()
+        elif self._spans_world():
+            from .parallel import dist as _dist
+
+            _dist.barrier("kvstore")
 
     def get_num_dead_node(self, node_id, timeout=60):
         """Parity: KVStore::get_num_dead_node (kvstore_dist.h:151-160):

@@ -64,8 +64,38 @@ sets ``kvstore_bucket_count`` and observes each dense bucket's bytes in
 its jitted programs) counts in ``executor_compile_total{kind=kv_update}``
 (``kv_sparse`` for a row-sparse key).
 
-The sharded bucket program (ROADMAP Queue 1 item 10b; it needs several
-cards, which the Module refuses) is not ported.
+**Across processes** (the collective ``dist_sync`` store,
+:class:`~mxnet_tpu_torch.kvstore.KVStoreDist` without servers, over a
+launched world of N > 1 ranks): each rank pushes its own gradients and
+the bucket's flat gradient is summed over the world.  By default
+(``MXTPU_SHARD_UPDATE=1``, read at each plan) a bucket whose weights
+share one dtype and whose gradients and weights share one layout runs
+the **sharded update** (Xu et al., arXiv:2004.13336; the reference's
+``_make_sharded_bucket_program``): the flat gradient padded to a
+multiple of N is reduce-scattered, each rank runs the bucket's
+multi-tensor rule on its 1/N slice as one flat tensor, with per-element
+lr and wd where the slice's keys differ (:func:`_slice_update`), against
+flat optimizer state it alone holds (the fp32 masters as the last slot under AMP; the
+skip-step's select under loss scaling, with the finite flag agreed over
+the world), and the fresh parameters are all-gathered back into every
+rank's weights.  The per-key states leave the ``Updater`` while their
+shards hold the truth (1/N of the state bytes a rank);
+:meth:`FusedUpdateEngine.ensure_host_state` gathers them back before any
+reader of the per-key states (an eager update, ``get_states`` and
+``save_optimizer_states``, a checkpoint, a new plan), and counts its
+host time in ``kvstore_shard_gather_seconds``.  ``MXTPU_SHARD_UPDATE=0``,
+or a bucket that cannot shard, keeps the replicated step after one
+all-reduce of the flat gradient; at a world of two the two are equal to
+the bit (a two-term sum is exact in either order, and both run the same
+multi-tensor rule on the same elements).  These collectives are a step's
+only communication; ``executor_collective_bytes_total`` counts their
+payload (``op`` ``grad_allreduce``, ``kv_grad_shard``,
+``kv_param_allgather``).
+
+A row-sparse key whose stored table is a DTensor sharded by rows over a
+mesh (one ``Shard(0)`` placement) keeps that layout through its update:
+each rank updates the pushed rows that fall in its block (the pushes are
+the same on every rank), and a pull gathers the table.
 """
 from __future__ import annotations
 
@@ -83,8 +113,11 @@ from . import telemetry as _tm
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
 from .optim_rules import multi_rule
+from .parallel import dist as _dist
+from .parallel import mesh as _mesh
 
-__all__ = ["fused_update_enabled", "bucket_cap_bytes", "FusedUpdateEngine"]
+__all__ = ["fused_update_enabled", "shard_update_enabled",
+           "bucket_cap_bytes", "FusedUpdateEngine"]
 
 # --- telemetry families (the JAX package's names) ---------------------------
 _TM_FUSED_SEC = _tm.histogram(
@@ -102,12 +135,28 @@ _TM_BUCKET_BYTES = _tm.histogram(
     buckets=(1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20,
              1 << 22, 1 << 23, 1 << 24, 1 << 26))
 
+_TM_SHARD_GATHER = _tm.histogram(
+    "kvstore_shard_gather_seconds",
+    "host time materializing sharded optimizer-state vectors back into "
+    "per-key NDArrays (sync_shard_state: save/load, eager interleave, "
+    "plan rebuild — never the per-step hot path)", labels=("store",))
+
 _DEFAULT_BUCKET_MB = 4.0
 
 
 def fused_update_enabled() -> bool:
     """``MXTPU_FUSED_UPDATE`` (default on)."""
     return parse_bool(os.environ.get("MXTPU_FUSED_UPDATE", "1"))
+
+
+def shard_update_enabled() -> bool:
+    """``MXTPU_SHARD_UPDATE`` (default on): a bucket of a store that
+    spans several processes updates each rank's 1/N slice against state
+    sharded over the ranks (reduce-scatter, the bucket's rule on the
+    slice, all-gather);
+    ``0`` keeps the replicated update after one all-reduce.  Read at
+    each plan build."""
+    return parse_bool(os.environ.get("MXTPU_SHARD_UPDATE", "1"))
 
 
 def bucket_cap_bytes() -> int:
@@ -131,6 +180,32 @@ def _state_slots(state) -> Tuple:
 
 def _t(x) -> torch.Tensor:
     return x.tensor if isinstance(x, NDArray) else x
+
+
+def _local_block(t):
+    return t.to_local() if _mesh.is_dtensor(t) else t
+
+
+def _row_block(t) -> int:
+    """The first row of this rank's block of a table split by rows (one
+    ``Shard(0)`` placement, the rest replicated, an even split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm, lo = t.device_mesh, None
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == 0 and lo is None:
+            n = dm.size(i)
+            if t.shape[0] % n:
+                break
+            lo = dm.get_coordinate()[i] * (t.shape[0] // n)
+        elif not isinstance(p, Replicate):
+            lo = None
+            break
+    if lo is None:
+        raise MXNetError(f"kvstore_fused: a row-sparse table placed as "
+                         f"{tuple(t.placements)} (one even Shard(0) "
+                         "over the mesh is supported)")
+    return lo
 
 
 def _dense(t: torch.Tensor) -> bool:
@@ -159,8 +234,48 @@ def _views(flat: torch.Tensor, like) -> List[torch.Tensor]:
     return out
 
 
+def _slice_update(b, update, g, w, state, lrs, wds):
+    """A multi-tensor rule's ``update`` (:func:`~.optim_rules.multi_rule`)
+    on a rank's slice of a sharded bucket as one flat tensor: the
+    gradient ``g``, the weights ``w`` and the state slices ``state``,
+    with the lr and wd of the keys in the slice (``lrs``, ``wds`` by
+    key) as floats where they agree and as fp32 vectors of one value an
+    element where they differ (0 in the padding; kept on the bucket for
+    the last values seen).  The rule is elementwise, so every element
+    takes the replicated step's arithmetic, and a slice of padding only
+    takes none."""
+    size = g.numel()
+    parts = b.overlaps(b.lo, b.lo + size)
+    if not parts:
+        return
+    key = (tuple(lrs[k] for k in b.keys), tuple(wds[k] for k in b.keys))
+    factors = b.factors.get(key)
+    if factors is None:
+        factors = []
+        for vals in key:
+            mine = {vals[i] for i, _, _ in parts}
+            if len(mine) == 1:
+                factors.append(mine.pop())
+                continue
+            host = np.zeros(size, np.float32)
+            pos = 0
+            for i, a, e in parts:
+                host[pos:pos + e - a] = vals[i]
+                pos += e - a
+            vec = torch.from_numpy(host)
+            if g.device.type == "cuda":
+                vec = vec.pin_memory().to(g.device, non_blocking=True)
+            factors.append(vec)
+        b.factors = {key: factors}
+    lr, wd = factors
+    update(g, [w], [g], [tuple(state)], [lr], [wd])
+
+
 class _Bucket:
-    __slots__ = ("dtype", "keys", "shapes", "sizes", "nbytes")
+    __slots__ = ("dtype", "keys", "shapes", "sizes", "nbytes",
+                 # the sharded update (arXiv:2004.13336)
+                 "shard_n", "padded", "offsets", "wdtype", "mp",
+                 "shard_state", "lo", "factors", "key_of_el")
 
     def __init__(self, dtype):
         self.dtype = dtype
@@ -168,6 +283,29 @@ class _Bucket:
         self.shapes: List[tuple] = []
         self.sizes: List[int] = []
         self.nbytes = 0
+        self.shard_n = 1        # > 1: this bucket runs the sharded update
+        self.padded = 0         # flat length padded to a multiple of it
+        self.offsets: List[int] = []
+        self.wdtype = None      # the bucket's one weight dtype
+        self.mp = False         # the last state slot is an fp32 master
+        self.shard_state = None  # this rank's flat state slices
+        self.lo = 0             # this rank's slice starts here
+        self.factors = {}       # (lrs, wds) -> this slice's lr and wd
+        self.key_of_el = None   # the sentinel's key index per element
+
+    @property
+    def total(self) -> int:
+        return int(sum(self.sizes))
+
+    def overlaps(self, lo, hi):
+        """``[(key index, start, stop)]``: the parts of the keys that lie
+        in ``[lo, hi)`` of the flat vector, as offsets into each key."""
+        out = []
+        for i, (off, n) in enumerate(zip(self.offsets, self.sizes)):
+            a, b = max(lo, off), min(hi, off + n)
+            if a < b:
+                out.append((i, a - off, b - off))
+        return out
 
 
 class _SparseBucket:
@@ -201,6 +339,14 @@ class FusedUpdateEngine:
         self._ran = set()          # buckets stepped since the plan
         self._programs = set()     # program keys run by this engine
 
+    def _world(self) -> int:
+        """The ranks a push sums over: the world of a collective store
+        that spans several processes, else 1."""
+        kv = self._kv
+        if getattr(kv, "collective", False) and kv.num_workers > 1:
+            return kv.num_workers
+        return 1
+
     def _key_name(self, k):
         """Kvstore key -> the name the sentinel reports (the optimizer's
         ``param_idx2name`` when keys are indices)."""
@@ -222,6 +368,8 @@ class FusedUpdateEngine:
 
     # ------------------------------------------------------------- plan
     def _build_plan(self, keys, vlists, ndev):
+        # the old plan's shards go back to the per-key states first
+        self.ensure_host_state()
         cap = bucket_cap_bytes()
         buckets: List[_Bucket] = []
         sparse_buckets: List[_SparseBucket] = []
@@ -246,6 +394,8 @@ class FusedUpdateEngine:
         self._plan_keys = tuple(keys)
         self._key_index = {k: i for i, k in enumerate(keys)}
         self._ndev = ndev
+        for b in buckets:
+            self._maybe_shard(b, vlists)
         self._cost_done = set()
         self._ran = set()
         if _tm.enabled():
@@ -255,9 +405,10 @@ class FusedUpdateEngine:
         nslots = self._rule[1][0]
         for i, b in enumerate(buckets):
             # memory row per bucket: ndev gradient copies + weights in,
-            # weights (+ state, weight-sized per slot) out — shape math,
-            # enough to RANK programs in the OOM report
-            state_b = b.nbytes * max(nslots, 1)
+            # weights (+ state, weight-sized per slot, 1/N of it for a
+            # sharded bucket) out — shape math, enough to RANK programs
+            # in the OOM report
+            state_b = b.nbytes * max(nslots, 1) // b.shard_n
             _tm.health.record_program(
                 self._label(i, b), argument=b.nbytes * (ndev + 1) + state_b,
                 output=b.nbytes + state_b, temp=b.nbytes,
@@ -268,6 +419,113 @@ class FusedUpdateEngine:
             _tm.health.record_program(
                 f"kv_sparse[{sb.key}:{'x'.join(map(str, sb.shape))}]",
                 argument=state_b, output=state_b, source="shape_math")
+
+    def _maybe_shard(self, b, vlists):
+        """Mark ``b`` for the sharded update when the store spans several
+        processes, ``MXTPU_SHARD_UPDATE`` is on, the bucket's weights
+        share one dtype and every key's gradient and weight share one
+        memory layout."""
+        b.offsets = [int(o) for o in np.cumsum([0] + b.sizes)[:-1]]
+        n = self._world()
+        if n <= 1 or not shard_update_enabled():
+            return
+        ws = [_t(self._kv._store[k]) for k in b.keys]
+        gs = [_t(vlists[self._key_index[k]][0]) for k in b.keys]
+        if len({w.dtype for w in ws}) != 1 or any(
+                _mesh.is_dtensor(w) or not _dense(w)
+                or w.stride() != g.stride() for w, g in zip(ws, gs)):
+            return
+        b.wdtype = ws[0].dtype
+        b.shard_n = n
+        b.padded = -(-b.total // n) * n
+        b.lo = _dist.rank() * (b.padded // n)
+        b.factors = {}
+
+    # ---------------------------------------------------- sharded state
+    def _ingest(self, b, weights):
+        """Make the bucket's flat state slices from the per-key states
+        (created where absent, as the eager update would), then drop the
+        per-key states: the slices hold the truth until
+        :meth:`ensure_host_state`.  A per-key state present again (an
+        eager update, a load) is taken in again."""
+        upd = self._updater
+        if b.shard_state is not None and not any(k in upd.states
+                                                 for k in b.keys):
+            return
+        nslots = self._rule[1][0]
+        slots = [_state_slots(upd.ensure_state(k, w))
+                 for k, w in zip(b.keys, weights)]
+        mp = {len(s) == nslots + 1 for s in slots}
+        if len(mp) != 1 or any(len(s) not in (nslots, nslots + 1)
+                               for s in slots):
+            raise MXNetError("kvstore_fused: a sharded bucket's keys hold "
+                             f"{sorted({len(s) for s in slots})} state "
+                             f"slots, the rule {nslots}")
+        b.mp = mp.pop()
+        size = b.padded // b.shard_n
+        parts = b.overlaps(b.lo, b.lo + size)
+        state = []
+        for j in range(len(slots[0])):
+            segs = [_flat(_t(slots[i][j]))[a:e] for i, a, e in parts]
+            flat = torch.cat(segs) if segs else \
+                _t(slots[0][j]).new_empty(0)
+            pad = size - flat.numel()
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            state.append(flat)
+        b.shard_state = tuple(state)
+        for k in b.keys:
+            del upd.states[k]
+        upd._shard_owner = self
+
+    def holds_state_of(self, key) -> bool:
+        """Whether ``key``'s optimizer state lives in a bucket's shards."""
+        return any(b.shard_state is not None and key in b.keys
+                   for b in self._buckets or ())
+
+    def ensure_host_state(self):
+        """Gather every sharded bucket's state back into per-key states
+        of the ``Updater`` (one all-gather a slot; every rank of the
+        store calls it at the same point).  A no-op when nothing is
+        sharded; the next sharded step takes the states in again."""
+        buckets = [b for b in self._buckets or ()
+                   if b.shard_state is not None]
+        if not buckets:
+            return
+        t0 = time.perf_counter() if _tm.enabled() else None
+        kv, upd = self._kv, self._updater
+        for b in buckets:
+            fulls = [_dist.all_gather(s)[:b.total] for s in b.shard_state]
+            b.shard_state = None
+            for i, k in enumerate(b.keys):
+                if k in upd.states:
+                    continue  # loaded since: the per-key state is newer
+                st = upd.optimizer.create_state(k, kv._store[k])
+                for j, s in enumerate(_state_slots(st)):
+                    seg = fulls[j][b.offsets[i]:b.offsets[i] + b.sizes[i]]
+                    _t(s).copy_(_views(seg, [_t(s)])[0])
+                upd.states[k] = st
+        if t0 is not None:
+            _TM_SHARD_GATHER.observe(time.perf_counter() - t0,
+                                     store=kv.type)
+
+    def drop_shards(self):
+        """Forget the shards (the per-key states were replaced)."""
+        for b in self._buckets or ():
+            b.shard_state = None
+
+    def optimizer_state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds for the store's
+        dense keys: the shards, and the per-key states."""
+        n = sum(t.nbytes for b in self._buckets or ()
+                for t in (b.shard_state or ()))
+        keys = {k for b in self._buckets or () for k in b.keys}
+        for k, st in self._updater.states.items():
+            if k in keys:
+                # (a loaded state is numpy until the key's next update)
+                n += sum(int(_t(s).nbytes) for s in _state_slots(st)
+                         if s is not None)
+        return n
 
     # ------------------------------------------------------------- push
     def handle_push(self, keys, values) -> bool:
@@ -312,17 +570,18 @@ class FusedUpdateEngine:
         self._push_count += 1
         sentinel = _tm.health.sentinel_mode() is not None
         perf_on = _tm.perf.enabled()
+        world = self._world()
         try:
             flags = []
             for bi, b in enumerate(self._buckets):
                 args = (b, bi, vlists, nslots, update, lrs, wds, inv,
-                        sentinel)
+                        sentinel, world)
                 tc = None
                 if bi not in self._ran:
                     self._ran.add(bi)
                     tc = self._program_start(
                         ("kvfused", str(b.dtype), tuple(b.shapes),
-                         tuple(wds[k] for k in b.keys)),
+                         tuple(wds[k] for k in b.keys), b.shard_n),
                         rule_name, opt_params, sentinel, inv is not None)
                 if perf_on and bi not in self._cost_done:
                     # the bucket's FLOPs, once per plan (its first step)
@@ -388,7 +647,12 @@ class FusedUpdateEngine:
         w = kv._store[sb.key]
         slots = _state_slots(upd.ensure_state(sb.key, w))
         mp = len(slots) == nslots + 1
-        dev = w.tensor.device
+        table, rows = w.tensor, None
+        if _mesh.is_dtensor(table):
+            # a table split by rows over a mesh: this rank's block
+            rows = (_row_block(table), table.to_local().shape[0])
+            table = table.to_local()
+        dev = table.device
         parts = vlists[self._key_index[sb.key]]
         idx_parts = tuple(v._indices.to(dev) for v in parts)
         val_parts = tuple(v._values.to(dev) for v in parts)
@@ -402,9 +666,9 @@ class FusedUpdateEngine:
                 packed_norm=True)
         fn = _sparse.row_program(rule_name, tuple(sorted(opt_params.items())),
                                  wds[sb.key], mp, scale is not None)
-        flag = fn(idx_parts, val_parts, w.tensor,
-                  tuple(_t(x) for x in slots),
-                  float(np.float32(lrs[sb.key])), scale)
+        flag = fn(idx_parts, val_parts, table,
+                  tuple(_local_block(_t(x)) for x in slots),
+                  float(np.float32(lrs[sb.key])), scale, rows)
         if _sparse._tm.enabled():
             rows = sum(int(i.shape[0]) for i in idx_parts)
             _sparse._TM_SPARSE_ROWS.inc(rows, store=kv.type)
@@ -425,12 +689,17 @@ class FusedUpdateEngine:
         return flat
 
     def _step_bucket(self, b, bi, vlists, nslots, update, lrs, wds,
-                     inv=None, sentinel=False):
+                     inv=None, sentinel=False, world=1):
         """One bucket's update; with ``inv`` (the fp32 ``1 / scale``),
         the skip-step, returning the bucket's finite flag.  With the
         sentinel, the per-key finite flags and the bucket's gradient norm
         (of the unscaled gradient, before the rule uses it as scratch)
-        are parked as one tensor."""
+        are parked as one tensor.  Over a ``world`` of several processes
+        the flat gradient is first summed over it (one all-reduce), or
+        the sharded bucket takes the step."""
+        if b.shard_n > 1:
+            return self._step_sharded(b, bi, vlists, lrs, wds, inv,
+                                      sentinel)
         kv, upd = self._kv, self._updater
         weights = [kv._store[k] for k in b.keys]
         slots = [_state_slots(upd.ensure_state(k, w))
@@ -449,6 +718,11 @@ class FusedUpdateEngine:
         ws = [_t(s[-1]) if mp else _t(w) for s, w in zip(slots, weights)]
         states = [tuple(_t(x) for x in s[:nslots]) for s in slots]
         flat = self._merged(b, vlists, ws[0].device)
+        if world > 1:
+            _dist.all_reduce(flat)
+            if _tm.enabled():
+                _executor._TM_COLLECTIVE.inc(
+                    flat.numel() * flat.element_size(), op="grad_allreduce")
         fin = None
         if inv is not None:
             fin = torch.isfinite(flat).all()
@@ -480,6 +754,89 @@ class FusedUpdateEngine:
                 torch._foreach_copy_(ts, _views(new, ts))
         return fin
 
+    def _sentinel_shard(self, b, bi, g):
+        """The sentinel's record of a sharded bucket: each key's sum of
+        squares over this rank's slice of the summed gradient, added
+        over the world (one small all-reduce), gives its finite flag and
+        the bucket's norm."""
+        nk = len(b.keys)
+        if b.key_of_el is None or b.key_of_el.device != g.device:
+            size = g.numel()
+            ids = np.full(size, nk, np.int64)
+            pos = 0
+            for i, a, e in b.overlaps(b.lo, b.lo + size):
+                ids[pos:pos + e - a] = i
+                pos += e - a
+            ids = torch.from_numpy(ids)
+            if g.device.type == "cuda":
+                ids = ids.pin_memory().to(g.device, non_blocking=True)
+            b.key_of_el = ids
+        sq = torch.zeros(nk + 1, dtype=torch.float64, device=g.device)
+        sq.index_add_(0, b.key_of_el, g.double().square())
+        _dist.all_reduce_stats(sq)
+        norms = sq[:nk].sqrt()
+        _tm.health.sentinel_record(
+            site=f"kv_bucket{bi}", step=self._push_count,
+            names=[self._key_name(k) for k in b.keys],
+            finite=torch.cat([torch.isfinite(norms).float(),
+                              sq[:nk].sum().sqrt().float().reshape(1)]),
+            packed_norm=True)
+
+    def _step_sharded(self, b, bi, vlists, lrs, wds, inv, sentinel):
+        """One sharded bucket's update (arXiv:2004.13336): the padded
+        flat gradient reduce-scattered over the world, the bucket's
+        multi-tensor rule on this rank's slice against its state slices
+        (:func:`_slice_update`), the fresh slice all-gathered into every
+        rank's weights.  Under loss scaling the ranks agree on one finite
+        flag (one small all-reduce) and a skipped step keeps the slices
+        as they were."""
+        kv = self._kv
+        weights = [kv._store[k] for k in b.keys]
+        self._ingest(b, weights)
+        update = self._rule[1][1]
+        wts = [_t(w) for w in weights]
+        dev = wts[0].device
+        flat = self._merged(b, vlists, dev)
+        if b.padded > flat.numel():
+            flat = torch.cat([flat, flat.new_zeros(b.padded - flat.numel())])
+        g = _dist.reduce_scatter(flat)
+        size = g.numel()
+        fin = None
+        if inv is not None:
+            bad = (~torch.isfinite(g)).any().float().reshape(1)
+            _dist.all_reduce_stats(bad)
+            fin = (bad == 0).reshape(())
+            g.mul_(inv.to(g.dtype))
+        if sentinel:
+            self._sentinel_shard(b, bi, g)
+        state = list(b.shard_state)
+        if b.mp:
+            g = g.float()
+            w, rule_state = state[-1], state[:-1]
+            held = state
+        else:
+            segs = [_flat(wts[i])[a:e]
+                    for i, a, e in b.overlaps(b.lo, b.lo + size)]
+            w = torch.cat(segs) if segs else g.new_empty(0)
+            if w.numel() < size:
+                w = torch.cat([w, w.new_zeros(size - w.numel())])
+            rule_state = state
+            held = state + [w]
+        old = [t.clone() for t in held] if fin is not None else ()
+        _slice_update(b, update, g, w, rule_state, lrs, wds)
+        for t, o in zip(held, old):
+            torch.where(fin, t, o, out=t)
+        out = w.to(b.wdtype) if b.mp else w
+        full = _dist.all_gather(out)
+        torch._foreach_copy_(wts, _views(full[:b.total], wts))
+        if _tm.enabled():
+            _executor._TM_COLLECTIVE.inc(
+                b.padded * flat.element_size() // b.shard_n,
+                op="kv_grad_shard")
+            _executor._TM_COLLECTIVE.inc(b.padded * out.element_size(),
+                                         op="kv_param_allgather")
+        return fin
+
     # ------------------------------------------------------------- pull
     def handle_pull(self, keys, outs) -> bool:
         """Copy the stored values out, one ``_foreach_copy_`` per device
@@ -489,9 +846,11 @@ class FusedUpdateEngine:
             return False
         dst, src = [], []
         for k, o in zip(keys, outs):
+            # a table sharded over a mesh is gathered (a collective)
+            value = _mesh.full_value(kv._store[k].tensor)
             for oo in (o if isinstance(o, (list, tuple)) else [o]):
                 dst.append(_t(oo))
-                src.append(kv._store[k].tensor)
+                src.append(value)
         groups: Dict = {}
         for d, s in zip(dst, src):
             pair = groups.setdefault((d.device, d.dtype, s.device, s.dtype),

@@ -10,9 +10,14 @@ command, their roles given by the environment (``_role_env``): every
 process gets ``MXTPU_ROLE``, ``MXTPU_NUM_WORKERS``, ``MXTPU_NUM_SERVERS``
 and ``MXTPU_PS_SERVERS`` (with the ``DMLC_*`` aliases); servers
 ``MXTPU_SERVER_RANK``, workers ``MXTPU_RANK``.  Without servers (``-s
-0``) the local launcher also gives the workers ``MXTPU_COORDINATOR``, a
-free loopback port where rank 0 hosts the process group a mesh
-(:mod:`~mxnet_tpu_torch.parallel.mesh`) runs on.  A server detects its
+0``) the workers form one process group (a mesh,
+:mod:`~mxnet_tpu_torch.parallel.mesh`, or the collective ``dist_sync``
+store): the local launcher binds its rendezvous store itself (a
+``torch.distributed.TCPStore`` on a loopback port the system picks) and
+holds it while the workers run, giving them ``MXTPU_COORDINATOR`` and
+torch's ``TORCHELASTIC_USE_AGENT_STORE=True``, so every rank joins it as
+a client.  A port picked by a bind-and-close probe and bound later by
+rank 0 could be taken by another process in between.  A server detects its
 role inside ``import mxnet_tpu_torch`` and serves
 (:mod:`~mxnet_tpu_torch.kvstore_server`); it never touches the card.
 The contract is the JAX launcher's, so either launcher drives either
@@ -47,6 +52,15 @@ import time
 __all__ = ["main", "launch_local", "launch_ssh"]
 
 _log = logging.getLogger("mxnet_tpu_torch.launch")
+
+
+def _rendezvous_store(world_size):
+    """The collective world's rendezvous store, bound and listening
+    before any worker starts (the caller keeps it alive)."""
+    import torch.distributed as td
+
+    return td.TCPStore("127.0.0.1", 0, world_size, True,
+                       wait_for_workers=False)
 
 
 def _free_ports(n):
@@ -108,9 +122,13 @@ def _role_env(base, role, rank, args, servers):
 def launch_local(args, command):
     servers = [f"127.0.0.1:{p}" for p in _free_ports(args.num_servers)]
     base = dict(os.environ)
+    store = None
     if not servers and args.num_workers > 1:
-        # a collective world: the mesh's process group meets here
-        base["MXTPU_COORDINATOR"] = f"127.0.0.1:{_free_ports(1)[0]}"
+        # a collective world: its process group meets in this store,
+        # which listens from now until this function returns
+        store = _rendezvous_store(args.num_workers)
+        base["MXTPU_COORDINATOR"] = f"127.0.0.1:{store.port}"
+        base["TORCHELASTIC_USE_AGENT_STORE"] = "True"
     procs, workers = [], {}
     try:
         for i in range(args.num_servers):

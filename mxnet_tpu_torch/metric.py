@@ -25,8 +25,18 @@ reference's.  With telemetry on, ``metric_fused_update_total{metric}``
 counts the updates folded into a device window and
 ``metric_host_sync_total{metric}`` the device-to-host reads: one a
 drain with updates pending, one an eager (label, pred) pair, as the
-JAX package counts them.  Not ported: the mesh-sharded (multi-device)
-fused path (ROADMAP Queue 1 item 10b).
+JAX package counts them.
+
+Predictions that are DTensors over a process mesh (``FusedTrainer(mesh=
+...)``'s outputs; mirrors ``mxnet_tpu/metric.py:165-213``): a prediction
+split by rows over the mesh's axes (``Shard(0)``, the rest replicated)
+folds each rank's own rows against its rows of the global label into a
+window on the rank's card, one rank of each replicated group counting;
+the drain sums the windows over the world (one all-reduce of two
+scalars, which every rank makes at the same reporting point) and reads
+it once, so the metric covers the global batch with no host read
+between drains.  Any other placement, and the eager path, read the
+gathered value (a collective too).
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import torch
 from . import telemetry as _tm
 from .base import MXNetError, parse_bool
 from .ndarray import NDArray
+from .parallel import mesh as _mesh
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MAE", "MSE", "RMSE", "CrossEntropy", "Perplexity", "Loss",
@@ -72,11 +83,14 @@ def _tensor(x):
 
 
 def _host(x):
-    """A metric input as a numpy array (the eager path's sync)."""
+    """A metric input as a numpy array (the eager path's sync; a DTensor
+    is gathered first, a collective)."""
     if isinstance(x, NDArray):
-        return x.asnumpy()
+        if not _mesh.is_dtensor(x.tensor):
+            return x.asnumpy()
+        x = x.tensor
     if isinstance(x, torch.Tensor):
-        t = x.detach()
+        t = _mesh.full_value(x).detach()
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     return _np.asarray(x)
 
@@ -85,6 +99,34 @@ def check_label_shapes(labels, preds):
     if len(labels) != len(preds):
         raise MXNetError(f"label/pred count mismatch: {len(labels)} vs "
                          f"{len(preds)}")
+
+
+def _my_rows(p):
+    """``(first row, counts)`` of this rank's block of the DTensor ``p``
+    when it is split by rows (``Shard(0)`` on some mesh axes, replicated
+    on the rest) over a mesh that spans the world: ``counts`` is true on
+    one rank of each group that holds the same rows.  None for any other
+    placement."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = p.device_mesh
+    if dm.size() != _mesh._world_size():
+        return None
+    coord = dm.get_coordinate()
+    block, blocks, counts = 0, 1, True
+    for i, pl in enumerate(p.placements):
+        if dm.size(i) == 1:
+            continue  # one rank: whatever the placement, the whole block
+        if isinstance(pl, Shard) and pl.dim == 0:
+            block = block * dm.size(i) + coord[i]
+            blocks *= dm.size(i)
+        elif isinstance(pl, Replicate):
+            counts = counts and coord[i] == 0
+        else:
+            return None
+    if p.shape[0] % blocks:
+        return None  # uneven rows
+    return block * (p.shape[0] // blocks), counts
 
 
 class EvalMetric:
@@ -111,6 +153,7 @@ class EvalMetric:
         # the device window is dropped, not read: reset forgets it all
         self._dev_sum = None
         self._dev_num = None
+        self._dev_world = False  # the window is one rank's of a mesh
         if self.num is None:
             self.num_inst = 0
             self.sum_metric = 0.0
@@ -149,24 +192,40 @@ class EvalMetric:
         p = _tensor(pred)
         if p is None:
             return False
+        counts, world = True, False
+        lab = None if label is None else _tensor(label)
+        if _mesh.is_dtensor(p):
+            rows = _my_rows(p)
+            if rows is None:
+                p = _mesh.full_value(p)  # another placement: gathered
+            else:
+                lo, counts = rows
+                p, world = p.to_local(), True
+                if lab is not None:
+                    lab = (lab.to_local() if _mesh.is_dtensor(lab)
+                           else lab[lo:lo + p.shape[0]])
+        elif lab is not None and _mesh.is_dtensor(lab):
+            lab = _mesh.full_value(lab)
         if label is None:
             lab = None  # label-free metrics (Loss) ignore it
         else:
-            lab = _tensor(label)
             if lab is None:
                 return False
             if lab.device != p.device:
                 lab = lab.to(p.device, non_blocking=True)
         with torch.no_grad():
             ds, dn = self._fused_delta(lab, p.detach())
-            if self._dev_sum is None or self._dev_sum.device != p.device:
+            if (self._dev_sum is None or self._dev_sum.device != p.device
+                    or self._dev_world != world):
                 self._drain()
                 self._dev_sum = torch.zeros((), dtype=torch.float32,
                                             device=p.device)
                 self._dev_num = torch.zeros((), dtype=torch.float32,
                                             device=p.device)
-            self._dev_sum += ds
-            self._dev_num += dn
+                self._dev_world = world
+            if counts:
+                self._dev_sum += ds
+                self._dev_num += dn
         self._version += 1
         if _tm.enabled():
             _TM_FUSED.inc(metric=self.name)
@@ -177,11 +236,17 @@ class EvalMetric:
         device-to-host sync of the fused path."""
         if self._dev_sum is None:
             return
+        pair = torch.stack([self._dev_sum, self._dev_num])
+        if self._dev_world:
+            from .parallel import dist as _dist
+
+            # every rank's window, summed over the world at this point
+            _dist.all_reduce_stats(pair)
         # sync-ok: the fused path's one fold, at reporting points only
         # (get/get_global/reset_local, after the loop's window drained);
         # _fused_accumulate calls it only with no window open, and returns
         # above
-        pair = torch.stack([self._dev_sum, self._dev_num]).cpu().tolist()
+        pair = pair.cpu().tolist()
         self._dev_sum = None
         self._dev_num = None
         self.sum_metric += pair[0]

@@ -9,8 +9,17 @@ the bound input buffers (host batches through pinned memory, without a
 host sync); outputs stay on the device.  The bound tensors are wrapped
 once in NDArrays, which the kvstore and the updater write in place.
 
-Several contexts (data parallelism over a mesh) wait for ROADMAP Queue 1
-item 10b and raise.
+Several contexts that resolve to one torch device (``cpu(0)`` ..
+``cpu(7)`` are all the host) bind one executor at the whole batch: the
+reference runs such a group as one SPMD program over the whole batch
+(``mxnet_tpu/module/executor_group.py:1-20, 66-98``), so BatchNorm's
+moments, the outputs and the gradients are the whole batch's, which one
+executor gives.  Data parallelism across cards runs one process a card
+(``python -m mxnet_tpu_torch.launch -n <cards> -s 0`` with the collective
+``dist_sync`` store, which sums the gradients).  Several distinct cards
+inside one process are refused: one executor a card would take
+BatchNorm's moments per slice, not over the batch as the reference does
+(ROADMAP Queue 1 item 10b, slice 5).
 """
 from __future__ import annotations
 
@@ -34,9 +43,13 @@ class DataParallelExecutorGroup:
             if c not in devices:
                 devices.append(c)
         if len(devices) != 1:
-            raise MXNetError(f"a Module over {len(devices)} devices (data "
-                             "parallelism) is not ported yet (ROADMAP Queue "
-                             "1 item 10b)")
+            raise MXNetError(
+                f"a Module over {len(devices)} distinct devices in one "
+                "process is not ported (ROADMAP Queue 1 item 10b, slice 5: "
+                "BatchNorm's moments over the whole batch across cards); "
+                "run one process a card with python -m "
+                f"mxnet_tpu_torch.launch -n {len(devices)} -s 0 and "
+                "kvstore='dist_sync'")
         self.symbol = symbol
         self.contexts = contexts
         self.workload = workload or [1] * len(contexts)

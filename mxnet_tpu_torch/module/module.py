@@ -20,9 +20,13 @@ on the servers, the effective batch of a sync store is the batch times
 the workers (``rescale_grad``), every worker starts from worker 0's
 initial weights (pulled back after ``init``), and BatchNorm's moving
 statistics stay each worker's own.  The pulled weights land at the next
-``forward`` (or parameter read), one wait per key.  The module's
-parameter copies (``get_params``) live on its device in the bound memory
-format.
+``forward`` (or parameter read), one wait per key.  The collective
+``dist_sync`` (no servers, ``python -m mxnet_tpu_torch.launch -n W -s
+0``) keeps that contract with batched pushes and pulls, as for a local
+store: each worker binds its own context and trains on its own batch,
+and the store sums the gradients over the world (``kvstore_fused``).
+The module's parameter copies (``get_params``) live on its device in the
+bound memory format.
 
 ``init_params`` honours a variable's own ``__init__`` attr (an
 initializer's ``dumps()``, as ``sym.Variable(init=...)`` writes it)
@@ -37,7 +41,11 @@ the eager route, the store's on the bucketed one) and the loss scaler's
 state (``amp/scale`` and its counters), in the JAX package's names;
 :meth:`Module._restore_checkpoint` puts them back, with the store's
 weight copies, the update counts and this package's generator state.
-Not ported yet: several contexts (ROADMAP Queue 1 item 10b).
+Several contexts in one process that name one torch device (``cpu(0)``
+to ``cpu(7)``) bind one executor at the whole batch, as the reference's
+SPMD program over them computes; contexts that name several cards in one
+process are refused (``module/executor_group.py``): launch one process a
+card.
 ``BucketingModule``, ``SequentialModule`` and ``PythonModule`` are in
 their own files.
 """
@@ -284,10 +292,10 @@ class Module(BaseModule):
             kvstore, len(self._context), self._arg_params)
         batch_size = self._exec_group.batch_size
         if (kvstore_inst and "dist" in kvstore_inst.type
-                and "_sync" in kvstore_inst.type
-                and not kvstore_inst.collective):
-            # PS sync: every worker pushes its own batch's gradient and
-            # the servers sum them, so the effective batch is B * workers
+                and "_sync" in kvstore_inst.type):
+            # sync (servers or collectives): every worker pushes its own
+            # batch's gradient and the store sums them, so the effective
+            # batch is B * workers
             batch_size *= kvstore_inst.num_workers
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
@@ -438,6 +446,8 @@ class Module(BaseModule):
                 arrs["aux/" + name] = ex.aux_dict[name]
         upd = self._active_updater()
         if upd is not None:
+            if hasattr(upd, "sync_sharded"):
+                upd.sync_sharded()
             for key, st in upd.states.items():
                 for j, leaf in enumerate(_state_slots(st)):
                     if leaf is not None:

@@ -15,8 +15,13 @@ through ``torch._foreach_*`` ops, so a bucket costs a fixed number of
 launches whatever its key count (the JAX engine tree-maps the per-tensor
 rule inside one jitted program instead).  :func:`sparse_rule` is the
 row-wise lazy form the row-sparse update runs on gathered rows
-(:func:`mxnet_tpu_torch.sparse.make_row_program`).  The flat (sharded)
-variant waits for ROADMAP Queue 1 item 10b.
+(:func:`mxnet_tpu_torch.sparse.make_row_program`).  The sharded bucket
+update (``mxnet_tpu/optim_rules.py:228-236``'s ``flat_rule``) runs
+:func:`multi_rule` on each rank's 1/N slice of a bucket as one flat
+tensor (``kvstore_fused._slice_update``), with lr and wd as per-element
+fp32 vectors where the slice's keys differ in them: the rules are
+elementwise, so a key cut between ranks updates its part with its own
+lr and wd.
 """
 from __future__ import annotations
 
@@ -131,7 +136,12 @@ def _prep_flat(flat, opt_params):
 
 def _add_wd(ws, gs, wds):
     """``g += wd * w`` for the keys whose wd is not 0 (the ops leave a
-    wd of 0 out)."""
+    wd of 0 out).  A wd vector (one value an element of a flat slice)
+    leaves its elements of wd 0 out the same way."""
+    if isinstance(wds[0], torch.Tensor):
+        for w, g, wd in zip(ws, gs, wds):
+            g.copy_(torch.where(wd != 0, g + w * wd, g))
+        return
     sel = [i for i, wd in enumerate(wds) if wd != 0.0]
     if sel:
         torch._foreach_add_([gs[i] for i in sel], torch._foreach_mul(
@@ -214,8 +224,9 @@ def multi_rule(rule_name, opt_params):
     tensors.  ``update(flat, ws, gs, states, lrs, wds)`` takes the
     bucket's merged gradient ``flat``, the per-key weights ``ws``, their
     gradients ``gs`` (views of ``flat``, used as scratch), the state
-    tuples and the per-key lr and effective wd, and updates ``ws`` and
-    the states in place."""
+    tuples and the per-key lr and effective wd (floats, or fp32 vectors
+    of one value an element), and updates ``ws`` and the states in
+    place."""
     nslots, step = _MULTI_RULES[rule_name](opt_params)
 
     def update(flat, ws, gs, states, lrs, wds):
@@ -224,3 +235,4 @@ def multi_rule(rule_name, opt_params):
         step(ws, gs, states, lrs)
 
     return nslots, update
+

@@ -497,12 +497,25 @@ class Updater:
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict = {}
+        # a bucketed engine whose sharded update holds some keys' states
+        # as flat slices (kvstore_fused): gathered back before a read
+        self._shard_owner = None
+
+    def sync_sharded(self):
+        """Gather the states a sharded bucket update holds back into
+        :attr:`states` (a collective every rank of the store makes)."""
+        if self._shard_owner is not None:
+            self._shard_owner.ensure_host_state()
 
     def ensure_state(self, index, weight):
         """The key's state, made on first use (the bucketed kvstore
         engine reads it here too, so eager and bucketed steps share one
         state store).  A state loaded by :meth:`set_states` becomes
-        tensors like ``weight`` (its device and memory format) here."""
+        tensors like ``weight`` (its device and memory format) here.  A
+        state the sharded update holds is gathered back first."""
+        if (self._shard_owner is not None and index not in self.states
+                and self._shard_owner.holds_state_of(index)):
+            self._shard_owner.ensure_host_state()
         st = self.states.get(index, _MISSING)
         if st is _MISSING:
             st = self.optimizer.create_state(index, weight)
@@ -526,12 +539,15 @@ class Updater:
     def get_states(self):
         """Pickled ``{key: state}`` with every state as numpy (the
         reference's format)."""
+        self.sync_sharded()
         return pickle.dumps({k: _state_to_np(v)
                              for k, v in self.states.items()})
 
     def set_states(self, states):
         """Load :meth:`get_states` bytes of either package; the arrays
         reach the device at each key's next update."""
+        if self._shard_owner is not None:
+            self._shard_owner.drop_shards()
         self.states = dict(pickle.loads(states))
 
 

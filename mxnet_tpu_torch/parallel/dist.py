@@ -22,6 +22,16 @@ of include/mxnet/kvstore.h:158-242: ranks, barriers, dead peers).
   :func:`exchange` the one collective under it: ``all_to_all_single``
   with uneven splits, which NCCL and gloo both carry (gloo refuses P2P
   on CUDA tensors).
+- :func:`all_reduce`, :func:`reduce_scatter`, :func:`all_gather` and
+  :func:`broadcast` of a flat tensor over a group are the collective
+  ``dist_sync``'s (``kvstore.KVStoreDist`` without servers and its
+  sharded bucket update): ``all_reduce``, ``reduce_scatter_tensor``,
+  ``all_gather_into_tensor`` and ``broadcast`` of ``torch.distributed``
+  on every backend.  gloo carries all four on CUDA tensors too (torch
+  2.11 on the H100, two ranks sharing the card; it stages them through
+  the host), so no collective is replaced by another.  The gradient
+  bytes entering an all-reduce or a reduce-scatter count in
+  ``dist_allreduce_bytes_total``.
 
 The parameter-server stores (``kvstore_server.py``) need none of this to
 train.  A mesh (:mod:`.mesh`) brings its group up through
@@ -43,7 +53,8 @@ from ..base import MXNetError
 __all__ = ["EXIT_HOST_LOST", "HostLostError", "GenerationChanged",
            "generation", "barrier_timeout_s", "init_from_env",
            "mesh_backend", "rank", "exchange",
-           "ppermute",
+           "ppermute", "all_reduce", "reduce_scatter", "all_gather",
+           "broadcast", "count_allreduce_bytes",
            "num_workers", "log_prefix", "is_multi_host", "barrier",
            "elastic_main"]
 
@@ -54,6 +65,11 @@ _logger = logging.getLogger("mxnet_tpu_torch.parallel.dist")
 #: next generation instead of counting it as a crash.
 EXIT_HOST_LOST = 43
 
+_TM_ALLREDUCE_BYTES = _tm.counter(
+    "dist_allreduce_bytes_total",
+    "logical gradient bytes entering the cross-host in-trace all-reduce "
+    "of the collective dist_sync path (dispatch-side accounting; the "
+    "reduction itself runs inside the compiled step)")
 _TM_BARRIER_SEC = _tm.histogram(
     "dist_barrier_seconds",
     "cross-host barrier wall time (the process group's barrier under "
@@ -191,7 +207,14 @@ def init_from_env(device=None):
     group a mesh runs on (:func:`mesh_backend`): on the card each rank
     takes ``cuda:<local rank>`` where it has a card of its own; a world
     of one process gets a group of its own (an in-process store, no
-    launcher)."""
+    launcher).
+
+    Rank 0 hosts the rendezvous store at ``MXTPU_COORDINATOR`` unless
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` says that the launcher hosts it
+    (torch's own convention, which ``python -m mxnet_tpu_torch.launch -s
+    0`` follows: it binds the store before its workers start, so no
+    other process can take the port in between); then every rank joins
+    as a client."""
     if _initialized():
         return
     coord = os.environ.get("MXTPU_COORDINATOR")
@@ -236,6 +259,73 @@ def init_from_env(device=None):
 
 def rank() -> int:
     return _dist().get_rank() if _initialized() else 0
+
+
+# ---------------------------------------------- the collective dist_sync
+def count_allreduce_bytes(nbytes: int):
+    """Count ``nbytes`` of gradient entering a cross-process reduction
+    (``dist_allreduce_bytes_total``)."""
+    if _tm.enabled():
+        _TM_ALLREDUCE_BYTES.inc(int(nbytes))
+
+
+def _group_size(group) -> int:
+    return _dist().get_world_size(group)
+
+
+def all_reduce(t, group=None):
+    """Sum the gradient ``t`` over ``group`` (default: the world) in
+    place; returns ``t``.  Its bytes count in
+    ``dist_allreduce_bytes_total``."""
+    count_allreduce_bytes(t.numel() * t.element_size())
+    return all_reduce_stats(t, group)
+
+
+def all_reduce_stats(t, group=None):
+    """Sum ``t`` (a few flags or statistics, not counted) over
+    ``group`` in place; returns ``t``."""
+    import torch.distributed as td
+
+    td.all_reduce(t, group=group)
+    return t
+
+
+def reduce_scatter(flat, group=None):
+    """This rank's block of the sum of the 1-D ``flat`` over ``group``:
+    ``flat`` is cut into ``size`` equal blocks (its length must be a
+    multiple of the group's size) and rank ``r`` gets the sum of every
+    rank's block ``r``, a new tensor."""
+    n = _group_size(group)
+    if flat.dim() != 1 or flat.numel() % n:
+        raise MXNetError(f"reduce_scatter: a 1-D tensor whose length is a "
+                         f"multiple of {n} expected, got {tuple(flat.shape)}")
+    out = flat.new_empty(flat.numel() // n)
+    count_allreduce_bytes(flat.numel() * flat.element_size())
+    td = _dist()
+    # torch 2.13 names reduce_scatter_tensor reduce_scatter_single (the
+    # old name warns); 2.11 has only the old one: one collective
+    getattr(td, "reduce_scatter_single", td.reduce_scatter_tensor)(
+        out, flat.contiguous(), group=group)
+    return out
+
+
+def all_gather(block, group=None):
+    """Every rank's 1-D ``block`` of ``group``, concatenated in rank
+    order: a new tensor of ``size`` times its length."""
+    n = _group_size(group)
+    out = block.new_empty(block.numel() * n)
+    td = _dist()
+    # all_gather_into_tensor under its torch 2.13 name where it has one
+    getattr(td, "all_gather_single", td.all_gather_into_tensor)(
+        out, block.contiguous(), group=group)
+    return out
+
+
+def broadcast(t, src=0, group=None):
+    """``t`` on every rank of ``group`` becomes rank ``src``'s, in
+    place; returns ``t``."""
+    _dist().broadcast(t, src, group=group)
+    return t
 
 
 # ------------------------------------------------------------ exchanges

@@ -590,7 +590,7 @@ def make_pipeline_train_step(stage_fns, loss_fn, meta, mesh,
         device = xs_l.device
         like = torch.empty(xs_l.shape[1], 0, dtype=bdt, device=device)
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-        scale = torch.tensor(1.0 / M, dtype=torch.float32, device=device)
+        scale = torch.full((), 1.0 / M, dtype=torch.float32, device=device)
         buf_in = dy_in = None
         stash = {}
         for t in range(T):

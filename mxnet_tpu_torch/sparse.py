@@ -360,7 +360,11 @@ def make_row_program(rule_name: str, opt_params: tuple, wd_mult: float,
     master rows.  ``scaling`` (AMP loss scaling): ``scale`` (a device
     scalar) unscales the rows first, and a step whose rows are not all
     finite leaves every row as it was (the skip-step); ``step`` then
-    returns the finite flag, else None."""
+    returns the finite flag, else None.
+
+    ``rows=(lo, n)``: ``w`` and the slots are one rank's block of a
+    table split by rows (rows ``lo`` to ``lo + n``); the pushed rows
+    outside it are left to the ranks that hold them."""
     from .optim_rules import sparse_rule
 
     rule = sparse_rule(rule_name, dict(opt_params))
@@ -368,7 +372,7 @@ def make_row_program(rule_name: str, opt_params: tuple, wd_mult: float,
         raise MXNetError(f"no row-sparse form of the {rule_name!r} rule")
     _nslots, update = rule
 
-    def step(idx_parts, val_parts, w, slots, lr, scale=None):
+    def step(idx_parts, val_parts, w, slots, lr, scale=None, rows=None):
         if _tm.enabled():
             # the table and its slots are updated in place (the JAX
             # program donates them)
@@ -384,6 +388,10 @@ def make_row_program(rule_name: str, opt_params: tuple, wd_mult: float,
             vals = vals * (1.0 / scale).to(vals.dtype)
         sid, gvals, first = coalesce_rows(idx, vals)
         sidl = sid.long()
+        if rows is not None:
+            lo, n = rows
+            first = first & (sidl >= lo) & (sidl < lo + n)
+            sidl = (sidl - lo).clamp(0, n - 1)
         if mp:
             master, rslots = slots[-1], slots[:-1]
             w_rows = master.index_select(0, sidl)

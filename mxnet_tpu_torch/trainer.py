@@ -120,9 +120,15 @@ reference's output.  ``step_multi`` captures the step where the group is
 NCCL and runs eager steps over gloo; checkpoints gather full tensors
 (a collective every rank calls) and rank 0 writes them, so a trainer
 without a mesh loads them.  Without a mesh, ``sharding_rules`` places
-nothing, as in the reference.  Not ported yet, and raising when asked
-for: ``rebind_mesh`` (ROADMAP Queue 1 item 10b, slice 4), the sentinel
-under a mesh.
+nothing, as in the reference.  ``fit``'s metrics fold each rank's rows
+of the outputs (``metric.py``; no gather a batch).  The sentinel
+(``MXTPU_SENTINEL``) under a mesh takes each rank's gradient blocks'
+sums of squares (a replicated block counted on one rank of its group),
+sums them over the world inside the step (one all-reduce of a vector
+a parameter long, after ``mxnet_tpu/trainer.py:292-350``) and parks
+the flags and the norm unread, as without a mesh.  Not ported yet, and
+raising when asked for: ``rebind_mesh`` (ROADMAP Queue 1 item 10b,
+slice 4).
 """
 from __future__ import annotations
 
@@ -145,6 +151,7 @@ from .initializer import Uniform
 from .ndarray import NDArray
 from .ops import residual_epilogue as _epilogue
 from .optim_rules import _RULES
+from .parallel import dist as _dist
 from .parallel import mesh as _mesh
 from .passes import apply_graph_passes
 
@@ -180,6 +187,30 @@ def _local(t):
     """A DTensor's block on this rank (the storage an in-place update
     writes); a plain tensor as it is."""
     return t.to_local() if _mesh.is_dtensor(t) else t
+
+
+def _owns_block(t) -> bool:
+    """Whether this rank's block of the DTensor ``t`` counts as its own:
+    on each mesh axis it is replicated over, only coordinate 0 does."""
+    from torch.distributed.tensor import Replicate
+
+    coord = t.device_mesh.get_coordinate()
+    return all(coord[i] == 0 for i, p in enumerate(t.placements)
+               if isinstance(p, Replicate))
+
+
+def _mesh_sentinel_vector(grads, owner):
+    """The sentinel's packed tensor over a mesh (``sentinel_vector``'s
+    layout): each gradient's fp64 sum of squares over this rank's block,
+    zero where another rank holds the same block (``owner``), summed
+    over the world (one all-reduce), then a flag per gradient and the
+    global norm."""
+    sq = torch.stack(torch._foreach_norm([_local(g) for g in grads], 2,
+                                         dtype=torch.float64)).square()
+    sq = torch.where(owner != 0, sq, torch.zeros_like(sq))
+    _dist.all_reduce_stats(sq)
+    return torch.cat([torch.isfinite(sq).float(),
+                      sq.sum().sqrt().float().reshape(1)])
 
 
 def _as_tensor(value) -> torch.Tensor:
@@ -360,10 +391,18 @@ class FusedTrainer:
         # the numerics sentinel is sampled here, as the JAX trainer samples
         # it when it builds its step program
         self._sentinel = _tm.health.sentinel_mode() is not None
-        if self._sentinel and self.mesh is not None:
-            raise _not_ported("MXTPU_SENTINEL under a mesh", "10b")
         self._sent_names = tuple(k for k in self.params
                                  if k not in self._fixed)
+        self._sent_owner = None
+        if self._sentinel and self.mesh is not None:
+            # 1 where this rank's block of the gradient counts in the
+            # norm: each distinct block once over the world
+            own = torch.tensor([float(_owns_block(self.params[k]))
+                                for k in self._sent_names],
+                               dtype=torch.float64)
+            self._sent_owner = (own.pin_memory().to(self.device,
+                                                    non_blocking=True)
+                                if self.device.type == "cuda" else own)
         self._mem_recorded = False
         self._cost_recorded = False
         self._refresh_compute_cache()
@@ -533,12 +572,16 @@ class FusedTrainer:
                    for k, g in zip(trainable, grads)}
             # raw (pre-clip) gradients: a finite clip rescale cannot mask
             # an inf/nan, and the norm is the divergence signal
-            # trace-ok: sentinel_vector is device math only (one fused
-            # norm), replayed with the step; the host record comes after
-            # each replay (step_multi's sentinel_record)
-            sent = (_tm.health.sentinel_vector(
-                f32[k] for k in self._sent_names)
-                if self._sentinel else None)
+            sent = None
+            if self._sent_owner is not None:
+                sent = _mesh_sentinel_vector(
+                    [f32[k] for k in self._sent_names], self._sent_owner)
+            elif self._sentinel:
+                # trace-ok: sentinel_vector is device math only (one fused
+                # norm), replayed with the step; the host record comes
+                # after each replay (step_multi's sentinel_record)
+                sent = _tm.health.sentinel_vector(
+                    f32[k] for k in self._sent_names)
             if self._clip_global_norm is not None:
                 gnorm = torch.sqrt(sum(g.square().sum() for g in f32.values()))
                 scale = (self._clip_global_norm
@@ -1043,10 +1086,9 @@ class FusedTrainer:
                     self.init(**{k: tuple(v.shape) for k, v in feed.items()})
                 t0 = time.perf_counter() if rec else 0.0
                 outs = self.step(**feed)
-                # under a mesh the metric reads the full outputs (an
-                # all-gather on the device, no host sync)
-                eval_metric.update(batch.label, [
-                    NDArray(_mesh.full_value(o)) for o in outs])
+                # under a mesh the metric folds each rank's rows of
+                # the outputs (metric.py)
+                eval_metric.update(batch.label, [NDArray(o) for o in outs])
                 tp = time.perf_counter() if perf_on else 0.0
                 window.push(outs)
                 if rec:
@@ -1118,8 +1160,7 @@ class FusedTrainer:
                                     + (list(batch.label)
                                        if eval_label_names else [])))
                     outs = self.eval(**feed)
-                    vm.update(batch.label, [
-                        NDArray(_mesh.full_value(o)) for o in outs])
+                    vm.update(batch.label, [NDArray(o) for o in outs])
                     window.push(outs)
                 window.drain()
                 for name, val in vm.get_global_name_value():
@@ -1150,8 +1191,6 @@ class FusedTrainer:
     def _writes(self):
         """Does this rank write checkpoint files?  Every rank without a
         mesh; rank 0 of the world under one."""
-        from .parallel import dist as _dist
-
         return self.mesh is None or _dist.rank() == 0
 
     def _checkpoint_meta(self, epoch=None, nbatch=None):

@@ -50,9 +50,9 @@ from mxnet_tpu_torch.trainer import FusedTrainer as TTrainer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402 — phase 42's prediction of the loop
-# the reference's families whose code paths (the collective dist_sync,
-# the sharded bucket update, the mesh-spanning executor group) the port
-# does not have yet; ``mesh_axis_size`` came with ``parallel/mesh.py``
+# the reference's families of the collective dist_sync and the sharded
+# bucket update, which the port registers too; ``mesh_axis_size`` came
+# with ``parallel/mesh.py``
 MESH_FAMILIES = {"dist_allreduce_bytes_total",
                  "executor_collective_bytes_total",
                  "kvstore_shard_gather_seconds"}
@@ -125,9 +125,12 @@ def _catalog(pkg):
 
 
 def test_catalog_is_the_reference_less_the_mesh_families():
+    """Since the collective dist_sync the port registers every family
+    of the reference, the mesh families too, with the same type and
+    labels."""
     ref, port = _catalog("mxnet_tpu"), _catalog("mxnet_tpu_torch")
     assert MESH_FAMILIES <= set(ref)
-    assert set(port) == set(ref) - MESH_FAMILIES
+    assert set(port) == set(ref)
     assert port["mesh_axis_size"] == ref["mesh_axis_size"]
     assert {k: ref[k] for k in port} == port
     assert set(CORE_FAMILIES) <= set(port)

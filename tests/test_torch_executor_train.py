@@ -322,15 +322,24 @@ def test_bind_checks_its_arrays():
 
 # ---------------------------------------------------------- refusals
 def test_what_is_not_ported_raises():
-    """ctx-group placement still raises (it needs several cards, ROADMAP
-    Queue 1 item 10); the structural signature and row-sparse gradients
-    are ported: the signature is the reference's digest, and a
+    """ctx-group placement is ported: a ``group2ctx`` entry that no node
+    is annotated with is ignored with the reference's warning, and a
+    group mapped to a sharding raises naming ROADMAP Queue 1 item 10b,
+    slice 5; the structural signature and row-sparse gradients are
+    ported: the signature is the reference's digest, and a
     ``__grad_stype__="row_sparse"`` weight that no Embedding consumes
     keeps its dense gradient, as in the reference."""
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+
     jnet = _fc_net(jsym)
     tnet = _port(jnet)
-    with pytest.raises(MXNetError, match="item 10"):
-        tnet.simple_bind(CPU, group2ctx={"dev1": CPU}, data=(2, 3))
+    with pytest.warns(UserWarning, match="matches no ctx_group"):
+        ex = tnet.simple_bind(CPU, group2ctx={"dev1_unused": CPU},
+                              data=(2, 3))
+    assert all(t.device.type == "cpu" for t in ex.arg_dict.values())
+    with pytest.raises(MXNetError, match="item 10b, slice 5"):
+        tnet.simple_bind(CPU, group2ctx={"dev1": tmesh.NamedSharding(
+            None, ("data",))}, data=(2, 3))
     assert tnet.structural_signature() == \
         jsym.load_json(jnet.tojson()).structural_signature()
     w = tsym.Variable("w", attr={"__grad_stype__": "row_sparse"})

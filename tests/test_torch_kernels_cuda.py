@@ -2332,3 +2332,131 @@ def test_mesh_step_makes_no_host_sync(card, nccl_mesh):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert len(tm._graphs) == 1
+
+
+# ------------------------------------------------ the collective dist_sync
+@pytest.mark.parametrize("rule,params", [
+    ("sgd", {"momentum": 0.9, "wd": 1e-3, "rescale_grad": 0.5,
+             "clip_gradient": 0.8}),
+    ("adam", {"wd": 1e-4, "rescale_grad": 0.5}),
+    ("rmsprop", {"wd": 1e-4, "clip_weights": 0.9})])
+def test_slice_update_equals_the_bucket_rule_on_the_card(card, rule, params):
+    """The sharded update's rule on the card: the bucket's multi-tensor
+    rule on each of 2 ranks' slices (``_slice_update``; the second key
+    is split between them, the last slice ends in padding) equals the
+    replicated bucket's step over whole keys to the bit, three steps in
+    a row."""
+    from mxnet_tpu_torch import optim_rules
+    from mxnet_tpu_torch.kvstore_fused import _Bucket, _slice_update
+
+    nslots, multi = optim_rules.multi_rule(rule, params)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    shapes, lrs, wds = [(64, 33), (17,), (8, 4, 3)], [0.1, 0.05, 0.2], \
+        [params["wd"], 0.0, 2 * params["wd"]]
+    sizes = [int(np.prod(s)) for s in shapes]
+    ws = [torch.randn(s, generator=g).to(card) for s in shapes]
+    st = [[torch.rand(s, generator=g).to(card) for _ in range(nslots)]
+          for s in shapes]
+    bs = []
+    for r in range(2):
+        b = _Bucket(torch.float32)
+        b.keys, b.sizes = [0, 1, 2], sizes
+        b.offsets = [0, sizes[0], sizes[0] + sizes[1]]
+        b.shard_n, b.padded = 2, -(-sum(sizes) // 2) * 2
+        b.lo = r * b.padded // 2
+        bs.append(b)
+    pad = bs[0].padded - sum(sizes)
+
+    def flat(ts):
+        return torch.cat([t.reshape(-1) for t in ts]
+                         + [ts[0].new_zeros(pad)])
+
+    fw = flat(ws)
+    fs = [flat([st[i][j] for i in range(len(shapes))])
+          for j in range(nslots)]
+    for _ in range(3):
+        gs = [torch.randn(s, generator=g).to(card) for s in shapes]
+        gflat = flat(gs)
+        for b in bs:
+            sl = slice(b.lo, b.lo + b.padded // 2)
+            _slice_update(b, multi, gflat[sl].clone(), fw[sl],
+                          [f[sl] for f in fs], dict(enumerate(lrs)),
+                          dict(enumerate(wds)))
+        merged = gflat[:sum(sizes)].clone()  # the bucket's scratch
+        multi(merged, ws, [x.view(s) for x, s in
+                           zip(merged.split(sizes), shapes)],
+              [tuple(s) for s in st], lrs, wds)
+        assert torch.equal(fw, flat(ws))
+        for j in range(nslots):
+            assert torch.equal(fs[j], flat([st[i][j]
+                                             for i in range(len(shapes))]))
+
+
+def test_group2ctx_card_and_host_groups_equal_the_unplaced_graph(card):
+    """``group2ctx={'card': gpu(0), 'host': cpu()}``: a FullyConnected on
+    the card whose 64 MB output crosses to exactly rounded host ops
+    (``relu(fc) * s + s``), forward and backward, equals the graph bound
+    on the card without groups to the bit.  A crossing that returned
+    before the card's values reached the host would hand the host ops an
+    unfilled buffer; torch 2.11's copy to the host returns after the
+    values arrive even when asked not to wait, so there this holds the
+    split's numbers, and the crossing's choice is pinned on the CPU
+    (``test_copies_onto_a_card_do_not_wait_and_onto_the_host_block``)."""
+    import mxnet_tpu_torch as mx
+
+    n, d, h = 4096, 2048, 4096
+
+    def run(group2ctx):
+        data = mx.sym.Variable("data")
+        with mx.AttrScope(ctx_group="card"):
+            fc = mx.sym.FullyConnected(data, num_hidden=h, name="fc")
+        with mx.AttrScope(ctx_group="host"):
+            s = mx.sym.Variable("s")
+            net = mx.sym.Activation(fc, act_type="relu") * s + s
+        ex = net.simple_bind(mx.gpu(0), group2ctx=group2ctx, data=(n, d),
+                             s=(n, h))
+        g = torch.Generator().manual_seed(0)
+        for k in sorted(ex.arg_dict):
+            ex.arg_dict[k].copy_(torch.randn(ex.arg_dict[k].shape,
+                                             generator=g))
+        ex.forward(is_train=True)
+        out = ex.outputs[0]
+        ex.backward([torch.ones(out.shape, device=out.device)])
+        return out, dict(ex.grad_dict)
+
+    out_p, grads_p = run({"card": mx.gpu(0), "host": mx.cpu()})
+    out_s, grads_s = run(None)
+    assert out_p.device.type == "cpu" and grads_p["s"].device.type == "cpu"
+    assert grads_p["fc_weight"].device.type == "cuda"
+    assert torch.equal(out_p, out_s.cpu())
+    for k in grads_s:
+        assert torch.equal(grads_p[k].cpu(), grads_s[k].cpu()), k
+
+
+def test_collective_store_at_world_one_on_the_card(card, monkeypatch):
+    """``kv.create("dist_sync")`` without servers in one process is the
+    collective store at world 1: its bucketed pushes on the card equal
+    the ``device`` store's to the bit."""
+    import mxnet_tpu_torch as mx
+
+    for k in ("MXTPU_PS_SERVERS", "MXTPU_NUM_WORKERS", "MXTPU_COORDINATOR"):
+        monkeypatch.delenv(k, raising=False)
+    outs = {}
+    for name in ("dist_sync", "device"):
+        kv = mx.kv.create(name)
+        kv.set_optimizer(mx.optimizer.create("adam", learning_rate=0.01,
+                                             rescale_grad=0.5))
+        g = torch.Generator(device="cpu").manual_seed(3)
+        keys = list(range(5))
+        kv.init(keys, [tnd.NDArray(torch.randn(32, 16, generator=g).to(card))
+                       for _ in keys])
+        out = [tnd.NDArray(torch.zeros(32, 16, device=card)) for _ in keys]
+        for _ in range(3):
+            kv.push(keys, [[tnd.NDArray(torch.randn(32, 16, generator=g)
+                                        .to(card))] for _ in keys])
+            kv.pull(keys, out)
+        outs[name] = [o.tensor for o in out]
+        if name == "dist_sync":
+            assert kv.collective and kv.num_workers == 1
+    for a, b in zip(outs["dist_sync"], outs["device"]):
+        assert torch.equal(a, b)

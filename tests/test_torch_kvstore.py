@@ -331,16 +331,23 @@ def test_store_surface_and_refusals(monkeypatch):
         kv.save_optimizer_states("x")
     monkeypatch.delenv("MXTPU_PS_SERVERS", raising=False)
     monkeypatch.delenv("DMLC_NUM_WORKER", raising=False)
+    monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
     for name in ("dist_sync", "dist_async", "dist_device_sync"):
-        # one process without servers keeps the local semantics
+        # one process without servers: the collective store at world 1
+        # (dist_async keeps the local semantics, not collective)
         monkeypatch.delenv("MXTPU_NUM_WORKERS", raising=False)
         dkv = tmx.kv.create(name)
         assert (dkv.type, dkv.rank, dkv.num_workers) == (name, 0, 1)
-        assert dkv.collective and dkv.get_num_dead_node(0) == 0
-        # several workers without servers would be the collective path
+        assert dkv.collective == ("async" not in name)
+        assert dkv.get_num_dead_node(0) == 0
+        # several workers without servers and without the launcher's
+        # rendezvous: the sync stores name the launch command
         monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")
-        with pytest.raises(MXNetError, match="item 10b"):
-            tmx.kv.create(name)
+        if "async" in name:
+            assert tmx.kv.create(name).num_workers == 1
+        else:
+            with pytest.raises(MXNetError, match="launch -n 2 -s 0"):
+                tmx.kv.create(name)
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tmx.kv.create("nosuch")
     # row_sparse_pull is ported: a key that is not row-sparse refuses it

@@ -426,9 +426,13 @@ def test_feedforward_fit_through_a_server_equals_the_local_store(
 
 
 def test_collective_launch_without_servers_names_item_10b(monkeypatch):
+    """The collective dist_sync (ROADMAP Queue 1 item 10b, slice 3) is
+    ported: workers without servers join the launcher's rendezvous, and
+    several workers without one are named with the launch command."""
     monkeypatch.delenv("MXTPU_PS_SERVERS", raising=False)
+    monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
     monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")
-    with pytest.raises(MXNetError, match="ROADMAP Queue 1 item 10b"):
+    with pytest.raises(MXNetError, match="mxnet_tpu_torch.launch -n 2 -s 0"):
         tmx.kv.create("dist_sync")
 
 

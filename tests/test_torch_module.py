@@ -406,11 +406,14 @@ def test_refusals(monkeypatch, tmp_path, what):
         return
     mod = tmx.mod.Module(net, context=tmx.cpu())
     if what == "dist":
-        # the parameter-server stores are ported; a launch of several
-        # workers without servers is the collective path, which is not
+        # the parameter-server stores and the collective dist_sync are
+        # ported; several workers with neither servers nor a rendezvous
+        # address were not started by a launcher, which the error names
         monkeypatch.delenv("MXTPU_PS_SERVERS", raising=False)
+        monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
         monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")
-        with pytest.raises(MXNetError, match="item 10b"):
+        with pytest.raises(MXNetError, match="mxnet_tpu_torch.launch -n 2 "
+                                             "-s 0"):
             mod.fit(it, num_epoch=1, kvstore="dist_sync")
         return
     if what in ("monitor", "fit_monitor"):

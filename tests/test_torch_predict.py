@@ -285,7 +285,8 @@ def test_executor_forward_matches_the_predictor(net_and_params,
         ex.forward(nope=x)
     with pytest.raises(MXNetError, match="requires forward"):
         ex.backward()
-    with pytest.raises(MXNetError, match="not ported yet"):
-        simple_bind(tnet, "cpu", group2ctx={"a": "cpu"}, data=SHAPE)
+    with pytest.warns(UserWarning, match="matches no ctx_group"):
+        # ctx-group placement is ported; an unknown group is ignored
+        simple_bind(tnet, "cpu", group2ctx={"a_unused": "cpu"}, data=SHAPE)
     with pytest.raises(MXNetError, match="cannot infer"):
         simple_bind(tnet, "cpu")

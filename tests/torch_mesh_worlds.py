@@ -2,8 +2,10 @@
 
 :func:`run_world` starts ``n`` processes (``spawn``: a fresh interpreter
 each, which imports torch and the port and never JAX), gives each the
-launcher's environment (``MXTPU_COORDINATOR`` on a free loopback port,
-``MXTPU_RANK``, ``MXTPU_NUM_WORKERS``), runs one of the scenario
+launcher's environment (``MXTPU_COORDINATOR`` naming a rendezvous store
+the parent binds and holds, as ``python -m mxnet_tpu_torch.launch``
+does, with ``TORCHELASTIC_USE_AGENT_STORE=True``, ``MXTPU_RANK``,
+``MXTPU_NUM_WORKERS``), runs one of the scenario
 functions below in every rank and returns rank 0's result: a dict of
 numpy arrays and plain values, written to a pickle in a temporary
 directory.  A rank that fails hands its traceback to the parent, which
@@ -12,7 +14,6 @@ shares the test worker's cores without oversubscribing them.
 """
 import os
 import pickle
-import socket
 import tempfile
 import traceback
 
@@ -21,14 +22,9 @@ import numpy as np
 WORLD_TIMEOUT_S = 240
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _child(rank, n, port, out_dir, name, args):
     os.environ.update(MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                      TORCHELASTIC_USE_AGENT_STORE="True",
                       MXTPU_RANK=str(rank), MXTPU_NUM_WORKERS=str(n))
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
@@ -54,8 +50,12 @@ def run_world(n, name, *args):
     processes; rank 0's result."""
     import multiprocessing as mp
 
+    import torch.distributed as td
+
     ctx = mp.get_context("spawn")
-    port = _free_port()
+    # the world's rendezvous store listens before any rank starts
+    store = td.TCPStore("127.0.0.1", 0, n, True, wait_for_workers=False)
+    port = store.port
     with tempfile.TemporaryDirectory() as out_dir:
         procs = [ctx.Process(target=_child,
                              args=(r, n, port, out_dir, name, args))
@@ -654,3 +654,269 @@ def _moe_train(case, mesh, t):
                 v.sub_(0.3 * v.grad)
                 v.grad = None
     return {"losses": losses, "grads": first}
+
+
+# ---------------------------------------- Module and KVStore across ranks
+def _ranks_equal(arrays):
+    """Whether every rank holds the same bits in each of ``arrays``
+    (numpy; gathered through one all-gather a tensor)."""
+    import torch
+    import torch.distributed as td
+
+    ok = True
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(-1)
+        got = [torch.empty_like(t) for _ in range(td.get_world_size())]
+        td.all_gather(got, t)
+        ok = ok and all(torch.equal(got[0], g) for g in got[1:])
+    return ok
+
+
+def _env(over):
+    """Set the env knobs of a case; returns the previous values."""
+    prev = {k: os.environ.get(k) for k in over}
+    for k, v in over.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return prev
+
+
+def _collective_store(rank, case):
+    """A collective ``dist_sync`` store over the world: every rank pushes
+    its own gradients (``case["grads"][step][rank]``) for ``steps``
+    steps; the weights, the state after ``ensure_host_state``, the state
+    bytes the rank held, and the telemetry counts."""
+    import torch
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import telemetry as ttm
+
+    prev = _env(case.get("env", {}))
+    try:
+        amp.reset_scaler()
+        ttm.reset()
+        ttm.enable()
+        kv = tmx.kv.create("dist_sync")
+        opt = tmx.optimizer.create(case["opt"], **case["opt_params"])
+        opt.set_lr_mult(case.get("lr_mult", {}))
+        kv.set_optimizer(opt)
+        dt = getattr(torch, case.get("dtype", "float32"))
+        keys = list(range(len(case["init"])))
+        with tmx.Context("cpu"):
+            # rank 1 starts elsewhere: init must hand it rank 0's values
+            kv.init(keys, [tmx.nd.NDArray(torch.from_numpy(
+                a * (1 + rank)).to(dt)) for a in case["init"]])
+            outs = [tmx.nd.NDArray(torch.zeros(a.shape, dtype=dt))
+                    for a in case["init"]]
+            for t, step_grads in enumerate(case["grads"]):
+                grads = [tmx.nd.NDArray(torch.from_numpy(g).to(dt))
+                         for g in step_grads[rank]]
+                if t in case.get("eager_steps", ()):
+                    # one key at a time: the eager per-key path, which
+                    # gathers the sharded states back first
+                    for k, g in zip(keys, grads):
+                        kv.push(k, g)
+                else:
+                    kv.push(keys, [[g] for g in grads])
+                kv.pull(keys, outs)
+                if t in case.get("reload_after", ()):
+                    # save_optimizer_states / load_optimizer_states
+                    kv._updater.set_states(kv._updater.get_states())
+        eng = kv._fused
+        res = {"collective": kv.collective, "rank": kv.rank,
+               "size": kv.num_workers,
+               "shard_n": [b.shard_n for b in eng._buckets],
+               "state_bytes": eng.optimizer_state_bytes(),
+               "weights": [o.tensor.float().numpy().copy() for o in outs]}
+        if amp.scaling_active():
+            res["scaler"] = amp.global_scaler().report()
+        states = kv._updater.get_states()  # gathers the shards back
+        res["states"] = states
+        reg = ttm.get_registry()
+        res["allreduce_bytes"] = reg.get("dist_allreduce_bytes_total")\
+            .value()
+        res["collective_bytes"] = {
+            op: reg.get("executor_collective_bytes_total").value(op=op)
+            for op in ("grad_allreduce", "kv_grad_shard",
+                       "kv_param_allgather")}
+        res["gather_count"] = reg.get("kvstore_shard_gather_seconds")\
+            .count(store="dist_sync")
+        res["ranks_equal"] = _ranks_equal(res["weights"])
+        return res
+    finally:
+        _env(prev)
+        amp.reset_scaler()
+
+
+def _collective_fit(rank, case):
+    """``Module.fit`` over the collective ``dist_sync``: each rank binds
+    the host and trains on its half of every global batch."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import symbol as tsym
+
+    prev = _env(case.get("env", {}))
+    try:
+        x, y = case["data"]
+        half = case["batch"] // 2
+        rows = np.concatenate([np.arange(s + rank * half, s + (rank + 1)
+                                         * half)
+                               for s in range(0, len(y), case["batch"])])
+        it = tio.NDArrayIter(x[rows], y[rows], batch_size=half,
+                             shuffle=False)
+        mod = tmx.mod.Module(tsym.load_json(case["net"]),
+                             context=tmx.cpu())
+        mod.fit(it, optimizer=case["opt"], kvstore="dist_sync",
+                optimizer_params=tuple(case["opt_params"].items()),
+                num_epoch=case["epochs"], arg_params=case["arg_params"],
+                aux_params=case.get("aux_params"))
+        args, _ = mod.get_params()
+        out = {k: v.tensor.float().numpy().copy() for k, v in args.items()}
+        return {"params": out, "ranks_equal": _ranks_equal(
+            [out[k] for k in sorted(out)]),
+            "rescale_grad": mod._optimizer.rescale_grad}
+    finally:
+        _env(prev)
+
+
+def _collective_syncs(rank, case):
+    """Host reads of tensors in a collective ``Module.fit`` of ``n``
+    batches a rank (fused metrics): the per-batch count is 0."""
+    import torch
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import symbol as tsym
+
+    names = ("item", "cpu", "tolist", "numpy", "__bool__", "__float__",
+             "__int__")
+    counts = {}
+    for n in case["nbatch"]:
+        rs = np.random.RandomState(9 + rank)
+        x = rs.uniform(-1, 1, (16 * n, 10)).astype(np.float32)
+        y = (x.sum(axis=1) > 0).astype(np.float32)
+        it = tio.NDArrayIter(x, y, batch_size=16, shuffle=False)
+        mod = tmx.mod.Module(tsym.load_json(case["net"]),
+                             context=tmx.cpu())
+        seen = []
+        origs = {k: getattr(torch.Tensor, k) for k in names}
+
+        def counted(name):
+            def f(*a, **kw):
+                seen.append(name)
+                return origs[name](*a, **kw)
+            return f
+
+        try:
+            for k in names:
+                setattr(torch.Tensor, k, counted(k))
+            mod.fit(it, optimizer="sgd", kvstore="dist_sync",
+                    optimizer_params=(("learning_rate", 0.1),),
+                    eval_metric=["acc", "ce"], num_epoch=1)
+        finally:
+            for k, f in origs.items():
+                setattr(torch.Tensor, k, f)
+        counts[n] = len(seen)
+    return counts
+
+
+def _mesh_metric_sentinel(rank, case):
+    """``FusedTrainer`` on a (2, 1) mesh with ``MXTPU_SENTINEL`` on:
+    the sentinel's packed flags and norm of each step, then ``fit``'s
+    fused metrics over the global batches, and the metrics' host reads."""
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import metric as tmetric
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch import telemetry as ttm
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+
+    prev = _env({"MXTPU_SENTINEL": "warn"})
+    try:
+        ttm.reset()
+        ttm.enable()
+        ttm.health._pending.clear()
+        mesh = tmesh.create_mesh((2, 1), ("data", "model"), device="cpu")
+        tr = _trainer(tsym.load_json(case["net"]), mesh, case["weights"],
+                      case["shapes"], optimizer="sgd",
+                      optimizer_params=case["opt_params"])
+        for b in case["batches"]:
+            tr.step(**b)
+        sent = [r["finite"].numpy().copy() for r in ttm.health._pending]
+        ttm.health._pending.clear()
+        x, y = case["fit"]
+        metric = tmetric.create(["acc", "ce"])
+        tr.fit(tio.NDArrayIter(x, y, batch_size=case["fit_batch"],
+                               shuffle=False),
+               eval_metric=metric, num_epoch=1)
+        reg = ttm.get_registry().get("metric_host_sync_total")
+        return {"sentinel": sent,
+                "metric": metric.get_global_name_value(),
+                "metric_syncs": {m: reg.value(metric=m)
+                                 for m in ("accuracy", "cross-entropy")},
+                "params": {n: _np(v) for n, v in tr.params.items()}}
+    finally:
+        _env(prev)
+        ttm.health._pending.clear()
+
+
+def _sharded_table(rank, case):
+    """A row-sparse table split by rows over a (2,) mesh in a ``device``
+    store: the same pushes on every rank update each rank's block; the
+    pull gathers the table."""
+    import torch
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import sparse as tsparse
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.create_mesh((2,), ("data",), device="cpu")
+    kv = tmx.kv.create("device")
+    kv.set_optimizer(tmx.optimizer.create("adam", learning_rate=0.05,
+                                          rescale_grad=1.0))
+    with tmx.Context("cpu"):
+        kv.init(0, tsparse.full_row_sparse(tmx.nd.array(case["table"])))
+        table = tmesh.shard_params(mesh, {"t": kv._store[0].tensor}, [
+            tmesh.ShardingRule("t", ("data", None))])["t"]
+        kv._store[0] = tmx.nd.NDArray(table)
+        for idx, vals in case["pushes"]:
+            kv.push([0], [[tsparse.RowSparseNDArray(
+                torch.from_numpy(idx.astype(np.int32)),
+                torch.from_numpy(vals), case["table"].shape)]])
+        out = tmx.nd.zeros(case["table"].shape)
+        kv.pull([0], [out])
+    return {"table": out.tensor.numpy().copy(),
+            "placements": str(tuple(kv._store[0].tensor.placements)),
+            "local_rows": int(kv._store[0].tensor.to_local().shape[0])}
+
+
+def _collective_refusals(rank, case):
+    """What the collective store refuses over a world of 2: a row-sparse
+    push (its message)."""
+    import torch
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import sparse as tsparse
+    from mxnet_tpu_torch.base import MXNetError
+
+    kv = tmx.kv.create("dist_sync")
+    with tmx.Context("cpu"):
+        kv.init(0, tsparse.full_row_sparse(tmx.nd.zeros((4, 2))))
+        try:
+            kv.push(0, tsparse.RowSparseNDArray(
+                torch.tensor([1], dtype=torch.int32), torch.ones(1, 2),
+                (4, 2)))
+        except MXNetError as exc:
+            return {"row_sparse": str(exc)}
+    return {"row_sparse": None}
+
+
+def collective_scenarios(rank, spec):
+    """The cases of ``tests/test_torch_collective_world.py`` in one
+    world: each entry of ``spec`` is ``(kind, name, case)``."""
+    kinds = {"store": _collective_store, "fit": _collective_fit,
+             "syncs": _collective_syncs, "mesh": _mesh_metric_sentinel,
+             "table": _sharded_table, "refusals": _collective_refusals}
+    return {name: kinds[kind](rank, case) for kind, name, case in spec}
